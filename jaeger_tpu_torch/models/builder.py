@@ -1,0 +1,447 @@
+"""YAML-driven model construction (PyTorch, inference).
+
+Counterpart of `jaeger_tpu/models/builder.py`: the same config schema
+(``embedding``, ``string_processor``, ``representation_learner``,
+``classifier``, ``reliability_model``) builds one ``nn.Module`` whose
+forward pass runs the device-side codon encoding, the embedding, the
+representation learner and the heads. Module and parameter names follow
+the flax tree (``rep.residual_block_3.block_0.conv1.kernel`` is flax's
+``params/rep/residual_block_3/block_0/conv1/kernel``), so
+:func:`jaeger_tpu_torch.models.artifacts.params_from_jax` is a rename.
+
+The pure-Python planners ``mask_cut_plan``, ``_conv_shrinks``,
+``_resolve_crop_nt`` and ``_freeze_layers`` are copies of the JAX
+module's. The port always re-zeroes after DYT norms, so it needs none of
+the JAX builder's defer-remask analysis. Layers outside the inference
+subset of ``models/layers.py`` (attention, recurrent and Hyena mixers,
+branch mode, nucleotide input, ...) raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+from torch import nn
+
+from jaeger_tpu_torch.models import layers as L
+from jaeger_tpu_torch.ops import encode
+from jaeger_tpu_torch.seqops import crop as crop_contract
+from jaeger_tpu_torch.seqops import maps
+
+_CONV_KEYS = (
+    "filters", "kernel_size", "strides", "padding", "dilation_rate",
+    "activation", "use_bias", "use_masking", "mask_mode",
+)
+_RES_KEYS = _CONV_KEYS + ("use_1x1conv", "norm_type", "alpha_init", "return_nmd")
+_ACT_LAYERS = ("activation", "relu", "gelu", "sigmoid", "softmax", "tanh")
+
+
+def _sub(cfg: dict, keys: Sequence[str]) -> dict:
+    return {k: cfg[k] for k in keys if k in cfg}
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not yet ported to jaeger_tpu_torch")
+
+
+# --- mask-bounded program analysis (copied) --------------------------------
+
+#: layers after the cut must treat an all-true mask identically to None
+_MASK_CUT_SAFE_AFTER = frozenset((
+    "masked_conv1d", "conv1d", "residual_block", "masked_dyt", "nmd",
+    "activation", "relu", "gelu", "sigmoid", "softmax", "tanh", "dropout",
+    "dense", "masked_batchnorm", "batchnorm", "crop",
+))
+_MASK_CUT_SAFE_POOLERS = frozenset((
+    "max", "average", "max1d", "average1d", "masked_max", "masked_average",
+    "last", "masked_last", "gatedframe",
+))
+
+
+def _conv_shrinks(cfg: dict, default_padding: str) -> tuple[int, int] | None:
+    """(interior_shrink, edge_shrink) of one any-mode masked conv, or
+    None when unsupported."""
+    if not cfg.get("use_masking", True):
+        return 0, 0
+    if cfg.get("mask_mode", "any") != "any":
+        return None
+    if cfg.get("strides", 1) != 1:
+        return None
+    pad = str(cfg.get("padding", default_padding)).lower()
+    if pad not in ("same", "valid"):
+        return None
+    k = int(cfg.get("kernel_size", 3))
+    d = int(cfg.get("dilation_rate", 1))
+    span1 = d * (k - 1)
+    if pad == "same":
+        return span1, span1 // 2
+    return span1, 0
+
+
+def mask_cut_plan(rep_cfg: dict) -> list[tuple[object, int, int]] | None:
+    """Candidate cuts for the bounded-mask program, or None when the
+    architecture doesn't support it.
+
+    Returns ``[(cut_spec, interior_bound, edge_bound), ...]`` ordered
+    earliest-cut first; ``cut_spec`` is a rep-learner layer index (mask
+    dropped from that layer on) or ``(index, "conv1")`` (the cut right
+    after the first residual block's first conv).
+    """
+    layers = _freeze_layers(rep_cfg.get("hidden_layers", []))
+    pooling = rep_cfg.get("pooling")
+    if "branch" in rep_cfg or not layers:
+        return None
+    if pooling is not None and pooling.lower() not in _MASK_CUT_SAFE_POOLERS:
+        return None
+    interior = 0
+    edge = 0
+    plans: list[tuple[object, int, int]] = []
+    done = False
+    for i, (name, cfg) in enumerate(layers):
+        if not done:
+            if name in ("masked_conv1d", "conv1d"):
+                use_mask = cfg.get("use_masking", name == "masked_conv1d")
+                s = _conv_shrinks(dict(cfg, use_masking=use_mask),
+                                  default_padding="valid")
+                if s is None:
+                    return None
+                interior += s[0]
+                edge += s[1]
+            elif name == "residual_block":
+                s = _conv_shrinks(cfg, default_padding="same")
+                if s is None or not cfg.get("use_masking", True) or \
+                        cfg.get("return_nmd", False):
+                    return None
+                if interior + s[0] > 0:
+                    plans.append(((i, "conv1"),
+                                  interior + s[0], edge + s[1]))
+                n_convs = 2 * int(cfg.get("block_size", 1))
+                interior += n_convs * s[0]
+                edge += n_convs * s[1]
+                plans.append((i + 1, interior, edge))
+                done = True
+            elif name in ("nmd", "masked_dyt", "activation", "relu", "gelu",
+                          "sigmoid", "softmax", "tanh", "dropout",
+                          "masked_batchnorm", "batchnorm"):
+                pass  # mask-preserving
+            else:
+                return None
+        else:
+            if name not in _MASK_CUT_SAFE_AFTER:
+                return None
+            if cfg.get("return_nmd", False):
+                return None
+    if not done or not plans:
+        return None
+    return [p for p in plans if p[1] > 0]
+
+
+def _resolve_crop_nt(sp: dict, input_type: str = "translated") -> int:
+    """Nucleotide crop for a string-processor config (largest of a
+    ``crop_sizes`` list; nucleotide models use ``crop_size`` in nt)."""
+    if sp.get("crop_size") is None and sp.get("crop_sizes"):
+        sp = dict(sp, crop_size=max(sp["crop_sizes"]))
+    if input_type == "nucleotide":
+        return int(sp["crop_size"])
+    _, nt = crop_contract.resolve_crop(sp)
+    return nt
+
+
+def _freeze_layers(hidden_layers: list) -> tuple:
+    out = []
+    for entry in hidden_layers:
+        out.append((entry.get("name", "").lower(), dict(entry.get("config") or {})))
+    return tuple(out)
+
+
+def apply_masking_gate(config: dict) -> dict:
+    """The model-level ``use_masking`` gate (JAX ``ModelBuilder.__init__``):
+    every layer config inherits ``model.use_masking`` as its default.
+    Edits ``config`` in place and returns its model section."""
+    model_cfg = config.get("model", config)
+    if "use_masking" in model_cfg:
+        gate = bool(model_cfg["use_masking"])
+        for section in ("representation_learner", "classifier",
+                        "projection", "reliability_model"):
+            sec = model_cfg.get(section) or {}
+            for group in (sec.get("hidden_layers") or [],
+                          (sec.get("branch") or {}).get(
+                              "hidden_layers") or []):
+                for layer in group:
+                    layer.setdefault("config", {})
+                    layer["config"].setdefault("use_masking", gate)
+    return model_cfg
+
+
+class LayerStack(nn.Module):
+    """A configured stack of zoo layers with NMD collection and pooling.
+
+    Submodules are registered as ``<name>_<index>`` like the flax stack's.
+    ``out_channels`` is the feature width after the stack, ``nmd_width``
+    the width of the merged NMD vector (0 without NMD taps).
+    """
+
+    def __init__(self, layer_configs: tuple, in_channels: int,
+                 pooling: str | None = None, nmd_merge: dict | None = None,
+                 dtype=torch.float32):
+        super().__init__()
+        self.layer_configs = layer_configs
+        self.pooling = pooling
+        self.dtype = dtype
+        if pooling is not None and pooling.lower() not in L.POOLERS:
+            raise _not_ported(f"pooling {pooling!r}")
+        c = int(in_channels)
+        nmd_widths: list[int] = []
+        for i, (name, cfg) in enumerate(layer_configs):
+            lname = f"{name}_{i}"
+            if name in ("masked_conv1d", "conv1d"):
+                kw = _sub(cfg, _CONV_KEYS)
+                if name == "conv1d":
+                    kw.setdefault("use_masking", False)
+                mod = L.MaskedConv1D(c, dtype=dtype, **kw)
+                c = mod.filters
+            elif name in ("masked_batchnorm", "batchnorm"):
+                mod = L.MaskedBatchNorm(
+                    c, epsilon=cfg.get("epsilon", 1e-5),
+                    return_nmd=cfg.get("return_nmd", False),
+                    use_masking=cfg.get("use_masking",
+                                        name == "masked_batchnorm"))
+                if mod.return_nmd:
+                    nmd_widths.append(c)
+            elif name == "masked_dyt":
+                mod = L.MaskedDYT(c, alpha_init=cfg.get("alpha_init", 0.5))
+            elif name == "residual_block":
+                mod = L.ResidualBlockStack(
+                    c, block_size=cfg.get("block_size", 1), dtype=dtype,
+                    **_sub(cfg, _RES_KEYS))
+                c = int(cfg["filters"])
+                if mod.return_nmd:
+                    nmd_widths.append(c)
+            elif name == "nmd":
+                mod = L.NMDLayer(c)
+                nmd_widths.append(c)
+            elif name == "dense":
+                dt = (torch.float32 if str(cfg.get("dtype", "")) == "float32"
+                      else dtype)
+                mod = L.Dense(c, cfg["units"],
+                              use_bias=cfg.get("use_bias", True), dtype=dt)
+                c = int(cfg["units"])
+            elif name in _ACT_LAYERS or name in ("dropout", "crop"):
+                continue
+            else:
+                raise _not_ported(f"layer {name!r}")
+            self.add_module(lname, mod)
+        self.out_channels = c
+        self.nmd_merge = None
+        self.nmd_width = 0
+        if len(nmd_widths) == 1:
+            self.nmd_width = nmd_widths[0]
+        elif nmd_widths and nmd_merge:
+            mm = dict(nmd_merge)
+            self.nmd_merge = L.NMDMerge(
+                nmd_widths, mode=mm.get("mode", "concat"),
+                target_dim=mm.get("target_dim"), dtype=dtype)
+            self.nmd_width = self.nmd_merge.out_features
+        elif nmd_widths:
+            self.nmd_width = sum(nmd_widths)
+
+    def forward(self, x, mask=None, fold_table=None, mask_until=None):
+        """-> (x, mask, nmd). ``mask_until`` drops the mask from that layer
+        index on, or inside the first residual block right after its conv1
+        for ``(index, "conv1")`` (the engine's bounded program)."""
+        nmds: list = []
+        post_cut = False
+        inner_at = cut_at = None
+        if mask_until is not None:
+            if isinstance(mask_until, (tuple, list)):
+                inner_at = int(mask_until[0])
+                cut_at = inner_at + 1
+            else:
+                cut_at = int(mask_until)
+        for i, (name, cfg) in enumerate(self.layer_configs):
+            if cut_at is not None and i == cut_at:
+                # the mask is provably all-true here (engine's run check)
+                mask = None
+                post_cut = True
+            mod = getattr(self, f"{name}_{i}", None)
+            if name in ("masked_conv1d", "conv1d"):
+                x, mask = mod(x, mask, fold_table=fold_table if i == 0
+                              else None)
+            elif name in ("masked_batchnorm", "batchnorm"):
+                out = mod(x, mask)
+                x = out[0]
+                if mod.return_nmd:
+                    nmds.append(out[2])
+            elif name == "masked_dyt":
+                x, mask = mod(x, mask)
+            elif name == "residual_block":
+                out = mod(x, mask, drop_mask_after_first_conv1=(i == inner_at))
+                x, mask = out[0], out[1]
+                if mod.return_nmd:
+                    nmds.append(out[2])
+            elif name == "nmd":
+                nmd_mask = mask
+                if post_cut and mask is None:
+                    # post-cut taps keep the masked statistics (their
+                    # eps-carrying denominators) under an all-true mask
+                    nmd_mask = torch.ones(x.shape[:-1], dtype=torch.bool,
+                                          device=x.device)
+                nmds.append(mod(x, nmd_mask))
+            elif name == "dense":
+                x = L.get_activation(cfg.get("activation"))(mod(x))
+            elif name in _ACT_LAYERS:
+                act = cfg.get("activation", name if name != "activation"
+                              else None)
+                x = L.get_activation(act)(x)
+            elif name == "crop":
+                (t, b_), (l_, r_) = cfg.get("cropping", ((0, 0), (0, 0)))
+                x = x[:, t: x.shape[1] - b_ or None,
+                      l_: x.shape[2] - r_ or None, :]
+                if mask is not None:
+                    mask = mask[:, t: mask.shape[1] - b_ or None,
+                                l_: mask.shape[2] - r_ or None]
+            # dropout: identity at inference
+
+        merged_nmd = None
+        if len(nmds) == 1:
+            merged_nmd = nmds[0]
+        elif nmds and self.nmd_merge is not None:
+            merged_nmd = self.nmd_merge(nmds)
+        elif nmds:
+            merged_nmd = torch.cat(nmds, dim=-1)
+
+        if self.pooling is not None:
+            x, _ = L.POOLERS[self.pooling.lower()](x, mask)
+            mask = None
+        return x, mask, merged_nmd
+
+
+class JaegerModel(nn.Module):
+    """The fragment model: encode -> embed -> rep learner -> heads.
+
+    ``forward(bases, lengths)`` returns a dict with ``prediction``
+    (classifier logits), ``embedding`` (pooled representation), ``nmd``
+    and ``reliability`` where configured. ``assume_dense=True`` skips the
+    mask (exact only when every window fills the crop with unambiguous
+    bases); ``mask_layers`` selects the bounded-mask program (see
+    :func:`mask_cut_plan`).
+    """
+
+    def __init__(self, config: dict, dtype=torch.float32):
+        super().__init__()
+        cfg = config.get("model", config)
+        self.config = cfg
+        self.dtype = dtype
+        emb_cfg = cfg.get("embedding", {})
+        sp = cfg.get("string_processor", {})
+        rep_cfg = cfg.get("representation_learner", {})
+        self.input_type = emb_cfg.get("input_type", "translated")
+        if self.input_type != "translated":
+            raise _not_ported(f"input_type {self.input_type!r}")
+        if emb_cfg.get("use_positional_embeddings", False):
+            raise _not_ported("positional embeddings")
+        if "branch" in rep_cfg:
+            raise _not_ported("branch-mode representation learners")
+        for head in ("classifier", "reliability_model"):
+            if "branch" in (cfg.get(head) or {}):
+                raise _not_ported(f"branched {head}")
+        rel_cfg = cfg.get("reliability_model")
+        if rel_cfg and rel_cfg.get("mode", "nmd") != "nmd":
+            raise _not_ported(f"reliability mode {rel_cfg.get('mode')!r}")
+
+        self.alphabet = str(sp.get("codon", "CODON"))
+        self.masking = bool(sp.get("masking", False))
+        _, ids = maps.resolve_alphabet(self.alphabet)
+        self.depth = maps.alphabet_depth(ids)
+        self.emb_size = int(emb_cfg.get("embedding_size", 4))
+        self.use_embedding_layer = bool(emb_cfg.get("use_embedding_layer",
+                                                    False))
+        vocab = int(emb_cfg.get("vocab_size", self.depth + 1))
+        hidden = rep_cfg.get("hidden_layers", [])
+        # bf16 only: fold the linear embedding into the entry conv
+        self.can_fold = (
+            self.use_embedding_layer and self.emb_size > 0 and bool(hidden)
+            and hidden[0].get("name") in ("masked_conv1d", "conv1d")
+            and dtype == torch.bfloat16
+        )
+        if self.emb_size > 0 and self.use_embedding_layer:
+            self.embedding = L.OneHotEmbed(vocab, self.emb_size, dtype=dtype)
+            width = self.emb_size
+        elif self.emb_size > 0:
+            self.translated_embedding = L.Dense(self.depth, self.emb_size,
+                                                use_bias=False, dtype=dtype)
+            width = self.emb_size
+        else:
+            width = self.depth
+
+        self.rep = LayerStack(
+            _freeze_layers(hidden), width, pooling=rep_cfg.get("pooling"),
+            nmd_merge=(rel_cfg or {}).get("merge"), dtype=dtype)
+        self.classifier = None
+        if cfg.get("classifier"):
+            self.classifier = LayerStack(
+                _freeze_layers(cfg["classifier"].get("hidden_layers", [])),
+                self.rep.out_channels, dtype=dtype)
+        self.reliability = None
+        if rel_cfg:
+            if self.rep.nmd_width == 0:
+                raise ValueError(
+                    "reliability_model is configured but the representation "
+                    "learner produced no NMD tensor. Add an `nmd` layer or "
+                    "set return_nmd: true on a layer that supports it.")
+            expected = rel_cfg.get("input_shape")
+            if expected is not None and int(expected) != self.rep.nmd_width:
+                raise ValueError(
+                    f"reliability_model.input_shape ({expected}) does not "
+                    f"match the computed reliability input dimension "
+                    f"({self.rep.nmd_width})")
+            self.reliability = LayerStack(
+                _freeze_layers(rel_cfg.get("hidden_layers", [])),
+                self.rep.nmd_width, dtype=dtype)
+
+    @property
+    def crop_nt(self) -> int:
+        return _resolve_crop_nt(self.config.get("string_processor", {}),
+                                self.input_type)
+
+    @property
+    def masking_enabled(self) -> bool:
+        """Whether soft-masked bases encode as masked tokens."""
+        return self.masking
+
+    def forward(self, bases: torch.Tensor, lengths: torch.Tensor,
+                assume_dense: bool = False,
+                mask_layers=None) -> dict[str, torch.Tensor]:
+        tokens = encode.encode_frames(
+            bases, lengths, crop_size=self.crop_nt, masking=self.masking,
+            alphabet=self.alphabet)
+        mask = None if assume_dense else tokens != 0
+        fold_table = None
+        if self.emb_size > 0 and self.use_embedding_layer:
+            if self.can_fold:
+                fold_table = self.embedding.embedding
+                x = tokens
+            else:
+                x = self.embedding(tokens)
+        else:
+            onehot = (tokens[..., None] - 1 == torch.arange(
+                self.depth, device=tokens.device)).to(self.dtype)
+            x = (self.translated_embedding(onehot) if self.emb_size > 0
+                 else onehot)
+        rep, _, nmd = self.rep(x, mask, fold_table=fold_table,
+                               mask_until=mask_layers)
+        outputs = {"embedding": rep}
+        if nmd is not None:
+            outputs["nmd"] = nmd
+        if self.classifier is not None:
+            outputs["prediction"] = self.classifier(rep)[0]
+        if self.reliability is not None:
+            outputs["reliability"] = self.reliability(nmd)[0]
+        return outputs
+
+
+def build_model(config: dict, dtype=torch.float32) -> JaegerModel:
+    """A :class:`JaegerModel` with zero weights (load or init them next)."""
+    apply_masking_gate(config)
+    return JaegerModel(config, dtype=dtype)

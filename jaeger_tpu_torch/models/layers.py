@@ -1,0 +1,566 @@
+"""The masked layer zoo in PyTorch: the inference subset of the main path.
+
+Counterpart of `jaeger_tpu/models/layers.py`. Layouts are the JAX
+package's: activations ``(B, F, L, C)`` channels-last, masks ``(B, F, L)``
+bool, and every layer returns ``(y, mask)``. Parameters keep the flax
+names and shapes (conv kernels ``(k, C_in, C_out)``, dense kernels
+``(in, out)``) and are stored in f32; each layer casts them to its compute
+dtype as the flax layers do. Ported: activations, ``apply_mask``,
+``MaskedConv1D`` (no int8 branch), ``MaskedBatchNorm`` (eval),
+``MaskedDYT``, the global max/average poolers, ``ResidualBlock`` and
+``ResidualBlockStack``, ``NMDLayer``, ``NMDMerge``, ``Dense`` and
+``OneHotEmbed``. Training statistics are not ported yet.
+
+The JAX layers may defer a DYT norm's trailing re-zero when the builder
+proves it output-exact (``defer_mask``); the port always re-zeroes, which
+gives the same outputs.
+
+``ResidualBlock`` runs every SAME, stride-1, dilation-1, C_in == C_out
+conv through :func:`jaeger_tpu_torch.ops.fused_conv.fused_conv_block`
+(the Hopper kernel on CUDA, its plain version on the CPU); with DYT norms
+the norm, its re-zero, the shortcut add and the activation ride the
+kernel's epilogue.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from jaeger_tpu_torch.ops.fused_conv import fused_conv_block
+
+# ---------------------------------------------------------------------------
+# Activations
+# ---------------------------------------------------------------------------
+
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    """GELU: exact erf form in f32, tanh approximation in bf16 (as JAX)."""
+    return F.gelu(x, approximate="tanh" if x.dtype == torch.bfloat16
+                  else "none")
+
+
+def get_activation(name: str | None) -> Callable[[torch.Tensor], torch.Tensor]:
+    """Resolve an activation by Keras name (exact GELU in f32)."""
+    if name is None or name == "linear":
+        return lambda x: x
+    table = {
+        "gelu": _gelu,
+        "gelu_exact": lambda x: F.gelu(x),
+        "gelu_tanh": lambda x: F.gelu(x, approximate="tanh"),
+        "relu": F.relu,
+        "sigmoid": torch.sigmoid,
+        "softmax": lambda x: torch.softmax(x, dim=-1),
+        "tanh": torch.tanh,
+        "sin": torch.sin,
+        "swish": F.silu,
+        "silu": F.silu,
+        "elu": F.elu,
+    }
+    if name not in table:
+        raise ValueError(f"unknown activation {name!r}")
+    return table[name]
+
+
+def kernel_activation(name: str | None, dtype: torch.dtype) -> str | None:
+    """The fused kernel's name for a layer activation, or None when the
+    kernel has no such epilogue."""
+    name = name or "linear"
+    if name == "gelu":
+        return "gelu_tanh" if dtype == torch.bfloat16 else "gelu"
+    if name in ("linear", "relu", "tanh", "gelu_tanh", "gelu_exact"):
+        return name
+    return None
+
+
+def apply_mask(x: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
+    """Zero masked positions with a select that writes +0.0."""
+    if mask is None:
+        return x
+    return torch.where(mask[..., None], x,
+                       torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def _same_pads(length: int, kernel: int, stride: int,
+               dilation: int) -> tuple[int, int]:
+    """XLA's SAME padding: (low, high)."""
+    span = dilation * (kernel - 1) + 1
+    out = -(-length // stride)
+    total = max((out - 1) * stride + span - length, 0)
+    return total // 2, total - total // 2
+
+
+def _param(*shape) -> nn.Parameter:
+    return nn.Parameter(torch.zeros(*shape), requires_grad=False)
+
+
+# ---------------------------------------------------------------------------
+# Convolution
+# ---------------------------------------------------------------------------
+
+
+class MaskedConv1D(nn.Module):
+    """Masked 1-D convolution over the length axis of (B, F, L, C).
+
+    The output mask is the count of valid inputs under each window,
+    thresholded by ``mask_mode`` (any / majority / strict).
+    """
+
+    def __init__(self, in_channels: int, filters: int, kernel_size: int,
+                 strides: int = 1, padding: str = "valid",
+                 dilation_rate: int = 1, activation: str | None = None,
+                 use_bias: bool = True, use_masking: bool = True,
+                 mask_mode: str = "any", dtype=torch.float32):
+        super().__init__()
+        if mask_mode not in ("any", "majority", "strict"):
+            raise ValueError(f"invalid mask_mode {mask_mode!r}")
+        self.in_channels = int(in_channels)
+        self.filters = int(filters)
+        self.kernel_size = int(kernel_size)
+        self.strides = int(strides)
+        self.padding = str(padding).upper()
+        self.dilation_rate = int(dilation_rate)
+        self.activation = activation
+        self.use_masking = bool(use_masking)
+        self.mask_mode = mask_mode
+        self.dtype = dtype
+        self.kernel = _param(self.kernel_size, self.in_channels, self.filters)
+        self.bias = _param(self.filters) if use_bias else None
+
+    @property
+    def fusable(self) -> bool:
+        """Whether the fused kernel computes this conv."""
+        return (self.padding == "SAME" and self.strides == 1
+                and self.dilation_rate == 1
+                and self.in_channels == self.filters)
+
+    def output_mask(self, mask: torch.Tensor) -> torch.Tensor:
+        """Valid-count under each kernel window, thresholded."""
+        mi = mask.to(torch.int32)
+        k_span = self.dilation_rate * (self.kernel_size - 1) + 1
+        if self.padding == "SAME":
+            pad_l = (k_span - 1) // 2
+            mi = F.pad(mi, (pad_l, k_span - 1 - pad_l))
+        out_len = (mi.shape[2] - k_span) // self.strides + 1
+        mc = sum(
+            mi[..., j * self.dilation_rate:
+               j * self.dilation_rate + (out_len - 1) * self.strides + 1:
+               self.strides]
+            for j in range(self.kernel_size)
+        )
+        if self.mask_mode == "any":
+            return mc > 0
+        if self.mask_mode == "majority":
+            return mc >= (self.kernel_size + 1) // 2
+        return mc == self.kernel_size
+
+    def _conv(self, x3: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+        """(N, L, C_in) x (k, C_in, C_out) -> (N, L_out, C_out)."""
+        length = x3.shape[1]
+        if self.padding == "SAME":
+            pads = _same_pads(length, self.kernel_size, self.strides,
+                              self.dilation_rate)
+        else:
+            pads = (0, 0)
+        xin = F.pad(x3.transpose(1, 2), pads)
+        y = F.conv1d(xin, kernel.permute(2, 1, 0), stride=self.strides,
+                     dilation=self.dilation_rate)
+        return y.transpose(1, 2)
+
+    def forward(self, x, mask=None, fold_table=None):
+        """``fold_table``: a ``(vocab, c)`` f32 embedding table. When given,
+        ``x`` is raw token ids ``(B, F, L)`` and the linear embedding is
+        folded into the kernel — ``conv(onehot(tok) @ T, K)`` becomes
+        ``conv(onehot(tok), einsum(T, K))``; masked positions are token 0,
+        so zeroing folded row 0 reproduces ``apply_mask``."""
+        if fold_table is None:
+            b, f, length, _ = x.shape
+        else:
+            b, f, length = x.shape
+        masked = self.use_masking and mask is not None
+        out_mask = self.output_mask(mask) if masked else None
+        if fold_table is not None:
+            vocab = fold_table.shape[0]
+            folded = torch.einsum("ve,kef->kvf", fold_table.float(),
+                                  self.kernel.float())
+            if masked:
+                folded[:, 0, :] = 0.0
+            conv_in = F.one_hot(x.reshape(b * f, length).long(),
+                                vocab).to(self.dtype)
+            kernel = folded.to(self.dtype)
+        else:
+            if masked:
+                x = apply_mask(x, mask)
+            conv_in = x.reshape(b * f, length, -1).to(self.dtype)
+            kernel = self.kernel.to(self.dtype)
+        y = self._conv(conv_in, kernel)
+        if self.bias is not None:
+            y = y + self.bias.to(self.dtype)
+        y = get_activation(self.activation)(y)
+        return y.reshape(b, f, y.shape[1], self.filters), out_mask
+
+
+# ---------------------------------------------------------------------------
+# Normalization
+# ---------------------------------------------------------------------------
+
+
+class MaskedBatchNorm(nn.Module):
+    """Mask-aware batch normalization, eval mode (moving statistics).
+
+    With ``return_nmd=True`` also returns the per-example channel mean
+    minus the moving mean (the NMD vector), over valid positions only.
+    """
+
+    def __init__(self, channels: int, epsilon: float = 1e-5,
+                 return_nmd: bool = False, use_masking: bool = True):
+        super().__init__()
+        self.epsilon = float(epsilon)
+        self.return_nmd = bool(return_nmd)
+        self.use_masking = bool(use_masking)
+        self.gamma = _param(channels)
+        self.beta = _param(channels)
+        self.register_buffer("moving_mean", torch.zeros(channels))
+        self.register_buffer("moving_variance", torch.ones(channels))
+
+    def forward(self, x, mask=None):
+        inv = torch.rsqrt(self.moving_variance + self.epsilon)
+        scale = (self.gamma * inv).to(x.dtype)
+        bias = (self.beta - self.moving_mean * inv * self.gamma).to(x.dtype)
+        y = x * scale + bias
+        if not self.return_nmd:
+            return y, mask
+        example_axes = tuple(range(1, x.dim() - 1))
+        if self.use_masking and mask is not None:
+            mf = mask[..., None]
+            per_ex = torch.sum(apply_mask(x, mask), dim=example_axes,
+                               dtype=torch.float32)
+            cnt = torch.sum(mf, dim=example_axes,
+                            dtype=torch.float32) + self.epsilon
+            mean_ch = per_ex / cnt
+        else:
+            n_ex = math.prod(x.shape[a] for a in example_axes)
+            mean_ch = torch.sum(x, dim=example_axes,
+                                dtype=torch.float32) / n_ex
+        nmd = (mean_ch - self.moving_mean).to(x.dtype)
+        return y, mask, nmd
+
+
+class MaskedDYT(nn.Module):
+    """Dynamic-Tanh norm-free layer ``tanh(alpha*x)*gamma + beta``; masked
+    positions are re-zeroed after the affine."""
+
+    def __init__(self, channels: int, alpha_init: float = 0.5):
+        super().__init__()
+        self.alpha_init = float(alpha_init)
+        self.alpha = _param(1)
+        self.gamma = _param(channels)
+        self.beta = _param(channels)
+
+    def dyt_rows(self, dtype: torch.dtype) -> torch.Tensor:
+        """(3, C) f32 alpha/gamma/beta rows for the fused kernel, rounded
+        through the compute dtype as the layer casts them."""
+        c = self.gamma.shape[0]
+        rows = torch.stack([self.alpha.expand(c), self.gamma, self.beta])
+        return rows.to(dtype).float()
+
+    def forward(self, x, mask=None):
+        y = (torch.tanh(self.alpha.to(x.dtype) * x) * self.gamma.to(x.dtype)
+             + self.beta.to(x.dtype))
+        return apply_mask(y, mask), mask
+
+
+# ---------------------------------------------------------------------------
+# Pooling
+# ---------------------------------------------------------------------------
+
+
+def masked_global_avg_pool(x, mask=None):
+    """Masked mean over (frames, length) -> (B, C)."""
+    if mask is None:
+        return torch.mean(x, dim=(1, 2)), None
+    mf = mask[..., None].to(x.dtype)
+    num = torch.sum(x * mf, dim=(1, 2))
+    den = torch.clamp_min(torch.sum(mf, dim=(1, 2)), 1e-7)
+    return num / den, None
+
+
+def masked_global_max_pool(x, mask=None):
+    """Masked max over (frames, length) with a -1e9 sentinel and an
+    all-masked guard."""
+    if mask is None:
+        return torch.amax(x, dim=(1, 2)), None
+    mf = mask[..., None]
+    pooled = torch.amax(
+        torch.where(mf, x, torch.full((), -1e9, dtype=x.dtype,
+                                      device=x.device)), dim=(1, 2))
+    has_valid = torch.any(mf, dim=2).any(dim=1)
+    return torch.where(has_valid, pooled, torch.zeros_like(pooled)), None
+
+
+POOLERS = {
+    "max": masked_global_max_pool,
+    "average": masked_global_avg_pool,
+    "max1d": masked_global_max_pool,
+    "average1d": masked_global_avg_pool,
+    "masked_max": masked_global_max_pool,
+    "masked_average": masked_global_avg_pool,
+}
+
+
+# ---------------------------------------------------------------------------
+# Residual blocks
+# ---------------------------------------------------------------------------
+
+
+def _make_norm(norm_type: str, channels: int, return_nmd: bool = False,
+               use_masking: bool = True, alpha_init: float = 0.5):
+    norm_type = norm_type.lower()
+    if norm_type == "masked_batchnorm":
+        return MaskedBatchNorm(channels, return_nmd=return_nmd,
+                               use_masking=use_masking)
+    if norm_type == "masked_dyt":
+        return MaskedDYT(channels, alpha_init=alpha_init)
+    raise NotImplementedError(
+        f"norm_type {norm_type!r} is not yet ported to jaeger_tpu_torch")
+
+
+class ResidualBlock(nn.Module):
+    """conv-norm-act x2 with optional 1x1 bypass.
+
+    The second conv consumes the first conv's output mask. With
+    ``drop_mask_after_conv1`` (the bounded program's cut A) the mask is
+    dropped right after conv1: conv1 still pre-zeroes its input, and the
+    rest of the block runs mask-free.
+    """
+
+    def __init__(self, in_channels: int, filters: int, kernel_size: int = 3,
+                 strides: int = 1, padding: str = "same",
+                 dilation_rate: int = 1, use_bias: bool = True,
+                 use_1x1conv: bool = False, activation: str = "gelu",
+                 norm_type: str = "masked_batchnorm", alpha_init: float = 0.5,
+                 return_nmd: bool = False, use_masking: bool = True,
+                 dtype=torch.float32):
+        super().__init__()
+        if return_nmd and norm_type != "masked_batchnorm":
+            raise ValueError("return_nmd requires norm_type='masked_batchnorm'")
+        self.activation = activation
+        self.return_nmd = bool(return_nmd)
+        self.use_masking = bool(use_masking)
+        self.dtype = dtype
+        conv_kw = dict(kernel_size=kernel_size, padding=padding,
+                       dilation_rate=dilation_rate, use_bias=use_bias,
+                       use_masking=use_masking, dtype=dtype)
+        norm_kw = dict(use_masking=use_masking, alpha_init=alpha_init)
+        self.conv1 = MaskedConv1D(in_channels, filters, strides=strides,
+                                  **conv_kw)
+        self.norm1 = _make_norm(norm_type, filters, **norm_kw)
+        self.conv2 = MaskedConv1D(filters, filters, strides=1, **conv_kw)
+        self.norm2 = _make_norm(norm_type, filters, return_nmd=return_nmd,
+                                **norm_kw)
+        self.bypass = bool(use_1x1conv or strides > 1)
+        if self.bypass:
+            self.conv_bypass = MaskedConv1D(
+                in_channels, filters, strides=strides,
+                **dict(conv_kw, kernel_size=1))
+            self.norm_bypass = _make_norm(norm_type, filters, **norm_kw)
+
+    def _conv_norm(self, conv, norm, x, mask, act, residual=None,
+                   drop_mask=False):
+        """``act(norm(conv(x)) + residual)`` -> (y, out_mask, nmd).
+
+        Fusable convs run on the fused kernel; with a DYT norm the
+        kernel's epilogue also takes the norm, its re-zero, the residual
+        add and the activation.
+        """
+        masked = conv.use_masking and mask is not None
+        b, f, length, _ = x.shape
+        k_act = kernel_activation(act, self.dtype)
+        if conv.fusable:
+            m_out = None if (drop_mask or not masked) else conv.output_mask(mask)
+            bias = (None if conv.bias is None
+                    else conv.bias.to(self.dtype).float())
+            kw = dict(in_mask=mask.reshape(b * f, length) if masked else None)
+            fuse_norm = isinstance(norm, MaskedDYT) and k_act is not None
+            if fuse_norm:
+                kw.update(
+                    dyt=norm.dyt_rows(self.dtype), act=k_act, use_dyt=True,
+                    bias_then_dyt=bias is not None,
+                    out_mask=(None if m_out is None
+                              else m_out.reshape(b * f, length)),
+                    residual=(None if residual is None
+                              else residual.reshape(b * f, length, -1)))
+            y = fused_conv_block(x.reshape(b * f, length, -1).to(self.dtype),
+                                 conv.kernel.to(self.dtype), bias, **kw)
+            y = y.reshape(b, f, length, -1)
+            if fuse_norm:
+                return y, m_out, None
+        else:
+            y, m_out = conv(x, mask)
+            if drop_mask:
+                m_out = None
+        out = norm(y, m_out)
+        y = out[0]
+        nmd = out[2] if len(out) == 3 else None
+        if residual is not None:
+            y = y + residual
+        return get_activation(act)(y), m_out, nmd
+
+    def forward(self, x, mask=None, drop_mask_after_conv1: bool = False):
+        h, m1, _ = self._conv_norm(self.conv1, self.norm1, x, mask,
+                                   self.activation,
+                                   drop_mask=drop_mask_after_conv1)
+        if self.bypass:
+            m2 = (self.conv2.output_mask(m1)
+                  if self.conv2.use_masking and m1 is not None else None)
+            shortcut, _ = self.conv_bypass(x, mask)
+            shortcut = self.norm_bypass(shortcut, m2)[0]
+        else:
+            shortcut = x
+        h, m2, nmd = self._conv_norm(self.conv2, self.norm2, h, m1,
+                                     self.activation, residual=shortcut)
+        if self.return_nmd:
+            return h, m2, nmd
+        return h, m2
+
+
+class ResidualBlockStack(nn.Module):
+    """Sequential ResidualBlocks (``block_0`` ...); only the last may emit
+    NMD. Cut A drops the mask inside the first block."""
+
+    def __init__(self, in_channels: int, block_size: int, filters: int,
+                 use_1x1conv: bool = False, return_nmd: bool = False,
+                 dtype=torch.float32, **block_kw):
+        super().__init__()
+        self.block_size = int(block_size)
+        self.return_nmd = bool(return_nmd)
+        c = in_channels
+        for i in range(self.block_size):
+            last = i == self.block_size - 1
+            self.add_module(f"block_{i}", ResidualBlock(
+                c, filters, use_1x1conv=use_1x1conv if i == 0 else False,
+                return_nmd=return_nmd and last, dtype=dtype, **block_kw))
+            c = filters
+
+    def forward(self, x, mask=None, drop_mask_after_first_conv1=False):
+        nmd = None
+        for i in range(self.block_size):
+            block = getattr(self, f"block_{i}")
+            out = block(x, mask,
+                        drop_mask_after_conv1=(drop_mask_after_first_conv1
+                                               and i == 0))
+            if block.return_nmd:
+                x, mask, nmd = out
+            else:
+                x, mask = out
+        if self.return_nmd:
+            return x, mask, nmd
+        return x, mask
+
+
+# ---------------------------------------------------------------------------
+# NMD
+# ---------------------------------------------------------------------------
+
+
+class NMDLayer(nn.Module):
+    """Standalone neural-mean-discrepancy vector against the moving mean
+    (eval mode). Side output only."""
+
+    def __init__(self, channels: int, epsilon: float = 1e-5):
+        super().__init__()
+        self.epsilon = float(epsilon)
+        self.register_buffer("moving_mean", torch.zeros(channels))
+
+    def forward(self, x, mask=None):
+        xf = x.float()
+        example_axes = tuple(range(1, xf.dim() - 1))
+        if mask is not None:
+            mf = mask.float()[..., None]
+            mean_ch = torch.sum(xf * mf, dim=example_axes) / (
+                torch.sum(mf, dim=example_axes) + self.epsilon)
+        else:
+            mean_ch = torch.mean(xf, dim=example_axes)
+        return (mean_ch - self.moving_mean).to(x.dtype)
+
+
+class Dense(nn.Module):
+    """``flax.linen.Dense``: ``x @ kernel + bias`` in ``dtype``."""
+
+    def __init__(self, in_features: int, units: int, use_bias: bool = True,
+                 dtype=torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.kernel = _param(in_features, units)
+        self.bias = _param(units) if use_bias else None
+
+    def forward(self, x):
+        y = x.to(self.dtype) @ self.kernel.to(self.dtype)
+        if self.bias is not None:
+            y = y + self.bias.to(self.dtype)
+        return y
+
+
+class NMDMerge(nn.Module):
+    """Merge NMD vectors: concat / sum / mean / max / learned-softmax.
+    Non-concat modes project each input to ``target_dim`` first."""
+
+    def __init__(self, widths: list[int], mode: str = "concat",
+                 target_dim: int | None = None, dtype=torch.float32):
+        super().__init__()
+        if mode not in ("concat", "sum", "mean", "max", "weighted"):
+            raise ValueError(f"unsupported NMD merge mode {mode!r}")
+        self.mode = mode
+        self.n_inputs = len(widths)
+        if mode == "concat":
+            self.out_features = sum(widths)
+            return
+        if target_dim is None:
+            if len(set(widths)) != 1:
+                raise ValueError("target_dim required when NMD dims differ")
+            target_dim = widths[0]
+        self.out_features = int(target_dim)
+        for i, w in enumerate(widths):
+            self.add_module(f"proj_{i}", Dense(w, target_dim, use_bias=False,
+                                               dtype=dtype))
+        if mode == "weighted":
+            self.layer_weights = _param(len(widths))
+
+    def forward(self, inputs):
+        inputs = list(inputs)
+        if self.mode == "concat":
+            return torch.cat(inputs, dim=-1)
+        projected = [getattr(self, f"proj_{i}")(v)
+                     for i, v in enumerate(inputs)]
+        if self.mode == "sum":
+            return sum(projected)
+        if self.mode == "mean":
+            return sum(projected) / len(projected)
+        if self.mode == "max":
+            return torch.amax(torch.stack(projected, 0), dim=0)
+        weights = torch.softmax(self.layer_weights, dim=0)[:, None, None]
+        return torch.sum(torch.stack(projected, 0) * weights, dim=0)
+
+
+# ---------------------------------------------------------------------------
+# Misc
+# ---------------------------------------------------------------------------
+
+
+class OneHotEmbed(nn.Module):
+    """Token embedding with the flax tree's ``embedding`` table. A row
+    lookup equals the JAX layer's one-hot matmul exactly (one nonzero per
+    row)."""
+
+    def __init__(self, num_embeddings: int, features: int,
+                 dtype=torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.embedding = _param(num_embeddings, features)
+
+    def forward(self, tokens):
+        return F.embedding(tokens.long(), self.embedding.to(self.dtype))
