@@ -7,8 +7,15 @@ inference -> per-contig reduction -> summary TSVs. The device-reduced path
 full per-window logits (CRF decoding, window-score NPZ, embeddings, NMD,
 two-class models). The terminal-repeat scan runs beside inference.
 
-Not ported yet, and refused with ``NotImplementedError``: int8 bundles,
-sequence sharding, multi-host sharding, ensembles, refinement, prophage
+Quantized bundles (``utils quantize``): ``int8="full"`` (``--int8``, the
+same as ``quantized="full_int8"``) runs the int8 bundle's convs on the
+int8 kernel; ``int8="auto"`` runs only the dense program on it and keeps
+the float model for short and masked windows; ``dynamic`` and ``float16``
+bundles run the float path. The int8 bundle is found as the JAX CLI finds
+it (:func:`resolve_int8_bundle`).
+
+Not ported yet, and refused with ``NotImplementedError``: sequence
+sharding, multi-host sharding, ensembles, refinement, prophage
 extraction, tandem-repeat masking and the profiler trace.
 """
 
@@ -23,6 +30,7 @@ import torch
 
 from jaeger_tpu_torch.infer.engine import InferenceEngine
 from jaeger_tpu_torch.models.artifacts import class_names_in_order, load_model
+from jaeger_tpu_torch.models.conversion import int8_conv_count
 from jaeger_tpu_torch.postprocess import collect
 from jaeger_tpu_torch.postprocess.termini import scan_for_terminal_repeats
 from jaeger_tpu_torch.seqops.fasta import fasta_stem, validate_fasta_entries
@@ -57,6 +65,24 @@ def resolve_model_path(model: str | None) -> str:
     return model
 
 
+def resolve_int8_bundle(model_path: str) -> str:
+    """Find the int8 bundle for a model: the bundle itself, its ``int8/``
+    subdirectory, or a sibling ``<name>_int8`` directory written by
+    ``utils quantize``."""
+    cands = [Path(model_path), Path(model_path) / "int8",
+             Path(str(model_path).rstrip("/") + "_int8")]
+    for c in cands:
+        # load_model only takes the int8 path when params.msgpack is
+        # absent: a directory holding both would run float weights
+        if (c / "params_int8.msgpack").exists() and not (
+                c / "params.msgpack").exists():
+            return str(c)
+    raise FileNotFoundError(
+        f"no int8 bundle found for '{model_path}'; create one with "
+        f"'jaeger-tpu-torch utils quantize -m {model_path} -o "
+        f"{model_path}_int8'")
+
+
 def _not_ported(option: str) -> NotImplementedError:
     return NotImplementedError(f"{option} is not yet ported to "
                                f"jaeger_tpu_torch")
@@ -87,7 +113,8 @@ def run_core(
     save_embedding: bool = False,
     save_nmd: bool = False,
     overwrite: bool = False,
-    int8: bool = False,
+    int8: str | None = None,
+    quantized: str | None = None,
     seq_shard: int = 1,
     num_hosts: int = 1,
     prophage: bool = False,
@@ -95,7 +122,7 @@ def run_core(
     mask_tandem: bool = False,
     profile: bool = False,
 ) -> Path:
-    for flag, name in ((int8, "--int8"), (seq_shard > 1, "--seq-shard"),
+    for flag, name in ((seq_shard > 1, "--seq-shard"),
                        (num_hosts > 1, "multi-host predict (--num-hosts)"),
                        (prophage, "--prophage"), (refine, "--refine"),
                        (mask_tandem, "--mask-tandem"),
@@ -104,6 +131,20 @@ def run_core(
             raise _not_ported(name)
     if (Path(model_path) / "ensemble.yaml").exists():
         raise _not_ported("ensemble bundles")
+    if int8 not in (None, "full", "auto"):
+        raise ValueError(f"int8 must be None, 'full' or 'auto', got {int8!r}")
+    if quantized not in (None, "dynamic", "full_int8", "float16"):
+        raise ValueError(f"unknown quantized mode {quantized!r}")
+    int8_auto_path = None
+    if int8 == "auto":
+        int8_auto_path = resolve_int8_bundle(model_path)
+    elif int8 == "full" and quantized is None:
+        quantized = "full_int8"
+    if quantized in ("dynamic", "full_int8"):
+        model_path = resolve_int8_bundle(model_path)
+    elif quantized == "float16":
+        logger.info("--quantized float16: compute uses bfloat16")
+        precision = "bfloat16"
     dev = resolve_device(device)
     t0 = time.time()
     input_path = Path(input_path)
@@ -143,8 +184,20 @@ def run_core(
         wanted.append("embedding")
     if save_nmd:
         wanted.append("nmd")
+    int8_model = None
+    if int8_auto_path is not None:
+        # `--int8 auto`: the int8 bundle drives the dense program only;
+        # it must be a full_int8 quantization of this model
+        int8_model, _, _ = load_model(int8_auto_path,
+                                      dtype=DTYPES[precision], device=dev)
+        if int8_conv_count(int8_model) == 0:
+            raise ValueError(
+                f"--int8 auto needs a full_int8 bundle; {int8_auto_path} "
+                "has no calibrated activation scales (re-run `jaeger "
+                "utils quantize --mode full_int8`)")
     engine = InferenceEngine(model, batch_size=batch, device=dev,
-                             output_keys=tuple(wanted))
+                             output_keys=tuple(wanted),
+                             int8_model=int8_model)
     batches = window_batches(
         str(input_path), fragsize=fsize, stride=stride, min_len=min_len,
         dustmask=dustmask, dynamic_stride=dynamic_stride,

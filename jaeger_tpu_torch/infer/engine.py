@@ -16,6 +16,10 @@ order and outputs match it:
   on all rows and the masked program on the few masked rows gathered
   into a bucket of bs/16 or bs/8 rows, scattered back in place.
 
+With ``int8_model`` (``predict --int8 auto``) the dense program, also as
+the base of a split batch, runs on that model, as the JAX engine's
+``_vars_for`` does; every other program runs on the float model.
+
 Pipelining: on CUDA the packed bases are copied from pinned host memory
 with ``non_blocking=True`` and the forward is enqueued without waiting,
 so up to ``PIPELINE_DEPTH`` batches are in flight; the host plans and
@@ -56,9 +60,16 @@ class InferenceEngine:
         device=None,
         output_keys: tuple | None = None,
         split_mixed: bool = True,
+        int8_model=None,
     ):
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
+        # `predict --int8 auto`: the dense program, and the dense base
+        # program of a split batch, run on the int8 model (full-length,
+        # unambiguous windows); bounded, masked and bucket programs keep
+        # the float model
+        self.int8_model = (None if int8_model is None
+                           else int8_model.to(self.device).eval())
         self.batch_size = int(batch_size)
         self.output_keys = tuple(output_keys) if output_keys else None
         self.split_mixed = bool(split_mixed)
@@ -68,6 +79,8 @@ class InferenceEngine:
         #: forwards run, keyed by (rows, program): "dense", "masked" or
         #: ("bounded", cut)
         self.program_counts: collections.Counter = collections.Counter()
+        #: forwards that ran on ``int8_model``
+        self.int8_forwards = 0
 
     def _plan_batch(self, bases: np.ndarray, lengths: np.ndarray,
                     n_valid: int):
@@ -150,9 +163,13 @@ class InferenceEngine:
         program = ("dense" if dense else "masked" if mask_cut is None
                    else ("bounded", mask_cut))
         self.program_counts[(bases.shape[0], program)] += 1
+        model = self.model
+        if dense and self.int8_model is not None:
+            model = self.int8_model
+            self.int8_forwards += 1
         with torch.inference_mode():
-            out = self.model(dev_bases, ln, assume_dense=dense,
-                             mask_layers=mask_cut)
+            out = model(dev_bases, ln, assume_dense=dense,
+                        mask_layers=mask_cut)
         if self.output_keys is not None:
             out = {k: v for k, v in out.items() if k in self.output_keys}
         return {k: v.float() for k, v in out.items()}

@@ -6,8 +6,11 @@ holding ``params.msgpack`` (flax-serialized ``params`` and
 ``classes.yaml`` (the label map). The port reads the msgpack without
 flax: flax writes every array as msgpack extension type 1 holding
 ``(shape, dtype name, C-order bytes)``, which ``msgpack`` and numpy
-decode. ``msgpack`` and ``yaml`` are imported inside the functions that
-need them.
+decode (``bfloat16`` leaves widen to float32 without ``ml_dtypes``). A
+``quant`` collection (a full_int8 bundle's calibrated convs) switches
+those convs to int8 execution; int8 bundles (``params_int8.msgpack``)
+load through ``models/conversion.py``. ``msgpack`` and ``yaml`` are
+imported inside the functions that need them.
 """
 
 from __future__ import annotations
@@ -25,14 +28,24 @@ from jaeger_tpu_torch.utils.devices import resolve_device
 _EXT_NDARRAY = 1
 _EXT_NPSCALAR = 3
 #: flax collections that hold the inference weights
-_COLLECTIONS = ("params", "batch_stats")
+_COLLECTIONS = ("params", "batch_stats", "quant")
+#: leaf names of the ``quant`` collection (int8 execution of a conv)
+QUANT_LEAVES = ("kernel_q", "w_scale", "act_scale")
 
 
 def _ndarray_from_bytes(data: bytes) -> np.ndarray:
+    """One flax array. ``bfloat16`` leaves (``utils quantize --mode
+    float16`` bundles) decode to float32 without ``ml_dtypes``: the 16
+    bits are the top half of the float32 pattern, so the widening is
+    exact."""
     import msgpack
 
     shape, dtype_name, buffer = msgpack.unpackb(data, raw=True)
-    return np.frombuffer(buffer, dtype=np.dtype(dtype_name.decode())).reshape(
+    name = dtype_name.decode()
+    if name == "bfloat16":
+        bits = np.frombuffer(buffer, dtype="<u2").astype(np.uint32) << 16
+        return bits.view(np.float32).reshape(shape, order="C")
+    return np.frombuffer(buffer, dtype=np.dtype(name)).reshape(
         shape, order="C")
 
 
@@ -68,14 +81,15 @@ def read_flax_msgpack(path: str | Path) -> dict:
 
 
 def params_from_jax(variables: dict) -> dict[str, torch.Tensor]:
-    """Flax variables (numpy leaves under ``params`` / ``batch_stats``)
-    -> the port's state dict: the flax path joined with dots. Conv kernels
-    keep their ``(k, C_in, C_out)`` layout, which the fused kernel takes."""
+    """Flax variables (numpy leaves under ``params`` / ``batch_stats`` /
+    ``quant``) -> the port's state dict: the flax path joined with dots.
+    Conv kernels keep their ``(k, C_in, C_out)`` layout, which the kernels
+    take; the ``quant`` collection's ``kernel_q`` stays int8."""
     extra = set(variables) - set(_COLLECTIONS)
     if extra:
         raise NotImplementedError(
-            f"variable collections {sorted(extra)} (int8 bundles) are not "
-            f"yet ported to jaeger_tpu_torch")
+            f"variable collections {sorted(extra)} are not yet ported to "
+            f"jaeger_tpu_torch")
     out: dict[str, torch.Tensor] = {}
 
     def walk(prefix: str, node) -> None:
@@ -83,8 +97,9 @@ def params_from_jax(variables: dict) -> dict[str, torch.Tensor]:
             for k, v in node.items():
                 walk(f"{prefix}.{k}" if prefix else str(k), v)
         else:
+            dtype = np.int8 if prefix.endswith(".kernel_q") else np.float32
             out[prefix] = torch.from_numpy(
-                np.array(node, dtype=np.float32, copy=True))
+                np.array(node, dtype=dtype, copy=True))
 
     for coll in _COLLECTIONS:
         walk("", variables.get(coll, {}))
@@ -92,38 +107,61 @@ def params_from_jax(variables: dict) -> dict[str, torch.Tensor]:
 
 
 def _ext_default(obj):
+    """flax's array encoding: numpy arrays and scalars, and bfloat16
+    torch tensors (written as flax writes ``ml_dtypes.bfloat16``)."""
     import msgpack
 
+    def pack(shape, name, data):
+        return msgpack.packb((shape, name, data), use_bin_type=True)
+
     if isinstance(obj, np.ndarray):
-        payload = msgpack.packb((obj.shape, obj.dtype.name, obj.tobytes("C")),
-                                use_bin_type=True)
-        return msgpack.ExtType(_EXT_NDARRAY, payload)
+        return msgpack.ExtType(
+            _EXT_NDARRAY, pack(obj.shape, obj.dtype.name, obj.tobytes("C")))
+    if isinstance(obj, np.generic):
+        arr = np.asarray(obj)
+        return msgpack.ExtType(
+            _EXT_NPSCALAR, pack(arr.shape, arr.dtype.name, arr.tobytes("C")))
+    if isinstance(obj, torch.Tensor) and obj.dtype == torch.bfloat16:
+        bits = obj.detach().cpu().contiguous().view(torch.int16).numpy()
+        return msgpack.ExtType(
+            _EXT_NDARRAY, pack(tuple(obj.shape), "bfloat16", bits.tobytes("C")))
     raise TypeError(f"cannot serialize {type(obj)}")
+
+
+def write_flax_msgpack(tree: dict, path: str | Path) -> None:
+    """Write a nested dict of arrays as flax's ``serialization.to_bytes``
+    does, so that both packages read it."""
+    import msgpack
+
+    Path(path).write_bytes(
+        msgpack.packb(tree, default=_ext_default, strict_types=True))
 
 
 def save_model(state: dict[str, torch.Tensor], config: dict,
                path: str | Path, classes: dict | None = None) -> Path:
     """Write a bundle that both packages load: ``state`` (the port's state
-    dict) as flax msgpack under ``params`` / ``batch_stats``, the config
-    and the label map."""
-    import msgpack
+    dict) as flax msgpack under ``params`` / ``batch_stats`` (and
+    ``quant`` when the model has int8 convs), the config and the label
+    map."""
     import yaml
 
     path = Path(path)
     path.mkdir(parents=True, exist_ok=True)
-    tree: dict = {"params": {}, "batch_stats": {}}
+    tree: dict = {"params": {}, "batch_stats": {}, "quant": {}}
     for key, t in state.items():
         *scopes, leaf = key.split(".")
         coll = ("batch_stats" if leaf in ("moving_mean", "moving_variance")
-                else "params")
+                else "quant" if leaf in QUANT_LEAVES else "params")
         node = tree[coll]
         for s in scopes:
             node = node.setdefault(s, {})
-        node[leaf] = t.detach().cpu().float().numpy()
-    if not tree["batch_stats"]:
-        del tree["batch_stats"]
-    (path / "params.msgpack").write_bytes(
-        msgpack.packb(tree, default=_ext_default, strict_types=True))
+        t = t.detach().cpu()
+        node[leaf] = (t.numpy() if t.dtype == torch.int8
+                      else t.float().numpy())
+    for coll in ("batch_stats", "quant"):
+        if not tree[coll]:
+            del tree[coll]
+    write_flax_msgpack(tree, path / "params.msgpack")
     (path / "project.yaml").write_text(yaml.safe_dump(config, sort_keys=False))
     if classes is None:
         label_map = config.get("model", config).get("class_label_map", [])
@@ -134,8 +172,16 @@ def save_model(state: dict[str, torch.Tensor], config: dict,
 
 def load_state(model: torch.nn.Module, state: dict[str, torch.Tensor]) -> None:
     """Load ``state`` into ``model``; every model entry must be present.
-    Entries of heads the port does not build at inference (the
-    self-supervised ``projection``) are ignored; any other extra raises."""
+    ``quant`` entries (``<conv>.kernel_q`` / ``w_scale`` / ``act_scale``)
+    switch their conv to int8 execution. Entries of heads the port does
+    not build at inference (the self-supervised ``projection``) are
+    ignored; any other extra raises."""
+    for key in state:
+        *scopes, leaf = key.split(".")
+        if leaf == "kernel_q":
+            conv = model.get_submodule(".".join(scopes))
+            conv.set_quant(*(state[".".join([*scopes, name])]
+                             for name in QUANT_LEAVES))
     own = model.state_dict()
     missing = sorted(set(own) - set(state))
     extra = sorted(k for k in set(state) - set(own)
@@ -185,16 +231,19 @@ def load_model(path: str | Path, dtype=torch.float32, device=None):
     """Load a JAX model bundle -> (model, config, classes).
 
     The model is in eval mode on ``device`` (default ``cuda``; raises
-    without CUDA unless ``device="cpu"``).
+    without CUDA unless ``device="cpu"``). int8 bundles (``utils
+    quantize`` output: ``params_int8.msgpack`` and no ``params.msgpack``)
+    load through :func:`jaeger_tpu_torch.models.conversion.load_quantized`.
     """
     import yaml
 
     dev = resolve_device(device)
     path = Path(path)
-    if not (path / "params.msgpack").exists():
-        raise NotImplementedError(
-            f"{path} has no params.msgpack (int8 bundles are not yet ported "
-            f"to jaeger_tpu_torch)")
+    if (path / "params_int8.msgpack").exists() and not (
+            path / "params.msgpack").exists():
+        from jaeger_tpu_torch.models.conversion import load_quantized
+
+        return load_quantized(path, dtype=dtype, device=dev)
     config = load_model_config(path / "project.yaml")
     model = build_model(config, dtype=dtype)
     load_state(model, params_from_jax(read_flax_msgpack(

@@ -6,10 +6,17 @@ bool, and every layer returns ``(y, mask)``. Parameters keep the flax
 names and shapes (conv kernels ``(k, C_in, C_out)``, dense kernels
 ``(in, out)``) and are stored in f32; each layer casts them to its compute
 dtype as the flax layers do. Ported: activations, ``apply_mask``,
-``MaskedConv1D`` (no int8 branch), ``MaskedBatchNorm`` (eval),
-``MaskedDYT``, the global max/average poolers, ``ResidualBlock`` and
-``ResidualBlockStack``, ``NMDLayer``, ``NMDMerge``, ``Dense`` and
+``MaskedConv1D`` (with its int8 branch and calibration), ``MaskedBatchNorm``
+(eval), ``MaskedDYT``, the global max/average poolers, ``ResidualBlock``
+and ``ResidualBlockStack``, ``NMDLayer``, ``NMDMerge``, ``Dense`` and
 ``OneHotEmbed``. Training statistics are not ported yet.
+
+int8 execution: a conv given ``kernel_q`` / ``w_scale`` / ``act_scale``
+buffers (a full_int8 bundle's ``quant`` collection, ``set_quant``) runs on
+:func:`jaeger_tpu_torch.ops.int8_conv.int8_conv_dequant`, inside a
+residual block with the same fused epilogue as the float kernel;
+:func:`calibrating` records each conv input's absmax for ``utils quantize
+--mode full_int8``.
 
 The JAX layers may defer a DYT norm's trailing re-zero when the builder
 proves it output-exact (``defer_mask``); the port always re-zeroes, which
@@ -24,6 +31,7 @@ kernel's epilogue.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Callable
 
@@ -32,6 +40,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from jaeger_tpu_torch.ops.fused_conv import fused_conv_block
+from jaeger_tpu_torch.ops.int8_conv import conv_geometry, int8_conv_dequant
 
 # ---------------------------------------------------------------------------
 # Activations
@@ -130,6 +139,13 @@ class MaskedConv1D(nn.Module):
         self.dtype = dtype
         self.kernel = _param(self.kernel_size, self.in_channels, self.filters)
         self.bias = _param(self.filters) if use_bias else None
+        # int8 execution (a full_int8 bundle's quant collection): absent
+        # until set_quant, so float bundles' state dicts are unchanged
+        self.register_buffer("kernel_q", None)
+        self.register_buffer("w_scale", None)
+        self.register_buffer("act_scale", None)
+        #: calibration recorder (see :func:`calibrating`), or None
+        self.calib: Callable[[torch.Tensor], None] | None = None
 
     @property
     def fusable(self) -> bool:
@@ -137,6 +153,43 @@ class MaskedConv1D(nn.Module):
         return (self.padding == "SAME" and self.strides == 1
                 and self.dilation_rate == 1
                 and self.in_channels == self.filters)
+
+    @property
+    def int8(self) -> bool:
+        """Whether this conv runs on the int8 kernel (quant buffers set)."""
+        return self.kernel_q is not None
+
+    def set_quant(self, kernel_q: torch.Tensor, w_scale: torch.Tensor,
+                  act_scale: torch.Tensor) -> None:
+        """Switch this conv to int8 execution: ``kernel_q`` ``(k, C_in,
+        C_out)`` int8, per-channel ``w_scale`` ``(C_out,)`` and the
+        calibrated per-tensor ``act_scale`` ``()``, both f32."""
+        shape = (self.kernel_size, self.in_channels, self.filters)
+        if tuple(kernel_q.shape) != shape:
+            raise ValueError(f"kernel_q has shape {tuple(kernel_q.shape)}, "
+                             f"expected {shape}")
+        dev = self.kernel.device
+        self.kernel_q = kernel_q.to(dev, torch.int8)
+        self.w_scale = w_scale.to(dev, torch.float32).reshape(self.filters)
+        self.act_scale = act_scale.to(dev, torch.float32).reshape(())
+
+    def int8_args(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """``(inv_act, dq)`` as ``layers.py:248,259-262`` compute them:
+        ``f32(1 / act_scale)`` and ``f32(w_scale) * f32(act_scale)``."""
+        if self.strides != 1:
+            raise NotImplementedError(
+                "int8 execution of strided convs is not yet ported to "
+                "jaeger_tpu_torch")
+        return 1.0 / self.act_scale, self.w_scale * self.act_scale
+
+    def record_input(self, x: torch.Tensor, mask) -> None:
+        """In calibration mode, fold the per-tensor absmax of this conv's
+        input, masked and cast to the compute dtype as the JAX layer's
+        ``conv_in``, into the recorder."""
+        if self.calib is not None:
+            masked = self.use_masking and mask is not None
+            conv_in = (apply_mask(x, mask) if masked else x).to(self.dtype)
+            self.calib(torch.amax(torch.abs(conv_in)).float())
 
     def output_mask(self, mask: torch.Tensor) -> torch.Tensor:
         """Valid-count under each kernel window, thresholded."""
@@ -192,7 +245,26 @@ class MaskedConv1D(nn.Module):
             conv_in = F.one_hot(x.reshape(b * f, length).long(),
                                 vocab).to(self.dtype)
             kernel = folded.to(self.dtype)
+        elif self.int8:
+            # layers.py:228-262: quantize with the calibrated scale, int8
+            # conv, dequantize per channel, bias, activation; fused in the
+            # int8 kernel, the masked pre-zero as its in_mask
+            self.record_input(x, mask)
+            k_act = kernel_activation(self.activation, self.dtype)
+            inv_act, dq = self.int8_args()
+            y = int8_conv_dequant(
+                x.reshape(b * f, length, -1).to(self.dtype), self.kernel_q,
+                inv_act, dq,
+                None if self.bias is None
+                else self.bias.to(self.dtype).float(),
+                act=k_act or "none", dilation=self.dilation_rate,
+                padding=self.padding,
+                in_mask=mask.reshape(b * f, length) if masked else None)
+            if k_act is None:
+                y = get_activation(self.activation)(y)
+            return y.reshape(b, f, y.shape[1], self.filters), out_mask
         else:
+            self.record_input(x, mask)
             if masked:
                 x = apply_mask(x, mask)
             conv_in = x.reshape(b * f, length, -1).to(self.dtype)
@@ -202,6 +274,35 @@ class MaskedConv1D(nn.Module):
             y = y + self.bias.to(self.dtype)
         y = get_activation(self.activation)(y)
         return y.reshape(b, f, y.shape[1], self.filters), out_mask
+
+
+@contextlib.contextmanager
+def calibrating(model: nn.Module):
+    """int8 calibration mode (the JAX layer's ``calib`` sow).
+
+    Inside the block every ``MaskedConv1D`` of ``model`` that convolves an
+    unfolded input records the per-tensor absmax of that input, masked and
+    in the compute dtype, max-reduced over calls, into the yielded dict
+    keyed by module name (device scalars). The recorders are removed on
+    exit, so the model keeps no calibration state.
+    """
+    records: dict[str, torch.Tensor] = {}
+    convs = [(name, m) for name, m in model.named_modules()
+             if isinstance(m, MaskedConv1D)]
+
+    def recorder(name: str):
+        def record(v: torch.Tensor) -> None:
+            old = records.get(name)
+            records[name] = v if old is None else torch.maximum(old, v)
+        return record
+
+    for name, m in convs:
+        m.calib = recorder(name)
+    try:
+        yield records
+    finally:
+        for _, m in convs:
+            m.calib = None
 
 
 # ---------------------------------------------------------------------------
@@ -373,15 +474,19 @@ class ResidualBlock(nn.Module):
                    drop_mask=False):
         """``act(norm(conv(x)) + residual)`` -> (y, out_mask, nmd).
 
-        Fusable convs run on the fused kernel; with a DYT norm the
-        kernel's epilogue also takes the norm, its re-zero, the residual
-        add and the activation.
+        Convs with int8 buffers run on the int8 kernel, other fusable
+        convs on the fused kernel; with a DYT norm the kernel's epilogue
+        also takes the norm, its re-zero, the residual add and the
+        activation.
         """
         masked = conv.use_masking and mask is not None
         b, f, length, _ = x.shape
         k_act = kernel_activation(act, self.dtype)
-        if conv.fusable:
+        if conv.int8 or conv.fusable:
+            conv.record_input(x, mask)
             m_out = None if (drop_mask or not masked) else conv.output_mask(mask)
+            l_out = conv_geometry(length, conv.kernel_size,
+                                  conv.dilation_rate, conv.padding)[0]
             bias = (None if conv.bias is None
                     else conv.bias.to(self.dtype).float())
             kw = dict(in_mask=mask.reshape(b * f, length) if masked else None)
@@ -391,12 +496,18 @@ class ResidualBlock(nn.Module):
                     dyt=norm.dyt_rows(self.dtype), act=k_act, use_dyt=True,
                     bias_then_dyt=bias is not None,
                     out_mask=(None if m_out is None
-                              else m_out.reshape(b * f, length)),
+                              else m_out.reshape(b * f, l_out)),
                     residual=(None if residual is None
-                              else residual.reshape(b * f, length, -1)))
-            y = fused_conv_block(x.reshape(b * f, length, -1).to(self.dtype),
-                                 conv.kernel.to(self.dtype), bias, **kw)
-            y = y.reshape(b, f, length, -1)
+                              else residual.reshape(b * f, l_out, -1)))
+            x3 = x.reshape(b * f, length, -1).to(self.dtype)
+            if conv.int8:
+                y = int8_conv_dequant(x3, conv.kernel_q, *conv.int8_args(),
+                                      bias, dilation=conv.dilation_rate,
+                                      padding=conv.padding, **kw)
+            else:
+                y = fused_conv_block(x3, conv.kernel.to(self.dtype), bias,
+                                     **kw)
+            y = y.reshape(b, f, y.shape[1], -1)
             if fuse_norm:
                 return y, m_out, None
         else:

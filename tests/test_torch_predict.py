@@ -26,7 +26,8 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 FASTA = ROOT / "jaeger_tpu" / "data" / "test" / "test_contigs.fasta"
 DEMO = ROOT / "jaeger_tpu" / "data" / "models" / "demo"
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "jaeger_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "ml_dtypes",
+           "jaeger_tpu")
 
 
 def _port_modules() -> list[str]:
@@ -74,7 +75,7 @@ def test_predict_tsv_byte_identical_to_jax(tmp_path, full_logits):
 def test_predict_refuses_later_slices(tmp_path):
     from jaeger_tpu_torch.commands.predict import run_core
 
-    for flag in ("int8", "prophage", "refine", "mask_tandem", "profile"):
+    for flag in ("prophage", "refine", "mask_tandem", "profile"):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             run_core(str(FASTA), str(tmp_path), str(DEMO), device="cpu",
                      **{flag: True})
@@ -105,7 +106,8 @@ def test_entry_points_raise_without_cuda(tmp_path):
 
 def test_port_imports_without_jax():
     modules = _port_modules()
-    assert "jaeger_tpu_torch.ops.fused_conv" in modules
+    for name in ("ops.fused_conv", "ops.int8_conv", "models.conversion"):
+        assert f"jaeger_tpu_torch.{name}" in modules
     code = (
         "import sys\n"
         f"for m in {BLOCKED!r}:\n"
