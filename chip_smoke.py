@@ -7,19 +7,25 @@ Run from the root of a checkout on a machine with CUDA:
     python3 chip_smoke.py --quick    # phases 1-3 only (build, kernel checks)
     python3 chip_smoke.py --profile  # also: device time by kernel (torch
                                      # profiler) of each flagship forward
+    python3 chip_smoke.py --sweep    # also: fused_conv_block under other
+                                     # launch plans and with fewer taps
 
 Phases, each of which fails the run:
 
 1. device: torch version, the card's name and power limit (nvidia-smi);
 2. build: nvcc builds csrc/fused_conv_block.cu and csrc/int8_conv.cu for
-   sm_90a, one nvcc per source, started together;
+   sm_90a, one nvcc per source, started together; ptxas' registers, stack
+   and spills of each instance of the bf16 wgmma kernel;
 3. each kernel against its plain version on the card. fused_conv_block:
    the Pallas kernel's test cases, each extension, the demo and flagship
-   shapes (2e-4 in f32, 5e-2 in bf16); kernel, plain and library (F.conv1d
-   + the same epilogue) times at the flagship shape (batch 2048: N =
-   12288, L = 500, C = 128, k = 5). int8_conv: the requant form equal to
-   its plain version at the Pallas parity case and the Pallas chip shape
-   (N = 12288, L = 500, C = 128, k = 5, dilation 3); the dequant form at
+   shapes, and the bf16 kernel's edges (L = 1, 63, 65; N = 1; C = 16, 64,
+   256; k = 1, 7; in_mask runs across tile edges and the halo; out_mask
+   with residual; every activation) at 2e-4 in f32, 5e-2 in bf16; kernel,
+   plain and library (F.conv1d + the same epilogue) times at the flagship
+   shape (batch 2048: N = 12288, L = 500, C = 128, k = 5) in the conv1,
+   conv2 and bias-only forms, each with its bound and share of it.
+   int8_conv: the requant form equal to its plain version at the Pallas
+   parity case and the Pallas chip shape (N = 12288, L = 500, C = 128, k = 5, dilation 3); the dequant form at
    each extension, the demo and flagship shapes and dilation 3 (2e-4 /
    5e-2); kernel, plain and library (k ``torch._int_mm`` GEMMs on shifted
    copies + the epilogue in torch) times of the requant form at the
@@ -131,6 +137,23 @@ def phase_build() -> None:
         print(f"build: {name} (nvcc "
               f"{cuda_build.build_seconds.get(name, 0.0):.1f} s)")
     print(f"build: all kernels ready in {time.perf_counter() - t0:.1f} s")
+    for line in ptxas_summary(cuda_build.build_logs.get("fused_conv_block",
+                                                        ""), "conv_bf16_wgmma"):
+        print(f"ptxas: {line}")
+
+
+def ptxas_summary(log: str, kernel: str) -> list[str]:
+    """Registers, shared memory and spills that ``-Xptxas -v`` reported for
+    each instance of ``kernel`` (C++ name fragment) in ``log``."""
+    out, entry = [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1] if "'" in line else line
+            entry = name if kernel in name else None
+        elif entry is not None and ("Used" in line or "spill" in line):
+            tag = entry.split(kernel, 1)[1][:12]
+            out.append(f"{kernel}{tag}: {line.split(':', 1)[-1].strip()}")
+    return out
 
 
 # --- phase 3 ---------------------------------------------------------------
@@ -153,13 +176,20 @@ def _extension_args(gen, x, case, device):
     n, length, c = x.shape
     kw = {}
     if case in ("bias_then_dyt", "in_mask", "out_mask", "residual", "all",
-                "model"):
+                "model", "in_mask_runs", "out_mask_residual"):
         kw.update(use_dyt=True, bias_then_dyt=True)
     if case in ("in_mask", "all", "model"):
         kw["in_mask"] = (torch.rand(n, length, generator=gen) > 0.2).to(device)
-    if case in ("out_mask", "all", "model"):
+    if case == "in_mask_runs":
+        # masked runs across the 64-row tile edges and into the halo at
+        # both ends of each row
+        m = torch.ones(n, length, dtype=torch.bool)
+        for lo, hi in ((0, 3), (60, 69), (125, 131), (length - 3, length)):
+            m[:, max(lo, 0):min(hi, length)] = False
+        kw["in_mask"] = m.to(device)
+    if case in ("out_mask", "all", "model", "out_mask_residual"):
         kw["out_mask"] = (torch.rand(n, length, generator=gen) > 0.2).to(device)
-    if case in ("residual", "all", "model"):
+    if case in ("residual", "all", "model", "out_mask_residual"):
         kw["residual"] = torch.randn(n, length, c, generator=gen).to(
             device, x.dtype)
     return kw
@@ -175,14 +205,17 @@ def library_conv_block(x, w, bias, dyt, act, residual=None):
     y = F.conv1d(F.pad(x.transpose(1, 2), (pad_l, k - 1 - pad_l)),
                  w.to(x.dtype).permute(2, 1, 0), bias.to(x.dtype))
     y = y.transpose(1, 2)
-    y = torch.tanh(y * dyt[0].to(x.dtype)) * dyt[1].to(x.dtype) + dyt[2].to(
-        x.dtype)
+    if dyt is not None:
+        y = torch.tanh(y * dyt[0].to(x.dtype)) * dyt[1].to(x.dtype) + dyt[
+            2].to(x.dtype)
     if residual is not None:
         y = y + residual
+    if act == "none":
+        return y
     return F.gelu(y, approximate="tanh" if act == "gelu_tanh" else "none")
 
 
-def phase_kernel() -> dict:
+def phase_kernel(card: str) -> dict:
     import torch
 
     from jaeger_tpu_torch.ops import fused_conv
@@ -209,6 +242,25 @@ def phase_kernel() -> dict:
         ("flagship_shape_bf16", 6 * 256, 500, 128, 5, bf16, "gelu_tanh",
          "model"),
         ("flagship_shape_f32", 6 * 32, 500, 128, 5, f32, "gelu", "model"),
+        # the bf16 kernel's edges: 64-row tiles, the TMA halo, the plan's
+        # chunk widths (C 16 / 32 / 64) and column blocks (CB < C at C 256
+        # and at C 128 with k 7)
+        ("edge_L1", 4, 1, 128, 5, bf16, "gelu_tanh", "model"),
+        ("edge_L63", 3, 63, 128, 5, bf16, "gelu_tanh", "model"),
+        ("edge_L65", 3, 65, 128, 5, bf16, "gelu_tanh", "model"),
+        ("edge_N1", 1, 500, 128, 5, bf16, "gelu_tanh", "model"),
+        ("edge_C16", 6, 300, 16, 3, bf16, "gelu_tanh", "all"),
+        ("edge_C64_k3", 6, 300, 64, 3, bf16, "gelu_tanh", "model"),
+        ("edge_C256_k5", 6, 300, 256, 5, bf16, "gelu_tanh", "model"),
+        ("edge_C128_k7", 6, 300, 128, 7, bf16, "gelu_tanh", "model"),
+        ("edge_k1", 6, 300, 128, 1, bf16, "gelu_tanh", "model"),
+        ("edge_in_mask_runs", 6, 300, 128, 5, bf16, "gelu_tanh",
+         "in_mask_runs"),
+        ("edge_out_mask_residual", 6, 300, 128, 5, bf16, "gelu_tanh",
+         "out_mask_residual"),
+        ("edge_act_tanh", 6, 130, 128, 3, bf16, "tanh", "all"),
+        ("edge_act_gelu_erf", 6, 130, 128, 3, bf16, "gelu", "all"),
+        ("edge_act_relu", 6, 130, 128, 3, bf16, "relu", "bias"),
     ]
     worst = 0.0
     for name, n, length, c, k, dt, act, ext in cases:
@@ -248,38 +300,80 @@ def phase_kernel() -> dict:
     n, length, c, k = 6 * 2048, 500, 128, 5
     x, w, bias, dyt = _conv_inputs(gen, n, length, c, k, bf16, dev)
     res = torch.randn(n, length, c, generator=gen).to(dev, bf16)
+    dyt_kw = dict(bias=bias, dyt=dyt, use_dyt=True, bias_then_dyt=True)
     forms = {
         # conv1 of a residual block in the dense program
-        "conv1": dict(bias=bias, dyt=dyt, use_dyt=True, bias_then_dyt=True),
+        "conv1": (dyt_kw, "gelu_tanh"),
         # conv2: the shortcut add rides the epilogue
-        "conv2": dict(bias=bias, dyt=dyt, use_dyt=True, bias_then_dyt=True,
-                      residual=res),
+        "conv2": (dict(dyt_kw, residual=res), "gelu_tanh"),
+        # the products and a bias add only: conv1 minus this is the cost of
+        # the DYT + gelu_tanh epilogue
+        "bias_only": (dict(bias=bias), "none"),
     }
     times = {}
     launches_before = fused_conv.launches
-    for form, kw in forms.items():
+    for form, (kw, act) in forms.items():
         kern = cuda_ms(lambda: fused_conv.fused_conv_block(
-            x, w, act="gelu_tanh", **kw))
+            x, w, act=act, **kw), iters=20)
         plain = cuda_ms(lambda: fused_conv.reference_conv_block(
-            x, w, act="gelu_tanh", **kw), iters=3, warmup=1)
+            x, w, act=act, **kw), iters=3, warmup=1)
         lib = cuda_ms(lambda: library_conv_block(
-            x, w, bias, dyt, "gelu_tanh", kw.get("residual")))
+            x, w, bias, kw.get("dyt"), act, kw.get("residual")))
         flops = 2.0 * n * length * c * c * k
         nbytes = (2 * n * length * c * (3 if "residual" in kw else 2)
-                  + 2 * k * c * c + 4 * 4 * c)
+                  + 2 * k * c * c + 4 * c * (4 if "dyt" in kw else 1))
         t_ops = flops / PEAK_BF16_FLOPS * 1e3
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        bound = max(t_ops, t_bytes)
         times[form] = dict(ms=kern, plain_ms=plain, library_ms=lib,
-                           bound_ms=max(t_ops, t_bytes),
+                           bound_ms=bound, bound_share=bound / kern,
                            bound_by="operations" if t_ops >= t_bytes
                            else "bytes", flops=flops, bytes=nbytes)
-        print(f"timing {form} N={n} L={length} C={c} k={k} bf16: kernel "
-              f"{kern:.3f} ms, plain {plain:.3f} ms, library {lib:.3f} ms, "
-              f"bound {max(t_ops, t_bytes):.3f} ms "
+        print(f"timing {form} N={n} L={length} C={c} k={k} bf16 on {card}: "
+              f"kernel {kern:.3f} ms, plain {plain:.3f} ms, library "
+              f"{lib:.3f} ms, bound {bound:.3f} ms "
               f"({times[form]['bound_by']}: {flops:.3e} FLOP, "
-              f"{nbytes / 1e9:.3f} GB), {flops / kern / 1e9:.1f} TFLOP/s")
+              f"{nbytes / 1e9:.3f} GB), {bound / kern:.1%} of the bound, "
+              f"{flops / kern / 1e9:.1f} TFLOP/s")
     fused_conv.launches = launches_before  # timing launches are not the path
-    return {"max_abs_err": worst, **times["conv1"], "conv2": times["conv2"]}
+    return {"max_abs_err": worst, **times["conv1"], "conv2": times["conv2"],
+            "bias_only": times["bias_only"]}
+
+
+def phase_sweep(card: str) -> None:
+    """``--sweep``: the bf16 kernel at the flagship shape (bias-only and
+    conv1 forms) under other launch plans of the same layout (column block,
+    ring stages) and with fewer taps (k = 1, 3: the same bytes, 1/5 and 3/5
+    of the products), to tell the ring's latency from the tensor cores."""
+    import torch
+
+    from jaeger_tpu_torch.ops import fused_conv
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(99)
+    n, length, c = 6 * 2048, 500, 128
+    launches_before = fused_conv.launches
+    for k in (5, 3, 1):
+        x, w, bias, dyt = _conv_inputs(gen, n, length, c, k, torch.bfloat16,
+                                       dev)
+        w = w.to(torch.bfloat16)  # _launch takes the checked operands
+        plans = [fused_conv.conv_plan(c, k)]
+        if k == 5:
+            plans += [dict(cb=cb, kw=64, stages=st,
+                           smem=fused_conv.plan_bytes(c, k, cb, 64, st))
+                      for cb, st in ((128, 2), (64, 2), (64, 3), (64, 4),
+                                     (32, 4))]
+        for plan in plans:
+            for form, args in (("bias_only", (bias, None, "none")),
+                               ("conv1", (bias, dyt, "gelu_tanh"))):
+                ms = cuda_ms(lambda: fused_conv._launch(
+                    x, w, *args, None, None, None, plan), iters=20)
+                bound = 2.0 * n * length * c * c * k / PEAK_BF16_FLOPS * 1e3
+                print(f"sweep k={k} cb={plan['cb']} stages={plan['stages']} "
+                      f"{form} on {card}: {ms:.3f} ms "
+                      f"(products at the bf16 peak {bound:.3f} ms)")
+        del x, w
+    fused_conv.launches = launches_before
 
 
 def shifted_copies(q, k: int, dilation: int):
@@ -848,7 +942,9 @@ def main(argv: list[str]) -> int:
     try:
         card = phase_device()
         phase_build()
-        kern = phase_kernel()
+        kern = phase_kernel(card)
+        if "--sweep" in argv:
+            phase_sweep(card)
         kern8 = phase_int8_kernel()
         if quick:
             print(f"quick run done in {time.perf_counter() - t_start:.0f} s")
@@ -866,6 +962,7 @@ def main(argv: list[str]) -> int:
     print(json.dumps({"flagship_windows_per_s": rates,
                       "flagship_int8_windows_per_s": rates8, "card": card,
                       "fused_conv_conv2_form": kern["conv2"],
+                      "fused_conv_bias_only_form": kern["bias_only"],
                       "int8_conv_conv2_form": kern8["conv2"],
                       "int8_conv_requant_pallas_shape": kern8["requant"]}))
     print(f"all phases passed in {time.perf_counter() - t_start:.0f} s")
@@ -876,7 +973,8 @@ def main(argv: list[str]) -> int:
                 "replaces": replaces, "launches": n,
                 "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                 "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-                "bound_by": k["bound_by"], "library_ms": k["library_ms"]}
+                "bound_by": k["bound_by"], "library_ms": k["library_ms"],
+                "bound_share": k["bound_ms"] / k["ms"]}
 
     print(json.dumps({"kernels": [
         entry("fused_conv_block", "jaeger_tpu_torch/csrc/fused_conv_block.cu",

@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on
 first use, for ``sm_90a`` (Hopper), into
 ``<repo>/build/jaeger_tpu_torch/<name>-<hash>.so``; the hash covers the
-source and the flags, so an edited source never loads a stale library.
+source, every header in ``csrc/`` and the flags, so an edited source or
+header never loads a stale library.
 Nothing is built when a module is imported, only when a kernel is first
 launched on a CUDA tensor.
 """
@@ -23,9 +24,11 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "jaeger_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
-#: loaded libraries by source name, and the seconds each build took
+#: loaded libraries by source name, the seconds each build took and what
+#: nvcc printed
 _LIBS: dict[str, ctypes.CDLL] = {}
 build_seconds: dict[str, float] = {}
+build_logs: dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -40,6 +43,16 @@ def _nvcc() -> str:
     return found
 
 
+def _digest(name: str, flags: tuple[str, ...]) -> str:
+    """Hash of ``csrc/<name>.cu``, every ``csrc/*.cuh`` it may include, and
+    the nvcc flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(b"\0" + header.name.encode() + b"\0" + header.read_bytes())
+    h.update("\0".join(flags).encode())
+    return h.hexdigest()[:16]
+
+
 def load(name: str, extra_flags: tuple[str, ...] = ()) -> ctypes.CDLL:
     """Build ``csrc/<name>.cu`` if needed and return the loaded library.
 
@@ -51,9 +64,7 @@ def load(name: str, extra_flags: tuple[str, ...] = ()) -> ctypes.CDLL:
         return _LIBS[name]
     src = CSRC / f"{name}.cu"
     flags = NVCC_FLAGS + tuple(extra_flags)
-    digest = hashlib.sha256(
-        src.read_bytes() + "\0".join(flags).encode()).hexdigest()[:16]
-    lib_path = BUILD_DIR / f"{name}-{digest}.so"
+    lib_path = BUILD_DIR / f"{name}-{_digest(name, flags)}.so"
     if not lib_path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
@@ -65,8 +76,9 @@ def load(name: str, extra_flags: tuple[str, ...] = ()) -> ctypes.CDLL:
         if proc.returncode != 0:
             raise RuntimeError(
                 f"nvcc failed for {src}:\n{proc.stdout}\n{proc.stderr}")
-        if proc.stdout.strip() or proc.stderr.strip():
-            print(proc.stdout + proc.stderr, end="", flush=True)
+        build_logs[name] = proc.stdout + proc.stderr
+        if build_logs[name].strip():
+            print(build_logs[name], end="", flush=True)
         os.replace(tmp, lib_path)
     lib = ctypes.CDLL(str(lib_path))
     _LIBS[name] = lib

@@ -28,12 +28,14 @@ The epilogue order is bias, DYT, out_mask, residual, activation.
 On the H100 (``csrc/fused_conv_block.cu``): at the flagship shape (N =
 12288, L = 500, C = 128, k = 5) a call is 1.0e12 bf16 FLOPs against
 3.1 GB of bf16 in and out, so the card's tensor-core peak and its memory
-rate both allow about 1 ms. The kernel reads the activation once and
-writes it once with the whole epilogue fused, and runs the k shifted
-GEMMs on the tensor cores (WMMA, bf16 in, f32 accumulate) from a shared
-memory tile that holds the input rows plus the k - 1 halo; weights stream
-through shared memory tap by tap. f32 inputs use plain FMAs, never TF32.
-wgmma, TMA and a persistent schedule are later work.
+rate both allow about 1 ms. bf16 runs a persistent kernel, about one CTA
+per SM, that keeps its block of the weights resident in shared memory,
+loads x tiles with their halo by TMA into an mbarrier ring fed by one
+producer warp, runs the k shifted products as ``wgmma`` (A from
+registers, B from the resident weights) and applies the whole epilogue
+from the accumulator registers while a second warpgroup runs the next
+tile's products. :func:`conv_plan` sizes it. f32 inputs use plain FMAs,
+never TF32.
 
 CPU tensors take :func:`reference_conv_block`, the plain PyTorch version;
 CUDA tensors launch the kernel or raise. ``launches`` counts kernel
@@ -112,6 +114,72 @@ def reference_conv_block(x, w, bias=None, dyt=None, act="none",
     return _activation(y, act).to(x.dtype)
 
 
+#: shared memory one block may use on the H100 (227 KB)
+SMEM_LIMIT = 232448
+#: output rows per tile of the bf16 kernel (one wgmma M)
+_TL = 64
+
+
+def conv_plan(c: int, k: int, dtype=torch.bfloat16) -> dict:
+    """The kernel's launch plan for C channels and k taps, or ValueError.
+
+    bf16: ``cb`` output channels per CTA, the largest of 128, 64, 32, 16
+    that divides C and leaves room for a ring of at least 2 x-tile
+    stages beside the resident ``k * C * cb`` weights; ``kw`` channels per
+    TMA box (64, 32 or 16: the box is ``kw * 2`` bytes wide, the swizzle
+    width); ``stages`` (2-4); ``smem`` bytes, the kernel's layout
+    (weights, ring, per-channel parameters, barriers, 1 KB alignment
+    slack), which the C entry recomputes and must equal. f32: ``cb`` and
+    ``smem`` of the FMA kernel (64-row tiles, one weight tap at a time).
+    """
+    if c <= 0 or c % 16:
+        raise ValueError(f"C={c}: the kernel takes C % 16 == 0")
+    if dtype == torch.float32:
+        if c > 128 and c % 128:
+            raise ValueError(f"C={c}: the f32 kernel takes C <= 128 or "
+                             f"C % 128 == 0")
+        cb = min(c, 128)
+        smem = ((_TL + k - 1) * c + c * cb) * 4
+        if smem > SMEM_LIMIT:
+            raise ValueError(f"C={c}, k={k}: the f32 kernel needs {smem} B "
+                             f"of shared memory, over {SMEM_LIMIT}")
+        return dict(cb=cb, kw=0, stages=0, smem=smem)
+    rows = _TL + k - 1
+    if rows > 256 or k + _TL // 8 > 64:
+        raise ValueError(f"k={k}: the bf16 kernel takes k <= 56 (a TMA box "
+                         f"of 64 + k - 1 rows, in_mask bits in one word)")
+    kw = 64 if c % 64 == 0 else 32 if c % 32 == 0 else 16
+    for cb in (128, 64, 32, 16):
+        if c % cb:
+            continue
+        for stages in (4, 3, 2):
+            smem = plan_bytes(c, k, cb, kw, stages)
+            if smem <= SMEM_LIMIT:
+                return dict(cb=cb, kw=kw, stages=stages, smem=smem)
+    raise ValueError(f"C={c}, k={k}: k * C * 16 bf16 weights and two "
+                     f"x stages of {64 + k - 1} x C exceed {SMEM_LIMIT} B "
+                     f"of shared memory")
+
+
+def plan_bytes(c: int, k: int, cb: int, kw: int, stages: int) -> int:
+    """Shared memory of the bf16 kernel's layout: the resident weights, the
+    ring of x stages (chunks of 64 + k - 1 rows x kw channels, each 1 KB
+    aligned), 4 x cb f32 parameters, 2 x stages mbarriers and 1 KB of
+    alignment slack."""
+    def align(v):
+        return -(-v // 1024) * 1024
+
+    stage = c // kw * align((_TL + k - 1) * kw * 2)
+    return (align(k * c * cb * 2) + stages * stage + 16 * cb + 16 * stages
+            + 1024)
+
+
+#: the C entry's arguments: dtype, 8 pointers, n_rows, L, C, k, act, cb,
+#: kw, stages, smem bytes, SM count, stream
+ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
+            + [ctypes.c_void_p])
+
+
 @functools.cache
 def _lib():
     from jaeger_tpu_torch.ops import cuda_build
@@ -121,8 +189,7 @@ def _lib():
     # every pointer and the stream as c_void_p: ctypes would pass a
     # Python int as a 32-bit C int
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
-                   + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    fn.argtypes = ARGTYPES
     return fn
 
 
@@ -148,7 +215,6 @@ def fused_conv_block(x, w, bias=None, dyt=None, act="none", use_dyt=False,
     See the module docstring for the extensions. ``dyt`` is ``(3, C)``
     (alpha, gamma, beta rows); ``bias`` ``(C,)``; both are used in f32.
     """
-    global launches
     if x.device.type == "cpu":
         return reference_conv_block(
             x, w, bias, dyt, act, use_dyt, bias_then_dyt=bias_then_dyt,
@@ -163,9 +229,7 @@ def fused_conv_block(x, w, bias=None, dyt=None, act="none", use_dyt=False,
     k = w.shape[0]
     if tuple(w.shape) != (k, c, c):
         raise ValueError(f"w must be (k, {c}, {c}), got {tuple(w.shape)}")
-    if c % 16 or (c > 128 and c % 128):
-        raise ValueError(f"C={c}: the kernel takes C % 16 == 0 and "
-                         f"C <= 128 or C % 128 == 0")
+    plan = conv_plan(c, k, x.dtype)
     if act not in _ACT_IDS:
         raise ValueError(f"unsupported activation {act!r}")
     bias, dyt = _epilogue_args(bias, dyt, use_dyt, bias_then_dyt)
@@ -177,16 +241,26 @@ def fused_conv_block(x, w, bias=None, dyt=None, act="none", use_dyt=False,
     in_mask = _check("in_mask", in_mask, (n, length), torch.bool, dev, 1)
     out_mask = _check("out_mask", out_mask, (n, length), torch.bool, dev, 1)
     residual = _check("residual", residual, (n, length, c), x.dtype, dev)
-    out = torch.empty_like(x)
+    return _launch(x, w, bias, dyt, act, in_mask, out_mask, residual, plan)
+
+
+def _launch(x, w, bias, dyt, act, in_mask, out_mask, residual, plan):
+    """Launch the kernel on checked, contiguous CUDA tensors with ``plan``
+    (:func:`conv_plan`'s dict)."""
+    global launches
+    n, length, c = x.shape
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
+    out = torch.empty_like(x)
     fn = _lib()
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     err = fn(1 if x.dtype == torch.bfloat16 else 0, ptr(x), ptr(w),
              ptr(bias), ptr(dyt), ptr(in_mask), ptr(out_mask), ptr(residual),
-             ptr(out), n, length, c, k, _ACT_IDS[act], stream)
+             ptr(out), n, length, c, w.shape[0], _ACT_IDS[act], plan["cb"],
+             plan["kw"], plan["stages"], plan["smem"], sms, stream)
     if err != 0:
         raise RuntimeError(f"fused_conv_block kernel launch failed: CUDA "
                            f"error {err}")

@@ -175,15 +175,80 @@ def test_cpu_path_counts_no_launch(rng):
     assert fused_conv.launches == before
 
 
-def test_kernel_source_declares_its_interface():
-    """The CUDA source is only compiled on the card; pin the C entry
-    point and the arguments the ctypes binding passes."""
+def _csrc():
     from pathlib import Path
 
-    src = (Path(fused_conv.__file__).resolve().parent.parent / "csrc"
-           / "fused_conv_block.cu").read_text()
+    return Path(fused_conv.__file__).resolve().parent.parent / "csrc"
+
+
+def test_kernel_source_declares_its_interface():
+    """The CUDA source is only compiled on the card; pin the C entry
+    point, the arguments the ctypes binding passes, and the Hopper
+    instructions the bf16 path is built from."""
+    src = (_csrc() / "fused_conv_block.cu").read_text()
+    hopper = (_csrc() / "hopper.cuh").read_text()
     assert 'extern "C" int jt_fused_conv_block(' in src
     sig = src[src.index("jt_fused_conv_block("):]
     sig = sig[: sig.index(")")]
-    assert sig.count(",") + 1 == 15     # 1 + 8 pointers + 5 ints + stream
+    assert sig.count(",") + 1 == len(fused_conv.ARGTYPES) == 20
     assert "jaeger_tpu/ops/pallas_conv.py" in src
+    assert '#include "hopper.cuh"' in src
+    for instr in ("wgmma.mma_async", "cp.async.bulk.tensor", "mbarrier",
+                  "ldmatrix", "setmaxnreg"):
+        assert instr in hopper, instr
+    assert "nvcuda::wmma" not in src and "mma.h" not in src
+
+
+# (C, k) of the repo's residual convs: demo, train_config (axial,
+# crossframe), the flagship, the variable-length config's k7 and a C 256
+REPO_SHAPES = [(32, 3), (64, 3), (128, 5), (128, 7), (256, 5)]
+
+
+@pytest.mark.parametrize("c,k", REPO_SHAPES)
+def test_launch_plan_fits(c, k):
+    plan = fused_conv.conv_plan(c, k)
+    assert c % plan["cb"] == 0 and plan["cb"] % 16 == 0
+    assert c % plan["kw"] == 0 and plan["kw"] in (16, 32, 64)
+    assert 2 <= plan["stages"] <= 4
+    assert plan["smem"] <= 232448
+    assert plan["smem"] == fused_conv.plan_bytes(c, k, plan["cb"],
+                                                 plan["kw"], plan["stages"])
+    # the resident weights of one column block are part of the budget
+    assert plan["smem"] > k * c * plan["cb"] * 2
+    f32 = fused_conv.conv_plan(c, k, torch.float32)
+    assert f32["smem"] <= 232448
+
+
+def test_launch_plan_flagship_keeps_all_weights():
+    assert fused_conv.conv_plan(128, 5) == dict(cb=128, kw=64, stages=3,
+                                                smem=222256)
+
+
+@pytest.mark.parametrize("c,k,dtype", [
+    (1024, 5, torch.bfloat16),     # k * C * 16 weights + two x stages
+    (24, 3, torch.bfloat16),       # C % 16
+    (128, 57, torch.bfloat16),     # in_mask bits / TMA box rows
+    (512, 5, torch.float32),       # f32 tile + weight tap
+    (144, 3, torch.float32),       # f32: C <= 128 or C % 128 == 0
+])
+def test_launch_plan_refuses_what_cannot_fit(c, k, dtype):
+    with pytest.raises(ValueError):
+        fused_conv.conv_plan(c, k, dtype)
+
+
+def test_build_digest_covers_headers(tmp_path, monkeypatch):
+    """An edited csrc/*.cuh must not load a library built from the old
+    header."""
+    from jaeger_tpu_torch.ops import cuda_build
+
+    for f in ("fused_conv_block.cu", "hopper.cuh"):
+        (tmp_path / f).write_bytes((_csrc() / f).read_bytes())
+    monkeypatch.setattr(cuda_build, "CSRC", tmp_path)
+    flags = cuda_build.NVCC_FLAGS
+    before = cuda_build._digest("fused_conv_block", flags)
+    assert before == cuda_build._digest("fused_conv_block", flags)
+    (tmp_path / "hopper.cuh").write_bytes(
+        (tmp_path / "hopper.cuh").read_bytes() + b"\n// edited\n")
+    assert cuda_build._digest("fused_conv_block", flags) != before
+    assert cuda_build._digest("fused_conv_block", flags + ("-G",)) != \
+        cuda_build._digest("fused_conv_block", flags)
