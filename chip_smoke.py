@@ -7,7 +7,7 @@ Run from the root of a checkout on a machine with CUDA:
     python3 chip_smoke.py --quick    # phases 1-3 only (build, kernel checks)
     python3 chip_smoke.py --profile  # also: device time by kernel (torch
                                      # profiler) of each flagship forward
-    python3 chip_smoke.py --sweep    # also: fused_conv_block under other
+    python3 chip_smoke.py --sweep    # also: both kernels under other
                                      # launch plans and with fewer taps
 
 Phases, each of which fails the run:
@@ -15,7 +15,7 @@ Phases, each of which fails the run:
 1. device: torch version, the card's name and power limit (nvidia-smi);
 2. build: nvcc builds csrc/fused_conv_block.cu and csrc/int8_conv.cu for
    sm_90a, one nvcc per source, started together; ptxas' registers, stack
-   and spills of each instance of the bf16 wgmma kernel;
+   and spills of each instance of the two wgmma kernels;
 3. each kernel against its plain version on the card. fused_conv_block:
    the Pallas kernel's test cases, each extension, the demo and flagship
    shapes, and the bf16 kernel's edges (L = 1, 63, 65; N = 1; C = 16, 64,
@@ -24,13 +24,19 @@ Phases, each of which fails the run:
    plain and library (F.conv1d + the same epilogue) times at the flagship
    shape (batch 2048: N = 12288, L = 500, C = 128, k = 5) in the conv1,
    conv2 and bias-only forms, each with its bound and share of it.
-   int8_conv: the requant form equal to its plain version at the Pallas
-   parity case and the Pallas chip shape (N = 12288, L = 500, C = 128, k = 5, dilation 3); the dequant form at
-   each extension, the demo and flagship shapes and dilation 3 (2e-4 /
-   5e-2); kernel, plain and library (k ``torch._int_mm`` GEMMs on shifted
-   copies + the epilogue in torch) times of the requant form at the
-   Pallas shape and of the dequant form at the flagship shape (conv1 and
-   conv2 forms). All times with CUDA events, each with its bound;
+   int8_conv: the plan of the main path's shapes names the wgmma route;
+   the requant form equal to its plain version at the Pallas parity case,
+   the Pallas chip shape (N = 12288, L = 500, C = 128, k = 5, dilation 3)
+   and the wgmma kernel's edges (L 1 / 63 / 65, N 1, C 32 / 64 / 256,
+   C_in != C_out, k 1 / 3 / 7) and an mma-route shape; the dequant form at
+   each extension, the demo and flagship shapes, dilation 3 in SAME and
+   VALID, the same edges, in_mask runs across tile edges and the halo,
+   out_mask with residual and every activation (2e-4 in f32, which takes
+   the mma route, 5e-2 in bf16); kernel, plain and library (k
+   ``torch._int_mm`` GEMMs on shifted copies + the epilogue in torch)
+   times of the requant form at the Pallas shape and of the dequant form
+   at the flagship shape (conv1, conv2 and bias-only forms). All times
+   with CUDA events, each with its bound;
 4. the flagship (128 channels, 1505 nt crop, 6 classes; seeded weights,
    bf16) through the port's InferenceEngine at batch 2048, on windows
    that select the dense, the bounded-cut and the split (dense + masked
@@ -57,6 +63,7 @@ import contextlib
 import csv
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -137,9 +144,10 @@ def phase_build() -> None:
         print(f"build: {name} (nvcc "
               f"{cuda_build.build_seconds.get(name, 0.0):.1f} s)")
     print(f"build: all kernels ready in {time.perf_counter() - t0:.1f} s")
-    for line in ptxas_summary(cuda_build.build_logs.get("fused_conv_block",
-                                                        ""), "conv_bf16_wgmma"):
-        print(f"ptxas: {line}")
+    for name, kernel in (("fused_conv_block", "conv_bf16_wgmma"),
+                         ("int8_conv", "int8_wgmma")):
+        for line in ptxas_summary(cuda_build.build_logs.get(name, ""), kernel):
+            print(f"ptxas: {line}")
 
 
 def ptxas_summary(log: str, kernel: str) -> list[str]:
@@ -151,9 +159,19 @@ def ptxas_summary(log: str, kernel: str) -> list[str]:
             name = line.split("'")[1] if "'" in line else line
             entry = name if kernel in name else None
         elif entry is not None and ("Used" in line or "spill" in line):
-            tag = entry.split(kernel, 1)[1][:12]
-            out.append(f"{kernel}{tag}: {line.split(':', 1)[-1].strip()}")
+            out.append(f"{kernel}<{_template_args(entry.split(kernel, 1)[1])}>"
+                       f": {line.split(':', 1)[-1].strip()}")
     return out
+
+
+def _template_args(mangled: str) -> str:
+    """'bf16, 128, 64' from the Itanium mangling of a kernel's template
+    arguments (``I13__nv_bfloat16Li128ELi64EEEv...``, ``IaLi16ELi32E...``)."""
+    args = mangled.split("EEv", 1)[0] + "E"
+    types = {"a": "int8", "13__nv_bfloat16": "bf16", "f": "f32"}
+    m = re.match(r"I(a|f|13__nv_bfloat16)?", args)
+    head = [types[m.group(1)]] if m and m.group(1) else []
+    return ", ".join(head + re.findall(r"Li(\d+)E", args))
 
 
 # --- phase 3 ---------------------------------------------------------------
@@ -420,41 +438,102 @@ def _int8_dequant_inputs(gen, n, length, c_in, c_out, k, dtype, device):
     return x, w, inv_act, dq, bias, dyt
 
 
-def phase_int8_kernel() -> dict:
+def _int8_ext_args(gen, ext, n, length, l_out, c_out, dt, dyt, device):
+    """Keyword arguments of one int8 dequant extension case."""
+    import torch
+
+    kw = {}
+    if ext in ("bias_then_dyt", "out_mask", "residual", "all", "model",
+               "in_mask_runs", "out_mask_residual"):
+        kw.update(dyt=dyt, use_dyt=True, bias_then_dyt=True)
+    if ext in ("in_mask", "all", "model"):
+        kw["in_mask"] = (torch.rand(n, length, generator=gen) > 0.2).to(device)
+    if ext == "in_mask_runs":
+        # masked runs across the 64-row tile edges and into the halo at
+        # both ends of each row
+        m = torch.ones(n, length, dtype=torch.bool)
+        for lo, hi in ((0, 3), (60, 69), (125, 131), (length - 3, length)):
+            m[:, max(lo, 0):min(hi, length)] = False
+        kw["in_mask"] = m.to(device)
+    if ext in ("out_mask", "all", "model", "out_mask_residual"):
+        kw["out_mask"] = (torch.rand(n, l_out, generator=gen) > 0.2).to(device)
+    if ext in ("residual", "all", "model", "out_mask_residual"):
+        kw["residual"] = torch.randn(n, l_out, c_out, generator=gen).to(
+            device, dt)
+    return kw
+
+
+def _plan_tag(plan: dict) -> str:
+    return (f"{plan['route']} cb={plan['cb']} kw={plan['kw']} "
+            f"stages={plan['stages']} smem={plan['smem']}")
+
+
+def phase_int8_kernel(card: str) -> dict:
     """int8_conv against its plain versions: the requant form equal, the
-    dequant form within F32_TOL / BF16_TOL; then times."""
+    dequant form within F32_TOL / BF16_TOL, on both routes of the plan;
+    then times."""
     import torch
 
     from jaeger_tpu_torch.ops import int8_conv
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(4321)
-    f32, bf16 = torch.float32, torch.bfloat16
+    f32, bf16, i8 = torch.float32, torch.bfloat16, torch.int8
 
-    # requant: the Pallas parity case and the Pallas chip shape, equal
+    # the main path's shapes take the wgmma route
+    for shape in ((128, 128, 5, 1, "same", bf16), (32, 32, 3, 1, "same", bf16),
+                  (128, 128, 5, 3, "same", i8)):
+        plan = int8_conv.int8_plan(*shape)
+        print(f"int8 plan {shape[:5]} {str(shape[5])[6:]}: {_plan_tag(plan)}")
+        check(plan["route"] == "wgmma", f"int8 plan {shape}: {plan}")
+
+    # requant: the Pallas parity case and the Pallas chip shape, then the
+    # wgmma kernel's edges (L 1 / 63 / 65, N 1, C 32 / 64 / 256, C_in !=
+    # C_out, k 1 / 3 / 7, CB < C_out) and a C_in = 16 shape on the mma
+    # route; all equal
     scale = torch.full((1,), 1.0 / 64.0, device=dev)
-    requant_cases = [("pallas_parity", 8, -40, 40),
-                     ("pallas_chip_shape", 12288, -64, 64)]
-    length, c, k, dil = 500, 128, 5, 3
-    for name, n, lo, hi in requant_cases:
-        x = torch.randint(lo, hi, (n, length, c), generator=gen,
-                          dtype=torch.int8).to(dev)
-        w = torch.randint(-8, 8, (k, c, c), generator=gen,
-                          dtype=torch.int8).to(dev)
+    # (name, n, length, c_in, c_out, k, dilation, x range)
+    requant_cases = [
+        ("pallas_parity", 8, 500, 128, 128, 5, 3, 40),
+        ("pallas_chip_shape", 12288, 500, 128, 128, 5, 3, 64),
+        ("edge_L1", 4, 1, 128, 128, 5, 3, 64),
+        ("edge_L63", 3, 63, 128, 128, 5, 3, 64),
+        ("edge_L65", 3, 65, 128, 128, 5, 3, 64),
+        ("edge_N1", 1, 500, 128, 128, 5, 3, 64),
+        ("edge_C32_k3", 6, 300, 32, 32, 3, 1, 64),
+        ("edge_C64_k3", 6, 300, 64, 64, 3, 1, 64),
+        ("edge_C256_k5", 6, 300, 256, 256, 5, 1, 64),
+        ("edge_C64_to_128", 6, 300, 64, 128, 5, 1, 64),
+        ("edge_C128_to_48", 6, 300, 128, 48, 3, 3, 64),
+        ("edge_k1", 6, 300, 128, 128, 1, 1, 64),
+        ("edge_k3", 6, 300, 128, 128, 3, 1, 64),
+        ("edge_k7", 6, 300, 128, 128, 7, 1, 64),
+        ("mma_C16", 6, 300, 16, 32, 3, 3, 64),
+    ]
+    for name, n, length, c_in, c_out, k, dil, hi in requant_cases:
+        x = torch.randint(-hi, hi, (n, length, c_in), generator=gen,
+                          dtype=i8).to(dev)
+        w = torch.randint(-8, 8, (k, c_in, c_out), generator=gen,
+                          dtype=i8).to(dev)
+        plan = int8_conv.int8_plan(c_in, c_out, k, dil, "same", i8)
         before = int8_conv.launches
         out = int8_conv.int8_conv_requant(x, w, scale, dilation=dil)
         torch.cuda.synchronize()
         check(int8_conv.launches == before + 1, f"{name}: kernel not launched")
         ref = int8_conv.reference_int8_conv_requant(x, w, scale, dilation=dil)
         diff = (out.int() - ref.int()).abs().max().item()
-        print(f"int8 requant {name} N={n}: max |diff| {diff} "
+        print(f"int8 requant {name} N={n} L={length} C={c_in}->{c_out} k={k} "
+              f"d={dil} [{_plan_tag(plan)}]: max |diff| {diff} "
               f"{'ok' if diff == 0 else 'FAIL'}")
-        check(out.dtype == torch.int8 and out.shape == x.shape and diff == 0,
+        check(out.dtype == i8 and out.shape == ref.shape and diff == 0,
               f"{name}: requant differs from the plain version by {diff}")
-        del out, ref
-    requant_x, requant_w = x, w
+        if name == "pallas_chip_shape":
+            requant_x, requant_w = x, w
+        del x, w, out, ref
 
-    # dequant: each extension, the demo shape, the flagship shape, dilation
+    # dequant: each extension, the demo shape, the flagship shape,
+    # dilation, then the wgmma kernel's edges in bf16 and f32 cases on the
+    # mma route
     # (name, n, length, c_in, c_out, k, dilation, padding, dtype, act, ext)
     cases = []
     for dt, act in ((f32, "gelu"), (bf16, "gelu_tanh")):
@@ -475,6 +554,57 @@ def phase_int8_kernel() -> dict:
          "bias"),
         ("dilation3_flagship_bf16", 6 * 64, 500, 128, 128, 5, 3, "same", bf16,
          "none", "bias"),
+        # the wgmma kernel's edges: 64-row tiles, the TMA halo, the s8
+        # chunk widths (C_in 32 / 64 / 128 / 256: 32-, 64- and 128-byte
+        # swizzles) and column blocks (CB < C_out), dilation in both
+        # paddings, every activation
+        ("edge_L1", 4, 1, 128, 128, 5, 1, "same", bf16, "gelu_tanh", "model"),
+        ("edge_L63", 3, 63, 128, 128, 5, 1, "same", bf16, "gelu_tanh",
+         "model"),
+        ("edge_L65", 3, 65, 128, 128, 5, 1, "same", bf16, "gelu_tanh",
+         "model"),
+        ("edge_N1", 1, 500, 128, 128, 5, 1, "same", bf16, "gelu_tanh",
+         "model"),
+        ("edge_C32_k3", 6, 300, 32, 32, 3, 1, "same", bf16, "gelu_tanh",
+         "all"),
+        ("edge_C64_k3", 6, 300, 64, 64, 3, 1, "same", bf16, "gelu_tanh",
+         "model"),
+        ("edge_C256_k5", 6, 300, 256, 256, 5, 1, "same", bf16, "gelu_tanh",
+         "model"),
+        ("edge_C64_to_128", 6, 300, 64, 128, 5, 1, "same", bf16, "gelu_tanh",
+         "all"),
+        ("edge_C128_to_64", 6, 300, 128, 64, 5, 1, "same", bf16, "gelu_tanh",
+         "all"),
+        ("edge_k1", 6, 300, 128, 128, 1, 1, "same", bf16, "gelu_tanh",
+         "model"),
+        ("edge_k3", 6, 300, 128, 128, 3, 1, "same", bf16, "gelu_tanh",
+         "model"),
+        ("edge_k7", 6, 300, 128, 128, 7, 1, "same", bf16, "gelu_tanh",
+         "model"),
+        ("edge_d3_same", 6, 300, 128, 128, 5, 3, "same", bf16, "gelu_tanh",
+         "model"),
+        ("edge_d3_valid", 6, 300, 128, 128, 5, 3, "valid", bf16, "gelu_tanh",
+         "all"),
+        ("edge_in_mask_runs", 6, 300, 128, 128, 5, 1, "same", bf16,
+         "gelu_tanh", "in_mask_runs"),
+        ("edge_in_mask_runs_d3", 6, 300, 64, 64, 5, 3, "same", bf16,
+         "gelu_tanh", "in_mask_runs"),
+        ("edge_out_mask_residual", 6, 300, 128, 128, 5, 1, "same", bf16,
+         "gelu_tanh", "out_mask_residual"),
+        ("edge_act_none", 6, 130, 128, 128, 3, 1, "same", bf16, "none",
+         "all"),
+        ("edge_act_tanh", 6, 130, 128, 128, 3, 1, "same", bf16, "tanh",
+         "all"),
+        ("edge_act_gelu_erf", 6, 130, 128, 128, 3, 1, "same", bf16, "gelu",
+         "all"),
+        ("edge_act_relu", 6, 130, 128, 128, 3, 1, "same", bf16, "relu",
+         "bias"),
+        ("mma_f32_L65", 3, 65, 128, 128, 5, 1, "same", f32, "gelu_tanh",
+         "model"),
+        ("mma_f32_d3_valid", 6, 300, 64, 64, 5, 3, "valid", f32, "gelu",
+         "all"),
+        ("mma_C16_bf16", 6, 300, 16, 32, 3, 1, "same", bf16, "gelu_tanh",
+         "model"),
     ]
     worst = 0.0
     for name, n, length, c_in, c_out, k, dil, pad, dt, act, ext in cases:
@@ -482,17 +612,9 @@ def phase_int8_kernel() -> dict:
             gen, n, length, c_in, c_out, k, dt, dev)
         l_out = int8_conv.conv_geometry(length, k, dil, pad)[0]
         kw = dict(bias=bias, dilation=dil, padding=pad, act=act)
-        if ext in ("bias_then_dyt", "out_mask", "residual", "all", "model"):
-            kw.update(dyt=dyt, use_dyt=True, bias_then_dyt=True)
-        if ext in ("in_mask", "all", "model"):
-            kw["in_mask"] = (torch.rand(n, length, generator=gen)
-                             > 0.2).to(dev)
-        if ext in ("out_mask", "all", "model"):
-            kw["out_mask"] = (torch.rand(n, l_out, generator=gen)
-                              > 0.2).to(dev)
-        if ext in ("residual", "all", "model"):
-            kw["residual"] = torch.randn(n, l_out, c_out,
-                                         generator=gen).to(dev, dt)
+        kw.update(_int8_ext_args(gen, ext, n, length, l_out, c_out, dt, dyt,
+                                 dev))
+        plan = int8_conv.int8_plan(c_in, c_out, k, dil, pad, dt)
         before = int8_conv.launches
         out = int8_conv.int8_conv_dequant(x, w, inv_act, dq, **kw)
         torch.cuda.synchronize()
@@ -504,10 +626,14 @@ def phase_int8_kernel() -> dict:
         tol = F32_TOL if dt == f32 else BF16_TOL
         bad = (err > tol + tol * ref.float().abs()).sum().item()
         max_err = err.max().item()
-        print(f"int8 dequant {name}: max_abs_err {max_err:.3e} (tol {tol}) "
+        print(f"int8 dequant {name} [{_plan_tag(plan)}]: max_abs_err "
+              f"{max_err:.3e} (tol {tol}) "
               f"{'ok' if bad == 0 and math.isfinite(max_err) else 'FAIL'}")
         check(bad == 0 and math.isfinite(max_err),
               f"{name}: {bad} elements beyond tolerance")
+        if "out_mask" in kw and "residual" not in kw:
+            check(bool((out[~kw["out_mask"]] == 0).all()),
+                  f"{name}: out_mask positions not zero")
         if name == "flagship_shape_bf16":
             worst = max_err
         del x, w, out, ref, err
@@ -515,13 +641,14 @@ def phase_int8_kernel() -> dict:
     times = {}
     # requant at the Pallas chip shape
     x, w = requant_x, requant_w
-    n = x.shape[0]
+    n, length, c = x.shape
+    k, dil = w.shape[0], 3
     shifted = shifted_copies(x, k, dil)       # made before timing
 
     def lib_requant():
         acc = library_int8_conv(shifted, w)
         return torch.clamp(torch.round(acc.float() * scale), -127,
-                           127).to(torch.int8)
+                           127).to(i8)
 
     check(torch.equal(lib_requant().view(x.shape),
                       int8_conv.int8_conv_requant(x, w, scale, dil)),
@@ -532,7 +659,8 @@ def phase_int8_kernel() -> dict:
     t_ops = ops / PEAK_INT8_OPS * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     times["requant"] = dict(
-        ms=cuda_ms(lambda: int8_conv.int8_conv_requant(x, w, scale, dil)),
+        ms=cuda_ms(lambda: int8_conv.int8_conv_requant(x, w, scale, dil),
+                   iters=20),
         plain_ms=cuda_ms(lambda: int8_conv.reference_int8_conv_requant(
             x, w, scale, dil), iters=2, warmup=1),
         library_ms=cuda_ms(lib_requant, iters=5),
@@ -540,51 +668,128 @@ def phase_int8_kernel() -> dict:
         bound_by="operations" if t_ops >= t_bytes else "bytes")
     del x, w, shifted, requant_x, requant_w
 
-    # dequant at the flagship shape, conv1 and conv2 forms, bf16
+    # dequant at the flagship shape, bf16: conv1 and conv2 forms, and the
+    # products with a bias add only (conv1 minus this is the cost of the
+    # DYT + gelu_tanh epilogue)
     n, length, c, k = 6 * 2048, 500, 128, 5
     x, w, inv_act, dq, bias, dyt = _int8_dequant_inputs(
         gen, n, length, c, c, k, bf16, dev)
     res = torch.randn(n, length, c, generator=gen).to(dev, bf16)
+    dyt_kw = dict(bias=bias, dyt=dyt, use_dyt=True, bias_then_dyt=True)
     forms = {
-        "conv1": dict(bias=bias, dyt=dyt, use_dyt=True, bias_then_dyt=True),
-        "conv2": dict(bias=bias, dyt=dyt, use_dyt=True, bias_then_dyt=True,
-                      residual=res),
+        "conv1": (dyt_kw, "gelu_tanh"),
+        "conv2": (dict(dyt_kw, residual=res), "gelu_tanh"),
+        "bias_only": (dict(bias=bias), "none"),
     }
 
-    def lib_dequant(kw):
-        q = int8_conv.quantize_activation(x, inv_act).to(torch.int8)
+    def lib_dequant(kw, act):
+        q = int8_conv.quantize_activation(x, inv_act).to(i8)
         acc = library_int8_conv(shifted_copies(q, k, 1), w)
         y = acc.view(n, length, -1).float() * dq + bias
-        y = torch.tanh(y * dyt[0]) * dyt[1] + dyt[2]
+        if "dyt" in kw:
+            y = torch.tanh(y * dyt[0]) * dyt[1] + dyt[2]
         if "residual" in kw:
             y = y + kw["residual"].float()
-        return torch.nn.functional.gelu(y, approximate="tanh").to(bf16)
+        if act == "gelu_tanh":
+            y = torch.nn.functional.gelu(y, approximate="tanh")
+        return y.to(bf16)
 
-    for form, kw in forms.items():
+    for form, (kw, act) in forms.items():
         ops = 2.0 * n * length * c * c * k
         nbytes = (2 * n * length * c * (3 if "residual" in kw else 2)
-                  + k * c * c + 4 * 6 * c + 4)
+                  + k * c * c + 4 * (6 if "dyt" in kw else 3) * c + 4)
         t_ops = ops / PEAK_INT8_OPS * 1e3
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         times[form] = dict(
             ms=cuda_ms(lambda: int8_conv.int8_conv_dequant(
-                x, w, inv_act, dq, act="gelu_tanh", **kw)),
+                x, w, inv_act, dq, act=act, **kw), iters=20),
             plain_ms=cuda_ms(lambda: int8_conv.reference_int8_conv_dequant(
-                x, w, inv_act, dq, act="gelu_tanh", **kw), iters=2, warmup=1),
-            library_ms=cuda_ms(lambda: lib_dequant(kw), iters=3, warmup=1),
+                x, w, inv_act, dq, act=act, **kw), iters=2, warmup=1),
+            library_ms=cuda_ms(lambda: lib_dequant(kw, act), iters=3,
+                               warmup=1),
             bound_ms=max(t_ops, t_bytes),
             bound_by="operations" if t_ops >= t_bytes else "bytes")
     int8_conv.launches = launches_before  # timing launches are not the path
     for form, shape in (("requant", "N=12288 L=500 C=128 k=5 d=3 int8"),
                         ("conv1", "N=12288 L=500 C=128 k=5 bf16"),
-                        ("conv2", "N=12288 L=500 C=128 k=5 bf16 +residual")):
+                        ("conv2", "N=12288 L=500 C=128 k=5 bf16 +residual"),
+                        ("bias_only", "N=12288 L=500 C=128 k=5 bf16 bias")):
         t = times[form]
-        print(f"timing int8 {form} {shape}: kernel {t['ms']:.3f} ms, plain "
-              f"{t['plain_ms']:.3f} ms, library {t['library_ms']:.3f} ms, "
-              f"bound {t['bound_ms']:.3f} ms ({t['bound_by']}), "
+        t["bound_share"] = t["bound_ms"] / t["ms"]
+        print(f"timing int8 {form} {shape} on {card}: kernel {t['ms']:.3f} "
+              f"ms, plain {t['plain_ms']:.3f} ms, library "
+              f"{t['library_ms']:.3f} ms, bound {t['bound_ms']:.3f} ms "
+              f"({t['bound_by']}), {t['bound_share']:.1%} of the bound, "
               f"{2.0 * 12288 * 500 * 128 * 128 * 5 / t['ms'] / 1e9:.1f} TOP/s")
     return {"max_abs_err": worst, **times["conv1"],
-            "conv2": times["conv2"], "requant": times["requant"]}
+            "conv2": times["conv2"], "bias_only": times["bias_only"],
+            "requant": times["requant"]}
+
+
+def phase_int8_sweep(card: str) -> None:
+    """``--sweep``: int8_conv's wgmma route under other launch plans
+    (ring stages, column block) at the flagship dequant shape (bias-only
+    and conv1 forms) and the Pallas requant shape, and with fewer taps
+    (k = 1, 3: the same bytes, 1/5 and 3/5 of the products)."""
+    import torch
+
+    from jaeger_tpu_torch.ops import int8_conv
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(98)
+    bf16, i8 = torch.bfloat16, torch.int8
+    n, length, c = 6 * 2048, 500, 128
+    launches_before = int8_conv.launches
+    for k in (5, 3, 1):
+        x, w, inv_act, dq, bias, dyt = _int8_dequant_inputs(
+            gen, n, length, c, c, k, bf16, dev)
+        inv_act = inv_act.reshape(1)
+        out = torch.empty_like(x)
+        base = int8_conv.int8_plan(c, c, k, 1, "same", bf16)
+        plans = [base]
+        if k == 5:
+            plans += [dict(base, cb=cb, stages=st,
+                           smem=int8_conv.wgmma_plan_bytes(
+                               c, k, 1, cb, base["kw"], st, bf16))
+                      for cb, st in ((128, 2), (128, 3), (128, 5), (64, 4),
+                                     (32, 4))]
+        for plan in plans:
+            if plan["smem"] > int8_conv.SMEM_LIMIT:
+                continue
+            for form, args in (("bias_only", (bias, None, "none")),
+                               ("conv1", (bias, dyt, "gelu_tanh"))):
+                b, d, act = args
+                ms = cuda_ms(lambda: int8_conv._launch(
+                    x, w, dq, inv_act, b, d, None, None, None, out, 1,
+                    (k - 1) // 2, act, plan), iters=20)
+                bound = 2.0 * n * length * c * c * k / PEAK_INT8_OPS * 1e3
+                print(f"sweep int8 dequant k={k} [{_plan_tag(plan)}] {form} "
+                      f"on {card}: {ms:.3f} ms (products at the int8 peak "
+                      f"{bound:.3f} ms)")
+        del x, w, out
+    x = torch.randint(-64, 64, (n, length, c), generator=gen, dtype=i8).to(dev)
+    scale = torch.full((1,), 1.0 / 64.0, device=dev)
+    out = torch.empty_like(x)
+    for k, dil in ((5, 3), (5, 1), (3, 1), (1, 1)):
+        w = torch.randint(-8, 8, (k, c, c), generator=gen, dtype=i8).to(dev)
+        base = int8_conv.int8_plan(c, c, k, dil, "same", i8)
+        plans = [(base["cb"], base["stages"])]
+        if (k, dil) == (5, 3):
+            plans += [(128, 2), (128, 6), (64, 4)]
+        for cb, st in plans:
+            plan = dict(base, cb=cb, stages=st,
+                        smem=int8_conv.wgmma_plan_bytes(
+                            c, k, dil, cb, base["kw"], st, i8))
+            if plan["smem"] > int8_conv.SMEM_LIMIT:
+                continue
+            ms = cuda_ms(lambda: int8_conv._launch(
+                x, w, scale, None, None, None, None, None, None, out, dil,
+                dil * (k - 1) // 2, "none", plan), iters=20)
+            bound = 2.0 * n * length * c * c * k / PEAK_INT8_OPS * 1e3
+            print(f"sweep int8 requant k={k} d={dil} [{_plan_tag(plan)}] on "
+                  f"{card}: {ms:.3f} ms (products at the int8 peak "
+                  f"{bound:.3f} ms)")
+    int8_conv.launches = launches_before
 
 
 # --- phase 4 ---------------------------------------------------------------
@@ -943,9 +1148,10 @@ def main(argv: list[str]) -> int:
         card = phase_device()
         phase_build()
         kern = phase_kernel(card)
+        kern8 = phase_int8_kernel(card)
         if "--sweep" in argv:
             phase_sweep(card)
-        kern8 = phase_int8_kernel()
+            phase_int8_sweep(card)
         if quick:
             print(f"quick run done in {time.perf_counter() - t_start:.0f} s")
             return 0
@@ -964,6 +1170,7 @@ def main(argv: list[str]) -> int:
                       "fused_conv_conv2_form": kern["conv2"],
                       "fused_conv_bias_only_form": kern["bias_only"],
                       "int8_conv_conv2_form": kern8["conv2"],
+                      "int8_conv_bias_only_form": kern8["bias_only"],
                       "int8_conv_requant_pallas_shape": kern8["requant"]}))
     print(f"all phases passed in {time.perf_counter() - t_start:.0f} s")
     print(card)

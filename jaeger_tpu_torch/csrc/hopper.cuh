@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: mbarriers,
-// TMA tensor maps and loads, wgmma descriptors and instructions, ldmatrix.
+// TMA tensor maps and loads, wgmma descriptors and
+// instructions (bf16 and s8, A from registers), ldmatrix.
 //
 // Header only; each helper is a thin wrapper around one PTX instruction
 // (or, on the host, one driver call), so a kernel reads as the sequence of
@@ -132,6 +133,7 @@ __device__ __forceinline__ void bulk_wait_read() {
 // the TMA swizzle of a byte offset inside a 1024-byte aligned region whose
 // rows are `row_bytes` = 32, 64 or 128 wide (CU_TENSOR_MAP_SWIZZLE_32B /
 // 64B / 128B): the 16-byte chunk index is XORed with bits 7.. of the offset
+// (16-byte rows: unchanged)
 __device__ __forceinline__ uint32_t swizzle(uint32_t off, uint32_t row_bytes) {
   const uint32_t mask = row_bytes / 16 - 1;
   return off ^ (((off >> 7) & mask) << 4);
@@ -162,28 +164,46 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
+// rows of 16 bytes are one 16-byte unit: nothing to swizzle
 inline CUtensorMapSwizzle swizzle_mode(int row_bytes) {
-  return row_bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+  return row_bytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
          : row_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
-                           : CU_TENSOR_MAP_SWIZZLE_32B;
+         : row_bytes == 32 ? CU_TENSOR_MAP_SWIZZLE_32B
+                           : CU_TENSOR_MAP_SWIZZLE_NONE;
 }
 
-// A bf16 (d2, d1, d0) row-major tensor (d0 contiguous) cut into boxes of
-// (1, box1, box0) elements, box0 * 2 bytes wide and swizzled to that width.
+// A (d2, d1, d0) row-major tensor (d0 contiguous) of `type` elements of
+// `esize` bytes cut into boxes of (1, box1, box0) elements, box0 * esize
+// bytes wide and swizzled to that width (16, 32, 64 or 128 bytes).
 // Elements outside the tensor load as zeros. Returns false on failure.
-inline bool encode_bf16_3d(CUtensorMap* map, const void* base, uint64_t d0,
-                           uint64_t d1, uint64_t d2, uint32_t box0,
-                           uint32_t box1) {
+inline bool encode_3d(CUtensorMap* map, CUtensorMapDataType type,
+                      uint32_t esize, const void* base, uint64_t d0,
+                      uint64_t d1, uint64_t d2, uint32_t box0, uint32_t box1) {
   EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return false;
   const cuuint64_t dims[3] = {d0, d1, d2};
-  const cuuint64_t strides[2] = {d0 * 2, d0 * d1 * 2};  // bytes, dims 1 and 2
+  const cuuint64_t strides[2] = {d0 * esize, d0 * d1 * esize};  // bytes
   const cuuint32_t box[3] = {box0, box1, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
-            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            swizzle_mode((int)box0 * 2), CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+  return fn(map, type, 3, const_cast<void*>(base), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle_mode((int)(box0 * esize)),
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+inline bool encode_bf16_3d(CUtensorMap* map, const void* base, uint64_t d0,
+                           uint64_t d1, uint64_t d2, uint32_t box0,
+                           uint32_t box1) {
+  return encode_3d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, d0, d1, d2,
+                   box0, box1);
+}
+
+// int8 data: TMA moves bytes, and its zero fill is the int8 zero
+inline bool encode_s8_3d(CUtensorMap* map, const void* base, uint64_t d0,
+                         uint64_t d1, uint64_t d2, uint32_t box0,
+                         uint32_t box1) {
+  return encode_3d(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, base, d0, d1, d2,
+                   box0, box1);
 }
 
 // ---------------------------------------------------------------------------
@@ -228,6 +248,23 @@ template <int R>
 __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int R>
+__device__ __forceinline__ void fence_regs(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// the same for register A fragments: keeps them live, so that the register
+// allocator does not reuse them, until the wgmma_wait that retires their
+// readers (else ptxas serializes every wgmma, warning C7513)
+template <int S>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[S][4]) {
+#pragma unroll
+  for (int t = 0; t < S; ++t)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[t][i])::"memory");
 }
 
 // d (64 x N, f32) (+)= a (64 x 16 bf16, registers: the mma.sync m16n8k16
@@ -314,6 +351,95 @@ __device__ __forceinline__ void wgmma_bf16_rs(float (&d)[64],
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(scale_d),
+        "l"(desc));
+}
+
+// d (64 x N, s32) (+)= a (64 x 32 s8, registers: the mma.sync m16n8k32 A
+// fragment of each warp's 16 rows, which a b16 ldmatrix_x4 of 32-byte row
+// slices gives as it is) * b (32 x N s8, K-major descriptor; 8-bit types
+// have no transpose); scale_d = 0 overwrites d. N = 2 * R.
+__device__ __forceinline__ void wgmma_s8_rs(int (&d)[8],
+                                            const uint32_t (&a)[4],
+                                            uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %12, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %13, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(scale_d),
+        "l"(desc));
+}
+
+__device__ __forceinline__ void wgmma_s8_rs(int (&d)[16],
+                                            const uint32_t (&a)[4],
+                                            uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %20, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %21, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(scale_d),
+        "l"(desc));
+}
+
+__device__ __forceinline__ void wgmma_s8_rs(int (&d)[32],
+                                            const uint32_t (&a)[4],
+                                            uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %36, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %37, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(scale_d),
+        "l"(desc));
+}
+
+__device__ __forceinline__ void wgmma_s8_rs(int (&d)[64],
+                                            const uint32_t (&a)[4],
+                                            uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %68, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %69, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
+        "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(scale_d),
         "l"(desc));
 }

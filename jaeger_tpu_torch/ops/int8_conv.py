@@ -29,10 +29,18 @@ On the H100: at the Pallas chip shape (N = 12288, L = 500, C = 128, k = 5)
 the requant form is 1.007e12 int8 operations (0.51 ms at the 1,979 TOP/s
 peak) against 1.57 GB of int8 in and out (0.47 ms at 3.35 TB/s), so the
 tensor cores bound it. The dequant form moves bf16 (3.15 GB, 0.94 ms;
-1.41 ms with a residual) and is bound by bytes. The kernel stages the
-input tile plus its halo (quantized on the way in) and the taps of w in
-shared memory and runs ``mma.sync`` s8 x s8 -> s32 on the tensor cores;
-wgmma, TMA and a persistent schedule are later work.
+1.41 ms with a residual) and is bound by bytes. :func:`int8_plan` picks
+one of two routes before any launch. ``"wgmma"`` (the int8 and bf16
+forms, C_in % 32 == 0) is a persistent kernel, about one CTA per SM, that
+keeps its column block of the s8 weights resident in shared memory,
+loads x tiles with their halo by TMA into an mbarrier ring fed by one
+producer thread, has three more warps quantize each bf16 tile once into
+an s8 tile, runs the k shifted products as s8 ``wgmma`` (A from
+registers, B from the resident weights) and applies the epilogue from the
+accumulators while a second warpgroup runs the next tile's products; the
+residual tile arrives by TMA. ``"mma"`` (f32 inputs, C_in % 32 == 16, or
+a shape whose weights and ring do not fit) is the first, simple
+``mma.sync`` kernel. A route that fails raises; the other is never tried.
 
 CPU tensors take the plain versions :func:`reference_int8_conv_requant`
 and :func:`reference_int8_conv_dequant`, which sum the integer products
@@ -48,7 +56,8 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from jaeger_tpu_torch.ops.fused_conv import (_ACT_IDS, _activation, _check,
+from jaeger_tpu_torch.ops.fused_conv import (_ACT_IDS, SMEM_LIMIT,
+                                             _activation, _check,
                                              _epilogue_args)
 
 #: kernel launches since the last reset (set to 0 to reset)
@@ -137,6 +146,109 @@ def reference_int8_conv_dequant(x, w, inv_act, dq, bias=None, dyt=None,
     return _activation(y, act).to(x.dtype)
 
 
+#: output rows per tile of the wgmma route (one wgmma M), and the s8
+#: tiles between its quantizer warps and its consumer warpgroups
+_TL = 64
+_QSLOTS = 3
+#: the mma route: output rows per CTA, shared-memory row padding, and the
+#: budget that leaves room for two CTAs per SM
+_MMA_TL = 128
+_MMA_PAD = 16
+_MMA_TARGET = 112 * 1024
+
+_ESIZE = {torch.int8: 1, torch.bfloat16: 2, torch.float32: 4}
+
+
+def _align(v: int, a: int = 1024) -> int:
+    return -(-v // a) * a
+
+
+def int8_plan(c_in: int, c_out: int, k: int, dilation: int = 1,
+              padding: str = "same", dtype=torch.bfloat16) -> dict:
+    """The kernel's launch plan, or ValueError.
+
+    ``dtype`` is x's: int8 (the requant form), bf16 or f32 (the dequant
+    form). ``route`` ``"wgmma"`` takes int8 and bf16 with C_in % 32 == 0
+    and a TMA box of ``64 + d(k-1)`` <= 256 rows: ``kw`` bytes of C_in per
+    weight / s8 chunk (128, 64 or 32: the swizzle width), ``cb`` output
+    channels per CTA (the largest of 128, 64, 32, 16 that divides C_out
+    and leaves room for at least 2 ring ``stages`` beside the resident
+    ``k * C_in * cb`` weights), ``stages`` (2-4) and ``smem`` bytes
+    (:func:`wgmma_plan_bytes`). Every other shape takes ``route`` ``"mma"``
+    (``kw`` and ``stages`` 0, ``smem`` :func:`mma_plan_bytes`). The C
+    entry recomputes ``smem`` and refuses a plan that disagrees.
+    """
+    if c_in <= 0 or c_out <= 0 or c_in % 16 or c_out % 16:
+        raise ValueError(f"C_in={c_in}, C_out={c_out}: the kernel takes "
+                         f"multiples of 16")
+    if k < 1 or dilation < 1:
+        raise ValueError(f"k={k}, dilation={dilation}: both must be >= 1")
+    if padding.upper() not in ("SAME", "VALID"):
+        raise ValueError(f"unsupported padding {padding!r}")
+    if dtype not in _ESIZE:
+        raise ValueError(f"unsupported dtype {dtype}")
+    if (dtype != torch.float32 and c_in % 32 == 0
+            and _TL + dilation * (k - 1) <= 256):
+        kw = 128 if c_in % 128 == 0 else 64 if c_in % 64 == 0 else 32
+        for cb in (128, 64, 32, 16):
+            if c_out % cb:
+                continue
+            for stages in (4, 3, 2):
+                smem = wgmma_plan_bytes(c_in, k, dilation, cb, kw, stages,
+                                        dtype)
+                if smem <= SMEM_LIMIT:
+                    return dict(route="wgmma", cb=cb, kw=kw, stages=stages,
+                                smem=smem)
+    cb = next(cb for cb in (128, 64, 32, 16) if c_out % cb == 0)
+    return dict(route="mma", cb=cb, kw=0, stages=0,
+                smem=mma_plan_bytes(c_in, k, dilation, cb))
+
+
+def wgmma_plan_bytes(c_in: int, k: int, dilation: int, cb: int, kw: int,
+                     stages: int, dtype) -> int:
+    """Shared memory of the wgmma route's layout: the resident weights
+    (``k * C_in * cb`` bytes), the ring of x stages (chunks of ``64 +
+    d(k-1)`` rows by ``kw`` int8 or ``min(kw, 64)`` bf16 channels, each
+    1 KB aligned), the dequant form's three s8 tiles (``kw``-byte chunks)
+    and its mbarriers, two output buffers of 64 rows x ``cb`` elements,
+    5 x ``cb`` f32 parameters, the ring's 2 x ``stages`` mbarriers and
+    1 KB of alignment slack."""
+    esize = _ESIZE[dtype]
+    rows = _TL + dilation * (k - 1)
+    xw = kw if esize == 1 else min(kw, 64)
+    stage = c_in // xw * _align(rows * xw * esize)
+    # the dequant form's s8 tiles, their full / empty mbarriers and one
+    # residual mbarrier per consumer warpgroup
+    a_tiles = 0 if esize == 1 else (_QSLOTS * ((c_in // kw)
+                                               * _align(rows * kw) + 16)
+                                    + 16)
+    return (_align(k * c_in * cb) + stages * stage + a_tiles
+            + 2 * _TL * cb * esize + 20 * cb + 16 * stages + 1024)
+
+
+def mma_plan_bytes(c_in: int, k: int, dilation: int, cb: int) -> int:
+    """Shared memory of the mma route: the tile of 128 + d(k-1) rows of
+    C_in + 16 bytes and as many weight taps of ``cb`` such rows as fit (in
+    112 KB when one tap fits there, for two CTAs per SM), or ValueError."""
+    ld = c_in + _MMA_PAD
+    xs = _align((_MMA_TL + dilation * (k - 1)) * ld, 16)
+    tap = cb * ld
+    if xs + tap > SMEM_LIMIT:
+        raise ValueError(f"C_in={c_in}, k={k}, dilation={dilation}: the "
+                         f"input tile and one weight tap need {xs + tap} B "
+                         f"of shared memory, over {SMEM_LIMIT}")
+    budget = _MMA_TARGET if xs + tap <= _MMA_TARGET else SMEM_LIMIT
+    return xs + min((budget - xs) // tap, k) * tap
+
+
+#: the C entry's arguments: in_dtype, 10 pointers, n_rows, L, L_out, C_in,
+#: C_out, k, dilation, pad_l, act, route, cb, kw, stages, smem bytes, SM
+#: count, stream
+ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 15
+            + [ctypes.c_void_p])
+_ROUTES = {"mma": 0, "wgmma": 1}
+
+
 @functools.cache
 def _lib():
     from jaeger_tpu_torch.ops import cuda_build
@@ -146,13 +258,14 @@ def _lib():
     # every pointer and the stream as c_void_p: ctypes would pass a
     # Python int as a 32-bit C int
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 10
-                   + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+    fn.argtypes = ARGTYPES
     return fn
 
 
 def _launch(x, w, scale, inv_act, bias, dyt, in_mask, out_mask, residual,
-            out, dilation, pad_l, act):
+            out, dilation, pad_l, act, plan):
+    """Launch the kernel on checked, contiguous CUDA tensors with ``plan``
+    (:func:`int8_plan`'s dict)."""
     global launches
 
     def ptr(t):
@@ -162,10 +275,13 @@ def _launch(x, w, scale, inv_act, bias, dyt, in_mask, out_mask, residual,
     k, _, c_out = w.shape
     dtype_id = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}[x.dtype]
     stream = torch.cuda.current_stream(x.device).cuda_stream
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     err = _lib()(dtype_id, ptr(x), ptr(w), ptr(scale), ptr(inv_act),
                  ptr(bias), ptr(dyt), ptr(in_mask), ptr(out_mask),
                  ptr(residual), ptr(out), n, length, out.shape[1], c_in,
-                 c_out, k, dilation, pad_l, _ACT_IDS[act], stream)
+                 c_out, k, dilation, pad_l, _ACT_IDS[act],
+                 _ROUTES[plan["route"]], plan["cb"], plan["kw"],
+                 plan["stages"], plan["smem"], sms, stream)
     if err != 0:
         raise RuntimeError(f"int8_conv kernel launch failed: CUDA error {err}")
     launches += 1
@@ -200,11 +316,13 @@ def int8_conv_requant(x, w, scale, dilation: int = 1):
     if x.device.type == "cpu":
         return reference_int8_conv_requant(x, w, scale, dilation)
     x, w = _check_conv("int8_conv_requant", x, w, (torch.int8,))
-    l_out, pad_l, _ = conv_geometry(x.shape[1], w.shape[0], dilation, "SAME")
-    out = torch.empty(x.shape[0], l_out, w.shape[2], dtype=torch.int8,
+    k, c_in, c_out = w.shape
+    plan = int8_plan(c_in, c_out, k, dilation, "same", torch.int8)
+    l_out, pad_l, _ = conv_geometry(x.shape[1], k, dilation, "SAME")
+    out = torch.empty(x.shape[0], l_out, c_out, dtype=torch.int8,
                       device=x.device)
     return _launch(x, w, _f32(scale, x.device, "scale"), None, None, None,
-                   None, None, None, out, dilation, pad_l, "none")
+                   None, None, None, out, dilation, pad_l, "none", plan)
 
 
 def int8_conv_dequant(x, w, inv_act, dq, bias=None, dyt=None, act="none",
@@ -229,8 +347,9 @@ def int8_conv_dequant(x, w, inv_act, dq, bias=None, dyt=None, act="none",
     if act not in _ACT_IDS:
         raise ValueError(f"unsupported activation {act!r}")
     bias, dyt = _epilogue_args(bias, dyt, use_dyt, bias_then_dyt)
-    n, length, _ = x.shape
+    n, length, c_in = x.shape
     k, _, c_out = w.shape
+    plan = int8_plan(c_in, c_out, k, dilation, padding, x.dtype)
     l_out, pad_l, _ = conv_geometry(length, k, dilation, padding)
     dev = x.device
     f32 = torch.float32
@@ -242,4 +361,5 @@ def int8_conv_dequant(x, w, inv_act, dq, bias=None, dyt=None, act="none",
     residual = _check("residual", residual, (n, l_out, c_out), x.dtype, dev)
     out = torch.empty(n, l_out, c_out, dtype=x.dtype, device=dev)
     return _launch(x, w, dq, _f32(inv_act, dev, "inv_act"), bias, dyt,
-                   in_mask, out_mask, residual, out, dilation, pad_l, act)
+                   in_mask, out_mask, residual, out, dilation, pad_l, act,
+                   plan)

@@ -235,14 +235,126 @@ def test_wrapper_rejects_unaligned_channels():
 
 def test_kernel_source_declares_its_interface():
     """The CUDA source is only compiled on the card; pin the C entry
-    point, the arguments the ctypes binding passes and the s8 MMA."""
-    src = (ROOT / "jaeger_tpu_torch" / "csrc" / "int8_conv.cu").read_text()
+    point, the arguments the ctypes binding passes and the Hopper
+    instructions both routes are built from."""
+    csrc = ROOT / "jaeger_tpu_torch" / "csrc"
+    src = (csrc / "int8_conv.cu").read_text()
+    hopper = (csrc / "hopper.cuh").read_text()
     assert 'extern "C" int jt_int8_conv(' in src
     sig = src[src.index("jt_int8_conv("):]
     sig = sig[: sig.index(")")]
-    assert sig.count(",") + 1 == 21     # 1 + 10 pointers + 9 ints + stream
+    # 1 + 10 pointers + 15 ints + stream
+    assert sig.count(",") + 1 == len(int8_conv.ARGTYPES) == 27
+    assert '#include "hopper.cuh"' in src
+    assert "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8" in hopper
+    for instr in ("wgmma_s8_rs", "tma_load_3d", "tma_store_3d",
+                  "encode_s8_3d", "mbar_wait", "ldmatrix_x4",
+                  "named_bar_sync"):
+        assert instr in src, instr
+    assert "cp.async.bulk.tensor" in hopper
     assert "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32" in src
     assert "experiments/pallas_int8_conv.py" in src
+
+
+def test_fp32_pipe_rounding_matches_rint():
+    """The wgmma route quantizes on the FP32 pipe
+    (``csrc/int8_conv.cu::quant8x4``): clip ``x * inv_act`` to [-127, 127],
+    add 1.5 * 2**23 (whose own rounding is half to even) and keep the low
+    byte. The same float32 steps give the plain version's int8 values,
+    halves, out-of-range values and infinities included, and -127 for NaN,
+    as ``clip127(__float2int_rn(NaN))`` on the mma route."""
+    rng = np.random.default_rng(7)
+    v = np.concatenate([rng.normal(scale=90.0, size=200_000),
+                        np.arange(-130.0, 130.5, 0.5),
+                        [np.inf, -np.inf, 1e30, -1e30, -0.0]]).astype(np.float32)
+    for inv in (np.float32(1.0), np.float32(1.0 / 0.37)):
+        y = np.fmin(np.fmax(v * inv, np.float32(-127)), np.float32(127))
+        got = ((y + np.float32(12582912.0)).view(np.int32) & 0xFF).astype(
+            np.uint8).view(np.int8)
+        want = int8_conv.quantize_activation(torch.from_numpy(v),
+                                             float(inv)).to(torch.int8)
+        np.testing.assert_array_equal(got, want.numpy())
+    nan = np.fmin(np.fmax(np.float32(np.nan), np.float32(-127)),
+                  np.float32(127))
+    assert (np.float32(nan + np.float32(12582912.0)).view(np.int32)
+            & 0xFF) == 0x81                  # -127
+
+
+# (c_in, c_out, k, dilation, padding, dtype, route): the flagship, the demo,
+# the Pallas shape, C 256, VALID with C_in != C_out, C_in 16, f32
+PLAN_SHAPES = [
+    (128, 128, 5, 1, "same", torch.bfloat16, "wgmma"),
+    (32, 32, 3, 1, "same", torch.bfloat16, "wgmma"),
+    (128, 128, 5, 3, "same", torch.int8, "wgmma"),
+    (256, 256, 5, 1, "same", torch.bfloat16, "wgmma"),
+    (256, 256, 5, 1, "same", torch.int8, "wgmma"),
+    (32, 48, 5, 3, "valid", torch.bfloat16, "wgmma"),
+    (16, 32, 3, 3, "same", torch.float32, "mma"),
+    (16, 32, 3, 3, "same", torch.bfloat16, "mma"),
+    (128, 128, 5, 1, "same", torch.float32, "mma"),
+]
+
+
+@pytest.mark.parametrize("c_in,c_out,k,dil,pad,dtype,route", PLAN_SHAPES)
+def test_int8_plan_fits(c_in, c_out, k, dil, pad, dtype, route):
+    plan = int8_conv.int8_plan(c_in, c_out, k, dil, pad, dtype)
+    assert plan["route"] == route
+    assert c_out % plan["cb"] == 0 and plan["cb"] in (16, 32, 64, 128)
+    assert plan["smem"] <= 232448
+    if route == "wgmma":
+        assert c_in % plan["kw"] == 0 and plan["kw"] in (32, 64, 128)
+        assert 2 <= plan["stages"] <= 4
+        assert plan["smem"] == int8_conv.wgmma_plan_bytes(
+            c_in, k, dil, plan["cb"], plan["kw"], plan["stages"], dtype)
+        # the resident weights of one column block are part of the budget
+        assert plan["smem"] > k * c_in * plan["cb"]
+    else:
+        assert plan["kw"] == plan["stages"] == 0
+        assert plan["smem"] == int8_conv.mma_plan_bytes(c_in, k, dil,
+                                                        plan["cb"])
+
+
+def test_int8_plan_main_path_shapes():
+    """The flagship's dequant convs keep every weight of all 128 output
+    channels resident beside a 4-stage ring; so does the Pallas shape."""
+    assert int8_conv.int8_plan(128, 128, 5, 1, "same", torch.bfloat16) == \
+        dict(route="wgmma", cb=128, kw=128, stages=4, smem=219776)
+    assert int8_conv.int8_plan(128, 128, 5, 3, "same", torch.int8) == \
+        dict(route="wgmma", cb=128, kw=128, stages=4, smem=142912)
+    # bytes by hand: weights 81,920; ring 4 x 2 x 9,216; s8 tiles
+    # 3 x 9,216; output buffers 2 x 16,384; parameters 2,560; mbarriers
+    # 64 + 48 + 16; slack 1,024
+    assert (81920 + 4 * 18432 + 3 * 9216 + 32768 + 2560 + 64 + 48 + 16
+            + 1024) == 219776
+    # the requant form: 76-row s8 stages of 10,240 B, no s8 tiles, s8
+    # output buffers of 8,192 B
+    assert (81920 + 4 * 10240 + 2 * 8192 + 2560 + 64 + 1024) == 142912
+
+
+@pytest.mark.parametrize("args", [
+    (24, 32, 3, 1, "same", torch.bfloat16),     # C_in % 16
+    (32, 40, 3, 1, "same", torch.bfloat16),     # C_out % 16
+    (4096, 128, 5, 1, "same", torch.float32),   # mma: tile + one tap
+    (128, 128, 5, 1, "causal", torch.bfloat16),
+    (128, 128, 5, 1, "same", torch.float16),
+    (128, 128, 0, 1, "same", torch.bfloat16),
+])
+def test_int8_plan_refuses_what_cannot_fit(args):
+    with pytest.raises(ValueError):
+        int8_conv.int8_plan(*args)
+
+
+def test_int8_plan_long_box_takes_mma_route():
+    """A TMA box of 64 + d(k-1) rows is at most 256, and the ring must fit
+    beside the weights: beyond either the plan names the mma route before
+    any launch."""
+    plan = int8_conv.int8_plan(128, 128, 5, 48, "same", torch.int8)
+    assert plan["route"] == "wgmma"
+    plan = int8_conv.int8_plan(128, 128, 5, 49, "same", torch.int8)
+    assert plan["route"] == "mma"
+    # in bf16 the 256-row stages and s8 tiles do not fit beside the weights
+    plan = int8_conv.int8_plan(128, 128, 5, 48, "same", torch.bfloat16)
+    assert plan["route"] == "mma"
 
 
 # --- (c) the layers ------------------------------------------------------------
