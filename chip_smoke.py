@@ -4,7 +4,7 @@
 Run from the root of a checkout on a machine with CUDA:
 
     python3 chip_smoke.py            # every phase; exits 0 when all pass
-    python3 chip_smoke.py --quick    # phases 1-3 only (build, kernel checks)
+    python3 chip_smoke.py --quick    # phases 1-3b only (build, kernel checks)
     python3 chip_smoke.py --profile  # also: device time by kernel (torch
                                      # profiler) of each flagship forward
     python3 chip_smoke.py --sweep    # also: both kernels under other
@@ -13,9 +13,10 @@ Run from the root of a checkout on a machine with CUDA:
 Phases, each of which fails the run:
 
 1. device: torch version, the card's name and power limit (nvidia-smi);
-2. build: nvcc builds csrc/fused_conv_block.cu and csrc/int8_conv.cu for
-   sm_90a, one nvcc per source, started together; ptxas' registers, stack
-   and spills of each instance of the two wgmma kernels;
+2. build: nvcc builds csrc/fused_conv_block.cu, csrc/int8_conv.cu and
+   csrc/fused_conv_wgrad.cu for sm_90a, one nvcc per source, started
+   together; ptxas' registers, stack and spills of each instance of the
+   two wgmma kernels and of wgrad_bf16;
 3. each kernel against its plain version on the card. fused_conv_block:
    the Pallas kernel's test cases, each extension, the demo and flagship
    shapes, and the bf16 kernel's edges (L = 1, 63, 65; N = 1; C = 16, 64,
@@ -37,6 +38,13 @@ Phases, each of which fails the run:
    times of the requant form at the Pallas shape and of the dequant form
    at the flagship shape (conv1, conv2 and bias-only forms). All times
    with CUDA events, each with its bound;
+3b. the fused conv's backward: conv_wgrad (same bits run to run),
+   conv_epilogue_bwd and the flipped-weight data gradient against their
+   plain versions at the train shape (N = 1536, L = 500, C = 128, k = 5)
+   in bf16 and at small shapes in f32 and bf16, every form; bf16 outputs
+   within 2 ulps + 1e-4 of the scale, f32 within 2e-4 (conv_wgrad 1e-3 in
+   bf16); FusedConvBlockFn's whole backward at the train shape within 2
+   ulps + 5e-3 of the scale; kernel, plain, library and bound times;
 4. the flagship (128 channels, 1505 nt crop, 6 classes; seeded weights,
    bf16) through the port's InferenceEngine at batch 2048, on windows
    that select the dense, the bounded-cut and the split (dense + masked
@@ -51,7 +59,16 @@ Phases, each of which fails the run:
    then ``predict --int8`` and ``--int8 auto`` with the flagship's int8
    bundle and with a demo int8 bundle made by ``utils quantize`` (kernel
    launch counts reset just before each, read just after); the TSV rows
-   are checked, the demo's against a CPU float32 run (float and int8).
+   are checked, the demo's against a CPU float32 run (float and int8);
+6. training: one f32 step of a narrow flagship template on the card
+   against the CPU in each program (dense, bounded, masked);
+   ``train_fragment_core`` with the flagship template at full width
+   (batch 256, bf16) on synthetic CSVs from a seed, 30 classifier and 4
+   reliability steps through all three programs (launch counts reset just
+   before, read just after; losses finite and falling; 18 / 6 / 6
+   launches per dense step); each program's steady-state step time and
+   device time; then ``predict`` and ``predict --int8`` on the bundle and
+   the int8 bundle it wrote.
 
 The second-to-last line is the kernels JSON, the last ``{"ok": true, ...}``.
 The script imports nothing of JAX or of jaeger_tpu.
@@ -75,6 +92,16 @@ FASTA = ROOT / "jaeger_tpu" / "data" / "test" / "test_contigs.fasta"
 
 F32_TOL = 2e-4
 BF16_TOL = 5e-2
+#: the backward kernels in bf16 against their plain versions on the same
+#: inputs, as (tol of the scale, bf16 ulps): both sum in f32 and round once,
+#: so a bf16 output may land one ulp apart (2 allowed); the 1e-4 floor
+#: covers f32 noise where the value is near zero (1 - t^2 at a saturated
+#: tanh, act'(s) near its zero), and it bounds the f32 sums (dW, db, ddyt)
+BF16_KERNEL_TOL = (1e-4, 2)
+#: the whole backward: where the kernel's and the plain version's tanh
+#: round du to neighbouring bf16 values, dW, db and dx move by x * ulp(du)
+#: and w * ulp(du); 5e-3 of the scale holds that
+BF16_BACKWARD_TOL = (5e-3, 2)
 #: the H100 SXM's dense bf16 tensor-core peak and HBM rate
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
@@ -127,7 +154,7 @@ def phase_device() -> str:
 
 # --- phase 2 ---------------------------------------------------------------
 
-KERNEL_SOURCES = ("fused_conv_block", "int8_conv")
+KERNEL_SOURCES = ("fused_conv_block", "int8_conv", "fused_conv_wgrad")
 
 
 def phase_build() -> None:
@@ -145,7 +172,8 @@ def phase_build() -> None:
               f"{cuda_build.build_seconds.get(name, 0.0):.1f} s)")
     print(f"build: all kernels ready in {time.perf_counter() - t0:.1f} s")
     for name, kernel in (("fused_conv_block", "conv_bf16_wgmma"),
-                         ("int8_conv", "int8_wgmma")):
+                         ("int8_conv", "int8_wgmma"),
+                         ("fused_conv_wgrad", "wgrad_bf16")):
         for line in ptxas_summary(cuda_build.build_logs.get(name, ""), kernel):
             print(f"ptxas: {line}")
 
@@ -792,6 +820,706 @@ def phase_int8_sweep(card: str) -> None:
     int8_conv.launches = launches_before
 
 
+# --- phase 3b: the fused conv's backward kernels ----------------------------
+
+#: the train shape: batch 256 of the flagship template, six frames
+TRAIN_N, TRAIN_L, TRAIN_C, TRAIN_K = 6 * 256, 500, 128, 5
+
+
+def _scale_err(out, ref) -> tuple[float, float]:
+    """(max |out - ref|, max |ref|) in f32."""
+    return ((out.float() - ref.float()).abs().max().item(),
+            ref.float().abs().max().item())
+
+
+def _bf16_ulp(v):
+    """One bf16 ulp (8 significant bits) at each ``|v|`` (f32)."""
+    import torch
+
+    e = torch.frexp(v.abs().clamp_min(2.0 ** -126))[1]
+    return torch.exp2((e - 8).float())
+
+
+def _check_close(name: str, pairs: dict, tol: float, ulps: int = 0) -> float:
+    """Every output within ``tol`` of its plain version, relative to the
+    plain output's scale (sums over up to N * L rows: elementwise relative
+    tolerances do not apply to the near-zero ones). With ``ulps``, a bf16
+    output is held element by element: within ``ulps`` bf16 ulps of the
+    larger of the two values, plus ``tol`` of the scale. Returns the worst
+    absolute error."""
+    import torch
+
+    worst = 0.0
+    parts = []
+    for key, (out, ref) in pairs.items():
+        if ref is None:
+            check(out is None, f"{name}: {key} expected None")
+            continue
+        err, scale = _scale_err(out, ref)
+        limit = tol * max(scale, 1e-6)
+        if ulps and out.dtype == torch.bfloat16:
+            o, r = out.float(), ref.float()
+            d = (o - r).abs()
+            unit = _bf16_ulp(torch.maximum(o.abs(), r.abs()))
+            excess = (d - ulps * unit).max().item()
+            del o, r, d, unit
+            ok = math.isfinite(err) and excess <= limit
+            parts.append(f"{key} {err:.2e}/{scale:.2e} (beyond {ulps} ulps: "
+                         f"{max(excess, 0.0) / max(scale, 1e-6):.1e} of scale)")
+            check(ok, f"{name}: {key} {excess:.3e} beyond {ulps} bf16 ulps "
+                  f"+ {tol} x {scale:.3e}")
+        else:
+            ok = math.isfinite(err) and err <= limit
+            parts.append(f"{key} {err:.2e}/{scale:.2e}")
+            check(ok, f"{name}: {key} err {err:.3e} beyond {tol} x "
+                  f"{scale:.3e}")
+        worst = max(worst, err)
+    rule = f"{ulps} bf16 ulps + " if ulps else ""
+    print(f"train kernel {name}: " + ", ".join(parts) + f" (tol {rule}{tol} "
+          f"of scale) ok")
+    return worst
+
+
+def library_epilogue_bwd(dy, u, residual, out_mask, dyt):
+    """Yardstick only: the same epilogue in torch ops and autograd's
+    backward of it (the graph is built once, the backward timed)."""
+    import torch
+    import torch.nn.functional as F
+
+    u = u.detach().requires_grad_()
+    r = residual.detach().requires_grad_()
+    d = dyt.detach().requires_grad_()
+    y = torch.tanh(u * d[0].to(u.dtype)) * d[1].to(u.dtype) + d[2].to(u.dtype)
+    y = torch.where(out_mask[..., None], y, torch.zeros((), dtype=y.dtype,
+                                                        device=y.device))
+    y = F.gelu(y + r, approximate="tanh")
+    return lambda: torch.autograd.grad(y, (u, r, d), dy, retain_graph=True)
+
+
+def phase_train_kernel(card: str) -> dict:
+    """conv_wgrad, conv_epilogue_bwd and the flipped-weight data gradient
+    against their plain versions (bf16 at the train shape, f32 and bf16 at
+    small shapes, every form), FusedConvBlockFn's whole backward against
+    the plain backward, then each kernel's time with its plain version's,
+    the library yardstick's and its bound at the train shape."""
+    import torch
+
+    from jaeger_tpu_torch.ops import fused_conv
+    from jaeger_tpu_torch.ops import fused_conv_grad as fg
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(2468)
+    f32, bf16 = torch.float32, torch.bfloat16
+    worst = {"conv_wgrad": 0.0, "conv_epilogue_bwd": 0.0, "dgrad": 0.0}
+
+    def masks(n, length, kind):
+        if kind == "none":
+            return None
+        if kind == "runs":
+            m = torch.ones(n, length, dtype=torch.bool)
+            for lo, hi in ((0, 3), (60, 69), (125, 131), (length - 3, length)):
+                m[:, max(lo, 0):min(hi, length)] = False
+            return m.to(dev)
+        return (torch.rand(n, length, generator=gen) > 0.2).to(dev)
+
+    # conv_wgrad: (name, n, length, c, k, dtype, in_mask kind)
+    for name, n, length, c, k, dt, mk in [
+            ("train_shape_bf16", TRAIN_N, TRAIN_L, TRAIN_C, TRAIN_K, bf16,
+             "random"),
+            ("dense_bf16", 64, 500, 128, 5, bf16, "none"),
+            ("f32_C128_k5", 6, 300, 128, 5, f32, "random"),
+            ("f32_C16_k3", 12, 100, 16, 3, f32, "runs"),
+            ("edge_L1", 4, 1, 128, 5, bf16, "none"),
+            ("edge_L63", 3, 63, 128, 5, bf16, "random"),
+            ("edge_L65", 3, 65, 128, 5, bf16, "runs"),
+            ("edge_C64_k3", 6, 300, 64, 3, bf16, "random"),
+            ("edge_C256_k5", 6, 300, 256, 5, bf16, "random")]:
+        x = torch.randn(n, length, c, generator=gen).to(dev, dt)
+        du = (torch.randn(n, length, c, generator=gen) * 0.1).to(dev, dt)
+        im = masks(n, length, mk)
+        before = fg.launches["conv_wgrad"]
+        dw, db = fg.conv_wgrad(x, du, im, k)
+        torch.cuda.synchronize()
+        check(fg.launches["conv_wgrad"] == before + 1,
+              f"conv_wgrad {name}: kernel not launched")
+        rdw, rdb = fg.reference_conv_wgrad(x, du, im, k)
+        plan = fg.wgrad_plan(n, length, c, k, dt, torch.cuda.get_device_properties(
+            dev).multi_processor_count)
+        again = fg.conv_wgrad(x, du, im, k)
+        check(torch.equal(again[0], dw) and torch.equal(again[1], db),
+              f"conv_wgrad {name}: not the same bits run to run")
+        worst["conv_wgrad"] = max(worst["conv_wgrad"], _check_close(
+            f"conv_wgrad {name} N={n} L={length} C={c} k={k} "
+            f"{str(dt)[6:]} mask={mk} [cb={plan['cb']} "
+            f"splits={plan['splits']}]",
+            {"dW": (dw, rdw), "db": (db, rdb)},
+            F32_TOL if dt == f32 else 1e-3))
+        del x, du, dw, db, rdw, rdb
+
+    # conv_epilogue_bwd: (name, n, length, c, dtype, act, form)
+    for name, n, length, c, dt, act, form in [
+            ("conv1_train_bf16", TRAIN_N, TRAIN_L, TRAIN_C, bf16, "gelu_tanh",
+             "conv1"),
+            ("conv2_train_bf16", TRAIN_N, TRAIN_L, TRAIN_C, bf16, "gelu_tanh",
+             "conv2"),
+            ("conv2_f32_gelu", 6, 300, 128, f32, "gelu", "conv2"),
+            ("conv1_f32_relu", 6, 300, 128, f32, "relu", "conv1"),
+            ("conv1_f32_tanh", 6, 300, 48, f32, "tanh", "conv1"),
+            ("conv2_f32_none", 6, 300, 16, f32, "none", "conv2"),
+            ("bias_f32_outmask", 6, 300, 32, f32, "gelu", "nodyt")]:
+        dy = torch.randn(n, length, c, generator=gen).to(dev, dt)
+        u = torch.randn(n, length, c, generator=gen).to(dev, dt)
+        r = (torch.randn(n, length, c, generator=gen).to(dev, dt)
+             if form == "conv2" else None)
+        om = masks(n, length, "random")
+        dyt = None if form == "nodyt" else torch.stack([
+            torch.full((c,), 0.7), torch.randn(c, generator=gen),
+            torch.randn(c, generator=gen)]).to(dev)
+        before = fg.launches["conv_epilogue_bwd"]
+        du, dr, dd = fg.conv_epilogue_bwd(dy, u, r, om, dyt, act)
+        torch.cuda.synchronize()
+        check(fg.launches["conv_epilogue_bwd"] == before + 1,
+              f"conv_epilogue_bwd {name}: kernel not launched")
+        rdu, rdr, rdd = fg.reference_conv_epilogue_bwd(dy, u, r, om, dyt, act)
+        worst["conv_epilogue_bwd"] = max(
+            worst["conv_epilogue_bwd"], _check_close(
+                f"conv_epilogue_bwd {name} N={n} L={length} C={c} {act}",
+                {"du": (du, rdu), "dr": (dr, rdr if r is not None else None),
+                 "ddyt": (dd, rdd)},
+                *((F32_TOL,) if dt == f32 else BF16_KERNEL_TOL)))
+        del dy, u, r, du, dr, rdu, rdr
+
+    # the data gradient: fused_conv_block with the flipped weights, against
+    # its plain version and against autograd of the plain conv
+    for name, n, length, c, k, dt, mk in [
+            ("train_shape_bf16", TRAIN_N, TRAIN_L, TRAIN_C, TRAIN_K, bf16,
+             "random"),
+            ("f32_C128_k5", 6, 300, 128, 5, f32, "runs"),
+            ("f32_C16_k3", 12, 100, 16, 3, f32, "random"),
+            ("bf16_C32_k3", 6, 300, 32, 3, bf16, "random")]:
+        du = torch.randn(n, length, c, generator=gen).to(dev, dt)
+        w = (torch.randn(k, c, c, generator=gen) * 0.05).to(dev, dt)
+        im = masks(n, length, mk)
+        before = fused_conv.launches
+        dx = fused_conv.fused_conv_block(du, fg.flipped_weights(w),
+                                         out_mask=im)
+        torch.cuda.synchronize()
+        check(fused_conv.launches == before + 1,
+              f"dgrad {name}: kernel not launched")
+        ref = fused_conv.reference_conv_block(du, fg.flipped_weights(w),
+                                              out_mask=im)
+        pairs = {"dx": (dx, ref)}
+        if dt == f32:
+            xv = torch.zeros(n, length, c, device=dev, requires_grad=True)
+            y = fused_conv.reference_conv_block(xv, w, in_mask=im)
+            pairs["dx_vs_autograd"] = (
+                dx, torch.autograd.grad(y, xv, du)[0])
+        worst["dgrad"] = max(worst["dgrad"], _check_close(
+            f"dgrad {name} N={n} L={length} C={c} k={k} {str(dt)[6:]}",
+            pairs, *((F32_TOL,) if dt == f32 else BF16_KERNEL_TOL)))
+        del du, w, dx, ref
+
+    # FusedConvBlockFn's whole backward against the plain backward
+    n, length, c, k = TRAIN_N, TRAIN_L, TRAIN_C, TRAIN_K
+    x = torch.randn(n, length, c, generator=gen).to(dev, bf16)
+    w = (torch.randn(k, c, c, generator=gen) * 0.05).to(dev)
+    b = torch.randn(c, generator=gen).to(dev)
+    dyt = torch.stack([torch.full((c,), 0.7), torch.randn(c, generator=gen),
+                       torch.randn(c, generator=gen)]).to(dev)
+    r = torch.randn(n, length, c, generator=gen).to(dev, bf16)
+    im, om = masks(n, length, "random"), masks(n, length, "random")
+    dy = torch.randn(n, length, c, generator=gen).to(dev, bf16)
+    for form, kw in (("conv1", dict(dyt=dyt, act="gelu_tanh",
+                                    bias_then_dyt=True, in_mask=im,
+                                    out_mask=om)),
+                     ("conv2", dict(dyt=dyt, act="gelu_tanh",
+                                    bias_then_dyt=True, in_mask=im,
+                                    out_mask=om, residual=r)),
+                     ("bias_only", dict(in_mask=im))):
+        got = fg.conv_block_backward(dy, x, w, b, **kw)
+        ref = fg.reference_conv_block_backward(dy, x, w, b, **kw)
+        _check_close(f"FusedConvBlockFn backward {form} train shape bf16",
+                     dict(zip(("dx", "dW", "db", "ddyt", "dr"),
+                              zip(got, ref))), *BF16_BACKWARD_TOL)
+
+    # times at the train shape (bf16), each with its bound
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    du = (torch.randn(n, length, c, generator=gen) * 0.1).to(dev, bf16)
+    wb = w.to(bf16)
+    launches_before = dict(fg.launches), fused_conv.launches
+    times = {}
+    flops = 2.0 * n * length * c * c * k
+    # conv_wgrad: x and du in, dW and db out
+    x_ncl = x.transpose(1, 2).contiguous()
+    du_ncl = du.transpose(1, 2).contiguous()
+    nbytes = 2 * 2 * n * length * c + n * length + 4 * (k * c * c + c)
+    times["conv_wgrad"] = dict(
+        ms=cuda_ms(lambda: fg.conv_wgrad(x, du, im, k), iters=20),
+        plain_ms=cuda_ms(lambda: fg.reference_conv_wgrad(x, du, im, k),
+                         iters=3, warmup=1),
+        library_ms=cuda_ms(lambda: torch.nn.grad.conv1d_weight(
+            x_ncl, (c, c, k), du_ncl, padding=(k - 1) // 2), iters=10),
+        flops=flops, bytes=nbytes, plan=fg.wgrad_plan(n, length, c, k, bf16,
+                                                      sms))
+    del x_ncl
+    # conv_epilogue_bwd, conv2 form: dy, u, r, out_mask in; du, dr out
+    u = torch.randn(n, length, c, generator=gen).to(dev, bf16)
+    lib = library_epilogue_bwd(dy, u, r, om, dyt)
+    nbytes = 5 * 2 * n * length * c + n * length + 2 * 12 * c
+    times["conv_epilogue_bwd"] = dict(
+        ms=cuda_ms(lambda: fg.conv_epilogue_bwd(dy, u, r, om, dyt,
+                                                "gelu_tanh"), iters=20),
+        plain_ms=cuda_ms(lambda: fg.reference_conv_epilogue_bwd(
+            dy, u, r, om, dyt, "gelu_tanh"), iters=3, warmup=1),
+        library_ms=cuda_ms(lib, iters=10), flops=0.0, bytes=nbytes)
+    nbytes1 = 3 * 2 * n * length * c + n * length + 2 * 12 * c
+    conv1_ms = cuda_ms(lambda: fg.conv_epilogue_bwd(dy, u, None, om, dyt,
+                                                    "gelu_tanh"), iters=20)
+    del lib
+    # the data gradient: du in, dx out, flipped weights
+    wf = fg.flipped_weights(wb)
+    nbytes = 2 * 2 * n * length * c + 2 * k * c * c + n * length
+    times["dgrad"] = dict(
+        ms=cuda_ms(lambda: fused_conv.fused_conv_block(du, wf, out_mask=im),
+                   iters=20),
+        plain_ms=cuda_ms(lambda: fused_conv.reference_conv_block(
+            du, wf, out_mask=im), iters=3, warmup=1),
+        library_ms=cuda_ms(lambda: torch.nn.grad.conv1d_input(
+            (n, c, length), wb.permute(2, 1, 0), du_ncl,
+            padding=(k - 1) // 2), iters=10),
+        flops=flops, bytes=nbytes)
+    fg.launches.update(launches_before[0])
+    fused_conv.launches = launches_before[1]
+    for key, t in times.items():
+        t_ops = t["flops"] / PEAK_BF16_FLOPS * 1e3
+        t_bytes = t["bytes"] / HBM_BYTES_PER_S * 1e3
+        t.update(bound_ms=max(t_ops, t_bytes), max_abs_err=worst[key],
+                 bound_by="operations" if t_ops >= t_bytes else "bytes")
+        t["bound_share"] = t["bound_ms"] / t["ms"]
+        print(f"timing {key} N={n} L={length} C={c} k={k} bf16 on {card}: "
+              f"kernel {t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, "
+              f"library {t['library_ms']:.3f} ms, bound {t['bound_ms']:.3f} "
+              f"ms ({t['bound_by']}: {t['flops']:.3e} FLOP, "
+              f"{t['bytes'] / 1e9:.3f} GB), {t['bound_share']:.1%} of the "
+              f"bound")
+    times["conv_epilogue_bwd"]["conv1_ms"] = conv1_ms
+    times["conv_epilogue_bwd"]["conv1_bound_ms"] = (
+        nbytes1 / HBM_BYTES_PER_S * 1e3)
+    print(f"timing conv_epilogue_bwd conv1 form on {card}: {conv1_ms:.3f} ms, "
+          f"bound {nbytes1 / HBM_BYTES_PER_S * 1e3:.3f} ms (bytes)")
+    return times
+
+
+# --- phase 6: training --------------------------------------------------------
+
+TEMPLATE = ROOT / "train_config" / "fragment_6class_1500bp.yaml"
+
+
+def narrow_train_config() -> dict:
+    """The flagship training template cut to C = 16, a 40-codon crop and
+    narrow heads (phase 6a's card-vs-CPU step)."""
+    from jaeger_tpu_torch.utils.config import load_model_config
+
+    cfg = load_model_config(TEMPLATE)
+    m = cfg["model"]
+    m["embedding"]["embedding_size"] = 8
+    m["string_processor"]["crop_size"] = 40
+    for layer in m["representation_learner"]["hidden_layers"]:
+        if "filters" in (layer.get("config") or {}):
+            layer["config"]["filters"] = 16
+    m["reliability_model"]["hidden_layers"][0]["config"]["units"] = 8
+    return cfg
+
+
+def _train_batch(rng, crop: int, program: str, n: int, n_classes: int):
+    import numpy as np
+
+    bases = rng.integers(0, 4, size=(n, crop)).astype(np.uint8)
+    lengths = np.full(n, crop, np.int32)
+    if program == "bounded":
+        bases[np.arange(n), rng.integers(20, crop - 20, size=n)] = 4
+    elif program == "masked":
+        bases[0, 20:60] = 4
+        lengths[1] = crop // 2
+    labels = np.zeros((n, n_classes), np.float32)
+    labels[np.arange(n), rng.integers(0, n_classes, size=n)] = 1.0
+    return {"bases": bases, "lengths": lengths, "labels": labels}
+
+
+def phase_train_step_f32() -> dict:
+    """One f32 train step of the narrow template on the card against the
+    same step on the CPU, in each program (dense, bounded, masked): the
+    loss within 1e-5, every gradient leaf within 1e-4 of its scale (a leaf
+    below 1e-4 of the largest gradient is rounding noise around an exact
+    zero and is held at 1e-4 of the largest), the batch statistics within
+    1e-5 of their scale, and the parameters after the AdamW step within
+    2e-3 of the update where the gradient is clearly nonzero (|g| > 1e-4
+    and > 1e-3 of the leaf's largest; Adam's first step is close to
+    lr * sign(g)) and within 2 lr everywhere. TF32 is off for cuDNN and
+    cuBLAS (the entry conv and the dense heads). The card's step must
+    launch every backward kernel."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from jaeger_tpu_torch.models.artifacts import init_params, load_state
+    from jaeger_tpu_torch.models.builder import build_model
+    from jaeger_tpu_torch.ops import fused_conv
+    from jaeger_tpu_torch.ops import fused_conv_grad as fg
+    from jaeger_tpu_torch.train import loop
+    from jaeger_tpu_torch.train.optimizers import make_optimizer
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = narrow_train_config()
+    tcfg = cfg["training"]
+    lr = float(tcfg["optimizer_params"]["learning_rate"])
+    rng = np.random.default_rng(17)
+    worst = {}
+    for program in ("dense", "bounded", "masked"):
+        runs = {}
+        batch = None
+        for dev in ("cuda", "cpu"):
+            model = build_model(copy.deepcopy(cfg))
+            load_state(model, init_params(cfg, torch.Generator().manual_seed(
+                5)))
+            init = {k: v.detach().clone() for k, v in
+                    loop.flax_params(model).items()}
+            model.to(dev)
+            if batch is None:
+                batch = _train_batch(rng, model.crop_nt, program, 8, 6)
+            tx = make_optimizer(tcfg["optimizer"], tcfg["optimizer_params"])
+            state = loop.TrainState.create(model, tx)
+            step = loop.make_dispatching_train_step(
+                model, loop.StepConfig(
+                    loss_name=tcfg["loss_classifier"],
+                    loss_params=tcfg["loss_params_classifier"],
+                    heads=("prediction",)), dev)
+            before = (dict(fg.launches), fused_conv.launches)
+            state, metrics = step(state, batch)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+                added = {k: fg.launches[k] - before[0][k] for k in fg.launches}
+                added["fused_conv_block"] = fused_conv.launches - before[1]
+                check(all(v > 0 for v in added.values()),
+                      f"f32 step {program}: launches {added}")
+            check(step.program_counts == {program: 1},
+                  f"f32 step {program}: ran {step.program_counts}")
+            runs[dev] = dict(
+                loss=float(metrics["loss"]),
+                grads={k: v.float().cpu() for k, v in state.grads.items()},
+                stats={k: v.cpu() for k, v in model.state_dict().items()
+                       if "moving" in k},
+                params={k: v.detach().cpu() for k, v in
+                        loop.flax_params(model).items()})
+        gpu, cpu = runs["cuda"], runs["cpu"]
+        check(abs(gpu["loss"] - cpu["loss"]) <= 1e-5 * max(abs(cpu["loss"]),
+                                                            1.0),
+              f"f32 step {program}: loss {gpu['loss']} vs {cpu['loss']}")
+        overall = max(float(g.abs().max()) for g in cpu["grads"].values())
+        g_err = 0.0
+        for k, g in cpu["grads"].items():
+            scale = max(float(g.abs().max()), 1e-12)
+            if scale < 1e-4 * overall:
+                scale = overall
+            e = float((gpu["grads"][k] - g).abs().max()) / scale
+            check(e <= 1e-4, f"f32 step {program}: grad {k} rel err {e:.2e}")
+            g_err = max(g_err, e)
+        for k, s in cpu["stats"].items():
+            e = float((gpu["stats"][k] - s).abs().max())
+            check(e <= 1e-5 * max(float(s.abs().max()), 1e-6),
+                  f"f32 step {program}: {k} err {e:.2e}")
+        for k, p in cpu["params"].items():
+            g = cpu["grads"][k].abs()
+            big = (g > 1e-4) & (g > 1e-3 * float(g.max()))
+            du_gpu, du_cpu = gpu["params"][k] - init[k], p - init[k]
+            diff = (du_gpu - du_cpu).abs()
+            check(bool((diff <= 2 * lr + 1e-7).all()),
+                  f"f32 step {program}: {k} update beyond 2 lr")
+            check(bool((diff[big] <= 2e-3 * du_cpu[big].abs() + 1e-7).all()),
+                  f"f32 step {program}: {k} update beyond 2e-3")
+        worst[program] = g_err
+        print(f"train step f32 {program} (narrow template, card vs CPU): "
+              f"loss {gpu['loss']:.6f} vs {cpu['loss']:.6f}, worst grad "
+              f"err {g_err:.2e} of its scale (tol 1e-4) ok")
+    return worst
+
+
+def write_train_data(root: Path, seed: int, crop_nt: int) -> dict:
+    """Synthetic ``label,sequence`` CSVs for the template, made from
+    ``seed``: six classes whose GC content differs (0.2 to 0.8), so the
+    loss can fall. The training file holds a block of 16 rows with one
+    interior N each (rows 2048-2063) and a block of 8 with long N runs or
+    short lengths (rows 3072-3079) amid full-length clean rows. Each epoch
+    streams the file from its start through a 1024-row shuffle buffer, so
+    of an epoch's ten batches of 256 the first four take the dense
+    program, the next ones (the first block in the buffer) the bounded
+    one and the last two (the second block too) the masked one. The reliability files hold ID rows (label 1, the classes'
+    composition) and OOD rows (label 0, uniform bases)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    acgt = np.array(list("ACGT"))
+
+    def seq(label, length):
+        gc = 0.2 + 0.12 * label
+        p = [(1 - gc) / 2, gc / 2, gc / 2, (1 - gc) / 2]
+        return "".join(acgt[rng.choice(4, size=length, p=p)])
+
+    def write(path, rows):
+        path.write_text("".join(f"{lab},{s}\n" for lab, s in rows))
+        return str(path)
+
+    length = crop_nt + 95
+    train = []
+    for i in range(8192):
+        lab = int(rng.integers(0, 6))
+        s = seq(lab, length)
+        if 2048 <= i < 2064:        # one N: a short invalid run
+            j = int(rng.integers(300, crop_nt - 300))
+            s = s[:j] + "N" + s[j + 1:]
+        elif 3072 <= i < 3080:      # long N runs or short rows
+            s = (s[:400] + "N" * 300 + s[700:]) if i % 2 else s[:900]
+        train.append((lab, s))
+    val = [(int(lab), seq(int(lab), length))
+           for lab in rng.integers(0, 6, size=512)]
+    rel = [(1, seq(int(rng.integers(0, 6)), length)) if i % 2 else
+           (0, "".join(acgt[rng.integers(0, 4, size=length)]))
+           for i in range(2048)]
+    return {"train": write(root / "train.csv", train),
+            "val": write(root / "val.csv", val),
+            "rel_train": write(root / "rel_train.csv", rel[:1536]),
+            "rel_val": write(root / "rel_val.csv", rel[1536:])}
+
+
+def flagship_train_config(root: Path, data: dict) -> Path:
+    """The template with the synthetic data, 3 epochs x 10 classifier steps
+    (30), 1 x 4 reliability steps, 2 validation steps and a 1024-row
+    shuffle buffer; the model, batch 256, bf16, the optimizer, losses and
+    callbacks as the template has them."""
+    import yaml
+
+    from jaeger_tpu_torch.utils.config import load_model_config
+
+    cfg = load_model_config(TEMPLATE)
+    t = cfg["training"]
+    cfg["model"]["string_processor"]["buffer_size"] = 1024
+    t.update(classifier_epochs=3, classifier_train_steps=10,
+             classifier_validation_steps=2, reliability_epochs=1,
+             reliability_train_steps=4, reliability_validation_steps=2)
+    classes = ["bacteria", "phage", "eukarya", "archaea", "virus", "plasmid"]
+    t["fragment_classifier_data"] = {
+        "train": [{"class": classes, "path": [data["train"]],
+                   "label": list(range(6))}],
+        "validation": [{"class": classes, "path": [data["val"]],
+                        "label": list(range(6))}]}
+    t["fragment_reliability_data"] = {
+        "train": [{"class": ["ood", "id"], "path": [data["rel_train"]],
+                   "label": [0, 1]}],
+        "validation": [{"class": ["ood", "id"], "path": [data["rel_val"]],
+                        "label": [0, 1]}]}
+    path = root / "flagship_train.yaml"
+    path.write_text(yaml.safe_dump(cfg, sort_keys=False))
+    return path
+
+
+def phase_train_flagship(tmp: Path, card: str) -> dict:
+    """The main path of this slice: ``train_fragment_core`` with the
+    flagship template at full width (batch 256, bf16) on synthetic data:
+    about 30 classifier steps and 4 reliability steps, then the export
+    and the int8 bundle. Checks finite, falling losses, all three
+    programs, the kernels' launches per dense step, the bundle and its
+    int8 bundle; prints steps/s and windows/s per program and the peak
+    device memory."""
+    import torch
+
+    from jaeger_tpu_torch.commands.train import train_fragment_core
+    from jaeger_tpu_torch.models.artifacts import load_model
+    from jaeger_tpu_torch.ops import fused_conv
+    from jaeger_tpu_torch.ops import fused_conv_grad as fg
+    from jaeger_tpu_torch.utils.config import load_model_config
+
+    crop_nt = 1505
+    t0 = time.perf_counter()
+    data = write_train_data(tmp, seed=20261016, crop_nt=crop_nt)
+    cfg_path = flagship_train_config(tmp, data)
+    data_s = time.perf_counter() - t0
+    out = tmp / "trained"
+    torch.cuda.reset_peak_memory_stats()
+    # the main path: counts reset just before, read just after
+    fused_conv.launches = 0
+    for k in fg.launches:
+        fg.launches[k] = 0
+    t0 = time.perf_counter()
+    results = train_fragment_core(str(cfg_path), str(out))
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = dict(fg.launches, fused_conv_block=fused_conv.launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    hist = results["history"]
+    cls = hist["classifier"]
+    losses = [h["loss"] for h in cls]
+    check(len(cls) == 3 and all(math.isfinite(v) for v in losses),
+          f"classifier history {losses}")
+    check(losses[-1] < losses[0], f"classifier loss did not fall: {losses}")
+    rel = [h["loss"] for h in hist.get("reliability", [])]
+    check(len(rel) == 1 and all(math.isfinite(v) for v in rel),
+          f"reliability history {rel}")
+    progs = results["programs"]["classifier"]
+    check(set(progs) == {"dense", "bounded", "masked"}
+          and sum(progs.values()) == 30, f"classifier programs {progs}")
+    check(all(v > 0 for v in launches.values()), f"launches {launches}")
+    for f in ("params.msgpack", "project.yaml", "classes.yaml",
+              "history.csv", "checkpoints/classifier/checkpoints.json",
+              "int8/params_int8.msgpack"):
+        check((out / f).exists(), f"train wrote no {f}")
+    check(results.get("int8_path") == str(out / "int8"),
+          "train did not write the int8 bundle")
+    model8, _, _ = load_model(out / "int8", dtype=torch.bfloat16)
+    n8 = sum(1 for m in model8.modules() if getattr(m, "int8", False))
+    check(n8 >= 6, f"int8 bundle: {n8} int8 convs")
+
+    # launches of one dense step, counted alone; steady-state step times
+    per_step, steady = _step_rates(out, load_model_config(cfg_path), card)
+    check(per_step == {"fused_conv_block": 18, "conv_wgrad": 6,
+                       "conv_epilogue_bwd": 6},
+          f"launches per dense step {per_step}")
+    print(f"train flagship template (batch 256, bf16) on {card}: "
+          f"{train_s:.1f} s in all (data {data_s:.1f} s), classifier losses "
+          + " ".join(f"{v:.4f}" for v in losses)
+          + f", reliability loss {rel[0]:.4f}, threshold "
+          f"{results.get('reliability_threshold')}, peak device memory "
+          f"{peak_gb:.2f} GB, main-path launches {launches}")
+    print(f"train programs {progs}; launches per dense step: {per_step}")
+    return dict(launches=launches, per_step=per_step, programs=progs,
+                steady=steady, losses=losses, peak_gb=peak_gb,
+                train_s=train_s, bundle=out)
+
+
+#: the conv kernels of a train step, by the name the profiler gives them
+CONV_KERNELS = ("conv_bf16_wgmma", "wgrad_bf16", "reduce_splits",
+                "conv_epilogue_bwd_kernel")
+
+
+def _step_rates(bundle: Path, cfg: dict, card: str) -> tuple[dict, dict]:
+    """Kernel launches of one dense classifier step of the trained model
+    (batch 256, bf16), and each program's steady-state step time (warm,
+    then 10 steps that do not wait for the card, on the host clock between
+    two synchronizes) beside the host's time for choosing the program
+    (``dense_window_batch`` and ``bounded_mask_levels`` on the batch, as
+    the dispatcher runs them, overlapped with the previous step's device
+    work), and the dense step's device time by kernel and the conv
+    kernels' share of it."""
+    import numpy as np
+    import torch
+
+    from jaeger_tpu_torch.models.artifacts import load_model
+    from jaeger_tpu_torch.models.builder import mask_cut_plan
+    from jaeger_tpu_torch.ops import fused_conv
+    from jaeger_tpu_torch.ops import fused_conv_grad as fg
+    from jaeger_tpu_torch.ops.encode import (bounded_mask_levels,
+                                             dense_window_batch)
+    from jaeger_tpu_torch.train import loop
+    from jaeger_tpu_torch.train.optimizers import make_optimizer
+
+    model, _, _ = load_model(bundle, dtype=torch.bfloat16)
+    plans = mask_cut_plan(model.config["representation_learner"])
+    t = cfg["training"]
+    state = loop.TrainState.create(model, make_optimizer(
+        t["optimizer"], t["optimizer_params"]))
+    step = loop.make_dispatching_train_step(model, loop.StepConfig(
+        loss_name=t["loss_classifier"],
+        loss_params=t["loss_params_classifier"], heads=("prediction",)),
+        "cuda")
+    rng = np.random.default_rng(3)
+    batches = {p: _train_batch(rng, model.crop_nt, p, 256, 6)
+               for p in ("dense", "bounded", "masked")}
+    saved = dict(fg.launches), fused_conv.launches
+    steady = {}
+    for program, batch in batches.items():
+        state, _ = step(state, batch)            # warm
+        before = dict(fg.launches), fused_conv.launches
+        state, _ = step(state, batch)
+        if program == "dense":
+            got = {k: fg.launches[k] - before[0][k] for k in fg.launches}
+            got["fused_conv_block"] = fused_conv.launches - before[1]
+        reps = 10
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / reps * 1e3
+        t0 = time.perf_counter()
+        if not dense_window_batch(batch["bases"], batch["lengths"],
+                                  model.crop_nt, model.masking_enabled):
+            bounded_mask_levels(batch["bases"], batch["lengths"],
+                                model.crop_nt, model.masking_enabled, plans)
+        plan_ms = (time.perf_counter() - t0) * 1e3
+        # the host's whole share of one step on an idle card: plan, upload
+        # and launches, until the call returns (median of 3)
+        host = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, _ = step(state, batch)
+            host.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        host_ms = sorted(host)[1]
+        steady[program] = dict(step_ms=ms, steps_per_s=1e3 / ms,
+                               windows_per_s=256 / ms * 1e3,
+                               host_plan_ms=plan_ms, host_step_ms=host_ms)
+        print(f"train {program} step (batch 256, bf16) on {card}: "
+              f"{ms:.2f} ms, {1e3 / ms:.2f} steps/s, {256 / ms * 1e3:.0f} "
+              f"windows/s; host {host_ms:.1f} ms a step, of it the plan "
+              f"{plan_ms:.1f} ms")
+    check(set(step.program_counts) == set(batches),
+          f"steady-state programs {step.program_counts}")
+    for program, batch in batches.items():
+        by_kernel = print_device_profile(lambda: step(state, batch),
+                                         f"train {program} step",
+                                         top=14 if program == "dense" else 4)
+        device_ms = sum(by_kernel.values())
+        conv_ms = sum(v for k, v in by_kernel.items()
+                      if any(c in k for c in CONV_KERNELS))
+        st = steady[program]
+        st.update(device_ms=device_ms, conv_kernels_ms=conv_ms,
+                  conv_share=conv_ms / device_ms,
+                  device_busy=device_ms / st["step_ms"])
+        print(f"train {program} step: {device_ms:.2f} ms of device time "
+              f"({st['device_busy']:.1%} of the steady step), {conv_ms:.2f} "
+              f"ms ({conv_ms / device_ms:.1%}) in the conv kernels (forward, "
+              f"recomputed u, data gradient, conv_wgrad, conv_epilogue_bwd)")
+    fg.launches.update(saved[0])
+    fused_conv.launches = saved[1]
+    return got, steady
+
+
+def phase_train_predict(tmp: Path, bundle: Path) -> dict:
+    """``predict`` and ``predict --int8`` with the bundle ``train`` wrote
+    (its ``int8`` bundle beside it) on the test contigs."""
+    from jaeger_tpu_torch import cli
+    from jaeger_tpu_torch.ops import fused_conv, int8_conv
+
+    labels = ["bacteria", "phage", "eukarya", "archaea", "virus", "plasmid"]
+    counts = {}
+    for name, extra in (("trained", []), ("trained_int8", ["--int8"])):
+        f0, i0 = fused_conv.launches, int8_conv.launches
+        cli.main(["predict", "-i", str(FASTA), "-o", str(tmp / name), "-m",
+                  str(bundle), "--fsize", "1505", "--batch", "256"] + extra)
+        counts[name] = (fused_conv.launches - f0, int8_conv.launches - i0)
+        _check_tsv(_read_tsv(tmp / name / "test_contigs_default_jaeger.tsv"),
+                   labels, f"predict {name}")
+    check(counts["trained"][0] > 0 and counts["trained_int8"][1] > 0
+          and counts["trained_int8"][0] == 0,
+          f"predict on the trained bundle: launches {counts}")
+    print(f"predict with the trained bundle: fused_conv_block launches "
+          f"{counts['trained'][0]}; --int8: int8_conv launches "
+          f"{counts['trained_int8'][1]}")
+    return counts
+
+
 # --- phase 4 ---------------------------------------------------------------
 
 @contextlib.contextmanager
@@ -830,8 +1558,9 @@ def _windows(rng, kind: str, n: int, crop: int):
     return bases, lengths
 
 
-def print_device_profile(fn, label: str, top: int = 8) -> None:
-    """Device time by kernel name over one call of ``fn``."""
+def print_device_profile(fn, label: str, top: int = 8) -> dict:
+    """Device time by kernel name over one call of ``fn``, printed; returns
+    milliseconds by kernel name."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -847,6 +1576,7 @@ def print_device_profile(fn, label: str, top: int = 8) -> None:
         share = e.self_device_time_total / max(total, 1e-9)
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms {share:6.1%} "
               f"x{e.count:<4d} {e.key[:100]}")
+    return {e.key: e.self_device_time_total / 1e3 for e in events}
 
 
 def _drive_flagship(model, label: str, per_forward: dict,
@@ -1149,6 +1879,7 @@ def main(argv: list[str]) -> int:
         phase_build()
         kern = phase_kernel(card)
         kern8 = phase_int8_kernel(card)
+        kern_train = phase_train_kernel(card)
         if "--sweep" in argv:
             phase_sweep(card)
             phase_int8_sweep(card)
@@ -1156,38 +1887,64 @@ def main(argv: list[str]) -> int:
             print(f"quick run done in {time.perf_counter() - t_start:.0f} s")
             return 0
         profile = "--profile" in argv
-        rates = phase_flagship(profile)
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            rates = phase_flagship(profile)
             bundle = flagship_bundle(Path(tmp))
             rates8 = phase_int8_flagship(bundle, profile)
             launches = phase_predict(Path(tmp), bundle)
             launches8 = phase_int8_predict(Path(tmp), bundle)
+            step_f32 = phase_train_step_f32()
+            train = phase_train_flagship(Path(tmp), card)
+            phase_train_predict(Path(tmp), train["bundle"])
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
-    print(json.dumps({"flagship_windows_per_s": rates,
-                      "flagship_int8_windows_per_s": rates8, "card": card,
-                      "fused_conv_conv2_form": kern["conv2"],
-                      "fused_conv_bias_only_form": kern["bias_only"],
-                      "int8_conv_conv2_form": kern8["conv2"],
-                      "int8_conv_bias_only_form": kern8["bias_only"],
-                      "int8_conv_requant_pallas_shape": kern8["requant"]}))
+    summary = {"card": card, "flagship_windows_per_s": rates,
+               "flagship_int8_windows_per_s": rates8,
+               "fused_conv_conv2_form": kern["conv2"],
+               "fused_conv_bias_only_form": kern["bias_only"],
+               "fused_conv_data_gradient": kern_train["dgrad"],
+               "int8_conv_conv2_form": kern8["conv2"],
+               "int8_conv_bias_only_form": kern8["bias_only"],
+               "int8_conv_requant_pallas_shape": kern8["requant"],
+               "train_step_f32_worst_grad_err": step_f32,
+               "train_flagship": {k: v for k, v in train.items()
+                                  if k != "bundle"},
+               "conv_epilogue_bwd_conv1_form": {
+                   k: kern_train["conv_epilogue_bwd"][k]
+                   for k in ("conv1_ms", "conv1_bound_ms")},
+               "conv_wgrad_plan": kern_train["conv_wgrad"]["plan"]}
+    print(json.dumps(summary))
     print(f"all phases passed in {time.perf_counter() - t_start:.0f} s")
     print(card)
 
-    def entry(name, source, replaces, n, k):
-        return {"name": name, "route": "cuda", "source": source,
+    def entry(name, route, source, replaces, n, k, **extra):
+        return {"name": name, "route": route, "source": source,
                 "replaces": replaces, "launches": n,
                 "max_abs_err": k["max_abs_err"], "ms": k["ms"],
                 "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                 "bound_by": k["bound_by"], "library_ms": k["library_ms"],
-                "bound_share": k["bound_ms"] / k["ms"]}
+                "bound_share": k["bound_ms"] / k["ms"], **extra}
 
+    tl = train["launches"]
     print(json.dumps({"kernels": [
-        entry("fused_conv_block", "jaeger_tpu_torch/csrc/fused_conv_block.cu",
-              "jaeger_tpu/ops/pallas_conv.py:70", launches, kern),
-        entry("int8_conv", "jaeger_tpu_torch/csrc/int8_conv.cu",
+        # predict's main path; train launches it for the forward, the
+        # recomputed DYT input and the data gradient
+        entry("fused_conv_block", "cuda",
+              "jaeger_tpu_torch/csrc/fused_conv_block.cu",
+              "jaeger_tpu/ops/pallas_conv.py:70", launches, kern,
+              train_launches=tl["fused_conv_block"]),
+        entry("int8_conv", "cuda", "jaeger_tpu_torch/csrc/int8_conv.cu",
               "experiments/pallas_int8_conv.py:67", launches8, kern8),
+        # train's main path: the backward of the fused conv block
+        entry("conv_wgrad", "cuda",
+              "jaeger_tpu_torch/csrc/fused_conv_wgrad.cu",
+              "jaeger_tpu/ops/pallas_conv.py:70", tl["conv_wgrad"],
+              kern_train["conv_wgrad"]),
+        entry("conv_epilogue_bwd", "triton",
+              "jaeger_tpu_torch/ops/fused_conv_grad.py",
+              "jaeger_tpu/ops/pallas_conv.py:70", tl["conv_epilogue_bwd"],
+              kern_train["conv_epilogue_bwd"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,7 +2,8 @@
 
 Counterpart of `jaeger_tpu/cli.py`: ``predict``, with the JAX command's
 options for the one-device modern-model path (``--int8 [full|auto]`` and
-``--quantized`` included) plus ``--device``, and ``utils quantize``.
+``--quantized`` included) plus ``--device``, ``train`` (fragment models
+on one device, with ``--device``) and ``utils quantize``.
 Options of paths that are not ported yet (``--seq-shard``,
 ``--num-hosts``, ``--prophage``, ``--refine``, ``--mask-tandem``,
 ``--profile``) are accepted and refused with a clear error. Built on
@@ -13,6 +14,7 @@ Options of paths that are not ported yet (``--seq-shard``,
         --mode full_int8
     python -m jaeger_tpu_torch.cli predict -i contigs.fasta -o out/ \
         -m model --int8 auto
+    python -m jaeger_tpu_torch.cli train -c config.yaml -o model/
 """
 
 from __future__ import annotations
@@ -115,6 +117,87 @@ def predict(args: argparse.Namespace) -> None:
     print(f"summary written to {table}")
 
 
+def _train_parser(sub) -> None:
+    p = sub.add_parser("train", help="Train a fragment classifier from a "
+                                     "YAML config.")
+    p.add_argument("-c", "--config", dest="config_path", required=True)
+    p.add_argument("-o", "--output", dest="output_dir", default=None)
+    p.add_argument("--epochs", type=int, default=None,
+                   help="Override classifier epochs.")
+    p.add_argument("--steps-per-epoch", "--steps_per_epoch",
+                   dest="steps_per_epoch", type=int, default=None)
+    p.add_argument("--from-last-checkpoint", "--from_last_checkpoint",
+                   dest="from_last_checkpoint", action="store_true",
+                   help="Resume from the most advanced branch checkpoint.")
+    p.add_argument("-f", "--force", action="store_true",
+                   help="Train into a non-empty output directory anyway.")
+    p.add_argument("--ignore-convergence", "--ignore_convergence",
+                   dest="ignore_convergence", action="store_true",
+                   help="Retrain branches even if convergence markers "
+                        "exist.")
+    p.add_argument("--only-classification-head", "--only-heads",
+                   "--only_classification_head", "--only_heads",
+                   dest="only_classification_head", action="store_true",
+                   help="Freeze the representation learner; fine-tune heads "
+                        "only.")
+    p.add_argument("--only-reliability-head", "--only_reliability_head",
+                   dest="only_reliability_head", action="store_true",
+                   help="Skip the classifier; train the reliability branch "
+                        "only.")
+    p.add_argument("--only-save", "--only_save", dest="only_save",
+                   action="store_true",
+                   help="Save the model with last-checkpoint weights without "
+                        "training.")
+    p.add_argument("--masking", action=argparse.BooleanOptionalAction,
+                   default=None,
+                   help="Enable/disable sequence masking; defaults to "
+                        "model.use_masking in the config.")
+    p.add_argument("--precision", default=None,
+                   type=str.lower, choices=["fp32", "fp16", "bf16"],
+                   help="Numeric precision (overrides "
+                        "training.mixed_precision; fp16 maps to bf16).")
+    p.add_argument("--meta", default=None,
+                   help="Path to write container metadata JSON.")
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default cuda; 'cpu' runs on the "
+                        "CPU).")
+    p.add_argument("-v", "--verbose", action="count", default=0)
+    # later slices
+    p.add_argument("--self-supervised-pretraining",
+                   "--self_supervised_pretraining",
+                   dest="self_supervised_pretraining", action="store_true")
+    p.add_argument("--generate-reliability-data",
+                   "--generate_reliability_data",
+                   dest="generate_reliability_data", action="store_true",
+                   default=None)
+    p.add_argument("--coordinator", default=None)
+    p.add_argument("--num-processes", "--num_processes",
+                   dest="num_processes", type=int, default=None)
+    p.add_argument("--process-id", "--process_id", dest="process_id",
+                   type=int, default=None)
+
+
+def train(args: argparse.Namespace) -> None:
+    from jaeger_tpu_torch.commands.train import train_fragment_core
+
+    if args.coordinator or (args.num_processes or 1) > 1:
+        raise NotImplementedError(
+            "multi-device training is not yet ported to jaeger_tpu_torch "
+            "(ROADMAP.md queue 1, item 11)")
+    results = train_fragment_core(
+        config_path=args.config_path, output_dir=args.output_dir,
+        epochs_override=args.epochs, steps_override=args.steps_per_epoch,
+        self_supervised_pretraining=args.self_supervised_pretraining,
+        generate_reliability=args.generate_reliability_data,
+        from_last_checkpoint=args.from_last_checkpoint, force=args.force,
+        ignore_convergence=args.ignore_convergence,
+        only_classification_head=args.only_classification_head,
+        only_reliability_head=args.only_reliability_head,
+        only_save=args.only_save, masking=args.masking,
+        precision=args.precision, meta=args.meta, device=args.device)
+    print(f"model written to {results.get('model_path')}")
+
+
 def _utils_parser(sub) -> None:
     p = sub.add_parser("utils", help="Model utilities.")
     usub = p.add_subparsers(dest="utils_command", required=True)
@@ -147,6 +230,7 @@ def main(argv: list[str] | None = None) -> None:
         description="jaeger_tpu_torch: phage detection on NVIDIA GPUs.")
     sub = parser.add_subparsers(dest="command", required=True)
     _predict_parser(sub)
+    _train_parser(sub)
     _utils_parser(sub)
     args = parser.parse_args(argv)
     logging.basicConfig(
@@ -154,6 +238,8 @@ def main(argv: list[str] | None = None) -> None:
         format="%(asctime)s %(name)s %(levelname)s %(message)s")
     if args.command == "utils":
         quantize(args)
+    elif args.command == "train":
+        train(args)
     else:
         predict(args)
 

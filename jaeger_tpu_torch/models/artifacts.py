@@ -198,10 +198,12 @@ def load_state(model: torch.nn.Module, state: dict[str, torch.Tensor]) -> None:
 
 def init_params(config: dict,
                 generator: torch.Generator) -> dict[str, torch.Tensor]:
-    """Seeded weights for ``config`` with flax's default initializers:
-    glorot-uniform conv kernels, lecun-normal dense kernels, orthogonal
-    embeddings, zero biases, DYT ``alpha_init``/1/0, BN 1/0 with moving
-    statistics 0/1."""
+    """Seeded weights for ``config`` with flax's default initializers, the
+    JAX model's distributions: glorot-uniform conv kernels, lecun-normal
+    (truncated at two standard deviations) dense kernels, orthogonal
+    embeddings and ``translated_embedding``, zero biases, DYT
+    ``alpha_init``/1/0, BN 1/0 with moving statistics 0/1. The numbers are
+    the generator's, not JAX's."""
     model = build_model(config)
     state = {}
     for name, t in model.state_dict().items():
@@ -211,9 +213,16 @@ def init_params(config: dict,
             fan_in, fan_out = t.shape[0] * t.shape[1], t.shape[0] * t.shape[2]
             lim = math.sqrt(6.0 / (fan_in + fan_out))
             v = (torch.rand(t.shape, generator=generator) * 2 - 1) * lim
+        elif leaf == "kernel" and name.startswith("translated_embedding"):
+            v = torch.nn.init.orthogonal_(torch.empty(t.shape),
+                                          generator=generator)
         elif leaf == "kernel":                       # dense (in, out)
-            v = torch.randn(t.shape, generator=generator) / math.sqrt(
-                t.shape[0])
+            # variance_scaling(1, fan_in, truncated_normal): the stddev of
+            # a unit normal truncated at +-2 is 0.8796...
+            std = math.sqrt(1.0 / t.shape[0]) / 0.87962566103423978
+            v = torch.nn.init.trunc_normal_(
+                torch.empty(t.shape), std=std, a=-2 * std, b=2 * std,
+                generator=generator)
         elif leaf == "embedding":
             v = torch.nn.init.orthogonal_(torch.empty(t.shape),
                                           generator=generator)

@@ -1,4 +1,4 @@
-"""YAML-driven model construction (PyTorch, inference).
+"""YAML-driven model construction (PyTorch).
 
 Counterpart of `jaeger_tpu/models/builder.py`: the same config schema
 (``embedding``, ``string_processor``, ``representation_learner``,
@@ -10,8 +10,11 @@ the flax tree (``rep.residual_block_3.block_0.conv1.kernel`` is flax's
 :func:`jaeger_tpu_torch.models.artifacts.params_from_jax` is a rename.
 
 The pure-Python planners ``mask_cut_plan``, ``_conv_shrinks``,
-``_resolve_crop_nt`` and ``_freeze_layers`` are copies of the JAX
-module's. The port always re-zeroes after DYT norms, so it needs none of
+``_resolve_crop_nt``, ``_freeze_layers`` and ``regularizer_specs`` are
+copies of the JAX module's. ``forward(..., train=True, heads=...)`` is the
+training forward (batch statistics, dropout, the fused convs' backward);
+``heads`` selects the output heads as the JAX model's does, so a
+classifier step never runs the NMD taps or updates their moving means. The port always re-zeroes after DYT norms, so it needs none of
 the JAX builder's defer-remask analysis. Layers outside the inference
 subset of ``models/layers.py`` (attention, recurrent and Hyena mixers,
 branch mode, nucleotide input, ...) raise ``NotImplementedError``.
@@ -19,6 +22,7 @@ branch mode, nucleotide input, ...) raise ``NotImplementedError``.
 
 from __future__ import annotations
 
+import re
 from typing import Sequence
 
 import torch
@@ -204,6 +208,7 @@ class LayerStack(nn.Module):
             elif name in ("masked_batchnorm", "batchnorm"):
                 mod = L.MaskedBatchNorm(
                     c, epsilon=cfg.get("epsilon", 1e-5),
+                    momentum=cfg.get("momentum", 0.9),
                     return_nmd=cfg.get("return_nmd", False),
                     use_masking=cfg.get("use_masking",
                                         name == "masked_batchnorm"))
@@ -219,7 +224,7 @@ class LayerStack(nn.Module):
                 if mod.return_nmd:
                     nmd_widths.append(c)
             elif name == "nmd":
-                mod = L.NMDLayer(c)
+                mod = L.NMDLayer(c, momentum=cfg.get("momentum", 0.9))
                 nmd_widths.append(c)
             elif name == "dense":
                 dt = (torch.float32 if str(cfg.get("dtype", "")) == "float32"
@@ -246,10 +251,14 @@ class LayerStack(nn.Module):
         elif nmd_widths:
             self.nmd_width = sum(nmd_widths)
 
-    def forward(self, x, mask=None, fold_table=None, mask_until=None):
+    def forward(self, x, mask=None, fold_table=None, mask_until=None,
+                train: bool = False, taps: bool = True, generator=None):
         """-> (x, mask, nmd). ``mask_until`` drops the mask from that layer
         index on, or inside the first residual block right after its conv1
-        for ``(index, "conv1")`` (the engine's bounded program)."""
+        for ``(index, "conv1")`` (the engine's bounded program).
+        ``train``: batch statistics, dropout from ``generator``, the fused
+        convs' backward. ``taps=False`` skips the NMD taps (heads that do
+        not read them)."""
         nmds: list = []
         post_cut = False
         inner_at = cut_at = None
@@ -269,25 +278,35 @@ class LayerStack(nn.Module):
                 x, mask = mod(x, mask, fold_table=fold_table if i == 0
                               else None)
             elif name in ("masked_batchnorm", "batchnorm"):
-                out = mod(x, mask)
+                bn_mask = mask
+                if (post_cut and mask is None and mod.use_masking
+                        and (train or mod.return_nmd)):
+                    # the masked statistics under an all-true mask, as the
+                    # masked program computes them
+                    bn_mask = torch.ones(x.shape[:-1], dtype=torch.bool,
+                                         device=x.device)
+                out = mod(x, bn_mask, train)
                 x = out[0]
-                if mod.return_nmd:
+                if mod.return_nmd and taps:
                     nmds.append(out[2])
             elif name == "masked_dyt":
                 x, mask = mod(x, mask)
             elif name == "residual_block":
-                out = mod(x, mask, drop_mask_after_first_conv1=(i == inner_at))
+                out = mod(x, mask, drop_mask_after_first_conv1=(i == inner_at),
+                          train=train, bn_stats_all_true=post_cut)
                 x, mask = out[0], out[1]
-                if mod.return_nmd:
+                if mod.return_nmd and taps:
                     nmds.append(out[2])
             elif name == "nmd":
+                if not taps:
+                    continue
                 nmd_mask = mask
                 if post_cut and mask is None:
                     # post-cut taps keep the masked statistics (their
                     # eps-carrying denominators) under an all-true mask
                     nmd_mask = torch.ones(x.shape[:-1], dtype=torch.bool,
                                           device=x.device)
-                nmds.append(mod(x, nmd_mask))
+                nmds.append(mod(x, nmd_mask, train))
             elif name == "dense":
                 x = L.get_activation(cfg.get("activation"))(mod(x))
             elif name in _ACT_LAYERS:
@@ -301,7 +320,8 @@ class LayerStack(nn.Module):
                 if mask is not None:
                     mask = mask[:, t: mask.shape[1] - b_ or None,
                                 l_: mask.shape[2] - r_ or None]
-            # dropout: identity at inference
+            elif name == "dropout" and train:
+                x = L.dropout(x, float(cfg.get("rate", 0.5)), generator)
 
         merged_nmd = None
         if len(nmds) == 1:
@@ -410,12 +430,26 @@ class JaegerModel(nn.Module):
         """Whether soft-masked bases encode as masked tokens."""
         return self.masking
 
-    def forward(self, bases: torch.Tensor, lengths: torch.Tensor,
-                assume_dense: bool = False,
-                mask_layers=None) -> dict[str, torch.Tensor]:
-        tokens = encode.encode_frames(
-            bases, lengths, crop_size=self.crop_nt, masking=self.masking,
-            alphabet=self.alphabet)
+    def forward(self, bases: torch.Tensor | None = None,
+                lengths: torch.Tensor | None = None,
+                assume_dense: bool = False, mask_layers=None, *,
+                train: bool = False, heads: tuple | None = None,
+                tokens: torch.Tensor | None = None,
+                frame_perm: torch.Tensor | None = None,
+                generator: torch.Generator | None = None
+                ) -> dict[str, torch.Tensor]:
+        """``tokens`` (B, 6, L) replaces ``bases``/``lengths`` with
+        pre-encoded frames; ``frame_perm`` (B, 6) reorders each example's
+        frames (train-time augmentation); ``heads`` limits the outputs
+        (None = all) as ``jaeger_tpu/models/builder.py:815-824`` does;
+        ``train`` with ``generator`` for dropout."""
+        if tokens is None:
+            tokens = encode.encode_frames(
+                bases, lengths, crop_size=self.crop_nt, masking=self.masking,
+                alphabet=self.alphabet)
+        if frame_perm is not None:
+            tokens = torch.gather(tokens, 1, frame_perm.long()[:, :, None]
+                                  .expand(-1, -1, tokens.shape[2]))
         mask = None if assume_dense else tokens != 0
         fold_table = None
         if self.emb_size > 0 and self.use_embedding_layer:
@@ -429,16 +463,51 @@ class JaegerModel(nn.Module):
                 self.depth, device=tokens.device)).to(self.dtype)
             x = (self.translated_embedding(onehot) if self.emb_size > 0
                  else onehot)
+        need_rel = self.reliability is not None and (
+            heads is None or "reliability" in heads)
+        need_pred = self.classifier is not None and (
+            heads is None or "prediction" in heads)
+        kw = dict(train=train, generator=generator)
         rep, _, nmd = self.rep(x, mask, fold_table=fold_table,
-                               mask_until=mask_layers)
+                               mask_until=mask_layers, taps=need_rel, **kw)
         outputs = {"embedding": rep}
         if nmd is not None:
             outputs["nmd"] = nmd
-        if self.classifier is not None:
-            outputs["prediction"] = self.classifier(rep)[0]
-        if self.reliability is not None:
-            outputs["reliability"] = self.reliability(nmd)[0]
+        if need_pred:
+            outputs["prediction"] = self.classifier(rep, **kw)[0]
+        if need_rel:
+            outputs["reliability"] = self.reliability(nmd, **kw)[0]
         return outputs
+
+    def regularizer_specs(self) -> list[tuple[str, str, float]]:
+        """(param-path regex, kind, weight) triples from the config, as
+        ``jaeger_tpu/models/builder.py:1031-1069`` collects them; paths are
+        flax's, ``/``-joined."""
+        specs: list[tuple[str, str, float]] = []
+        emb = self.config.get("embedding", {})
+        if emb.get("embedding_regularizer"):
+            specs.append((r"embedding", str(emb["embedding_regularizer"]),
+                          float(emb.get("embedding_regularizer_w", 0.0))))
+
+        def walk(section: str, cfg: dict):
+            for i, entry in enumerate(cfg.get("hidden_layers", [])):
+                c = entry.get("config") or {}
+                if c.get("kernel_regularizer"):
+                    name = entry.get("name", "").lower()
+                    specs.append(
+                        (rf"{section}/.*{re.escape(name)}_{i}.*/kernel",
+                         str(c["kernel_regularizer"]),
+                         float(c.get("kernel_regularizer_w", 0.0))))
+
+        for section, name in (("representation_learner", "rep"),
+                              ("classifier", "classifier"),
+                              ("projection", "projection"),
+                              ("reliability_model", "reliability")):
+            sec_cfg = self.config.get(section) or {}
+            walk(name, sec_cfg)
+            if "branch" in sec_cfg:
+                walk(f"{name}_branch", sec_cfg["branch"])
+        return specs
 
 
 def build_model(config: dict, dtype=torch.float32) -> JaegerModel:

@@ -6,10 +6,22 @@ bool, and every layer returns ``(y, mask)``. Parameters keep the flax
 names and shapes (conv kernels ``(k, C_in, C_out)``, dense kernels
 ``(in, out)``) and are stored in f32; each layer casts them to its compute
 dtype as the flax layers do. Ported: activations, ``apply_mask``,
-``MaskedConv1D`` (with its int8 branch and calibration), ``MaskedBatchNorm``
-(eval), ``MaskedDYT``, the global max/average poolers, ``ResidualBlock``
-and ``ResidualBlockStack``, ``NMDLayer``, ``NMDMerge``, ``Dense`` and
-``OneHotEmbed``. Training statistics are not ported yet.
+``MaskedConv1D`` (with its int8 branch and calibration), ``MaskedBatchNorm``,
+``MaskedDYT``, the global max/average poolers, ``ResidualBlock`` and
+``ResidualBlockStack``, ``NMDLayer``, ``NMDMerge``, ``Dense``,
+``OneHotEmbed`` and ``dropout``.
+
+Train mode (``train=True``): ``MaskedBatchNorm`` uses batch statistics
+(the masked two-pass variance, or ``E[x^2] - mean^2`` without a mask) and
+updates its moving mean and variance with its momentum; ``NMDLayer``
+measures against the batch mean and updates its moving mean; dropout
+draws its keep mask from a ``torch.Generator``; fusable residual convs run
+through :class:`jaeger_tpu_torch.ops.fused_conv_grad.FusedConvBlockFn`
+(the fused kernel forward, hand-written backward kernels); everything else
+trains by autograd. ``bn_stats_all_true`` keeps a masked batch norm whose
+mask the bounded program dropped on the masked statistics under an
+all-true mask, so the bounded program's statistics and gradients are the
+masked program's (``jaeger_tpu/models/layers.py:736-790``).
 
 int8 execution: a conv given ``kernel_q`` / ``w_scale`` / ``act_scale``
 buffers (a full_int8 bundle's ``quant`` collection, ``set_quant``) runs on
@@ -40,6 +52,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from jaeger_tpu_torch.ops.fused_conv import fused_conv_block
+from jaeger_tpu_torch.ops.fused_conv_grad import fused_conv_block_train
 from jaeger_tpu_torch.ops.int8_conv import conv_geometry, int8_conv_dequant
 
 # ---------------------------------------------------------------------------
@@ -311,16 +324,20 @@ def calibrating(model: nn.Module):
 
 
 class MaskedBatchNorm(nn.Module):
-    """Mask-aware batch normalization, eval mode (moving statistics).
+    """Mask-aware batch normalization with f32 statistics.
 
-    With ``return_nmd=True`` also returns the per-example channel mean
-    minus the moving mean (the NMD vector), over valid positions only.
+    Eval mode normalizes with the moving statistics; train mode with the
+    batch's (masked positions excluded) and updates the moving ones. With
+    ``return_nmd=True`` also returns the per-example channel mean minus the
+    reference mean (the NMD vector), over valid positions only.
     """
 
     def __init__(self, channels: int, epsilon: float = 1e-5,
-                 return_nmd: bool = False, use_masking: bool = True):
+                 return_nmd: bool = False, use_masking: bool = True,
+                 momentum: float = 0.9):
         super().__init__()
         self.epsilon = float(epsilon)
+        self.momentum = float(momentum)
         self.return_nmd = bool(return_nmd)
         self.use_masking = bool(use_masking)
         self.gamma = _param(channels)
@@ -328,10 +345,36 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer("moving_mean", torch.zeros(channels))
         self.register_buffer("moving_variance", torch.ones(channels))
 
-    def forward(self, x, mask=None):
-        inv = torch.rsqrt(self.moving_variance + self.epsilon)
+    def _batch_stats(self, x, mask):
+        """(mean, variance) over every axis but channels, in f32."""
+        reduce_axes = tuple(range(x.dim() - 1))
+        if self.use_masking and mask is not None:
+            mf = mask[..., None]
+            valid = torch.sum(mf, dim=reduce_axes,
+                              dtype=torch.float32) + self.epsilon
+            mean = torch.sum(apply_mask(x, mask), dim=reduce_axes,
+                             dtype=torch.float32) / valid
+            sq = torch.square(x.float() - mean) * mf.float()
+            return mean, torch.sum(sq, dim=reduce_axes) / valid
+        n = math.prod(x.shape[a] for a in reduce_axes)
+        mean = torch.sum(x, dim=reduce_axes, dtype=torch.float32) / n
+        return mean, (torch.sum(torch.square(x.float()), dim=reduce_axes) / n
+                      - torch.square(mean))
+
+    def forward(self, x, mask=None, train: bool = False):
+        if train:
+            mean_use, var_use = self._batch_stats(x, mask)
+            with torch.no_grad():
+                m = self.momentum
+                self.moving_mean.copy_(m * self.moving_mean
+                                       + (1 - m) * mean_use)
+                self.moving_variance.copy_(m * self.moving_variance
+                                           + (1 - m) * var_use)
+        else:
+            mean_use, var_use = self.moving_mean, self.moving_variance
+        inv = torch.rsqrt(var_use + self.epsilon)
         scale = (self.gamma * inv).to(x.dtype)
-        bias = (self.beta - self.moving_mean * inv * self.gamma).to(x.dtype)
+        bias = (self.beta - mean_use * inv * self.gamma).to(x.dtype)
         y = x * scale + bias
         if not self.return_nmd:
             return y, mask
@@ -347,7 +390,7 @@ class MaskedBatchNorm(nn.Module):
             n_ex = math.prod(x.shape[a] for a in example_axes)
             mean_ch = torch.sum(x, dim=example_axes,
                                 dtype=torch.float32) / n_ex
-        nmd = (mean_ch - self.moving_mean).to(x.dtype)
+        nmd = (mean_ch - mean_use).to(x.dtype)
         return y, mask, nmd
 
 
@@ -369,7 +412,7 @@ class MaskedDYT(nn.Module):
         rows = torch.stack([self.alpha.expand(c), self.gamma, self.beta])
         return rows.to(dtype).float()
 
-    def forward(self, x, mask=None):
+    def forward(self, x, mask=None, train: bool = False):
         y = (torch.tanh(self.alpha.to(x.dtype) * x) * self.gamma.to(x.dtype)
              + self.beta.to(x.dtype))
         return apply_mask(y, mask), mask
@@ -470,19 +513,31 @@ class ResidualBlock(nn.Module):
                 **dict(conv_kw, kernel_size=1))
             self.norm_bypass = _make_norm(norm_type, filters, **norm_kw)
 
+    def _stats_mask(self, norm, m, t, train, bn_stats_all_true):
+        """The mask a norm computes statistics under: an all-true one for a
+        masked batch norm whose mask the bounded program dropped, when it
+        computes batch statistics or NMD means (``bn_stats_all_true``)."""
+        if (m is None and bn_stats_all_true and self.use_masking
+                and isinstance(norm, MaskedBatchNorm)
+                and (train or norm.return_nmd)):
+            return torch.ones(t.shape[:-1], dtype=torch.bool, device=t.device)
+        return m
+
     def _conv_norm(self, conv, norm, x, mask, act, residual=None,
-                   drop_mask=False):
+                   drop_mask=False, train=False, bn_stats_all_true=False):
         """``act(norm(conv(x)) + residual)`` -> (y, out_mask, nmd).
 
-        Convs with int8 buffers run on the int8 kernel, other fusable
-        convs on the fused kernel; with a DYT norm the kernel's epilogue
-        also takes the norm, its re-zero, the residual add and the
+        Convs with int8 buffers run on the int8 kernel (not in training),
+        other fusable convs on the fused kernel (through
+        ``FusedConvBlockFn`` in training); with a DYT norm the kernel's
+        epilogue also takes the norm, its re-zero, the residual add and the
         activation.
         """
         masked = conv.use_masking and mask is not None
         b, f, length, _ = x.shape
         k_act = kernel_activation(act, self.dtype)
-        if conv.int8 or conv.fusable:
+        int8 = conv.int8 and not train
+        if int8 or conv.fusable:
             conv.record_input(x, mask)
             m_out = None if (drop_mask or not masked) else conv.output_mask(mask)
             l_out = conv_geometry(length, conv.kernel_size,
@@ -493,20 +548,23 @@ class ResidualBlock(nn.Module):
             fuse_norm = isinstance(norm, MaskedDYT) and k_act is not None
             if fuse_norm:
                 kw.update(
-                    dyt=norm.dyt_rows(self.dtype), act=k_act, use_dyt=True,
+                    dyt=norm.dyt_rows(self.dtype), act=k_act,
                     bias_then_dyt=bias is not None,
                     out_mask=(None if m_out is None
                               else m_out.reshape(b * f, l_out)),
                     residual=(None if residual is None
                               else residual.reshape(b * f, l_out, -1)))
             x3 = x.reshape(b * f, length, -1).to(self.dtype)
-            if conv.int8:
+            if int8:
                 y = int8_conv_dequant(x3, conv.kernel_q, *conv.int8_args(),
-                                      bias, dilation=conv.dilation_rate,
+                                      bias, use_dyt=fuse_norm,
+                                      dilation=conv.dilation_rate,
                                       padding=conv.padding, **kw)
+            elif train:
+                y = fused_conv_block_train(x3, conv.kernel, bias, **kw)
             else:
                 y = fused_conv_block(x3, conv.kernel.to(self.dtype), bias,
-                                     **kw)
+                                     use_dyt=fuse_norm, **kw)
             y = y.reshape(b, f, y.shape[1], -1)
             if fuse_norm:
                 return y, m_out, None
@@ -514,26 +572,32 @@ class ResidualBlock(nn.Module):
             y, m_out = conv(x, mask)
             if drop_mask:
                 m_out = None
-        out = norm(y, m_out)
+        out = norm(y, self._stats_mask(norm, m_out, y, train,
+                                       bn_stats_all_true), train)
         y = out[0]
         nmd = out[2] if len(out) == 3 else None
         if residual is not None:
             y = y + residual
         return get_activation(act)(y), m_out, nmd
 
-    def forward(self, x, mask=None, drop_mask_after_conv1: bool = False):
+    def forward(self, x, mask=None, drop_mask_after_conv1: bool = False,
+                train: bool = False, bn_stats_all_true: bool = False):
+        kw = dict(train=train, bn_stats_all_true=bn_stats_all_true)
         h, m1, _ = self._conv_norm(self.conv1, self.norm1, x, mask,
                                    self.activation,
-                                   drop_mask=drop_mask_after_conv1)
+                                   drop_mask=drop_mask_after_conv1, **kw)
         if self.bypass:
             m2 = (self.conv2.output_mask(m1)
                   if self.conv2.use_masking and m1 is not None else None)
             shortcut, _ = self.conv_bypass(x, mask)
-            shortcut = self.norm_bypass(shortcut, m2)[0]
+            shortcut = self.norm_bypass(
+                shortcut, self._stats_mask(self.norm_bypass, m2, shortcut,
+                                           train, bn_stats_all_true),
+                train)[0]
         else:
             shortcut = x
         h, m2, nmd = self._conv_norm(self.conv2, self.norm2, h, m1,
-                                     self.activation, residual=shortcut)
+                                     self.activation, residual=shortcut, **kw)
         if self.return_nmd:
             return h, m2, nmd
         return h, m2
@@ -557,13 +621,20 @@ class ResidualBlockStack(nn.Module):
                 return_nmd=return_nmd and last, dtype=dtype, **block_kw))
             c = filters
 
-    def forward(self, x, mask=None, drop_mask_after_first_conv1=False):
+    def forward(self, x, mask=None, drop_mask_after_first_conv1=False,
+                train: bool = False, bn_stats_all_true: bool = False):
+        """``bn_stats_all_true``: the stack sits after the bounded
+        program's cut (see ``ResidualBlock._stats_mask``); cut A sets it
+        for every block from its own."""
         nmd = None
         for i in range(self.block_size):
             block = getattr(self, f"block_{i}")
             out = block(x, mask,
                         drop_mask_after_conv1=(drop_mask_after_first_conv1
-                                               and i == 0))
+                                               and i == 0),
+                        train=train,
+                        bn_stats_all_true=(bn_stats_all_true
+                                           or drop_mask_after_first_conv1))
             if block.return_nmd:
                 x, mask, nmd = out
             else:
@@ -579,24 +650,53 @@ class ResidualBlockStack(nn.Module):
 
 
 class NMDLayer(nn.Module):
-    """Standalone neural-mean-discrepancy vector against the moving mean
-    (eval mode). Side output only."""
+    """Standalone neural-mean-discrepancy vector: the per-example channel
+    mean minus the moving mean (eval) or the batch mean (train, which also
+    updates the moving mean). Side output only."""
 
-    def __init__(self, channels: int, epsilon: float = 1e-5):
+    def __init__(self, channels: int, epsilon: float = 1e-5,
+                 momentum: float = 0.9):
         super().__init__()
         self.epsilon = float(epsilon)
+        self.momentum = float(momentum)
         self.register_buffer("moving_mean", torch.zeros(channels))
 
-    def forward(self, x, mask=None):
+    def forward(self, x, mask=None, train: bool = False):
         xf = x.float()
+        reduce_axes = tuple(range(xf.dim() - 1))
         example_axes = tuple(range(1, xf.dim() - 1))
         if mask is not None:
             mf = mask.float()[..., None]
-            mean_ch = torch.sum(xf * mf, dim=example_axes) / (
+            masked = xf * mf
+            mean_ch = torch.sum(masked, dim=example_axes) / (
                 torch.sum(mf, dim=example_axes) + self.epsilon)
+            if train:
+                mean_b = torch.sum(masked, dim=reduce_axes) / (
+                    torch.sum(mf, dim=reduce_axes) + self.epsilon)
         else:
             mean_ch = torch.mean(xf, dim=example_axes)
-        return (mean_ch - self.moving_mean).to(x.dtype)
+            if train:
+                mean_b = torch.mean(xf, dim=reduce_axes)
+        if not train:
+            return (mean_ch - self.moving_mean).to(x.dtype)
+        with torch.no_grad():
+            m = self.momentum
+            self.moving_mean.copy_(m * self.moving_mean + (1 - m) * mean_b)
+        return (mean_ch - mean_b).to(x.dtype)
+
+
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator):
+    """``flax.linen.Dropout`` in train mode: keep each element with
+    probability ``1 - rate`` (drawn from ``generator``) and scale kept ones
+    by ``1 / (1 - rate)``."""
+    if rate <= 0.0:
+        return x
+    if rate >= 1.0:
+        return torch.zeros_like(x)
+    keep = torch.rand(x.shape, generator=generator,
+                      device=generator.device) < (1.0 - rate)
+    return torch.where(keep.to(x.device), x / (1.0 - rate),
+                       torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class Dense(nn.Module):

@@ -27,7 +27,7 @@ ROOT = Path(__file__).resolve().parents[1]
 FASTA = ROOT / "jaeger_tpu" / "data" / "test" / "test_contigs.fasta"
 DEMO = ROOT / "jaeger_tpu" / "data" / "models" / "demo"
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "ml_dtypes",
-           "jaeger_tpu")
+           "jaeger_tpu", "triton")
 
 
 def _port_modules() -> list[str]:
@@ -106,7 +106,9 @@ def test_entry_points_raise_without_cuda(tmp_path):
 
 def test_port_imports_without_jax():
     modules = _port_modules()
-    for name in ("ops.fused_conv", "ops.int8_conv", "models.conversion"):
+    for name in ("ops.fused_conv", "ops.int8_conv", "models.conversion",
+                 "ops.fused_conv_grad", "train.loop", "train.optimizers",
+                 "commands.train", "postprocess.threshold"):
         assert f"jaeger_tpu_torch.{name}" in modules
     code = (
         "import sys\n"
