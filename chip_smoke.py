@@ -7,16 +7,19 @@ Run from the root of a checkout on a machine with CUDA:
     python3 chip_smoke.py --quick    # phases 1-3b only (build, kernel checks)
     python3 chip_smoke.py --profile  # also: device time by kernel (torch
                                      # profiler) of each flagship forward
-    python3 chip_smoke.py --sweep    # also: both kernels under other
-                                     # launch plans and with fewer taps
+    python3 chip_smoke.py --sweep    # also: the kernels under other
+                                     # launch plans and with fewer taps,
+                                     # the backward wrappers' host time
+    python3 chip_smoke.py --backward # phases 1, 2 and 3b only (the
+                                     # backward kernels)
 
 Phases, each of which fails the run:
 
 1. device: torch version, the card's name and power limit (nvidia-smi);
-2. build: nvcc builds csrc/fused_conv_block.cu, csrc/int8_conv.cu and
-   csrc/fused_conv_wgrad.cu for sm_90a, one nvcc per source, started
-   together; ptxas' registers, stack and spills of each instance of the
-   two wgmma kernels and of wgrad_bf16;
+2. build: nvcc builds csrc/fused_conv_block.cu, csrc/int8_conv.cu,
+   csrc/fused_conv_wgrad.cu and csrc/conv_epilogue_bwd.cu for sm_90a, one
+   nvcc per source, started together; ptxas' registers, stack and spills
+   of each instance of the wgmma kernels, wgrad_f32 and conv_epilogue_bwd;
 3. each kernel against its plain version on the card. fused_conv_block:
    the Pallas kernel's test cases, each extension, the demo and flagship
    shapes, and the bf16 kernel's edges (L = 1, 63, 65; N = 1; C = 16, 64,
@@ -38,13 +41,17 @@ Phases, each of which fails the run:
    times of the requant form at the Pallas shape and of the dequant form
    at the flagship shape (conv1, conv2 and bias-only forms). All times
    with CUDA events, each with its bound;
-3b. the fused conv's backward: conv_wgrad (same bits run to run),
-   conv_epilogue_bwd and the flipped-weight data gradient against their
-   plain versions at the train shape (N = 1536, L = 500, C = 128, k = 5)
-   in bf16 and at small shapes in f32 and bf16, every form; bf16 outputs
-   within 2 ulps + 1e-4 of the scale, f32 within 2e-4 (conv_wgrad 1e-3 in
-   bf16); FusedConvBlockFn's whole backward at the train shape within 2
-   ulps + 5e-3 of the scale; kernel, plain, library and bound times;
+3b. the fused conv's backward: conv_wgrad (one tile first; L 1 / 63 / 64
+   / 65 / 500, C 64 / 128 / 256, k 3 / 5, in_mask none, random and runs
+   across tile edges and the halo), conv_epilogue_bwd (every activation
+   with and without residual, out mask and DYT, f32 and bf16, C 16 / 48 /
+   128 / 256, ragged row counts) and the flipped-weight data gradient
+   against their plain versions at the train shape (N = 1536, L = 500, C =
+   128, k = 5) in bf16 and at small shapes, both kernels the same bits run
+   to run; bf16 outputs within 2 ulps + 1e-4 of the scale, f32 within 2e-4
+   (conv_wgrad 1e-3 in bf16); FusedConvBlockFn's whole backward at the
+   train shape within 2 ulps + 5e-3 of the scale; kernel, plain, library
+   and bound times, and each kernel's host microseconds a call;
 4. the flagship (128 channels, 1505 nt crop, 6 classes; seeded weights,
    bf16) through the port's InferenceEngine at batch 2048, on windows
    that select the dense, the bounded-cut and the split (dense + masked
@@ -135,6 +142,25 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def host_us(fn, calls: int = 100, repeats: int = 5) -> float:
+    """Host microseconds per call of ``fn`` over ``calls`` calls that do not
+    wait for the card (the launch cost a step's host thread pays), starting
+    on an idle card after a warm-up: the median of ``repeats`` such runs
+    (the host clock of a shared machine spreads)."""
+    import torch
+
+    fn()
+    runs = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        runs.append((time.perf_counter() - t0) / calls * 1e6)
+    torch.cuda.synchronize()
+    return sorted(runs)[repeats // 2]
+
+
 # --- phase 1 ---------------------------------------------------------------
 
 def phase_device() -> str:
@@ -154,7 +180,8 @@ def phase_device() -> str:
 
 # --- phase 2 ---------------------------------------------------------------
 
-KERNEL_SOURCES = ("fused_conv_block", "int8_conv", "fused_conv_wgrad")
+KERNEL_SOURCES = ("fused_conv_block", "int8_conv", "fused_conv_wgrad",
+                  "conv_epilogue_bwd")
 
 
 def phase_build() -> None:
@@ -173,7 +200,9 @@ def phase_build() -> None:
     print(f"build: all kernels ready in {time.perf_counter() - t0:.1f} s")
     for name, kernel in (("fused_conv_block", "conv_bf16_wgmma"),
                          ("int8_conv", "int8_wgmma"),
-                         ("fused_conv_wgrad", "wgrad_bf16")):
+                         ("fused_conv_wgrad", "wgrad_bf16"),
+                         ("fused_conv_wgrad", "wgrad_f32"),
+                         ("conv_epilogue_bwd", "conv_epilogue_bwd")):
         for line in ptxas_summary(cuda_build.build_logs.get(name, ""), kernel):
             print(f"ptxas: {line}")
 
@@ -187,19 +216,20 @@ def ptxas_summary(log: str, kernel: str) -> list[str]:
             name = line.split("'")[1] if "'" in line else line
             entry = name if kernel in name else None
         elif entry is not None and ("Used" in line or "spill" in line):
-            out.append(f"{kernel}<{_template_args(entry.split(kernel, 1)[1])}>"
+            out.append(f"{kernel}<{_template_args(entry.rsplit(kernel, 1)[1])}>"
                        f": {line.split(':', 1)[-1].strip()}")
     return out
 
 
 def _template_args(mangled: str) -> str:
     """'bf16, 128, 64' from the Itanium mangling of a kernel's template
-    arguments (``I13__nv_bfloat16Li128ELi64EEEv...``, ``IaLi16ELi32E...``)."""
+    arguments (``I13__nv_bfloat16Li128ELi64EEEv...``, ``IaLi16ELi32E...``,
+    ``IfLi4ELb1EEEv...``: int and bool arguments)."""
     args = mangled.split("EEv", 1)[0] + "E"
     types = {"a": "int8", "13__nv_bfloat16": "bf16", "f": "f32"}
     m = re.match(r"I(a|f|13__nv_bfloat16)?", args)
     head = [types[m.group(1)]] if m and m.group(1) else []
-    return ", ".join(head + re.findall(r"Li(\d+)E", args))
+    return ", ".join(head + re.findall(r"L[ib](\d+)E", args))
 
 
 # --- phase 3 ---------------------------------------------------------------
@@ -910,6 +940,7 @@ def phase_train_kernel(card: str) -> dict:
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(2468)
     f32, bf16 = torch.float32, torch.bfloat16
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     worst = {"conv_wgrad": 0.0, "conv_epilogue_bwd": 0.0, "dgrad": 0.0}
 
     def masks(n, length, kind):
@@ -922,8 +953,12 @@ def phase_train_kernel(card: str) -> dict:
             return m.to(dev)
         return (torch.rand(n, length, generator=gen) > 0.2).to(dev)
 
-    # conv_wgrad: (name, n, length, c, k, dtype, in_mask kind)
+    # conv_wgrad: (name, n, length, c, k, dtype, in_mask kind); one tile
+    # first (the MN-major B descriptor and the ring on the smallest case)
     for name, n, length, c, k, dt, mk in [
+            ("one_tile", 1, 64, 128, 5, bf16, "none"),
+            ("one_tile_masked", 1, 64, 128, 5, bf16, "random"),
+            ("one_tile_C64_k3", 1, 64, 64, 3, bf16, "none"),
             ("train_shape_bf16", TRAIN_N, TRAIN_L, TRAIN_C, TRAIN_K, bf16,
              "random"),
             ("dense_bf16", 64, 500, 128, 5, bf16, "none"),
@@ -933,7 +968,12 @@ def phase_train_kernel(card: str) -> dict:
             ("edge_L63", 3, 63, 128, 5, bf16, "random"),
             ("edge_L65", 3, 65, 128, 5, bf16, "runs"),
             ("edge_C64_k3", 6, 300, 64, 3, bf16, "random"),
-            ("edge_C256_k5", 6, 300, 256, 5, bf16, "random")]:
+            ("edge_C256_k5", 6, 300, 256, 5, bf16, "random"),
+            ("edge_L64_k3_runs", 3, 64, 128, 3, bf16, "runs"),
+            ("edge_L500_k3", 4, 500, 128, 3, bf16, "random"),
+            ("edge_C64_k5_runs", 6, 300, 64, 5, bf16, "runs"),
+            ("edge_C256_k3", 6, 300, 256, 3, bf16, "none"),
+            ("edge_runs_C128_k5", 6, 300, 128, 5, bf16, "runs")]:
         x = torch.randn(n, length, c, generator=gen).to(dev, dt)
         du = (torch.randn(n, length, c, generator=gen) * 0.1).to(dev, dt)
         im = masks(n, length, mk)
@@ -943,36 +983,52 @@ def phase_train_kernel(card: str) -> dict:
         check(fg.launches["conv_wgrad"] == before + 1,
               f"conv_wgrad {name}: kernel not launched")
         rdw, rdb = fg.reference_conv_wgrad(x, du, im, k)
-        plan = fg.wgrad_plan(n, length, c, k, dt, torch.cuda.get_device_properties(
-            dev).multi_processor_count)
+        plan = fg.wgrad_plan(n, length, c, k, dt, sms)
         again = fg.conv_wgrad(x, du, im, k)
         check(torch.equal(again[0], dw) and torch.equal(again[1], db),
               f"conv_wgrad {name}: not the same bits run to run")
         worst["conv_wgrad"] = max(worst["conv_wgrad"], _check_close(
             f"conv_wgrad {name} N={n} L={length} C={c} k={k} "
-            f"{str(dt)[6:]} mask={mk} [cb={plan['cb']} "
-            f"splits={plan['splits']}]",
+            f"{str(dt)[6:]} mask={mk} [{plan['route']} groups="
+            f"{plan['groups']}x{plan['group']} co_block={plan['co_block']}]",
             {"dW": (dw, rdw), "db": (db, rdb)},
             F32_TOL if dt == f32 else 1e-3))
         del x, du, dw, db, rdw, rdb
 
-    # conv_epilogue_bwd: (name, n, length, c, dtype, act, form)
-    for name, n, length, c, dt, act, form in [
-            ("conv1_train_bf16", TRAIN_N, TRAIN_L, TRAIN_C, bf16, "gelu_tanh",
-             "conv1"),
-            ("conv2_train_bf16", TRAIN_N, TRAIN_L, TRAIN_C, bf16, "gelu_tanh",
-             "conv2"),
-            ("conv2_f32_gelu", 6, 300, 128, f32, "gelu", "conv2"),
-            ("conv1_f32_relu", 6, 300, 128, f32, "relu", "conv1"),
-            ("conv1_f32_tanh", 6, 300, 48, f32, "tanh", "conv1"),
-            ("conv2_f32_none", 6, 300, 16, f32, "none", "conv2"),
-            ("bias_f32_outmask", 6, 300, 32, f32, "gelu", "nodyt")]:
+    # conv_epilogue_bwd: (name, n, length, c, dtype, act, residual, out
+    # mask, DYT): the train shapes, then every activation with and without
+    # each of residual, out mask and DYT in both types, at C 16 / 48 / 128 /
+    # 256 and row counts that are no multiple of a chunk or of the stages
+    epi_cases = [
+        ("conv1_train_bf16", TRAIN_N, TRAIN_L, TRAIN_C, bf16, "gelu_tanh",
+         False, True, True),
+        ("conv2_train_bf16", TRAIN_N, TRAIN_L, TRAIN_C, bf16, "gelu_tanh",
+         True, True, True),
+        ("conv2_f32_gelu", 6, 300, 128, f32, "gelu", True, True, True),
+        ("conv1_f32_relu", 6, 300, 128, f32, "relu", False, True, True),
+        ("conv1_f32_tanh", 6, 300, 48, f32, "tanh", False, True, True),
+        ("conv2_f32_none", 6, 300, 16, f32, "none", True, True, True),
+        ("bias_f32_outmask", 6, 300, 32, f32, "gelu", False, True, False)]
+    shapes = ((3, 37, 16), (5, 61, 48), (7, 113, 128), (2, 499, 256))
+    i = 0
+    for dt in (f32, bf16):
+        for act in ("none", "relu", "tanh", "gelu", "gelu_tanh"):
+            for has_r in (False, True):
+                for has_om in (False, True):
+                    for has_dyt in (False, True):
+                        n, length, c = shapes[i % len(shapes)]
+                        i += 1
+                        epi_cases.append((
+                            f"form_{str(dt)[6:]}_{act}_r{int(has_r)}"
+                            f"_om{int(has_om)}_dyt{int(has_dyt)}", n, length,
+                            c, dt, act, has_r, has_om, has_dyt))
+    for name, n, length, c, dt, act, has_r, has_om, has_dyt in epi_cases:
         dy = torch.randn(n, length, c, generator=gen).to(dev, dt)
         u = torch.randn(n, length, c, generator=gen).to(dev, dt)
         r = (torch.randn(n, length, c, generator=gen).to(dev, dt)
-             if form == "conv2" else None)
-        om = masks(n, length, "random")
-        dyt = None if form == "nodyt" else torch.stack([
+             if has_r else None)
+        om = masks(n, length, "random") if has_om else None
+        dyt = None if not has_dyt else torch.stack([
             torch.full((c,), 0.7), torch.randn(c, generator=gen),
             torch.randn(c, generator=gen)]).to(dev)
         before = fg.launches["conv_epilogue_bwd"]
@@ -980,14 +1036,20 @@ def phase_train_kernel(card: str) -> dict:
         torch.cuda.synchronize()
         check(fg.launches["conv_epilogue_bwd"] == before + 1,
               f"conv_epilogue_bwd {name}: kernel not launched")
+        again = fg.conv_epilogue_bwd(dy, u, r, om, dyt, act)
+        check(all(a is None and b is None or torch.equal(a, b)
+                  for a, b in zip(again, (du, dr, dd))),
+              f"conv_epilogue_bwd {name}: not the same bits run to run")
         rdu, rdr, rdd = fg.reference_conv_epilogue_bwd(dy, u, r, om, dyt, act)
+        plan = fg.epilogue_plan(n * length, c, dt, has_r, sms)
         worst["conv_epilogue_bwd"] = max(
             worst["conv_epilogue_bwd"], _check_close(
-                f"conv_epilogue_bwd {name} N={n} L={length} C={c} {act}",
+                f"conv_epilogue_bwd {name} N={n} L={length} C={c} {act} "
+                f"[R={plan['rows_per_chunk']} ctas={plan['ctas']}]",
                 {"du": (du, rdu), "dr": (dr, rdr if r is not None else None),
                  "ddyt": (dd, rdd)},
                 *((F32_TOL,) if dt == f32 else BF16_KERNEL_TOL)))
-        del dy, u, r, du, dr, rdu, rdr
+        del dy, u, r, du, dr, rdu, rdr, again
 
     # the data gradient: fused_conv_block with the flipped weights, against
     # its plain version and against autograd of the plain conv
@@ -1043,7 +1105,6 @@ def phase_train_kernel(card: str) -> dict:
                               zip(got, ref))), *BF16_BACKWARD_TOL)
 
     # times at the train shape (bf16), each with its bound
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     du = (torch.randn(n, length, c, generator=gen) * 0.1).to(dev, bf16)
     wb = w.to(bf16)
     launches_before = dict(fg.launches), fused_conv.launches
@@ -1059,6 +1120,7 @@ def phase_train_kernel(card: str) -> dict:
                          iters=3, warmup=1),
         library_ms=cuda_ms(lambda: torch.nn.grad.conv1d_weight(
             x_ncl, (c, c, k), du_ncl, padding=(k - 1) // 2), iters=10),
+        host_us=host_us(lambda: fg.conv_wgrad(x, du, im, k)),
         flops=flops, bytes=nbytes, plan=fg.wgrad_plan(n, length, c, k, bf16,
                                                       sms))
     del x_ncl
@@ -1071,7 +1133,10 @@ def phase_train_kernel(card: str) -> dict:
                                                 "gelu_tanh"), iters=20),
         plain_ms=cuda_ms(lambda: fg.reference_conv_epilogue_bwd(
             dy, u, r, om, dyt, "gelu_tanh"), iters=3, warmup=1),
-        library_ms=cuda_ms(lib, iters=10), flops=0.0, bytes=nbytes)
+        library_ms=cuda_ms(lib, iters=10), flops=0.0, bytes=nbytes,
+        host_us=host_us(lambda: fg.conv_epilogue_bwd(dy, u, r, om, dyt,
+                                                     "gelu_tanh")),
+        plan=fg.epilogue_plan(n * length, c, bf16, True, sms))
     nbytes1 = 3 * 2 * n * length * c + n * length + 2 * 12 * c
     conv1_ms = cuda_ms(lambda: fg.conv_epilogue_bwd(dy, u, None, om, dyt,
                                                     "gelu_tanh"), iters=20)
@@ -1101,13 +1166,88 @@ def phase_train_kernel(card: str) -> dict:
               f"library {t['library_ms']:.3f} ms, bound {t['bound_ms']:.3f} "
               f"ms ({t['bound_by']}: {t['flops']:.3e} FLOP, "
               f"{t['bytes'] / 1e9:.3f} GB), {t['bound_share']:.1%} of the "
-              f"bound")
+              f"bound" + (f"; host {t['host_us']:.1f} us a call"
+                          if "host_us" in t else ""))
     times["conv_epilogue_bwd"]["conv1_ms"] = conv1_ms
     times["conv_epilogue_bwd"]["conv1_bound_ms"] = (
         nbytes1 / HBM_BYTES_PER_S * 1e3)
     print(f"timing conv_epilogue_bwd conv1 form on {card}: {conv1_ms:.3f} ms, "
           f"bound {nbytes1 / HBM_BYTES_PER_S * 1e3:.3f} ms (bytes)")
     return times
+
+
+def phase_train_sweep(card: str) -> None:
+    """``--sweep``: conv_wgrad under other ring depths, with and without
+    in_mask, and conv_epilogue_bwd with and without the out mask, at the
+    train shape; then where each wrapper's host time goes (cProfile over
+    100 calls that do not wait for the card)."""
+    import cProfile
+    import io
+    import pstats
+
+    import torch
+
+    from jaeger_tpu_torch.ops import fused_conv_grad as fg
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(97)
+    n, length, c, k = TRAIN_N, TRAIN_L, TRAIN_C, TRAIN_K
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    saved = dict(fg.launches)
+    x = torch.randn(n, length, c, generator=gen).to(dev, torch.bfloat16)
+    du = (torch.randn(n, length, c, generator=gen) * 0.1).to(
+        dev, torch.bfloat16)
+    im = (torch.rand(n, length, generator=gen) > 0.2).to(dev)
+    for stages in (2, 3, 4):
+        plan = fg.wgrad_plan(n, length, c, k, torch.bfloat16, sms, stages)
+        for mname, m in (("none", None), ("random", im)):
+            ms = cuda_ms(lambda: fg.conv_wgrad(x, du, m, k, plan=plan),
+                         iters=20)
+            print(f"sweep conv_wgrad stages={stages} in_mask={mname} on "
+                  f"{card}: {ms:.3f} ms")
+    dy, u, r = x, du, torch.randn(n, length, c, generator=gen).to(
+        dev, torch.bfloat16)
+    dyt = torch.stack([torch.full((c,), 0.7), torch.randn(c, generator=gen),
+                       torch.randn(c, generator=gen)]).to(dev)
+    for form, res in (("conv2", r), ("conv1", None)):
+        for mname, m in (("none", None), ("random", im)):
+            ms = cuda_ms(lambda: fg.conv_epilogue_bwd(dy, u, res, m, dyt,
+                                                      "gelu_tanh"), iters=20)
+            print(f"sweep conv_epilogue_bwd {form} out_mask={mname} on "
+                  f"{card}: {ms:.3f} ms")
+    # what a plain read/write stream reaches on this card, as a yardstick
+    # for the epilogue's bytes: copy (1 read, 1 write) and add (2, 1)
+    out = torch.empty_like(dy)
+    for name, fn, nbytes in (
+            ("copy_", lambda: out.copy_(dy), 2 * dy.numel() * 2),
+            ("add", lambda: torch.add(dy, u, out=out), 3 * dy.numel() * 2)):
+        ms = cuda_ms(fn, iters=20)
+        print(f"sweep stream {name} {nbytes / 1e9:.3f} GB on {card}: "
+              f"{ms:.3f} ms, {nbytes / ms / 1e9:.2f} TB/s")
+    del out
+    print_device_profile(lambda: [fg.conv_wgrad(x, du, im, k)
+                                  for _ in range(10)], "conv_wgrad x10", top=3)
+    print_device_profile(lambda: [fg.conv_epilogue_bwd(
+        dy, u, r, im, dyt, "gelu_tanh") for _ in range(10)],
+        "conv_epilogue_bwd conv2 x10", top=3)
+    for name, fn in (
+            ("conv_wgrad", lambda: fg.conv_wgrad(x, du, im, k)),
+            ("conv_epilogue_bwd", lambda: fg.conv_epilogue_bwd(
+                dy, u, r, im, dyt, "gelu_tanh"))):
+        fn()
+        torch.cuda.synchronize()
+        prof = cProfile.Profile()
+        prof.enable()
+        for _ in range(100):
+            fn()
+        prof.disable()
+        torch.cuda.synchronize()
+        out = io.StringIO()
+        pstats.Stats(prof, stream=out).sort_stats("tottime").print_stats(10)
+        print(f"sweep host profile of {name} (100 calls):")
+        print("\n".join(line for line in out.getvalue().splitlines()
+                        if line.strip())[:3000])
+    fg.launches.update(saved)
 
 
 # --- phase 6: training --------------------------------------------------------
@@ -1399,7 +1539,7 @@ def phase_train_flagship(tmp: Path, card: str) -> dict:
 
 #: the conv kernels of a train step, by the name the profiler gives them
 CONV_KERNELS = ("conv_bf16_wgmma", "wgrad_bf16", "reduce_splits",
-                "conv_epilogue_bwd_kernel")
+                "conv_epilogue_bwd", "reduce_parts")
 
 
 def _step_rates(bundle: Path, cfg: dict, card: str) -> tuple[dict, dict]:
@@ -1877,12 +2017,19 @@ def main(argv: list[str]) -> int:
     try:
         card = phase_device()
         phase_build()
+        if "--backward" in argv:
+            phase_train_kernel(card)
+            if "--sweep" in argv:
+                phase_train_sweep(card)
+            print(f"backward run done in {time.perf_counter() - t_start:.0f} s")
+            return 0
         kern = phase_kernel(card)
         kern8 = phase_int8_kernel(card)
         kern_train = phase_train_kernel(card)
         if "--sweep" in argv:
             phase_sweep(card)
             phase_int8_sweep(card)
+            phase_train_sweep(card)
         if quick:
             print(f"quick run done in {time.perf_counter() - t_start:.0f} s")
             return 0
@@ -1940,11 +2087,13 @@ def main(argv: list[str]) -> int:
         entry("conv_wgrad", "cuda",
               "jaeger_tpu_torch/csrc/fused_conv_wgrad.cu",
               "jaeger_tpu/ops/pallas_conv.py:70", tl["conv_wgrad"],
-              kern_train["conv_wgrad"]),
-        entry("conv_epilogue_bwd", "triton",
-              "jaeger_tpu_torch/ops/fused_conv_grad.py",
+              kern_train["conv_wgrad"],
+              host_us=kern_train["conv_wgrad"]["host_us"]),
+        entry("conv_epilogue_bwd", "cuda",
+              "jaeger_tpu_torch/csrc/conv_epilogue_bwd.cu",
               "jaeger_tpu/ops/pallas_conv.py:70", tl["conv_epilogue_bwd"],
-              kern_train["conv_epilogue_bwd"]),
+              kern_train["conv_epilogue_bwd"],
+              host_us=kern_train["conv_epilogue_bwd"]["host_us"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

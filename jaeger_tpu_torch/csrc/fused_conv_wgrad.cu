@@ -17,26 +17,61 @@
 // C = 128, k = 5) it is 1.26e11 bf16 FLOPs (0.127 ms at 989 TFLOP/s) against
 // 393 MB of bf16 in (0.117 ms at 3.35 TB/s): both bounds matter.
 //
-// Design:
-// * the rows are split over gridDim.x CTAs (about two per SM together with
-//   the column blocks), each CTA walking 64-row tiles (n, l0..l0+63) with a
-//   stride of gridDim.x; gridDim.y enumerates (ci block, co block) pairs of
-//   CB = 64 channels, so every CTA keeps a (k, 64, 64) block of dW in
-//   registers across all of its tiles;
-// * per tile, x's 64 + k - 1 rows (the halo; rows outside [0, L) and masked
-//   rows zero filled) and du's 64 rows are copied into shared memory with
-//   cp.async (rows padded by 16 bytes: conflict-free ldmatrix), into one of
-//   two buffers: the next tile's copies are in flight while the products of
-//   this one run;
-// * db: each thread sums one column over a quarter of the tile's rows; the
-//   four partials are added in a fixed order at the end;
-// * each warp owns 16 ci x 32 co of the block; per 16-row step it loads its
-//   du fragments once (ldmatrix.trans: B = du[row][co]) and, for each tap j,
-//   its x fragment from the rows shifted by j (ldmatrix.trans: A =
-//   x[row + j][ci]^T) and issues mma.sync m16n8k16 bf16 -> f32;
-// * every CTA writes its partial block, and a second kernel sums the
-//   partials over the row splits in a fixed order: no float atomics, so a
-//   train step gives the same bits run to run.
+// bf16: wgrad_bf16, a persistent warp-specialised wgmma kernel.
+//  * Schedule: the 64-row tiles (n, l0..l0+63) are cut into `groups`
+//    contiguous shares, one per group of G CTAs (G = C/64 ci blocks x C/CO
+//    co blocks, CO = 128 where it divides C, else 64; G = 2 at C = 128). The
+//    G CTAs of a group are neighbours in the grid and walk the same tiles in
+//    the same order: each copies its own 64 ci of x (no other CTA of the
+//    group copies them), and the du tile the group shares is read from HBM
+//    once and from L2 by the others. About one CTA per SM (groups x G <= the
+//    SM count, from the wrapper's plan).
+//  * Each CTA keeps its whole block of dW, k taps x 64 ci x CO co in f32, in
+//    the registers of two consumer warpgroups over all of its tiles (5 x 64
+//    x 128 f32 = 160 registers a thread at C = 128). A warpgroup owns (k -
+//    1) / 2 whole taps (wgmma m64nCOk16) and one half of the middle tap
+//    (m64n(CO/2)k16): warpgroup 0 taps 0 .. and the middle tap's first co
+//    half, warpgroup 1 the rest. Per 16-row step that is (k + 1) / 2 A
+//    fragments a warpgroup (the middle one loaded by both) and B reads of
+//    k * CO * 32 bytes for the CTA: about 100 bytes of shared memory per
+//    cycle against the tensor cores' 320 cycles a step, where the split by
+//    co block reads every A twice (128 bytes a cycle).
+//  * The products: A = x^T (64 ci x 16 rows), from registers by
+//    ldmatrix.trans at the rows shifted by tap j (a descriptor cannot start
+//    at row j of a swizzled tile). B = du (16 rows x CO co), MN-major (co
+//    contiguous), from a shared-memory descriptor with the transpose bit
+//    (hopper.cuh smem_desc_mn, wgmma_bf16_rs_mn).
+//  * A ring of 4 stages with full / empty mbarriers. One producer thread
+//    loads per tile, by TMA from 3-D tensor maps over (N, L, C): the x halo
+//    box (64 + k - 1 rows x 64 ci, 128-byte swizzle; rows before 0 and past
+//    L - 1 arrive as zeros, never the neighbouring sequence's rows) and two
+//    du boxes (64 rows x CO/2 co, 128 or 64-byte swizzle; rows past L
+//    zero). TMA cannot apply a row mask: with in_mask, a second producer
+//    warp zeroes the masked rows of each landed x tile in shared memory
+//    (ballots of the tile's mask bytes, loaded three tiles ahead into one
+//    of four register sets; a row is 128 contiguous bytes whatever the
+//    swizzle) and hands the tile to the consumers on a third barrier.
+//    (Zeroing the A registers instead, from mask words, cost the consumers
+//    10 % at the train shape.) Two more
+//    producer warps sum db over the du tile in row order (the group's
+//    ci-block-0 CTA, CO columns). The consumers only load A and issue
+//    products.
+//  * Each warpgroup issues one wgmma group per two 16-row steps (3 % faster
+//    than one) from one of two A register sets; the next group's
+//    ldmatrix runs while a group is in flight, and a stage goes back to the
+//    producer once the groups that read it have retired (each consumer warp
+//    and db warp arrives).
+//  * Every CTA writes its partial blocks (dW rows ci0.., columns co0..; db
+//    columns) into the group's slot, and a second kernel sums the slots in
+//    group order: no float atomics, the same bits run to run.
+//  * Threads: 2 consumer warpgroups + 1 producer warpgroup = 384, one CTA
+//    per SM; setmaxnreg gives the producers 40 registers and the consumers
+//    232.
+//  * Shared memory (C = 128, k = 5): 4 stages x (9,216 B x + 16,384 B du) +
+//    mbarriers + 1 KB alignment slack = 103,520 B. The plan (groups, CO,
+//    stages, bytes) is made in one place, the wrapper's
+//    wgrad_plan (ops/fused_conv_grad.py); the entry below recomputes the
+//    layout and refuses a plan that disagrees with it.
 // The bf16 kernel is built for the shapes the training configs give it: k 3
 // and 5, C a multiple of 64. f32 inputs take plain FMAs (one output element
 // per thread, any odd k, C % 16 == 0), never TF32.
@@ -45,9 +80,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int TL = 64;  // du rows per tile
+constexpr int TL = 64;  // du rows per tile: the products' K step is 16 of them
 
 struct Args {
   const void* x;            // (N, L, C)
@@ -55,6 +92,7 @@ struct Args {
   const uint8_t* in_mask;   // (N, L) or null
   float* part_w;            // (S, K, C, C)
   float* part_b;            // (S, C)
+  int n_rows;               // N
   int L;
   int C;
   int K;
@@ -64,189 +102,334 @@ struct Args {
   long long n_rows_total;   // N * L
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-// 16 bytes global -> shared, asynchronous; ok = false writes zeros
-__device__ __forceinline__ void cp_async_16(void* smem, const void* gmem,
-                                            bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :
-               : "r"(smem_u32(smem)), "l"(gmem), "r"(ok ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// wait until at most one group of this thread's copies is in flight
-__device__ __forceinline__ void cp_async_wait_1() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // ---------------------------------------------------------------------------
-// bf16: mma.sync on shared-memory tiles
+// bf16: persistent wgmma kernel (see the note at the top)
 // ---------------------------------------------------------------------------
 
-constexpr int CB = 64;                       // channels per ci / co block
-constexpr int NW = 32;                       // co columns per warp
-constexpr int THREADS = (CB / 16) * (CB / NW) * 32;
-constexpr int LD = CB + 8;                   // padded row, in elements
-constexpr int BGROUPS = THREADS / CB;        // db row groups per tile
+constexpr int CI = 64;                       // ci per CTA: the wgmma M
+constexpr int STEPS = 2;                     // 16-row steps per wgmma group
+constexpr int THREADS = 3 * 128;             // 2 consumer + 1 producer WG
+constexpr int SMEM_LIMIT = 232448;           // dynamic shared memory per block
 
-template <int K>
-__global__ void __launch_bounds__(THREADS) wgrad_bf16(Args a) {
-  constexpr int XROWS = TL + K - 1;
-  constexpr int NT = NW / 8;                 // n8 tiles per warp
-  __shared__ __align__(16) __nv_bfloat16 xs[2][XROWS * LD];
-  __shared__ __align__(16) __nv_bfloat16 ds[2][TL * LD];
-  __shared__ float bsum[THREADS];
+// Shared-memory layout, byte offsets from a 1024-byte aligned base:
+// [ring: stages x (x halo box, 1 KB aligned | du box 0 | du box 1)]
+// [full, empty, masked mbarriers: 3 x stages x 8 B]
+struct Layout {
+  int stages;
+  int rows;         // TL + K - 1
+  int n_ci;         // C / 64 ci blocks
+  int group;        // CTAs that share a tile: n_ci * C / co_block
+  uint32_t x_bytes, box_bytes, stage, tx, off_bar, bytes;
+};
 
-  const int n_blk = a.C / CB;
-  const int ci0 = (blockIdx.y / n_blk) * CB;
-  const int co0 = (blockIdx.y % n_blk) * CB;
-  const bool does_bias = ci0 == 0;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int m0 = (warp % (CB / 16)) * 16;    // warp's ci rows in the block
-  const int nb = (warp / (CB / 16)) * NW;    // warp's co columns
-  const int q = lane / 8;
-  const int r8 = lane % 8;
+inline uint32_t align1k(uint32_t v) { return (v + 1023u) & ~1023u; }
 
-  const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(a.x);
-  const __nv_bfloat16* du = static_cast<const __nv_bfloat16*>(a.du);
+// false if (co_block, stages) cannot hold this shape
+bool make_layout(int C, int K, int co_block, int stages, Layout* lay) {
+  if (co_block != 64 && co_block != 128) return false;
+  if (C % CI || C % co_block || stages < 2 || stages > 4) return false;
+  if (K != 3 && K != 5) return false;
+  lay->stages = stages;
+  lay->rows = TL + K - 1;
+  lay->n_ci = C / CI;
+  lay->group = lay->n_ci * (C / co_block);
+  lay->x_bytes = align1k((uint32_t)lay->rows * CI * 2);
+  lay->box_bytes = (uint32_t)TL * co_block;  // 64 rows x co_block / 2 bf16
+  lay->stage = lay->x_bytes + 2 * lay->box_bytes;
+  lay->tx = (uint32_t)lay->rows * CI * 2 + 2 * lay->box_bytes;
+  lay->off_bar = stages * lay->stage;
+  lay->bytes = lay->off_bar + 24u * stages + 1024u;  // + alignment slack
+  return lay->bytes <= (uint32_t)SMEM_LIMIT;
+}
 
-  float acc[K][NT][4];
-#pragma unroll
-  for (int j = 0; j < K; ++j)
-#pragma unroll
-    for (int t = 0; t < NT; ++t)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[j][t][e] = 0.f;
-  float bacc = 0.f;
-  const int bcol = threadIdx.x % CB;         // db: this thread's column
-  const int brow = (threadIdx.x / CB) * (TL / BGROUPS);  // and first row
+// One consumer warpgroup WG: taps (K - 1) / 2 whole and half of the middle
+// tap, over the CTA's tiles, STEPS 16-row steps to a wgmma group. Writes its
+// partial block of dW at the end. Masked rows are zero in the tile already
+// (the mask warp), so `ready` is the mask warp's barrier, or the TMA's
+// without in_mask.
+template <int K, int CO, int WG>
+__device__ __forceinline__ void consume(const Args& a, const Layout& lay,
+                                        uint32_t ring, uint32_t bar_s,
+                                        uint32_t ready, int n_local, int grp,
+                                        int ci0, int co0) {
+  using namespace hopper;
+  constexpr int HW = CO / 2;                 // co of one du box
+  constexpr uint32_t DRB = HW * 2;           // du box row bytes
+  constexpr int NF = (K - 1) / 2;            // whole taps of this warpgroup
+  constexpr int JM = (K - 1) / 2;            // the middle tap
+  constexpr int NA = NF + 1;                 // A fragments a step
+  constexpr int GROUPS = TL / 16 / STEPS;    // wgmma groups a tile (even)
+  const int S = lay.stages;
+  const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
+  const int q = lane >> 3, r8 = lane & 7, t4 = lane & 3, g = lane >> 2;
 
-  constexpr int CHUNKS = CB / 8;             // 16-byte chunks per row
-  // one tile's copies into buffer buf, committed as one group
-  auto load = [&](long long tile, int buf) {
-    const long long n = tile / a.tiles_per_row;
-    const int l0 = (int)(tile % a.tiles_per_row) * TL;
-    for (int i = threadIdx.x; i < XROWS * CHUNKS; i += THREADS) {
-      const int r = i / CHUNKS;
-      const int cc = (i % CHUNKS) * 8;
-      const int l = l0 - a.pad + r;
-      const bool ok = l >= 0 && l < a.L &&
-                      (a.in_mask == nullptr || a.in_mask[n * a.L + l]);
-      cp_async_16(&xs[buf][r * LD + cc],
-                  ok ? x + (n * a.L + l) * a.C + ci0 + cc : x, ok);
-    }
-    for (int i = threadIdx.x; i < TL * CHUNKS; i += THREADS) {
-      const int r = i / CHUNKS;
-      const int cc = (i % CHUNKS) * 8;
-      const int l = l0 + r;
-      const bool ok = l < a.L;
-      cp_async_16(&ds[buf][r * LD + cc],
-                  ok ? du + (n * a.L + l) * a.C + co0 + cc : du, ok);
-    }
-    cp_async_commit();
-  };
-
-  int buf = 0;
-  if (blockIdx.x < a.n_tiles) load(blockIdx.x, 0);
-  for (long long tile = blockIdx.x; tile < a.n_tiles; tile += gridDim.x) {
-    if (tile + gridDim.x < a.n_tiles)
-      load(tile + gridDim.x, buf ^ 1);
-    else
-      cp_async_commit();  // an empty group: wait_group 1 still means "this
-                          // tile's copies have landed"
-    cp_async_wait_1();
-    __syncthreads();
-    const __nv_bfloat16* xb = xs[buf];
-    const __nv_bfloat16* db = ds[buf];
-    if (does_bias) {
-      // rows past L were zero filled
+  // tap of A fragment tt: warpgroup 0 has taps 0 .. JM (the half last),
+  // warpgroup 1 taps JM .. K - 1 (the half first)
+  auto tap = [](int tt) { return WG == 0 ? tt : JM + tt; };
+  // ldmatrix.trans address of this lane in a halo tile, tap tt, step 0:
+  // matrix q covers rows (q >> 1) * 8 .. + 7 and ci 16 warp + (q & 1) * 8;
+  // the 128-byte swizzle XORs the 16-byte chunk with the row's low 3 bits
+  uint32_t xoff[NA];
 #pragma unroll
-      for (int r = 0; r < TL / BGROUPS; ++r)
-        bacc += __bfloat162float(db[(brow + r) * LD + bcol]);
-    }
-#pragma unroll
-    for (int k0 = 0; k0 < TL; k0 += 16) {
-      // B = du[row][co]: matrices (rows +0, cols +0), (rows +8, cols +0),
-      // (rows +0, cols +8), (rows +8, cols +8) -> b0b1, b2b3 of n tiles
-      // 2p and 2p + 1
-      uint32_t b[NT][2];
-#pragma unroll
-      for (int p = 0; p < NT / 2; ++p) {
-        uint32_t r[4];
-        ldmatrix_x4_trans(
-            r, db + (k0 + (q & 1) * 8 + r8) * LD + nb + 16 * p + (q >> 1) * 8);
-        b[2 * p][0] = r[0];
-        b[2 * p][1] = r[1];
-        b[2 * p + 1][0] = r[2];
-        b[2 * p + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int j = 0; j < K; ++j) {
-        // A = x[row + j][ci]^T: matrices (rows +0, ci +0), (rows +0,
-        // ci +8), (rows +8, ci +0), (rows +8, ci +8) -> a0a1 .. a6a7
-        uint32_t av[4];
-        ldmatrix_x4_trans(
-            av, xb + (k0 + j + (q >> 1) * 8 + r8) * LD + m0 + (q & 1) * 8);
-#pragma unroll
-        for (int t = 0; t < NT; ++t) mma_bf16(acc[j][t], av, b[t][0], b[t][1]);
-      }
-    }
-    __syncthreads();  // buf is read before the next round's copies refill it
-    buf ^= 1;
+  for (int tt = 0; tt < NA; ++tt) {
+    const int row = tap(tt) + (q >> 1) * 8 + r8;
+    const int chunk = warp * 2 + (q & 1);
+    xoff[tt] = (uint32_t)row * 128 + ((chunk ^ (row & 7)) << 4);
   }
 
-  // partial block: c0 c1 at (ci g, co 2t, 2t+1), c2 c3 at (ci g + 8, ...)
-  const int g = lane / 4;
-  const int t4 = lane % 4;
+  float accF[NF][CO / 2];
+  float accH[CO / 4];
+#pragma unroll
+  for (int f = 0; f < NF; ++f)
+#pragma unroll
+    for (int e = 0; e < CO / 2; ++e) accF[f][e] = 0.f;
+#pragma unroll
+  for (int e = 0; e < CO / 4; ++e) accH[e] = 0.f;
+
+  // the A fragments of group gi: [st * NA + tt] for its steps st, rows
+  // 16 step + tap + {2 t4, 2 t4 + 1} in registers 0 and 1, + 8 in 2 and 3
+  auto load_a = [&](uint32_t(&av)[STEPS * NA][4], uint32_t xs, int gi) {
+#pragma unroll
+    for (int st = 0; st < STEPS; ++st)
+#pragma unroll
+      for (int tt = 0; tt < NA; ++tt)
+        ldmatrix_x4_trans(av[st * NA + tt],
+                          xs + (gi * STEPS + st) * 16 * 128 + xoff[tt]);
+  };
+  // one wgmma group: per step the whole taps over both du boxes (n CO) and
+  // the half tap over this warpgroup's box (n CO / 2); a step's rows start
+  // 16 step * DRB bytes into each box
+  auto issue = [&](uint32_t(&av)[STEPS * NA][4], uint32_t ds, int gi) {
+#pragma unroll
+    for (int f = 0; f < NF; ++f) fence_regs(accF[f]);
+    fence_regs(accH);
+    wgmma_fence();
+#pragma unroll
+    for (int st = 0; st < STEPS; ++st) {
+      const uint32_t d0 = ds + (gi * STEPS + st) * 16 * DRB;
+      const uint64_t dfull = smem_desc_mn(d0, DRB, lay.box_bytes);
+      const uint64_t dhalf = smem_desc_mn(d0 + WG * lay.box_bytes, DRB,
+                                          lay.box_bytes);
+#pragma unroll
+      for (int f = 0; f < NF; ++f)
+        wgmma_bf16_rs_mn(accF[f], av[st * NA + (WG == 0 ? f : f + 1)], dfull,
+                         1);
+      wgmma_bf16_rs_mn(accH, av[st * NA + (WG == 0 ? NF : 0)], dhalf, 1);
+    }
+    wgmma_commit();
+  };
+  // each warp hands a stage back once its groups that read it retired
+  auto release = [&](int s) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar_s + 8 * (S + s));
+  };
+
+  // two register sets: a group's wgmmas run while the next group's A
+  // fragments are loaded
+  uint32_t aA[STEPS * NA][4], aB[STEPS * NA][4];
+  int prev = 0;
+  for (int i = 0; i < n_local; ++i) {
+    const int s = i % S;
+    mbar_wait(ready + 8 * s, (i / S) & 1);
+    const uint32_t xs = ring + s * lay.stage;
+    const uint32_t ds = xs + lay.x_bytes;
+#pragma unroll
+    for (int gi = 0; gi < GROUPS; gi += 2) {
+      load_a(aA, xs, gi);
+      issue(aA, ds, gi);
+      wgmma_wait<1>();  // the group before is done: set B is free
+      fence_regs(aB);
+      if (gi == 0 && i > 0) release(prev);  // the previous tile is done
+      load_a(aB, xs, gi + 1);
+      issue(aB, ds, gi + 1);
+      wgmma_wait<1>();
+      fence_regs(aA);
+    }
+    prev = s;
+  }
+  wgmma_wait<0>();
+  fence_regs(aB);
+#pragma unroll
+  for (int f = 0; f < NF; ++f) fence_regs(accF[f]);
+  fence_regs(accH);
+  if (n_local > 0) release(prev);
+
+  // partial block: accumulator 4 q + {0, 1} at (ci g, co 8 q + 2 t4 + {0, 1}),
+  // 4 q + {2, 3} at ci g + 8
   const long long C = a.C;
-  float* pw = a.part_w + (long long)blockIdx.x * a.K * C * C;
+  float* pw = a.part_w + (long long)grp * a.K * C * C;
+  const int ci = ci0 + 16 * warp + g;
 #pragma unroll
-  for (int j = 0; j < K; ++j)
+  for (int f = 0; f < NF; ++f) {
+    float* p0 = pw + ((long long)tap(WG == 0 ? f : f + 1) * C + ci) * C + co0 +
+                2 * t4;
 #pragma unroll
-    for (int t = 0; t < NT; ++t) {
-      const int co = co0 + nb + t * 8 + 2 * t4;
-      const int ci = ci0 + m0 + g;
-      float* p0 = pw + ((long long)j * C + ci) * C + co;
-      float* p1 = p0 + 8 * C;
-      p0[0] = acc[j][t][0];
-      p0[1] = acc[j][t][1];
-      p1[0] = acc[j][t][2];
-      p1[1] = acc[j][t][3];
+    for (int qq = 0; qq < CO / 8; ++qq) {
+      *reinterpret_cast<float2*>(p0 + 8 * qq) =
+          make_float2(accF[f][4 * qq], accF[f][4 * qq + 1]);
+      *reinterpret_cast<float2*>(p0 + 8 * C + 8 * qq) =
+          make_float2(accF[f][4 * qq + 2], accF[f][4 * qq + 3]);
     }
-  if (does_bias) {
-    bsum[threadIdx.x] = bacc;
-    __syncthreads();
-    if (threadIdx.x < CB) {
-      float s = 0.f;
+  }
+  float* p0 = pw + ((long long)JM * C + ci) * C + co0 + WG * HW + 2 * t4;
 #pragma unroll
-      for (int g2 = 0; g2 < BGROUPS; ++g2) s += bsum[g2 * CB + threadIdx.x];
-      a.part_b[(long long)blockIdx.x * C + co0 + threadIdx.x] = s;
+  for (int qq = 0; qq < HW / 8; ++qq) {
+    *reinterpret_cast<float2*>(p0 + 8 * qq) =
+        make_float2(accH[4 * qq], accH[4 * qq + 1]);
+    *reinterpret_cast<float2*>(p0 + 8 * C + 8 * qq) =
+        make_float2(accH[4 * qq + 2], accH[4 * qq + 3]);
+  }
+}
+
+template <int K, int CO>
+__global__ void __launch_bounds__(THREADS, 1)
+wgrad_bf16(Args a, Layout lay, const __grid_constant__ CUtensorMap xmap,
+           const __grid_constant__ CUtensorMap dmap) {
+  using namespace hopper;
+  constexpr int HW = CO / 2;
+  constexpr uint32_t DRB = HW * 2;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* sbase = smem_raw + (base - raw);
+
+  const int S = lay.stages, L = a.L;
+  const int tid = threadIdx.x;
+  const int grp = blockIdx.x / lay.group;     // the tile share
+  const int member = blockIdx.x % lay.group;  // (ci block, co block)
+  const int cib = member % lay.n_ci;
+  const int ci0 = cib * CI, co0 = (member / lay.n_ci) * CO;
+  const int n_groups = gridDim.x / lay.group;
+  const long long t_begin = a.n_tiles * grp / n_groups;
+  const int n_local = (int)(a.n_tiles * (grp + 1) / n_groups - t_begin);
+  const uint32_t ring = base;
+  // barriers: full (TMA), empty (consumers, db), masked (the mask warp)
+  const uint32_t bar_s = base + lay.off_bar;
+  const uint32_t bar_m = bar_s + 16 * S;
+  const bool masked = a.in_mask != nullptr;
+  const bool does_bias = cib == 0;
+
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(bar_s + 8 * s, 1);                          // expect_tx
+      mbar_init(bar_s + 8 * (S + s), does_bias ? 10 : 8);   // each warp
+      mbar_init(bar_m + 8 * s, 1);                          // the mask warp
     }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid >= 256) {
+    setmaxnreg_dec<40>();
+    const int warp = (tid - 256) / 32, lane = tid % 32;
+    if (warp == 0) {
+      // ---- one thread keeps the ring full ----
+      if (lane == 0) {
+        for (int i = 0; i < n_local; ++i) {
+          const int s = i % S;
+          const long long t = t_begin + i;
+          const int n = (int)(t / a.tiles_per_row);
+          const int l0 = (int)(t % a.tiles_per_row) * TL;
+          const uint32_t st = ring + s * lay.stage;
+          mbar_wait(bar_s + 8 * (S + s), ((i / S) & 1) ^ 1);
+          mbar_arrive_expect_tx(bar_s + 8 * s, lay.tx);
+          tma_load_3d(st, &xmap, bar_s + 8 * s, ci0, l0 - a.pad, n);
+          tma_load_3d(st + lay.x_bytes, &dmap, bar_s + 8 * s, co0, l0, n);
+          tma_load_3d(st + lay.x_bytes + lay.box_bytes, &dmap, bar_s + 8 * s,
+                      co0 + HW, l0, n);
+        }
+      }
+    } else if (warp == 1) {
+      // ---- rows that in_mask masks: zeroed in the x tile once it landed
+      // (TMA cannot apply a row mask), then the tile goes to the consumers
+      // on the `masked` barrier ----
+      if (masked) {
+        // this lane's mask bytes of halo rows 32 k + lane of local tile i
+        // (1 outside [0, L) and past the halo: nothing to zero there)
+        auto fetch = [&](int i, uint32_t(&m)[3]) {
+          const long long t = t_begin + i;
+          const long long n = t / a.tiles_per_row;
+          const int l0 = (int)(t % a.tiles_per_row) * TL;
+#pragma unroll
+          for (int k = 0; k < 3; ++k) {
+            const int r = 32 * k + lane, pos = l0 - a.pad + r;
+            m[k] = r < lay.rows && pos >= 0 && pos < L
+                       ? (uint32_t)a.in_mask[n * L + pos]
+                       : 1u;
+          }
+        };
+        // zero tile i's masked rows (each 128 contiguous bytes, whatever
+        // the swizzle) once it landed, and hand it to the consumers
+        auto apply = [&](int i, const uint32_t(&m)[3]) {
+          const int s = i % S;
+          unsigned char* xt = sbase + s * lay.stage;
+          mbar_wait(bar_s + 8 * s, (i / S) & 1);
+#pragma unroll
+          for (int k = 0; k < 3; ++k) {
+            uint32_t z = __ballot_sync(0xffffffffu, m[k] == 0u);
+            while (z) {
+              const int r = 32 * k + __ffs(z) - 1;
+              z &= z - 1;
+              *reinterpret_cast<uint32_t*>(xt + r * 128 + 4 * lane) = 0u;
+            }
+          }
+          fence_proxy_async();  // before TMA overwrites the stage
+          __syncwarp();
+          if (lane == 0) mbar_arrive(bar_m + 8 * s);
+        };
+        // MD register sets: tile i's bytes are loaded MD - 1 tiles ahead,
+        // so the warp's pace is not the loads' latency
+        constexpr int MD = 4;
+        uint32_t m[MD][3];
+#pragma unroll
+        for (int j = 0; j < MD - 1; ++j)
+          if (j < n_local) fetch(j, m[j]);
+        for (int i = 0; i < n_local; i += MD) {
+#pragma unroll
+          for (int j = 0; j < MD; ++j) {
+            if (i + j >= n_local) break;
+            if (i + j + MD - 1 < n_local)
+              fetch(i + j + MD - 1, m[(j + MD - 1) % MD]);
+            apply(i + j, m[j]);
+          }
+        }
+      }
+    } else if (does_bias) {
+      // ---- db: warp 2 + b sums du box b's columns 2 lane, 2 lane + 1 over
+      // the tile's rows in order (rows past L were zero filled) ----
+      const int b = warp - 2;
+      const bool active = 2 * lane < HW;
+      float s0 = 0.f, s1 = 0.f;
+      for (int i = 0; i < n_local; ++i) {
+        const int s = i % S;
+        mbar_wait(bar_s + 8 * s, (i / S) & 1);
+        if (active) {
+          const unsigned char* box =
+              sbase + s * lay.stage + lay.x_bytes + b * lay.box_bytes;
+#pragma unroll 8
+          for (int r = 0; r < TL; ++r) {
+            const uint32_t v = *reinterpret_cast<const uint32_t*>(
+                box + swizzle(r * DRB + 4 * lane, DRB));
+            s0 += __uint_as_float(v << 16);
+            s1 += __uint_as_float(v & 0xffff0000u);
+          }
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(bar_s + 8 * (S + s));
+      }
+      if (active) {
+        float* pb = a.part_b + (long long)grp * a.C + co0 + b * HW + 2 * lane;
+        pb[0] = s0;
+        pb[1] = s1;
+      }
+    }
+  } else {
+    setmaxnreg_inc<232>();
+    const uint32_t ready = masked ? bar_m : bar_s;
+    if (tid < 128)
+      consume<K, CO, 0>(a, lay, ring, bar_s, ready, n_local, grp, ci0, co0);
+    else
+      consume<K, CO, 1>(a, lay, ring, bar_s, ready, n_local, grp, ci0, co0);
   }
 }
 
@@ -289,35 +472,60 @@ __global__ void wgrad_f32(Args a, long long rows_per_split) {
 // second pass: sum the partials over the row splits, in split order
 // ---------------------------------------------------------------------------
 
-__global__ void reduce_splits(const float* part, float* out, long long n,
+// dW's n_w elements from part_w, then db's C from part_b, in one launch
+__global__ void reduce_splits(const float* part_w, const float* part_b,
+                              float* dw, float* db, long long n_w, int C,
                               int splits) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+  if (i >= n_w + C) return;
+  const bool w = i < n_w;
+  const float* part = w ? part_w + i : part_b + (i - n_w);
+  const long long stride = w ? n_w : C;
   float s = 0.f;
-  for (int k = 0; k < splits; ++k) s += part[(long long)k * n + i];
-  out[i] = s;
+  for (int k = 0; k < splits; ++k) s += part[k * stride];
+  if (w)
+    dw[i] = s;
+  else
+    db[i - n_w] = s;
 }
 
-template <int K>
-cudaError_t launch_bf16(const Args& a, int splits, cudaStream_t stream) {
-  const int n_blk = a.C / CB;
-  const dim3 grid((unsigned)splits, (unsigned)(n_blk * n_blk));
-  wgrad_bf16<K><<<grid, THREADS, 0, stream>>>(a);
+template <int K, int CO>
+cudaError_t launch_bf16(const Args& a, const Layout& lay, int groups,
+                        cudaStream_t stream) {
+  // x: boxes of the tile's rows plus halo x 64 ci; du: 64 rows x CO / 2 co
+  CUtensorMap xmap, dmap;
+  if (!hopper::encode_bf16_3d(&xmap, a.x, (uint64_t)a.C, (uint64_t)a.L,
+                              (uint64_t)a.n_rows, (uint32_t)CI,
+                              (uint32_t)lay.rows) ||
+      !hopper::encode_bf16_3d(&dmap, a.du, (uint64_t)a.C, (uint64_t)a.L,
+                              (uint64_t)a.n_rows, (uint32_t)(CO / 2),
+                              (uint32_t)TL))
+    return cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      wgrad_bf16<K, CO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)lay.bytes);
+  if (e != cudaSuccess) return e;
+  wgrad_bf16<K, CO><<<groups * lay.group, THREADS, lay.bytes, stream>>>(
+      a, lay, xmap, dmap);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. part_w (splits, K, C, C) and part_b
-// (splits, C) are scratch; dw (K, C, C) and db (C,) receive the sums. bf16
-// takes cb = 64 (the channel block, dividing C) and K in {3, 5}; f32 any odd
-// K (cb 0). Returns a cudaError_t (0 = success).
+// dtype: 0 = float32, 1 = bfloat16. part_w (groups, K, C, C) and part_b
+// (groups, C) are scratch; dw (K, C, C) and db (C,) receive the sums. bf16
+// takes the launch plan of ops/fused_conv_grad.py::wgrad_plan: `groups` tile
+// shares of C/64 x C/co_block CTAs each, co_block 64 or 128 dividing C,
+// `stages` ring stages and smem_bytes of shared memory, which must equal the
+// layout this file computes; K in {3, 5}. f32: groups row splits, any odd
+// K, co_block = stages = smem_bytes = 0. Returns a cudaError_t (0 = success).
 extern "C" int jt_conv_wgrad(int dtype, const void* x, const void* du,
                              const void* in_mask, void* part_w, void* part_b,
                              void* dw, void* db, int n_rows, int L, int C,
-                             int K, int cb, int splits, void* stream) {
+                             int K, int groups, int co_block, int stages,
+                             int smem_bytes, void* stream) {
   if (n_rows <= 0 || L <= 0 || C <= 0 || C % 16 != 0 || K <= 0 ||
-      K % 2 == 0 || splits <= 0)
+      K % 2 == 0 || groups <= 0)
     return (int)cudaErrorInvalidValue;
   Args a;
   a.x = x;
@@ -325,6 +533,7 @@ extern "C" int jt_conv_wgrad(int dtype, const void* x, const void* du,
   a.in_mask = static_cast<const uint8_t*>(in_mask);
   a.part_w = static_cast<float*>(part_w);
   a.part_b = static_cast<float*>(part_b);
+  a.n_rows = n_rows;
   a.L = L;
   a.C = C;
   a.K = K;
@@ -335,16 +544,23 @@ extern "C" int jt_conv_wgrad(int dtype, const void* x, const void* du,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (dtype == 0) {
+    if (co_block != 0 || stages != 0 || smem_bytes != 0)
+      return (int)cudaErrorInvalidValue;
     const long long n_out = (long long)K * C * C + C;
-    const long long per = (a.n_rows_total + splits - 1) / splits;
-    const dim3 grid((unsigned)splits, (unsigned)((n_out + 255) / 256));
+    const long long per = (a.n_rows_total + groups - 1) / groups;
+    const dim3 grid((unsigned)groups, (unsigned)((n_out + 255) / 256));
     wgrad_f32<<<grid, 256, 0, s>>>(a, per);
     e = cudaGetLastError();
   } else if (dtype == 1) {
-    if (cb != CB || C % CB != 0) return (int)cudaErrorInvalidValue;
-    switch (K) {
-      case 3: e = launch_bf16<3>(a, splits, s); break;
-      case 5: e = launch_bf16<5>(a, splits, s); break;
+    Layout lay;
+    if (!make_layout(C, K, co_block, stages, &lay) ||
+        lay.bytes != (uint32_t)smem_bytes || groups > a.n_tiles)
+      return (int)cudaErrorInvalidValue;
+    switch (K * 1000 + co_block) {
+      case 3064: e = launch_bf16<3, 64>(a, lay, groups, s); break;
+      case 3128: e = launch_bf16<3, 128>(a, lay, groups, s); break;
+      case 5064: e = launch_bf16<5, 64>(a, lay, groups, s); break;
+      case 5128: e = launch_bf16<5, 128>(a, lay, groups, s); break;
       default: return (int)cudaErrorInvalidValue;
     }
   } else {
@@ -352,9 +568,8 @@ extern "C" int jt_conv_wgrad(int dtype, const void* x, const void* du,
   }
   if (e != cudaSuccess) return (int)e;
   const long long n_w = (long long)K * C * C;
-  reduce_splits<<<(unsigned)((n_w + 255) / 256), 256, 0, s>>>(
-      a.part_w, static_cast<float*>(dw), n_w, splits);
-  reduce_splits<<<(unsigned)((C + 255) / 256), 256, 0, s>>>(
-      a.part_b, static_cast<float*>(db), C, splits);
+  reduce_splits<<<(unsigned)((n_w + C + 255) / 256), 256, 0, s>>>(
+      a.part_w, a.part_b, static_cast<float*>(dw), static_cast<float*>(db),
+      n_w, C, groups);
   return (int)cudaGetLastError();
 }

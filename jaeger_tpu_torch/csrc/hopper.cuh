@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: mbarriers,
-// TMA tensor maps and loads, wgmma descriptors and
-// instructions (bf16 and s8, A from registers), ldmatrix.
+// TMA tensor maps and loads, 1-D bulk copies, wgmma descriptors (K-major and
+// MN-major) and instructions (bf16 and s8, A from registers), ldmatrix.
 //
 // Header only; each helper is a thin wrapper around one PTX instruction
 // (or, on the host, one driver call), so a kernel reads as the sequence of
@@ -120,6 +120,27 @@ __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
       : "memory");
 }
 
+// an L2 policy that evicts the lines it covers first (data read once)
+__device__ __forceinline__ uint64_t l2_evict_first() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
+               : "=l"(policy));
+  return policy;
+}
+
+// 1-D bulk copy of `bytes` (a multiple of 16; both addresses 16-byte
+// aligned) from global to shared memory under the L2 cache policy `policy`
+// (l2_evict_first); completion is reported to `bar` as transaction bytes
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar,
+                                          uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".L2::cache_hint [%0], [%1], %2, [%3], %4;\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar), "l"(policy)
+      : "memory");
+}
+
 __device__ __forceinline__ void bulk_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
@@ -217,6 +238,17 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
                : "r"(addr));
 }
 
+// the same, each matrix transposed: lane i's register j holds the elements
+// (2 (i % 4), 2 (i % 4) + 1) of column i / 4 of matrix j, as stored
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
 // Shared-memory matrix descriptor of a K-major operand whose rows are
 // `row_bytes` = 32, 64 or 128 wide and swizzled to that width (the layout a
 // TMA load with the same swizzle writes): start address, leading byte offset
@@ -226,6 +258,23 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
 __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t row_bytes) {
   const uint64_t layout = row_bytes == 128 ? 1 : row_bytes == 64 ? 2 : 3;
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)((8 * row_bytes) >> 4) << 32) | (layout << 62);
+}
+
+// Descriptor of an MN-major operand (N contiguous, K the row axis: rows of
+// `row_bytes` = 64 or 128 bytes of N elements, swizzled to that width as a
+// TMA load with the same swizzle writes them): leading byte offset =
+// `atom_stride` bytes from one row_bytes-wide block of N to the next (used
+// when N spans more than one block), stride byte offset = 8 rows (the next
+// group of 8 K), layout type 1 / 2 for 128 / 64-byte swizzle. Stepping 16 K
+// (rows) adds 16 * row_bytes bytes. For the 16-bit types with the
+// transpose bit set (wgmma_bf16_rs_mn).
+__device__ __forceinline__ uint64_t smem_desc_mn(uint32_t addr,
+                                                 uint32_t row_bytes,
+                                                 uint32_t atom_stride) {
+  const uint64_t layout = row_bytes == 128 ? 1 : 2;
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((atom_stride >> 4) & 0x3FFF) << 16) |
          ((uint64_t)((8 * row_bytes) >> 4) << 32) | (layout << 62);
 }
 
@@ -340,6 +389,79 @@ __device__ __forceinline__ void wgmma_bf16_rs(float (&d)[64],
       " %48, %49, %50, %51, %52, %53, %54, %55,"
       " %56, %57, %58, %59, %60, %61, %62, %63}, "
       "{%64, %65, %66, %67}, %69, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(scale_d),
+        "l"(desc));
+}
+
+// The same products with B MN-major (smem_desc_mn: the transpose bit set):
+// d (64 x N, f32) += a (64 x 16 bf16, registers) * b (16 x N bf16, stored
+// 16 rows of N contiguous elements); scale_d = 0 overwrites d. N = 2 * R.
+__device__ __forceinline__ void wgmma_bf16_rs_mn(float (&d)[16],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %20, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %21, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(scale_d),
+        "l"(desc));
+}
+
+__device__ __forceinline__ void wgmma_bf16_rs_mn(float (&d)[32],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %36, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %37, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(scale_d),
+        "l"(desc));
+}
+
+__device__ __forceinline__ void wgmma_bf16_rs_mn(float (&d)[64],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %68, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %69, p, 1, 1, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),

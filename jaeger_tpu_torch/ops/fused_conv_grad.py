@@ -19,15 +19,19 @@ gives that kernel a backward on hand-written kernels. The forward is
 
 On CUDA tensors the backward runs three kernels:
 
-* ``conv_epilogue_bwd`` (Triton, :func:`conv_epilogue_bwd`): one pass over
-  ``dy``, ``u``, ``r`` and the out mask writing ``du`` and ``dr`` and
-  per-program partials of ``da``, ``dg``, ``dbe``, summed in a fixed order.
-  At the train shape (N = 1536, L = 500, C = 128, bf16) the conv2 form
-  moves 983 MB (0.29 ms at 3.35 TB/s); it is memory-bound.
+* ``conv_epilogue_bwd`` (CUDA C++, ``csrc/conv_epilogue_bwd.cu``,
+  :func:`conv_epilogue_bwd`): one pass over ``dy``, ``u``, ``r`` and the
+  out mask writing ``du`` and ``dr`` and per-CTA partials of ``da``,
+  ``dg``, ``dbe``, summed in a fixed order; persistent CTAs fed by 1-D
+  bulk copies into an mbarrier ring (:func:`epilogue_plan`). At the train
+  shape (N = 1536, L = 500, C = 128, bf16) the conv2 form moves 983 MB
+  (0.29 ms at 3.35 TB/s); it is memory-bound.
 * ``conv_wgrad`` (CUDA C++, ``csrc/fused_conv_wgrad.cu``,
-  :func:`conv_wgrad`): ``dW`` and ``db``, ``mma.sync`` on shared-memory
-  tiles with the halo, rows split over the SMs, partials summed in a
-  second fixed-order pass (no float atomics: the same bits run to run).
+  :func:`conv_wgrad`): ``dW`` and ``db``; bf16 is a persistent ``wgmma``
+  kernel fed by TMA, each CTA holding a 64-ci block of dW for all taps in
+  registers over a contiguous share of the row tiles
+  (:func:`wgrad_plan`); partials summed in a second fixed-order pass (no
+  float atomics: the same bits run to run).
 * the data gradient: no new kernel. For odd k the transposed SAME conv is
   a SAME conv with the flipped, transposed weights, so ``dx`` is one more
   launch of ``fused_conv_block`` (act none, no bias, ``out_mask = m_in``).
@@ -176,14 +180,18 @@ def reference_conv_block_backward(dy, x, w, bias=None, dyt=None, act="none",
 # conv_wgrad (CUDA C++)
 # ---------------------------------------------------------------------------
 
-#: the C entry's arguments: dtype, 7 pointers, n_rows, L, C, K, cb, splits,
-#: stream
-WGRAD_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
+#: the C entry's arguments: dtype, 7 pointers, n_rows, L, C, K, groups,
+#: co_block, stages, smem bytes, stream
+WGRAD_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
                   + [ctypes.c_void_p])
-#: tap counts the bf16 kernel is instantiated for, and its channel block
-#: (the fusable convs of ``train_config/*.yaml``: k 3 or 5, C 64 or 128)
+#: tap counts the bf16 kernel is instantiated for, and its ci block (the
+#: wgmma M; the fusable convs of ``train_config/*.yaml``: k 3 or 5, C 64 or
+#: 128)
 WGRAD_TAPS = (3, 5)
 WGRAD_CB = 64
+#: rows per tile of the bf16 kernel and its ring stages
+_WGRAD_TL = 64
+_WGRAD_STAGES = 4
 
 
 @functools.cache
@@ -211,22 +219,66 @@ def check_wgrad_shape(c: int, k: int, dtype) -> None:
             f"ported to jaeger_tpu_torch (ROADMAP.md queue 2)")
 
 
-def wgrad_plan(n: int, length: int, c: int, k: int, dtype, sms: int) -> dict:
-    """``cb`` (the channel block: ``WGRAD_CB``; 0 for f32) and ``splits``
-    (row splits: about two CTAs per SM over all channel-block pairs for
-    bf16, four per SM for f32), or ValueError."""
+def _align1k(v: int) -> int:
+    return -(-v // 1024) * 1024
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=256)
+def wgrad_plan(n: int, length: int, c: int, k: int, dtype, sms: int,
+               stages: int = _WGRAD_STAGES) -> dict:
+    """The launch plan of :func:`conv_wgrad`, or ValueError.
+
+    bf16 (``route`` "wgmma"): ``co_block`` (128 where it divides C, else
+    64), ``group`` CTAs per tile share (C / 64 ci blocks x C / co_block co
+    blocks, neighbours in the grid walking the same tiles), ``groups``
+    contiguous tile shares (one per partial slot: at most one CTA per SM in
+    all, at most one share per 64-row tile), ``ctas`` = groups x group,
+    ``stages`` of the TMA ring and ``smem`` bytes (stages x (x halo box,
+    1 KB aligned, + two du boxes) +
+    3 x stages mbarriers + 1 KB slack), which the C entry recomputes and
+    must equal; ``cluster`` False (the group's
+    CTAs share the du tile through L2, not by multicast). f32 (``route``
+    "fma"): ``groups`` row splits, four per SM. Cached: do not modify the
+    dict."""
     check_wgrad_shape(c, k, dtype)
     if dtype == torch.float32:
-        return dict(cb=0, splits=max(1, min(4 * sms, n * length)))
-    tiles = n * -(-length // 64)
-    pairs = (c // WGRAD_CB) ** 2
-    return dict(cb=WGRAD_CB, splits=max(1, min(tiles, -(-2 * sms // pairs))))
+        groups = max(1, min(4 * sms, n * length))
+        return dict(route="fma", groups=groups, group=1, ctas=groups,
+                    co_block=0, stages=0, smem=0, cluster=False)
+    co_block = 128 if c % 128 == 0 else 64
+    group = (c // WGRAD_CB) * (c // co_block)
+    tiles = n * -(-length // _WGRAD_TL)
+    groups = max(1, min(tiles, sms // group))
+    rows = _WGRAD_TL + k - 1
+    box = _WGRAD_TL * co_block
+    stage = _align1k(rows * WGRAD_CB * 2) + 2 * box
+    smem = stages * stage + 24 * stages + 1024
+    return dict(route="wgmma", groups=groups, group=group,
+                ctas=groups * group, co_block=co_block, stages=stages,
+                smem=smem, cluster=False)
 
 
-def conv_wgrad(x, du, in_mask=None, k=5):
+def wgrad_shares(n: int, length: int, groups: int) -> list[range]:
+    """The 64-row tiles (index ``n * ceil(L / 64) + l0 / 64``) of each tile
+    share of the bf16 kernel, in the order its CTAs walk them: share ``p``
+    is ``[T p / groups, T (p + 1) / groups)`` of the ``T`` tiles (the
+    kernel's formula). The partial of share ``p`` is added ``p``-th."""
+    tiles = n * -(-length // _WGRAD_TL)
+    return [range(tiles * p // groups, tiles * (p + 1) // groups)
+            for p in range(groups)]
+
+
+def conv_wgrad(x, du, in_mask=None, k=5, *, plan=None):
     """``(dW, db)`` of a SAME conv with input ``x`` (N, L, C) (rows where
     ``in_mask`` is false read as zero) and output gradient ``du`` (N, L,
-    C), both bf16 or f32: dW (k, C, C) and db (C,) in f32."""
+    C), both bf16 or f32: dW (k, C, C) and db (C,) in f32. ``plan``
+    (another :func:`wgrad_plan`, for measurements) replaces the default
+    one; the C entry refuses one that does not fit the shape."""
     if x.device.type == "cpu":
         return reference_conv_wgrad(x, du, in_mask, k)
     if x.device.type != "cuda":
@@ -237,21 +289,22 @@ def conv_wgrad(x, du, in_mask=None, k=5):
         raise ValueError(f"x must be (N, L, C), got {tuple(x.shape)}")
     n, length, c = x.shape
     dev = x.device
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    plan = wgrad_plan(n, length, c, k, x.dtype, sms)
+    if plan is None:
+        plan = wgrad_plan(n, length, c, k, x.dtype, _sm_count(dev.index))
     x = _check("x", x, (n, length, c), x.dtype, dev)
     du = _check("du", du, (n, length, c), x.dtype, dev)
     in_mask = _check("in_mask", in_mask, (n, length), torch.bool, dev, 1)
-    s = plan["splits"]
-    part_w = torch.empty(s, k, c, c, dtype=torch.float32, device=dev)
-    part_b = torch.empty(s, c, dtype=torch.float32, device=dev)
+    g = plan["groups"]
+    part_w = torch.empty(g, k, c, c, dtype=torch.float32, device=dev)
+    part_b = torch.empty(g, c, dtype=torch.float32, device=dev)
     dw = torch.empty(k, c, c, dtype=torch.float32, device=dev)
     db = torch.empty(c, dtype=torch.float32, device=dev)
     err = _wgrad_lib()(
         1 if x.dtype == torch.bfloat16 else 0, x.data_ptr(), du.data_ptr(),
         None if in_mask is None else in_mask.data_ptr(), part_w.data_ptr(),
-        part_b.data_ptr(), dw.data_ptr(), db.data_ptr(), n, length, c, k,
-        plan["cb"], s, torch.cuda.current_stream(dev).cuda_stream)
+        part_b.data_ptr(), dw.data_ptr(), db.data_ptr(), n, length, c, k, g,
+        plan["co_block"], plan["stages"], plan["smem"],
+        torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"conv_wgrad kernel launch failed: CUDA error {err}")
     launches["conv_wgrad"] += 1
@@ -259,96 +312,67 @@ def conv_wgrad(x, du, in_mask=None, k=5):
 
 
 # ---------------------------------------------------------------------------
-# conv_epilogue_bwd (Triton)
+# conv_epilogue_bwd (CUDA C++)
 # ---------------------------------------------------------------------------
 
-#: rows per Triton program step
-_EPI_BLOCK_R = 32
+#: the C entry's arguments: dtype, 9 pointers, rows, C, act, rows per
+#: chunk, stages, CTAs, smem bytes, stream
+EPILOGUE_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 9
+                     + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+#: consumer threads per CTA, bytes of one chunk at most, ring stages
+_EPI_CONSUMERS = 256
+_EPI_CHUNK_BYTES = 8192
+_EPI_STAGES = 4
 
 
 @functools.cache
-def _epilogue_kernel():
-    """Build the Triton kernel on first use (this import needs triton).
-    ``tl`` is bound as a module global, where Triton's JIT looks names up.
-    tanh is written as ``1 - 2 / (exp(2v) + 1)`` (exact at both ends)."""
-    global tl
-    import triton
-    import triton.language as tl
+def _epilogue_lib():
+    from jaeger_tpu_torch.ops import cuda_build
 
-    @triton.jit
-    def conv_epilogue_bwd_kernel(
-            dy_ptr, u_ptr, r_ptr, om_ptr, dyt_ptr, du_ptr, dr_ptr, part_ptr,
-            rows, rows_per_prog, C: tl.constexpr, BLOCK_C: tl.constexpr,
-            BLOCK_R: tl.constexpr, ACT: tl.constexpr, HAS_R: tl.constexpr,
-            HAS_OM: tl.constexpr, HAS_DYT: tl.constexpr):
-        pid = tl.program_id(0)
-        cols = tl.arange(0, BLOCK_C)
-        cmask = cols < C
-        if HAS_DYT:
-            alpha = tl.load(dyt_ptr + cols, mask=cmask, other=0.0)
-            gamma = tl.load(dyt_ptr + C + cols, mask=cmask, other=0.0)
-            beta = tl.load(dyt_ptr + 2 * C + cols, mask=cmask, other=0.0)
-        acc_a = tl.zeros((BLOCK_C,), dtype=tl.float32)
-        acc_g = tl.zeros((BLOCK_C,), dtype=tl.float32)
-        acc_b = tl.zeros((BLOCK_C,), dtype=tl.float32)
-        r_lo = pid * rows_per_prog
-        for r0 in range(r_lo, r_lo + rows_per_prog, BLOCK_R):
-            ridx = r0 + tl.arange(0, BLOCK_R)
-            rmask = (ridx < rows) & (ridx < r_lo + rows_per_prog)
-            m2 = rmask[:, None] & cmask[None, :]
-            offs = ridx[:, None].to(tl.int64) * C + cols[None, :]
-            dy = tl.load(dy_ptr + offs, mask=m2, other=0.0).to(tl.float32)
-            u = tl.load(u_ptr + offs, mask=m2, other=0.0).to(tl.float32)
-            if HAS_OM:
-                o = tl.load(om_ptr + ridx, mask=rmask, other=0).to(tl.float32)
-            else:
-                o = tl.where(rmask, 1.0, 0.0)
-            o2 = o[:, None]
-            if HAS_DYT:
-                t = 1.0 - 2.0 / (tl.exp(2.0 * alpha[None, :] * u) + 1.0)
-                y = gamma[None, :] * t + beta[None, :]
-            else:
-                t = u
-                y = u
-            s = o2 * y
-            if HAS_R:
-                s += tl.load(r_ptr + offs, mask=m2, other=0.0).to(tl.float32)
-            if ACT == 1:        # relu
-                d = tl.where(s > 0, 1.0, 0.0)
-            elif ACT == 2:      # tanh
-                th = 1.0 - 2.0 / (tl.exp(2.0 * s) + 1.0)
-                d = 1.0 - th * th
-            elif ACT == 3:      # gelu, exact erf form
-                d = (0.5 * (1.0 + tl.erf(s * 0.7071067811865476))
-                     + s * tl.exp(-0.5 * s * s) * 0.3989422804014327)
-            elif ACT == 4:      # gelu, tanh form
-                z = 1.0 - 2.0 / (tl.exp(1.5957691216057308
-                                        * (s + 0.044715 * s * s * s)) + 1.0)
-                d = (0.5 * (1.0 + z) + 0.5 * s * (1.0 - z * z)
-                     * 0.7978845608028654 * (1.0 + 0.134145 * s * s))
-            else:
-                d = s * 0.0 + 1.0
-            ds = dy * d
-            ods = o2 * ds
-            if HAS_DYT:
-                gg = ods * gamma[None, :] * (1.0 - t * t)
-                du = gg * alpha[None, :]
-                acc_a += tl.sum(gg * u, axis=0)
-                acc_g += tl.sum(ods * t, axis=0)
-                acc_b += tl.sum(ods, axis=0)
-            else:
-                du = ods
-            tl.store(du_ptr + offs, du.to(du_ptr.dtype.element_ty), mask=m2)
-            if HAS_R:
-                tl.store(dr_ptr + offs, ds.to(dr_ptr.dtype.element_ty),
-                         mask=m2)
-        if HAS_DYT:
-            base = part_ptr + pid * 3 * C
-            tl.store(base + cols, acc_a, mask=cmask)
-            tl.store(base + C + cols, acc_g, mask=cmask)
-            tl.store(base + 2 * C + cols, acc_b, mask=cmask)
+    fn = cuda_build.load("conv_epilogue_bwd").jt_conv_epilogue_bwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = EPILOGUE_ARGTYPES
+    return fn
 
-    return conv_epilogue_bwd_kernel
+
+@functools.lru_cache(maxsize=256)
+def epilogue_plan(rows: int, c: int, dtype, residual: bool, sms: int) -> dict:
+    """The launch plan of :func:`conv_epilogue_bwd` over ``rows`` = N * L
+    rows of C channels, or ValueError (C % 16 == 0 and C <= 1024: a thread
+    owns 4 channels, a row at most 256 threads).
+
+    ``rows_per_chunk`` R: the largest power of two <= 64 with R rows <= 8 KB;
+    ``chunks``: ceil(rows / R); ``ctas``: about two per SM, at most one per
+    chunk, CTA ``b`` taking chunks ``[chunks b / ctas, chunks (b + 1) /
+    ctas)``; ``stages`` 4 of dy, u (and the residual) chunks; ``smem`` the
+    ring and its mbarriers, or the row groups' partial sums where those are
+    larger, which the C entry recomputes and must equal. Cached: do not
+    modify the dict."""
+    esize = 4 if dtype == torch.float32 else 2
+    row_bytes = c * esize
+    if rows <= 0 or c <= 0 or c % 16 or c // 4 > _EPI_CONSUMERS:
+        raise ValueError(f"rows={rows}, C={c}: conv_epilogue_bwd takes C % 16 "
+                         f"== 0 and C <= {4 * _EPI_CONSUMERS}")
+    r = 64
+    while r > 1 and r * row_bytes > _EPI_CHUNK_BYTES:
+        r //= 2
+    chunks = -(-rows // r)
+    ntens = 3 if residual else 2
+    red = 3 * (_EPI_CONSUMERS // (c // 4)) * c * 4
+    smem = max(_EPI_STAGES * ntens * r * row_bytes + 16 * _EPI_STAGES, red)
+    return dict(rows_per_chunk=r, chunks=chunks,
+                ctas=max(1, min(2 * sms, chunks)), stages=_EPI_STAGES,
+                smem=smem)
+
+
+def epilogue_shares(rows: int, plan: dict) -> list[range]:
+    """The rows of each CTA of :func:`conv_epilogue_bwd` in the order it
+    walks them (the kernel's formula); CTA ``b``'s partial sums are added
+    ``b``-th."""
+    r, chunks, ctas = plan["rows_per_chunk"], plan["chunks"], plan["ctas"]
+    return [range(chunks * b // ctas * r,
+                  min(rows, chunks * (b + 1) // ctas * r))
+            for b in range(ctas)]
 
 
 def conv_epilogue_bwd(dy, u, residual=None, out_mask=None, dyt=None,
@@ -357,43 +381,50 @@ def conv_epilogue_bwd(dy, u, residual=None, out_mask=None, dyt=None,
     (N, L, C), the residual and out mask of the forward: ``(du, dr,
     ddyt)``, ``du`` and ``dr`` (None without residual) in dy's dtype,
     ``ddyt`` the (3, C) f32 gradient rows of alpha, gamma and beta (None
-    without DYT). On CUDA one Triton pass writes du and dr and per-program
-    partials of ddyt, summed in program order."""
+    without DYT). On CUDA one pass of the kernel writes du and dr and
+    per-CTA partials of ddyt, summed in CTA order in the same C entry."""
     if dy.device.type == "cpu":
         du, dr, ddyt = reference_conv_epilogue_bwd(dy, u, residual, out_mask,
                                                    dyt, act)
         return du, (dr if residual is not None else None), ddyt
     if dy.device.type != "cuda":
         raise ValueError(f"conv_epilogue_bwd: unsupported device {dy.device}")
+    if dy.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"conv_epilogue_bwd: unsupported dtype {dy.dtype}")
     if act not in _ACT_IDS:
         raise ValueError(f"unsupported activation {act!r}")
     n, length, c = dy.shape
     dev = dy.device
     rows = n * length
+    plan = epilogue_plan(rows, c, dy.dtype, residual is not None,
+                         _sm_count(dev.index))
     dy = _check("dy", dy, (n, length, c), dy.dtype, dev)
     u = _check("u", u, (n, length, c), dy.dtype, dev)
     residual = _check("residual", residual, (n, length, c), dy.dtype, dev)
     out_mask = _check("out_mask", out_mask, (n, length), torch.bool, dev, 1)
     dyt = _check("dyt", dyt, (3, c), torch.float32, dev, align=4)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    progs = max(1, min(4 * sms, -(-rows // _EPI_BLOCK_R)))
-    per = -(-rows // progs)
-    per = -(-per // _EPI_BLOCK_R) * _EPI_BLOCK_R
-    progs = -(-rows // per)
     du = torch.empty_like(dy)
-    dr = torch.empty_like(dy) if residual is not None else du
-    part = torch.empty(progs, 3, c, dtype=torch.float32, device=dev)
-    kernel = _epilogue_kernel()
-    kernel[(progs,)](
-        dy, u, residual if residual is not None else dy,
-        out_mask.view(torch.uint8) if out_mask is not None else dy,
-        dyt if dyt is not None else part, du, dr, part, rows, per, C=c,
-        BLOCK_C=max(16, 1 << (c - 1).bit_length()), BLOCK_R=_EPI_BLOCK_R,
-        ACT=_ACT_IDS[act], HAS_R=residual is not None,
-        HAS_OM=out_mask is not None, HAS_DYT=dyt is not None, num_warps=4)
+    dr = torch.empty_like(dy) if residual is not None else None
+    part = ddyt = None
+    if dyt is not None:
+        part = torch.empty(plan["ctas"], 3, c, dtype=torch.float32,
+                           device=dev)
+        ddyt = torch.empty(3, c, dtype=torch.float32, device=dev)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    err = _epilogue_lib()(
+        1 if dy.dtype == torch.bfloat16 else 0, ptr(dy), ptr(u),
+        ptr(residual), ptr(out_mask), ptr(dyt), ptr(du), ptr(dr), ptr(part),
+        ptr(ddyt), rows, c, _ACT_IDS[act], plan["rows_per_chunk"],
+        plan["stages"], plan["ctas"], plan["smem"],
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"conv_epilogue_bwd kernel launch failed: CUDA "
+                           f"error {err}")
     launches["conv_epilogue_bwd"] += 1
-    ddyt = part.sum(0) if dyt is not None else None
-    return du, (dr if residual is not None else None), ddyt
+    return du, dr, ddyt
 
 
 # ---------------------------------------------------------------------------

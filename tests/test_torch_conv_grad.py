@@ -14,8 +14,8 @@ different orders; 1e-5 of the scale is a few hundred f32 ulps at these
 sizes.
 
 The backward's kernel-side pieces (the flipped-weight data gradient, the
-plan and the C interface of ``conv_wgrad``) are checked here without a
-card; the kernels themselves are compared with these plain versions by
+plans, row partitions and C interfaces of ``conv_wgrad`` and
+``conv_epilogue_bwd``) are checked here without a card; the kernels themselves are compared with these plain versions by
 ``chip_smoke.py`` on the H100.
 """
 
@@ -137,13 +137,34 @@ def test_flipped_weights_are_the_transposed_conv(k):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 
+def _c_kinds(src: str, entry: str) -> list:
+    """ctypes kinds of a C entry's parameters: pointers and the stream as
+    c_void_p, the rest c_int."""
+    proto = re.search(rf'extern "C" int {entry}\((.*?)\)', src,
+                      re.S).group(1)
+    return [ctypes.c_void_p if ("*" in a or "stream" in a) else ctypes.c_int
+            for a in proto.split(",")]
+
+
 def test_wgrad_plan_and_c_interface():
     plan = fg.wgrad_plan(1536, 500, 128, 5, torch.bfloat16, 132)
-    assert plan == {"cb": 64, "splits": 66}
+    # C = 128: two ci blocks of 64 share each tile (one co block of 128), one
+    # CTA per SM; 4 stages of a 68-row x halo box and two 64 x 64 du boxes
+    assert plan == {"route": "wgmma", "groups": 66, "group": 2, "ctas": 132,
+                    "co_block": 128, "stages": 4,
+                    "smem": 4 * (9216 + 2 * 8192) + 96 + 1024,
+                    "cluster": False}
     assert fg.wgrad_plan(6, 300, 64, 3, torch.bfloat16, 132) == {
-        "cb": 64, "splits": 30}
-    assert fg.wgrad_plan(6, 300, 32, 5, torch.float32, 132)["cb"] == 0
-    assert fg.wgrad_plan(6, 300, 48, 7, torch.float32, 132)["cb"] == 0
+        "route": "wgmma", "groups": 30, "group": 1, "ctas": 30,
+        "co_block": 64, "stages": 4,
+        "smem": 4 * (9216 + 2 * 4096) + 1120, "cluster": False}
+    big = fg.wgrad_plan(64, 500, 256, 5, torch.bfloat16, 132)
+    assert (big["group"], big["groups"], big["co_block"]) == (8, 16, 128)
+    assert big["ctas"] <= 132 and big["smem"] <= 232448
+    # one tile: one share, whatever the SM count
+    assert fg.wgrad_plan(1, 64, 128, 5, torch.bfloat16, 132)["groups"] == 1
+    assert fg.wgrad_plan(6, 300, 32, 5, torch.float32, 132)["route"] == "fma"
+    assert fg.wgrad_plan(6, 300, 48, 7, torch.float32, 132)["co_block"] == 0
     for bad in ((6, 30, 24, 5, torch.bfloat16), (6, 30, 64, 4, torch.bfloat16),
                 (6, 30, 64, 7, torch.bfloat16), (6, 30, 64, 1, torch.bfloat16),
                 (6, 30, 48, 3, torch.bfloat16), (6, 30, 24, 3, torch.float32)):
@@ -151,16 +172,71 @@ def test_wgrad_plan_and_c_interface():
             fg.wgrad_plan(*bad, 132)
     src = (ROOT / "jaeger_tpu_torch" / "csrc" / "fused_conv_wgrad.cu"
            ).read_text()
-    proto = re.search(r'extern "C" int jt_conv_wgrad\((.*?)\)', src,
-                      re.S).group(1)
-    kinds = [ctypes.c_void_p if ("*" in a or "stream" in a) else ctypes.c_int
-             for a in proto.split(",")]
-    assert kinds == fg.WGRAD_ARGTYPES
-    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in src
-    assert "ldmatrix.sync.aligned.m8n8.x4.trans" in src
-    assert "cp.async.cg.shared.global" in src
+    hdr = (ROOT / "jaeger_tpu_torch" / "csrc" / "hopper.cuh").read_text()
+    assert _c_kinds(src, "jt_conv_wgrad") == fg.WGRAD_ARGTYPES
+    # wgmma with B MN-major (transpose bit), TMA and an mbarrier ring
+    assert "wgmma_bf16_rs_mn" in src and "smem_desc_mn" in src
+    assert "wgmma.mma_async" in hdr and "cp.async.bulk.tensor" in hdr
+    assert "tma_load_3d" in src and "mbar_wait" in src and "mbarrier" in hdr
+    assert "atomicAdd" not in src
+    assert "__global__ void wgrad_f32" in src
+    assert "jaeger_tpu/ops/pallas_conv.py" in src
+
+
+def test_epilogue_plan_and_c_interface():
+    bf16, f32 = torch.bfloat16, torch.float32
+    # train shape, conv2 form: 32 rows of 256 B a chunk, 8 KB of each of
+    # dy, u, r; two CTAs per SM
+    assert fg.epilogue_plan(1536 * 500, 128, bf16, True, 132) == {
+        "rows_per_chunk": 32, "chunks": 24000, "ctas": 264, "stages": 4,
+        "smem": 4 * 3 * 8192 + 64}
+    assert fg.epilogue_plan(1536 * 500, 128, bf16, False, 132)["smem"] == (
+        4 * 2 * 8192 + 64)
+    # C 16 / 48 / 256 (f32 and bf16): R * row bytes <= 8 KB, R <= 64
+    for c, dt, r, smem in ((16, f32, 64, 4 * 2 * 4096 + 64),
+                           (48, f32, 32, 4 * 2 * 6144 + 64),
+                           (256, f32, 8, 4 * 2 * 8192 + 64),
+                           (16, bf16, 64, 4 * 2 * 2048 + 64),
+                           (256, bf16, 16, 4 * 2 * 8192 + 64)):
+        plan = fg.epilogue_plan(1800, c, dt, False, 132)
+        assert plan["rows_per_chunk"] == r and plan["smem"] == smem, (c, dt)
+        assert plan["ctas"] == min(264, -(-1800 // r))
+    assert fg.epilogue_plan(5, 128, bf16, True, 132)["ctas"] == 1
+    for rows, c, dt in ((0, 128, bf16), (100, 24, bf16), (100, 8, f32),
+                        (100, 1040, bf16), (100, 1040, f32)):
+        with pytest.raises(ValueError):
+            fg.epilogue_plan(rows, c, dt, True, 132)
+    src = (ROOT / "jaeger_tpu_torch" / "csrc" / "conv_epilogue_bwd.cu"
+           ).read_text()
+    assert _c_kinds(src, "jt_conv_epilogue_bwd") == fg.EPILOGUE_ARGTYPES
+    assert "bulk_load" in src and "mbar_wait" in src
     assert "atomicAdd" not in src
     assert "jaeger_tpu/ops/pallas_conv.py" in src
+    py = (ROOT / "jaeger_tpu_torch" / "ops" / "fused_conv_grad.py"
+          ).read_text()
+    assert "triton" not in py
+
+
+@pytest.mark.parametrize("length", [1, 63, 65, 500])
+def test_plans_cover_every_row_once_in_order(length):
+    """Both kernels' partitions of the rows: every (n, l) in exactly one
+    share, the shares in order and contiguous, so the partial sums are
+    added in one fixed order."""
+    n = 7
+    rows = n * length
+    for groups in (1, 3, 66):
+        shares = fg.wgrad_shares(n, length, min(groups, n * -(-length // 64)))
+        tiles = [t for sh in shares for t in sh]
+        assert tiles == list(range(n * -(-length // 64)))
+        covered = [(t // -(-length // 64), (t % -(-length // 64)) * 64 + r)
+                   for t in tiles for r in range(64)
+                   if (t % -(-length // 64)) * 64 + r < length]
+        assert covered == [(i, l) for i in range(n) for l in range(length)]
+    for dt, c in ((torch.bfloat16, 128), (torch.float32, 48)):
+        for sms in (1, 2, 132):
+            plan = fg.epilogue_plan(rows, c, dt, True, sms)
+            got = [r for sh in fg.epilogue_shares(rows, plan) for r in sh]
+            assert got == list(range(rows))
 
 
 def test_wrappers_launch_or_raise_on_other_devices():
