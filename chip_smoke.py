@@ -12,6 +12,8 @@ Run from the root of a checkout on a machine with CUDA:
                                      # the backward wrappers' host time
     python3 chip_smoke.py --backward # phases 1, 2 and 3b only (the
                                      # backward kernels)
+    python3 chip_smoke.py --host     # phases 1, 2 and 7 only (the host
+                                     # pipeline and the predict stages)
 
 Phases, each of which fails the run:
 
@@ -75,7 +77,24 @@ Phases, each of which fails the run:
    before, read just after; losses finite and falling; 18 / 6 / 6
    launches per dense step); each program's steady-state step time and
    device time; then ``predict`` and ``predict --int8`` on the bundle and
-   the int8 bundle it wrote.
+   the int8 bundle it wrote;
+7. host pipeline and full predict: the port's native host library must
+   be live and its own (``build/jaeger_tpu_torch/libjaeger_host-*.so``);
+   on a seeded synthetic assembly (750 contigs of 5-75 kb, 30 Mb, with
+   N runs, low-complexity tracts and a tandem tract) the host windowing
+   rate at 1, 4 and all workers (native) and on its first 25 contigs
+   (pure Python, whose windows must equal the native ones); the
+   terminal-repeat scan's seconds; ``predict`` with the flagship bundle
+   (``--fsize 1505 --batch 2048``, default stages) end to end: wall
+   seconds and windows/s (launch counts reset just before, read just
+   after), the same with ``--no-termini``, the engine's host ms per batch
+   for pack, upload and plan against the forward's ms, the card's busy
+   share of the inference loop from a ``--profile`` run's trace, and a
+   cProfile top 10 of the host in a ``--no-termini`` run;
+   then ``--mask-tandem``, ``--prophage`` (its region equal to a CPU
+   float32 run's), ``--refine`` (a seeded ``*_refine.yaml`` beside the
+   bundle) and ``--profile`` on a small FASTA, each checked for its files
+   and for fused_conv_block launches.
 
 The second-to-last line is the kernels JSON, the last ``{"ok": true, ...}``.
 The script imports nothing of JAX or of jaeger_tpu.
@@ -1998,6 +2017,389 @@ def phase_int8_predict(tmp: Path, bundle: Path) -> int:
     return launches
 
 
+# --- phase 7: host pipeline and full predict ---------------------------------
+
+#: the synthetic assembly of phase 7: 750 contigs of 5-75 kb (30 Mb), cut
+#: from 1,000 (40 Mb) to keep the phase near a minute; the terminal-repeat
+#: scan, which every default run repeats, takes most of it
+BIG_CONTIGS = 750
+#: the pure-Python windowing subset: the same file's first 25 contigs (1 Mb)
+PY_CONTIGS = 25
+TANDEM = b"GATTACAGGC" * 30
+
+
+def write_synthetic_fasta(path: Path, n_contigs: int, seed: int = 17) -> int:
+    """A seeded assembly from numpy, lines of 80 nt: contigs of 5-75 kb
+    (the length mix of a metagenome's contigs past a few kb);
+    every 7th holds an N run of 10-300 nt (the split and bounded
+    programs), every 5th a 40-80 nt low-complexity tract (DUST masks it),
+    contig 3 a 300 nt tandem tract. The first contigs of a shorter file
+    are those of a longer one. Returns the bases written."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    units = (b"A", b"CA", b"CAG", b"TTAGGG")
+    total = 0
+    with open(path, "wb") as fh:
+        for i in range(n_contigs):
+            n = int(rng.integers(5_000, 75_001))
+            seq = acgt[rng.integers(0, 4, size=n)]
+            if i % 7 == 1:
+                at, w = int(rng.integers(0, n - 300)), int(rng.integers(10, 301))
+                seq[at: at + w] = ord("N")
+            if i % 5 == 2:
+                unit = units[i % 4]
+                at, w = int(rng.integers(0, n - 80)), int(rng.integers(40, 81))
+                seq[at: at + w] = np.frombuffer(
+                    (unit * (w // len(unit) + 1))[:w], np.uint8)
+            if i == 3:
+                seq[1000: 1000 + len(TANDEM)] = np.frombuffer(TANDEM, np.uint8)
+            k = n // 80
+            body = np.hstack([seq[: k * 80].reshape(k, 80),
+                              np.full((k, 1), ord("\n"), np.uint8)])
+            fh.write(b">ctg_%d len=%d\n" % (i, n))
+            fh.write(body.tobytes())
+            if n % 80:
+                fh.write(seq[k * 80:].tobytes() + b"\n")
+            total += n
+    return total
+
+
+def _windows_per_s(path: Path, workers: int) -> tuple[float, list]:
+    """The port's ``window_batches`` as ``predict`` calls it at the
+    flagship's 1505 nt (stride 1500, DUST on): windows/s, batches."""
+    from jaeger_tpu_torch.seqops.windows import window_batches
+
+    t0 = time.perf_counter()
+    batches = list(window_batches(str(path), fragsize=1505, stride=1500,
+                                  min_len=1505, workers=workers))
+    dt = time.perf_counter() - t0
+    return sum(len(b) for b in batches) / dt, batches
+
+
+@contextlib.contextmanager
+def engine_host_timers():
+    """Host seconds and calls of the engine's pack, upload (pinned copy
+    and enqueue) and plan, accumulated while the block runs."""
+    from jaeger_tpu_torch.infer import engine as eng_mod
+
+    acc = {"pack": [0.0, 0], "upload": [0.0, 0], "plan": [0.0, 0]}
+
+    def timed(name, fn):
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                acc[name][0] += time.perf_counter() - t0
+                acc[name][1] += 1
+        return wrapper
+
+    cls = eng_mod.InferenceEngine
+    saved = eng_mod.pack_bases, cls._to_device, cls._plan_batch
+    eng_mod.pack_bases = timed("pack", saved[0])
+    cls._to_device = timed("upload", saved[1])
+    cls._plan_batch = timed("plan", saved[2])
+    try:
+        yield acc
+    finally:
+        eng_mod.pack_bases, cls._to_device, cls._plan_batch = saved
+
+
+def device_busy_share(trace: Path) -> tuple[float, float, int]:
+    """From a ``predict --profile`` Chrome trace: the share of the
+    ``predict.inference`` range during which a kernel, copy or memset ran
+    on the card, the kernels' share alone, and the kernel count."""
+    events = json.loads(trace.read_text())["traceEvents"]
+    rng_ev = [e for e in events if e.get("name") == "predict.inference"
+              and e.get("cat") == "user_annotation"]
+    check(len(rng_ev) == 1, f"{trace}: {len(rng_ev)} predict.inference "
+                            f"ranges")
+    lo = float(rng_ev[0]["ts"])
+    hi = lo + float(rng_ev[0]["dur"])
+
+    def union(cats) -> tuple[float, int]:
+        spans = sorted((max(float(e["ts"]), lo),
+                        min(float(e["ts"]) + float(e.get("dur", 0)), hi))
+                       for e in events if e.get("cat") in cats
+                       and e.get("ph") == "X")
+        busy, end, n = 0.0, lo, 0
+        for a, b in spans:
+            if b <= a:
+                continue
+            n += 1
+            if a > end:
+                busy += b - a
+                end = b
+            elif b > end:
+                busy += b - end
+                end = b
+        return busy, n
+
+    busy, _ = union({"kernel", "gpu_memcpy", "gpu_memset"})
+    kern, n_kernels = union({"kernel"})
+    return busy / (hi - lo), kern / (hi - lo), n_kernels
+
+
+def _cprofile_top(fn, top: int = 10) -> str:
+    """``fn()`` under cProfile; the ``top`` functions by own time. From
+    Python 3.12 cProfile records every thread, so a worker pool's calls
+    sum over its threads."""
+    import cProfile
+    import io
+    import pstats
+
+    prof = cProfile.Profile()
+    prof.enable()
+    try:
+        fn()
+    finally:
+        prof.disable()
+    out = io.StringIO()
+    pstats.Stats(prof, stream=out).sort_stats("tottime").print_stats(top)
+    lines = out.getvalue().splitlines()
+    start = next(i for i, ln in enumerate(lines) if "ncalls" in ln)
+    return "\n".join(lines[start: start + top + 1])
+
+
+def _stages_fasta(path: Path) -> None:
+    """A small FASTA for the four stages: a 105 kb host contig holding the
+    first test contig (the prophage stage's region), the third test
+    contig, a contig with the tandem tract, a 3 kb contig."""
+    import numpy as np
+
+    from jaeger_tpu_torch.seqops.fasta import read_fasta
+
+    recs = list(read_fasta(str(FASTA)))
+    rng = np.random.default_rng(5)
+
+    def dna(n):
+        return "".join(rng.choice(list("ACGT"), size=n))
+
+    host = dna(30_000) + recs[0][1] + dna(30_000)
+    tandem = dna(2000) + TANDEM.decode() + dna(2000)
+    path.write_text(f">host,1\n{host}\n>{recs[2][0]}\n{recs[2][1]}\n"
+                    f">tandem\n{tandem}\n>short\n{dna(3000)}\n")
+
+
+def _stage_runs(tmp: Path, bundle: Path) -> dict:
+    """``--mask-tandem``, ``--prophage``, ``--refine`` and ``--profile`` on
+    a small FASTA (``--plot-type none``: the card's machine may lack
+    matplotlib), each checked for its files; the fused-conv launch count
+    is reset before and read after each run."""
+    import numpy as np
+
+    from jaeger_tpu_torch import cli
+    from jaeger_tpu_torch.ops import fused_conv
+    from jaeger_tpu_torch.postprocess import refinement
+    from jaeger_tpu_torch.seqops.fasta import read_fasta
+
+    fasta = tmp / "stages.fasta"
+    _stages_fasta(fasta)
+    flag = ["-m", str(bundle), "--fsize", "1505", "--batch", "2048"]
+    launches = {}
+
+    def run(name, args):
+        fused_conv.launches = 0
+        t0 = time.perf_counter()
+        cli.main(["predict", "-i", str(fasta), "-o", str(tmp / name),
+                  *args])
+        launches[name] = fused_conv.launches
+        print(f"stage {name}: {time.perf_counter() - t0:.2f} s, "
+              f"{launches[name]} fused_conv_block launches")
+        return tmp / name
+
+    out = run("mask_tandem", [*flag, "--mask-tandem"])
+    masked = dict(read_fasta(str(out / "stages_tandem_masked.fasta")))
+    check(set(masked["tandem"][2050:2250]) == {"N"}
+          and "N" not in masked["tandem"][:1900],
+          "--mask-tandem: the tandem tract is not masked")
+    check((out / "stages_default_jaeger.tsv").exists(),
+          "--mask-tandem wrote no TSV")
+
+    # the demo model's phage track reaches 0.3 in the host contig's phage
+    # insert; the region must equal a CPU float32 run's
+    pro_args = ["--fsize", "500", "--stride", "500", "-p", "--lc", "20000",
+                "-s", "0.3", "--plot-type", "none", "--precision",
+                "float32"]
+    out = run("prophage", pro_args)
+    cpu = run("prophage_cpu", [*pro_args, "--device", "cpu"])
+    rep = "stages_prophages/prophages_jaeger.tsv"
+    rows, ref = _read_tsv(out / rep), _read_tsv(cpu / rep)
+    regions = [(r["contig_id"], r["raw_start"], r["raw_end"]) for r in rows]
+    check(len(rows) >= 1 and regions == [
+        (r["contig_id"], r["raw_start"], r["raw_end"]) for r in ref],
+        f"--prophage: regions {regions} on the card, "
+        f"{[(r['contig_id'], r['raw_start'], r['raw_end']) for r in ref]} "
+        f"on the CPU")
+    check((out / "stages_prophages" / "plots").is_dir(),
+          "--prophage wrote no plots directory")
+
+    # the seeded flagship's logits lie within 0.01 of 0 and its windows'
+    # top-two margins near 0.002: taus that pass most windows, not all
+    taus_rng = np.random.default_rng(23)
+    taus = {k: {"logit": float(taus_rng.uniform(-3.0, -2.0)),
+                "margin": float(taus_rng.uniform(0.0, 0.0015)), "n": 100}
+            for k in refinement.CLASSES}
+    refinement.save_refinement(
+        taus, bundle / "jaeger_tpu_flagship_refine.yaml",
+        jaeger_model="jaeger_tpu_flagship", quantile=0.05)
+    out = run("refine", [*flag, "--refine"])
+    rows = _read_tsv(out / "stages_default_jaeger.tsv")
+    check(all(c in rows[0] for c in ("contig_call", "contig_top_logit",
+                                     "contig_margin", "n_windows_used")),
+          f"--refine: no refined columns in {sorted(rows[0])}")
+    calls = sum(bool(r["contig_call"]) for r in rows)
+    check(calls >= 1, "--refine: no contig got a refined call")
+    (bundle / "jaeger_tpu_flagship_refine.yaml").unlink()
+
+    out = run("profile", [*flag, "--profile"])
+    busy, _, n_k = device_busy_share(out / "profile" / "predict_trace.json")
+    check(n_k > 0, "--profile: no kernel in the trace")
+    for name in ("mask_tandem", "prophage", "refine", "profile"):
+        check(launches[name] > 0, f"stage {name}: no fused_conv_block "
+                                  f"launch")
+    print(f"stages: --mask-tandem masked the tract; --prophage "
+          f"{len(regions)} region(s) equal to the CPU's; --refine "
+          f"{calls}/{len(rows)} contigs called; --profile {n_k} kernels "
+          f"in the trace")
+    return launches
+
+
+def phase_host_pipeline(tmp: Path, bundle: Path, card: str) -> dict:
+    """Phase 7: the native host pipeline at scale and ``predict`` complete
+    (see the module docstring)."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from jaeger_tpu_torch import cli, native
+    from jaeger_tpu_torch.infer.engine import InferenceEngine
+    from jaeger_tpu_torch.models.artifacts import load_model
+    from jaeger_tpu_torch.ops import fused_conv
+    from jaeger_tpu_torch.postprocess.termini import scan_for_terminal_repeats
+
+    check(os.environ.get("JAEGER_TPU_TORCH_NATIVE", "1") != "0",
+          "JAEGER_TPU_TORCH_NATIVE=0 switches the native pipeline off")
+    check(native.available(), "the port's native host library is not live")
+    lib = native.library_path()
+    check(lib is not None and (ROOT / "build") in lib.resolve().parents,
+          f"the native library {lib} is not the port's own under build/")
+    print(f"native host library: {lib.relative_to(ROOT)}")
+
+    big, small = tmp / "assembly.fasta", tmp / "subset.fasta"
+    t0 = time.perf_counter()
+    n_bases = write_synthetic_fasta(big, BIG_CONTIGS)
+    n_small = write_synthetic_fasta(small, PY_CONTIGS)
+    print(f"synthetic assembly: {BIG_CONTIGS} contigs, {n_bases / 1e6:.1f} "
+          f"Mb ({time.perf_counter() - t0:.1f} s to write); subset "
+          f"{PY_CONTIGS} contigs, {n_small / 1e6:.2f} Mb")
+
+    res = {"card": card, "assembly_mb": n_bases / 1e6, "native": {}}
+    n_cpu = os.cpu_count() or 1
+    for w in sorted({1, 4, n_cpu}):
+        rate, batches = _windows_per_s(big, w)
+        res["native"][w] = rate
+        print(f"host windowing, native, {w} workers: {rate:.0f} windows/s")
+    n_windows = sum(len(b) for b in batches)
+    first = batches[0]
+    del batches
+    nat_small = _windows_per_s(small, 4)[1]
+    os.environ["JAEGER_TPU_TORCH_NATIVE"] = "0"
+    try:
+        res["python"], py_small = _windows_per_s(small, 4)
+    finally:
+        del os.environ["JAEGER_TPU_TORCH_NATIVE"]
+    fields = ("bases", "length", "contig", "start", "contig_end", "ordinal",
+              "seqlen", "g", "c", "a", "t", "gc_skew")
+    check(len(py_small) == len(nat_small) and all(
+        np.array_equal(getattr(a, f), getattr(b, f))
+        and a.headers == b.headers
+        for a, b in zip(py_small, nat_small) for f in fields),
+        "native and Python windows differ on the subset")
+    print(f"host windowing, pure Python, 4 workers: {res['python']:.0f} "
+          f"windows/s on the {n_small / 1e6:.2f} Mb subset (equal to the "
+          f"native windows)")
+
+    t0 = time.perf_counter()
+    repeats = scan_for_terminal_repeats(str(big), fsize=1505, workers=4)
+    res["scan_s"] = time.perf_counter() - t0
+    print(f"terminal-repeat scan, native, 4 workers: {res['scan_s']:.2f} s "
+          f"for {len(repeats)} contigs")
+
+    # the forward of the engine's first batch of this file, on the card
+    model, _, _ = load_model(bundle, dtype=torch.bfloat16, device="cuda")
+    eng = InferenceEngine(model, batch_size=2048, device="cuda")
+    b, ln = first.bases[:2048], first.length[:2048]
+    dense, split, cut = eng._plan_batch(b, ln, b.shape[0])
+    if split is not None:
+        # the base forward of a split batch, as the engine runs it
+        _, _, b, ln = eng._gather_masked(b, ln, *split)
+        dense = cut is None
+    prog = dict(assume_dense=dense, mask_layers=None if dense else cut)
+    tb, tl = torch.from_numpy(b).cuda(), torch.from_numpy(ln).cuda()
+    with torch.inference_mode():
+        res["forward_ms"] = cuda_ms(lambda: model(tb, tl, **prog), iters=5)
+    del model, eng, tb, tl
+
+    # predict end to end, default stages: counts reset just before, read
+    # just after
+    args = ["-m", str(bundle), "--fsize", "1505", "--batch", "2048"]
+    fused_conv.launches = 0
+    with engine_host_timers() as acc:
+        t0 = time.perf_counter()
+        cli.main(["predict", "-i", str(big), "-o", str(tmp / "scale"),
+                  *args])
+        res["predict_s"] = time.perf_counter() - t0
+    res["launches"] = fused_conv.launches
+    check(res["launches"] > 0 and res["launches"] % 6 == 0,
+          f"predict at scale: {res['launches']} fused_conv_block launches")
+    rows = _read_tsv(tmp / "scale" / "assembly_default_jaeger.tsv")
+    check(len(rows) >= 0.9 * BIG_CONTIGS and all(
+        math.isfinite(float(r["phage_score"])) for r in rows),
+        f"predict at scale: {len(rows)} rows")
+    res["windows_per_s"] = n_windows / res["predict_s"]
+    n_batches = acc["plan"][1]
+    t0 = time.perf_counter()
+    cli.main(["predict", "-i", str(big), "-o", str(tmp / "scale_no_termini"),
+              *args, "--no-termini"])
+    res["no_termini_s"] = time.perf_counter() - t0
+    host = {k: v[0] * 1e3 / max(n_batches, 1) for k, v in acc.items()}
+    res["host_ms_per_batch"] = host
+    print(f"predict at scale: {n_windows} windows of {BIG_CONTIGS} contigs "
+          f"in {res['predict_s']:.2f} s = {res['windows_per_s']:.0f} "
+          f"windows/s (the dense engine: 22916 windows/s, PERF.md), "
+          f"{res['launches']} fused_conv_block launches, {len(rows)} rows; "
+          f"with --no-termini {res['no_termini_s']:.2f} s = "
+          f"{n_windows / res['no_termini_s']:.0f} windows/s")
+    print(f"engine host time per batch of 2048 ({n_batches} batches): pack "
+          f"{host['pack']:.2f} ms, upload {host['upload']:.2f} ms, plan "
+          f"{host['plan']:.2f} ms, against a {res['forward_ms']:.2f} ms "
+          f"forward of this file's first batch")
+
+    t0 = time.perf_counter()
+    cli.main(["predict", "-i", str(big), "-o", str(tmp / "scale_profile"),
+              *args, "--profile"])
+    res["profiled_predict_s"] = time.perf_counter() - t0
+    busy, kern, n_k = device_busy_share(
+        tmp / "scale_profile" / "profile" / "predict_trace.json")
+    res["device_busy"], res["kernel_busy"] = busy, kern
+    print(f"predict --profile at scale: {res['profiled_predict_s']:.2f} s; "
+          f"the card busy {busy:.1%} of the inference loop (kernels "
+          f"{kern:.1%}, {n_k} kernels)")
+    # the scan's own profile is one native call; what is left besides it
+    top = _cprofile_top(lambda: cli.main(
+        ["predict", "-i", str(big), "-o", str(tmp / "scale_cprofile"),
+         *args, "--no-termini"]))
+    print("predict --no-termini at scale, cProfile (every thread), top 10 "
+          "by own time:\n" + top)
+
+    res["stage_launches"] = _stage_runs(tmp, bundle)
+    return res
+
+
 def main(argv: list[str]) -> int:
     try:
         import torch
@@ -2023,6 +2425,13 @@ def main(argv: list[str]) -> int:
                 phase_train_sweep(card)
             print(f"backward run done in {time.perf_counter() - t_start:.0f} s")
             return 0
+        if "--host" in argv:
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+                host = phase_host_pipeline(
+                    Path(tmp), flagship_bundle(Path(tmp)), card)
+            print(json.dumps({"host_pipeline": host}))
+            print(f"host run done in {time.perf_counter() - t_start:.0f} s")
+            return 0
         kern = phase_kernel(card)
         kern8 = phase_int8_kernel(card)
         kern_train = phase_train_kernel(card)
@@ -2043,6 +2452,7 @@ def main(argv: list[str]) -> int:
             step_f32 = phase_train_step_f32()
             train = phase_train_flagship(Path(tmp), card)
             phase_train_predict(Path(tmp), train["bundle"])
+            host = phase_host_pipeline(Path(tmp), bundle, card)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
@@ -2060,7 +2470,8 @@ def main(argv: list[str]) -> int:
                "conv_epilogue_bwd_conv1_form": {
                    k: kern_train["conv_epilogue_bwd"][k]
                    for k in ("conv1_ms", "conv1_bound_ms")},
-               "conv_wgrad_plan": kern_train["conv_wgrad"]["plan"]}
+               "conv_wgrad_plan": kern_train["conv_wgrad"]["plan"],
+               "host_pipeline": host}
     print(json.dumps(summary))
     print(f"all phases passed in {time.perf_counter() - t_start:.0f} s")
     print(card)
@@ -2080,7 +2491,8 @@ def main(argv: list[str]) -> int:
         entry("fused_conv_block", "cuda",
               "jaeger_tpu_torch/csrc/fused_conv_block.cu",
               "jaeger_tpu/ops/pallas_conv.py:70", launches, kern,
-              train_launches=tl["fused_conv_block"]),
+              train_launches=tl["fused_conv_block"],
+              predict_at_scale_launches=host["launches"]),
         entry("int8_conv", "cuda", "jaeger_tpu_torch/csrc/int8_conv.cu",
               "experiments/pallas_int8_conv.py:67", launches8, kern8),
         # train's main path: the backward of the fused conv block

@@ -1,12 +1,13 @@
 """jaeger_tpu_torch command-line interface.
 
 Counterpart of `jaeger_tpu/cli.py`: ``predict``, with the JAX command's
-options for the one-device modern-model path (``--int8 [full|auto]`` and
-``--quantized`` included) plus ``--device``, ``train`` (fragment models
-on one device, with ``--device``) and ``utils quantize``.
-Options of paths that are not ported yet (``--seq-shard``,
-``--num-hosts``, ``--prophage``, ``--refine``, ``--mask-tandem``,
-``--profile``) are accepted and refused with a clear error. Built on
+options for the one-device modern-model path (``--int8 [full|auto]``,
+``--quantized``, ``--prophage`` with ``-s/--sensitivity``, ``--lc`` and
+``--plot-type``, ``--refine`` with the ``--refine-*`` options,
+``--mask-tandem`` and ``--profile`` included) plus ``--device``, ``train``
+(fragment models on one device, with ``--device``) and ``utils
+quantize``. Options of paths that are not ported yet (``--seq-shard``,
+``--num-hosts``) are accepted and refused with a clear error. Built on
 ``argparse`` so the CLI needs nothing beyond the standard library.
 
     python -m jaeger_tpu_torch.cli predict -i contigs.fasta -o out/
@@ -78,13 +79,39 @@ def _predict_parser(sub) -> None:
                    choices=["dynamic", "float16", "full_int8"],
                    help="Use a quantized bundle: dynamic / full_int8 load "
                         "the int8 bundle; float16 selects bf16 compute.")
+    p.add_argument("-p", "--prophage", action="store_true",
+                   help="Extract and report prophage-like regions.")
+    p.add_argument("-s", "--sensitivity", type=float, default=1.5,
+                   help="Sensitivity of the prophage extraction (0-4).")
+    p.add_argument("--lc", type=int, default=500_000,
+                   help="Minimum contig length for prophage extraction.")
+    p.add_argument("--plot-type", default="circular",
+                   choices=["circular", "linear", "both", "none"])
+    p.add_argument("--refine", action="store_true",
+                   help="Apply post-hoc refinement calibration if present.")
+    p.add_argument("--refine-mode", default="gated",
+                   choices=["gated", "weighted", "unweighted"])
+    p.add_argument("--refine-min-windows", type=int, default=3,
+                   help="Minimum accepted windows for a refined contig "
+                        "call.")
+    p.add_argument("--refine-merge-split", default="half",
+                   choices=["half", "full"],
+                   help="Share of a merged-class window's weight given to "
+                        "each member class.")
+    p.add_argument("--refine-allow-merged-contig-call", action="store_true",
+                   help="Allow hedged merged-class contig calls when the "
+                        "top-two margin is small.")
+    p.add_argument("--refine-contig-hedge-margin", type=float, default=1.0,
+                   help="Margin below which a contig call is hedged to the "
+                        "merged class.")
+    p.add_argument("--mask-tandem", action="store_true",
+                   help="Hard-mask tandem repeats before windowing.")
+    p.add_argument("--profile", action="store_true",
+                   help="Write a torch.profiler trace of the inference "
+                        "loop into <output>/profile.")
     # later slices
     p.add_argument("--seq-shard", type=int, default=1)
     p.add_argument("--num-hosts", type=int, default=1)
-    p.add_argument("-p", "--prophage", action="store_true")
-    p.add_argument("--refine", action="store_true")
-    p.add_argument("--mask-tandem", action="store_true")
-    p.add_argument("--profile", action="store_true")
 
 
 def predict(args: argparse.Namespace) -> None:
@@ -111,8 +138,13 @@ def predict(args: argparse.Namespace) -> None:
         save_nmd=args.save_nmd, overwrite=args.overwrite,
         int8=args.int8, quantized=args.quantized, seq_shard=args.seq_shard,
         num_hosts=args.num_hosts, prophage=args.prophage,
-        refine=args.refine, mask_tandem=args.mask_tandem,
-        profile=args.profile,
+        sensitivity=args.sensitivity, lc=args.lc, plot_type=args.plot_type,
+        refine=args.refine, refine_mode=args.refine_mode,
+        refine_min_windows=args.refine_min_windows,
+        refine_merge_split=args.refine_merge_split,
+        refine_allow_merged_contig_call=args.refine_allow_merged_contig_call,
+        refine_contig_hedge_margin=args.refine_contig_hedge_margin,
+        mask_tandem=args.mask_tandem, profile=args.profile,
     )
     print(f"summary written to {table}")
 

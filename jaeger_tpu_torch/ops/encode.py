@@ -241,14 +241,17 @@ def encode_frames(
         b = torch.where(raw >= 5, raw - 5, raw)
     m = torch.clamp(lengths.to(torch.int32), max=C)  # valid bases in the crop
 
-    # reverse complement of the valid prefix, re-padded with N on the right
+    # reverse complement of the valid prefix, re-padded with N on the
+    # right: row i of JAX's slice [C - m, 2C - m) of [flip(comp), N * C].
+    # Windows narrower than the crop (W < C) shift that slice by C - W,
+    # as in JAX
     comp_b = torch.where(b < 4, b ^ 1, torch.full_like(b, 4))
     pos = torch.arange(C, dtype=torch.int32, device=b.device)[None, :]
-    idx = m[:, None] - 1 - pos
+    idx = m[:, None] - 1 - pos - (C - b.shape[1])
     rb = torch.where(
         idx >= 0,
         torch.gather(comp_b, 1, idx.clamp_min(0).to(torch.int64)),
-        torch.full_like(comp_b, 4),
+        comp_b.new_full((b.shape[0], C), 4),
     )
 
     fwd = _frames_from_codons(_trigram_codons(b, alphabet), k)

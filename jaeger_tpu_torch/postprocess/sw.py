@@ -10,7 +10,7 @@ uses match=2 / mismatch=-100 over ACGT), ``open`` = cost of a length-1 gap,
 
 Pure numpy (row-vectorized DP); inputs in this codebase are <= 4 kb contig
 flanks, so the O(n*m) DP with stored int16 score matrices is well within
-budget. The JAX package's C++ path is not ported; this is the port's only one.
+budget. The C++ native path takes over for bulk workloads.
 """
 
 from __future__ import annotations
@@ -18,6 +18,8 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+
+from jaeger_tpu_torch import native
 
 _NEG = -(10**6)
 
@@ -56,7 +58,15 @@ def smith_waterman(
     match: int = 2,
     mismatch: int = -100,
 ) -> SWResult:
-    """Local alignment of ``query`` vs ``ref`` with traceback."""
+    """Local alignment of ``query`` vs ``ref`` with traceback.
+
+    Dispatches to the C++ DP when built (identical output, pinned by
+    tests/test_torch_native.py); ``JAEGER_TPU_TORCH_NATIVE=0`` forces the
+    numpy path.
+    """
+    if native.available():
+        return native.smith_waterman_native(query, ref, open_, extend, match,
+                                            mismatch)
     q = np.frombuffer(query.upper().encode("ascii"), dtype=np.uint8)
     r = np.frombuffer(ref.upper().encode("ascii"), dtype=np.uint8)
     n, m = len(q), len(r)

@@ -11,13 +11,15 @@ number of triplets), and the union of *perfect* intervals (score above the
 threshold and not dominated by a containing interval) is soft-masked
 (lowercased).
 
-This pure-Python version is the behavioural oracle; the port keeps only
-this path (the JAX package's C++ fast path is not ported yet).
+This pure-Python version is the behavioural oracle; the C++ fast path in
+:mod:`jaeger_tpu_torch.native` implements the same algorithm for bulk ingest.
 """
 
 from __future__ import annotations
 
 from collections import deque
+
+from jaeger_tpu_torch import native
 
 _BASE_CODE = {"A": 0, "C": 1, "G": 2, "T": 3, "a": 0, "c": 1, "g": 2, "t": 3}
 
@@ -156,7 +158,14 @@ def dust_intervals(
 
 
 def dust_mask(seq: str, window_size: int = 64, score_threshold: int = 20) -> str:
-    """Soft-mask (lowercase) low-complexity regions of ``seq``."""
+    """Soft-mask (lowercase) low-complexity regions of ``seq``.
+
+    Dispatches to the C++ implementation when built (identical output,
+    pinned by tests/test_torch_native.py); set
+    ``JAEGER_TPU_TORCH_NATIVE=0`` to force the Python path.
+    """
+    if native.available():
+        return native.dust_mask_native(seq, window_size, score_threshold)
     intervals = dust_intervals(seq, window_size, score_threshold)
     if not intervals:
         return seq

@@ -4,8 +4,9 @@ Streaming FASTA reading/writing.
 
 Replaces the reference's pyfastx C dependency (used at
 ``seqops/io.py:98`` and throughout) with a zero-dependency streaming
-parser. Plain and gzip-compressed files are supported. The JAX package's
-C++ fast path is not ported yet, so this module is the port's only reader.
+parser. Plain and gzip-compressed files are supported. A C++ fast path
+(:mod:`jaeger_tpu_torch.native`) takes over for bulk ingest when built; this
+module is the always-available fallback and the behavioural oracle.
 """
 
 from __future__ import annotations

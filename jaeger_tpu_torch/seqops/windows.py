@@ -25,6 +25,7 @@ from typing import Iterator, Sequence
 
 import numpy as np
 
+from jaeger_tpu_torch import native
 from jaeger_tpu_torch.seqops.dust import dust_mask
 from jaeger_tpu_torch.seqops.fasta import read_fasta
 
@@ -117,7 +118,9 @@ def _gc_skew(g: int, c: int) -> float:
 
 
 def _fasta_source(path: str):
-    """The pure-Python reader (the JAX package's native one is not ported)."""
+    """Native streaming reader when built, Python fallback otherwise."""
+    if native.available():
+        return native.read_fasta_native(str(path))
     return read_fasta(path)
 
 
@@ -142,7 +145,15 @@ def iter_contigs(
 
 
 def _contig_ids(sequence: str, dustmask: bool) -> np.ndarray:
-    """Uppercase + optional DUST soft-mask + base-ID encode."""
+    """Uppercase + optional DUST soft-mask + base-ID encode.
+
+    Native fast path does all three in ONE C call without intermediate
+    Python strings; the fallback reproduces it exactly (pinned by
+    tests/test_torch_native.py).
+    """
+    if native.available():
+        return native.contig_ids_native(sequence, dustmask, window=64,
+                                        threshold=20)
     sequence = sequence.upper()
     if dustmask:
         sequence = dust_mask(sequence, window_size=64, score_threshold=20)
@@ -154,6 +165,8 @@ def _window_counts(ids: np.ndarray, starts: np.ndarray,
     """(n_windows, 4) per-window A/T/G/C counts over UPPERCASE base IDs
     only — soft-masked (lowercase, ids 5-8) bases are excluded, matching
     the reference's case-sensitive counts (io.py:124-133; pinned live)."""
+    if native.available():
+        return native.window_counts_native(ids, starts, width)
     ends = starts + width
     out = np.empty((starts.shape[0], 4), dtype=np.int64)
     for col in range(4):  # base IDs 0=A 1=T 2=G 3=C
@@ -171,8 +184,12 @@ def _contig_rows(header, seq, fragsize, stride, dynamic_stride,
     where ``bases2d`` is ``(W, w<=fragsize) uint8`` and ``meta2d`` is
     ``(W, 11) float64`` with columns ``[length, hidx(left 0), start,
     contig_end, ordinal, seqlen, g, c, a, t, gc_skew]`` (the batcher
-    fills ``hidx``). This is the JAX package's pure-Python path; its
-    native path is not ported.
+    fills ``hidx``).
+
+    The whole windowed path is ONE native call (``jt_contig_rows``) that
+    releases the GIL for its full duration, so ``workers > 1`` thread
+    pools scale with cores. The pure-Python fallback reproduces it
+    exactly (pinned by tests/test_torch_native.py).
     """
     seqlen = len(seq)
     sequence = seq.strip()
@@ -184,6 +201,10 @@ def _contig_rows(header, seq, fragsize, stride, dynamic_stride,
             seqlen, fragsize, stride, dynamic_stride,
             dynamic_stride_threshold,
         ), dtype=np.int64)
+        if len(sequence) == seqlen and native.available():
+            wins, meta = native.contig_rows_native(
+                sequence, starts, fragsize, seqlen, dustmask)
+            return header, wins, meta
         ids = _contig_ids(sequence, dustmask)
         counts = _window_counts(ids, starts, fragsize)
         a, t = counts[:, 0], counts[:, 1]
@@ -253,6 +274,37 @@ def window_batches(
     """
     if min_len is None:
         min_len = fragsize
+
+    if contig_filter is None and native.available():
+        # all-native pipeline: reader thread + worker pool + ordered
+        # batcher in C++, one GIL-released call per batch. Byte-identical
+        # output, pinned by tests/test_torch_native.py. contig_filter is
+        # a Python callable, so multi-host sharding keeps the Python path.
+        headers_acc: list[str] = []
+        for bases2, meta2, new_headers in native.window_pipeline_native(
+            path, fragsize, stride, dynamic_stride,
+            dynamic_stride_threshold, min_len, max_len, dustmask,
+            batch_capacity, max(1, workers),
+        ):
+            headers_acc.extend(new_headers)
+            if bases2.shape[0] == 0:
+                continue
+            yield WindowBatch(
+                bases=bases2,
+                length=meta2[:, 0].astype(np.int32),
+                contig=meta2[:, 1].astype(np.int32),
+                start=meta2[:, 2].astype(np.int32),
+                contig_end=meta2[:, 3].astype(np.int8),
+                ordinal=meta2[:, 4].astype(np.int32),
+                seqlen=meta2[:, 5].astype(np.int32),
+                g=meta2[:, 6].astype(np.int32),
+                c=meta2[:, 7].astype(np.int32),
+                a=meta2[:, 8].astype(np.int32),
+                t=meta2[:, 9].astype(np.int32),
+                gc_skew=meta2[:, 10].astype(np.float32),
+                headers=list(headers_acc),
+            )
+        return
 
     cap = fragsize
     # per-contig blocks of (bases2d, meta2d-with-hidx); batch boundaries

@@ -62,6 +62,27 @@ def test_encode_frames_matches_jax_and_oracle(rng, crop, masking):
         assert not got.numpy()[i, :, p:].any()
 
 
+@pytest.mark.parametrize("width", [400, 499, 30])
+@pytest.mark.parametrize("masking", [False, True])
+def test_encode_frames_narrower_than_crop_matches_jax(rng, width, masking):
+    """Windows narrower than the crop (``predict --fsize`` below the
+    model's crop): the port used to raise in its reverse-complement
+    gather; tokens must equal JAX's."""
+    crop, n = 500, 24
+    bases, _ = _bases(rng, n, width + 20, width)
+    bases = bases[:, :width]
+    lengths = np.concatenate([[width, width - 1, 3, 0],
+                              rng.integers(0, width + 1, size=n - 4)]
+                             ).astype(np.int32)
+    want = np.asarray(jenc.encode_frames(
+        jnp.asarray(bases), jnp.asarray(lengths), crop_size=crop,
+        masking=masking))
+    got = tenc.encode_frames(torch.from_numpy(bases),
+                             torch.from_numpy(lengths), crop_size=crop,
+                             masking=masking)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 @pytest.mark.parametrize("alphabet", ["AA", "MURPHY10", "PC5"])
 def test_encode_reduced_alphabets_match_jax(rng, alphabet):
     bases, lengths = _bases(rng, 12, 130, 125)

@@ -73,15 +73,20 @@ def test_predict_tsv_byte_identical_to_jax(tmp_path, full_logits):
 
 
 def test_predict_refuses_later_slices(tmp_path):
+    """Sequence sharding, multi-host runs and ensembles are refused; the
+    prophage, refinement, tandem-masking and profiler stages are ported
+    (tests/test_torch_predict_stages.py)."""
     from jaeger_tpu_torch.commands.predict import run_core
 
-    for flag in ("prophage", "refine", "mask_tandem", "profile"):
+    for kw in ({"seq_shard": 2}, {"num_hosts": 2}):
         with pytest.raises(NotImplementedError, match="not yet ported"):
             run_core(str(FASTA), str(tmp_path), str(DEMO), device="cpu",
-                     **{flag: True})
+                     **kw)
+    ensemble = tmp_path / "ensemble"
+    ensemble.mkdir()
+    (ensemble / "ensemble.yaml").write_text("members: []\n")
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        run_core(str(FASTA), str(tmp_path), str(DEMO), device="cpu",
-                 seq_shard=2)
+        run_core(str(FASTA), str(tmp_path), str(ensemble), device="cpu")
 
 
 def test_entry_points_raise_without_cuda(tmp_path):
