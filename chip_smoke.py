@@ -14,6 +14,8 @@ Run from the root of a checkout on a machine with CUDA:
                                      # backward kernels)
     python3 chip_smoke.py --host     # phases 1, 2 and 7 only (the host
                                      # pipeline and the predict stages)
+    python3 chip_smoke.py --templates  # phases 1, 2 and 8 only (the
+                                       # layer-zoo templates)
 
 Phases, each of which fails the run:
 
@@ -94,9 +96,32 @@ Phases, each of which fails the run:
    then ``--mask-tandem``, ``--prophage`` (its region equal to a CPU
    float32 run's), ``--refine`` (a seeded ``*_refine.yaml`` beside the
    bundle) and ``--profile`` on a small FASTA, each checked for its files
-   and for fused_conv_block launches.
+   and for fused_conv_block launches;
+8. the layer-zoo templates: fused_conv_block (bias-only with in_mask, the
+   DYT forms), conv_wgrad, the data gradient, conv_epilogue_bwd and
+   FusedConvBlockFn's whole backward against their plain versions at the
+   cross-frame and axial templates' residual-conv shape (N = 1536, L =
+   165, C = 64, k = 3, bf16) with phase 3 and 3b's tolerances, and their
+   kernel, plain, library and bound times there; then the
+   variable-length, dvf, cross-frame and axial templates at their own
+   widths, each ``train_fragment_core`` at batch 256 in bf16 on seeded
+   synthetic data (phase 6's writer; NPZ tokens for the variable-length
+   template) for 5 classifier and, with a reliability head, 2 reliability
+   steps, then ``run_core`` on the test contigs in bf16, in f32 and in
+   f32 on the CPU (rows and labels checked, the card's f32 scores within
+   0.01 of the CPU's; kernel launch counts reset just before the
+   templates' runs, read just after); each template's steady-state train
+   step per program with its launches per step (8 / 4 fused_conv_block /
+   conv_wgrad per dense cross-frame step, 4 / 2 axial) and its forward at
+   batch 2048; then a narrow f32 model with every zoo layer no template
+   uses (positional embeddings, multi-scale conv, masked layer norm,
+   transformer encoder, local attention, parallel branches, gated pooling,
+   ``nmd_plus_signals``): forward and one train step on the card against
+   the CPU.
 
-The second-to-last line is the kernels JSON, the last ``{"ok": true, ...}``.
+The second-to-last line is the kernels JSON (each kernel also with its
+numbers at the templates' shape and its launches on phase 8's path), the
+last ``{"ok": true, ...}``.
 The script imports nothing of JAX or of jaeger_tpu.
 """
 
@@ -1405,17 +1430,21 @@ def phase_train_step_f32() -> dict:
     return worst
 
 
-def write_train_data(root: Path, seed: int, crop_nt: int) -> dict:
-    """Synthetic ``label,sequence`` CSVs for the template, made from
-    ``seed``: six classes whose GC content differs (0.2 to 0.8), so the
-    loss can fall. The training file holds a block of 16 rows with one
-    interior N each (rows 2048-2063) and a block of 8 with long N runs or
-    short lengths (rows 3072-3079) amid full-length clean rows. Each epoch
-    streams the file from its start through a 1024-row shuffle buffer, so
-    of an epoch's ten batches of 256 the first four take the dense
-    program, the next ones (the first block in the buffer) the bounded
-    one and the last two (the second block too) the masked one. The reliability files hold ID rows (label 1, the classes'
-    composition) and OOD rows (label 0, uniform bases)."""
+def write_train_data(root: Path, seed: int, crop_nt: int,
+                     n_classes: int = 6, n_rows: int = 8192) -> dict:
+    """Synthetic ``label,sequence`` CSVs for a template, made from
+    ``seed``: ``n_classes`` classes whose GC content differs (0.2 up in
+    steps of 0.12), so the loss can fall. The training file holds a block
+    of 16 rows with one interior N each (rows 2048-2063) and a block of 8
+    with long N runs or short lengths (rows 3072-3079) amid full-length
+    clean rows. Each epoch streams the file from its start through a
+    1024-row shuffle buffer, so of an epoch's ten batches of 256 the first
+    four take the dense program, the next ones (the first block in the
+    buffer) the bounded one and the last two (the second block too) the
+    masked one. The reliability files hold ID rows (label 1, the classes'
+    composition) and OOD rows (label 0, uniform bases). At the flagship's
+    1505 nt crop the runs sit where they always did (the same numbers from
+    the same seed)."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
@@ -1431,19 +1460,23 @@ def write_train_data(root: Path, seed: int, crop_nt: int) -> dict:
         return str(path)
 
     length = crop_nt + 95
+    edge = min(300, crop_nt // 5)
+    run_at, run = min(400, crop_nt // 3), min(300, crop_nt // 5)
+    short = min(900, crop_nt * 3 // 5)
     train = []
-    for i in range(8192):
-        lab = int(rng.integers(0, 6))
+    for i in range(n_rows):
+        lab = int(rng.integers(0, n_classes))
         s = seq(lab, length)
         if 2048 <= i < 2064:        # one N: a short invalid run
-            j = int(rng.integers(300, crop_nt - 300))
+            j = int(rng.integers(edge, crop_nt - edge))
             s = s[:j] + "N" + s[j + 1:]
         elif 3072 <= i < 3080:      # long N runs or short rows
-            s = (s[:400] + "N" * 300 + s[700:]) if i % 2 else s[:900]
+            s = (s[:run_at] + "N" * run + s[run_at + run:] if i % 2
+                 else s[:short])
         train.append((lab, s))
     val = [(int(lab), seq(int(lab), length))
-           for lab in rng.integers(0, 6, size=512)]
-    rel = [(1, seq(int(rng.integers(0, 6)), length)) if i % 2 else
+           for lab in rng.integers(0, n_classes, size=512)]
+    rel = [(1, seq(int(rng.integers(0, n_classes)), length)) if i % 2 else
            (0, "".join(acgt[rng.integers(0, 4, size=length)]))
            for i in range(2048)]
     return {"train": write(root / "train.csv", train),
@@ -2400,6 +2433,580 @@ def phase_host_pipeline(tmp: Path, bundle: Path, card: str) -> dict:
     return res
 
 
+# --- phase 8: the layer-zoo templates -----------------------------------------
+
+#: the four templates of this phase (``train_config/``), in the order run
+ZOO_TEMPLATES = {
+    "variable_length": "fragment_6class_variable_length.yaml",
+    "dvf": "fragment_3class_500bp_dvf.yaml",
+    "crossframe": "fragment_3class_500bp_crossframe.yaml",
+    "axial": "fragment_3class_500bp_axial.yaml",
+}
+#: the residual convs of the cross-frame and axial templates at batch 256:
+#: six frames of 165 codons, 64 channels, k 3
+ZOO_N, ZOO_L, ZOO_C, ZOO_K = 6 * 256, 165, 64, 3
+
+
+def _timed(t: dict, card: str, what: str) -> dict:
+    """Fill in a timing record's bound (from its FLOP and bytes) and print
+    it."""
+    t_ops = t["flops"] / PEAK_BF16_FLOPS * 1e3
+    t_bytes = t["bytes"] / HBM_BYTES_PER_S * 1e3
+    t.update(bound_ms=max(t_ops, t_bytes),
+             bound_by="operations" if t_ops >= t_bytes else "bytes")
+    t["bound_share"] = t["bound_ms"] / t["ms"]
+    print(f"timing {what} on {card}: kernel {t['ms']:.3f} ms, plain "
+          f"{t['plain_ms']:.3f} ms, library {t['library_ms']:.3f} ms, bound "
+          f"{t['bound_ms']:.3f} ms ({t['bound_by']}: {t['flops']:.3e} FLOP, "
+          f"{t['bytes'] / 1e9:.3f} GB), {t['bound_share']:.1%} of the bound")
+    return t
+
+
+def phase_templates_kernel(card: str) -> dict:
+    """The hand kernels at the templates' residual-conv shape (N = 1536, L
+    = 165, C = 64, k = 3, bf16) against their plain versions, with phase 3
+    and 3b's tolerances: ``fused_conv_block`` in the bias-only form the
+    templates run (masked BN after it), with in_mask, and in the DYT forms;
+    ``conv_wgrad``; the flipped-weight data gradient; ``conv_epilogue_bwd``
+    (which the bias-only form does not launch) in its conv1 and conv2
+    forms; FusedConvBlockFn's whole backward. Then kernel, plain, library
+    and bound times of each at that shape."""
+    import torch
+
+    from jaeger_tpu_torch.ops import fused_conv
+    from jaeger_tpu_torch.ops import fused_conv_grad as fg
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(8642)
+    bf16 = torch.bfloat16
+    n, length, c, k = ZOO_N, ZOO_L, ZOO_C, ZOO_K
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    saved = dict(fg.launches), fused_conv.launches
+    x, w, bias, dyt = _conv_inputs(gen, n, length, c, k, bf16, dev)
+    im = (torch.rand(n, length, generator=gen) > 0.2).to(dev)
+    om = (torch.rand(n, length, generator=gen) > 0.2).to(dev)
+    r = torch.randn(n, length, c, generator=gen).to(dev, bf16)
+    plan = fused_conv.conv_plan(c, k)
+    worst = {}
+    for form, kw, act in (
+            ("bias_only_in_mask", dict(bias=bias, in_mask=im), "none"),
+            ("bias_only", dict(bias=bias), "none"),
+            ("conv1_dyt", dict(bias=bias, dyt=dyt, use_dyt=True,
+                               bias_then_dyt=True, in_mask=im, out_mask=om),
+             "gelu_tanh"),
+            ("conv2_dyt", dict(bias=bias, dyt=dyt, use_dyt=True,
+                               bias_then_dyt=True, in_mask=im, out_mask=om,
+                               residual=r), "gelu_tanh")):
+        before = fused_conv.launches
+        out = fused_conv.fused_conv_block(x, w, act=act, **kw)
+        torch.cuda.synchronize()
+        check(fused_conv.launches == before + 1,
+              f"templates fused_conv_block {form}: kernel not launched")
+        ref = fused_conv.reference_conv_block(x, w, act=act, **kw)
+        err = (out.float() - ref.float()).abs()
+        bad = (err > BF16_TOL + BF16_TOL * ref.float().abs()).sum().item()
+        worst[form] = err.max().item()
+        check(bad == 0 and math.isfinite(worst[form]),
+              f"templates fused_conv_block {form}: {bad} elements beyond "
+              f"tolerance")
+        print(f"kernel templates {form} N={n} L={length} C={c} k={k} bf16 "
+              f"[cb={plan['cb']} kw={plan['kw']} stages={plan['stages']}]: "
+              f"max_abs_err {worst[form]:.3e} (tol {BF16_TOL}) ok")
+        del out, ref, err
+    du = (torch.randn(n, length, c, generator=gen) * 0.1).to(dev, bf16)
+    wplan = fg.wgrad_plan(n, length, c, k, bf16, sms)
+    dw, db = fg.conv_wgrad(x, du, im, k)
+    again = fg.conv_wgrad(x, du, im, k)
+    check(torch.equal(again[0], dw) and torch.equal(again[1], db),
+          "templates conv_wgrad: not the same bits run to run")
+    rdw, rdb = fg.reference_conv_wgrad(x, du, im, k)
+    worst["conv_wgrad"] = _check_close(
+        f"conv_wgrad templates shape N={n} L={length} C={c} k={k} bf16 "
+        f"[groups={wplan['groups']}x{wplan['group']} co_block="
+        f"{wplan['co_block']}]", {"dW": (dw, rdw), "db": (db, rdb)}, 1e-3)
+    wb = w.to(bf16)
+    wf = fg.flipped_weights(wb)
+    dx = fused_conv.fused_conv_block(du, wf, out_mask=im)
+    worst["dgrad"] = _check_close(
+        f"dgrad templates shape N={n} L={length} C={c} k={k} bf16",
+        {"dx": (dx, fused_conv.reference_conv_block(du, wf, out_mask=im))},
+        *BF16_KERNEL_TOL)
+    u = torch.randn(n, length, c, generator=gen).to(dev, bf16)
+    dy = torch.randn(n, length, c, generator=gen).to(dev, bf16)
+    worst["conv_epilogue_bwd"] = 0.0
+    for form, res in (("conv1", None), ("conv2", r)):
+        got = fg.conv_epilogue_bwd(dy, u, res, om, dyt, "gelu_tanh")
+        ref = fg.reference_conv_epilogue_bwd(dy, u, res, om, dyt,
+                                             "gelu_tanh")
+        worst["conv_epilogue_bwd"] = max(worst["conv_epilogue_bwd"],
+                                         _check_close(
+            f"conv_epilogue_bwd templates shape {form} N={n} L={length} "
+            f"C={c} bf16", {"du": (got[0], ref[0]),
+                            "dr": (got[1], ref[1] if res is not None
+                                   else None),
+                            "ddyt": (got[2], ref[2])}, *BF16_KERNEL_TOL))
+    for form, kw in (("bias_only", dict(in_mask=im)),
+                     ("conv2", dict(dyt=dyt, act="gelu_tanh",
+                                    bias_then_dyt=True, in_mask=im,
+                                    out_mask=om, residual=r))):
+        got = fg.conv_block_backward(dy, x, w, bias, **kw)
+        ref = fg.reference_conv_block_backward(dy, x, w, bias, **kw)
+        _check_close(f"FusedConvBlockFn backward {form} templates shape bf16",
+                     dict(zip(("dx", "dW", "db", "ddyt", "dr"),
+                              zip(got, ref))), *BF16_BACKWARD_TOL)
+
+    # times at the templates' shape, each with its bound
+    flops = 2.0 * n * length * c * c * k
+    x_ncl = x.transpose(1, 2).contiguous()
+    du_ncl = du.transpose(1, 2).contiguous()
+    times = {}
+    times["fused_conv_block"] = _timed(dict(
+        ms=cuda_ms(lambda: fused_conv.fused_conv_block(
+            x, w, bias, in_mask=im), iters=20),
+        plain_ms=cuda_ms(lambda: fused_conv.reference_conv_block(
+            x, w, bias, in_mask=im), iters=3, warmup=1),
+        library_ms=cuda_ms(lambda: library_conv_block(
+            x, w, bias, None, "none"), iters=20),
+        flops=flops, bytes=2 * 2 * n * length * c + 2 * k * c * c + 4 * c
+        + n * length, max_abs_err=worst["bias_only_in_mask"]),
+        card, f"fused_conv_block bias-only in_mask N={n} L={length} C={c} "
+        f"k={k} bf16")
+    times["conv_wgrad"] = _timed(dict(
+        ms=cuda_ms(lambda: fg.conv_wgrad(x, du, im, k), iters=20),
+        plain_ms=cuda_ms(lambda: fg.reference_conv_wgrad(x, du, im, k),
+                         iters=3, warmup=1),
+        library_ms=cuda_ms(lambda: torch.nn.grad.conv1d_weight(
+            x_ncl, (c, c, k), du_ncl, padding=(k - 1) // 2), iters=20),
+        flops=flops, bytes=2 * 2 * n * length * c + n * length
+        + 4 * (k * c * c + c), max_abs_err=worst["conv_wgrad"]),
+        card, f"conv_wgrad N={n} L={length} C={c} k={k} bf16")
+    times["dgrad"] = _timed(dict(
+        ms=cuda_ms(lambda: fused_conv.fused_conv_block(du, wf, out_mask=im),
+                   iters=20),
+        plain_ms=cuda_ms(lambda: fused_conv.reference_conv_block(
+            du, wf, out_mask=im), iters=3, warmup=1),
+        library_ms=cuda_ms(lambda: torch.nn.grad.conv1d_input(
+            (n, c, length), wb.permute(2, 1, 0), du_ncl,
+            padding=(k - 1) // 2), iters=20),
+        flops=flops, bytes=2 * 2 * n * length * c + 2 * k * c * c
+        + n * length, max_abs_err=worst["dgrad"]),
+        card, f"dgrad N={n} L={length} C={c} k={k} bf16")
+    lib = library_epilogue_bwd(dy, u, r, om, dyt)
+    times["conv_epilogue_bwd"] = _timed(dict(
+        ms=cuda_ms(lambda: fg.conv_epilogue_bwd(dy, u, r, om, dyt,
+                                                "gelu_tanh"), iters=20),
+        plain_ms=cuda_ms(lambda: fg.reference_conv_epilogue_bwd(
+            dy, u, r, om, dyt, "gelu_tanh"), iters=3, warmup=1),
+        library_ms=cuda_ms(lib, iters=10), flops=0.0,
+        bytes=5 * 2 * n * length * c + n * length + 2 * 12 * c,
+        max_abs_err=worst["conv_epilogue_bwd"]),
+        card, f"conv_epilogue_bwd conv2 form N={n} L={length} C={c} bf16")
+    fg.launches.update(saved[0])
+    fused_conv.launches = saved[1]
+    return times
+
+
+def zoo_config() -> dict:
+    """A narrow f32 model with every layer of the zoo that no template
+    uses: positional embeddings, a multi-scale conv, masked layer norm, an
+    NMD tap, a transformer encoder, local attention, parallel branches,
+    gated pooling and reliability mode ``nmd_plus_signals`` (the same
+    model as tests/test_torch_layers_zoo.py's)."""
+    branch_a = [{"name": "masked_conv1d", "config": {
+        "filters": 16, "kernel_size": 3, "padding": "same"}},
+        {"name": "nmd"}]
+    branch_b = [{"name": "layernorm"},
+                {"name": "dense", "config": {"units": 16}}]
+    attn = {"embed_dim": 16, "feed_forward_dim": 24, "dropout_rate": 0.0}
+    return {"model": {
+        "classifier_out_dim": 3,
+        "embedding": {"use_embedding_layer": True, "input_type": "translated",
+                      "embedding_size": 16,
+                      "use_positional_embeddings": True},
+        "string_processor": {"crop_size": 30, "codon": "CODON"},
+        "representation_learner": {"hidden_layers": [
+            {"name": "multi_scale_conv", "config": {"branches": [
+                {"filters": 8, "kernel_size": 3},
+                {"filters": 8, "kernel_size": 5}]}},
+            {"name": "masked_layernorm"},
+            {"name": "nmd"},
+            {"name": "transformer_encoder",
+             "config": dict(attn, num_heads=2)},
+            {"name": "local_attention",
+             "config": dict(attn, num_heads=4, window_size=5)},
+            {"name": "parallel_branches", "config": {
+                "merge": "concat", "branches": [
+                    {"hidden_layers": branch_a},
+                    {"hidden_layers": branch_b}]}},
+            {"name": "gelu"}], "pooling": "gatedframe"},
+        "reliability_model": {"mode": "nmd_plus_signals", "hidden_layers": [
+            {"name": "dense", "config": {"units": 4}}, {"name": "gelu"},
+            {"name": "dense", "config": {"units": 1}}]},
+        "classifier": {"hidden_layers": [
+            {"name": "dense", "config": {"units": 3}}]},
+    }, "training": {"optimizer": "adam",
+                    "optimizer_params": {"learning_rate": 1e-3},
+                    "loss_classifier": "categorical_crossentropy",
+                    "loss_params_classifier": {"from_logits": True}}}
+
+
+def phase_zoo_f32() -> dict:
+    """The zoo model (``zoo_config``, seeded weights) in f32 on the card
+    against the CPU, as phase 6a: the eval forward in the masked and dense
+    programs (every output within 1e-5 of its scale), then one classifier
+    step (the loss within 1e-5, every gradient leaf within 1e-4 of its
+    scale; a leaf below 1e-4 of the largest gradient is rounding noise
+    around an exact zero and held at the largest; the gate bias, a sum
+    over frames that cancels to a few percent of its terms, at the gate
+    kernel's scale; the NMD moving means within 1e-5). TF32 off."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from jaeger_tpu_torch.models.artifacts import init_params, load_state
+    from jaeger_tpu_torch.models.builder import build_model
+    from jaeger_tpu_torch.train import loop
+    from jaeger_tpu_torch.train.optimizers import make_optimizer
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = zoo_config()
+    t = cfg["training"]
+    rng = np.random.default_rng(23)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        model = build_model(copy.deepcopy(cfg))
+        load_state(model, init_params(cfg, torch.Generator().manual_seed(9)))
+        model.to(dev)
+        crop = model.crop_nt
+        if not runs:
+            batch = _train_batch(rng, crop, "masked", 8, 3)
+        outs = {}
+        with torch.inference_mode():
+            for prog in ("masked", "dense"):
+                out = model(torch.from_numpy(batch["bases"]).to(dev),
+                            torch.from_numpy(batch["lengths"]).to(dev),
+                            assume_dense=prog == "dense")
+                outs[prog] = {k: v.float().cpu() for k, v in out.items()}
+        state = loop.TrainState.create(model, make_optimizer(
+            t["optimizer"], t["optimizer_params"]))
+        step = loop.make_train_step(model, loop.StepConfig(
+            loss_name=t["loss_classifier"],
+            loss_params=t["loss_params_classifier"]))
+        state, metrics = step(state, loop.to_device(batch, dev))
+        runs[dev] = dict(outs=outs, loss=float(metrics["loss"]),
+                         grads={k: v.float().cpu()
+                                for k, v in state.grads.items()},
+                         stats={k: v.cpu() for k, v in
+                                model.state_dict().items() if "moving" in k})
+    gpu, cpu = runs["cuda"], runs["cpu"]
+    f_err = 0.0
+    for prog, outs in cpu["outs"].items():
+        check(set(gpu["outs"][prog]) == set(outs) == {
+            "embedding", "nmd", "gate", "prediction", "reliability"},
+            f"zoo f32 {prog}: outputs {sorted(gpu['outs'][prog])}")
+        for k, v in outs.items():
+            e = float((gpu["outs"][prog][k] - v).abs().max()) / max(
+                float(v.abs().max()), 1e-6)
+            check(e <= 1e-5, f"zoo f32 {prog} forward: {k} rel err {e:.2e}")
+            f_err = max(f_err, e)
+    check(abs(gpu["loss"] - cpu["loss"]) <= 1e-5 * max(abs(cpu["loss"]), 1.0),
+          f"zoo f32 step: loss {gpu['loss']} vs {cpu['loss']}")
+    overall = max(float(g.abs().max()) for g in cpu["grads"].values())
+    gate = "rep/global_gatedframepool/gate"
+    like = {f"{gate}/bias": f"{gate}/kernel"}
+    g_err = 0.0
+    for k, g in cpu["grads"].items():
+        scale = max(float(cpu["grads"][like.get(k, k)].abs().max()), 1e-12)
+        if scale < 1e-4 * overall:
+            scale = overall
+        e = float((gpu["grads"][k] - g).abs().max()) / scale
+        check(e <= 1e-4, f"zoo f32 step: grad {k} rel err {e:.2e}")
+        g_err = max(g_err, e)
+    for k, s in cpu["stats"].items():
+        e = float((gpu["stats"][k] - s).abs().max())
+        check(e <= 1e-5 * max(float(s.abs().max()), 1e-6),
+              f"zoo f32 step: {k} err {e:.2e}")
+    print(f"zoo model f32 (card vs CPU): forward worst rel err {f_err:.2e} "
+          f"(tol 1e-5), step loss {gpu['loss']:.6f} vs {cpu['loss']:.6f}, "
+          f"worst grad err {g_err:.2e} of its scale (tol 1e-4) ok")
+    return dict(forward_err=f_err, grad_err=g_err)
+
+
+def write_template_data(root: Path, name: str, cfg: dict) -> dict:
+    """Phase 6's writer at the template's crop and classes (2048 training
+    rows). The variable-length template trains on NPZ records: its
+    training and validation rows are encoded by the port's
+    ``encode_frames`` into (N, 6, 500) int32 tokens with ``labels``, the
+    format ``train/data.py::load_npz_dataset`` reads; its reliability files
+    stay CSVs."""
+    import numpy as np
+    import torch
+
+    from jaeger_tpu_torch.models.builder import build_model
+    from jaeger_tpu_torch.ops.encode import encode_frames
+    from jaeger_tpu_torch.seqops.windows import encode_ascii
+
+    model = build_model(cfg)
+    crop = model.crop_nt
+    root.mkdir(parents=True, exist_ok=True)
+    data = write_train_data(root, seed=20261017, crop_nt=crop,
+                            n_classes=int(cfg["model"]["classifier_out_dim"]),
+                            n_rows=2048)
+    if name != "variable_length":
+        return data
+    for split in ("train", "val"):
+        rows = [line.split(",", 1) for line in
+                Path(data[split]).read_text().splitlines()]
+        bases = np.full((len(rows), crop), 4, np.uint8)
+        lengths = np.zeros(len(rows), np.int32)
+        for i, (_, s) in enumerate(rows):
+            ids = encode_ascii(s[:crop])
+            bases[i, :ids.shape[0]] = ids
+            lengths[i] = ids.shape[0]
+        tokens = encode_frames(torch.from_numpy(bases),
+                               torch.from_numpy(lengths), crop)
+        path = root / f"{split}.npz"
+        np.savez(path, translated=tokens.numpy().astype(np.int32),
+                 labels=np.array([int(lab) for lab, _ in rows], np.int64))
+        data[split] = str(path)
+    return data
+
+
+def template_train_config(root: Path, name: str, data: dict) -> Path:
+    """The template at its own widths, with the synthetic data: batch 256,
+    bf16, 5 classifier steps (1 epoch) and, where the template has a
+    reliability head, 2 reliability steps; 1 validation step each; the
+    model, optimizer, losses and callbacks as the template has them."""
+    import yaml
+
+    from jaeger_tpu_torch.utils.config import load_model_config
+
+    cfg = load_model_config(ROOT / "train_config" / ZOO_TEMPLATES[name])
+    m, t = cfg["model"], cfg["training"]
+    m["string_processor"]["buffer_size"] = 1024
+    t.update(batch_size=256, mixed_precision="bfloat16", classifier_epochs=1,
+             classifier_train_steps=5, classifier_validation_steps=1)
+    classes = [e["class"] for e in m["class_label_map"]]
+    labels = [int(e["label"]) for e in m["class_label_map"]]
+    t["fragment_classifier_data"] = {
+        "train": [{"class": classes, "path": [data["train"]],
+                   "label": labels}],
+        "validation": [{"class": classes, "path": [data["val"]],
+                        "label": labels}]}
+    if m.get("reliability_model"):
+        t.update(reliability_epochs=1, reliability_train_steps=2,
+                 reliability_validation_steps=1)
+        t["fragment_reliability_data"] = {
+            "train": [{"class": ["ood", "id"], "path": [data["rel_train"]],
+                       "label": [0, 1]}],
+            "validation": [{"class": ["ood", "id"],
+                            "path": [data["rel_val"]], "label": [0, 1]}]}
+    path = root / f"{name}_train.yaml"
+    path.write_text(yaml.safe_dump(cfg, sort_keys=False))
+    return path
+
+
+def _template_rates(name: str, bundle: Path, cfg: dict, n_classes: int,
+                    card: str) -> dict:
+    """Steady-state train steps of the trained template per program
+    (batch 256, bf16; warm, then 5 steps that do not wait for the card, on
+    the host clock between two synchronizes) with each program's kernel
+    launches per step, and the eval forward at batch 2048 (CUDA events)
+    in the dense and masked programs; the device time by kernel of one
+    dense step and one dense forward (torch profiler) and its share of the
+    step or forward (the card's busy share)."""
+    import numpy as np
+    import torch
+
+    from jaeger_tpu_torch.models.artifacts import load_model
+    from jaeger_tpu_torch.models.builder import mask_cut_plan
+    from jaeger_tpu_torch.ops import fused_conv
+    from jaeger_tpu_torch.ops import fused_conv_grad as fg
+    from jaeger_tpu_torch.train import loop
+    from jaeger_tpu_torch.train.optimizers import make_optimizer
+
+    model, _, _ = load_model(bundle, dtype=torch.bfloat16)
+    t = cfg["training"]
+    state = loop.TrainState.create(model, make_optimizer(
+        t["optimizer"], t["optimizer_params"]))
+    step = loop.make_dispatching_train_step(model, loop.StepConfig(
+        loss_name=t["loss_classifier"],
+        loss_params=t["loss_params_classifier"], heads=("prediction",)),
+        "cuda")
+    rng = np.random.default_rng(3)
+    gen = torch.Generator(device="cuda").manual_seed(3)   # dropout
+    programs = ["dense", "masked"]
+    if mask_cut_plan(model.config["representation_learner"]):
+        programs.insert(1, "bounded")
+    saved = dict(fg.launches), fused_conv.launches
+    rates = {}
+    for program in programs:
+        batch = _train_batch(rng, model.crop_nt, program, 256, n_classes)
+        state, _ = step(state, batch, gen)               # warm
+        before = dict(fg.launches), fused_conv.launches
+        state, _ = step(state, batch, gen)
+        torch.cuda.synchronize()
+        per_step = {k: fg.launches[k] - before[0][k] for k in fg.launches}
+        per_step["fused_conv_block"] = fused_conv.launches - before[1]
+        reps = 5
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            state, _ = step(state, batch, gen)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / reps * 1e3
+        rates[program] = dict(step_ms=ms, windows_per_s=256 / ms * 1e3,
+                              launches_per_step=per_step)
+        if program == "dense":
+            dev_ms = sum(print_device_profile(
+                lambda: step(state, batch, gen),
+                f"template {name} train dense step", top=6).values())
+            rates[program].update(device_ms=dev_ms,
+                                  device_busy=dev_ms / ms)
+    check(set(step.program_counts) == set(programs),
+          f"template steady-state programs {step.program_counts}")
+    bs = 2048
+    bases = torch.from_numpy(rng.integers(0, 4, size=(
+        bs, model.crop_nt)).astype(np.uint8)).cuda()
+    lengths = torch.full((bs,), model.crop_nt, dtype=torch.int32,
+                         device="cuda")
+    with torch.inference_mode():
+        for program in ("dense", "masked"):
+            ms = cuda_ms(lambda: model(bases, lengths,
+                                       assume_dense=program == "dense"),
+                         iters=5, warmup=1)
+            rates[f"forward_{program}"] = dict(
+                ms=ms, windows_per_s=bs / ms * 1e3)
+        dev_ms = sum(print_device_profile(
+            lambda: model(bases, lengths, assume_dense=True),
+            f"template {name} forward dense (batch {bs})", top=6).values())
+        rates["forward_dense"].update(device_ms=dev_ms,
+                                      device_busy=dev_ms
+                                      / rates["forward_dense"]["ms"])
+    fg.launches.update(saved[0])
+    fused_conv.launches = saved[1]
+    return rates
+
+
+def phase_templates(tmp: Path, card: str) -> dict:
+    """This slice's main path: for each template (``ZOO_TEMPLATES``) at its
+    own widths, ``train_fragment_core`` at batch 256 in bf16 on synthetic
+    data (5 classifier steps, 2 reliability steps where the template has
+    a reliability head), then ``run_core`` (``predict``) with the bundle
+    on the test contigs at the model's crop, in bf16 and in f32 on the card
+    and in f32 on the CPU: the TSV's rows and labels, the card's f32 scores
+    within 0.01 of the CPU's. Kernel launch counts are reset just before
+    the four templates' train and predict runs and read just after. Then
+    each template's steady-state step per program, kernel launches per
+    step and forward rate (``_template_rates``)."""
+    import torch
+
+    from jaeger_tpu_torch.commands.predict import run_core
+    from jaeger_tpu_torch.commands.train import train_fragment_core
+    from jaeger_tpu_torch.models.builder import build_model
+    from jaeger_tpu_torch.ops import fused_conv, int8_conv
+    from jaeger_tpu_torch.ops import fused_conv_grad as fg
+    from jaeger_tpu_torch.utils.config import load_model_config
+
+    prepared = {}
+    t0 = time.perf_counter()
+    for name, file in ZOO_TEMPLATES.items():
+        root = tmp / f"template_{name}"
+        data = write_template_data(
+            root, name, load_model_config(ROOT / "train_config" / file))
+        prepared[name] = template_train_config(root, name, data)
+    data_s = time.perf_counter() - t0
+    # the main path: counts reset just before, read just after
+    fused_conv.launches = 0
+    int8_conv.launches = 0
+    for k in fg.launches:
+        fg.launches[k] = 0
+    results = {}
+    for name, cfg_path in prepared.items():
+        cfg = load_model_config(cfg_path)
+        labels = [e["class"] for e in cfg["model"]["class_label_map"]]
+        out = cfg_path.parent / "run"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = train_fragment_core(str(cfg_path), str(out))
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        cls = [h["loss"] for h in res["history"]["classifier"]]
+        rel = [h["loss"] for h in res["history"].get("reliability", [])]
+        check(len(cls) == 1 and all(math.isfinite(v) for v in cls + rel),
+              f"template {name}: losses {cls} {rel}")
+        check(bool(rel) == bool(cfg["model"].get("reliability_model")),
+              f"template {name}: reliability history {rel}")
+        for f in ("params.msgpack", "project.yaml", "classes.yaml",
+                  "history.csv", "checkpoints/classifier/checkpoints.json"):
+            check((out / f).exists(), f"template {name}: train wrote no {f}")
+        crop = build_model(cfg).crop_nt
+        tsv = {}
+        t0 = time.perf_counter()
+        for run, extra in (("gpu_bf16", {}),
+                           ("gpu_f32", dict(precision="float32")),
+                           ("cpu_f32", dict(precision="float32",
+                                            device="cpu"))):
+            path = run_core(str(FASTA), str(cfg_path.parent / run), str(out),
+                            fsize=crop, stride=crop, batch=256, **extra)
+            tsv[run] = _read_tsv(path)
+            _check_tsv(tsv[run], labels, f"template {name} predict {run}")
+        predict_s = time.perf_counter() - t0
+        diff = _max_score_diff(tsv["gpu_f32"], tsv["cpu_f32"], labels)
+        check(diff <= 0.01, f"template {name}: card f32 scores differ from "
+              f"the CPU's by {diff}")
+        results[name] = dict(train_s=train_s, predict_s=predict_s,
+                             classifier_loss=cls[0],
+                             reliability_loss=rel[0] if rel else None,
+                             programs=res["programs"]["classifier"],
+                             score_diff_f32=diff, bundle=out,
+                             int8_bundle=res.get("int8_path") is not None)
+        print(f"template {name} (batch 256, bf16) on {card}: train "
+              f"{train_s:.1f} s ({res['params']} parameters, classifier "
+              f"loss {cls[0]:.4f}"
+              + (f", reliability loss {rel[0]:.4f}" if rel else "")
+              + f", programs {res['programs']['classifier']}, int8 bundle "
+              f"{'written' if results[name]['int8_bundle'] else 'refused'})"
+              f"; predict bf16 / f32 / CPU f32 {predict_s:.1f} s, 9 contigs, "
+              f"card f32 vs CPU f32 max score diff {diff:.2e} (tol 0.01)")
+    launches = dict(fg.launches, fused_conv_block=fused_conv.launches,
+                    int8_conv=int8_conv.launches)
+    check(launches["fused_conv_block"] > 0 and launches["conv_wgrad"] > 0,
+          f"templates: launches {launches}")
+    print(f"templates main path (data {data_s:.1f} s): kernel launches "
+          f"{launches}")
+    for name, r in results.items():
+        cfg = load_model_config(prepared[name])
+        r["rates"] = _template_rates(
+            name, r["bundle"], cfg, int(cfg["model"]["classifier_out_dim"]),
+            card)
+        for prog, v in r["rates"].items():
+            busy = (f", device {v['device_ms']:.2f} ms "
+                    f"({v['device_busy']:.1%} busy)" if "device_ms" in v
+                    else "")
+            if prog.startswith("forward"):
+                print(f"template {name} {prog} (batch 2048, bf16): "
+                      f"{v['ms']:.2f} ms, {v['windows_per_s']:.0f} windows/s"
+                      + busy)
+            else:
+                print(f"template {name} train {prog} step (batch 256, bf16): "
+                      f"{v['step_ms']:.2f} ms, {v['windows_per_s']:.0f} "
+                      f"windows/s, launches a step {v['launches_per_step']}"
+                      + busy)
+    # the residual convs of the attention templates run the kernels in
+    # training: 2 fused_conv_block launches (forward, data gradient) and
+    # one conv_wgrad per conv; the bias-only form launches no epilogue
+    for name, convs in (("crossframe", 4), ("axial", 2)):
+        got = results[name]["rates"]["dense"]["launches_per_step"]
+        check(got == {"conv_wgrad": convs, "conv_epilogue_bwd": 0,
+                      "fused_conv_block": 2 * convs},
+              f"template {name}: launches per dense step {got}")
+    for r in results.values():
+        r.pop("bundle")
+    return dict(launches=launches, templates=results)
+
+
 def main(argv: list[str]) -> int:
     try:
         import torch
@@ -2432,6 +3039,16 @@ def main(argv: list[str]) -> int:
             print(json.dumps({"host_pipeline": host}))
             print(f"host run done in {time.perf_counter() - t_start:.0f} s")
             return 0
+        if "--templates" in argv:
+            kern_zoo = phase_templates_kernel(card)
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+                zoo = phase_templates(Path(tmp), card)
+            zoo_f32 = phase_zoo_f32()
+            print(json.dumps({"templates": zoo, "templates_kernels": kern_zoo,
+                              "zoo_f32": zoo_f32}))
+            print(f"templates run done in "
+                  f"{time.perf_counter() - t_start:.0f} s")
+            return 0
         kern = phase_kernel(card)
         kern8 = phase_int8_kernel(card)
         kern_train = phase_train_kernel(card)
@@ -2453,6 +3070,9 @@ def main(argv: list[str]) -> int:
             train = phase_train_flagship(Path(tmp), card)
             phase_train_predict(Path(tmp), train["bundle"])
             host = phase_host_pipeline(Path(tmp), bundle, card)
+            kern_zoo = phase_templates_kernel(card)
+            zoo = phase_templates(Path(tmp), card)
+            zoo_f32 = phase_zoo_f32()
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
@@ -2471,7 +3091,8 @@ def main(argv: list[str]) -> int:
                    k: kern_train["conv_epilogue_bwd"][k]
                    for k in ("conv1_ms", "conv1_bound_ms")},
                "conv_wgrad_plan": kern_train["conv_wgrad"]["plan"],
-               "host_pipeline": host}
+               "host_pipeline": host, "templates": zoo,
+               "templates_kernels": kern_zoo, "zoo_f32": zoo_f32}
     print(json.dumps(summary))
     print(f"all phases passed in {time.perf_counter() - t_start:.0f} s")
     print(card)
@@ -2485,27 +3106,46 @@ def main(argv: list[str]) -> int:
                 "bound_share": k["bound_ms"] / k["ms"], **extra}
 
     tl = train["launches"]
+    zl = zoo["launches"]
+
+    def at_templates(key, n):
+        """The kernel at the templates' residual-conv shape: launches on
+        phase 8's path and this run's numbers at that shape."""
+        return dict({k: kern_zoo[key][k] for k in (
+            "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+            "max_abs_err")}, launches=n, shape=zoo_shape)
+
+    zoo_shape = f"N={ZOO_N} L={ZOO_L} C={ZOO_C} k={ZOO_K} bf16"
     print(json.dumps({"kernels": [
         # predict's main path; train launches it for the forward, the
-        # recomputed DYT input and the data gradient
+        # recomputed DYT input and the data gradient; the templates' path
+        # for the attention templates' residual convs (bias-only forward
+        # and the data gradient)
         entry("fused_conv_block", "cuda",
               "jaeger_tpu_torch/csrc/fused_conv_block.cu",
               "jaeger_tpu/ops/pallas_conv.py:70", launches, kern,
               train_launches=tl["fused_conv_block"],
-              predict_at_scale_launches=host["launches"]),
+              predict_at_scale_launches=host["launches"],
+              templates=at_templates("fused_conv_block",
+                                     zl["fused_conv_block"]),
+              templates_dgrad=at_templates("dgrad", zl["fused_conv_block"])),
         entry("int8_conv", "cuda", "jaeger_tpu_torch/csrc/int8_conv.cu",
-              "experiments/pallas_int8_conv.py:67", launches8, kern8),
+              "experiments/pallas_int8_conv.py:67", launches8, kern8,
+              templates_launches=zl["int8_conv"]),
         # train's main path: the backward of the fused conv block
         entry("conv_wgrad", "cuda",
               "jaeger_tpu_torch/csrc/fused_conv_wgrad.cu",
               "jaeger_tpu/ops/pallas_conv.py:70", tl["conv_wgrad"],
               kern_train["conv_wgrad"],
-              host_us=kern_train["conv_wgrad"]["host_us"]),
+              host_us=kern_train["conv_wgrad"]["host_us"],
+              templates=at_templates("conv_wgrad", zl["conv_wgrad"])),
         entry("conv_epilogue_bwd", "cuda",
               "jaeger_tpu_torch/csrc/conv_epilogue_bwd.cu",
               "jaeger_tpu/ops/pallas_conv.py:70", tl["conv_epilogue_bwd"],
               kern_train["conv_epilogue_bwd"],
-              host_us=kern_train["conv_epilogue_bwd"]["host_us"]),
+              host_us=kern_train["conv_epilogue_bwd"]["host_us"],
+              templates=at_templates("conv_epilogue_bwd",
+                                     zl["conv_epilogue_bwd"])),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

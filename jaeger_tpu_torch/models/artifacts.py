@@ -200,26 +200,31 @@ def init_params(config: dict,
                 generator: torch.Generator) -> dict[str, torch.Tensor]:
     """Seeded weights for ``config`` with flax's default initializers, the
     JAX model's distributions: glorot-uniform conv kernels, lecun-normal
-    (truncated at two standard deviations) dense kernels, orthogonal
-    embeddings and ``translated_embedding``, zero biases, DYT
-    ``alpha_init``/1/0, BN 1/0 with moving statistics 0/1. The numbers are
-    the generator's, not JAX's."""
+    (truncated at two standard deviations) dense and attention kernels,
+    orthogonal embeddings, ``translated_embedding`` and pooler gates,
+    zero biases, DYT ``alpha_init``/1/0, norms 1/0, BN moving statistics
+    0/1. The numbers are the generator's, not JAX's."""
+    from jaeger_tpu_torch.models.layers import DenseGeneral, MaskedConv1D
+
     model = build_model(config)
     state = {}
     for name, t in model.state_dict().items():
-        leaf = name.rsplit(".", 1)[-1]
-        owner = model.get_submodule(name.rsplit(".", 1)[0])
-        if leaf == "kernel" and t.dim() == 3:        # conv (k, in, out)
+        path, leaf = name.rsplit(".", 1)
+        owner = model.get_submodule(path)
+        if leaf == "kernel" and isinstance(owner, MaskedConv1D):
             fan_in, fan_out = t.shape[0] * t.shape[1], t.shape[0] * t.shape[2]
             lim = math.sqrt(6.0 / (fan_in + fan_out))
             v = (torch.rand(t.shape, generator=generator) * 2 - 1) * lim
-        elif leaf == "kernel" and name.startswith("translated_embedding"):
+        elif leaf == "kernel" and (name.startswith("translated_embedding")
+                                   or path.endswith("pool.gate")):
             v = torch.nn.init.orthogonal_(torch.empty(t.shape),
                                           generator=generator)
-        elif leaf == "kernel":                       # dense (in, out)
+        elif leaf == "kernel":               # dense (in, out), DenseGeneral
             # variance_scaling(1, fan_in, truncated_normal): the stddev of
             # a unit normal truncated at +-2 is 0.8796...
-            std = math.sqrt(1.0 / t.shape[0]) / 0.87962566103423978
+            fan_in = (math.prod(owner.in_shape)
+                      if isinstance(owner, DenseGeneral) else t.shape[0])
+            std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
             v = torch.nn.init.trunc_normal_(
                 torch.empty(t.shape), std=std, a=-2 * std, b=2 * std,
                 generator=generator)

@@ -15,9 +15,9 @@ copies of the JAX module's. ``forward(..., train=True, heads=...)`` is the
 training forward (batch statistics, dropout, the fused convs' backward);
 ``heads`` selects the output heads as the JAX model's does, so a
 classifier step never runs the NMD taps or updates their moving means. The port always re-zeroes after DYT norms, so it needs none of
-the JAX builder's defer-remask analysis. Layers outside the inference
-subset of ``models/layers.py`` (attention, recurrent and Hyena mixers,
-branch mode, nucleotide input, ...) raise ``NotImplementedError``.
+the JAX builder's defer-remask analysis. ``masked_bilstm`` and
+``hyena_block`` layers are not ported yet and raise
+``NotImplementedError`` naming ``ROADMAP.md`` queue 1, item 10.
 """
 
 from __future__ import annotations
@@ -39,14 +39,20 @@ _CONV_KEYS = (
 )
 _RES_KEYS = _CONV_KEYS + ("use_1x1conv", "norm_type", "alpha_init", "return_nmd")
 _ACT_LAYERS = ("activation", "relu", "gelu", "sigmoid", "softmax", "tanh")
+_ATTENTION_LAYERS = {
+    "transformer_encoder": L.TransformerEncoder,
+    "cross_frame_attention": L.CrossFrameAttention,
+    "axial_attention": L.AxialAttention,
+    "local_attention": L.LocalAttention,
+}
+#: layers of the zoo still to port, with the JAX module that has them
+_NOT_PORTED_LAYERS = {"masked_bilstm": "MaskedBiLSTM",
+                      "hyena_block": "HyenaBlock"}
+_ZOO_ROADMAP = "(ROADMAP.md queue 1, item 10)"
 
 
 def _sub(cfg: dict, keys: Sequence[str]) -> dict:
     return {k: cfg[k] for k in keys if k in cfg}
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not yet ported to jaeger_tpu_torch")
 
 
 # --- mask-bounded program analysis (copied) --------------------------------
@@ -159,6 +165,47 @@ def _freeze_layers(hidden_layers: list) -> tuple:
     return tuple(out)
 
 
+#: layers beside which int8 execution has not been brought up
+_INT8_UNPORTED_LAYERS = frozenset(_ATTENTION_LAYERS) | {
+    "parallel_branches", "multi_scale_conv"}
+
+
+def int8_unported(config: dict) -> list[str]:
+    """What in ``config`` the port's int8 execution (``utils quantize
+    --mode full_int8``, ``predict --int8``) does not take yet: nucleotide
+    input, branch mode and the attention, parallel-branch and multi-scale
+    layers (``ROADMAP.md`` queue 1, item 10). Empty for the models it
+    takes."""
+    cfg = config.get("model", config)
+    found = []
+    if cfg.get("embedding", {}).get("input_type", "translated") == \
+            "nucleotide":
+        found.append("input_type 'nucleotide'")
+    for section in ("representation_learner", "classifier"):
+        sec = cfg.get(section) or {}
+        if "branch" in sec:
+            found.append(f"a branched {section}")
+        for entry in sec.get("hidden_layers", []):
+            name = str(entry.get("name", "")).lower()
+            if name in _INT8_UNPORTED_LAYERS and repr(name) not in found:
+                found.append(repr(name))
+    return found
+
+
+_MERGES = ("concat", "sum", "average", "max")
+
+
+def _merge(outs: list, method: str) -> torch.Tensor:
+    """Branch outputs merged by ``method`` (one of ``_MERGES``)."""
+    if method == "concat":
+        return torch.cat(outs, dim=-1)
+    if method == "sum":
+        return sum(outs)
+    if method == "average":
+        return sum(outs) / len(outs)
+    return torch.amax(torch.stack(outs, 0), dim=0)
+
+
 def apply_masking_gate(config: dict) -> dict:
     """The model-level ``use_masking`` gate (JAX ``ModelBuilder.__init__``):
     every layer config inherits ``model.use_masking`` as its default.
@@ -181,9 +228,12 @@ def apply_masking_gate(config: dict) -> dict:
 class LayerStack(nn.Module):
     """A configured stack of zoo layers with NMD collection and pooling.
 
-    Submodules are registered as ``<name>_<index>`` like the flax stack's.
-    ``out_channels`` is the feature width after the stack, ``nmd_width``
-    the width of the merged NMD vector (0 without NMD taps).
+    Submodules are registered as ``<name>_<index>`` like the flax stack's
+    (a ``parallel_branches`` layer's stacks as
+    ``<name>_<index>_branch_<b>``, a gated pooler as
+    ``global_<pooling>pool``). ``out_channels`` is the feature width after
+    the stack, ``nmd_width`` the width of the merged NMD vector (0 without
+    NMD taps).
     """
 
     def __init__(self, layer_configs: tuple, in_channels: int,
@@ -194,17 +244,28 @@ class LayerStack(nn.Module):
         self.pooling = pooling
         self.dtype = dtype
         if pooling is not None and pooling.lower() not in L.POOLERS:
-            raise _not_ported(f"pooling {pooling!r}")
+            raise ValueError(f"unknown pooling {pooling!r}")
         c = int(in_channels)
         nmd_widths: list[int] = []
         for i, (name, cfg) in enumerate(layer_configs):
             lname = f"{name}_{i}"
+            if name in _NOT_PORTED_LAYERS:
+                raise NotImplementedError(
+                    f"layer {name!r} ({_NOT_PORTED_LAYERS[name]}) is not "
+                    f"yet ported to jaeger_tpu_torch {_ZOO_ROADMAP}")
             if name in ("masked_conv1d", "conv1d"):
                 kw = _sub(cfg, _CONV_KEYS)
                 if name == "conv1d":
                     kw.setdefault("use_masking", False)
                 mod = L.MaskedConv1D(c, dtype=dtype, **kw)
                 c = mod.filters
+            elif name == "multi_scale_conv":
+                mod = L.MultiScaleConv1D(
+                    c, branches=tuple(cfg.get("branches", [])),
+                    merge=cfg.get("merge", "concat"),
+                    use_bias=cfg.get("use_bias", True),
+                    use_masking=cfg.get("use_masking", True), dtype=dtype)
+                c = mod.out_channels
             elif name in ("masked_batchnorm", "batchnorm"):
                 mod = L.MaskedBatchNorm(
                     c, epsilon=cfg.get("epsilon", 1e-5),
@@ -214,6 +275,10 @@ class LayerStack(nn.Module):
                                         name == "masked_batchnorm"))
                 if mod.return_nmd:
                     nmd_widths.append(c)
+            elif name == "masked_layernorm":
+                mod = L.MaskedLayerNorm(c)
+            elif name == "layernorm":
+                mod = L.LayerNorm(c)
             elif name == "masked_dyt":
                 mod = L.MaskedDYT(c, alpha_init=cfg.get("alpha_init", 0.5))
             elif name == "residual_block":
@@ -223,6 +288,35 @@ class LayerStack(nn.Module):
                 c = int(cfg["filters"])
                 if mod.return_nmd:
                     nmd_widths.append(c)
+            elif name in _ATTENTION_LAYERS:
+                args = (c, cfg["embed_dim"], cfg["num_heads"],
+                        cfg["feed_forward_dim"])
+                kw = dict(dropout_rate=cfg.get("dropout_rate", 0.1),
+                          dtype=dtype)
+                if name == "cross_frame_attention":
+                    kw["use_ffn"] = cfg.get("use_ffn", True)
+                elif name == "axial_attention":
+                    kw.update(num_blocks=cfg.get("num_blocks", 1),
+                              norm_type=cfg.get("norm_type", "layernorm"),
+                              alpha_init=cfg.get("alpha_init", 0.5))
+                elif name == "local_attention":
+                    kw.update(window_size=cfg["window_size"],
+                              num_blocks=cfg.get("num_blocks", 1))
+                mod = _ATTENTION_LAYERS[name](*args, **kw)
+                c = int(cfg["embed_dim"])
+            elif name == "parallel_branches":
+                merge = cfg.get("merge", "concat").lower()
+                if merge not in _MERGES:
+                    raise ValueError(f"unknown branch merge {merge!r}")
+                widths = []
+                for b, bcfg in enumerate(cfg.get("branches", [])):
+                    sub = LayerStack(
+                        _freeze_layers(bcfg.get("hidden_layers", [])), c,
+                        pooling=bcfg.get("pooling"), dtype=dtype)
+                    self.add_module(f"{lname}_branch_{b}", sub)
+                    widths.append(sub.out_channels)
+                c = sum(widths) if merge == "concat" else widths[0]
+                continue
             elif name == "nmd":
                 mod = L.NMDLayer(c, momentum=cfg.get("momentum", 0.9))
                 nmd_widths.append(c)
@@ -235,8 +329,11 @@ class LayerStack(nn.Module):
             elif name in _ACT_LAYERS or name in ("dropout", "crop"):
                 continue
             else:
-                raise _not_ported(f"layer {name!r}")
+                raise ValueError(f"unknown layer type: {name}")
             self.add_module(lname, mod)
+        if pooling is not None and "gated" in pooling.lower():
+            self.add_module(f"global_{pooling}pool",
+                            L.GatedFrameGlobalMaxPooling(c, dtype=dtype))
         self.out_channels = c
         self.nmd_merge = None
         self.nmd_width = 0
@@ -253,12 +350,13 @@ class LayerStack(nn.Module):
 
     def forward(self, x, mask=None, fold_table=None, mask_until=None,
                 train: bool = False, taps: bool = True, generator=None):
-        """-> (x, mask, nmd). ``mask_until`` drops the mask from that layer
-        index on, or inside the first residual block right after its conv1
-        for ``(index, "conv1")`` (the engine's bounded program).
+        """-> (x, mask, nmd, gate). ``mask_until`` drops the mask from that
+        layer index on, or inside the first residual block right after its
+        conv1 for ``(index, "conv1")`` (the engine's bounded program).
         ``train``: batch statistics, dropout from ``generator``, the fused
         convs' backward. ``taps=False`` skips the NMD taps (heads that do
-        not read them)."""
+        not read them). ``gate`` is a gated pooler's ``(B, F)`` gates, or
+        None."""
         nmds: list = []
         post_cut = False
         inner_at = cut_at = None
@@ -277,6 +375,8 @@ class LayerStack(nn.Module):
             if name in ("masked_conv1d", "conv1d"):
                 x, mask = mod(x, mask, fold_table=fold_table if i == 0
                               else None)
+            elif name == "multi_scale_conv":
+                x, mask = mod(x, mask)
             elif name in ("masked_batchnorm", "batchnorm"):
                 bn_mask = mask
                 if (post_cut and mask is None and mod.use_masking
@@ -289,7 +389,7 @@ class LayerStack(nn.Module):
                 x = out[0]
                 if mod.return_nmd and taps:
                     nmds.append(out[2])
-            elif name == "masked_dyt":
+            elif name in ("masked_dyt", "masked_layernorm", "layernorm"):
                 x, mask = mod(x, mask)
             elif name == "residual_block":
                 out = mod(x, mask, drop_mask_after_first_conv1=(i == inner_at),
@@ -297,6 +397,14 @@ class LayerStack(nn.Module):
                 x, mask = out[0], out[1]
                 if mod.return_nmd and taps:
                     nmds.append(out[2])
+            elif name in _ATTENTION_LAYERS:
+                x, mask = mod(x, mask, train=train, generator=generator)
+            elif name == "parallel_branches":
+                x = _merge([getattr(self, f"{name}_{i}_branch_{b}")(
+                                x, mask, train=train, generator=generator)[0]
+                            for b in range(len(cfg.get("branches", [])))],
+                           cfg.get("merge", "concat").lower())
+                mask = None
             elif name == "nmd":
                 if not taps:
                     continue
@@ -331,21 +439,36 @@ class LayerStack(nn.Module):
         elif nmds:
             merged_nmd = torch.cat(nmds, dim=-1)
 
+        gate = None
         if self.pooling is not None:
-            x, _ = L.POOLERS[self.pooling.lower()](x, mask)
+            if "gated" in self.pooling.lower():
+                x, gate = getattr(self, f"global_{self.pooling}pool")(x, mask)
+            else:
+                x, _ = L.POOLERS[self.pooling.lower()](x, mask)
             mask = None
-        return x, mask, merged_nmd
+        return x, mask, merged_nmd, gate
 
 
 class JaegerModel(nn.Module):
     """The fragment model: encode -> embed -> rep learner -> heads.
 
     ``forward(bases, lengths)`` returns a dict with ``prediction``
-    (classifier logits), ``embedding`` (pooled representation), ``nmd``
-    and ``reliability`` where configured. ``assume_dense=True`` skips the
-    mask (exact only when every window fills the crop with unambiguous
-    bases); ``mask_layers`` selects the bounded-mask program (see
-    :func:`mask_cut_plan`).
+    (classifier logits), ``embedding`` (pooled representation), ``nmd``,
+    ``gate`` (a gated pooler's frame gates) and ``reliability`` where
+    configured. ``assume_dense=True`` skips the mask (exact only when every
+    window fills the crop with unambiguous bases); ``mask_layers`` selects
+    the bounded-mask program (see :func:`mask_cut_plan`).
+
+    Inputs: ``input_type`` ``translated`` (six frames of codon tokens),
+    ``nucleotide`` (the two strands one-hot, ``ops/encode.py::
+    encode_nucleotide``) or ``both`` (the translated path; JAX encodes the
+    nucleotide features too but no layer reads them). A ``branch``
+    representation learner applies one shared stack (``rep_branch``) to
+    each frame or strand and concatenates the results; a ``branch``
+    classifier applies one shared head (``classifier_branch``) to each and
+    merges the logits (``average``, ``sum``, ``max`` or ``concat``).
+    Reliability mode ``nmd_plus_signals`` feeds the NMD vector and the
+    ``OODSignalLayer`` signals of the logits to the reliability head.
     """
 
     def __init__(self, config: dict, dtype=torch.float32):
@@ -357,18 +480,16 @@ class JaegerModel(nn.Module):
         sp = cfg.get("string_processor", {})
         rep_cfg = cfg.get("representation_learner", {})
         self.input_type = emb_cfg.get("input_type", "translated")
-        if self.input_type != "translated":
-            raise _not_ported(f"input_type {self.input_type!r}")
+        if self.input_type not in ("translated", "nucleotide", "both"):
+            raise ValueError(f"invalid input_type {self.input_type!r}")
+        self.pos_embedding = None
         if emb_cfg.get("use_positional_embeddings", False):
-            raise _not_ported("positional embeddings")
-        if "branch" in rep_cfg:
-            raise _not_ported("branch-mode representation learners")
-        for head in ("classifier", "reliability_model"):
-            if "branch" in (cfg.get(head) or {}):
-                raise _not_ported(f"branched {head}")
+            self.pos_embedding = L.SinusoidalPositionEmbedding(
+                emb_cfg.get("positional_embedding_length", 10000))
         rel_cfg = cfg.get("reliability_model")
-        if rel_cfg and rel_cfg.get("mode", "nmd") != "nmd":
-            raise _not_ported(f"reliability mode {rel_cfg.get('mode')!r}")
+        self.rel_mode = (rel_cfg or {}).get("mode", "nmd")
+        if rel_cfg and self.rel_mode not in ("nmd", "nmd_plus_signals"):
+            raise ValueError(f"unknown reliability mode {self.rel_mode!r}")
 
         self.alphabet = str(sp.get("codon", "CODON"))
         self.masking = bool(sp.get("masking", False))
@@ -379,13 +500,19 @@ class JaegerModel(nn.Module):
                                                     False))
         vocab = int(emb_cfg.get("vocab_size", self.depth + 1))
         hidden = rep_cfg.get("hidden_layers", [])
+        self.branched = "branch" in rep_cfg
+        translated = self.input_type in ("translated", "both")
         # bf16 only: fold the linear embedding into the entry conv
         self.can_fold = (
-            self.use_embedding_layer and self.emb_size > 0 and bool(hidden)
+            translated and self.use_embedding_layer and self.emb_size > 0
+            and self.pos_embedding is None and not self.branched
+            and bool(hidden)
             and hidden[0].get("name") in ("masked_conv1d", "conv1d")
             and dtype == torch.bfloat16
         )
-        if self.emb_size > 0 and self.use_embedding_layer:
+        if not translated:
+            width = 4                                   # A, G, C, T
+        elif self.emb_size > 0 and self.use_embedding_layer:
             self.embedding = L.OneHotEmbed(vocab, self.emb_size, dtype=dtype)
             width = self.emb_size
         elif self.emb_size > 0:
@@ -395,30 +522,65 @@ class JaegerModel(nn.Module):
         else:
             width = self.depth
 
-        self.rep = LayerStack(
-            _freeze_layers(hidden), width, pooling=rep_cfg.get("pooling"),
-            nmd_merge=(rel_cfg or {}).get("merge"), dtype=dtype)
+        merge_cfg = (rel_cfg or {}).get("merge")
+        if self.branched:
+            bcfg = rep_cfg["branch"]
+            self.rep_branch = LayerStack(
+                _freeze_layers(bcfg.get("hidden_layers", [])), width,
+                pooling=bcfg.get("pooling"), dtype=dtype)
+            branch_width = self.rep_branch.out_channels
+            # one branch per reading frame, or per strand
+            rep_width = (6 if translated else 2) * branch_width
+            nmd_width = 0
+        else:
+            self.rep = LayerStack(
+                _freeze_layers(hidden), width, pooling=rep_cfg.get("pooling"),
+                nmd_merge=merge_cfg, dtype=dtype)
+            branch_width = rep_width = self.rep.out_channels
+            nmd_width = self.rep.nmd_width
+
+        class_cfg = cfg.get("classifier")
         self.classifier = None
-        if cfg.get("classifier"):
+        self.classifier_branch = None
+        if class_cfg and "branch" in class_cfg:
+            hidden_c = list(class_cfg["branch"].get("hidden_layers", []))
+            if not hidden_c or hidden_c[-1].get("name") != "merge":
+                raise ValueError("branched classifier must end with 'merge'")
+            self.class_merge = (hidden_c[-1].get("config") or {}).get(
+                "method", "average").lower()
+            if self.class_merge not in _MERGES:
+                raise ValueError(
+                    f"unknown merge method {self.class_merge!r}")
+            self.classifier_branch = LayerStack(
+                _freeze_layers(hidden_c[:-1]),
+                branch_width if self.branched else rep_width, dtype=dtype)
+        elif class_cfg:
             self.classifier = LayerStack(
-                _freeze_layers(cfg["classifier"].get("hidden_layers", [])),
-                self.rep.out_channels, dtype=dtype)
+                _freeze_layers(class_cfg.get("hidden_layers", [])),
+                rep_width, dtype=dtype)
         self.reliability = None
         if rel_cfg:
-            if self.rep.nmd_width == 0:
+            if nmd_width == 0:
                 raise ValueError(
                     "reliability_model is configured but the representation "
                     "learner produced no NMD tensor. Add an `nmd` layer or "
                     "set return_nmd: true on a layer that supports it.")
+            rel_width = nmd_width
+            if self.rel_mode == "nmd_plus_signals":
+                self.ood_signals = L.OODSignalLayer(tuple(rel_cfg.get(
+                    "signals", ("max_prob", "entropy", "energy", "margin",
+                                "nmd_norm"))))
+                rel_width += len(self.ood_signals.signals)
             expected = rel_cfg.get("input_shape")
-            if expected is not None and int(expected) != self.rep.nmd_width:
+            if expected is not None and int(expected) != rel_width:
                 raise ValueError(
                     f"reliability_model.input_shape ({expected}) does not "
                     f"match the computed reliability input dimension "
-                    f"({self.rep.nmd_width})")
+                    f"({rel_width}). Set input_shape to None or omit it "
+                    f"when using mode={self.rel_mode!r}.")
             self.reliability = LayerStack(
-                _freeze_layers(rel_cfg.get("hidden_layers", [])),
-                self.rep.nmd_width, dtype=dtype)
+                _freeze_layers(rel_cfg.get("hidden_layers", [])), rel_width,
+                dtype=dtype)
 
     @property
     def crop_nt(self) -> int:
@@ -429,6 +591,32 @@ class JaegerModel(nn.Module):
     def masking_enabled(self) -> bool:
         """Whether soft-masked bases encode as masked tokens."""
         return self.masking
+
+    def _inputs(self, bases, lengths, tokens, frame_perm, assume_dense):
+        """-> (x, mask, fold_table): the stack's input."""
+        if self.input_type == "nucleotide":
+            x = encode.encode_nucleotide(
+                bases, lengths, crop_size=min(self.crop_nt, bases.shape[1]),
+                masking=self.masking).to(self.dtype)
+            mask = None if assume_dense else torch.any(x != 0, dim=-1)
+            return x, mask, None
+        if tokens is None:
+            tokens = encode.encode_frames(
+                bases, lengths, crop_size=self.crop_nt, masking=self.masking,
+                alphabet=self.alphabet)
+        if frame_perm is not None:
+            tokens = torch.gather(tokens, 1, frame_perm.long()[:, :, None]
+                                  .expand(-1, -1, tokens.shape[2]))
+        mask = None if assume_dense else tokens != 0
+        if self.emb_size > 0 and self.use_embedding_layer:
+            if self.can_fold:
+                return tokens, mask, self.embedding.embedding
+            return self.embedding(tokens), mask, None
+        onehot = (tokens[..., None] - 1 == torch.arange(
+            self.depth, device=tokens.device)).to(self.dtype)
+        x = (self.translated_embedding(onehot) if self.emb_size > 0
+             else onehot)
+        return x, mask, None
 
     def forward(self, bases: torch.Tensor | None = None,
                 lengths: torch.Tensor | None = None,
@@ -443,40 +631,51 @@ class JaegerModel(nn.Module):
         frames (train-time augmentation); ``heads`` limits the outputs
         (None = all) as ``jaeger_tpu/models/builder.py:815-824`` does;
         ``train`` with ``generator`` for dropout."""
-        if tokens is None:
-            tokens = encode.encode_frames(
-                bases, lengths, crop_size=self.crop_nt, masking=self.masking,
-                alphabet=self.alphabet)
-        if frame_perm is not None:
-            tokens = torch.gather(tokens, 1, frame_perm.long()[:, :, None]
-                                  .expand(-1, -1, tokens.shape[2]))
-        mask = None if assume_dense else tokens != 0
-        fold_table = None
-        if self.emb_size > 0 and self.use_embedding_layer:
-            if self.can_fold:
-                fold_table = self.embedding.embedding
-                x = tokens
-            else:
-                x = self.embedding(tokens)
-        else:
-            onehot = (tokens[..., None] - 1 == torch.arange(
-                self.depth, device=tokens.device)).to(self.dtype)
-            x = (self.translated_embedding(onehot) if self.emb_size > 0
-                 else onehot)
+        x, mask, fold_table = self._inputs(bases, lengths, tokens,
+                                           frame_perm, assume_dense)
+        if self.pos_embedding is not None:
+            x = x + self.pos_embedding(x)
         need_rel = self.reliability is not None and (
             heads is None or "reliability" in heads)
-        need_pred = self.classifier is not None and (
-            heads is None or "prediction" in heads)
+        need_pred = (self.classifier is not None
+                     or self.classifier_branch is not None) and (
+            heads is None or "prediction" in heads
+            or (need_rel and self.rel_mode == "nmd_plus_signals"))
         kw = dict(train=train, generator=generator)
-        rep, _, nmd = self.rep(x, mask, fold_table=fold_table,
-                               mask_until=mask_layers, taps=need_rel, **kw)
+        rep_branches = None
+        nmd = gate = None
+        if self.branched:
+            rep_branches = [
+                self.rep_branch(x[:, i: i + 1],
+                                None if mask is None else mask[:, i: i + 1],
+                                **kw)[0]
+                for i in range(x.shape[1])]
+            rep = torch.cat(rep_branches, dim=-1)
+        else:
+            rep, _, nmd, gate = self.rep(x, mask, fold_table=fold_table,
+                                         mask_until=mask_layers,
+                                         taps=need_rel, **kw)
         outputs = {"embedding": rep}
         if nmd is not None:
             outputs["nmd"] = nmd
-        if need_pred:
-            outputs["prediction"] = self.classifier(rep, **kw)[0]
+        if gate is not None:
+            outputs["gate"] = gate
+        logits = None
+        if need_pred and self.classifier_branch is not None:
+            logits = _merge([self.classifier_branch(b, **kw)[0]
+                             for b in (rep_branches or [rep])],
+                            self.class_merge)
+        elif need_pred:
+            logits = self.classifier(rep, **kw)[0]
+        if logits is not None:
+            outputs["prediction"] = logits
         if need_rel:
-            outputs["reliability"] = self.reliability(nmd, **kw)[0]
+            rel_in = nmd
+            if self.rel_mode == "nmd_plus_signals":
+                rel_in = torch.cat([nmd.float(),
+                                    self.ood_signals(logits, nmd)],
+                                   dim=-1).to(self.dtype)
+            outputs["reliability"] = self.reliability(rel_in, **kw)[0]
         return outputs
 
     def regularizer_specs(self) -> list[tuple[str, str, float]]:

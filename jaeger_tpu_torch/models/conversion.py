@@ -29,7 +29,7 @@ import torch
 from jaeger_tpu_torch.models.artifacts import (load_state, params_from_jax,
                                                read_flax_msgpack,
                                                write_flax_msgpack)
-from jaeger_tpu_torch.models.builder import build_model
+from jaeger_tpu_torch.models.builder import build_model, int8_unported
 from jaeger_tpu_torch.models.layers import MaskedConv1D, calibrating
 from jaeger_tpu_torch.utils.config import load_model_config
 from jaeger_tpu_torch.utils.devices import resolve_device
@@ -150,6 +150,15 @@ def calibrate_int8(model: torch.nn.Module, params: dict, crop_nt: int,
     return _build_quant_tree(params, calib)
 
 
+def _refuse_int8(config: dict) -> None:
+    found = int8_unported(config)
+    if found:
+        raise NotImplementedError(
+            f"int8 execution of a model with {', '.join(found)} is not yet "
+            f"ported to jaeger_tpu_torch (ROADMAP.md queue 1, item 10); "
+            f"the dynamic and float16 modes load as float weights")
+
+
 def _count_leaves(tree) -> int:
     if isinstance(tree, dict):
         return sum(_count_leaves(v) for v in tree.values())
@@ -206,6 +215,7 @@ def quantize_bundle(model_path: str | Path, output_path: str | Path,
     scheme = "int8-per-channel-weights"
     quant_convs = 0
     if mode == "full_int8":
+        _refuse_int8(config)
         # static quantization: calibrate activation scales at the bf16
         # execution dtype so the stored per-tensor ranges match what the
         # int8 path will see at predict time
@@ -245,6 +255,8 @@ def load_quantized(path: str | Path, dtype=torch.float32, device=None):
     for coll in ("batch_stats", "quant"):
         if coll in raw:
             variables[coll] = raw[coll]
+    if "quant" in variables:
+        _refuse_int8(config)
     model = build_model(config, dtype=dtype)
     load_state(model, params_from_jax(variables))
     classes_file = path / "classes.yaml"

@@ -1,15 +1,29 @@
-"""The masked layer zoo in PyTorch: the inference subset of the main path.
+"""The masked layer zoo in PyTorch.
 
 Counterpart of `jaeger_tpu/models/layers.py`. Layouts are the JAX
 package's: activations ``(B, F, L, C)`` channels-last, masks ``(B, F, L)``
 bool, and every layer returns ``(y, mask)``. Parameters keep the flax
 names and shapes (conv kernels ``(k, C_in, C_out)``, dense kernels
-``(in, out)``) and are stored in f32; each layer casts them to its compute
-dtype as the flax layers do. Ported: activations, ``apply_mask``,
-``MaskedConv1D`` (with its int8 branch and calibration), ``MaskedBatchNorm``,
-``MaskedDYT``, the global max/average poolers, ``ResidualBlock`` and
-``ResidualBlockStack``, ``NMDLayer``, ``NMDMerge``, ``Dense``,
-``OneHotEmbed`` and ``dropout``.
+``(in, out)``, attention projections ``(C, heads, head_dim)`` and
+``(heads, head_dim, C)``) and are stored in f32; each layer casts them to
+its compute dtype as the flax layers do. Ported: activations,
+``apply_mask``, ``MaskedConv1D`` (with its int8 branch and calibration),
+``MultiScaleConv1D``, ``MaskedBatchNorm``, ``MaskedLayerNorm``,
+``LayerNorm``, ``MaskedDYT``, the poolers (``MaskedMaxPooling1D``, the
+global max / average / last poolers, ``GatedFrameGlobalMaxPooling``),
+``ResidualBlock`` and ``ResidualBlockStack``, ``NMDLayer``, ``NMDMerge``,
+``OODSignalLayer``, the attention family (``MHA``, ``TransformerEncoder``,
+``CrossFrameAttention``, ``AxialAttention``, ``LocalAttention``),
+``Dense``, ``OneHotEmbed``, ``SinusoidalPositionEmbedding``, ``sin_pe``
+and ``dropout``. ``MaskedBiLSTM`` and the Hyena layers are not ported yet
+(``ROADMAP.md`` queue 1, item 10).
+
+Attention ports the function of JAX's ``_MHA``, not its TPU lowering:
+plain matmuls, with the same cast points (for sequence axes of 16 or less
+the scores and the weighted sum of values accumulate in f32 and round to
+the compute dtype once), invalid keys filled with the compute dtype's
+``finfo.min`` and the softmax in the compute dtype, so a row whose keys
+are all invalid gets uniform weights, never NaN.
 
 Train mode (``train=True``): ``MaskedBatchNorm`` uses batch statistics
 (the masked two-pass variance, or ``E[x^2] - mean^2`` without a mask) and
@@ -289,6 +303,53 @@ class MaskedConv1D(nn.Module):
         return y.reshape(b, f, y.shape[1], self.filters), out_mask
 
 
+_MULTI_SCALE_KEYS = ("filters", "kernel_size", "strides", "padding",
+                     "dilation_rate", "activation", "use_bias", "mask_mode")
+
+
+class MultiScaleConv1D(nn.Module):
+    """Parallel masked convs (``branch_<i>``) at several kernel sizes, all
+    SAME and stride 1, concatenated or added; the output mask is the AND
+    of the branches' masks."""
+
+    def __init__(self, in_channels: int, branches, merge: str = "concat",
+                 use_bias: bool = True, use_masking: bool = True,
+                 dtype=torch.float32):
+        super().__init__()
+        if merge not in ("concat", "add"):
+            raise ValueError(f"merge must be concat/add, got {merge!r}")
+        self.merge = merge
+        self.n_branches = len(branches)
+        widths = []
+        for i, cfg in enumerate(branches):
+            cfg = dict(cfg)
+            cfg.setdefault("padding", "same")
+            cfg.setdefault("strides", 1)
+            cfg.setdefault("use_bias", use_bias)
+            if cfg["padding"].lower() != "same" or cfg["strides"] != 1:
+                raise ValueError("multi-scale branches require same/stride-1")
+            conv = MaskedConv1D(
+                in_channels, use_masking=use_masking, dtype=dtype,
+                **{k: v for k, v in cfg.items() if k in _MULTI_SCALE_KEYS})
+            self.add_module(f"branch_{i}", conv)
+            widths.append(conv.filters)
+        self.out_channels = sum(widths) if merge == "concat" else widths[0]
+
+    def forward(self, x, mask=None):
+        outs, masks = [], []
+        for i in range(self.n_branches):
+            y, m = getattr(self, f"branch_{i}")(x, mask)
+            outs.append(y)
+            masks.append(m)
+        x = torch.cat(outs, dim=-1) if self.merge == "concat" else sum(outs)
+        out_mask = None
+        if masks and masks[0] is not None:
+            out_mask = masks[0]
+            for m in masks[1:]:
+                out_mask = out_mask & m
+        return x, out_mask
+
+
 @contextlib.contextmanager
 def calibrating(model: nn.Module):
     """int8 calibration mode (the JAX layer's ``calib`` sow).
@@ -394,6 +455,46 @@ class MaskedBatchNorm(nn.Module):
         return y, mask, nmd
 
 
+class MaskedLayerNorm(nn.Module):
+    """Layer norm over channels with f32 moments; masked positions are
+    zeroed before the moments and after the affine."""
+
+    def __init__(self, channels: int, epsilon: float = 1e-3):
+        super().__init__()
+        self.epsilon = float(epsilon)
+        self.gamma = _param(channels)
+        self.beta = _param(channels)
+
+    def forward(self, x, mask=None, train: bool = False):
+        if mask is not None:
+            x = apply_mask(x, mask)
+        xf = x.float()
+        mean = torch.mean(xf, dim=-1, keepdim=True)
+        var = torch.mean(torch.square(xf), dim=-1, keepdim=True) \
+            - torch.square(mean)
+        inv = (1.0 / torch.sqrt(var + self.epsilon)).to(x.dtype)
+        y = (x - mean.to(x.dtype)) * inv
+        y = y * self.gamma.to(x.dtype) + self.beta.to(x.dtype)
+        return apply_mask(y, mask), mask
+
+
+class LayerNorm(nn.Module):
+    """Plain (unmasked) layer norm in f32, the output cast back."""
+
+    def __init__(self, channels: int, epsilon: float = 1e-6):
+        super().__init__()
+        self.epsilon = float(epsilon)
+        self.gamma = _param(channels)
+        self.beta = _param(channels)
+
+    def forward(self, x, mask=None, train: bool = False):
+        xf = x.float()
+        mean = torch.mean(xf, dim=-1, keepdim=True)
+        var = torch.mean(torch.square(xf - mean), dim=-1, keepdim=True)
+        y = (xf - mean) * torch.rsqrt(var + self.epsilon)
+        return (y * self.gamma + self.beta).to(x.dtype), mask
+
+
 class MaskedDYT(nn.Module):
     """Dynamic-Tanh norm-free layer ``tanh(alpha*x)*gamma + beta``; masked
     positions are re-zeroed after the affine."""
@@ -446,6 +547,61 @@ def masked_global_max_pool(x, mask=None):
     return torch.where(has_valid, pooled, torch.zeros_like(pooled)), None
 
 
+def masked_last_pool(x, mask=None):
+    """The last valid position of each frame (the mask's count minus one),
+    averaged over the frames that have one."""
+    if mask is None:
+        return torch.mean(x[:, :, -1, :], dim=1), None
+    idx = torch.sum(mask, dim=-1, dtype=torch.int64) - 1        # (B, F)
+    gathered = torch.gather(
+        x, 2, idx.clamp_min(0)[:, :, None, None].expand(
+            -1, -1, 1, x.shape[-1]))[:, :, 0, :]                 # (B, F, C)
+    frame_valid = (idx >= 0).to(x.dtype)
+    gathered = gathered * frame_valid[..., None]
+    count = torch.clamp_min(torch.sum(frame_valid, dim=1, keepdim=True), 1.0)
+    return torch.sum(gathered, dim=1) / count, None
+
+
+class MaskedMaxPooling1D(nn.Module):
+    """Max pooling along the length (masked positions zeroed first), the
+    mask OR-pooled over the same windows; XLA's VALID or SAME padding."""
+
+    def __init__(self, pool_size: int = 2, strides: int | None = None,
+                 padding: str = "valid"):
+        super().__init__()
+        self.pool_size = int(pool_size)
+        self.strides = int(strides or pool_size)
+        self.padding = str(padding).upper()
+
+    def forward(self, x, mask=None, train: bool = False):
+        if mask is not None:
+            x = apply_mask(x, mask)
+        pads = (_same_pads(x.shape[2], self.pool_size, self.strides, 1)
+                if self.padding == "SAME" else (0, 0))
+        xp = F.pad(x, (0, 0, *pads), value=-math.inf)
+        y = xp.unfold(2, self.pool_size, self.strides).amax(dim=-1)
+        if mask is None:
+            return y, None
+        mp = F.pad(mask, pads, value=False)
+        return y, mp.unfold(2, self.pool_size, self.strides).any(dim=-1)
+
+
+class GatedFrameGlobalMaxPooling(nn.Module):
+    """Per-frame max over the length (unmasked, as in JAX), then a learned
+    sigmoid gate per frame normalized over frames. Returns
+    ``(pooled, gates)`` with ``gates`` ``(B, F)``."""
+
+    def __init__(self, channels: int, dtype=torch.float32):
+        super().__init__()
+        self.gate = Dense(channels, 1, dtype=dtype)
+
+    def forward(self, x, mask=None, train: bool = False):
+        per_frame = torch.amax(x, dim=2)                          # (B, F, C)
+        gates = torch.sigmoid(self.gate(per_frame))               # (B, F, 1)
+        gates = gates / (torch.sum(gates, dim=1, keepdim=True) + 1e-7)
+        return torch.sum(per_frame * gates, dim=1), gates[..., 0]
+
+
 POOLERS = {
     "max": masked_global_max_pool,
     "average": masked_global_avg_pool,
@@ -453,6 +609,9 @@ POOLERS = {
     "average1d": masked_global_avg_pool,
     "masked_max": masked_global_max_pool,
     "masked_average": masked_global_avg_pool,
+    "last": masked_last_pool,
+    "masked_last": masked_last_pool,
+    "gatedframe": GatedFrameGlobalMaxPooling,
 }
 
 
@@ -467,10 +626,13 @@ def _make_norm(norm_type: str, channels: int, return_nmd: bool = False,
     if norm_type == "masked_batchnorm":
         return MaskedBatchNorm(channels, return_nmd=return_nmd,
                                use_masking=use_masking)
+    if norm_type == "masked_layernorm":
+        return MaskedLayerNorm(channels)
     if norm_type == "masked_dyt":
         return MaskedDYT(channels, alpha_init=alpha_init)
-    raise NotImplementedError(
-        f"norm_type {norm_type!r} is not yet ported to jaeger_tpu_torch")
+    if norm_type in ("layernorm", "layer_normalization"):
+        return LayerNorm(channels)
+    raise ValueError(f"unsupported norm_type {norm_type!r}")
 
 
 class ResidualBlock(nn.Module):
@@ -757,6 +919,251 @@ class NMDMerge(nn.Module):
         return torch.sum(torch.stack(projected, 0) * weights, dim=0)
 
 
+class OODSignalLayer(nn.Module):
+    """Scalar out-of-distribution signals from the logits (and the NMD
+    vector), in f32: ``max_prob``, ``entropy``, ``energy``, ``margin``,
+    ``nmd_norm``."""
+
+    def __init__(self, signals=("max_prob",), epsilon: float = 1e-10):
+        super().__init__()
+        self.signals = tuple(signals)
+        self.epsilon = float(epsilon)
+
+    def forward(self, logits, nmd=None):
+        logits = logits.float()
+        probs = torch.softmax(logits, dim=-1)
+        cols = []
+        for s in self.signals:
+            if s == "max_prob":
+                cols.append(torch.amax(probs, dim=-1, keepdim=True))
+            elif s == "entropy":
+                sp = torch.clamp_min(probs, self.epsilon)
+                cols.append(-torch.sum(sp * torch.log(sp), dim=-1,
+                                       keepdim=True))
+            elif s == "energy":
+                cols.append(torch.logsumexp(logits, dim=-1, keepdim=True))
+            elif s == "margin":
+                top2 = torch.topk(probs, 2, dim=-1).values
+                cols.append(top2[..., 0:1] - top2[..., 1:2])
+            elif s == "nmd_norm":
+                if nmd is None:
+                    raise ValueError("'nmd_norm' requires an NMD vector")
+                cols.append(torch.linalg.vector_norm(nmd.float(), dim=-1,
+                                                     keepdim=True))
+            else:
+                raise ValueError(f"unsupported signal {s!r}")
+        return torch.cat(cols, dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Attention family
+# ---------------------------------------------------------------------------
+
+
+class DenseGeneral(nn.Module):
+    """``flax.linen.DenseGeneral`` contracting the trailing ``in_shape``
+    axes: kernel ``in_shape + out_shape``, bias ``out_shape``, computed in
+    ``dtype``."""
+
+    def __init__(self, in_shape: tuple, out_shape: tuple,
+                 dtype=torch.float32):
+        super().__init__()
+        self.in_shape = tuple(in_shape)
+        self.out_shape = tuple(out_shape)
+        self.dtype = dtype
+        self.kernel = _param(*self.in_shape, *self.out_shape)
+        self.bias = _param(*self.out_shape)
+
+    def forward(self, x):
+        n_in, n_out = math.prod(self.in_shape), math.prod(self.out_shape)
+        lead = x.shape[:x.dim() - len(self.in_shape)]
+        y = (x.to(self.dtype).reshape(*lead, n_in)
+             @ self.kernel.to(self.dtype).reshape(n_in, n_out))
+        return y.reshape(*lead, *self.out_shape) + self.bias.to(self.dtype)
+
+
+class MHA(nn.Module):
+    """Multi-head self-attention with an output projection: the function
+    of JAX's ``_MHA`` (flax ``MultiHeadDotProductAttention``'s tree and
+    math). ``query`` / ``key`` / ``value`` kernels ``(C, h, dh)``, ``out``
+    ``(h, dh, embed_dim)``; the query is pre-scaled by ``1/sqrt(dh)``.
+    Sequence axes of at most 16 compute the scores and the weighted values
+    in f32 and round once, as JAX does there."""
+
+    #: sequence lengths up to this take the f32-accumulated form
+    SHORT_SEQ_MAX = 16
+
+    def __init__(self, in_channels: int, embed_dim: int, num_heads: int,
+                 dropout_rate: float = 0.0, dtype=torch.float32):
+        super().__init__()
+        h = int(num_heads)
+        dh = int(embed_dim) // h
+        self.num_heads, self.head_dim = h, dh
+        self.dropout_rate = float(dropout_rate)
+        self.dtype = dtype
+        for name in ("query", "key", "value"):
+            self.add_module(name, DenseGeneral((in_channels,), (h, dh),
+                                               dtype=dtype))
+        self.out = DenseGeneral((h, dh), (int(embed_dim),), dtype=dtype)
+
+    def forward(self, x, attn_mask=None, train: bool = False,
+                generator=None):
+        """``x`` ``(n, s, C)``; ``attn_mask`` bool, broadcast against the
+        ``(n, h, s_q, s_k)`` scores (True = attend)."""
+        short = x.shape[1] <= self.SHORT_SEQ_MAX
+        q, k, v = self.query(x), self.key(x), self.value(x)
+        q = q / torch.sqrt(torch.tensor(float(self.head_dim))).to(q.dtype)
+        if short:
+            scores = torch.einsum("nqhd,nkhd->nhqk", q.float(),
+                                  k.float()).to(q.dtype)
+        else:
+            scores = torch.einsum("nqhd,nkhd->nhqk", q, k)
+        if attn_mask is not None:
+            scores = torch.where(attn_mask, scores,
+                                 torch.finfo(self.dtype).min)
+        w = torch.softmax(scores, dim=-1)
+        if train:
+            w = dropout(w, self.dropout_rate, generator)
+        if short:
+            o = torch.einsum("nhqk,nkhd->nqhd", w.float(),
+                             v.float()).to(v.dtype)
+        else:
+            o = torch.einsum("nhqk,nkhd->nqhd", w, v)
+        return self.out(o)
+
+
+def _train_dropout(x, rate: float, train: bool, generator):
+    return dropout(x, rate, generator) if train else x
+
+
+class TransformerEncoder(nn.Module):
+    """Pre-norm attention over the length axis of ``(B, F, L, C)`` and an
+    FFN. Invalid keys are excluded (a row with no valid key attends
+    uniformly and is re-masked downstream)."""
+
+    def __init__(self, channels: int, embed_dim: int, num_heads: int,
+                 feed_forward_dim: int, dropout_rate: float = 0.1,
+                 dtype=torch.float32):
+        super().__init__()
+        self.dropout_rate = float(dropout_rate)
+        self.attn_norm = LayerNorm(channels)
+        self.mha = MHA(channels, embed_dim, num_heads, dropout_rate,
+                       dtype=dtype)
+        self.ffn_norm = LayerNorm(embed_dim)
+        self.ffn_dense1 = Dense(embed_dim, feed_forward_dim, dtype=dtype)
+        self.ffn_dense2 = Dense(feed_forward_dim, embed_dim, dtype=dtype)
+
+    def _ffn(self, h, train, generator):
+        rate = self.dropout_rate
+        ffn = _gelu(self.ffn_dense1(self.ffn_norm(h)[0]))
+        ffn = _train_dropout(ffn, rate, train, generator)
+        return _train_dropout(self.ffn_dense2(ffn), rate, train, generator)
+
+    def forward(self, x, mask=None, train: bool = False, generator=None):
+        b, f, length, c = x.shape
+        h = x.reshape(b * f, length, c)
+        attn_mask = (None if mask is None
+                     else mask.reshape(b * f, 1, 1, length))
+        attn = self.mha(self.attn_norm(h)[0], attn_mask, train, generator)
+        h = h + _train_dropout(attn, self.dropout_rate, train, generator)
+        h = h + self._ffn(h, train, generator)
+        return h.reshape(b, f, length, c), mask
+
+
+class CrossFrameAttention(TransformerEncoder):
+    """Self-attention across the reading frames at each position
+    (``(B*L, F, C)``), with an optional FFN; the mask is not used."""
+
+    def __init__(self, channels: int, embed_dim: int, num_heads: int,
+                 feed_forward_dim: int, dropout_rate: float = 0.1,
+                 use_ffn: bool = True, dtype=torch.float32):
+        super().__init__(channels, embed_dim, num_heads, feed_forward_dim,
+                         dropout_rate, dtype=dtype)
+        self.use_ffn = bool(use_ffn)
+        if not self.use_ffn:
+            del self.ffn_norm, self.ffn_dense1, self.ffn_dense2
+
+    def forward(self, x, mask=None, train: bool = False, generator=None):
+        b, f, length, c = x.shape
+        h = x.permute(0, 2, 1, 3).reshape(b * length, f, c)
+        attn = self.mha(self.attn_norm(h)[0], None, train, generator)
+        h = h + _train_dropout(attn, self.dropout_rate, train, generator)
+        if self.use_ffn:
+            h = h + self._ffn(h, train, generator)
+        return h.reshape(b, length, f, c).permute(0, 2, 1, 3), mask
+
+
+class AxialAttention(nn.Module):
+    """``num_blocks`` of (length attention, frame attention, norm), each
+    with a residual around the whole block."""
+
+    def __init__(self, channels: int, embed_dim: int, num_heads: int,
+                 feed_forward_dim: int, dropout_rate: float = 0.1,
+                 num_blocks: int = 1, norm_type: str = "layernorm",
+                 alpha_init: float = 0.5, dtype=torch.float32):
+        super().__init__()
+        self.num_blocks = int(num_blocks)
+        args = (channels, embed_dim, num_heads, feed_forward_dim,
+                dropout_rate)
+        for i in range(self.num_blocks):
+            self.add_module(f"length_attn_{i}",
+                            TransformerEncoder(*args, dtype=dtype))
+            self.add_module(f"frame_attn_{i}",
+                            CrossFrameAttention(*args, dtype=dtype))
+            self.add_module(f"post_norm_{i}", _make_norm(
+                norm_type, channels, alpha_init=alpha_init))
+
+    def forward(self, x, mask=None, train: bool = False, generator=None):
+        for i in range(self.num_blocks):
+            residual = x
+            x, _ = getattr(self, f"length_attn_{i}")(x, mask, train,
+                                                     generator)
+            x, _ = getattr(self, f"frame_attn_{i}")(x, mask, train,
+                                                    generator)
+            x = getattr(self, f"post_norm_{i}")(x, mask, train)[0]
+            x = x + residual
+        return x, mask
+
+
+class LocalAttention(nn.Module):
+    """Banded self-attention along the length (``window_size // 2`` each
+    side, AND'ed with key validity) with an FFN, ``num_blocks`` times."""
+
+    def __init__(self, channels: int, embed_dim: int, num_heads: int,
+                 feed_forward_dim: int, window_size: int,
+                 dropout_rate: float = 0.1, num_blocks: int = 1,
+                 dtype=torch.float32):
+        super().__init__()
+        self.window_size = int(window_size)
+        self.num_blocks = int(num_blocks)
+        for i in range(self.num_blocks):
+            self.add_module(f"ln1_{i}", LayerNorm(channels))
+            self.add_module(f"mha_{i}", MHA(channels, embed_dim, num_heads,
+                                            dropout_rate, dtype=dtype))
+            self.add_module(f"ln2_{i}", LayerNorm(embed_dim))
+            self.add_module(f"ffn1_{i}", Dense(embed_dim, feed_forward_dim,
+                                               dtype=dtype))
+            self.add_module(f"ffn2_{i}", Dense(feed_forward_dim, embed_dim,
+                                               dtype=dtype))
+
+    def forward(self, x, mask=None, train: bool = False, generator=None):
+        b, f, length, c = x.shape
+        h = x.reshape(b * f, length, c)
+        pos = torch.arange(length, device=x.device)
+        attn_mask = ((pos[:, None] - pos[None, :]).abs()
+                     <= self.window_size // 2)[None, None]
+        if mask is not None:
+            attn_mask = attn_mask & mask.reshape(b * f, 1, 1, length)
+        for i in range(self.num_blocks):
+            hn = getattr(self, f"ln1_{i}")(h)[0]
+            h = h + getattr(self, f"mha_{i}")(hn, attn_mask, train,
+                                              generator)
+            hn = getattr(self, f"ln2_{i}")(h)[0]
+            ffn = _gelu(getattr(self, f"ffn1_{i}")(hn))
+            h = h + getattr(self, f"ffn2_{i}")(ffn)
+        return h.reshape(b, f, length, c), mask
+
+
 # ---------------------------------------------------------------------------
 # Misc
 # ---------------------------------------------------------------------------
@@ -775,3 +1182,36 @@ class OneHotEmbed(nn.Module):
 
     def forward(self, tokens):
         return F.embedding(tokens.long(), self.embedding.to(self.dtype))
+
+
+def sin_pe(length: int, dim: int, device=None) -> torch.Tensor:
+    """``(length, dim)`` f32 interleaved sin/cos table at geometric
+    frequencies (the Hyena filters' positional input, JAX ``_sin_pe``)."""
+    pos = torch.arange(length, dtype=torch.float32, device=device)[:, None]
+    div = torch.exp(torch.arange(0, dim, 2, dtype=torch.float32,
+                                 device=device)
+                    * -(math.log(10000.0) / dim))
+    pe = torch.stack([torch.sin(pos * div), torch.cos(pos * div)], dim=-1)
+    return pe.reshape(length, -1)[:, :dim]
+
+
+class SinusoidalPositionEmbedding(nn.Module):
+    """Sin/cos positional encoding over the length axis (sin on even
+    channels, cos on odd ones), broadcast to ``x``'s shape in its dtype."""
+
+    def __init__(self, max_wavelength: float = 10000.0):
+        super().__init__()
+        self.max_wavelength = float(max_wavelength)
+
+    def forward(self, x):
+        length, hidden = x.shape[-2], x.shape[-1]
+        positions = torch.arange(length, dtype=torch.float32,
+                                 device=x.device)
+        dims = torch.arange(hidden, dtype=torch.float32, device=x.device)
+        even = torch.floor(dims / 2) * 2
+        base = torch.tensor(1.0 / self.max_wavelength, dtype=torch.float32,
+                            device=x.device)
+        angles = positions[:, None] * torch.pow(base, even / hidden)[None, :]
+        sin_mask = (dims % 2 == 0).float()
+        pe = torch.sin(angles) * sin_mask + torch.cos(angles) * (1 - sin_mask)
+        return torch.broadcast_to(pe, x.shape).to(x.dtype)

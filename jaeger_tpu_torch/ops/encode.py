@@ -18,8 +18,8 @@ tests/test_torch_encode.py):
 
 The numpy planners (``pack_bases``, ``dense_window_rows``,
 ``dense_window_batch``, ``_run_stats``, ``bounded_mask_levels``) are
-copies of the JAX module's host code. ``encode_nucleotide`` is not
-ported yet.
+copies of the JAX module's host code. ``encode_nucleotide`` gives the
+nucleotide models' input: the two strands one-hot in A, G, C, T order.
 """
 
 from __future__ import annotations
@@ -32,6 +32,10 @@ import torch.nn.functional as F
 
 from jaeger_tpu_torch.seqops import crop as crop_contract
 from jaeger_tpu_torch.seqops import maps
+
+
+#: base ID (A T G C N) -> one-hot channel in A, G, C, T order; N -> none
+_NUC_ID = (0, 3, 1, 2, -1)
 
 
 @functools.lru_cache(maxsize=8)
@@ -265,3 +269,42 @@ def encode_frames(
     valid = (torch.arange(k, dtype=torch.int32, device=b.device)[None, None, :]
              < p_valid[:, None, None])
     return (frames + 1) * valid.to(torch.int32)
+
+
+def encode_nucleotide(
+    bases: torch.Tensor,
+    lengths: torch.Tensor,
+    crop_size: int,
+    masking: bool = False,
+) -> torch.Tensor:
+    """Encode base IDs to the 2-strand one-hot nucleotide input.
+
+    Args:
+        bases: (B, >=crop_size) uint8 base IDs.
+        lengths: (B,) int — valid bases per window.
+        crop_size: nucleotide crop C.
+        masking: when True, soft-masked (lowercase) bases are ambiguous.
+
+    Returns:
+        (B, 2, C, 4) float32: the forward strand and the reverse
+        complement of the valid prefix, one-hot in A, G, C, T order;
+        ambiguous bases and padding are all-zero rows.
+    """
+    C = int(crop_size)
+    raw = bases[:, :C].to(torch.int32)
+    if masking:
+        b = torch.where(raw >= 4, torch.full_like(raw, 4), raw)
+    else:
+        b = torch.where(raw >= 5, raw - 5, raw)
+    m = torch.clamp(lengths.to(torch.int32), max=C)
+    pos = torch.arange(C, dtype=torch.int32, device=b.device)[None, :]
+    b = torch.where(pos < m[:, None], b, torch.full_like(b, 4))
+    # reverse complement of the valid prefix, re-padded with N
+    comp_b = torch.where(b < 4, b ^ 1, torch.full_like(b, 4))
+    idx = m[:, None] - 1 - pos
+    rb = torch.where(
+        idx >= 0, torch.gather(comp_b, 1, idx.clamp_min(0).to(torch.int64)),
+        torch.full_like(comp_b, 4))
+    nuc = torch.tensor(_NUC_ID, dtype=torch.int64, device=b.device)
+    ids = torch.stack([nuc[b.long()], nuc[rb.long()]], dim=1)  # (B, 2, C)
+    return (ids[..., None] == torch.arange(4, device=b.device)).float()
