@@ -16,6 +16,8 @@ Run from the root of a checkout on a machine with CUDA:
                                      # pipeline and the predict stages)
     python3 chip_smoke.py --templates  # phases 1, 2 and 8 only (the
                                        # layer-zoo templates)
+    python3 chip_smoke.py --hyena     # phases 1, 2 and 9 only (the Hyena
+                                      # template and MaskedBiLSTM)
 
 Phases, each of which fails the run:
 
@@ -117,11 +119,27 @@ Phases, each of which fails the run:
    uses (positional embeddings, multi-scale conv, masked layer norm,
    transformer encoder, local attention, parallel branches, gated pooling,
    ``nmd_plus_signals``): forward and one train step on the card against
-   the CPU.
+   the CPU;
+9. the Hyena template (``train_config/hyena_fullcontig.yaml``, dim 32,
+   crop 666 codons, 6 classes): ``train_fragment_core`` at batch 64 in
+   bf16 on seeded CSVs of 2003 nt rows (phase 6's writer, its N-run rows
+   moved to the front) for 10 classifier steps, dense and masked programs
+   (kernel launch counts reset just before, read just after: the template
+   has no conv, so none); ``run_core`` with ``--fsize 2003 --stride 2003``
+   in bf16, in f32 and in f32 on the CPU (rows equal, the card's f32
+   labels equal to the CPU's and its scores within 0.01); each program's
+   steady-state step (host ms, device ms, busy share) and the forward at
+   batch 2048, dense and masked; the causal convolution's direct, blocked
+   and scan routes (D 32; L 666, 2048 and 8192 codons) against the f32
+   FFT on the card, the scan's backward too, with their times and the bf16
+   dispatch's choice of route; ``MaskedBiLSTM`` on the card against the
+   CPU in f32 at the legacy LSTMModel's widths and timed at its shape
+   (128 windows, C 128, U 128, 681 steps, the last state), and phase 8's
+   zoo model with a BiLSTM layer on the card against the CPU.
 
 The second-to-last line is the kernels JSON (each kernel also with its
-numbers at the templates' shape and its launches on phase 8's path), the
-last ``{"ok": true, ...}``.
+numbers at the templates' shape and its launches on phase 8's and phase
+9's paths), the last ``{"ok": true, ...}``.
 The script imports nothing of JAX or of jaeger_tpu.
 """
 
@@ -2650,9 +2668,10 @@ def zoo_config() -> dict:
                     "loss_params_classifier": {"from_logits": True}}}
 
 
-def phase_zoo_f32() -> dict:
-    """The zoo model (``zoo_config``, seeded weights) in f32 on the card
-    against the CPU, as phase 6a: the eval forward in the masked and dense
+def phase_zoo_f32(cfg: dict | None = None, label: str = "zoo") -> dict:
+    """The zoo model (``zoo_config``, or ``cfg``; seeded weights) in f32 on
+    the card against the CPU, as phase 6a: the eval forward in the masked
+    and dense
     programs (every output within 1e-5 of its scale), then one classifier
     step (the loss within 1e-5, every gradient leaf within 1e-4 of its
     scale; a leaf below 1e-4 of the largest gradient is rounding noise
@@ -2671,7 +2690,7 @@ def phase_zoo_f32() -> dict:
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = zoo_config()
+    cfg = cfg or zoo_config()
     t = cfg["training"]
     rng = np.random.default_rng(23)
     runs = {}
@@ -2705,14 +2724,15 @@ def phase_zoo_f32() -> dict:
     for prog, outs in cpu["outs"].items():
         check(set(gpu["outs"][prog]) == set(outs) == {
             "embedding", "nmd", "gate", "prediction", "reliability"},
-            f"zoo f32 {prog}: outputs {sorted(gpu['outs'][prog])}")
+            f"{label} f32 {prog}: outputs {sorted(gpu['outs'][prog])}")
         for k, v in outs.items():
             e = float((gpu["outs"][prog][k] - v).abs().max()) / max(
                 float(v.abs().max()), 1e-6)
-            check(e <= 1e-5, f"zoo f32 {prog} forward: {k} rel err {e:.2e}")
+            check(e <= 1e-5,
+                  f"{label} f32 {prog} forward: {k} rel err {e:.2e}")
             f_err = max(f_err, e)
     check(abs(gpu["loss"] - cpu["loss"]) <= 1e-5 * max(abs(cpu["loss"]), 1.0),
-          f"zoo f32 step: loss {gpu['loss']} vs {cpu['loss']}")
+          f"{label} f32 step: loss {gpu['loss']} vs {cpu['loss']}")
     overall = max(float(g.abs().max()) for g in cpu["grads"].values())
     gate = "rep/global_gatedframepool/gate"
     like = {f"{gate}/bias": f"{gate}/kernel"}
@@ -2722,14 +2742,15 @@ def phase_zoo_f32() -> dict:
         if scale < 1e-4 * overall:
             scale = overall
         e = float((gpu["grads"][k] - g).abs().max()) / scale
-        check(e <= 1e-4, f"zoo f32 step: grad {k} rel err {e:.2e}")
+        check(e <= 1e-4, f"{label} f32 step: grad {k} rel err {e:.2e}")
         g_err = max(g_err, e)
     for k, s in cpu["stats"].items():
         e = float((gpu["stats"][k] - s).abs().max())
         check(e <= 1e-5 * max(float(s.abs().max()), 1e-6),
-              f"zoo f32 step: {k} err {e:.2e}")
-    print(f"zoo model f32 (card vs CPU): forward worst rel err {f_err:.2e} "
-          f"(tol 1e-5), step loss {gpu['loss']:.6f} vs {cpu['loss']:.6f}, "
+              f"{label} f32 step: {k} err {e:.2e}")
+    print(f"{label} model f32 (card vs CPU): forward worst rel err "
+          f"{f_err:.2e} (tol 1e-5), step loss {gpu['loss']:.6f} vs "
+          f"{cpu['loss']:.6f}, "
           f"worst grad err {g_err:.2e} of its scale (tol 1e-4) ok")
     return dict(forward_err=f_err, grad_err=g_err)
 
@@ -3007,6 +3028,365 @@ def phase_templates(tmp: Path, card: str) -> dict:
     return dict(launches=launches, templates=results)
 
 
+# --- phase 9: the Hyena template and MaskedBiLSTM -----------------------------
+
+#: the causal convolution's routes held on the card: (route, length in
+#: codons) with D = 32 channels as the template; the direct route at the
+#: template's 666 codons, the blocked and scan routes past the direct (1024)
+#: and blocked (4096) caps
+HYENA_ROUTES = (("direct", 666), ("blocked", 2048), ("scan", 8192))
+#: the legacy LSTMModel's recurrent shape: 128 windows of 2048 nt (six
+#: frames of 681 codons), 128 channels in, 128 units a direction
+LSTM_WINDOWS, LSTM_L, LSTM_C, LSTM_U = 128, 681, 128, 128
+
+
+def phase_hyena_routes(card: str) -> dict:
+    """The causal convolution's routes on the card in f32 against the FFT
+    route on the same inputs (``u`` (64 rows, 32, L), a decaying filter):
+    each route's output within 1e-4 of the FFT's scale, the scan's ``du``
+    and ``dh`` against autograd through the FFT within 1e-4; the bf16
+    dispatch at each length takes that route (its output equal to the
+    route's on the same bf16-rounded input). Times with CUDA events: the
+    route, the FFT, and for the scan its forward and backward; the direct
+    route also at the template's train shape (384 rows) with its bound
+    (f32 operations at 67 TFLOP/s: the full L x L product)."""
+    import torch
+
+    from jaeger_tpu_torch.models import layers
+
+    fns = {"direct": layers._causal_toeplitz_convolve,
+           "blocked": layers._causal_block_toeplitz_convolve,
+           "scan": layers._causal_chunked_scan_convolve}
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    out = {}
+    d = 32
+    for route, length in HYENA_ROUTES:
+        rows = 384 if route == "direct" else 64
+        u = torch.randn(rows, d, length, device="cuda", generator=gen)
+        t = torch.arange(length, device="cuda", dtype=torch.float32)
+        h = torch.randn(d, length, device="cuda", generator=gen) * torch.exp(
+            -t / (length / 8))
+        fn = fns[route]
+        with torch.no_grad():
+            ref = layers.causal_fft_convolve(u, h)
+            got = fn(u, h)
+            err = float((got - ref).abs().max() / ref.abs().max())
+            check(err <= 1e-4, f"hyena {route} route vs FFT: rel err {err}")
+            ub = u.to(torch.bfloat16)
+            check(torch.equal(layers.causal_fft_convolve(ub, h),
+                              fn(ub.float(), h).to(torch.bfloat16)),
+                  f"hyena bf16 dispatch at L {length} is not the {route} "
+                  f"route")
+            ms = cuda_ms(lambda: fn(u, h), iters=5, warmup=1)
+            fft_ms = cuda_ms(lambda: layers.causal_fft_convolve(u, h),
+                             iters=5, warmup=1)
+        rec = dict(length=length, rows=rows, max_rel_err=err, ms=ms,
+                   fft_ms=fft_ms)
+        line = (f"hyena {route} route (rows {rows}, D {d}, L {length}, f32) "
+                f"on {card}: {ms:.3f} ms, FFT {fft_ms:.3f} ms, rel err vs "
+                f"FFT {err:.2e} (tol 1e-4)")
+        if route == "direct":
+            flops = 2.0 * rows * d * length * length
+            rec.update(flops=flops, bound_ms=flops / PEAK_F32_FLOPS * 1e3,
+                       bound_by="operations")
+            line += (f", bound {rec['bound_ms']:.3f} ms (operations, "
+                     f"{flops:.3e} FLOP at 67 TFLOP/s), "
+                     f"{rec['bound_ms'] / ms:.1%} of it")
+        if route == "scan":
+            g = torch.randn(u.shape, device="cuda", generator=gen)
+            grads = {}
+            for name, f in (("scan", fn),
+                            ("fft", layers.causal_fft_convolve)):
+                ur = u.clone().requires_grad_(True)
+                hr = h.clone().requires_grad_(True)
+                f(ur, hr).backward(g)
+                grads[name] = (ur.grad, hr.grad)
+            for i, which in enumerate(("du", "dh")):
+                e = float((grads["scan"][i] - grads["fft"][i]).abs().max()
+                          / grads["fft"][i].abs().max())
+                check(e <= 1e-4, f"hyena scan {which} vs FFT: rel err {e}")
+                rec[f"{which}_rel_err"] = e
+            ur = u.clone().requires_grad_(True)
+            hr = h.clone().requires_grad_(True)
+            rec["forward_backward_ms"] = cuda_ms(
+                lambda: fn(ur, hr).backward(g), iters=3, warmup=1)
+            line += (f"; du / dh vs FFT {rec['du_rel_err']:.2e} / "
+                     f"{rec['dh_rel_err']:.2e}, forward + backward "
+                     f"{rec['forward_backward_ms']:.3f} ms")
+        print(line)
+        out[route] = rec
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 turned on: the Toeplitz products must run in full f32")
+    return out
+
+
+def hyena_train_config(root: Path, data: dict) -> Path:
+    """``train_config/hyena_fullcontig.yaml`` at its own widths with the
+    synthetic data: batch 64, bf16, 10 classifier steps (1 epoch), 1
+    validation step, a 256-row shuffle buffer."""
+    import yaml
+
+    from jaeger_tpu_torch.utils.config import load_model_config
+
+    cfg = load_model_config(ROOT / "train_config" / "hyena_fullcontig.yaml")
+    m, t = cfg["model"], cfg["training"]
+    m["string_processor"]["buffer_size"] = 256
+    t.update(batch_size=64, mixed_precision="bfloat16", classifier_epochs=1,
+             classifier_train_steps=10, classifier_validation_steps=1)
+    classes = [e["class"] for e in m["class_label_map"]]
+    labels = [int(e["label"]) for e in m["class_label_map"]]
+    t["fragment_classifier_data"] = {
+        split: [{"class": classes, "path": [data[key]], "label": labels}]
+        for split, key in (("train", "train"), ("validation", "val"))}
+    path = root / "hyena_train.yaml"
+    path.write_text(yaml.safe_dump(cfg, sort_keys=False))
+    return path
+
+
+def write_hyena_data(root: Path, crop_nt: int) -> dict:
+    """Phase 6's writer at the template's 2003 nt crop and 6 classes, its
+    24 rows with an interior N, a long N run or a short length moved to
+    rows 320-343 of 1024, so that the first batches of 64 are clean (the
+    dense program) and later ones hold N runs (the masked program)."""
+    root.mkdir(parents=True, exist_ok=True)
+    data = write_train_data(root, seed=20261017, crop_nt=crop_nt,
+                            n_classes=6, n_rows=4096)
+    rows = Path(data["train"]).read_text().splitlines(keepends=True)
+    runs = rows[2048:2064] + rows[3072:3080]
+    clean = rows[:1000]
+    Path(data["train"]).write_text("".join(clean[:320] + runs + clean[320:]))
+    return data
+
+
+def _hyena_rates(bundle: Path, cfg: dict, card: str) -> dict:
+    """The trained template's steady-state classifier step per program
+    (batch 64, bf16; warm, then 5 steps on the host clock between two
+    synchronizes), the host's share of one step on an idle card (median of
+    3) and the device time of one step (torch profiler) with its busy
+    share; then the eval forward at batch 2048 in the dense and masked
+    programs (CUDA events; 12,288 frames of 666 codons) with the device
+    time of one forward."""
+    import numpy as np
+    import torch
+
+    from jaeger_tpu_torch.models.artifacts import load_model
+    from jaeger_tpu_torch.train import loop
+    from jaeger_tpu_torch.train.optimizers import make_optimizer
+
+    model, _, _ = load_model(bundle, dtype=torch.bfloat16)
+    t = cfg["training"]
+    state = loop.TrainState.create(model, make_optimizer(
+        t["optimizer"], t["optimizer_params"]))
+    step = loop.make_dispatching_train_step(model, loop.StepConfig(
+        loss_name=t["loss_classifier"],
+        loss_params=t["loss_params_classifier"], heads=("prediction",)),
+        "cuda")
+    rng = np.random.default_rng(5)
+    gen = torch.Generator(device="cuda").manual_seed(5)     # dropout
+    bs = int(t["batch_size"])
+    rates = {}
+    for program in ("dense", "masked"):
+        batch = _train_batch(rng, model.crop_nt, program, bs, 6)
+        state, _ = step(state, batch, gen)               # warm
+        reps = 5
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            state, _ = step(state, batch, gen)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / reps * 1e3
+        host = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, _ = step(state, batch, gen)
+            host.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        dev_ms = sum(print_device_profile(
+            lambda: step(state, batch, gen),
+            f"hyena train {program} step (batch {bs})", top=6).values())
+        rates[program] = dict(step_ms=ms, windows_per_s=bs / ms * 1e3,
+                              host_step_ms=sorted(host)[1], device_ms=dev_ms,
+                              device_busy=dev_ms / ms)
+    check(set(step.program_counts) == {"dense", "masked"},
+          f"hyena steady-state programs {step.program_counts}")
+    n = 2048
+    bases = torch.from_numpy(rng.integers(0, 4, size=(
+        n, model.crop_nt)).astype(np.uint8)).cuda()
+    lengths = torch.full((n,), model.crop_nt, dtype=torch.int32,
+                         device="cuda")
+    with torch.inference_mode():
+        for program in ("dense", "masked"):
+            fwd = (lambda: model(bases, lengths,
+                                 assume_dense=program == "dense"))
+            ms = cuda_ms(fwd, iters=3, warmup=1)
+            dev_ms = sum(print_device_profile(
+                fwd, f"hyena forward {program} (batch {n})", top=6).values())
+            rates[f"forward_{program}"] = dict(
+                ms=ms, windows_per_s=n / ms * 1e3, device_ms=dev_ms,
+                device_busy=dev_ms / ms)
+    for prog, v in rates.items():
+        if prog.startswith("forward"):
+            print(f"hyena {prog} (batch {n}, bf16) on {card}: {v['ms']:.2f} "
+                  f"ms, {v['windows_per_s']:.0f} windows/s, device "
+                  f"{v['device_ms']:.2f} ms ({v['device_busy']:.1%} busy)")
+        else:
+            print(f"hyena train {prog} step (batch {bs}, bf16) on {card}: "
+                  f"{v['step_ms']:.2f} ms, {v['windows_per_s']:.0f} "
+                  f"windows/s, host {v['host_step_ms']:.1f} ms a step, "
+                  f"device {v['device_ms']:.2f} ms ({v['device_busy']:.1%} "
+                  f"busy)")
+    return rates
+
+
+def phase_hyena(tmp: Path, card: str) -> dict:
+    """This slice's main path: ``train_fragment_core`` on the Hyena
+    template at its own widths (batch 64, bf16, 10 classifier steps on
+    seeded CSVs with N runs, so the dense and masked programs), then
+    ``run_core`` with the bundle at ``--fsize 2003 --stride 2003`` in bf16
+    and in f32 on the card and in f32 on the CPU: the TSV's rows and
+    labels, the card's f32 scores within 0.01 of the CPU's. Kernel launch
+    counts are reset just before and read just after (the template has no
+    conv, so none of the hand kernels runs). Then the steady-state steps
+    and forwards (``_hyena_rates``)."""
+    import torch
+
+    from jaeger_tpu_torch.commands.predict import run_core
+    from jaeger_tpu_torch.commands.train import train_fragment_core
+    from jaeger_tpu_torch.ops import fused_conv, int8_conv
+    from jaeger_tpu_torch.ops import fused_conv_grad as fg
+    from jaeger_tpu_torch.utils.config import load_model_config
+
+    root = tmp / "template_hyena"
+    t0 = time.perf_counter()
+    data = write_hyena_data(root, crop_nt=2003)
+    cfg_path = hyena_train_config(root, data)
+    data_s = time.perf_counter() - t0
+    cfg = load_model_config(cfg_path)
+    labels = [e["class"] for e in cfg["model"]["class_label_map"]]
+    out = root / "run"
+    # the main path: counts reset just before, read just after
+    fused_conv.launches = 0
+    int8_conv.launches = 0
+    for k in fg.launches:
+        fg.launches[k] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = train_fragment_core(str(cfg_path), str(out))
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    cls = [h["loss"] for h in res["history"]["classifier"]]
+    check(len(cls) == 1 and math.isfinite(cls[0]),
+          f"hyena template: classifier losses {cls}")
+    programs = res["programs"]["classifier"]
+    check(set(programs) == {"dense", "masked"},
+          f"hyena template: programs {programs}")
+    for f in ("params.msgpack", "project.yaml", "classes.yaml",
+              "history.csv", "checkpoints/classifier/checkpoints.json",
+              "int8/params_int8.msgpack"):
+        check((out / f).exists(), f"hyena template: train wrote no {f}")
+    tsv = {}
+    t0 = time.perf_counter()
+    for run, extra in (("gpu_bf16", {}),
+                       ("gpu_f32", dict(precision="float32")),
+                       ("cpu_f32", dict(precision="float32",
+                                        device="cpu"))):
+        path = run_core(str(FASTA), str(root / run), str(out), fsize=2003,
+                        stride=2003, batch=256, **extra)
+        tsv[run] = _read_tsv(path)
+        _check_tsv(tsv[run], labels, f"hyena template predict {run}")
+    predict_s = time.perf_counter() - t0
+    launches = dict(fg.launches, fused_conv_block=fused_conv.launches,
+                    int8_conv=int8_conv.launches)
+    check(not any(launches.values()),
+          f"hyena template: hand-kernel launches {launches} (no conv)")
+    ids = [r["contig_id"] for r in tsv["cpu_f32"]]
+    for run in ("gpu_bf16", "gpu_f32"):
+        check([r["contig_id"] for r in tsv[run]] == ids,
+              f"hyena template: {run} rows differ from the CPU's")
+    check([r["prediction"] for r in tsv["gpu_f32"]]
+          == [r["prediction"] for r in tsv["cpu_f32"]],
+          "hyena template: card f32 labels differ from the CPU's")
+    diff = _max_score_diff(tsv["gpu_f32"], tsv["cpu_f32"], labels)
+    check(diff <= 0.01, f"hyena template: card f32 scores differ from the "
+          f"CPU's by {diff}")
+    print(f"hyena template (batch 64, bf16) on {card}: data {data_s:.1f} s, "
+          f"train {train_s:.1f} s ({res['params']} parameters, classifier "
+          f"loss {cls[0]:.4f}, programs {programs}, int8 bundle with "
+          f"0 int8 convs); predict --fsize 2003 bf16 / f32 / CPU f32 "
+          f"{predict_s:.1f} s, 9 contigs, card f32 vs CPU f32 max score "
+          f"diff {diff:.2e} (tol 0.01); hand-kernel launches {launches}")
+    rates = _hyena_rates(out, cfg, card)
+    return dict(train_s=train_s, predict_s=predict_s, classifier_loss=cls[0],
+                programs=programs, score_diff_f32=diff, launches=launches,
+                rates=rates)
+
+
+def bilstm_zoo_config() -> dict:
+    """The zoo model of phase 8 with a ``masked_bilstm`` layer (8 units a
+    direction) after its local attention."""
+    cfg = zoo_config()
+    cfg["model"]["representation_learner"]["hidden_layers"].insert(
+        5, {"name": "masked_bilstm", "config": {"units": 8}})
+    return cfg
+
+
+def phase_bilstm(card: str) -> dict:
+    """``MaskedBiLSTM`` on the card against the CPU in f32 at the legacy
+    LSTMModel's widths (C 128, U 128, 681 steps, ``return_sequences=False``,
+    masked runs inside rows; 8 windows, so that the CPU's run stays short):
+    within 1e-5 of the scale; then its time on the card at the legacy
+    shape (128 windows, six frames each), f32 and bf16, CUDA events, and
+    the host's time to launch it."""
+    import torch
+
+    from jaeger_tpu_torch.models.artifacts import load_state
+    from jaeger_tpu_torch.models.layers import MaskedBiLSTM
+
+    gen = torch.Generator().manual_seed(31)
+    mods = {dt: MaskedBiLSTM(LSTM_C, LSTM_U, return_sequences=False,
+                             dtype=dt)
+            for dt in (torch.float32, torch.bfloat16)}
+    state = {k: torch.randn(v.shape, generator=gen) * 0.1
+             for k, v in mods[torch.float32].state_dict().items()}
+    for m in mods.values():
+        load_state(m, state)
+    mod = mods[torch.float32]
+
+    def inputs(windows, device):
+        g = torch.Generator().manual_seed(37)
+        x = torch.randn(windows, 6, LSTM_L, LSTM_C, generator=g)
+        mask = torch.ones(windows, 6, LSTM_L, dtype=torch.bool)
+        mask[:, :, 300:340] = False
+        mask[0, 1, 500:] = False
+        return x.to(device), mask.to(device)
+
+    with torch.inference_mode():
+        x, mask = inputs(8, "cpu")
+        want = mod(x, mask)[0]
+        got = mod.to("cuda")(x.cuda(), mask.cuda())[0].cpu()
+        err = float((got - want).abs().max() / want.abs().max())
+        check(err <= 1e-5, f"MaskedBiLSTM card vs CPU: rel err {err}")
+        x, mask = inputs(LSTM_WINDOWS, "cuda")
+        times = {}
+        for dt, m in mods.items():
+            m.to("cuda")
+            times[str(dt).split(".")[1]] = cuda_ms(lambda: m(x, mask),
+                                                   iters=3, warmup=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mod(x, mask)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+    print(f"MaskedBiLSTM (legacy shape: {LSTM_WINDOWS} windows x 6 frames, "
+          f"L {LSTM_L}, C {LSTM_C}, U {LSTM_U}, last state) on {card}: "
+          f"card vs CPU f32 rel err {err:.2e} (tol 1e-5, 8 windows); "
+          f"f32 {times['float32']:.2f} ms, bf16 {times['bfloat16']:.2f} ms "
+          f"a forward ({times['float32'] / LSTM_L * 1e3:.1f} us a step in "
+          f"f32), host {host_ms:.2f} ms to launch one")
+    return dict(card_vs_cpu_err=err, ms=times, host_ms=host_ms)
+
+
 def main(argv: list[str]) -> int:
     try:
         import torch
@@ -3038,6 +3418,16 @@ def main(argv: list[str]) -> int:
                     Path(tmp), flagship_bundle(Path(tmp)), card)
             print(json.dumps({"host_pipeline": host}))
             print(f"host run done in {time.perf_counter() - t_start:.0f} s")
+            return 0
+        if "--hyena" in argv:
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+                hyena = phase_hyena(Path(tmp), card)
+            hyena.update(routes=phase_hyena_routes(card),
+                         bilstm=phase_bilstm(card),
+                         bilstm_zoo_f32=phase_zoo_f32(bilstm_zoo_config(),
+                                                      "bilstm zoo"))
+            print(json.dumps({"hyena": hyena}))
+            print(f"hyena run done in {time.perf_counter() - t_start:.0f} s")
             return 0
         if "--templates" in argv:
             kern_zoo = phase_templates_kernel(card)
@@ -3073,6 +3463,11 @@ def main(argv: list[str]) -> int:
             kern_zoo = phase_templates_kernel(card)
             zoo = phase_templates(Path(tmp), card)
             zoo_f32 = phase_zoo_f32()
+            hyena = phase_hyena(Path(tmp), card)
+        hyena.update(routes=phase_hyena_routes(card),
+                     bilstm=phase_bilstm(card),
+                     bilstm_zoo_f32=phase_zoo_f32(bilstm_zoo_config(),
+                                                  "bilstm zoo"))
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
@@ -3092,7 +3487,8 @@ def main(argv: list[str]) -> int:
                    for k in ("conv1_ms", "conv1_bound_ms")},
                "conv_wgrad_plan": kern_train["conv_wgrad"]["plan"],
                "host_pipeline": host, "templates": zoo,
-               "templates_kernels": kern_zoo, "zoo_f32": zoo_f32}
+               "templates_kernels": kern_zoo, "zoo_f32": zoo_f32,
+               "hyena": hyena}
     print(json.dumps(summary))
     print(f"all phases passed in {time.perf_counter() - t_start:.0f} s")
     print(card)
@@ -3107,6 +3503,7 @@ def main(argv: list[str]) -> int:
 
     tl = train["launches"]
     zl = zoo["launches"]
+    hl = hyena["launches"]
 
     def at_templates(key, n):
         """The kernel at the templates' residual-conv shape: launches on
@@ -3128,24 +3525,28 @@ def main(argv: list[str]) -> int:
               predict_at_scale_launches=host["launches"],
               templates=at_templates("fused_conv_block",
                                      zl["fused_conv_block"]),
-              templates_dgrad=at_templates("dgrad", zl["fused_conv_block"])),
+              templates_dgrad=at_templates("dgrad", zl["fused_conv_block"]),
+              hyena_launches=hl["fused_conv_block"]),
         entry("int8_conv", "cuda", "jaeger_tpu_torch/csrc/int8_conv.cu",
               "experiments/pallas_int8_conv.py:67", launches8, kern8,
-              templates_launches=zl["int8_conv"]),
+              templates_launches=zl["int8_conv"],
+              hyena_launches=hl["int8_conv"]),
         # train's main path: the backward of the fused conv block
         entry("conv_wgrad", "cuda",
               "jaeger_tpu_torch/csrc/fused_conv_wgrad.cu",
               "jaeger_tpu/ops/pallas_conv.py:70", tl["conv_wgrad"],
               kern_train["conv_wgrad"],
               host_us=kern_train["conv_wgrad"]["host_us"],
-              templates=at_templates("conv_wgrad", zl["conv_wgrad"])),
+              templates=at_templates("conv_wgrad", zl["conv_wgrad"]),
+              hyena_launches=hl["conv_wgrad"]),
         entry("conv_epilogue_bwd", "cuda",
               "jaeger_tpu_torch/csrc/conv_epilogue_bwd.cu",
               "jaeger_tpu/ops/pallas_conv.py:70", tl["conv_epilogue_bwd"],
               kern_train["conv_epilogue_bwd"],
               host_us=kern_train["conv_epilogue_bwd"]["host_us"],
               templates=at_templates("conv_epilogue_bwd",
-                                     zl["conv_epilogue_bwd"])),
+                                     zl["conv_epilogue_bwd"]),
+              hyena_launches=hl["conv_epilogue_bwd"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

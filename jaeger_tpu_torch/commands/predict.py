@@ -205,9 +205,10 @@ def _prophage_stage(output_dir: Path, stem: str, input_path: Path,
         cutoff_length=lc)
 
 
-def _not_ported(option: str) -> NotImplementedError:
+def _not_ported(option: str, item: int) -> NotImplementedError:
     return NotImplementedError(f"{option} is not yet ported to "
-                               f"jaeger_tpu_torch")
+                               f"jaeger_tpu_torch (ROADMAP.md queue 1, "
+                               f"item {item})")
 
 
 def _profiled(run, trace_dir: Path, dev: torch.device):
@@ -276,9 +277,9 @@ def run_core(
     for flag, name in ((seq_shard > 1, "--seq-shard"),
                        (num_hosts > 1, "multi-host predict (--num-hosts)")):
         if flag:
-            raise _not_ported(name)
+            raise _not_ported(name, 14)
     if (Path(model_path) / "ensemble.yaml").exists():
-        raise _not_ported("ensemble bundles")
+        raise _not_ported("ensemble bundles", 13)
     if int8 not in (None, "full", "auto"):
         raise ValueError(f"int8 must be None, 'full' or 'auto', got {int8!r}")
     if quantized not in (None, "dynamic", "full_int8", "float16"):

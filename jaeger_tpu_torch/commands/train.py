@@ -10,9 +10,9 @@ with a calibrated ``<out>/int8`` bundle beside it (the port's
 
 The port also writes ``<out>/history.csv`` (one row per branch epoch).
 Not ported yet, each refused with ``NotImplementedError`` naming its
-``ROADMAP.md`` item (queue 1, item 11): the self-supervised projection
-pretraining, ``--generate-reliability-data``, multi-device training and a
-``model.parallel.seq_axis`` config.
+``ROADMAP.md`` item: the self-supervised projection pretraining,
+``--generate-reliability-data`` and multi-device training (queue 1, item
+11) and a ``model.parallel.seq_axis`` config (item 14).
 """
 
 from __future__ import annotations
@@ -275,8 +275,9 @@ def train_fragment_core(
     if self_supervised_pretraining:
         raise _not_ported("self-supervised projection pretraining")
     if (model_cfg.get("parallel") or {}).get("seq_axis"):
-        raise _not_ported("sequence-parallel training (model.parallel."
-                          "seq_axis)")
+        raise NotImplementedError(
+            "sequence-parallel training (model.parallel.seq_axis) is not "
+            "yet ported to jaeger_tpu_torch (ROADMAP.md queue 1, item 14)")
     if masking is not None:
         model_cfg["use_masking"] = bool(masking)
     policy = str(precision if precision is not None

@@ -203,8 +203,16 @@ def init_params(config: dict,
     (truncated at two standard deviations) dense and attention kernels,
     orthogonal embeddings, ``translated_embedding`` and pooler gates,
     zero biases, DYT ``alpha_init``/1/0, norms 1/0, BN moving statistics
-    0/1. The numbers are the generator's, not JAX's."""
-    from jaeger_tpu_torch.models.layers import DenseGeneral, MaskedConv1D
+    0/1; the BiLSTM's input kernels glorot-uniform, recurrent kernels
+    orthogonal, biases 0 with the forget slice ``[U:2U]`` at 1 (Keras
+    ``unit_forget_bias``); the Hyena filters' ``alphas`` ``10**U(-3, 0)``.
+    The numbers are the generator's, not JAX's."""
+    from jaeger_tpu_torch.models.layers import (DenseGeneral, MaskedBiLSTM,
+                                                MaskedConv1D)
+
+    def glorot_uniform(shape, fan_in, fan_out):
+        lim = math.sqrt(6.0 / (fan_in + fan_out))
+        return (torch.rand(shape, generator=generator) * 2 - 1) * lim
 
     model = build_model(config)
     state = {}
@@ -212,9 +220,20 @@ def init_params(config: dict,
         path, leaf = name.rsplit(".", 1)
         owner = model.get_submodule(path)
         if leaf == "kernel" and isinstance(owner, MaskedConv1D):
-            fan_in, fan_out = t.shape[0] * t.shape[1], t.shape[0] * t.shape[2]
-            lim = math.sqrt(6.0 / (fan_in + fan_out))
-            v = (torch.rand(t.shape, generator=generator) * 2 - 1) * lim
+            v = glorot_uniform(t.shape, t.shape[0] * t.shape[1],
+                               t.shape[0] * t.shape[2])
+        elif isinstance(owner, MaskedBiLSTM):
+            kind = leaf.split("_", 1)[1]
+            if kind == "kernel":
+                v = glorot_uniform(t.shape, t.shape[0], t.shape[1])
+            elif kind == "recurrent":
+                v = torch.nn.init.orthogonal_(torch.empty(t.shape),
+                                              generator=generator)
+            else:
+                v = torch.zeros(t.shape)
+                v[owner.units: 2 * owner.units] = 1.0
+        elif leaf == "alphas":
+            v = 10.0 ** (torch.rand(t.shape, generator=generator) * 3 - 3)
         elif leaf == "kernel" and (name.startswith("translated_embedding")
                                    or path.endswith("pool.gate")):
             v = torch.nn.init.orthogonal_(torch.empty(t.shape),

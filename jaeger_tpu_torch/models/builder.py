@@ -14,10 +14,13 @@ The pure-Python planners ``mask_cut_plan``, ``_conv_shrinks``,
 copies of the JAX module's. ``forward(..., train=True, heads=...)`` is the
 training forward (batch statistics, dropout, the fused convs' backward);
 ``heads`` selects the output heads as the JAX model's does, so a
-classifier step never runs the NMD taps or updates their moving means. The port always re-zeroes after DYT norms, so it needs none of
-the JAX builder's defer-remask analysis. ``masked_bilstm`` and
-``hyena_block`` layers are not ported yet and raise
-``NotImplementedError`` naming ``ROADMAP.md`` queue 1, item 10.
+classifier step never runs the NMD taps or updates their moving means.
+The port always re-zeroes after DYT norms, so it needs none of the JAX
+builder's defer-remask analysis. ``model.remat`` recomputes each residual
+stack and Hyena block of the representation learner in the backward
+(``torch.utils.checkpoint``; :func:`_remat`), as JAX's ``nn.remat``.
+``model.parallel.seq_axis`` (a length-sharded Hyena stack) raises
+``NotImplementedError`` naming ``ROADMAP.md`` queue 1, item 14.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from typing import Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from jaeger_tpu_torch.models import layers as L
 from jaeger_tpu_torch.ops import encode
@@ -45,10 +49,6 @@ _ATTENTION_LAYERS = {
     "axial_attention": L.AxialAttention,
     "local_attention": L.LocalAttention,
 }
-#: layers of the zoo still to port, with the JAX module that has them
-_NOT_PORTED_LAYERS = {"masked_bilstm": "MaskedBiLSTM",
-                      "hyena_block": "HyenaBlock"}
-_ZOO_ROADMAP = "(ROADMAP.md queue 1, item 10)"
 
 
 def _sub(cfg: dict, keys: Sequence[str]) -> dict:
@@ -225,6 +225,39 @@ def apply_masking_gate(config: dict) -> dict:
     return model_cfg
 
 
+def _remat(module: nn.Module, *args, **kw):
+    """``module(*args, **kw)`` under ``torch.utils.checkpoint``: only the
+    inputs stay alive for the backward, which runs the module again. The
+    rerun draws the same dropout masks (the ``generator`` keyword is set
+    back to its state before the first run, then restored) and leaves the
+    module's buffers (batch-norm and NMD moving statistics) as the first
+    run left them, as JAX's ``nn.remat`` does."""
+    generator = kw.get("generator")
+    gen_state = None if generator is None else generator.get_state()
+    ran = []
+
+    def run(*a):
+        if not ran:
+            ran.append(True)
+            return module(*a, **kw)
+        buffers = list(module.buffers())
+        saved = [b.clone() for b in buffers]
+        after = None if generator is None else generator.get_state()
+        if generator is not None:
+            generator.set_state(gen_state)
+        try:
+            return module(*a, **kw)
+        finally:
+            with torch.no_grad():
+                for b, v in zip(buffers, saved):
+                    b.copy_(v)
+            if generator is not None:
+                generator.set_state(after)
+
+    return checkpoint(run, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
 class LayerStack(nn.Module):
     """A configured stack of zoo layers with NMD collection and pooling.
 
@@ -233,26 +266,26 @@ class LayerStack(nn.Module):
     ``<name>_<index>_branch_<b>``, a gated pooler as
     ``global_<pooling>pool``). ``out_channels`` is the feature width after
     the stack, ``nmd_width`` the width of the merged NMD vector (0 without
-    NMD taps).
+    NMD taps). ``remat``: residual stacks and Hyena blocks recompute in the
+    backward of a training forward (:func:`_remat`). ``seq_axis`` (JAX's
+    length-sharded Hyena) is refused.
     """
 
     def __init__(self, layer_configs: tuple, in_channels: int,
                  pooling: str | None = None, nmd_merge: dict | None = None,
-                 dtype=torch.float32):
+                 dtype=torch.float32, remat: bool = False,
+                 seq_axis: str | None = None):
         super().__init__()
         self.layer_configs = layer_configs
         self.pooling = pooling
         self.dtype = dtype
+        self.remat = bool(remat)
         if pooling is not None and pooling.lower() not in L.POOLERS:
             raise ValueError(f"unknown pooling {pooling!r}")
         c = int(in_channels)
         nmd_widths: list[int] = []
         for i, (name, cfg) in enumerate(layer_configs):
             lname = f"{name}_{i}"
-            if name in _NOT_PORTED_LAYERS:
-                raise NotImplementedError(
-                    f"layer {name!r} ({_NOT_PORTED_LAYERS[name]}) is not "
-                    f"yet ported to jaeger_tpu_torch {_ZOO_ROADMAP}")
             if name in ("masked_conv1d", "conv1d"):
                 kw = _sub(cfg, _CONV_KEYS)
                 if name == "conv1d":
@@ -304,6 +337,28 @@ class LayerStack(nn.Module):
                               num_blocks=cfg.get("num_blocks", 1))
                 mod = _ATTENTION_LAYERS[name](*args, **kw)
                 c = int(cfg["embed_dim"])
+            elif name == "masked_bilstm":
+                mod = L.MaskedBiLSTM(
+                    c, cfg.get("units", 64),
+                    return_sequences=cfg.get("return_sequences", True),
+                    ignore_mask=cfg.get("ignore_mask", False), dtype=dtype)
+                c = 2 * mod.units
+            elif name == "hyena_block":
+                if seq_axis:
+                    raise NotImplementedError(
+                        f"a length-sharded Hyena stack (model.parallel."
+                        f"seq_axis {seq_axis!r}) is not yet ported to "
+                        f"jaeger_tpu_torch (ROADMAP.md queue 1, item 14)")
+                mod = L.HyenaBlock(
+                    c, cfg["dim"], order=cfg.get("order", 2),
+                    filter_hidden=cfg.get("filter_hidden", 32),
+                    filter_layers=cfg.get("filter_layers", 2),
+                    filter_activation=cfg.get("filter_activation", "gelu"),
+                    dropout=cfg.get("dropout", 0.0),
+                    output_projection=cfg.get("output_projection", False),
+                    filter_normalize=cfg.get("filter_normalize", False),
+                    dtype=dtype)
+                c = int(cfg["dim"])
             elif name == "parallel_branches":
                 merge = cfg.get("merge", "concat").lower()
                 if merge not in _MERGES:
@@ -360,6 +415,7 @@ class LayerStack(nn.Module):
         nmds: list = []
         post_cut = False
         inner_at = cut_at = None
+        remat = self.remat and train and torch.is_grad_enabled()
         if mask_until is not None:
             if isinstance(mask_until, (tuple, list)):
                 inner_at = int(mask_until[0])
@@ -392,13 +448,21 @@ class LayerStack(nn.Module):
             elif name in ("masked_dyt", "masked_layernorm", "layernorm"):
                 x, mask = mod(x, mask)
             elif name == "residual_block":
-                out = mod(x, mask, drop_mask_after_first_conv1=(i == inner_at),
+                kw = dict(drop_mask_after_first_conv1=(i == inner_at),
                           train=train, bn_stats_all_true=post_cut)
+                out = (_remat(mod, x, mask, **kw) if remat
+                       else mod(x, mask, **kw))
                 x, mask = out[0], out[1]
                 if mod.return_nmd and taps:
                     nmds.append(out[2])
             elif name in _ATTENTION_LAYERS:
                 x, mask = mod(x, mask, train=train, generator=generator)
+            elif name == "masked_bilstm":
+                x, mask = mod(x, mask, train=train)
+            elif name == "hyena_block":
+                kw = dict(train=train, generator=generator)
+                x, mask = (_remat(mod, x, mask, **kw) if remat
+                           else mod(x, mask, **kw))
             elif name == "parallel_branches":
                 x = _merge([getattr(self, f"{name}_{i}_branch_{b}")(
                                 x, mask, train=train, generator=generator)[0]
@@ -523,11 +587,13 @@ class JaegerModel(nn.Module):
             width = self.depth
 
         merge_cfg = (rel_cfg or {}).get("merge")
+        rep_kw = dict(dtype=dtype, remat=bool(cfg.get("remat", False)),
+                      seq_axis=(cfg.get("parallel") or {}).get("seq_axis"))
         if self.branched:
             bcfg = rep_cfg["branch"]
             self.rep_branch = LayerStack(
                 _freeze_layers(bcfg.get("hidden_layers", [])), width,
-                pooling=bcfg.get("pooling"), dtype=dtype)
+                pooling=bcfg.get("pooling"), **rep_kw)
             branch_width = self.rep_branch.out_channels
             # one branch per reading frame, or per strand
             rep_width = (6 if translated else 2) * branch_width
@@ -535,7 +601,7 @@ class JaegerModel(nn.Module):
         else:
             self.rep = LayerStack(
                 _freeze_layers(hidden), width, pooling=rep_cfg.get("pooling"),
-                nmd_merge=merge_cfg, dtype=dtype)
+                nmd_merge=merge_cfg, **rep_kw)
             branch_width = rep_width = self.rep.out_channels
             nmd_width = self.rep.nmd_width
 

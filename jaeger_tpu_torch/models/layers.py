@@ -14,9 +14,10 @@ global max / average / last poolers, ``GatedFrameGlobalMaxPooling``),
 ``ResidualBlock`` and ``ResidualBlockStack``, ``NMDLayer``, ``NMDMerge``,
 ``OODSignalLayer``, the attention family (``MHA``, ``TransformerEncoder``,
 ``CrossFrameAttention``, ``AxialAttention``, ``LocalAttention``),
-``Dense``, ``OneHotEmbed``, ``SinusoidalPositionEmbedding``, ``sin_pe``
-and ``dropout``. ``MaskedBiLSTM`` and the Hyena layers are not ported yet
-(``ROADMAP.md`` queue 1, item 10).
+``MaskedBiLSTM``, the Hyena stack (``causal_fft_convolve`` with JAX's four
+routes, ``HyenaFilter``, ``HyenaOperator``, ``HyenaBlock``), ``Dense``,
+``OneHotEmbed``, ``SinusoidalPositionEmbedding``, ``sin_pe`` and
+``dropout``.
 
 Attention ports the function of JAX's ``_MHA``, not its TPU lowering:
 plain matmuls, with the same cast points (for sequence axes of 16 or less
@@ -1162,6 +1163,364 @@ class LocalAttention(nn.Module):
             ffn = _gelu(getattr(self, f"ffn1_{i}")(hn))
             h = h + getattr(self, f"ffn2_{i}")(ffn)
         return h.reshape(b, f, length, c), mask
+
+
+# ---------------------------------------------------------------------------
+# Recurrent
+# ---------------------------------------------------------------------------
+
+
+class MaskedBiLSTM(nn.Module):
+    """Bidirectional LSTM over the length of ``(B, F, L, C)`` inputs.
+
+    Per direction: the input projection is one matmul in the compute dtype
+    (plus the bias), the recurrence a loop of ``h @ U`` steps with gates i,
+    f, g, o; the sigmoids and tanh run in the compute dtype. A masked step
+    carries ``h`` and ``c`` through unchanged (Keras-style), which is why
+    ``torch.nn.LSTM`` cannot run it. The backward direction runs on the
+    flipped sequence and mask; both directions step together as one
+    ``bmm`` on stacked ``(2, U, 4U)`` weights. ``return_sequences=False``
+    gives the forward direction's last step and the backward direction's
+    first original step, ``(B, F, 2U)``.
+    """
+
+    def __init__(self, channels: int, units: int,
+                 return_sequences: bool = True, ignore_mask: bool = False,
+                 dtype=torch.float32):
+        super().__init__()
+        self.units = int(units)
+        self.return_sequences = bool(return_sequences)
+        self.ignore_mask = bool(ignore_mask)
+        self.dtype = dtype
+        for d in ("fwd", "bwd"):
+            setattr(self, f"{d}_kernel", _param(channels, 4 * self.units))
+            setattr(self, f"{d}_recurrent", _param(self.units, 4 * self.units))
+            setattr(self, f"{d}_bias", _param(4 * self.units))
+
+    def forward(self, x, mask=None, train: bool = False):
+        b, f, length, c = x.shape
+        u, dt = self.units, self.dtype
+        n = b * f
+        h = x.reshape(n, length, c)
+        m = None
+        if mask is not None and not self.ignore_mask:
+            m = mask.reshape(n, length)
+        seq = torch.stack([h, h.flip(1)]).to(dt)                # (2, N, L, C)
+        kernel = torch.stack([self.fwd_kernel, self.bwd_kernel]).to(dt)
+        bias = torch.stack([self.fwd_bias, self.bwd_bias]).to(dt)
+        xz = torch.matmul(seq, kernel[:, None]) + bias[:, None, None]
+        rec = torch.stack([self.fwd_recurrent, self.bwd_recurrent]).to(dt)
+        keep = None if m is None else torch.stack([m, m.flip(1)])[..., None]
+        h_t = torch.zeros((2, n, u), dtype=dt, device=x.device)
+        c_t = h_t
+        outs = []
+        for t in range(length):
+            z = xz[:, :, t] + torch.bmm(h_t, rec)
+            i = torch.sigmoid(z[..., :u])
+            fg = torch.sigmoid(z[..., u:2 * u])
+            g = torch.tanh(z[..., 2 * u:3 * u])
+            o = torch.sigmoid(z[..., 3 * u:])
+            c_new = fg * c_t + i * g
+            h_new = o * torch.tanh(c_new)
+            if keep is not None:
+                h_new = torch.where(keep[:, :, t], h_new, h_t)
+                c_new = torch.where(keep[:, :, t], c_new, c_t)
+            h_t, c_t = h_new, c_new
+            outs.append(h_t)
+        out = torch.stack(outs, 2)                              # (2, N, L, U)
+        fwd, bwd = out[0], out[1].flip(1)
+        out_mask = None if self.ignore_mask else mask
+        if self.return_sequences:
+            return (torch.cat([fwd, bwd], dim=-1)
+                    .reshape(b, f, length, 2 * u), out_mask)
+        last = torch.cat([fwd[:, -1], bwd[:, 0]], dim=-1)
+        return last.reshape(b, f, 2 * u), out_mask
+
+
+# ---------------------------------------------------------------------------
+# Hyena long-convolution stack
+# ---------------------------------------------------------------------------
+
+# The causal depthwise convolution has four routes, as in JAX (the same
+# constants under the same names): bf16 inputs take the direct Toeplitz
+# product up to _DIRECT_CONV_MAX_L (and _DIRECT_CONV_MAX_BYTES of operator),
+# the blocked Toeplitz form up to _BLOCK_CONV_MAX_L, the chunked scan up to
+# _SCAN_CONV_MAX_L; every other input, and every f32 input, the FFT. The
+# Toeplitz routes compute in f32 and cast back.
+_DIRECT_CONV_MAX_L = 1024
+_DIRECT_CONV_MAX_BYTES = 512 * 1024 * 1024
+_BLOCK_CONV_MAX_L = 4096
+_BLOCK_CONV_CHUNK = 512
+_SCAN_CONV_MAX_L = 65536
+
+
+def _band_sums(gram: torch.Tensor) -> torch.Tensor:
+    """``(D, C, C)`` -> ``(D, 2C - 1)``: entry ``t - s + C - 1`` sums the
+    diagonal ``t - s`` (the rows, flipped and padded by C, read back C - 1
+    short per row, put each diagonal in one column)."""
+    d, c, _ = gram.shape
+    sheared = F.pad(gram.flip(-1), (0, c)).reshape(d, 2 * c * c)
+    return sheared[:, :c * (2 * c - 1)].reshape(d, c, 2 * c - 1).sum(1)
+
+
+class _BandToeplitzFn(torch.autograd.Function):
+    """``(D, 2C - 1)`` taps -> the ``(D, C, C)`` operator ``T[d, t, s] =
+    taps[d, t - s + C - 1]`` by a gather; its gradient sums each diagonal
+    (``_band_sums``), where autograd of the gather would scatter-add
+    ``D C^2`` values into ``D (2C - 1)`` slots (on the card 22 ms for each
+    of the Hyena template's operators, 89 % of a train step)."""
+
+    @staticmethod
+    def forward(ctx, taps):
+        c = (taps.shape[-1] + 1) // 2
+        pos = torch.arange(c, device=taps.device)
+        return taps[:, pos[:, None] - pos[None, :] + (c - 1)]
+
+    @staticmethod
+    def backward(ctx, g):
+        return _band_sums(g)
+
+
+def _causal_toeplitz_convolve(u32: torch.Tensor,
+                              h32: torch.Tensor) -> torch.Tensor:
+    """``y[b, d, t] = sum_{s <= t} u[b, d, s] h[d, t - s]`` as one batched
+    f32 product with the ``(D, L, L)`` lower-triangular Toeplitz operator
+    (the filter behind ``L - 1`` zero taps, gathered)."""
+    length = u32.shape[-1]
+    toep = _BandToeplitzFn.apply(F.pad(h32, (length - 1, 0)))
+    return torch.einsum("dts,bds->bdt", toep, u32)
+
+
+def _scan_conv_forward(u32: torch.Tensor, h32: torch.Tensor,
+                       chunk: int) -> torch.Tensor:
+    """The causal convolution as N banded products of ``chunk``-wide
+    blocks, one block-delta at a time: block (i, j) of the ``(L, L)``
+    operator depends only on ``delta = i - j``, so ``y[:, :, i] += T_delta
+    @ u[:, :, i - delta]`` with ``T_delta[d, t, s] = h[d, delta * chunk + t
+    - s]`` (zero outside [0, L): the taps of the filter padded by ``chunk -
+    1`` zeros on the left, the causal guard, and to the padded length on
+    the right). One ``(D, chunk, chunk)`` operator block is live at a
+    time."""
+    b, d, length = u32.shape
+    n = -(-length // chunk)
+    lp = n * chunk
+    ub = F.pad(u32, (0, lp - length)).reshape(b, d, n, chunk)
+    h_pad = F.pad(h32, (chunk - 1, lp - length))
+    acc = torch.zeros((b, d, n, chunk), device=u32.device)
+    for delta in range(n):
+        toep = _BandToeplitzFn.apply(
+            h_pad[:, delta * chunk: delta * chunk + 2 * chunk - 1])
+        acc[:, :, delta:] += torch.einsum("dts,bdjs->bdjt", toep,
+                                          ub[:, :, :n - delta])
+    return acc.reshape(b, d, lp)[..., :length]
+
+
+def _causal_block_toeplitz_convolve(u32: torch.Tensor, h32: torch.Tensor,
+                                    chunk: int = _BLOCK_CONV_CHUNK
+                                    ) -> torch.Tensor:
+    """The blocked Toeplitz route: ``_scan_conv_forward`` with autograd
+    through its loop (JAX unrolls the same loop; the scan route runs it
+    under its own backward)."""
+    return _scan_conv_forward(u32, h32, chunk)
+
+
+def _scan_conv_hgrad(u32: torch.Tensor, g32: torch.Tensor,
+                     chunk: int) -> torch.Tensor:
+    """Filter gradient of the chunked scan: ``dh[d, tau] = sum_{b, t >=
+    tau} g[b, d, t] u[b, d, t - tau]``, the batch-reduced causal
+    correlation, one cross-block Gram matrix per block-delta whose diagonal
+    sums land in the lag band ``delta * chunk + (t - s)``."""
+    b, d, length = u32.shape
+    n = -(-length // chunk)
+    lp = n * chunk
+    up = F.pad(u32, (0, lp - length)).reshape(b, d, n, chunk)
+    gp = F.pad(g32, (0, lp - length)).reshape(b, d, n, chunk)
+    buf = torch.zeros((d, lp + 2 * chunk - 1), device=u32.device)
+    for delta in range(n):
+        gram = torch.einsum("bdjt,bdjs->dts", gp[:, :, delta:],
+                            up[:, :, :n - delta])
+        buf[:, delta * chunk: delta * chunk + 2 * chunk - 1] += \
+            _band_sums(gram)
+    return buf[:, chunk - 1: chunk - 1 + length]
+
+
+class _ScanConvFn(torch.autograd.Function):
+    """The chunked scan with its own backward, saving only ``(u, h)``:
+    autograd through the loop would keep O(b d L^2 / chunk) residuals. The
+    op is bilinear: ``du`` is the flipped forward of the flipped gradient,
+    ``dh`` the batch-reduced causal correlation (``_scan_conv_hgrad``)."""
+
+    @staticmethod
+    def forward(ctx, u32, h32, chunk):
+        ctx.chunk = chunk
+        ctx.save_for_backward(u32, h32)
+        return _scan_conv_forward(u32, h32, chunk)
+
+    @staticmethod
+    def backward(ctx, g):
+        u32, h32 = ctx.saved_tensors
+        g32 = g.float()
+        du = _scan_conv_forward(g32.flip(-1), h32, ctx.chunk).flip(-1)
+        return du, _scan_conv_hgrad(u32, g32, ctx.chunk), None
+
+
+def _causal_chunked_scan_convolve(u32: torch.Tensor, h32: torch.Tensor,
+                                  chunk: int = _BLOCK_CONV_CHUNK
+                                  ) -> torch.Tensor:
+    return _ScanConvFn.apply(u32, h32, int(chunk))
+
+
+def causal_fft_convolve(u: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal convolution of ``u`` ``(B, D, L)`` with ``h``
+    ``(D, L)`` in u's dtype, by the route JAX's dispatch picks (see the
+    constants above); the FFT route is an f32 rFFT of length ``2L - 1``."""
+    orig = u.dtype
+    u32, h32 = u.float(), h.float()
+    length = u.shape[-1]
+    d = h.shape[0]
+    if orig == torch.bfloat16:
+        if (length <= _DIRECT_CONV_MAX_L
+                and d * length * length * 4 <= _DIRECT_CONV_MAX_BYTES):
+            return _causal_toeplitz_convolve(u32, h32).to(orig)
+        nblk = -(-length // _BLOCK_CONV_CHUNK)
+        if (length <= _BLOCK_CONV_MAX_L
+                and d * nblk * _BLOCK_CONV_CHUNK ** 2 * 4
+                <= _DIRECT_CONV_MAX_BYTES):
+            return _causal_block_toeplitz_convolve(
+                u32, h32, chunk=_BLOCK_CONV_CHUNK).to(orig)
+        if (length <= _SCAN_CONV_MAX_L
+                and d * _BLOCK_CONV_CHUNK ** 2 * 4 <= _DIRECT_CONV_MAX_BYTES):
+            return _causal_chunked_scan_convolve(
+                u32, h32, chunk=_BLOCK_CONV_CHUNK).to(orig)
+    n = 2 * length - 1
+    spec = torch.fft.rfft(u32, n=n, dim=-1) * torch.fft.rfft(h32, n=n,
+                                                              dim=-1)[None]
+    return torch.fft.irfft(spec, n=n, dim=-1)[..., :length].to(orig)
+
+
+class HyenaFilter(nn.Module):
+    """Implicit filters ``h_t = window(t) * FFN(PE(t))``: ``(order, dim,
+    L)`` f32 whatever the model's dtype (JAX's ``nn.Dense`` here has no
+    dtype). Per order an FFN ``ffn_{i}_dense_{j}`` of ``sin_pe``, the
+    decay window ``exp(-|alpha| t) + bias``, optionally unit L2 norm per
+    channel."""
+
+    def __init__(self, dim: int, order: int = 2, pe_dim: int = 16,
+                 hidden_dim: int = 32, num_layers: int = 2,
+                 activation: str = "gelu", normalize: bool = False):
+        super().__init__()
+        self.order = int(order)
+        self.pe_dim = int(pe_dim)
+        self.num_layers = int(num_layers)
+        self.activation = activation
+        self.normalize = bool(normalize)
+        self.alphas = _param(self.order, dim)
+        self.biases = _param(self.order, dim)
+        for i in range(self.order):
+            width = self.pe_dim
+            for j in range(self.num_layers):
+                units = dim if j == self.num_layers - 1 else hidden_dim
+                self.add_module(f"ffn_{i}_dense_{j}", Dense(width, units))
+                width = units
+
+    def forward(self, length: int) -> torch.Tensor:
+        dev = self.alphas.device
+        pe = sin_pe(length, self.pe_dim, device=dev)
+        alphas = self.alphas.abs()
+        t = torch.arange(length, dtype=torch.float32, device=dev)
+        act = get_activation(self.activation)
+        filters = []
+        for i in range(self.order):
+            h = pe
+            for j in range(self.num_layers):
+                h = getattr(self, f"ffn_{i}_dense_{j}")(h)
+                if j < self.num_layers - 1:
+                    h = act(h)
+            window = torch.exp(-alphas[i][None, :] * t[:, None]) \
+                + self.biases[i][None, :]
+            filt = window * h                                   # (L, dim)
+            if self.normalize:
+                norm = torch.linalg.vector_norm(filt, dim=0, keepdim=True)
+                filt = torch.where(norm > 0,
+                                   filt / torch.clamp(norm, min=1e-12),
+                                   torch.zeros((), device=dev))
+            filters.append(filt)
+        return torch.stack(filters, 0).transpose(1, 2)
+
+
+class HyenaOperator(nn.Module):
+    """Order-N gated long-convolution recurrence on ``(B, L, C)``:
+    ``order + 1`` bias-free projections ``proj_i`` in the compute dtype,
+    then ``z <- causal_conv(z, h_i) * gate_i``.
+
+    The projections are computed as ``W^T x^T`` into ``(dim, L, B)``
+    memory (one transposing copy of ``x``) and viewed as ``(B, dim, L)``:
+    the Toeplitz product's batched operand, its result and the gates then
+    share one layout, so the recurrence copies nothing between its
+    products and gates (in the ``(B, L, dim)`` layout the casts and gate
+    products read across strides: 40 % of the template's forward at batch
+    2048 on an H100).
+    """
+
+    def __init__(self, channels: int, dim: int, order: int = 2,
+                 filter_hidden: int = 32, filter_layers: int = 2,
+                 filter_activation: str = "gelu",
+                 filter_normalize: bool = False, dtype=torch.float32):
+        super().__init__()
+        self.order = int(order)
+        for i in range(self.order + 1):
+            self.add_module(f"proj_{i}", Dense(channels, dim, use_bias=False,
+                                               dtype=dtype))
+        self.filter = HyenaFilter(dim, order=self.order,
+                                  hidden_dim=filter_hidden,
+                                  num_layers=filter_layers,
+                                  activation=filter_activation,
+                                  normalize=filter_normalize)
+
+    def forward(self, x):
+        b, length, c = x.shape
+        dt = self.proj_0.dtype
+        xt = x.to(dt).permute(2, 1, 0).reshape(c, length * b)
+        proj = [(getattr(self, f"proj_{i}").kernel.to(dt).t() @ xt)
+                .reshape(-1, length, b).permute(2, 0, 1)     # (B, dim, L)
+                for i in range(self.order + 1)]
+        filters = self.filter(length)
+        z = proj[0]
+        for i in range(self.order):
+            z = causal_fft_convolve(z, filters[i]) * proj[i + 1]
+        return z.transpose(1, 2)
+
+
+class HyenaBlock(nn.Module):
+    """Mask, ``LayerNorm``, mask, the Hyena operator over each frame's
+    length, ``out_proj`` (``output_projection``), dropout from the
+    caller's generator, the residual, mask again."""
+
+    def __init__(self, channels: int, dim: int, order: int = 2,
+                 filter_hidden: int = 32, filter_layers: int = 2,
+                 filter_activation: str = "gelu", dropout: float = 0.0,
+                 output_projection: bool = False,
+                 filter_normalize: bool = False, dtype=torch.float32):
+        super().__init__()
+        self.dropout = float(dropout)
+        self.norm = LayerNorm(channels)
+        self.hyena = HyenaOperator(
+            channels, dim, order=order, filter_hidden=filter_hidden,
+            filter_layers=filter_layers, filter_activation=filter_activation,
+            filter_normalize=filter_normalize, dtype=dtype)
+        self.out_proj = (Dense(dim, dim, dtype=dtype) if output_projection
+                         else None)
+
+    def forward(self, x, mask=None, train: bool = False, generator=None):
+        b, f, length, _ = x.shape
+        x = apply_mask(x, mask)
+        h = apply_mask(self.norm(x)[0], mask)
+        h = self.hyena(h.reshape(b * f, length, -1))
+        if self.out_proj is not None:
+            h = self.out_proj(h)
+        h = _train_dropout(h, self.dropout, train, generator)
+        out = h.reshape(b, f, length, -1) + x
+        return apply_mask(out, mask), mask
 
 
 # ---------------------------------------------------------------------------

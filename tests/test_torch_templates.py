@@ -21,8 +21,12 @@ with numpy from a seed. Covered:
   byte-identical to JAX's for a translated and a nucleotide template;
 * ``train --device cpu`` end to end on each template, then ``predict``
   on what it wrote; JAX loads the bundle and computes the same outputs;
-* Hyena and BiLSTM configs and int8 execution of the new templates are
-  refused, naming ROADMAP.md queue 1, item 10.
+* a BiLSTM and a Hyena block inserted into the cross-frame template, and
+  the Hyena template at its own widths, build and compute JAX's forward
+  (``tests/test_torch_hyena.py`` and ``tests/test_torch_bilstm.py`` hold
+  the layers and the Hyena template in every program);
+* int8 execution of the dvf and cross-frame templates is refused, naming
+  ROADMAP.md queue 1, item 10.
 """
 
 import copy
@@ -467,22 +471,43 @@ def test_train_cli_then_predict(tmp_path, name):
         _close(got[k].numpy(), want[k], k)
 
 
+def _forward_matches_jax(cfg, seed, n=6):
+    """The masked program of ``cfg`` with seeded weights: every output
+    equal to JAX's."""
+    variables = _variables(cfg, seed)
+    tm = build_model(copy.deepcopy(cfg))
+    load_state(tm, params_from_jax(variables))
+    bases, lengths = _bases(np.random.default_rng(seed), tm.crop_nt,
+                            "masked", n)
+    want = ModelBuilder(copy.deepcopy(cfg)).build().apply(
+        variables, {"bases": jnp.asarray(bases),
+                    "lengths": jnp.asarray(lengths)})
+    with torch.inference_mode():
+        got = tm(torch.from_numpy(bases), torch.from_numpy(lengths))
+    assert set(got) == set(want)
+    for k in want:
+        _close(got[k].numpy(), want[k], k)
+
+
 @pytest.mark.parametrize("layer,config", [
     ("masked_bilstm", {"units": 8}),
     ("hyena_block", {"dim": 16}),
 ])
-def test_bilstm_and_hyena_refused(layer, config):
+def test_bilstm_and_hyena_in_crossframe_match_jax(layer, config):
+    """The configs the port refused before it had the two layers: a
+    BiLSTM (8 units a direction, so 16 channels on) or a Hyena block
+    inserted after the cross-frame template's attention."""
     cfg = narrow("crossframe")
     cfg["model"]["representation_learner"]["hidden_layers"].insert(
         3, {"name": layer, "config": config})
-    with pytest.raises(NotImplementedError, match="queue 1, item 10"):
-        build_model(cfg)
+    _forward_matches_jax(cfg, 31)
 
 
-def test_hyena_template_refused():
-    cfg = jax_load_config("train_config/hyena_fullcontig.yaml")
-    with pytest.raises(NotImplementedError, match="queue 1, item 10"):
-        build_model(cfg)
+def test_hyena_template_builds_and_matches_jax():
+    """``train_config/hyena_fullcontig.yaml`` as it stands (dim 32, crop
+    666 codons), which the port refused before."""
+    _forward_matches_jax(jax_load_config(
+        "train_config/hyena_fullcontig.yaml"), 32, n=4)
 
 
 @pytest.mark.parametrize("name", ["dvf", "crossframe"])
