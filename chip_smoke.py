@@ -18,6 +18,9 @@ Run from the root of a checkout on a machine with CUDA:
                                        # layer-zoo templates)
     python3 chip_smoke.py --hyena     # phases 1, 2 and 9 only (the Hyena
                                       # template and MaskedBiLSTM)
+    python3 chip_smoke.py --int8-zoo  # phases 1, 2 and 10 only (int8 for
+                                      # the layer-zoo templates, the
+                                      # ragged route, ensembles)
 
 Phases, each of which fails the run:
 
@@ -137,9 +140,33 @@ Phases, each of which fails the run:
    (128 windows, C 128, U 128, 681 steps, the last state), and phase 8's
    zoo model with a BiLSTM layer on the card against the CPU.
 
+10. int8 for the layer-zoo templates and ensembles: int8_conv's ragged
+   route (C_in or C_out not a multiple of 16) against its plain versions:
+   the requant form equal at C_in 4 / C_out 20 (k 10), C_in 24 / C_out 40
+   (k 3, dilation 3), an aligned C_in with a ragged C_out, a C_out that 4
+   does not divide (one epilogue channel a thread) and a C_in whose taps
+   take several stages; the dequant form at the dvf conv's shape (N 2048,
+   L 500, C_in 4, C_out 500, k 10, VALID) in bf16 with in_mask and in f32
+   with out_mask, C_in 24 / C_out 40 with DYT and a residual in bf16 and
+   f32, the tile's edges, C_out 30 and every activation (phase 3's
+   tolerances); kernel, plain, library (im2col + ``torch._int_mm``) and
+   bound times at the dvf shape in the form its model runs. Then the dvf,
+   cross-frame and axial bundles that phase 8 trained (``--int8-zoo``
+   trains them as phase 8 does), each with the ``int8/`` bundle ``train``
+   wrote: ``predict --int8`` and ``--int8 auto`` in bf16, ``--int8`` in
+   f32 on the card and on the CPU, the float model in bf16 (launch counts
+   reset just before, read just after: int8_conv by every int8 run, its
+   ragged route by the dvf's; the card's int8 f32 scores within 0.01 of
+   the CPU's), and each template's dense forward at batch 2048, int8 and
+   float; then an ensemble of the cross-frame and axial bundles written
+   by ``utils combine-models`` for mv, sum and mean: its window outputs on
+   the card against the members' own card outputs combined in numpy,
+   ``predict`` with it, and its forward at batch 2048.
+
 The second-to-last line is the kernels JSON (each kernel also with its
-numbers at the templates' shape and its launches on phase 8's and phase
-9's paths), the last ``{"ok": true, ...}``.
+numbers at the templates' shape and its launches on phase 8's, phase 9's
+and phase 10's paths; int8_conv with its ragged route's numbers at the
+dvf shape), the last ``{"ok": true, ...}``.
 The script imports nothing of JAX or of jaeger_tpu.
 """
 
@@ -3023,9 +3050,8 @@ def phase_templates(tmp: Path, card: str) -> dict:
         check(got == {"conv_wgrad": convs, "conv_epilogue_bwd": 0,
                       "fused_conv_block": 2 * convs},
               f"template {name}: launches per dense step {got}")
-    for r in results.values():
-        r.pop("bundle")
-    return dict(launches=launches, templates=results)
+    bundles = {name: r.pop("bundle") for name, r in results.items()}
+    return dict(launches=launches, templates=results, bundles=bundles)
 
 
 # --- phase 9: the Hyena template and MaskedBiLSTM -----------------------------
@@ -3387,6 +3413,421 @@ def phase_bilstm(card: str) -> dict:
     return dict(card_vs_cpu_err=err, ms=times, host_ms=host_ms)
 
 
+# --- phase 10: int8 for the layer-zoo templates, and ensembles ----------------
+
+#: the dvf template's conv (train_config/fragment_3class_500bp_dvf.yaml:
+#: one-hot nucleotides, 500 filters, k 10, VALID), one strand of a forward at
+#: batch 2048: the ragged route of int8_conv
+DVF_N, DVF_L, DVF_CIN, DVF_COUT, DVF_K = 2048, 500, 4, 500, 10
+
+
+def library_ragged_conv(x, w, inv_act, dq, bias, k: int):
+    """Yardstick only, the dvf conv's function in library calls: quantize,
+    im2col of the VALID taps with the contraction padded to a multiple of 8
+    and C_out to a multiple of 8 (``torch._int_mm``'s shapes: 40 -> 48, 500
+    -> 504 at the dvf shape), one cuBLASLt int8 GEMM, the dequant and bias
+    in torch; bf16 out."""
+    import torch
+    import torch.nn.functional as F
+
+    from jaeger_tpu_torch.ops import int8_conv
+
+    n, length, c_in = x.shape
+    c_out = w.shape[2]
+    l_out = length - (k - 1)
+    kk, kp = k * c_in, -(-k * c_in // 8) * 8
+    cop = -(-c_out // 8) * 8
+    q = int8_conv.quantize_activation(x, inv_act).to(torch.int8)
+    cols = torch.cat([q[:, j:j + l_out] for j in range(k)], dim=-1)
+    cols = F.pad(cols, (0, kp - kk)).view(n * l_out, kp)
+    wm = F.pad(w.reshape(kk, c_out), (0, cop - c_out, 0, kp - kk))
+    acc = torch._int_mm(cols, wm)[:, :c_out]
+    return (acc.float() * dq + bias).to(x.dtype).view(n, l_out, c_out)
+
+
+def phase_ragged_kernel(card: str) -> dict:
+    """int8_conv's ragged route (C_in or C_out not a multiple of 16) against
+    its plain versions: the requant form equal, the dequant form within
+    F32_TOL / BF16_TOL (phase 3's tolerances); then kernel, plain, library
+    and bound times at the dvf conv's shape in the form its model runs
+    (bias, no mask, no activation: the ReLU is a layer of its own)."""
+    import torch
+
+    from jaeger_tpu_torch.ops import int8_conv
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(1010)
+    f32, bf16, i8 = torch.float32, torch.bfloat16, torch.int8
+    plan = int8_conv.int8_plan(DVF_CIN, DVF_COUT, DVF_K, 1, "valid", bf16)
+    print(f"int8 plan dvf conv (4, 500, 10, 1, valid) bf16: "
+          f"{_plan_tag(plan)}")
+    check(plan["route"] == "ragged", f"dvf plan {plan}")
+
+    # requant: C_in 4 / C_out 20 (k 10, SAME), the edges of the 64-row tile,
+    # an aligned C_in with a ragged C_out, a stage of fewer taps than k
+    scale = torch.full((1,), 1.0 / 64.0, device=dev)
+    # (name, n, length, c_in, c_out, k, dilation)
+    for name, n, length, c_in, c_out, k, dil in (
+            ("C4_to_20_k10", 64, 300, 4, 20, 10, 1),
+            ("C4_to_20_L1", 4, 1, 4, 20, 10, 1),
+            ("C4_to_20_L65", 3, 65, 4, 20, 10, 1),
+            ("C24_to_40_d3", 16, 300, 24, 40, 3, 3),
+            ("C16_to_20", 16, 130, 16, 20, 5, 1),
+            ("C12_to_30_vec1", 16, 130, 12, 30, 3, 1),
+            ("C1000_to_60_stages", 4, 200, 1000, 60, 10, 1)):
+        x = torch.randint(-64, 64, (n, length, c_in), generator=gen,
+                          dtype=i8).to(dev)
+        w = torch.randint(-8, 8, (k, c_in, c_out), generator=gen,
+                          dtype=i8).to(dev)
+        plan = int8_conv.int8_plan(c_in, c_out, k, dil, "same", i8)
+        check(plan["route"] == "ragged", f"requant {name}: plan {plan}")
+        before = int8_conv.launches
+        out = int8_conv.int8_conv_requant(x, w, scale, dilation=dil)
+        torch.cuda.synchronize()
+        check(int8_conv.launches == before + 1, f"{name}: kernel not launched")
+        ref = int8_conv.reference_int8_conv_requant(x, w, scale, dilation=dil)
+        diff = (out.int() - ref.int()).abs().max().item()
+        print(f"int8 ragged requant {name} N={n} L={length} C={c_in}->{c_out} "
+              f"k={k} d={dil} [{_plan_tag(plan)}]: max |diff| {diff} "
+              f"{'ok' if diff == 0 else 'FAIL'}")
+        check(out.dtype == i8 and out.shape == ref.shape and diff == 0,
+              f"ragged {name}: requant differs from the plain version by "
+              f"{diff}")
+
+    # dequant: the dvf shape in bf16 with in_mask and in f32 with out_mask;
+    # C_in 24 / C_out 40, k 3, SAME, dilation 3 with DYT and a residual;
+    # the tile's edges, every activation
+    # (name, n, length, c_in, c_out, k, dilation, padding, dtype, act, ext)
+    cases = [
+        ("dvf_bf16_in_mask", DVF_N, DVF_L, DVF_CIN, DVF_COUT, DVF_K, 1,
+         "valid", bf16, "relu", "in_mask"),
+        ("dvf_f32_out_mask", DVF_N, DVF_L, DVF_CIN, DVF_COUT, DVF_K, 1,
+         "valid", f32, "relu", "out_mask"),
+        ("C24_to_40_d3_bf16", 64, 300, 24, 40, 3, 3, "same", bf16,
+         "gelu_tanh", "all"),
+        ("C24_to_40_d3_f32", 64, 300, 24, 40, 3, 3, "same", f32, "gelu",
+         "all"),
+        ("C4_to_500_L1_same", 4, 1, 4, 500, 10, 1, "same", bf16, "none",
+         "model"),
+        ("C4_to_500_L74_valid", 3, 74, 4, 500, 10, 1, "valid", bf16, "tanh",
+         "in_mask_runs"),
+        ("C4_to_20_L65", 3, 65, 4, 20, 10, 1, "same", f32, "gelu_tanh",
+         "out_mask_residual"),
+        ("C16_to_20_relu", 6, 130, 16, 20, 3, 1, "same", bf16, "relu",
+         "bias"),
+        # C_out % 4 != 0: one channel a thread in the epilogue
+        ("C12_to_30_vec1_bf16", 6, 130, 12, 30, 3, 1, "same", bf16,
+         "gelu_tanh", "model"),
+        ("C12_to_30_vec1_f32", 6, 130, 12, 30, 3, 3, "valid", f32, "gelu",
+         "all"),
+        ("C1000_to_60_stages", 4, 200, 1000, 60, 10, 1, "same", bf16,
+         "gelu_tanh", "model"),
+    ]
+    worst = 0.0
+    for name, n, length, c_in, c_out, k, dil, pad, dt, act, ext in cases:
+        x, w, inv_act, dq, bias, dyt = _int8_dequant_inputs(
+            gen, n, length, c_in, c_out, k, dt, dev)
+        l_out = int8_conv.conv_geometry(length, k, dil, pad)[0]
+        kw = dict(bias=bias, dilation=dil, padding=pad, act=act)
+        kw.update(_int8_ext_args(gen, ext, n, length, l_out, c_out, dt, dyt,
+                                 dev))
+        plan = int8_conv.int8_plan(c_in, c_out, k, dil, pad, dt)
+        check(plan["route"] == "ragged", f"dequant {name}: plan {plan}")
+        before = int8_conv.launches
+        out = int8_conv.int8_conv_dequant(x, w, inv_act, dq, **kw)
+        torch.cuda.synchronize()
+        check(int8_conv.launches == before + 1, f"{name}: kernel not launched")
+        ref = int8_conv.reference_int8_conv_dequant(x, w, inv_act, dq, **kw)
+        check(out.dtype == dt and out.shape == ref.shape,
+              f"{name}: output {out.dtype} {tuple(out.shape)}")
+        err = (out.float() - ref.float()).abs()
+        tol = F32_TOL if dt == f32 else BF16_TOL
+        bad = (err > tol + tol * ref.float().abs()).sum().item()
+        max_err = err.max().item()
+        print(f"int8 ragged dequant {name} [{_plan_tag(plan)}]: max_abs_err "
+              f"{max_err:.3e} (tol {tol}) "
+              f"{'ok' if bad == 0 and math.isfinite(max_err) else 'FAIL'}")
+        check(bad == 0 and math.isfinite(max_err),
+              f"ragged {name}: {bad} elements beyond tolerance")
+        if "out_mask" in kw and "residual" not in kw:
+            check(bool((out[~kw["out_mask"]] == 0).all()),
+                  f"{name}: out_mask positions not zero")
+        if name.startswith("dvf"):
+            worst = max(worst, max_err)
+        del x, w, out, ref, err
+
+    # times at the dvf shape in the form the dvf model runs
+    x, w, inv_act, dq, bias, _ = _int8_dequant_inputs(
+        gen, DVF_N, DVF_L, DVF_CIN, DVF_COUT, DVF_K, bf16, dev)
+    l_out = DVF_L - (DVF_K - 1)
+
+    def kernel():
+        return int8_conv.int8_conv_dequant(x, w, inv_act, dq, bias,
+                                           padding="valid")
+
+    lib_out = library_ragged_conv(x, w, inv_act, dq, bias, DVF_K)
+    lib_err = (lib_out.float() - kernel().float()).abs().max().item()
+    check(lib_err <= BF16_TOL * (1 + lib_out.float().abs().max().item()),
+          f"dvf library yardstick differs from the kernel by {lib_err}")
+    launches_before = int8_conv.launches
+    # each input read once (bf16 x, s8 w, f32 dq and bias), the bf16 output
+    # written once
+    ops = 2.0 * DVF_N * l_out * DVF_COUT * DVF_K * DVF_CIN
+    nbytes = (2 * DVF_N * DVF_L * DVF_CIN + DVF_K * DVF_CIN * DVF_COUT
+              + 8 * DVF_COUT + 2 * DVF_N * l_out * DVF_COUT)
+    t_ops = ops / PEAK_INT8_OPS * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    t = dict(ms=cuda_ms(kernel, iters=20),
+             plain_ms=cuda_ms(lambda: int8_conv.reference_int8_conv_dequant(
+                 x, w, inv_act, dq, bias, padding="valid"), iters=2,
+                 warmup=1),
+             library_ms=cuda_ms(lambda: library_ragged_conv(
+                 x, w, inv_act, dq, bias, DVF_K), iters=5),
+             library="torch._int_mm (im2col)", bound_ms=max(t_ops, t_bytes),
+             bound_by=bound_by,
+             max_abs_err=worst,
+             shape=f"N={DVF_N} L={DVF_L} C={DVF_CIN}->{DVF_COUT} k={DVF_K} "
+                   f"VALID bf16 bias")
+    int8_conv.launches = launches_before  # timing launches are not the path
+    t["bound_share"] = t["bound_ms"] / t["ms"]
+    print(f"timing int8 ragged dvf conv {t['shape']} on {card}: kernel "
+          f"{t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, library "
+          f"{t['library_ms']:.3f} ms ({t['library']}), bound "
+          f"{t['bound_ms']:.3f} ms ({bound_by}), {t['bound_share']:.1%} of "
+          f"the bound, "
+          f"{DVF_N * l_out * DVF_COUT * 2 / t['ms'] / 1e6:.1f} GB/s of "
+          f"output")
+    return t
+
+
+
+#: the templates whose int8 bundles phase 10 predicts with, and the two of
+#: them (3 classes, 500 nt each) phase 10 makes an ensemble of
+INT8_ZOO = ("dvf", "crossframe", "axial")
+ENSEMBLE_MEMBERS = ("crossframe", "axial")
+
+
+def train_zoo_bundles(tmp: Path, names) -> dict:
+    """``--int8-zoo`` alone: the templates trained as phase 8 trains them
+    (its data writer and config: batch 256, bf16, 5 classifier steps),
+    each bundle with the ``int8/`` bundle ``train`` calibrates."""
+    from jaeger_tpu_torch.commands.train import train_fragment_core
+    from jaeger_tpu_torch.utils.config import load_model_config
+
+    bundles = {}
+    for name in names:
+        root = tmp / f"template_{name}"
+        data = write_template_data(root, name, load_model_config(
+            ROOT / "train_config" / ZOO_TEMPLATES[name]))
+        cfg_path = template_train_config(root, name, data)
+        train_fragment_core(str(cfg_path), str(root / "run"))
+        bundles[name] = root / "run"
+    return bundles
+
+
+def phase_int8_zoo(tmp: Path, card: str, bundles: dict) -> dict:
+    """The dvf, cross-frame and axial bundles of phase 8 carry ``int8/``:
+    ``run_core`` with ``int8="full"`` and ``"auto"`` in bf16, ``"full"`` in
+    f32 on the card and on the CPU, and the float model in bf16, on the
+    test contigs at the crop (kernel launch counts reset just before, read
+    just after: int8_conv launched by every int8 run, the ragged route by
+    the dvf's, no int8_conv launch by the float runs). The card's int8 f32
+    scores within 0.01 of the CPU's (``phase_int8_predict``'s check); the
+    int8 bf16 scores against the float bf16 ones printed. Then each
+    template's dense forward at batch 2048 in bf16, int8 and float
+    (CUDA events)."""
+    import numpy as np
+    import torch
+
+    from jaeger_tpu_torch.commands.predict import run_core
+    from jaeger_tpu_torch.models.artifacts import load_model
+    from jaeger_tpu_torch.models.conversion import int8_conv_count
+    from jaeger_tpu_torch.ops import fused_conv, int8_conv
+    from jaeger_tpu_torch.utils.config import load_model_config
+
+    runs = (("int8_bf16", dict(int8="full")),
+            ("auto_bf16", dict(int8="auto")),
+            ("int8_f32", dict(int8="full", precision="float32")),
+            ("int8_cpu_f32", dict(int8="full", precision="float32",
+                                  device="cpu")),
+            ("float_bf16", {}))
+    results = {}
+    # the main path: counts reset just before, read just after
+    fused_conv.launches = 0
+    int8_conv.launches = 0
+    int8_conv.route_launches.clear()
+    t0 = time.perf_counter()
+    for name in INT8_ZOO:
+        bundle = Path(bundles[name])
+        check((bundle / "int8" / "params_int8.msgpack").exists(),
+              f"template {name}: train wrote no int8/ bundle")
+        cfg = load_model_config(bundle / "project.yaml")
+        labels = [e["class"] for e in cfg["model"]["class_label_map"]]
+        crop = load_model(bundle, device="cpu")[0].crop_nt
+        tsv, launched = {}, {}
+        for run, extra in runs:
+            before = int8_conv.launches
+            path = run_core(str(FASTA), str(tmp / f"int8_zoo_{name}_{run}"),
+                            str(bundle), fsize=crop, stride=crop, batch=256,
+                            **extra)
+            launched[run] = int8_conv.launches - before
+            tsv[run] = _read_tsv(path)
+            _check_tsv(tsv[run], labels, f"template {name} predict {run}")
+        check(all(launched[r] > 0 for r in ("int8_bf16", "auto_bf16",
+                                            "int8_f32"))
+              and launched["float_bf16"] == launched["int8_cpu_f32"] == 0,
+              f"template {name}: int8_conv launches by run {launched}")
+        diff = _max_score_diff(tsv["int8_f32"], tsv["int8_cpu_f32"], labels)
+        check(diff <= 0.01, f"template {name} --int8: card f32 scores differ "
+              f"from the CPU's by {diff}")
+        vs_float = _max_score_diff(tsv["int8_bf16"], tsv["float_bf16"],
+                                   labels)
+        ref = {r["contig_id"]: r["prediction"] for r in tsv["float_bf16"]}
+        same = sum(r["prediction"] == ref[r["contig_id"]]
+                   for r in tsv["int8_bf16"])
+        results[name] = dict(launches=launched, score_diff_f32=diff,
+                             int8_vs_float_bf16=vs_float, calls_equal=same)
+        print(f"template {name} predict --int8 / --int8 auto / --int8 f32 "
+              f"on {card}: int8_conv launches {launched}; card f32 vs CPU f32 "
+              f"max score diff {diff:.2e} (tol 0.01); int8 vs float bf16 max "
+              f"score diff {vs_float:.4f}, {same}/9 calls equal")
+    launches = dict(int8_conv=int8_conv.launches,
+                    ragged=int8_conv.route_launches["ragged"],
+                    wgmma=int8_conv.route_launches["wgmma"],
+                    mma=int8_conv.route_launches["mma"],
+                    fused_conv_block=fused_conv.launches)
+    check(launches["ragged"] > 0 and launches["wgmma"] > 0,
+          f"int8 zoo: launches {launches}")
+    print(f"int8 zoo main path ({time.perf_counter() - t0:.1f} s): kernel "
+          f"launches {launches}")
+
+    bs = 2048
+    rng = np.random.default_rng(10)
+    for name in INT8_ZOO:
+        bundle = Path(bundles[name])
+        models = {"float": load_model(bundle, dtype=torch.bfloat16)[0],
+                  "int8": load_model(bundle / "int8",
+                                     dtype=torch.bfloat16)[0]}
+        check(int8_conv_count(models["int8"]) > 0,
+              f"template {name}: the int8 bundle has no int8 conv")
+        crop = models["float"].crop_nt
+        bases = torch.from_numpy(rng.integers(0, 4, size=(bs, crop)).astype(
+            np.uint8)).cuda()
+        lengths = torch.full((bs,), crop, dtype=torch.int32, device="cuda")
+        rates = {}
+        with torch.inference_mode():
+            for kind, model in models.items():
+                ms = cuda_ms(lambda: model(bases, lengths, assume_dense=True),
+                             iters=5, warmup=1)
+                rates[kind] = dict(ms=ms, windows_per_s=bs / ms * 1e3)
+        results[name]["forward_dense"] = rates
+        print(f"template {name} forward dense (batch {bs}, bf16) on {card}: "
+              f"int8 {rates['int8']['ms']:.2f} ms "
+              f"({rates['int8']['windows_per_s']:.0f} windows/s), float "
+              f"{rates['float']['ms']:.2f} ms "
+              f"({rates['float']['windows_per_s']:.0f} windows/s), "
+              f"{int8_conv_count(models['int8'])} int8 convs")
+    return dict(launches=launches, templates=results)
+
+
+def _combine_numpy(outs: list, method: str) -> dict:
+    """The members' outputs combined as ``models/ensemble.py`` (and JAX's)
+    combines them, in numpy."""
+    import numpy as np
+
+    keys = set(outs[0])
+    for o in outs[1:]:
+        keys &= set(o)
+    stacks = {k: np.stack([o[k] for o in outs]).astype(np.float32)
+              for k in keys}
+    if method == "sum":
+        return {k: s.sum(0) for k, s in stacks.items()}
+    result = {k: s.sum(0) * np.float32(1.0 / len(outs))
+              for k, s in stacks.items()}
+    if method == "mean":
+        return result
+    preds = stacks["prediction"]
+    n_classes = preds.shape[-1]
+    votes = np.eye(n_classes, dtype=np.int64)[preds.argmax(-1)].sum(0)
+    majority = np.eye(n_classes, dtype=np.float32)[votes.argmax(-1)][None]
+    masked = preds * majority
+    counts = (masked != 0).astype(np.float32).sum(0)
+    result["prediction"] = masked.sum(0) / np.maximum(counts, 1.0)
+    return result
+
+
+def phase_ensemble(tmp: Path, card: str, bundles: dict) -> dict:
+    """An ensemble of the cross-frame and axial bundles (3 classes, 500 nt
+    each), written by ``utils combine-models`` for mv, sum and mean: its
+    window outputs on the card in f32 (``InferenceEngine``, the test
+    contigs' windows at the crop) against its members' own card outputs
+    combined in numpy (1e-5 of each output's scale), then ``predict`` with
+    the ensemble bundle on the card (bf16; rows and labels checked); the
+    ensemble's dense forward at batch 2048 in bf16 (CUDA events)."""
+    import numpy as np
+    import torch
+
+    from jaeger_tpu_torch import cli
+    from jaeger_tpu_torch.commands.predict import run_core
+    from jaeger_tpu_torch.infer.engine import InferenceEngine
+    from jaeger_tpu_torch.models.artifacts import load_model
+    from jaeger_tpu_torch.models.ensemble import load_ensemble
+    from jaeger_tpu_torch.seqops.windows import window_batches
+    from jaeger_tpu_torch.utils.config import load_model_config
+
+    members = [str(bundles[n]) for n in ENSEMBLE_MEMBERS]
+    cfg = load_model_config(Path(members[0]) / "project.yaml")
+    labels = [e["class"] for e in cfg["model"]["class_label_map"]]
+    crop = max(load_model(m, device="cpu")[0].crop_nt for m in members)
+    batches = list(window_batches(str(FASTA), fragsize=crop, stride=crop,
+                                  min_len=crop, workers=1))
+    bases = np.concatenate([b.bases for b in batches])
+    lengths = np.concatenate([b.length for b in batches])
+    outs = [InferenceEngine(load_model(m)[0], batch_size=256)
+            .predict_windows(bases, lengths) for m in members]
+    results = {}
+    for method in ("mv", "sum", "mean"):
+        ens_dir = tmp / f"ensemble_{method}"
+        cli.main(["utils", "combine-models", "-i", members[0], "-i",
+                  members[1], "-o", str(ens_dir), "-c", method])
+        model = load_ensemble(ens_dir)[0]
+        got = InferenceEngine(model, batch_size=256).predict_windows(
+            bases, lengths)
+        want = _combine_numpy(outs, method)
+        check(set(got) == set(want),
+              f"ensemble {method}: keys {set(got)} vs {set(want)}")
+        err = max(float(np.abs(got[k] - want[k]).max()
+                        / max(float(np.abs(want[k]).max()), 1e-6))
+                  for k in want)
+        check(err <= 1e-5, f"ensemble {method}: card outputs differ from the "
+              f"members' combined in numpy by {err} of the scale")
+        t0 = time.perf_counter()
+        path = run_core(str(FASTA), str(tmp / f"ensemble_predict_{method}"),
+                        str(ens_dir), fsize=crop, stride=crop, batch=256)
+        predict_s = time.perf_counter() - t0
+        rows = _read_tsv(path)
+        _check_tsv(rows, labels, f"ensemble {method} predict")
+        results[method] = dict(err_vs_numpy=err, predict_s=predict_s)
+        print(f"ensemble {method} of {'+'.join(ENSEMBLE_MEMBERS)} on {card}: "
+              f"{bases.shape[0]} windows f32 vs the members' outputs "
+              f"combined in numpy {err:.2e} of the scale (tol 1e-5); predict "
+              f"bf16 {predict_s:.1f} s, {len(rows)} contigs")
+    bs = 2048
+    model = load_ensemble(tmp / "ensemble_mean", dtype=torch.bfloat16)[0]
+    rng = np.random.default_rng(11)
+    xb = torch.from_numpy(rng.integers(0, 4, size=(bs, crop)).astype(
+        np.uint8)).cuda()
+    xl = torch.full((bs,), crop, dtype=torch.int32, device="cuda")
+    with torch.inference_mode():
+        ms = cuda_ms(lambda: model(xb, xl, assume_dense=True), iters=5,
+                     warmup=1)
+    results["forward_dense"] = dict(ms=ms, windows_per_s=bs / ms * 1e3)
+    print(f"ensemble forward dense (batch {bs}, bf16, mean) on {card}: "
+          f"{ms:.2f} ms, {bs / ms * 1e3:.0f} windows/s")
+    return results
+
+
 def main(argv: list[str]) -> int:
     try:
         import torch
@@ -3429,10 +3870,22 @@ def main(argv: list[str]) -> int:
             print(json.dumps({"hyena": hyena}))
             print(f"hyena run done in {time.perf_counter() - t_start:.0f} s")
             return 0
+        if "--int8-zoo" in argv:
+            ragged = phase_ragged_kernel(card)
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+                bundles = train_zoo_bundles(Path(tmp), INT8_ZOO)
+                zoo8 = phase_int8_zoo(Path(tmp), card, bundles)
+                ens = phase_ensemble(Path(tmp), card, bundles)
+            print(json.dumps({"ragged_route": ragged, "int8_zoo": zoo8,
+                              "ensemble": ens}))
+            print(f"int8 zoo run done in "
+                  f"{time.perf_counter() - t_start:.0f} s")
+            return 0
         if "--templates" in argv:
             kern_zoo = phase_templates_kernel(card)
             with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
                 zoo = phase_templates(Path(tmp), card)
+                zoo.pop("bundles")
             zoo_f32 = phase_zoo_f32()
             print(json.dumps({"templates": zoo, "templates_kernels": kern_zoo,
                               "zoo_f32": zoo_f32}))
@@ -3464,10 +3917,14 @@ def main(argv: list[str]) -> int:
             zoo = phase_templates(Path(tmp), card)
             zoo_f32 = phase_zoo_f32()
             hyena = phase_hyena(Path(tmp), card)
-        hyena.update(routes=phase_hyena_routes(card),
-                     bilstm=phase_bilstm(card),
-                     bilstm_zoo_f32=phase_zoo_f32(bilstm_zoo_config(),
-                                                  "bilstm zoo"))
+            hyena.update(routes=phase_hyena_routes(card),
+                         bilstm=phase_bilstm(card),
+                         bilstm_zoo_f32=phase_zoo_f32(bilstm_zoo_config(),
+                                                      "bilstm zoo"))
+            ragged = phase_ragged_kernel(card)
+            bundles = zoo.pop("bundles")
+            zoo8 = phase_int8_zoo(Path(tmp), card, bundles)
+            ens = phase_ensemble(Path(tmp), card, bundles)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
@@ -3488,7 +3945,7 @@ def main(argv: list[str]) -> int:
                "conv_wgrad_plan": kern_train["conv_wgrad"]["plan"],
                "host_pipeline": host, "templates": zoo,
                "templates_kernels": kern_zoo, "zoo_f32": zoo_f32,
-               "hyena": hyena}
+               "hyena": hyena, "int8_zoo": zoo8, "ensemble": ens}
     print(json.dumps(summary))
     print(f"all phases passed in {time.perf_counter() - t_start:.0f} s")
     print(card)
@@ -3530,7 +3987,10 @@ def main(argv: list[str]) -> int:
         entry("int8_conv", "cuda", "jaeger_tpu_torch/csrc/int8_conv.cu",
               "experiments/pallas_int8_conv.py:67", launches8, kern8,
               templates_launches=zl["int8_conv"],
-              hyena_launches=hl["int8_conv"]),
+              hyena_launches=hl["int8_conv"],
+              int8_zoo_launches=zoo8["launches"]["int8_conv"],
+              ragged_route=dict(ragged,
+                                launches=zoo8["launches"]["ragged"])),
         # train's main path: the backward of the fused conv block
         entry("conv_wgrad", "cuda",
               "jaeger_tpu_torch/csrc/fused_conv_wgrad.cu",

@@ -5,8 +5,9 @@ options for the one-device modern-model path (``--int8 [full|auto]``,
 ``--quantized``, ``--prophage`` with ``-s/--sensitivity``, ``--lc`` and
 ``--plot-type``, ``--refine`` with the ``--refine-*`` options,
 ``--mask-tandem`` and ``--profile`` included) plus ``--device``, ``train``
-(fragment models on one device, with ``--device``) and ``utils
-quantize``. Options of paths that are not ported yet (``--seq-shard``,
+(fragment models on one device, with ``--device``), ``utils
+quantize`` and ``utils combine-models`` (the JAX command's options, plus
+``--device``). Options of paths that are not ported yet (``--seq-shard``,
 ``--num-hosts``) are accepted and refused with a clear error. Built on
 ``argparse`` so the CLI needs nothing beyond the standard library.
 
@@ -16,6 +17,8 @@ quantize``. Options of paths that are not ported yet (``--seq-shard``,
     python -m jaeger_tpu_torch.cli predict -i contigs.fasta -o out/ \
         -m model --int8 auto
     python -m jaeger_tpu_torch.cli train -c config.yaml -o model/
+    python -m jaeger_tpu_torch.cli utils combine-models -i model_a \
+        -i model_b -o ensemble -c mv
 """
 
 from __future__ import annotations
@@ -247,6 +250,20 @@ def _utils_parser(sub) -> None:
                    help="torch device for full_int8 calibration (default "
                         "cuda; 'cpu' runs on the CPU).")
     q.add_argument("-v", "--verbose", action="count", default=0)
+    c = usub.add_parser("combine-models",
+                        help="Combine N trained model bundles into an "
+                             "ensemble bundle.")
+    c.add_argument("model_paths", nargs="*")
+    c.add_argument("-i", "--input", dest="input_paths", action="append",
+                   default=[], help="Path to a saved model (repeatable).")
+    c.add_argument("-o", "--output", dest="output_path", required=True)
+    c.add_argument("-c", "--comb", "--method", dest="method",
+                   default="mean", type=str.lower,
+                   choices=["mv", "sum", "mean", "none"])
+    c.add_argument("--device", default="cuda",
+                   help="torch device the members are loaded on to check "
+                        "them (default cuda; 'cpu' runs on the CPU).")
+    c.add_argument("-v", "--verbose", action="count", default=0)
 
 
 def quantize(args: argparse.Namespace) -> None:
@@ -254,6 +271,22 @@ def quantize(args: argparse.Namespace) -> None:
 
     print(quantize_bundle(args.model_path, args.output_path, mode=args.mode,
                           device=args.device))
+
+
+def combine_models(args: argparse.Namespace) -> None:
+    from pathlib import Path
+
+    from jaeger_tpu_torch.models.ensemble import combine_models_core
+
+    paths = list(args.input_paths) + list(args.model_paths)
+    if not paths:
+        raise SystemExit("provide model paths (-i, repeatable)")
+    for mp in paths:
+        if not Path(mp).exists():
+            raise SystemExit(f"model path {mp!r} does not exist")
+    out = combine_models_core(paths, args.output_path, args.method,
+                              device=args.device)
+    print(f"ensemble bundle written to {out}")
 
 
 def main(argv: list[str] | None = None) -> None:
@@ -269,7 +302,8 @@ def main(argv: list[str] | None = None) -> None:
         level=logging.DEBUG if args.verbose >= 2 else logging.INFO,
         format="%(asctime)s %(name)s %(levelname)s %(message)s")
     if args.command == "utils":
-        quantize(args)
+        {"quantize": quantize,
+         "combine-models": combine_models}[args.utils_command](args)
     elif args.command == "train":
         train(args)
     else:

@@ -22,10 +22,17 @@ same as ``quantized="full_int8"``) runs the int8 bundle's convs on the
 int8 kernel; ``int8="auto"`` runs only the dense program on it and keeps
 the float model for short and masked windows; ``dynamic`` and ``float16``
 bundles run the float path. The int8 bundle is found as the JAX CLI finds
-it (:func:`resolve_int8_bundle`).
+it (:func:`resolve_int8_bundle`); every template's bundle takes it.
+
+Ensemble bundles (``ensemble.yaml``, ``utils combine-models``) load as
+one :class:`jaeger_tpu_torch.models.ensemble.EnsembleModel` over their
+members. ``int8`` and ``quantized`` resolve the int8 bundle first, as the
+JAX CLI does, so an ensemble without a ``params_int8.msgpack`` of its own
+(or an ``int8/`` or ``_int8`` beside it) raises ``FileNotFoundError``
+there.
 
 Not ported yet, and refused with ``NotImplementedError``: sequence
-sharding, multi-host sharding and ensembles.
+sharding and multi-host sharding.
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ import torch
 from jaeger_tpu_torch.infer.engine import InferenceEngine
 from jaeger_tpu_torch.models.artifacts import class_names_in_order, load_model
 from jaeger_tpu_torch.models.conversion import int8_conv_count
+from jaeger_tpu_torch.models.ensemble import is_ensemble, load_ensemble
 from jaeger_tpu_torch.postprocess import collect
 from jaeger_tpu_torch.postprocess.termini import scan_for_terminal_repeats
 from jaeger_tpu_torch.seqops.fasta import fasta_stem, validate_fasta_entries
@@ -278,8 +286,6 @@ def run_core(
                        (num_hosts > 1, "multi-host predict (--num-hosts)")):
         if flag:
             raise _not_ported(name, 14)
-    if (Path(model_path) / "ensemble.yaml").exists():
-        raise _not_ported("ensemble bundles", 13)
     if int8 not in (None, "full", "auto"):
         raise ValueError(f"int8 must be None, 'full' or 'auto', got {int8!r}")
     if quantized not in (None, "dynamic", "full_int8", "float16"):
@@ -322,8 +328,9 @@ def run_core(
                     f"-> {masked_path.name}")
         windowing_input = masked_path
 
-    model, config, classes = load_model(model_path, dtype=DTYPES[precision],
-                                        device=dev)
+    load = load_ensemble if is_ensemble(model_path) else load_model
+    model, config, classes = load(model_path, dtype=DTYPES[precision],
+                                  device=dev)
     indices, labels = class_names_in_order(classes)
 
     term_future = None

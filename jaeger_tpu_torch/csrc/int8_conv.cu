@@ -30,8 +30,9 @@
 // so it is bound by bytes, and the int8 products buy nothing over the bf16
 // kernel's 1.02 ms bound unless activations stay int8 between layers.
 //
-// Two routes, chosen before launch by ops/int8_conv.py::int8_plan; the
+// Three routes, chosen before launch by ops/int8_conv.py::int8_plan; the
 // entry below recomputes the plan's layout and refuses one that disagrees.
+// "wgmma" and "mma" take C_in and C_out multiples of 16, "ragged" the rest.
 //
 // Route "wgmma" (int8_wgmma<T, CB, KB>: requant, and dequant in bf16, with
 // C_in % 32 == 0 and 64 + d(K-1) <= 256 rows), on the schedule of
@@ -102,6 +103,48 @@
 // transposed to (C_out, C_in), and runs mma.sync m16n8k32 (k16 for a C_in
 // tail of 16).
 //
+// Route "ragged" (int8_ragged<T, CB, VEC>: C_in or C_out not a multiple of
+// 16, C_in < 16 included; all three forms). The dvf template's conv is its
+// shape: one-hot nucleotides, C_in 4, C_out 500, K 10, VALID, bf16 out, N
+// 2048 rows of L 500 a strand. Per launch that is 40.2 G int8 operations
+// (0.020 ms at 1,979 TOP/s) against 1.01 GB of bf16 output (0.300 ms at
+// 3.35 TB/s): bound by the output's bytes, and the products are nearly
+// free, so the design is the simple one, a first kernel:
+//  * Persistent: a CTA of 8 warps owns a column block of CB output
+//    channels (16, 32, 64 or 128; the last block cut at C_out) and walks
+//    tiles of 64 output positions; grid.x is the CTAs that fit on the card
+//    at once (occupancy API, the carveout set to shared memory) shared out
+//    over the column blocks.
+//  * The tile's 64 + d(K-1) input rows are loaded element by element
+//    (consecutive threads on consecutive elements: one contiguous span of
+//    x), quantized as x is read, into shared memory as s8 with the
+//    channels padded with zeros to cp, a multiple of 4.
+//  * The contraction K * cp is laid out tap-major and padded to a multiple
+//    of 32: output row r at index j * cp + c reads tile row r + j * d,
+//    channel c, so each 4-byte A group lies in one tap and comes by one
+//    32-bit shared load at a table's offset (kp entries, made with the
+//    weights), with no im2col copy. The weights of the column block are
+//    staged once per CTA (as many taps a stage as fit in 112 KB; then
+//    restaged per tile), transposed to (CB, kp) rows with zeros past K,
+//    C_in and C_out, beside the block's dq, bias and DYT rows. mma.sync
+//    m16n8k32 s8 with s32 sums; each warp has 16 rows by CB / 2 columns
+//    and skips n8 tiles past C_out.
+//  * The s32 sums go through shared memory. The epilogue (the mma route's
+//    operations, in f32) gives each thread VEC fixed channels (4 when 4
+//    divides C_out, as at 500, else 1) and walks the rows with
+//    the activation a template argument: one s32 load from shared memory,
+//    one VEC-wide store (8 bytes of bf16 at VEC 4), a warp on consecutive
+//    channels of a row; channels past C_out and rows past L_out are not
+//    stored.
+//  Measured at the dvf shape (NVIDIA H100 80GB HBM3, 700 W): the first
+//  version, one element a thread with its index divided out, its
+//  parameters loaded and its activation switched per element, took
+//  2.84 ms; this one 1.07 ms, 28 % of the bound. Prefetching the next
+//  tile's x during the epilogue, 64-channel blocks (more CTAs an SM) and
+//  grids of short-lived CTAs each measured no faster (1.10-1.37 ms), and a
+//  variant that skipped the stores still took 0.93 ms: the per-tile
+//  chain of x load, products and epilogue, not the bytes, holds it.
+
 // Built with nvcc into a shared library with a plain C interface and loaded
 // with ctypes (jaeger_tpu_torch/ops/cuda_build.py).
 
@@ -971,15 +1014,414 @@ cudaError_t dispatch_mma(const Params& p, int cb, size_t smem, int n_rows,
   }
 }
 
+// ---------------------------------------------------------------------------
+// route "ragged": C_in or C_out not a multiple of 16 (see the note at the top)
+// ---------------------------------------------------------------------------
+
+constexpr int RG_TL = 64;        // output rows per tile
+constexpr int RG_THREADS = 256;  // 8 warps: 4 row groups of 16 x 2 column halves
+constexpr int RG_WPAD = 16;      // weight row padding, bytes
+constexpr int RG_OPAD = 8;       // accumulator row padding, words
+constexpr int RG_TARGET = 112 * 1024;  // two CTAs per SM when one tap fits
+constexpr int RG_MIN_CTAS = 4;  // CTAs per SM the registers must allow (64 each)
+
+// Shared-memory layout of the ragged route, byte offsets:
+// [x tile: rows x cp s8 (cp = C_in rounded up to 4), padded to 16 bytes]
+// [weights: cb rows (output channels) x ldw = kp + 16 bytes, where kp =
+//  taps * cp rounded up to 32 is one stage's contraction, tap-major]
+// [accumulators: 64 rows x (cb + 8) s32]
+// [contraction offsets: kp s32, each index's x tile offset from its row]
+// [epilogue parameters: dq (or the requant scale), bias, alpha, gamma, beta
+//  of the column block, 5 x cb f32]
+struct RaggedLayout {
+  int cp, rows, taps, kp, ldw, ldo;
+  uint32_t off_w, off_o, off_k, off_p, bytes;
+};
+
+RaggedLayout ragged_layout(int C_in, int K, int dil, int cb, int taps) {
+  RaggedLayout lay;
+  lay.cp = (C_in + 3) & ~3;
+  lay.rows = RG_TL + dil * (K - 1);
+  lay.taps = taps;
+  lay.kp = (taps * lay.cp + 31) & ~31;
+  lay.ldw = lay.kp + RG_WPAD;
+  lay.ldo = cb + RG_OPAD;
+  lay.off_w = ((uint32_t)(lay.rows * lay.cp) + 15u) & ~15u;
+  lay.off_o = lay.off_w + (uint32_t)(cb * lay.ldw);
+  lay.off_k = lay.off_o + (uint32_t)(RG_TL * lay.ldo * 4);
+  lay.off_p = lay.off_k + (uint32_t)(lay.kp * 4);
+  lay.bytes = lay.off_p + (uint32_t)(5 * cb * 4);
+  return lay;
+}
+
+// Output channels per CTA: the smallest of 16, 32, 64 that holds C_out, else
+// 128 (the last column block predicated).
+int ragged_cb(int C_out) {
+  return C_out <= 16 ? 16 : C_out <= 32 ? 32 : C_out <= 64 ? 64 : 128;
+}
+
+// Taps per weight stage: all K when they fit in RG_TARGET (in SMEM_LIMIT
+// when one tap alone does not fit there), else as many as fit; 0 when not
+// even one tap fits.
+int ragged_taps(int C_in, int K, int dil, int cb) {
+  const uint32_t one = ragged_layout(C_in, K, dil, cb, 1).bytes;
+  if (one > (uint32_t)SMEM_LIMIT) return 0;
+  const uint32_t budget =
+      one <= (uint32_t)RG_TARGET ? (uint32_t)RG_TARGET : (uint32_t)SMEM_LIMIT;
+  int taps = 1;
+  while (taps < K && ragged_layout(C_in, K, dil, cb, taps + 1).bytes <= budget)
+    ++taps;
+  return taps;
+}
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+// VEC consecutive elements (VEC = 4 or 1) in one load or store; the caller
+// keeps them VEC-element aligned
+template <int VEC>
+__device__ __forceinline__ void load_vec(const float* src, float (&r)[VEC]) {
+  if constexpr (VEC == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(src);
+    r[0] = v.x; r[1] = v.y; r[2] = v.z; r[3] = v.w;
+  } else {
+    r[0] = *src;
+  }
+}
+
+template <int VEC>
+__device__ __forceinline__ void load_vec(const __nv_bfloat16* src,
+                                         float (&r)[VEC]) {
+  if constexpr (VEC == 1) {
+    r[0] = __bfloat162float(*src);
+  } else {
+    const uint2 v = *reinterpret_cast<const uint2*>(src);
+    const float2 lo =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
+    const float2 hi =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
+    r[0] = lo.x; r[1] = lo.y; r[2] = hi.x; r[3] = hi.y;
+  }
+}
+
+template <int VEC>
+__device__ __forceinline__ void store_vec(float* dst, const float (&y)[VEC]) {
+  if constexpr (VEC == 4)
+    *reinterpret_cast<float4*>(dst) = make_float4(y[0], y[1], y[2], y[3]);
+  else
+    *dst = y[0];
+}
+
+template <int VEC>
+__device__ __forceinline__ void store_vec(__nv_bfloat16* dst,
+                                          const float (&y)[VEC]) {
+  if constexpr (VEC == 1) {
+    *dst = __float2bfloat16_rn(y[0]);
+  } else {
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(y[0], y[1]);
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(y[2], y[3]);
+    *reinterpret_cast<uint2*>(dst) =
+        make_uint2(*reinterpret_cast<const uint32_t*>(&lo),
+                   *reinterpret_cast<const uint32_t*>(&hi));
+  }
+}
+
+template <int VEC>
+__device__ __forceinline__ void store_vec(int8_t* dst, const int (&q)[VEC]) {
+  if constexpr (VEC == 4)
+    *reinterpret_cast<uint32_t*>(dst) =
+        pack4(q[0] & 0xff, q[1] & 0xff, q[2] & 0xff, q[3] & 0xff);
+  else
+    *dst = (int8_t)q[0];
+}
+
+template <int VEC>
+__device__ __forceinline__ void load_vec(const int* src, int (&a)[VEC]) {
+  if constexpr (VEC == 4) {
+    const int4 v = *reinterpret_cast<const int4*>(src);
+    a[0] = v.x; a[1] = v.y; a[2] = v.z; a[3] = v.w;
+  } else {
+    a[0] = *src;
+  }
+}
+
+// The dequant epilogue of one tile for the thread's VEC channels (their
+// parameters at par[i * CB], i = 0..4): rows r, r + RSTEP, ... below r_end,
+// output element offset `off` at row r. dequant_epilogue's operations, with
+// the activation a template argument.
+template <typename T, int CB, int VEC, int RSTEP, int ACT>
+__device__ __forceinline__ void ragged_dequant_rows(const Params& p,
+                                                    const int* os, int ldo,
+                                                    const float* par, int r,
+                                                    int r_end, long long row,
+                                                    long long off) {
+  float dq[VEC], bias[VEC], alpha[VEC], gamma[VEC], beta[VEC];
+#pragma unroll
+  for (int v = 0; v < VEC; ++v) {
+    dq[v] = par[v];
+    bias[v] = par[CB + v];
+    alpha[v] = par[2 * CB + v];
+    gamma[v] = par[3 * CB + v];
+    beta[v] = par[4 * CB + v];
+  }
+  const long long step = (long long)RSTEP * p.C_out;
+  for (; r < r_end; r += RSTEP, row += RSTEP, off += step) {
+    int a[VEC];
+    load_vec<VEC>(os + r * ldo, a);
+    float y[VEC], res[VEC];
+    if (p.residual) load_vec<VEC>(static_cast<const T*>(p.residual) + off, res);
+    const bool zero = p.out_mask && !p.out_mask[row];
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) {
+      float u = __fmul_rn(__int2float_rn(a[v]), dq[v]);
+      if (p.bias) u = __fadd_rn(u, bias[v]);
+      if (p.dyt) u = tanhf(u * alpha[v]) * gamma[v] + beta[v];
+      if (zero) u = 0.f;
+      if (p.residual) u += res[v];
+      y[v] = act_fn(u, ACT);
+    }
+    store_vec<VEC>(static_cast<T*>(p.out) + off, y);
+  }
+}
+
+// T = int8_t: requant form; T = __nv_bfloat16 / float: dequant form. CTA
+// (blockIdx.x, blockIdx.y) computes column block blockIdx.y (CB channels,
+// the last one cut at C_out) of the tiles (n, 64 positions) blockIdx.x,
+// + gridDim.x, ... VEC (4 when it divides C_out, else 1) is the epilogue's
+// channels per thread: one load and one store of VEC elements.
+template <typename T, int CB, int VEC>
+__global__ void __launch_bounds__(RG_THREADS, RG_MIN_CTAS)
+int8_ragged(Params p, RaggedLayout lay, int l_tiles, int m_tiles) {
+  constexpr int NT = CB / 16;  // n8 tiles of a warp's column half
+  constexpr int TPR = CB / VEC;            // epilogue threads per row
+  constexpr int RSTEP = RG_THREADS / TPR;  // rows per epilogue pass
+  extern __shared__ __align__(128) unsigned char smem[];
+  int8_t* xs = reinterpret_cast<int8_t*>(smem);
+  int8_t* ws = reinterpret_cast<int8_t*>(smem + lay.off_w);
+  int* os = reinterpret_cast<int*>(smem + lay.off_o);
+  int* koff = reinterpret_cast<int*>(smem + lay.off_k);
+  float* par = reinterpret_cast<float*>(smem + lay.off_p);
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = (warp & 3) * 16 + g;          // the thread's first row
+  const int c_warp = (warp >> 2) * (CB / 2);   // the warp's first column
+  const int col0 = blockIdx.y * CB;
+  const int ncols = min(CB, p.C_out - col0);
+  const int C = p.C_in, cp = lay.cp, K = p.K;
+  const int n_x = lay.rows * cp;  // x tile elements
+  const int n_stages = (K + lay.taps - 1) / lay.taps;
+  const T* x = static_cast<const T*>(p.x);
+  float inv = 1.f;  // the requant form loads int8 as it is
+  if constexpr (sizeof(T) != 1) inv = *p.inv_act;
+  // the epilogue's channels: the thread's VEC channels ec .. ec + VEC - 1
+  // of the column block (all past C_out or none: VEC divides C_out)
+  const int ec = (tid % TPR) * VEC;
+  const bool e_live = ec < ncols;
+
+  for (int m = blockIdx.x; m < m_tiles; m += gridDim.x) {
+    const int n = m / l_tiles, l0 = (m - n * l_tiles) * RG_TL;
+    const long long xrow0 = (long long)n * p.L;
+    __syncthreads();  // the last tile's reads of xs and os are done
+    // the tile's input rows l0 - pad_l .. + rows - 1, quantized, with
+    // channels C_in .. cp - 1, rows outside [0, L) and masked rows 0: one
+    // contiguous span of x, consecutive threads on consecutive elements
+    for (int i = tid; i < n_x; i += RG_THREADS) {
+      const int r = i / cp, c = i - r * cp;
+      const int pos = l0 - p.pad_l + r;
+      int q = 0;
+      if (c < C && pos >= 0 && pos < p.L &&
+          (!p.in_mask || p.in_mask[xrow0 + pos])) {
+        const T v = x[(xrow0 + pos) * C + c];
+        if constexpr (sizeof(T) == 1)
+          q = v;
+        else
+          q = clip127(__float2int_rn(__fmul_rn(to_f32(v), inv)));
+      }
+      xs[i] = (int8_t)q;
+    }
+    if (m == (int)blockIdx.x) {
+      // the column block's epilogue parameters, once a CTA
+      for (int c = tid; c < CB; c += RG_THREADS) {
+        const int cc = col0 + c;
+        const bool live = c < ncols;
+        par[c] = sizeof(T) == 1 ? *p.scale : live ? p.scale[cc] : 0.f;
+        par[CB + c] = live && p.bias ? p.bias[cc] : 0.f;
+        par[2 * CB + c] = live && p.dyt ? p.dyt[cc] : 0.f;
+        par[3 * CB + c] = live && p.dyt ? p.dyt[p.C_out + cc] : 0.f;
+        par[4 * CB + c] = live && p.dyt ? p.dyt[2 * p.C_out + cc] : 0.f;
+      }
+    }
+    int acc[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nt][e] = 0;
+
+    for (int s = 0; s < n_stages; ++s) {
+      const int j0 = s * lay.taps;
+      const int tn = min(lay.taps, K - j0);
+      if (n_stages > 1 || m == (int)blockIdx.x) {
+        if (s > 0) __syncthreads();  // the last stage's reads are done
+        // w[j0 + j][c][col0 + nn] -> ws[nn * ldw + j * cp + c]; zeros past
+        // the stage's taps, C_in and C_out
+        for (int i = tid; i < CB * lay.kp; i += RG_THREADS) {
+          const int kk = i / CB, nn = i - kk * CB;
+          const int j = kk / cp, c = kk - j * cp;
+          int8_t v = 0;
+          if (j < tn && c < C && nn < ncols)
+            v = p.w[((long long)(j0 + j) * C + c) * p.C_out + col0 + nn];
+          ws[nn * lay.ldw + kk] = v;
+        }
+        // contraction index kk = j * cp + c reads x tile row r + (j0 + j) *
+        // d, channel c: its offset from row r, or -1 past the stage's taps
+        for (int kk = tid; kk < lay.kp; kk += RG_THREADS) {
+          const int j = kk / cp;
+          koff[kk] = j < tn ? (j0 + j) * p.dil * cp + (kk - j * cp) : -1;
+        }
+      }
+      __syncthreads();  // x tile, weights, offsets, parameters complete
+      // a 4-byte group of the contraction never straddles taps (cp % 4 == 0)
+      const int8_t* xr = xs + r0 * cp;
+      for (int kk = 0; kk < lay.kp; kk += 32) {
+        uint32_t a[4];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int o = koff[kk + 16 * h + 4 * t];
+          a[2 * h] = o >= 0 ? ld32(xr + o) : 0u;
+          a[2 * h + 1] = o >= 0 ? ld32(xr + o + 8 * cp) : 0u;
+        }
+        const int8_t* bp = ws + (c_warp + g) * lay.ldw + kk + 4 * t;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          if (c_warp + nt * 8 < ncols) {  // the same for the whole warp
+            const int8_t* b = bp + nt * 8 * lay.ldw;
+            mma_k32(acc[nt], a[0], a[1], a[2], a[3], ld32(b), ld32(b + 16));
+          }
+        }
+      }
+    }
+    // accumulator (nt, e): row r0 + 8 * (e / 2), column c_warp + nt * 8 +
+    // 2t + e % 2
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int c = c_warp + nt * 8 + 2 * t;
+      *reinterpret_cast<int2*>(os + r0 * lay.ldo + c) =
+          make_int2(acc[nt][0], acc[nt][1]);
+      *reinterpret_cast<int2*>(os + (r0 + 8) * lay.ldo + c) =
+          make_int2(acc[nt][2], acc[nt][3]);
+    }
+    __syncthreads();
+    // epilogue: a row's channels on consecutive threads, VEC a thread; the
+    // tail of C_out and rows past L_out are not stored
+    if (!e_live) continue;
+    const int r_first = tid / TPR;
+    const int r_end = min(RG_TL, p.L_out - l0);
+    const long long row = (long long)n * p.L_out + l0 + r_first;
+    const long long off = row * p.C_out + col0 + ec;
+    const int* o = os + ec;
+    if constexpr (sizeof(T) == 1) {
+      const float sc = par[0];
+      for (int r = r_first; r < r_end; r += RSTEP) {
+        int a[VEC], q[VEC];
+        load_vec<VEC>(o + r * lay.ldo, a);
+#pragma unroll
+        for (int v = 0; v < VEC; ++v)
+          q[v] = clip127(__float2int_rn(__fmul_rn(__int2float_rn(a[v]), sc)));
+        store_vec<VEC>(static_cast<int8_t*>(p.out) + off +
+                           (long long)(r - r_first) * p.C_out,
+                       q);
+      }
+    } else {
+      const float* pc = par + ec;
+      switch (p.act) {
+        case ACT_RELU:
+          ragged_dequant_rows<T, CB, VEC, RSTEP, ACT_RELU>(
+              p, o, lay.ldo, pc, r_first, r_end, row, off);
+          break;
+        case ACT_TANH:
+          ragged_dequant_rows<T, CB, VEC, RSTEP, ACT_TANH>(
+              p, o, lay.ldo, pc, r_first, r_end, row, off);
+          break;
+        case ACT_GELU:
+          ragged_dequant_rows<T, CB, VEC, RSTEP, ACT_GELU>(
+              p, o, lay.ldo, pc, r_first, r_end, row, off);
+          break;
+        case ACT_GELU_TANH:
+          ragged_dequant_rows<T, CB, VEC, RSTEP, ACT_GELU_TANH>(
+              p, o, lay.ldo, pc, r_first, r_end, row, off);
+          break;
+        default:
+          ragged_dequant_rows<T, CB, VEC, RSTEP, ACT_NONE>(
+              p, o, lay.ldo, pc, r_first, r_end, row, off);
+          break;
+      }
+    }
+  }
+}
+
+template <typename T, int CB, int VEC>
+cudaError_t launch_ragged(const Params& p, const RaggedLayout& lay,
+                          int n_rows, int sms, cudaStream_t stream) {
+  cudaError_t e = cudaFuncSetAttribute(
+      int8_ragged<T, CB, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)lay.bytes);
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(int8_ragged<T, CB, VEC>,
+                           cudaFuncAttributePreferredSharedMemoryCarveout,
+                           cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return e;
+  int per_sm = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, int8_ragged<T, CB, VEC>, RG_THREADS, lay.bytes);
+  if (e != cudaSuccess) return e;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const int l_tiles = (p.L_out + RG_TL - 1) / RG_TL;
+  const long long m_tiles = (long long)n_rows * l_tiles;
+  if (m_tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const int n_cb = (p.C_out + CB - 1) / CB;
+  // persistent: the CTAs that fit on the card at once, shared out over the
+  // column blocks, no more than there are tiles
+  long long gx = (long long)sms * per_sm / n_cb;
+  if (gx < 1) gx = 1;
+  if (gx > m_tiles) gx = m_tiles;
+  int8_ragged<T, CB, VEC><<<dim3((unsigned)gx, (unsigned)n_cb), RG_THREADS,
+                            lay.bytes, stream>>>(p, lay, l_tiles,
+                                                 (int)m_tiles);
+  return cudaGetLastError();
+}
+
+template <typename T, int CB>
+cudaError_t ragged_vec(const Params& p, const RaggedLayout& lay, int n_rows,
+                       int sms, cudaStream_t s) {
+  if (p.C_out % 4 == 0) return launch_ragged<T, CB, 4>(p, lay, n_rows, sms, s);
+  return launch_ragged<T, CB, 1>(p, lay, n_rows, sms, s);
+}
+
+template <typename T>
+cudaError_t dispatch_ragged(const Params& p, const RaggedLayout& lay, int cb,
+                            int n_rows, int sms, cudaStream_t s) {
+  switch (cb) {
+    case 128: return ragged_vec<T, 128>(p, lay, n_rows, sms, s);
+    case 64: return ragged_vec<T, 64>(p, lay, n_rows, sms, s);
+    case 32: return ragged_vec<T, 32>(p, lay, n_rows, sms, s);
+    case 16: return ragged_vec<T, 16>(p, lay, n_rows, sms, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // in_dtype: 0 = float32, 1 = bfloat16 (dequant form), 2 = int8 (requant
-// form). C_in and C_out must be multiples of 16. The launch plan of
-// ops/int8_conv.py::int8_plan: route 1 = wgmma (cb output channels per CTA,
-// kw bytes of C_in per weight / s8 chunk, `stages` ring stages; not f32),
-// route 0 = mma (cb; kw and stages 0); smem_bytes must equal the layout
-// this file computes for it. sms is the card's SM count. Returns a
-// cudaError_t (0 = success).
+// form). The launch plan of ops/int8_conv.py::int8_plan: route 1 = wgmma (cb
+// output channels per CTA, kw bytes of C_in per weight / s8 chunk, `stages`
+// ring stages; not f32), route 0 = mma (cb; kw and stages 0), both with
+// C_in and C_out multiples of 16; route 2 = ragged (cb = ragged_cb(C_out),
+// kw the stage's contraction bytes, `stages` the taps per weight stage), for
+// any C_in and C_out. smem_bytes must equal the layout this file computes
+// for the plan. sms is the card's SM count. Returns a cudaError_t (0 =
+// success).
 extern "C" int jt_int8_conv(int in_dtype, const void* x, const void* w,
                             const void* scale, const void* inv_act,
                             const void* bias, const void* dyt,
@@ -989,8 +1431,7 @@ extern "C" int jt_int8_conv(int in_dtype, const void* x, const void* w,
                             int pad_l, int act, int route, int cb, int kw,
                             int stages, int smem_bytes, int sms, void* stream) {
   if (n_rows <= 0 || L <= 0 || L_out <= 0 || K <= 0 || dil <= 0 || pad_l < 0 ||
-      C_in <= 0 || C_out <= 0 || C_in % 16 != 0 || C_out % 16 != 0 ||
-      cb <= 0 || C_out % cb != 0 || in_dtype < 0 || in_dtype > 2)
+      C_in <= 0 || C_out <= 0 || cb <= 0 || in_dtype < 0 || in_dtype > 2)
     return (int)cudaErrorInvalidValue;
   Params p;
   p.x = x;
@@ -1013,6 +1454,22 @@ extern "C" int jt_int8_conv(int in_dtype, const void* x, const void* w,
   p.act = act;
   p.taps_per_stage = K;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route == 2) {
+    const int taps = ragged_taps(C_in, K, dil, cb);
+    if (sms <= 0 || cb != ragged_cb(C_out) || taps == 0 || taps != stages)
+      return (int)cudaErrorInvalidValue;
+    const RaggedLayout lay = ragged_layout(C_in, K, dil, cb, taps);
+    if (lay.kp != kw || lay.bytes != (uint32_t)smem_bytes)
+      return (int)cudaErrorInvalidValue;
+    switch (in_dtype) {
+      case 0: return (int)dispatch_ragged<float>(p, lay, cb, n_rows, sms, s);
+      case 1:
+        return (int)dispatch_ragged<__nv_bfloat16>(p, lay, cb, n_rows, sms, s);
+      default: return (int)dispatch_ragged<int8_t>(p, lay, cb, n_rows, sms, s);
+    }
+  }
+  if (C_in % 16 != 0 || C_out % 16 != 0 || C_out % cb != 0)
+    return (int)cudaErrorInvalidValue;
   if (route == 1) {
     if (in_dtype == 0 || sms <= 0) return (int)cudaErrorInvalidValue;
     Layout lay;

@@ -18,7 +18,10 @@ order and outputs match it:
 
 With ``int8_model`` (``predict --int8 auto``) the dense program, also as
 the base of a split batch, runs on that model, as the JAX engine's
-``_vars_for`` does; every other program runs on the float model.
+``_vars_for`` does (for nucleotide models too); every other program runs
+on the float model. A model without a ``config`` (an
+:class:`~jaeger_tpu_torch.models.ensemble.EnsembleModel`) has no
+bounded-mask cuts, as in the JAX engine's ``_mask_plans``.
 
 Pipelining: on CUDA the packed bases are copied from pinned host memory
 with ``non_blocking=True`` and the forward is enqueued without waiting,

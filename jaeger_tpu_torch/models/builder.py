@@ -165,33 +165,6 @@ def _freeze_layers(hidden_layers: list) -> tuple:
     return tuple(out)
 
 
-#: layers beside which int8 execution has not been brought up
-_INT8_UNPORTED_LAYERS = frozenset(_ATTENTION_LAYERS) | {
-    "parallel_branches", "multi_scale_conv"}
-
-
-def int8_unported(config: dict) -> list[str]:
-    """What in ``config`` the port's int8 execution (``utils quantize
-    --mode full_int8``, ``predict --int8``) does not take yet: nucleotide
-    input, branch mode and the attention, parallel-branch and multi-scale
-    layers (``ROADMAP.md`` queue 1, item 10). Empty for the models it
-    takes."""
-    cfg = config.get("model", config)
-    found = []
-    if cfg.get("embedding", {}).get("input_type", "translated") == \
-            "nucleotide":
-        found.append("input_type 'nucleotide'")
-    for section in ("representation_learner", "classifier"):
-        sec = cfg.get(section) or {}
-        if "branch" in sec:
-            found.append(f"a branched {section}")
-        for entry in sec.get("hidden_layers", []):
-            name = str(entry.get("name", "")).lower()
-            if name in _INT8_UNPORTED_LAYERS and repr(name) not in found:
-                found.append(repr(name))
-    return found
-
-
 _MERGES = ("concat", "sum", "average", "max")
 
 

@@ -13,9 +13,15 @@ the JAX package, as flax msgpack that both packages load:
 
 Calibration runs the port's model in bfloat16, as the JAX package does,
 on the same synthetic windows (``_calibration_batches``, the same numpy
-generator and seed), and records each conv input's absmax
-(``layers.calibrating``). ``dynamic`` and ``float16`` bundles load as float
-weights and run the float path.
+generator and seed: bases, so one set serves translated and nucleotide
+models), and records each conv input's absmax (``layers.calibrating``,
+folded across repeated calls of one conv, as the shared branch of a
+branched model makes them). Every template takes ``full_int8``: the quant
+tree names each calibrated conv by its module path, as JAX's
+``_build_quant_tree`` does (``rep_branch/conv1d_0`` in branch mode,
+``multi_scale_conv_<i>/branch_<b>``, ``parallel_branches_<i>_branch_<b>/
+...``, the residual stacks of the attention templates). ``dynamic`` and
+``float16`` bundles load as float weights and run the float path.
 """
 
 from __future__ import annotations
@@ -29,7 +35,7 @@ import torch
 from jaeger_tpu_torch.models.artifacts import (load_state, params_from_jax,
                                                read_flax_msgpack,
                                                write_flax_msgpack)
-from jaeger_tpu_torch.models.builder import build_model, int8_unported
+from jaeger_tpu_torch.models.builder import build_model
 from jaeger_tpu_torch.models.layers import MaskedConv1D, calibrating
 from jaeger_tpu_torch.utils.config import load_model_config
 from jaeger_tpu_torch.utils.devices import resolve_device
@@ -150,15 +156,6 @@ def calibrate_int8(model: torch.nn.Module, params: dict, crop_nt: int,
     return _build_quant_tree(params, calib)
 
 
-def _refuse_int8(config: dict) -> None:
-    found = int8_unported(config)
-    if found:
-        raise NotImplementedError(
-            f"int8 execution of a model with {', '.join(found)} is not yet "
-            f"ported to jaeger_tpu_torch (ROADMAP.md queue 1, item 10); "
-            f"the dynamic and float16 modes load as float weights")
-
-
 def _count_leaves(tree) -> int:
     if isinstance(tree, dict):
         return sum(_count_leaves(v) for v in tree.values())
@@ -215,7 +212,6 @@ def quantize_bundle(model_path: str | Path, output_path: str | Path,
     scheme = "int8-per-channel-weights"
     quant_convs = 0
     if mode == "full_int8":
-        _refuse_int8(config)
         # static quantization: calibrate activation scales at the bf16
         # execution dtype so the stored per-tensor ranges match what the
         # int8 path will see at predict time
@@ -255,8 +251,6 @@ def load_quantized(path: str | Path, dtype=torch.float32, device=None):
     for coll in ("batch_stats", "quant"):
         if coll in raw:
             variables[coll] = raw[coll]
-    if "quant" in variables:
-        _refuse_int8(config)
     model = build_model(config, dtype=dtype)
     load_state(model, params_from_jax(variables))
     classes_file = path / "classes.yaml"

@@ -22,15 +22,15 @@ SAME (``pad_l = d(k-1) // 2``, ``L_out = L``) or VALID (``pad_l = 0``,
   extensions in its order (bias, DYT, out_mask, residual, activation),
   written in x's dtype.
 
-Rounding is half to even on both sides. C_in and C_out must be multiples
-of 16.
+Rounding is half to even on both sides. C_in and C_out may be any
+positive counts.
 
 On the H100: at the Pallas chip shape (N = 12288, L = 500, C = 128, k = 5)
 the requant form is 1.007e12 int8 operations (0.51 ms at the 1,979 TOP/s
 peak) against 1.57 GB of int8 in and out (0.47 ms at 3.35 TB/s), so the
 tensor cores bound it. The dequant form moves bf16 (3.15 GB, 0.94 ms;
 1.41 ms with a residual) and is bound by bytes. :func:`int8_plan` picks
-one of two routes before any launch. ``"wgmma"`` (the int8 and bf16
+one of three routes before any launch. ``"wgmma"`` (the int8 and bf16
 forms, C_in % 32 == 0) is a persistent kernel, about one CTA per SM, that
 keeps its column block of the s8 weights resident in shared memory,
 loads x tiles with their halo by TMA into an mbarrier ring fed by one
@@ -40,16 +40,25 @@ registers, B from the resident weights) and applies the epilogue from the
 accumulators while a second warpgroup runs the next tile's products; the
 residual tile arrives by TMA. ``"mma"`` (f32 inputs, C_in % 32 == 16, or
 a shape whose weights and ring do not fit) is the first, simple
-``mma.sync`` kernel. A route that fails raises; the other is never tried.
+``mma.sync`` kernel. ``"ragged"`` takes C_in or C_out not a multiple of
+16 (the dvf template's conv: one-hot nucleotides, C_in 4, C_out 500,
+k 10, VALID; per launch at batch 2048 40.2 G int8 operations, 0.020 ms,
+against 1.01 GB of bf16 output, 0.300 ms: bound by bytes): 64-row tiles
+loaded element by element into shared memory as s8 with the channels
+padded to a multiple of 4, the ``k * C_in`` contraction read tap-major
+from that tile, ``mma.sync`` m16n8k32, the C_out tail predicated. A
+route that fails raises; no other is ever tried.
 
 CPU tensors take the plain versions :func:`reference_int8_conv_requant`
 and :func:`reference_int8_conv_dequant`, which sum the integer products
 exactly in float64 (every partial sum is an integer below 2**53); CUDA
-tensors launch the kernel or raise. ``launches`` counts kernel launches.
+tensors launch the kernel or raise. ``launches`` counts kernel launches,
+``route_launches`` the same by route.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 
@@ -60,8 +69,10 @@ from jaeger_tpu_torch.ops.fused_conv import (_ACT_IDS, SMEM_LIMIT,
                                              _activation, _check,
                                              _epilogue_args)
 
-#: kernel launches since the last reset (set to 0 to reset)
+#: kernel launches since the last reset (set to 0 to reset), and the same
+#: by route (``clear()`` to reset)
 launches = 0
+route_launches: collections.Counter = collections.Counter()
 
 #: rows per float64 chunk of the plain versions (bounds their memory)
 _PLAIN_ROWS = 2048
@@ -155,6 +166,9 @@ _QSLOTS = 3
 _MMA_TL = 128
 _MMA_PAD = 16
 _MMA_TARGET = 112 * 1024
+#: the ragged route: weight and accumulator row padding (bytes, words)
+_RG_WPAD = 16
+_RG_OPAD = 8
 
 _ESIZE = {torch.int8: 1, torch.bfloat16: 2, torch.float32: 4}
 
@@ -168,25 +182,28 @@ def int8_plan(c_in: int, c_out: int, k: int, dilation: int = 1,
     """The kernel's launch plan, or ValueError.
 
     ``dtype`` is x's: int8 (the requant form), bf16 or f32 (the dequant
-    form). ``route`` ``"wgmma"`` takes int8 and bf16 with C_in % 32 == 0
-    and a TMA box of ``64 + d(k-1)`` <= 256 rows: ``kw`` bytes of C_in per
-    weight / s8 chunk (128, 64 or 32: the swizzle width), ``cb`` output
-    channels per CTA (the largest of 128, 64, 32, 16 that divides C_out
-    and leaves room for at least 2 ring ``stages`` beside the resident
-    ``k * C_in * cb`` weights), ``stages`` (2-4) and ``smem`` bytes
-    (:func:`wgmma_plan_bytes`). Every other shape takes ``route`` ``"mma"``
-    (``kw`` and ``stages`` 0, ``smem`` :func:`mma_plan_bytes`). The C
-    entry recomputes ``smem`` and refuses a plan that disagrees.
+    form). ``route`` ``"wgmma"`` takes int8 and bf16 with C_in % 32 == 0,
+    C_out % 16 == 0 and a TMA box of ``64 + d(k-1)`` <= 256 rows: ``kw``
+    bytes of C_in per weight / s8 chunk (128, 64 or 32: the swizzle
+    width), ``cb`` output channels per CTA (the largest of 128, 64, 32, 16
+    that divides C_out and leaves room for at least 2 ring ``stages``
+    beside the resident ``k * C_in * cb`` weights), ``stages`` (2-4) and
+    ``smem`` bytes (:func:`wgmma_plan_bytes`). Other multiples of 16 take
+    ``route`` ``"mma"`` (``kw`` and ``stages`` 0, ``smem``
+    :func:`mma_plan_bytes`). C_in or C_out not a multiple of 16 takes
+    ``route`` ``"ragged"`` (:func:`ragged_plan`). The C entry recomputes
+    the layout and refuses a plan that disagrees.
     """
-    if c_in <= 0 or c_out <= 0 or c_in % 16 or c_out % 16:
-        raise ValueError(f"C_in={c_in}, C_out={c_out}: the kernel takes "
-                         f"multiples of 16")
+    if c_in <= 0 or c_out <= 0:
+        raise ValueError(f"C_in={c_in}, C_out={c_out}: both must be >= 1")
     if k < 1 or dilation < 1:
         raise ValueError(f"k={k}, dilation={dilation}: both must be >= 1")
     if padding.upper() not in ("SAME", "VALID"):
         raise ValueError(f"unsupported padding {padding!r}")
     if dtype not in _ESIZE:
         raise ValueError(f"unsupported dtype {dtype}")
+    if c_in % 16 or c_out % 16:
+        return ragged_plan(c_in, c_out, k, dilation)
     if (dtype != torch.float32 and c_in % 32 == 0
             and _TL + dilation * (k - 1) <= 256):
         kw = 128 if c_in % 128 == 0 else 64 if c_in % 64 == 0 else 32
@@ -202,6 +219,48 @@ def int8_plan(c_in: int, c_out: int, k: int, dilation: int = 1,
     cb = next(cb for cb in (128, 64, 32, 16) if c_out % cb == 0)
     return dict(route="mma", cb=cb, kw=0, stages=0,
                 smem=mma_plan_bytes(c_in, k, dilation, cb))
+
+
+def ragged_plan_bytes(c_in: int, k: int, dilation: int, cb: int,
+                      taps: int) -> tuple[int, int]:
+    """(``kp``, shared memory) of the ragged route with ``taps`` weight
+    taps a stage: the x tile of ``64 + d(k-1)`` rows of ``cp`` bytes (C_in
+    rounded up to 4; the tile padded to 16 bytes), ``cb`` weight rows of
+    ``kp + 16`` bytes (``kp`` = ``taps * cp`` rounded up to 32: one stage's
+    contraction), 64 accumulator rows of ``cb + 8`` s32, the
+    contraction's ``kp`` s32 x tile offsets and 5 x ``cb`` f32 epilogue
+    parameters."""
+    cp = -(-c_in // 4) * 4
+    kp = -(-taps * cp // 32) * 32
+    xs = -(-(_TL + dilation * (k - 1)) * cp // 16) * 16
+    return kp, (xs + cb * (kp + _RG_WPAD) + _TL * (cb + _RG_OPAD) * 4
+                + 4 * kp + 20 * cb)
+
+
+def ragged_plan(c_in: int, c_out: int, k: int, dilation: int) -> dict:
+    """The ragged route's plan (any C_in and C_out, every form): ``cb``
+    output channels per CTA (the smallest of 16, 32, 64 that holds C_out,
+    else 128 with the last block cut), ``stages`` the weight taps staged at
+    once (all k when they fit in 112 KB, for two CTAs per SM, or in the
+    227 KB limit when one tap alone does not fit in 112 KB; else as many as
+    fit), ``kw`` one stage's contraction bytes (``kp``) and ``smem``
+    (:func:`ragged_plan_bytes`), or ValueError when not even one tap
+    fits."""
+    cb = next((cb for cb in (16, 32, 64) if c_out <= cb), 128)
+    kp, smem = ragged_plan_bytes(c_in, k, dilation, cb, 1)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"C_in={c_in}, k={k}, dilation={dilation}: the "
+                         f"ragged route's tile and one weight tap need "
+                         f"{smem} B of shared memory, over {SMEM_LIMIT}")
+    budget = _MMA_TARGET if smem <= _MMA_TARGET else SMEM_LIMIT
+    taps = 1
+    while taps < k:
+        more = ragged_plan_bytes(c_in, k, dilation, cb, taps + 1)
+        if more[1] > budget:
+            break
+        taps += 1
+        kp, smem = more
+    return dict(route="ragged", cb=cb, kw=kp, stages=taps, smem=smem)
 
 
 def wgmma_plan_bytes(c_in: int, k: int, dilation: int, cb: int, kw: int,
@@ -246,7 +305,7 @@ def mma_plan_bytes(c_in: int, k: int, dilation: int, cb: int) -> int:
 #: count, stream
 ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 15
             + [ctypes.c_void_p])
-_ROUTES = {"mma": 0, "wgmma": 1}
+_ROUTES = {"mma": 0, "wgmma": 1, "ragged": 2}
 
 
 @functools.cache
@@ -285,10 +344,12 @@ def _launch(x, w, scale, inv_act, bias, dyt, in_mask, out_mask, residual,
     if err != 0:
         raise RuntimeError(f"int8_conv kernel launch failed: CUDA error {err}")
     launches += 1
+    route_launches[plan["route"]] += 1
     return out
 
 
-def _check_conv(name, x, w, x_dtypes):
+def _check_conv(name, x, w, x_dtypes, dilation, padding):
+    """x and w checked and contiguous, and the launch plan."""
     if x.dtype not in x_dtypes:
         raise ValueError(f"{name}: unsupported dtype {x.dtype}")
     if x.dim() != 3 or w.dim() != 3:
@@ -300,14 +361,15 @@ def _check_conv(name, x, w, x_dtypes):
     k, c_in, c_out = w.shape
     if x.shape[2] != c_in:
         raise ValueError(f"{name}: x has {x.shape[2]} channels, w {c_in}")
-    if c_in % 16 or c_out % 16:
-        raise ValueError(f"{name}: C_in={c_in}, C_out={c_out}: the kernel "
-                         f"takes multiples of 16")
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
+    plan = int8_plan(c_in, c_out, k, dilation, padding, x.dtype)
+    # the ragged route reads x and w element by element; TMA and the
+    # 16-byte loads of the other routes need 16-byte rows
+    align = 1 if plan["route"] == "ragged" else 16
     dev = x.device
-    return (_check("x", x, x.shape, x.dtype, dev),
-            _check("w", w, w.shape, torch.int8, dev))
+    return (_check("x", x, x.shape, x.dtype, dev, align),
+            _check("w", w, w.shape, torch.int8, dev, align), plan)
 
 
 def int8_conv_requant(x, w, scale, dilation: int = 1):
@@ -315,9 +377,9 @@ def int8_conv_requant(x, w, scale, dilation: int = 1):
     kernel's function). ``scale``: a float or a 1-element f32 tensor."""
     if x.device.type == "cpu":
         return reference_int8_conv_requant(x, w, scale, dilation)
-    x, w = _check_conv("int8_conv_requant", x, w, (torch.int8,))
-    k, c_in, c_out = w.shape
-    plan = int8_plan(c_in, c_out, k, dilation, "same", torch.int8)
+    x, w, plan = _check_conv("int8_conv_requant", x, w, (torch.int8,),
+                             dilation, "same")
+    k, _, c_out = w.shape
     l_out, pad_l, _ = conv_geometry(x.shape[1], k, dilation, "SAME")
     out = torch.empty(x.shape[0], l_out, c_out, dtype=torch.int8,
                       device=x.device)
@@ -342,14 +404,14 @@ def int8_conv_dequant(x, w, inv_act, dq, bias=None, dyt=None, act="none",
             x, w, inv_act, dq, bias, dyt, act, use_dyt, dilation=dilation,
             padding=padding, bias_then_dyt=bias_then_dyt, in_mask=in_mask,
             out_mask=out_mask, residual=residual)
-    x, w = _check_conv("int8_conv_dequant", x, w,
-                       (torch.float32, torch.bfloat16))
+    x, w, plan = _check_conv("int8_conv_dequant", x, w,
+                             (torch.float32, torch.bfloat16), dilation,
+                             padding)
     if act not in _ACT_IDS:
         raise ValueError(f"unsupported activation {act!r}")
     bias, dyt = _epilogue_args(bias, dyt, use_dyt, bias_then_dyt)
-    n, length, c_in = x.shape
+    n, length, _ = x.shape
     k, _, c_out = w.shape
-    plan = int8_plan(c_in, c_out, k, dilation, padding, x.dtype)
     l_out, pad_l, _ = conv_geometry(length, k, dilation, padding)
     dev = x.device
     f32 = torch.float32

@@ -6,7 +6,11 @@
   integer sums are exact and both sides round half to even.
 * (b) Both plain versions against ``jax.lax.conv_general_dilated`` in
   int8 with int32 accumulation (SAME / VALID, dilation 1 / 3, C_in !=
-  C_out), again exactly: the dequantize is the same f32 operations.
+  C_out, and the ragged route's channel counts: C_in 4 / C_out 20, k 10,
+  VALID; C_in 24 / C_out 40, SAME, dilation 3), again exactly: the
+  dequantize is the same f32 operations. The launch plan of each route,
+  the ragged route's included (C_in or C_out not a multiple of 16, which
+  the wrapper once refused).
 * (c) ``MaskedConv1D`` and ``ResidualBlock`` (DYT and masked BN) with
   quant buffers against the JAX layers with a ``quant`` collection. f32:
   1e-5 of each output's scale (the integer products are exact and the
@@ -226,11 +230,63 @@ def test_plain_versions_match_lax_conv(padding, dilation):
         np.testing.assert_array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("c_in,c_out,k,padding,dilation", [
+    (4, 20, 10, "VALID", 1),                # the dvf conv's channels, narrow
+    (24, 40, 3, "SAME", 3),
+])
+def test_plain_versions_match_lax_conv_ragged(c_in, c_out, k, padding,
+                                              dilation):
+    """The ragged route's channel counts: the plain versions the CPU runs
+    against the lax conv, exactly (both forms)."""
+    rng = np.random.default_rng(c_in)
+    n, length = 3, 60
+    x = rng.normal(size=(n, length, c_in)).astype(np.float32)
+    mask = rng.random((n, length)) > 0.2
+    wq = rng.integers(-127, 128, (k, c_in, c_out)).astype(np.int8)
+    act_scale = np.float32(np.abs(x).max() / 127.0)
+    w_scale = (rng.random(c_out) * 1e-2 + 1e-3).astype(np.float32)
+    bias = rng.normal(size=c_out).astype(np.float32)
+    inv = (1.0 / jnp.float32(act_scale)).astype(jnp.float32)
+    xq = jnp.clip(jnp.round(jnp.where(mask[..., None], x, 0.0) * inv),
+                  -127.0, 127.0)
+    acc = _lax_int8_conv(xq, wq, padding, dilation)
+    want = acc.astype(np.float32) * (w_scale * act_scale) + bias
+    t_act = torch.tensor(act_scale)
+    got = int8_conv.int8_conv_dequant(
+        torch.from_numpy(x), torch.from_numpy(wq), 1.0 / t_act,
+        torch.from_numpy(w_scale) * t_act, torch.from_numpy(bias),
+        dilation=dilation, padding=padding, in_mask=torch.from_numpy(mask))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+    xi = rng.integers(-60, 60, (n, length, c_in)).astype(np.int8)
+    acc = _lax_int8_conv(xi, wq, "SAME", dilation)
+    want = np.clip(np.round(acc.astype(np.float32) * np.float32(1 / 64)),
+                   -127, 127).astype(np.int8)
+    got = int8_conv.int8_conv_requant(torch.from_numpy(xi),
+                                      torch.from_numpy(wq), 1.0 / 64,
+                                      dilation=dilation)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 def test_wrapper_rejects_unaligned_channels():
+    """The wrapper once refused C_in or C_out not a multiple of 16; it now
+    takes them on the ``"ragged"`` route: its checks refuse such a CPU
+    tensor only for its device (a CUDA tensor would launch), and on the CPU
+    it computes the plain version, equal to the lax conv."""
     x = torch.zeros(1, 8, 24)
-    w = torch.zeros(3, 24, 32, dtype=torch.int8)
-    with pytest.raises(ValueError, match="multiples of 16"):
-        int8_conv._check_conv("int8_conv_dequant", x, w, (torch.float32,))
+    w = torch.zeros(3, 24, 40, dtype=torch.int8)
+    with pytest.raises(ValueError, match="unsupported device"):
+        int8_conv._check_conv("int8_conv_dequant", x, w, (torch.float32,),
+                              1, "same")
+    assert int8_conv.int8_plan(24, 40, 3)["route"] == "ragged"
+    rng = np.random.default_rng(5)
+    xi = rng.integers(-60, 60, (2, 30, 24)).astype(np.int8)
+    wq = rng.integers(-127, 128, (3, 24, 40)).astype(np.int8)
+    got = int8_conv.int8_conv_requant(torch.from_numpy(xi),
+                                      torch.from_numpy(wq), 1.0 / 64)
+    want = np.clip(np.round(_lax_int8_conv(xi, wq, "SAME", 1).astype(
+        np.float32) * np.float32(1 / 64)), -127, 127).astype(np.int8)
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_kernel_source_declares_its_interface():
@@ -254,6 +310,10 @@ def test_kernel_source_declares_its_interface():
     assert "cp.async.bulk.tensor" in hopper
     assert "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32" in src
     assert "experiments/pallas_int8_conv.py" in src
+    # route 2, the ragged route, re-plans what int8_plan planned
+    for name in ("int8_ragged", "ragged_cb", "ragged_taps", "ragged_layout",
+                 "route == 2"):
+        assert name in src, name
 
 
 def test_fp32_pipe_rounding_matches_rint():
@@ -332,8 +392,6 @@ def test_int8_plan_main_path_shapes():
 
 
 @pytest.mark.parametrize("args", [
-    (24, 32, 3, 1, "same", torch.bfloat16),     # C_in % 16
-    (32, 40, 3, 1, "same", torch.bfloat16),     # C_out % 16
     (4096, 128, 5, 1, "same", torch.float32),   # mma: tile + one tap
     (128, 128, 5, 1, "causal", torch.bfloat16),
     (128, 128, 5, 1, "same", torch.float16),
@@ -342,6 +400,56 @@ def test_int8_plan_main_path_shapes():
 def test_int8_plan_refuses_what_cannot_fit(args):
     with pytest.raises(ValueError):
         int8_conv.int8_plan(*args)
+
+
+# (c_in, c_out, k, dilation, padding, dtype, cb, kw, taps): C_in % 16 and
+# C_out % 16 (both once refused), the dvf conv in each form, C_in 24 /
+# C_out 40 with dilation 3, an aligned C_in with a ragged C_out, and a
+# C_in whose taps do not all fit (stages of two taps, one CTA an SM)
+RAGGED_SHAPES = [
+    (24, 32, 3, 1, "same", torch.bfloat16, 32, 96, 3),
+    (32, 40, 3, 1, "same", torch.bfloat16, 64, 96, 3),
+    (4, 500, 10, 1, "valid", torch.bfloat16, 128, 64, 10),
+    (4, 500, 10, 1, "valid", torch.float32, 128, 64, 10),
+    (4, 20, 10, 1, "same", torch.int8, 32, 64, 10),
+    (24, 40, 3, 3, "same", torch.bfloat16, 64, 96, 3),
+    (16, 20, 5, 1, "same", torch.float32, 32, 96, 5),
+    (1000, 60, 10, 1, "same", torch.bfloat16, 64, 2016, 2),
+]
+
+
+@pytest.mark.parametrize("c_in,c_out,k,dil,pad,dtype,cb,kw,taps",
+                         RAGGED_SHAPES)
+def test_int8_plan_ragged_route(c_in, c_out, k, dil, pad, dtype, cb, kw,
+                                taps):
+    """C_in or C_out not a multiple of 16 takes the ragged route: the
+    column block, one stage's contraction (taps x C_in rounded up to 4,
+    then to 32) and the taps a stage that ``csrc/int8_conv.cu::
+    ragged_cb`` / ``ragged_taps`` / ``ragged_layout`` compute, within the
+    shared-memory limit."""
+    plan = int8_conv.int8_plan(c_in, c_out, k, dil, pad, dtype)
+    assert plan == dict(route="ragged", cb=cb, kw=kw, stages=taps,
+                        smem=int8_conv.ragged_plan_bytes(c_in, k, dil, cb,
+                                                         taps)[1])
+    assert plan["smem"] <= 232448
+    cp = -(-c_in // 4) * 4
+    assert kw == -(-taps * cp // 32) * 32 and cb >= min(c_out, 128)
+    if taps < k:                # the next tap would not fit
+        assert int8_conv.ragged_plan_bytes(c_in, k, dil, cb,
+                                           taps + 1)[1] > 232448
+    # the C entry's layout, by hand, at the dvf shape: the x tile (73 rows
+    # of 4 bytes, padded to 304), 128 weight rows of 64 + 16 bytes, 64
+    # accumulator rows of 136 s32, 64 contraction offsets and 5 x 128
+    # epilogue parameters
+    if (c_in, c_out, k) == (4, 500, 10):
+        assert plan["smem"] == (304 + 128 * 80 + 64 * 136 * 4 + 4 * 64
+                                + 20 * 128) == 48176
+
+
+def test_int8_plan_ragged_refuses_what_cannot_fit():
+    """Not even one tap of 128 output channels beside the x tile."""
+    with pytest.raises(ValueError, match="ragged route"):
+        int8_conv.int8_plan(2000, 500, 10, 1, "same", torch.bfloat16)
 
 
 def test_int8_plan_long_box_takes_mma_route():

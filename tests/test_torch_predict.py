@@ -73,9 +73,14 @@ def test_predict_tsv_byte_identical_to_jax(tmp_path, full_logits):
 
 
 def test_predict_refuses_later_slices(tmp_path):
-    """Sequence sharding, multi-host runs and ensembles are refused; the
-    prophage, refinement, tandem-masking and profiler stages are ported
-    (tests/test_torch_predict_stages.py)."""
+    """Sequence sharding and multi-host runs are refused; the prophage,
+    refinement, tandem-masking and profiler stages are ported
+    (tests/test_torch_predict_stages.py), and so are ensembles, which were
+    refused here too: a one-member ensemble of the demo predicts the
+    demo's own TSV (tests/test_torch_ensemble.py holds ensembles against
+    JAX)."""
+    import yaml
+
     from jaeger_tpu_torch.commands.predict import run_core
 
     for kw in ({"seq_shard": 2}, {"num_hosts": 2}):
@@ -84,9 +89,14 @@ def test_predict_refuses_later_slices(tmp_path):
                      **kw)
     ensemble = tmp_path / "ensemble"
     ensemble.mkdir()
-    (ensemble / "ensemble.yaml").write_text("members: []\n")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        run_core(str(FASTA), str(tmp_path), str(ensemble), device="cpu")
+    (ensemble / "ensemble.yaml").write_text(yaml.safe_dump(
+        {"method": "mean", "members": [str(DEMO.resolve())]}))
+    common = dict(fsize=2000, stride=1500, precision="float32",
+                  device="cpu", workers=1)
+    got = run_core(str(FASTA), str(tmp_path / "ens"), str(ensemble),
+                   **common)
+    want = run_core(str(FASTA), str(tmp_path / "demo"), str(DEMO), **common)
+    assert got.read_bytes() == want.read_bytes()
 
 
 def test_entry_points_raise_without_cuda(tmp_path):

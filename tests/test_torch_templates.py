@@ -25,8 +25,10 @@ with numpy from a seed. Covered:
   the Hyena template at its own widths, build and compute JAX's forward
   (``tests/test_torch_hyena.py`` and ``tests/test_torch_bilstm.py`` hold
   the layers and the Hyena template in every program);
-* int8 execution of the dvf and cross-frame templates is refused, naming
-  ROADMAP.md queue 1, item 10.
+* ``train`` writes the calibrated ``int8/`` bundle for every template
+  (``tests/test_torch_int8_zoo.py`` holds int8 execution of the templates
+  against JAX; it replaces ``test_int8_refused_for_layer_zoo``, which
+  pinned a refusal the port no longer has).
 """
 
 import copy
@@ -438,8 +440,8 @@ def _train_data(tmp_path, name, cfg):
 def test_train_cli_then_predict(tmp_path, name):
     """``train --device cpu`` on the narrow template (3 steps), then
     ``predict`` with the bundle; JAX loads the bundle and its forward
-    equals the port's. The new templates get no int8 bundle (refused, see
-    ``test_int8_refused_for_layer_zoo``); the variable-length one does."""
+    equals the port's. Every template gets its calibrated ``int8/``
+    bundle, as JAX's ``train`` writes it."""
     from jaeger_tpu.models.artifacts import load_model as jax_load_model
     from jaeger_tpu_torch import cli
     from jaeger_tpu_torch.models.artifacts import load_model
@@ -452,7 +454,7 @@ def test_train_cli_then_predict(tmp_path, name):
     for f in ("params.msgpack", "project.yaml", "classes.yaml",
               "history.csv", "checkpoints/classifier/checkpoints.json"):
         assert (out / f).exists(), f
-    assert (out / "int8").is_dir() == (name == "variable_length")
+    assert (out / "int8" / "params_int8.msgpack").exists()
     tm, _, _ = load_model(out, device="cpu")
     crop = tm.crop_nt
     cli.main(["predict", "-i", FASTA, "-o", str(tmp_path / "pred"), "-m",
@@ -508,23 +510,3 @@ def test_hyena_template_builds_and_matches_jax():
     666 codons), which the port refused before."""
     _forward_matches_jax(jax_load_config(
         "train_config/hyena_fullcontig.yaml"), 32, n=4)
-
-
-@pytest.mark.parametrize("name", ["dvf", "crossframe"])
-def test_int8_refused_for_layer_zoo(tmp_path, setups, name):
-    """``utils quantize --mode full_int8`` refuses the new templates
-    (queue 1, item 10); ``dynamic`` writes a bundle that loads as float
-    weights and computes the float forward."""
-    from jaeger_tpu_torch.models.artifacts import load_model
-    from jaeger_tpu_torch.models.conversion import quantize_bundle
-
-    bundle, crop = _bundle(tmp_path, setups, name)
-    with pytest.raises(NotImplementedError, match="queue 1, item 10"):
-        quantize_bundle(bundle, tmp_path / "q8", mode="full_int8",
-                        device="cpu")
-    quantize_bundle(bundle, tmp_path / "dyn", mode="dynamic", device="cpu")
-    model, _, _ = load_model(tmp_path / "dyn", device="cpu")
-    bases, lengths = _bases(np.random.default_rng(2), crop, "dense", 2)
-    with torch.inference_mode():
-        out = model(torch.from_numpy(bases), torch.from_numpy(lengths))
-    assert torch.isfinite(out["prediction"]).all()
