@@ -21,6 +21,9 @@ Run from the root of a checkout on a machine with CUDA:
     python3 chip_smoke.py --int8-zoo  # phases 1, 2 and 10 only (int8 for
                                       # the layer-zoo templates, the
                                       # ragged route, ensembles)
+    python3 chip_smoke.py --legacy    # phases 1, 2 and 11 only (the
+                                      # kernels' route, the ragged
+                                      # route's stride, the legacy models)
 
 Phases, each of which fails the run:
 
@@ -162,11 +165,28 @@ Phases, each of which fails the run:
    by ``utils combine-models`` for mv, sum and mean: its window outputs on
    the card against the members' own card outputs combined in numpy,
    ``predict`` with it, and its forward at batch 2048.
+11. the kernels' route, the ragged route's stride and the legacy models:
+   for each residual-conv shape the fused kernel's plans refuse (C 40 in
+   bf16, C 192 in f32, bf16 training at k 7 and at C 96, training at an
+   even k) a seeded model's forward on the card against the CPU's,
+   ``predict`` (fused_conv_block launched only where ``conv_plan`` takes
+   the shape) and two train steps with no hand-kernel launch, with the
+   forward and step timed on cuDNN; int8_conv's ragged route at strides 2
+   to 4 against its plain versions (requant equal, dequant within phase
+   3's tolerances) and its kernel, plain, library (strided im2col +
+   ``torch._int_mm``) and bound times at a strided flagship-width conv1
+   (N 12288, L 500, C 128, k 5, stride 2); ``predict --int8`` on a
+   full_int8 bundle with a ``strides: 2`` block (calibrated on the card,
+   counts reset just before, read just after: the ragged route launched),
+   the card's f32 scores within 0.01 of the CPU's; ``predict -m default``
+   and ``predict-legacy`` (the shipped default bundle) on the card with
+   TSVs byte-identical to ``--device cpu`` runs, the WRes forward on the
+   card against the CPU, and its windows/s at batch 128 and 1024.
 
 The second-to-last line is the kernels JSON (each kernel also with its
-numbers at the templates' shape and its launches on phase 8's, phase 9's
-and phase 10's paths; int8_conv with its ragged route's numbers at the
-dvf shape), the last ``{"ok": true, ...}``.
+numbers at the templates' shape and its launches on phase 8's, phase 9's,
+phase 10's and phase 11's paths; int8_conv with its ragged route's numbers
+at the dvf shape and at the stride shape), the last ``{"ok": true, ...}``.
 The script imports nothing of JAX or of jaeger_tpu.
 """
 
@@ -3828,6 +3848,508 @@ def phase_ensemble(tmp: Path, card: str, bundles: dict) -> dict:
     return results
 
 
+# --- phase 11: the route's faults, the strided ragged route, legacy ----------
+
+#: the shapes that the fused kernel's plans refuse (ROADMAP queue 3, F1):
+#: (name, C, k, dtype); each runs predict (whose residual convs take the
+#: kernel where conv_plan takes them) and two train steps (which take the
+#: kernel only where check_wgrad_shape takes them too: none of these)
+ROUTE_CASES = (
+    ("C40_bf16", 40, 3, "bfloat16"),
+    ("C192_f32", 192, 3, "float32"),
+    ("k7_bf16_train", 128, 7, "bfloat16"),
+    ("C96_bf16_train", 96, 3, "bfloat16"),
+    ("k4_even_train", 64, 4, "bfloat16"),
+)
+
+
+def route_config(c: int, k: int, strides: int = 1) -> dict:
+    """A fragment model with one residual stack of two blocks of C
+    channels and k taps (the first strided by ``strides``) behind a k5
+    entry conv of C channels and masked batch norm: 3 classes, a 500 nt
+    (165 codon) crop, the demo's heads."""
+    return {"model": {
+        "name": f"route_c{c}_k{k}_s{strides}",
+        "classifier_out_dim": 3,
+        "class_label_map": [{"class": n, "label": i} for i, n in
+                            enumerate(["chromosome", "phage", "plasmid"])],
+        "embedding": {"use_embedding_layer": True,
+                      "input_type": "translated", "embedding_size": 32},
+        "string_processor": {"crop_size": 165},
+        "representation_learner": {"hidden_layers": [
+            {"name": "masked_conv1d",
+             "config": {"filters": c, "kernel_size": 5}},
+            {"name": "masked_batchnorm", "config": {}},
+            {"name": "gelu"},
+            {"name": "residual_block",
+             "config": {"block_size": 2, "filters": c, "kernel_size": k,
+                        "strides": strides}},
+            {"name": "masked_batchnorm", "config": {}},
+            {"name": "gelu"}], "pooling": "average"},
+        "classifier": {"hidden_layers": [
+            {"name": "dense", "config": {"units": 3, "dtype": "float32"}}]},
+    }, "training": {
+        "optimizer": "adam", "optimizer_params": {"learning_rate": 0.003},
+        "loss_classifier": "categorical_crossentropy",
+        "loss_params_classifier": {"from_logits": True}}}
+
+
+def phase_route(tmp: Path, card: str) -> dict:
+    """Each shape of ``ROUTE_CASES`` (seeded weights): the forward on the
+    card against the same model on the CPU (masked windows; F32_TOL of the
+    scale in f32, BF16_TOL in bf16), ``run_core`` on the test contigs at
+    ``--fsize 500`` (fused_conv_block launched where conv_plan takes the
+    residual convs, not where it refuses them), two train steps on the card
+    (finite losses, no launch of fused_conv_block or its backward kernels:
+    check_wgrad_shape refuses every shape), and the dense forward and a
+    train step at batch 2048 / 256 timed (CUDA events)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from jaeger_tpu_torch.commands.predict import run_core
+    from jaeger_tpu_torch.models.artifacts import (init_params, load_state,
+                                                   save_model)
+    from jaeger_tpu_torch.models.builder import build_model
+    from jaeger_tpu_torch.models.layers import ResidualBlock
+    from jaeger_tpu_torch.ops import fused_conv
+    from jaeger_tpu_torch.ops import fused_conv_grad as fg
+    from jaeger_tpu_torch.train import loop
+    from jaeger_tpu_torch.train.optimizers import make_optimizer
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    labels = ["chromosome", "phage", "plasmid"]
+    results = {}
+    predict_launches = 0
+    for i, (name, c, k, precision) in enumerate(ROUTE_CASES):
+        dt = getattr(torch, precision)
+        cfg = route_config(c, k)
+        state = init_params(cfg, torch.Generator().manual_seed(110 + i))
+        bundle = save_model(state, cfg, tmp / f"route_{name}")
+        models = {}
+        for dev in ("cuda", "cpu"):
+            m = build_model(copy.deepcopy(cfg), dtype=dt)
+            load_state(m, state)
+            models[dev] = m.to(dev).eval()
+        blocks = [m for m in models["cuda"].modules()
+                  if isinstance(m, ResidualBlock)]
+        fused = [b.conv1.fused(dt, False) for b in blocks]
+        fused_train = [b.conv1.fused(dt, True) for b in blocks]
+        check(not any(fused_train),
+              f"route {name}: training takes the fused kernel {fused_train}")
+        rng = np.random.default_rng(120 + i)
+        crop = models["cpu"].crop_nt
+        batch = _train_batch(rng, crop, "masked", 64, 3)
+        outs = {}
+        with torch.inference_mode():
+            for dev, m in models.items():
+                out = m(torch.from_numpy(batch["bases"]).to(dev),
+                        torch.from_numpy(batch["lengths"]).to(dev))
+                outs[dev] = out["prediction"].float().cpu()
+        ref = outs["cpu"]
+        err = float((outs["cuda"] - ref).abs().max())
+        tol = (F32_TOL if dt == torch.float32 else BF16_TOL) * max(
+            float(ref.abs().max()), 1.0)
+        check(math.isfinite(err) and err <= tol,
+              f"route {name}: card forward differs from the CPU's by {err}")
+
+        before = fused_conv.launches
+        t0 = time.perf_counter()
+        table = run_core(str(FASTA), str(tmp / f"route_{name}_predict"),
+                         str(bundle), fsize=500, stride=500, batch=256,
+                         precision=precision)
+        predict_s = time.perf_counter() - t0
+        launched = fused_conv.launches - before
+        predict_launches += launched
+        _check_tsv(_read_tsv(table), labels, f"route {name} predict")
+        check((launched > 0) == any(fused),
+              f"route {name}: predict launched fused_conv_block {launched} "
+              f"times, route {fused}")
+
+        m = build_model(copy.deepcopy(cfg), dtype=dt)
+        load_state(m, state)
+        m.to("cuda")
+        tcfg = cfg["training"]
+        tstate = loop.TrainState.create(m, make_optimizer(
+            tcfg["optimizer"], tcfg["optimizer_params"]))
+        step = loop.make_dispatching_train_step(m, loop.StepConfig(
+            loss_name=tcfg["loss_classifier"],
+            loss_params=tcfg["loss_params_classifier"],
+            heads=("prediction",)), "cuda")
+        before = (dict(fg.launches), fused_conv.launches)
+        losses = []
+        for s in range(2):
+            tstate, metrics = step(tstate, _train_batch(
+                rng, crop, ("masked", "dense")[s], 64, 3))
+            losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        train_launches = fused_conv.launches - before[1] + sum(
+            fg.launches[n] - before[0][n] for n in fg.launches)
+        check(all(math.isfinite(v) for v in losses) and train_launches == 0,
+              f"route {name}: train losses {losses}, {train_launches} "
+              f"kernel launches")
+
+        bs = 2048
+        bases = torch.from_numpy(rng.integers(0, 4, size=(bs, crop)).astype(
+            np.uint8)).cuda()
+        lengths = torch.full((bs,), crop, dtype=torch.int32, device="cuda")
+        with torch.inference_mode():
+            fwd_ms = cuda_ms(lambda: models["cuda"](bases, lengths,
+                                                    assume_dense=True),
+                             iters=5, warmup=1)
+        tb = _train_batch(rng, crop, "dense", 256, 3)
+        held = [tstate]
+
+        def one_step():
+            held[0], _ = step(held[0], tb)
+
+        step_ms = cuda_ms(one_step, iters=3, warmup=1)
+        results[name] = dict(C=c, k=k, dtype=precision, predict_fused=fused,
+                             forward_max_abs_err=err,
+                             predict_launches=launched,
+                             predict_s=predict_s, train_losses=losses,
+                             forward_ms_b2048=fwd_ms,
+                             windows_per_s=bs / fwd_ms * 1e3,
+                             train_step_ms_b256=step_ms)
+        print(f"route {name} (C {c}, k {k}, {precision}) on {card}: "
+              f"residual convs fused in predict {fused}, in training "
+              f"{fused_train}; card vs CPU forward max_abs_err {err:.2e} "
+              f"(tol {tol:.2e}); predict {predict_s:.2f} s with {launched} "
+              f"fused_conv_block launches; train losses "
+              f"{losses[0]:.4f}, {losses[1]:.4f} with no kernel launch; "
+              f"dense forward at batch {bs} {fwd_ms:.2f} ms "
+              f"({bs / fwd_ms * 1e3:.0f} windows/s), train step at batch "
+              f"256 {step_ms:.2f} ms")
+    return dict(cases=results, predict_launches=predict_launches)
+
+
+#: the stride shape: a strided residual conv1 at the flagship's widths
+#: (batch 2048: N 12288, L 500, C 128 -> 128, k 5, SAME, stride 2), bf16
+STRIDE_N, STRIDE_L, STRIDE_C, STRIDE_K, STRIDE_S = 12288, 500, 128, 5, 2
+
+
+def library_strided_conv(x, w, inv_act, dq, bias, stride: int):
+    """Yardstick only, the strided dequant conv in library calls: quantize,
+    an im2col of the SAME taps at the stride, one cuBLASLt int8 GEMM
+    (``torch._int_mm``), the dequant and bias in torch."""
+    import torch
+    import torch.nn.functional as F
+
+    from jaeger_tpu_torch.ops import int8_conv
+
+    n, length, c_in = x.shape
+    k, _, c_out = w.shape
+    l_out, pad_l, pad_r = int8_conv.conv_geometry(length, k, 1, "same",
+                                                  stride)
+    q = int8_conv.quantize_activation(x, inv_act).to(torch.int8)
+    q = F.pad(q, (0, 0, pad_l, pad_r))
+    span = (l_out - 1) * stride + 1
+    cols = torch.cat([q[:, j:j + span:stride] for j in range(k)], dim=-1)
+    acc = torch._int_mm(cols.reshape(n * l_out, k * c_in),
+                        w.reshape(k * c_in, c_out))
+    return (acc.float() * dq + bias).to(x.dtype).view(n, l_out, c_out)
+
+
+def phase_ragged_stride(card: str) -> dict:
+    """int8_conv's ragged route at a stride above 1 against its plain
+    versions: the requant form equal, the dequant form within F32_TOL /
+    BF16_TOL (phase 3's tolerances), at the strided residual block's
+    convs (k 3 / 5 and the 1x1 bypass), ragged channel counts, dilation,
+    VALID, the tile's edges and the masks; then kernel, plain, library and
+    bound times at the stride shape."""
+    import torch
+
+    from jaeger_tpu_torch.ops import int8_conv
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(1111)
+    f32, bf16, i8 = torch.float32, torch.bfloat16, torch.int8
+    scale = torch.full((1,), 1.0 / 64.0, device=dev)
+    # (name, n, length, c_in, c_out, k, dilation, stride)
+    for name, n, length, c_in, c_out, k, dil, s in (
+            ("C16_to_24_k3_s2", 16, 300, 16, 24, 3, 1, 2),
+            ("C128_to_128_k5_s2", 32, 500, 128, 128, 5, 1, 2),
+            ("C128_to_128_k1_s2", 32, 500, 128, 128, 1, 1, 2),
+            ("C4_to_20_k10_s3", 16, 301, 4, 20, 10, 1, 3),
+            ("C24_to_40_d3_s2", 16, 300, 24, 40, 3, 3, 2),
+            ("C32_to_32_L1_s2", 4, 1, 32, 32, 3, 1, 2),
+            ("C32_to_32_L129_s2", 3, 129, 32, 32, 3, 1, 2),
+            ("C32_to_32_L257_s4", 3, 257, 32, 32, 5, 1, 4)):
+        x = torch.randint(-64, 64, (n, length, c_in), generator=gen,
+                          dtype=i8).to(dev)
+        w = torch.randint(-8, 8, (k, c_in, c_out), generator=gen,
+                          dtype=i8).to(dev)
+        plan = int8_conv.int8_plan(c_in, c_out, k, dil, "same", i8, s)
+        check(plan["route"] == "ragged", f"stride {name}: plan {plan}")
+        before = int8_conv.launches
+        out = int8_conv.int8_conv_requant(x, w, scale, dilation=dil,
+                                          stride=s)
+        torch.cuda.synchronize()
+        check(int8_conv.launches == before + 1, f"{name}: kernel not launched")
+        ref = int8_conv.reference_int8_conv_requant(x, w, scale, dilation=dil,
+                                                    stride=s)
+        diff = (out.int() - ref.int()).abs().max().item()
+        print(f"int8 ragged stride requant {name} N={n} L={length} "
+              f"C={c_in}->{c_out} k={k} d={dil} s={s} [{_plan_tag(plan)}]: "
+              f"max |diff| {diff} {'ok' if diff == 0 else 'FAIL'}")
+        check(out.dtype == i8 and out.shape == ref.shape and diff == 0,
+              f"ragged stride {name}: requant differs from the plain "
+              f"version by {diff}")
+
+    # (name, n, length, c_in, c_out, k, dilation, stride, padding, dtype,
+    #  act, ext)
+    cases = [
+        ("conv1_bf16_in_mask", 64, 500, 128, 128, 5, 1, 2, "same", bf16,
+         "gelu_tanh", "in_mask"),
+        ("conv1_bf16_dyt_residual", 64, 500, 128, 128, 3, 1, 2, "same", bf16,
+         "gelu_tanh", "all"),
+        ("bypass_bf16", 64, 500, 128, 128, 1, 1, 2, "same", bf16, "none",
+         "model"),
+        ("conv1_f32_out_mask", 16, 300, 48, 64, 3, 1, 2, "same", f32, "gelu",
+         "out_mask_residual"),
+        ("C24_to_40_d3_s3_f32", 16, 300, 24, 40, 3, 3, 3, "same", f32, "relu",
+         "all"),
+        ("C12_to_30_valid_s2", 6, 131, 12, 30, 4, 1, 2, "valid", bf16,
+         "tanh", "in_mask_runs"),
+        ("C16_L1_s2", 4, 1, 16, 16, 3, 1, 2, "same", bf16, "none", "bias"),
+        ("C16_L65_s2", 3, 65, 16, 16, 3, 1, 2, "same", f32, "gelu_tanh",
+         "all"),
+    ]
+    worst = 0.0
+    for name, n, length, c_in, c_out, k, dil, s, pad, dt, act, ext in cases:
+        x, w, inv_act, dq, bias, dyt = _int8_dequant_inputs(
+            gen, n, length, c_in, c_out, k, dt, dev)
+        l_out = int8_conv.conv_geometry(length, k, dil, pad, s)[0]
+        kw = dict(bias=bias, dilation=dil, padding=pad, act=act, stride=s)
+        ext_kw = _int8_ext_args(gen, ext, n, length, l_out, c_out, dt, dyt,
+                                dev)
+        kw.update(ext_kw)
+        plan = int8_conv.int8_plan(c_in, c_out, k, dil, pad, dt, s)
+        check(plan["route"] == "ragged", f"dequant {name}: plan {plan}")
+        before = int8_conv.launches
+        out = int8_conv.int8_conv_dequant(x, w, inv_act, dq, **kw)
+        torch.cuda.synchronize()
+        check(int8_conv.launches == before + 1, f"{name}: kernel not launched")
+        ref = int8_conv.reference_int8_conv_dequant(x, w, inv_act, dq, **kw)
+        check(out.dtype == dt and out.shape == ref.shape,
+              f"{name}: output {out.dtype} {tuple(out.shape)}")
+        err = (out.float() - ref.float()).abs()
+        tol = F32_TOL if dt == f32 else BF16_TOL
+        bad = (err > tol + tol * ref.float().abs()).sum().item()
+        max_err = err.max().item()
+        print(f"int8 ragged stride dequant {name} s={s} [{_plan_tag(plan)}]: "
+              f"max_abs_err {max_err:.3e} (tol {tol}) "
+              f"{'ok' if bad == 0 and math.isfinite(max_err) else 'FAIL'}")
+        check(bad == 0 and math.isfinite(max_err),
+              f"ragged stride {name}: {bad} elements beyond tolerance")
+        if name.startswith("conv1_bf16"):
+            worst = max(worst, max_err)
+        del x, w, out, ref, err
+
+    # times at the stride shape: the conv1 form with a bias, bf16
+    n, length, c, k, s = STRIDE_N, STRIDE_L, STRIDE_C, STRIDE_K, STRIDE_S
+    x, w, inv_act, dq, bias, _ = _int8_dequant_inputs(gen, n, length, c, c,
+                                                      k, bf16, dev)
+    l_out = int8_conv.conv_geometry(length, k, 1, "same", s)[0]
+
+    def kernel():
+        return int8_conv.int8_conv_dequant(x, w, inv_act, dq, bias, stride=s)
+
+    lib_out = library_strided_conv(x, w, inv_act, dq, bias, s)
+    lib_err = (lib_out.float() - kernel().float()).abs().max().item()
+    check(lib_err <= BF16_TOL * (1 + lib_out.float().abs().max().item()),
+          f"stride library yardstick differs from the kernel by {lib_err}")
+    launches_before = int8_conv.launches
+    routes_before = dict(int8_conv.route_launches)
+    # each input read once (bf16 x, s8 w, f32 dq and bias), the bf16 output
+    # written once
+    ops = 2.0 * n * l_out * c * k * c
+    nbytes = 2 * n * length * c + k * c * c + 8 * c + 2 * n * l_out * c
+    t_ops = ops / PEAK_INT8_OPS * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    plan = int8_conv.int8_plan(c, c, k, 1, "same", bf16, s)
+    t = dict(ms=cuda_ms(kernel, iters=10),
+             plain_ms=cuda_ms(lambda: int8_conv.reference_int8_conv_dequant(
+                 x, w, inv_act, dq, bias, stride=s), iters=2, warmup=1),
+             library_ms=cuda_ms(lambda: library_strided_conv(
+                 x, w, inv_act, dq, bias, s), iters=5),
+             library="torch._int_mm (strided im2col)",
+             bound_ms=max(t_ops, t_bytes),
+             bound_by="operations" if t_ops >= t_bytes else "bytes",
+             max_abs_err=worst, plan=_plan_tag(plan),
+             shape=f"N={n} L={length} C={c}->{c} k={k} SAME stride {s} "
+                   f"bf16 bias")
+    # timing launches are not the path
+    int8_conv.launches = launches_before
+    int8_conv.route_launches.clear()
+    int8_conv.route_launches.update(routes_before)
+    t["bound_share"] = t["bound_ms"] / t["ms"]
+    print(f"timing int8 ragged stride conv {t['shape']} [{t['plan']}] on "
+          f"{card}: kernel {t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, "
+          f"library {t['library_ms']:.3f} ms ({t['library']}), bound "
+          f"{t['bound_ms']:.3f} ms ({t['bound_by']}), "
+          f"{t['bound_share']:.1%} of the bound")
+    return t
+
+
+def phase_int8_strided_predict(tmp: Path, card: str) -> dict:
+    """A model whose residual stack opens with a ``strides: 2`` block (C
+    128, k 5; seeded weights), its full_int8 bundle calibrated on the card
+    by ``utils quantize``, then ``predict --int8`` on the test contigs in
+    bf16 and f32 on the card and in f32 on the CPU (counts reset just
+    before, read just after: int8_conv's ragged route launched by the
+    strided convs); the card's f32 scores within 0.01 of the CPU's."""
+    import torch
+
+    from jaeger_tpu_torch import cli
+    from jaeger_tpu_torch.models.artifacts import init_params, save_model
+    from jaeger_tpu_torch.ops import int8_conv
+
+    cfg = route_config(128, 5, strides=2)
+    bundle = save_model(init_params(cfg, torch.Generator().manual_seed(130)),
+                        cfg, tmp / "strided")
+    cli.main(["utils", "quantize", "-m", str(bundle), "-o",
+              str(tmp / "strided_int8"), "--mode", "full_int8"])
+    labels = ["chromosome", "phage", "plasmid"]
+    runs = {}
+    # the main path: counts reset just before, read just after
+    int8_conv.launches = 0
+    int8_conv.route_launches.clear()
+    t0 = time.perf_counter()
+    for name, extra in (("bf16", []), ("f32", ["--precision", "float32"])):
+        cli.main(["predict", "-i", str(FASTA), "-o", str(tmp / f"s_{name}"),
+                  "-m", str(bundle), "--int8", "--fsize", "500", "--stride",
+                  "500"] + extra)
+        runs[name] = _read_tsv(tmp / f"s_{name}" /
+                               "test_contigs_default_jaeger.tsv")
+    dt = time.perf_counter() - t0
+    launches = dict(int8_conv=int8_conv.launches,
+                    **{r: int8_conv.route_launches[r]
+                       for r in ("ragged", "wgmma", "mma")})
+    check(launches["ragged"] > 0,
+          f"strided predict --int8: launches {launches}")
+    cli.main(["predict", "-i", str(FASTA), "-o", str(tmp / "s_cpu"), "-m",
+              str(bundle), "--int8", "--fsize", "500", "--stride", "500",
+              "--precision", "float32", "--device", "cpu"])
+    runs["cpu_f32"] = _read_tsv(tmp / "s_cpu" /
+                                "test_contigs_default_jaeger.tsv")
+    for name, rows in runs.items():
+        _check_tsv(rows, labels, f"strided predict --int8 {name}")
+    diff = _max_score_diff(runs["f32"], runs["cpu_f32"], labels)
+    check(diff <= 0.01, f"strided --int8: card f32 scores differ from the "
+          f"CPU's by {diff}")
+    print(f"predict --int8 strided bundle (C 128, k 5, stride 2) on {card}: "
+          f"bf16 and f32 in {dt:.2f} s, kernel launches {launches}; card f32 "
+          f"vs CPU f32 max score diff {diff:.2e} (tol 0.01)")
+    return dict(launches=launches, score_diff_f32=diff, seconds=dt)
+
+
+def _tsv_row_diffs(got: Path, want: Path) -> list[str]:
+    """The rows of two TSVs that differ, each with both values."""
+    a = got.read_text().splitlines()
+    b = want.read_text().splitlines()
+    out = [f"line count {len(a)} vs {len(b)}"] if len(a) != len(b) else []
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            out.append(f"line {i}: card {x!r} / cpu {y!r}")
+    return out
+
+
+def phase_legacy(tmp: Path, card: str) -> dict:
+    """The legacy ``default`` model (the shipped bundle): ``predict -m
+    default`` and ``predict-legacy`` on the test contigs on the card, each
+    TSV byte-identical to the same command's with ``--device cpu`` (else
+    the rows that differ are printed with both values and the phase
+    fails); the WRes forward's logits and embeddings on the card against
+    the CPU's on the test contigs' first 128 windows (F32_TOL of the
+    scale); the forward's windows/s at batch 128 and 1024 (CUDA events,
+    tokens encoded beforehand) and the wall time of each command."""
+    import numpy as np
+    import torch
+
+    from jaeger_tpu_torch import cli
+    from jaeger_tpu_torch.commands.predict_legacy import (DEFAULT_MODEL_DIR,
+                                                          load_legacy_model)
+    from jaeger_tpu_torch.ops import fused_conv, int8_conv
+    from jaeger_tpu_torch.seqops.windows import window_batches
+
+    fused_conv.launches = 0
+    int8_conv.launches = 0
+    commands = {
+        "predict": ["predict", "-i", str(FASTA), "-m", "default"],
+        "predict-legacy": ["predict-legacy", "-i", str(FASTA)],
+    }
+    results = {}
+    for name, args in commands.items():
+        walls = {}
+        for dev in ("cuda", "cpu"):
+            out = tmp / f"legacy_{name}_{dev}"
+            t0 = time.perf_counter()
+            cli.main(args + ["-o", str(out), "--device", dev])
+            walls[dev] = time.perf_counter() - t0
+        diffs = []
+        for tsv in ("test_contigs_default_jaeger.tsv",
+                    "test_contigs_default_phages_jaeger.tsv"):
+            diffs += _tsv_row_diffs(tmp / f"legacy_{name}_cuda" / tsv,
+                                    tmp / f"legacy_{name}_cpu" / tsv)
+        for d in diffs:
+            print(f"legacy {name}: {d}")
+        check(not diffs, f"legacy {name}: card TSVs differ from the CPU's")
+        rows = _read_tsv(tmp / f"legacy_{name}_cuda" /
+                         "test_contigs_default_jaeger.tsv")
+        check(len(rows) == 9, f"legacy {name}: {len(rows)} rows")
+        results[name] = dict(wall_s_card=walls["cuda"],
+                             wall_s_cpu=walls["cpu"])
+        print(f"legacy {name} -m default on {card}: TSVs byte-identical to "
+              f"--device cpu; wall {walls['cuda']:.2f} s on the card, "
+              f"{walls['cpu']:.2f} s on the CPU")
+    check(fused_conv.launches == 0 and int8_conv.launches == 0,
+          "the legacy path launched a hand kernel")
+
+    models = {dev: load_legacy_model(DEFAULT_MODEL_DIR, device=dev)
+              for dev in ("cuda", "cpu")}
+    encode = models["cpu"][1]
+    wb = next(window_batches(str(FASTA), fragsize=2048, stride=2048))
+    b, ln = wb.bases[:128], wb.length[:128]
+    outs = {}
+    with torch.inference_mode():
+        for dev, (m, _) in models.items():
+            toks = encode(torch.from_numpy(b).to(dev),
+                          torch.from_numpy(ln).to(dev), 2048)
+            o = m(toks)
+            outs[dev] = {k: o[k].float().cpu() for k in ("output",
+                                                         "embedding")}
+    errs = {}
+    for k, ref in outs["cpu"].items():
+        errs[k] = float((outs["cuda"][k] - ref).abs().max())
+        tol = F32_TOL * max(float(ref.abs().max()), 1.0)
+        check(errs[k] <= tol, f"legacy WRes {k}: card differs from the CPU "
+              f"by {errs[k]} (tol {tol})")
+    rates = {}
+    rng = np.random.default_rng(140)
+    model = models["cuda"][0]
+    with torch.inference_mode():
+        for bs in (128, 1024):
+            bases = torch.from_numpy(rng.integers(0, 4, size=(bs, 2048))
+                                     .astype(np.uint8)).cuda()
+            lengths = torch.full((bs,), 2048, dtype=torch.int32,
+                                 device="cuda")
+            toks = encode(bases, lengths, 2048)
+            ms = cuda_ms(lambda: model(toks), iters=5 if bs > 128 else 20,
+                         warmup=1)
+            rates[bs] = dict(ms=ms, windows_per_s=bs / ms * 1e3)
+    print(f"legacy WRes forward on {card}: card vs CPU max_abs_err logits "
+          f"{errs['output']:.2e}, embeddings {errs['embedding']:.2e} "
+          f"(tol {F32_TOL} of the scale); f32 at fsize 2048: batch 128 "
+          f"{rates[128]['ms']:.2f} ms ({rates[128]['windows_per_s']:.0f} "
+          f"windows/s), batch 1024 {rates[1024]['ms']:.2f} ms "
+          f"({rates[1024]['windows_per_s']:.0f} windows/s)")
+    return dict(commands=results, max_abs_err=errs,
+                forward={str(k): v for k, v in rates.items()})
+
+
 def main(argv: list[str]) -> int:
     try:
         import torch
@@ -3881,6 +4403,18 @@ def main(argv: list[str]) -> int:
             print(f"int8 zoo run done in "
                   f"{time.perf_counter() - t_start:.0f} s")
             return 0
+        if "--legacy" in argv:
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+                route = phase_route(Path(tmp), card)
+                stride = phase_ragged_stride(card)
+                strided = phase_int8_strided_predict(Path(tmp), card)
+                legacy = phase_legacy(Path(tmp), card)
+            print(json.dumps({"route": route, "ragged_stride": stride,
+                              "int8_strided_predict": strided,
+                              "legacy": legacy}))
+            print(f"legacy run done in "
+                  f"{time.perf_counter() - t_start:.0f} s")
+            return 0
         if "--templates" in argv:
             kern_zoo = phase_templates_kernel(card)
             with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -3925,6 +4459,10 @@ def main(argv: list[str]) -> int:
             bundles = zoo.pop("bundles")
             zoo8 = phase_int8_zoo(Path(tmp), card, bundles)
             ens = phase_ensemble(Path(tmp), card, bundles)
+            route = phase_route(Path(tmp), card)
+            stride = phase_ragged_stride(card)
+            strided = phase_int8_strided_predict(Path(tmp), card)
+            legacy = phase_legacy(Path(tmp), card)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
@@ -3945,7 +4483,9 @@ def main(argv: list[str]) -> int:
                "conv_wgrad_plan": kern_train["conv_wgrad"]["plan"],
                "host_pipeline": host, "templates": zoo,
                "templates_kernels": kern_zoo, "zoo_f32": zoo_f32,
-               "hyena": hyena, "int8_zoo": zoo8, "ensemble": ens}
+               "hyena": hyena, "int8_zoo": zoo8, "ensemble": ens,
+               "route": route, "int8_strided_predict": strided,
+               "legacy": legacy}
     print(json.dumps(summary))
     print(f"all phases passed in {time.perf_counter() - t_start:.0f} s")
     print(card)
@@ -3983,14 +4523,17 @@ def main(argv: list[str]) -> int:
               templates=at_templates("fused_conv_block",
                                      zl["fused_conv_block"]),
               templates_dgrad=at_templates("dgrad", zl["fused_conv_block"]),
-              hyena_launches=hl["fused_conv_block"]),
+              hyena_launches=hl["fused_conv_block"],
+              route_predict_launches=route["predict_launches"]),
         entry("int8_conv", "cuda", "jaeger_tpu_torch/csrc/int8_conv.cu",
               "experiments/pallas_int8_conv.py:67", launches8, kern8,
               templates_launches=zl["int8_conv"],
               hyena_launches=hl["int8_conv"],
               int8_zoo_launches=zoo8["launches"]["int8_conv"],
               ragged_route=dict(ragged,
-                                launches=zoo8["launches"]["ragged"])),
+                                launches=zoo8["launches"]["ragged"]),
+              ragged_stride=dict(stride,
+                                 launches=strided["launches"]["ragged"])),
         # train's main path: the backward of the fused conv block
         entry("conv_wgrad", "cuda",
               "jaeger_tpu_torch/csrc/fused_conv_wgrad.cu",

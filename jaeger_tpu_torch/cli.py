@@ -4,14 +4,22 @@ Counterpart of `jaeger_tpu/cli.py`: ``predict``, with the JAX command's
 options for the one-device modern-model path (``--int8 [full|auto]``,
 ``--quantized``, ``--prophage`` with ``-s/--sensitivity``, ``--lc`` and
 ``--plot-type``, ``--refine`` with the ``--refine-*`` options,
-``--mask-tandem`` and ``--profile`` included) plus ``--device``, ``train``
-(fragment models on one device, with ``--device``), ``utils
-quantize`` and ``utils combine-models`` (the JAX command's options, plus
-``--device``). Options of paths that are not ported yet (``--seq-shard``,
-``--num-hosts``) are accepted and refused with a clear error. Built on
-``argparse`` so the CLI needs nothing beyond the standard library.
+``--mask-tandem``, ``--profile``, ``--model_path`` and ``--getalllabels``
+included) plus ``--device``; ``predict -m default|experimental[_N]``
+(without ``--model_path``) runs the legacy workflow with ``predict``'s
+defaults, as JAX's CLI does; ``predict-legacy`` (JAX's options, plus
+``--device``); ``train`` (fragment models on one device, with
+``--device``), ``utils quantize`` and ``utils combine-models`` (the JAX
+command's options, plus ``--device``). Options of paths that are not
+ported yet (``--seq-shard``, ``--num-hosts``) are accepted and refused
+with a clear error. A usage error (``--int8`` without an int8 bundle)
+exits 2 with its message, as click does. Built on ``argparse`` so the CLI
+needs nothing beyond the standard library.
 
     python -m jaeger_tpu_torch.cli predict -i contigs.fasta -o out/
+    python -m jaeger_tpu_torch.cli predict -i contigs.fasta -o out/ \
+        -m default
+    python -m jaeger_tpu_torch.cli predict-legacy -i contigs.fasta -o out/
     python -m jaeger_tpu_torch.cli utils quantize -m model -o model_int8 \
         --mode full_int8
     python -m jaeger_tpu_torch.cli predict -i contigs.fasta -o out/ \
@@ -30,15 +38,22 @@ import sys
 
 logger = logging.getLogger("jaeger_tpu_torch")
 
+#: ``-m`` names that route ``predict`` to the legacy workflow
+LEGACY_MODELS = ("default", "experimental", "experimental_1",
+                 "experimental_2")
 
-def _predict_parser(sub) -> None:
+
+def _predict_parser(sub) -> argparse.ArgumentParser:
     p = sub.add_parser("predict", help="Identify phage sequences in a FASTA "
                                        "of contigs.")
     p.add_argument("-i", "--input", dest="input_path", required=True)
     p.add_argument("-o", "--output", dest="output_dir", required=True)
     p.add_argument("-m", "--model", dest="model_path", default=None,
                    help="Model bundle directory (default: the bundled demo "
-                        "model).")
+                        "model); 'default' / 'experimental[_N]' run the "
+                        "legacy workflow.")
+    p.add_argument("--model_path", dest="model_path_override", default=None,
+                   help="Path to a model bundle; overrides --model.")
     p.add_argument("--fsize", type=int, default=2000)
     p.add_argument("--stride", type=int, default=1500)
     p.add_argument("--batch", type=int, default=96)
@@ -70,6 +85,9 @@ def _predict_parser(sub) -> None:
     p.add_argument("--save-nmd", action="store_true")
     p.add_argument("-f", "--overwrite", action="store_true")
     p.add_argument("-v", "--verbose", action="count", default=0)
+    p.add_argument("--getalllabels", action="store_true",
+                   help="Legacy models: report per-class labels for "
+                        "non-phage contigs.")
     p.add_argument("--int8", nargs="?", const="full", default=None,
                    choices=["full", "auto"],
                    help="Use the int8 bundle (utils quantize --mode "
@@ -115,19 +133,45 @@ def _predict_parser(sub) -> None:
     # later slices
     p.add_argument("--seq-shard", type=int, default=1)
     p.add_argument("--num-hosts", type=int, default=1)
+    return p
 
 
-def predict(args: argparse.Namespace) -> None:
-    from jaeger_tpu_torch.commands.predict import resolve_model_path, run_core
+def predict(args: argparse.Namespace, parser: argparse.ArgumentParser) -> None:
+    from jaeger_tpu_torch.commands.predict import (resolve_int8_bundle,
+                                                   resolve_model_path,
+                                                   run_core)
 
+    if (args.model_path_override is None
+            and args.model_path in LEGACY_MODELS):
+        print(f"Warning: model '{args.model_path}' uses the legacy "
+              "prediction workflow and is deprecated.", file=sys.stderr)
+        from jaeger_tpu_torch.commands.predict_legacy import (
+            run_core as legacy_run_core)
+
+        table = legacy_run_core(
+            input_path=args.input_path, output_dir=args.output_dir,
+            fsize=args.fsize, stride=args.stride, batch=args.batch,
+            min_len=args.min_len, reliability_cutoff=args.reliability_cutoff,
+            phage_score=args.phage_score, model_name=args.model_path,
+            getalllabels=args.getalllabels, workers=args.workers,
+            device=args.device)
+        print(f"summary written to {table}")
+        return
+    model_path = (args.model_path_override
+                  or resolve_model_path(args.model_path))
+    if args.int8 or args.quantized in ("dynamic", "full_int8"):
+        # JAX's CLI raises click.UsageError here: exit 2 with the message
+        try:
+            resolve_int8_bundle(model_path)
+        except FileNotFoundError as e:
+            parser.error(str(e))
     crf_matrix = None
     if args.crf_transition_matrix:
         with open(args.crf_transition_matrix) as fh:
             crf_matrix = json.load(fh)
     table = run_core(
         input_path=args.input_path, output_dir=args.output_dir,
-        model_path=resolve_model_path(args.model_path),
-        fsize=args.fsize, stride=args.stride, batch=args.batch,
+        model_path=model_path, fsize=args.fsize, stride=args.stride, batch=args.batch,
         min_len=args.min_len, dustmask=args.dustmask,
         dynamic_stride=args.dynamic_stride,
         dynamic_stride_threshold=args.dynamic_stride_threshold,
@@ -149,6 +193,55 @@ def predict(args: argparse.Namespace) -> None:
         refine_contig_hedge_margin=args.refine_contig_hedge_margin,
         mask_tandem=args.mask_tandem, profile=args.profile,
     )
+    print(f"summary written to {table}")
+
+
+def _predict_legacy_parser(sub) -> None:
+    p = sub.add_parser("predict-legacy",
+                       help="Legacy predict: the default WRes model or a v2 "
+                            "experimental model.")
+    p.add_argument("-i", "--input", dest="input_path", required=True)
+    p.add_argument("-o", "--output", dest="output_dir", required=True)
+    p.add_argument("-m", "--model-dir", dest="model_dir", default=None,
+                   help="Directory with the model (default: the shipped "
+                        "default bundle; a WRes_1024.h5 + OOD pickle, or an "
+                        "experimental Keras .h5).")
+    p.add_argument("--fsize", type=int, default=2048)
+    p.add_argument("--stride", type=int, default=2048)
+    p.add_argument("--batch", type=int, default=128)
+    p.add_argument("--min-len", dest="min_len", type=int, default=None)
+    p.add_argument("--model", dest="model_name", default="default",
+                   help="Legacy family: 'default' (the WRes model) or "
+                        "'experimental[_N]' (v2 Murphy-10 model; needs a "
+                        "Keras .h5 in --model-dir).")
+    p.add_argument("--num-res-blocks", dest="num_res_blocks", type=int,
+                   default=10,
+                   help="Residual blocks in the experimental tower.")
+    p.add_argument("--rc", "--reliability-cutoff", dest="reliability_cutoff",
+                   type=float, default=0.5)
+    p.add_argument("--pc", "--phage-score", dest="phage_score", type=float,
+                   default=3.0)
+    p.add_argument("--getalllabels", action="store_true",
+                   help="Report per-class labels for non-phage contigs.")
+    p.add_argument("--workers", type=int, default=4)
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default cuda; 'cpu' runs on the "
+                        "CPU).")
+    p.add_argument("-v", "--verbose", action="count", default=0)
+
+
+def predict_legacy(args: argparse.Namespace) -> None:
+    from jaeger_tpu_torch.commands.predict_legacy import run_core
+
+    table = run_core(input_path=args.input_path, output_dir=args.output_dir,
+                     model_dir=args.model_dir, fsize=args.fsize,
+                     stride=args.stride, batch=args.batch,
+                     min_len=args.min_len, model_name=args.model_name,
+                     num_res_blocks=args.num_res_blocks,
+                     reliability_cutoff=args.reliability_cutoff,
+                     phage_score=args.phage_score,
+                     getalllabels=args.getalllabels, workers=args.workers,
+                     device=args.device)
     print(f"summary written to {table}")
 
 
@@ -294,7 +387,8 @@ def main(argv: list[str] | None = None) -> None:
         prog="jaeger-tpu-torch",
         description="jaeger_tpu_torch: phage detection on NVIDIA GPUs.")
     sub = parser.add_subparsers(dest="command", required=True)
-    _predict_parser(sub)
+    predict_parser = _predict_parser(sub)
+    _predict_legacy_parser(sub)
     _train_parser(sub)
     _utils_parser(sub)
     args = parser.parse_args(argv)
@@ -306,8 +400,10 @@ def main(argv: list[str] | None = None) -> None:
          "combine-models": combine_models}[args.utils_command](args)
     elif args.command == "train":
         train(args)
+    elif args.command == "predict-legacy":
+        predict_legacy(args)
     else:
-        predict(args)
+        predict(args, predict_parser)
 
 
 if __name__ == "__main__":

@@ -70,6 +70,50 @@ DTYPES = {
 }
 
 
+def crop_length_warning(config: dict, fsize: int) -> str | None:
+    """Warn when ``--fsize`` disagrees with the model's trained crop.
+
+    Copy of `jaeger_tpu/commands/predict.py::crop_length_warning`: codon
+    models compare frame counts through the crop contract, nucleotide
+    models compare lengths; fixed-length architectures can collapse to one
+    class at an unseen length.
+    """
+    from jaeger_tpu_torch.models.builder import _resolve_crop_nt
+    from jaeger_tpu_torch.seqops.crop import nucleotides_to_codons
+
+    model_cfg = config.get("model", {})
+    sp = model_cfg.get("string_processor", {})
+    input_type = model_cfg.get("embedding", {}).get(
+        "input_type", "translated")
+    try:
+        trained_nt = _resolve_crop_nt(sp, input_type)
+    except Exception:
+        return None
+    if input_type == "nucleotide":
+        if int(fsize) != int(trained_nt):
+            return (
+                f"runtime --fsize {fsize} differs from the model's "
+                f"trained fragment length ({trained_nt} nt); "
+                f"fixed-length architectures may degrade at a "
+                f"different length — prefer --fsize {trained_nt}"
+            )
+        return None
+    trained_codons = nucleotides_to_codons(trained_nt)
+    runtime_codons = nucleotides_to_codons(int(fsize))
+    if runtime_codons == trained_codons:
+        return None
+    effect = (
+        f"windows will be zero-masked past {fsize} nt"
+        if runtime_codons < trained_codons
+        else f"bases past {trained_nt} nt of each window are ignored"
+    )
+    return (
+        f"runtime --fsize {fsize} yields {runtime_codons} codon frames "
+        f"but the model was trained on {trained_codons} ({trained_nt} "
+        f"nt); {effect} — prefer --fsize {trained_nt}"
+    )
+
+
 def resolve_model_path(model: str | None) -> str:
     """A bundle path, or the bundled demo model when omitted."""
     if model is None:
@@ -332,6 +376,9 @@ def run_core(
     model, config, classes = load(model_path, dtype=DTYPES[precision],
                                   device=dev)
     indices, labels = class_names_in_order(classes)
+    warning = crop_length_warning(config, fsize)
+    if warning:
+        logger.warning(warning)
 
     term_future = None
     term_pool = None

@@ -5,11 +5,13 @@
 // extended to MaskedConv1D's int8 branch (jaeger_tpu/models/layers.py
 // :228-262). For x (N, L, C_in) channels-last and w (K, C_in, C_out) int8:
 //
-//   acc[n, l, :] = sum_j q[n, l + j*d - pad_l, :] @ w[j]      (int32, exact)
+//   acc[n, l, :] = sum_j q[n, l*s + j*d - pad_l, :] @ w[j]    (int32, exact)
 //
-// stride 1, any dilation d and kernel size K, SAME (pad_l = d(K-1)/2, L_out
-// = L) or VALID (pad_l = 0, L_out = L - d(K-1)). Halo rows outside [0, L)
-// and rows whose in_mask is false read as q = 0. One mainloop, two forms:
+// any dilation d and kernel size K, SAME (at stride s = 1 pad_l = d(K-1)/2,
+// L_out = L) or VALID (pad_l = 0, L_out = L - d(K-1)); the "ragged" route
+// also takes s > 1 (pad_l and L_out from the wrapper, XLA's SAME or VALID).
+// Halo rows outside [0, L) and rows whose in_mask is false read as q = 0.
+// One mainloop, two forms:
 //
 // * requant (x int8, q = x): out = clip(rint(f32(acc) * scale), -127, 127)
 //   as int8, `scale` one combined f32 scalar: the Pallas kernel's function.
@@ -32,7 +34,8 @@
 //
 // Three routes, chosen before launch by ops/int8_conv.py::int8_plan; the
 // entry below recomputes the plan's layout and refuses one that disagrees.
-// "wgmma" and "mma" take C_in and C_out multiples of 16, "ragged" the rest.
+// "wgmma" and "mma" take C_in and C_out multiples of 16 at stride 1,
+// "ragged" the rest.
 //
 // Route "wgmma" (int8_wgmma<T, CB, KB>: requant, and dequant in bf16, with
 // C_in % 32 == 0 and 64 + d(K-1) <= 256 rows), on the schedule of
@@ -118,7 +121,8 @@
 //  * The tile's 64 + d(K-1) input rows are loaded element by element
 //    (consecutive threads on consecutive elements: one contiguous span of
 //    x), quantized as x is read, into shared memory as s8 with the
-//    channels padded with zeros to cp, a multiple of 4.
+//    channels padded with zeros to cp, a multiple of 4. At stride s the
+//    tile holds the 63 s + d(K-1) + 1 input rows of its 64 outputs.
 //  * The contraction K * cp is laid out tap-major and padded to a multiple
 //    of 32: output row r at index j * cp + c reads tile row r + j * d,
 //    channel c, so each 4-byte A group lies in one tap and comes by one
@@ -127,7 +131,8 @@
 //    staged once per CTA (as many taps a stage as fit in 112 KB; then
 //    restaged per tile), transposed to (CB, kp) rows with zeros past K,
 //    C_in and C_out, beside the block's dq, bias and DYT rows. mma.sync
-//    m16n8k32 s8 with s32 sums; each warp has 16 rows by CB / 2 columns
+//    m16n8k32 s8 with s32 sums (output row r's A row starts at tile row
+//    r * s); each warp has 16 rows by CB / 2 columns
 //    and skips n8 tiles past C_out.
 //  * The s32 sums go through shared memory. The epilogue (the mma route's
 //    operations, in f32) gives each thread VEC fixed channels (4 when 4
@@ -175,7 +180,7 @@ struct Params {
   const uint8_t* out_mask;  // (N, L_out) or null
   const void* residual;     // (N, L_out, C_out) in x's type, or null
   void* out;                // (N, L_out, C_out): int8 (requant) or x's type
-  int L, L_out, C_in, C_out, K, dil, pad_l, act, taps_per_stage;
+  int L, L_out, C_in, C_out, K, dil, stride, pad_l, act, taps_per_stage;
 };
 
 __device__ __forceinline__ float act_fn(float y, int act) {
@@ -1026,7 +1031,8 @@ constexpr int RG_TARGET = 112 * 1024;  // two CTAs per SM when one tap fits
 constexpr int RG_MIN_CTAS = 4;  // CTAs per SM the registers must allow (64 each)
 
 // Shared-memory layout of the ragged route, byte offsets:
-// [x tile: rows x cp s8 (cp = C_in rounded up to 4), padded to 16 bytes]
+// [x tile: rows = 63 * stride + dil * (K - 1) + 1 input rows x cp s8 (cp =
+//  C_in rounded up to 4), padded to 16 bytes]
 // [weights: cb rows (output channels) x ldw = kp + 16 bytes, where kp =
 //  taps * cp rounded up to 32 is one stage's contraction, tap-major]
 // [accumulators: 64 rows x (cb + 8) s32]
@@ -1038,10 +1044,11 @@ struct RaggedLayout {
   uint32_t off_w, off_o, off_k, off_p, bytes;
 };
 
-RaggedLayout ragged_layout(int C_in, int K, int dil, int cb, int taps) {
+RaggedLayout ragged_layout(int C_in, int K, int dil, int stride, int cb,
+                           int taps) {
   RaggedLayout lay;
   lay.cp = (C_in + 3) & ~3;
-  lay.rows = RG_TL + dil * (K - 1);
+  lay.rows = (RG_TL - 1) * stride + dil * (K - 1) + 1;
   lay.taps = taps;
   lay.kp = (taps * lay.cp + 31) & ~31;
   lay.ldw = lay.kp + RG_WPAD;
@@ -1063,13 +1070,14 @@ int ragged_cb(int C_out) {
 // Taps per weight stage: all K when they fit in RG_TARGET (in SMEM_LIMIT
 // when one tap alone does not fit there), else as many as fit; 0 when not
 // even one tap fits.
-int ragged_taps(int C_in, int K, int dil, int cb) {
-  const uint32_t one = ragged_layout(C_in, K, dil, cb, 1).bytes;
+int ragged_taps(int C_in, int K, int dil, int stride, int cb) {
+  const uint32_t one = ragged_layout(C_in, K, dil, stride, cb, 1).bytes;
   if (one > (uint32_t)SMEM_LIMIT) return 0;
   const uint32_t budget =
       one <= (uint32_t)RG_TARGET ? (uint32_t)RG_TARGET : (uint32_t)SMEM_LIMIT;
   int taps = 1;
-  while (taps < K && ragged_layout(C_in, K, dil, cb, taps + 1).bytes <= budget)
+  while (taps < K &&
+         ragged_layout(C_in, K, dil, stride, cb, taps + 1).bytes <= budget)
     ++taps;
   return taps;
 }
@@ -1211,6 +1219,7 @@ int8_ragged(Params p, RaggedLayout lay, int l_tiles, int m_tiles) {
   const int ncols = min(CB, p.C_out - col0);
   const int C = p.C_in, cp = lay.cp, K = p.K;
   const int n_x = lay.rows * cp;  // x tile elements
+  const int row_step = p.stride * cp;  // tile bytes between output rows
   const int n_stages = (K + lay.taps - 1) / lay.taps;
   const T* x = static_cast<const T*>(p.x);
   float inv = 1.f;  // the requant form loads int8 as it is
@@ -1224,12 +1233,12 @@ int8_ragged(Params p, RaggedLayout lay, int l_tiles, int m_tiles) {
     const int n = m / l_tiles, l0 = (m - n * l_tiles) * RG_TL;
     const long long xrow0 = (long long)n * p.L;
     __syncthreads();  // the last tile's reads of xs and os are done
-    // the tile's input rows l0 - pad_l .. + rows - 1, quantized, with
-    // channels C_in .. cp - 1, rows outside [0, L) and masked rows 0: one
-    // contiguous span of x, consecutive threads on consecutive elements
+    // the tile's input rows l0 * stride - pad_l .. + rows - 1, quantized,
+    // with channels C_in .. cp - 1, rows outside [0, L) and masked rows 0:
+    // one contiguous span of x, consecutive threads on consecutive elements
     for (int i = tid; i < n_x; i += RG_THREADS) {
       const int r = i / cp, c = i - r * cp;
-      const int pos = l0 - p.pad_l + r;
+      const int pos = l0 * p.stride - p.pad_l + r;
       int q = 0;
       if (c < C && pos >= 0 && pos < p.L &&
           (!p.in_mask || p.in_mask[xrow0 + pos])) {
@@ -1282,15 +1291,16 @@ int8_ragged(Params p, RaggedLayout lay, int l_tiles, int m_tiles) {
         }
       }
       __syncthreads();  // x tile, weights, offsets, parameters complete
-      // a 4-byte group of the contraction never straddles taps (cp % 4 == 0)
-      const int8_t* xr = xs + r0 * cp;
+      // a 4-byte group of the contraction never straddles taps (cp % 4 ==
+      // 0); output row r reads from tile row r * stride on
+      const int8_t* xr = xs + r0 * row_step;
       for (int kk = 0; kk < lay.kp; kk += 32) {
         uint32_t a[4];
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int o = koff[kk + 16 * h + 4 * t];
           a[2 * h] = o >= 0 ? ld32(xr + o) : 0u;
-          a[2 * h + 1] = o >= 0 ? ld32(xr + o + 8 * cp) : 0u;
+          a[2 * h + 1] = o >= 0 ? ld32(xr + o + 8 * row_step) : 0u;
         }
         const int8_t* bp = ws + (c_warp + g) * lay.ldw + kk + 4 * t;
 #pragma unroll
@@ -1417,9 +1427,11 @@ cudaError_t dispatch_ragged(const Params& p, const RaggedLayout& lay, int cb,
 // form). The launch plan of ops/int8_conv.py::int8_plan: route 1 = wgmma (cb
 // output channels per CTA, kw bytes of C_in per weight / s8 chunk, `stages`
 // ring stages; not f32), route 0 = mma (cb; kw and stages 0), both with
-// C_in and C_out multiples of 16; route 2 = ragged (cb = ragged_cb(C_out),
-// kw the stage's contraction bytes, `stages` the taps per weight stage), for
-// any C_in and C_out. smem_bytes must equal the layout this file computes
+// C_in and C_out multiples of 16 and stride 1; route 2 = ragged (cb =
+// ragged_cb(C_out), kw the stage's contraction bytes, `stages` the taps per
+// weight stage), for any C_in, C_out and stride. pad_l and L_out are the
+// wrapper's (XLA's SAME or VALID). smem_bytes must equal the layout this
+// file computes
 // for the plan. sms is the card's SM count. Returns a cudaError_t (0 =
 // success).
 extern "C" int jt_int8_conv(int in_dtype, const void* x, const void* w,
@@ -1428,10 +1440,12 @@ extern "C" int jt_int8_conv(int in_dtype, const void* x, const void* w,
                             const void* in_mask, const void* out_mask,
                             const void* residual, void* out, int n_rows, int L,
                             int L_out, int C_in, int C_out, int K, int dil,
-                            int pad_l, int act, int route, int cb, int kw,
+                            int stride, int pad_l, int act, int route, int cb,
+                            int kw,
                             int stages, int smem_bytes, int sms, void* stream) {
-  if (n_rows <= 0 || L <= 0 || L_out <= 0 || K <= 0 || dil <= 0 || pad_l < 0 ||
-      C_in <= 0 || C_out <= 0 || cb <= 0 || in_dtype < 0 || in_dtype > 2)
+  if (n_rows <= 0 || L <= 0 || L_out <= 0 || K <= 0 || dil <= 0 ||
+      stride <= 0 || pad_l < 0 || C_in <= 0 || C_out <= 0 || cb <= 0 ||
+      in_dtype < 0 || in_dtype > 2)
     return (int)cudaErrorInvalidValue;
   Params p;
   p.x = x;
@@ -1450,15 +1464,16 @@ extern "C" int jt_int8_conv(int in_dtype, const void* x, const void* w,
   p.C_out = C_out;
   p.K = K;
   p.dil = dil;
+  p.stride = stride;
   p.pad_l = pad_l;
   p.act = act;
   p.taps_per_stage = K;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (route == 2) {
-    const int taps = ragged_taps(C_in, K, dil, cb);
+    const int taps = ragged_taps(C_in, K, dil, stride, cb);
     if (sms <= 0 || cb != ragged_cb(C_out) || taps == 0 || taps != stages)
       return (int)cudaErrorInvalidValue;
-    const RaggedLayout lay = ragged_layout(C_in, K, dil, cb, taps);
+    const RaggedLayout lay = ragged_layout(C_in, K, dil, stride, cb, taps);
     if (lay.kp != kw || lay.bytes != (uint32_t)smem_bytes)
       return (int)cudaErrorInvalidValue;
     switch (in_dtype) {
@@ -1468,7 +1483,7 @@ extern "C" int jt_int8_conv(int in_dtype, const void* x, const void* w,
       default: return (int)dispatch_ragged<int8_t>(p, lay, cb, n_rows, sms, s);
     }
   }
-  if (C_in % 16 != 0 || C_out % 16 != 0 || C_out % cb != 0)
+  if (C_in % 16 != 0 || C_out % 16 != 0 || C_out % cb != 0 || stride != 1)
     return (int)cudaErrorInvalidValue;
   if (route == 1) {
     if (in_dtype == 0 || sms <= 0) return (int)cudaErrorInvalidValue;

@@ -50,15 +50,19 @@ proves it output-exact (``defer_mask``); the port always re-zeroes, which
 gives the same outputs.
 
 ``ResidualBlock`` runs every SAME, stride-1, dilation-1, C_in == C_out
-conv through :func:`jaeger_tpu_torch.ops.fused_conv.fused_conv_block`
-(the Hopper kernel on CUDA, its plain version on the CPU); with DYT norms
-the norm, its re-zero, the shortcut add and the activation ride the
-kernel's epilogue.
+conv whose shape the kernel's launch plan takes
+(:meth:`MaskedConv1D.fused`) through
+:func:`jaeger_tpu_torch.ops.fused_conv.fused_conv_block` (the Hopper
+kernel on CUDA, its plain version on the CPU); with DYT norms the norm,
+its re-zero, the shortcut add and the activation ride the kernel's
+epilogue. Every other conv runs cuDNN's ``F.conv1d`` with the torch
+epilogue, on every device alike.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 from typing import Callable
 
@@ -66,8 +70,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from jaeger_tpu_torch.ops.fused_conv import fused_conv_block
-from jaeger_tpu_torch.ops.fused_conv_grad import fused_conv_block_train
+from jaeger_tpu_torch.ops.fused_conv import conv_plan, fused_conv_block
+from jaeger_tpu_torch.ops.fused_conv_grad import (check_wgrad_shape,
+                                                  fused_conv_block_train)
 from jaeger_tpu_torch.ops.int8_conv import conv_geometry, int8_conv_dequant
 
 # ---------------------------------------------------------------------------
@@ -135,6 +140,20 @@ def _param(*shape) -> nn.Parameter:
     return nn.Parameter(torch.zeros(*shape), requires_grad=False)
 
 
+@functools.lru_cache(maxsize=None)
+def _kernel_takes(c: int, k: int, dtype: torch.dtype, train: bool) -> bool:
+    """Whether the fused kernel's plans take C channels and k taps in
+    ``dtype`` (and, in training, its backward's): asked before any
+    launch, never by catching a launch's error."""
+    try:
+        conv_plan(c, k, dtype)
+        if train:
+            check_wgrad_shape(c, k, dtype)
+    except ValueError:
+        return False
+    return True
+
+
 # ---------------------------------------------------------------------------
 # Convolution
 # ---------------------------------------------------------------------------
@@ -177,10 +196,21 @@ class MaskedConv1D(nn.Module):
 
     @property
     def fusable(self) -> bool:
-        """Whether the fused kernel computes this conv."""
+        """Whether this conv has the fused kernel's form (SAME, stride 1,
+        dilation 1, C_in == C_out); :meth:`fused` also asks its plans."""
         return (self.padding == "SAME" and self.strides == 1
                 and self.dilation_rate == 1
                 and self.in_channels == self.filters)
+
+    def fused(self, dtype: torch.dtype, train: bool) -> bool:
+        """Whether a residual block runs this conv on the fused kernel: it
+        has the kernel's form and the kernel's launch plan takes its shape
+        (``conv_plan``; in training also ``check_wgrad_shape``, which
+        takes odd k only). The answer is the same on every device, so the
+        CPU runs the route the card runs; a refused conv takes the cuDNN
+        conv and the torch epilogue, as dilated convs do."""
+        return self.fusable and _kernel_takes(self.filters,
+                                              self.kernel_size, dtype, train)
 
     @property
     def int8(self) -> bool:
@@ -204,10 +234,6 @@ class MaskedConv1D(nn.Module):
     def int8_args(self) -> tuple[torch.Tensor, torch.Tensor]:
         """``(inv_act, dq)`` as ``layers.py:248,259-262`` compute them:
         ``f32(1 / act_scale)`` and ``f32(w_scale) * f32(act_scale)``."""
-        if self.strides != 1:
-            raise NotImplementedError(
-                "int8 execution of strided convs is not yet ported to "
-                "jaeger_tpu_torch")
         return 1.0 / self.act_scale, self.w_scale * self.act_scale
 
     def record_input(self, x: torch.Tensor, mask) -> None:
@@ -286,7 +312,7 @@ class MaskedConv1D(nn.Module):
                 None if self.bias is None
                 else self.bias.to(self.dtype).float(),
                 act=k_act or "none", dilation=self.dilation_rate,
-                padding=self.padding,
+                padding=self.padding, stride=self.strides,
                 in_mask=mask.reshape(b * f, length) if masked else None)
             if k_act is None:
                 y = get_activation(self.activation)(y)
@@ -691,20 +717,21 @@ class ResidualBlock(nn.Module):
         """``act(norm(conv(x)) + residual)`` -> (y, out_mask, nmd).
 
         Convs with int8 buffers run on the int8 kernel (not in training),
-        other fusable convs on the fused kernel (through
-        ``FusedConvBlockFn`` in training); with a DYT norm the kernel's
-        epilogue also takes the norm, its re-zero, the residual add and the
-        activation.
+        convs that :meth:`MaskedConv1D.fused` admits on the fused kernel
+        (through ``FusedConvBlockFn`` in training); with a DYT norm the
+        kernel's epilogue also takes the norm, its re-zero, the residual add
+        and the activation.
         """
         masked = conv.use_masking and mask is not None
         b, f, length, _ = x.shape
         k_act = kernel_activation(act, self.dtype)
         int8 = conv.int8 and not train
-        if int8 or conv.fusable:
+        if int8 or conv.fused(self.dtype, train):
             conv.record_input(x, mask)
             m_out = None if (drop_mask or not masked) else conv.output_mask(mask)
             l_out = conv_geometry(length, conv.kernel_size,
-                                  conv.dilation_rate, conv.padding)[0]
+                                  conv.dilation_rate, conv.padding,
+                                  conv.strides)[0]
             bias = (None if conv.bias is None
                     else conv.bias.to(self.dtype).float())
             kw = dict(in_mask=mask.reshape(b * f, length) if masked else None)
@@ -722,7 +749,8 @@ class ResidualBlock(nn.Module):
                 y = int8_conv_dequant(x3, conv.kernel_q, *conv.int8_args(),
                                       bias, use_dyt=fuse_norm,
                                       dilation=conv.dilation_rate,
-                                      padding=conv.padding, **kw)
+                                      padding=conv.padding,
+                                      stride=conv.strides, **kw)
             elif train:
                 y = fused_conv_block_train(x3, conv.kernel, bias, **kw)
             else:
@@ -987,15 +1015,17 @@ class MHA(nn.Module):
     """Multi-head self-attention with an output projection: the function
     of JAX's ``_MHA`` (flax ``MultiHeadDotProductAttention``'s tree and
     math). ``query`` / ``key`` / ``value`` kernels ``(C, h, dh)``, ``out``
-    ``(h, dh, embed_dim)``; the query is pre-scaled by ``1/sqrt(dh)``.
-    Sequence axes of at most 16 compute the scores and the weighted values
-    in f32 and round once, as JAX does there."""
+    ``(h, dh, out_features)`` (``out_features`` defaults to ``embed_dim``,
+    the qkv width); the query is pre-scaled by ``1/sqrt(dh)``. Sequence
+    axes of at most 16 compute the scores and the weighted values in f32
+    and round once, as JAX does there."""
 
     #: sequence lengths up to this take the f32-accumulated form
     SHORT_SEQ_MAX = 16
 
     def __init__(self, in_channels: int, embed_dim: int, num_heads: int,
-                 dropout_rate: float = 0.0, dtype=torch.float32):
+                 dropout_rate: float = 0.0, dtype=torch.float32,
+                 out_features: int | None = None):
         super().__init__()
         h = int(num_heads)
         dh = int(embed_dim) // h
@@ -1005,7 +1035,8 @@ class MHA(nn.Module):
         for name in ("query", "key", "value"):
             self.add_module(name, DenseGeneral((in_channels,), (h, dh),
                                                dtype=dtype))
-        self.out = DenseGeneral((h, dh), (int(embed_dim),), dtype=dtype)
+        self.out = DenseGeneral((h, dh), (int(out_features or embed_dim),),
+                                dtype=dtype)
 
     def forward(self, x, attn_mask=None, train: bool = False,
                 generator=None):

@@ -4,13 +4,14 @@ Replaces ``experiments/pallas_int8_conv.py::int8_conv_layer``
 (``pl.pallas_call`` at :67-69, kernel body ``_kernel`` at :41-63) and
 carries ``MaskedConv1D``'s int8 branch (``jaeger_tpu/models/layers.py``
 :228-262). For x ``(N, L, C_in)`` channels-last and w ``(k, C_in, C_out)``
-int8, stride 1, dilation ``d``::
+int8, stride ``s``, dilation ``d``::
 
-    acc[n, l, :] = sum_j q[n, l + j*d - pad_l, :] @ w[j]      (int32, exact)
+    acc[n, l, :] = sum_j q[n, l*s + j*d - pad_l, :] @ w[j]    (int32, exact)
 
-SAME (``pad_l = d(k-1) // 2``, ``L_out = L``) or VALID (``pad_l = 0``,
-``L_out = L - d(k-1)``). Two entry points share one kernel
-(``csrc/int8_conv.cu``):
+SAME (XLA's: ``L_out = ceil(L / s)``, ``pad_l`` the smaller half of
+``(L_out - 1) s + d(k-1) + 1 - L``; at s 1 ``pad_l = d(k-1) // 2``,
+``L_out = L``) or VALID (``pad_l = 0``, ``L_out = (L - d(k-1) - 1) // s +
+1``). Two entry points share one kernel (``csrc/int8_conv.cu``):
 
 * :func:`int8_conv_requant`: x int8, output
   ``clip(rint(f32(acc) * scale), -127, 127)`` as int8 with one combined f32
@@ -41,7 +42,7 @@ accumulators while a second warpgroup runs the next tile's products; the
 residual tile arrives by TMA. ``"mma"`` (f32 inputs, C_in % 32 == 16, or
 a shape whose weights and ring do not fit) is the first, simple
 ``mma.sync`` kernel. ``"ragged"`` takes C_in or C_out not a multiple of
-16 (the dvf template's conv: one-hot nucleotides, C_in 4, C_out 500,
+16, and every stride above 1 (the dvf template's conv: one-hot nucleotides, C_in 4, C_out 500,
 k 10, VALID; per launch at batch 2048 40.2 G int8 operations, 0.020 ms,
 against 1.01 GB of bf16 output, 0.300 ms: bound by bytes): 64-row tiles
 loaded element by element into shared memory as s8 with the channels
@@ -78,34 +79,40 @@ route_launches: collections.Counter = collections.Counter()
 _PLAIN_ROWS = 2048
 
 
-def conv_geometry(length: int, k: int, dilation: int,
-                  padding: str) -> tuple[int, int, int]:
-    """(L_out, pad_l, pad_r) of a stride-1 conv (XLA's SAME or VALID)."""
+def conv_geometry(length: int, k: int, dilation: int, padding: str,
+                  stride: int = 1) -> tuple[int, int, int]:
+    """(L_out, pad_l, pad_r) of a conv with XLA's SAME or VALID padding."""
     span = dilation * (k - 1)
     padding = padding.upper()
+    if stride < 1:
+        raise ValueError(f"stride {stride} must be >= 1")
     if padding == "SAME":
-        return length, span // 2, span - span // 2
+        l_out = -(-length // stride)
+        total = max((l_out - 1) * stride + span + 1 - length, 0)
+        return l_out, total // 2, total - total // 2
     if padding == "VALID":
         if length <= span:
             raise ValueError(f"VALID conv: length {length} <= span {span}")
-        return length - span, 0, 0
+        return (length - span - 1) // stride + 1, 0, 0
     raise ValueError(f"unsupported padding {padding!r}")
 
 
 def _exact_conv(q: torch.Tensor, w: torch.Tensor, dilation: int,
-                padding: str) -> torch.Tensor:
+                padding: str, stride: int = 1) -> torch.Tensor:
     """Integer conv of int8-valued q (N, L, C_in) and w (k, C_in, C_out) as
     float64 holding the exact int32 sums (|sum| < 127 * 127 * k * C_in,
     far below 2**53, so every product and partial sum is exact)."""
     k = w.shape[0]
-    l_out, pad_l, pad_r = conv_geometry(q.shape[1], k, dilation, padding)
+    l_out, pad_l, pad_r = conv_geometry(q.shape[1], k, dilation, padding,
+                                        stride)
+    span = (l_out - 1) * stride + 1
     wf = w.double()
     chunks = []
     for s in range(0, q.shape[0], _PLAIN_ROWS):
         qf = F.pad(q[s:s + _PLAIN_ROWS].double(), (0, 0, pad_l, pad_r))
-        acc = qf[:, 0:l_out] @ wf[0]
+        acc = qf[:, 0:span:stride] @ wf[0]
         for j in range(1, k):
-            acc += qf[:, j * dilation:j * dilation + l_out] @ wf[j]
+            acc += qf[:, j * dilation:j * dilation + span:stride] @ wf[j]
         chunks.append(acc)
     return torch.cat(chunks) if len(chunks) > 1 else chunks[0]
 
@@ -118,9 +125,10 @@ def _f32(v, device, name: str) -> torch.Tensor:
     return t
 
 
-def reference_int8_conv_requant(x, w, scale, dilation: int = 1):
+def reference_int8_conv_requant(x, w, scale, dilation: int = 1,
+                                stride: int = 1):
     """Plain PyTorch version of :func:`int8_conv_requant`."""
-    acc = _exact_conv(x, w, dilation, "SAME")
+    acc = _exact_conv(x, w, dilation, "SAME", stride)
     y = acc.float() * _f32(scale, x.device, "scale")
     return torch.clamp(torch.round(y), -127, 127).to(torch.int8)
 
@@ -133,8 +141,9 @@ def quantize_activation(x: torch.Tensor, inv_act) -> torch.Tensor:
 
 def reference_int8_conv_dequant(x, w, inv_act, dq, bias=None, dyt=None,
                                 act="none", use_dyt=False, *, dilation=1,
-                                padding="same", bias_then_dyt=False,
-                                in_mask=None, out_mask=None, residual=None):
+                                padding="same", stride=1,
+                                bias_then_dyt=False, in_mask=None,
+                                out_mask=None, residual=None):
     """Plain PyTorch version of :func:`int8_conv_dequant` (same
     signature). The epilogue runs in f32 with the multiply and the bias add
     as separate operations, and the result is cast to x's dtype once."""
@@ -143,7 +152,7 @@ def reference_int8_conv_dequant(x, w, inv_act, dq, bias=None, dyt=None,
     if in_mask is not None:
         q = torch.where(in_mask[..., None], q,
                         torch.zeros((), device=q.device))
-    y = _exact_conv(q, w, dilation, padding).float() * dq.float()
+    y = _exact_conv(q, w, dilation, padding, stride).float() * dq.float()
     if bias is not None:
         y = y + bias.float()
     if dyt is not None:
@@ -178,7 +187,8 @@ def _align(v: int, a: int = 1024) -> int:
 
 
 def int8_plan(c_in: int, c_out: int, k: int, dilation: int = 1,
-              padding: str = "same", dtype=torch.bfloat16) -> dict:
+              padding: str = "same", dtype=torch.bfloat16,
+              stride: int = 1) -> dict:
     """The kernel's launch plan, or ValueError.
 
     ``dtype`` is x's: int8 (the requant form), bf16 or f32 (the dequant
@@ -190,20 +200,21 @@ def int8_plan(c_in: int, c_out: int, k: int, dilation: int = 1,
     beside the resident ``k * C_in * cb`` weights), ``stages`` (2-4) and
     ``smem`` bytes (:func:`wgmma_plan_bytes`). Other multiples of 16 take
     ``route`` ``"mma"`` (``kw`` and ``stages`` 0, ``smem``
-    :func:`mma_plan_bytes`). C_in or C_out not a multiple of 16 takes
-    ``route`` ``"ragged"`` (:func:`ragged_plan`). The C entry recomputes
-    the layout and refuses a plan that disagrees.
+    :func:`mma_plan_bytes`). C_in or C_out not a multiple of 16, and every
+    ``stride`` above 1, take ``route`` ``"ragged"`` (:func:`ragged_plan`).
+    The C entry recomputes the layout and refuses a plan that disagrees.
     """
     if c_in <= 0 or c_out <= 0:
         raise ValueError(f"C_in={c_in}, C_out={c_out}: both must be >= 1")
-    if k < 1 or dilation < 1:
-        raise ValueError(f"k={k}, dilation={dilation}: both must be >= 1")
+    if k < 1 or dilation < 1 or stride < 1:
+        raise ValueError(f"k={k}, dilation={dilation}, stride={stride}: "
+                         f"each must be >= 1")
     if padding.upper() not in ("SAME", "VALID"):
         raise ValueError(f"unsupported padding {padding!r}")
     if dtype not in _ESIZE:
         raise ValueError(f"unsupported dtype {dtype}")
-    if c_in % 16 or c_out % 16:
-        return ragged_plan(c_in, c_out, k, dilation)
+    if c_in % 16 or c_out % 16 or stride > 1:
+        return ragged_plan(c_in, c_out, k, dilation, stride)
     if (dtype != torch.float32 and c_in % 32 == 0
             and _TL + dilation * (k - 1) <= 256):
         kw = 128 if c_in % 128 == 0 else 64 if c_in % 64 == 0 else 32
@@ -222,9 +233,10 @@ def int8_plan(c_in: int, c_out: int, k: int, dilation: int = 1,
 
 
 def ragged_plan_bytes(c_in: int, k: int, dilation: int, cb: int,
-                      taps: int) -> tuple[int, int]:
+                      taps: int, stride: int = 1) -> tuple[int, int]:
     """(``kp``, shared memory) of the ragged route with ``taps`` weight
-    taps a stage: the x tile of ``64 + d(k-1)`` rows of ``cp`` bytes (C_in
+    taps a stage: the x tile of ``63 s + d(k-1) + 1`` rows (the input rows
+    of 64 outputs at stride ``s``) of ``cp`` bytes (C_in
     rounded up to 4; the tile padded to 16 bytes), ``cb`` weight rows of
     ``kp + 16`` bytes (``kp`` = ``taps * cp`` rounded up to 32: one stage's
     contraction), 64 accumulator rows of ``cb + 8`` s32, the
@@ -232,13 +244,16 @@ def ragged_plan_bytes(c_in: int, k: int, dilation: int, cb: int,
     parameters."""
     cp = -(-c_in // 4) * 4
     kp = -(-taps * cp // 32) * 32
-    xs = -(-(_TL + dilation * (k - 1)) * cp // 16) * 16
+    rows = (_TL - 1) * stride + dilation * (k - 1) + 1
+    xs = -(-rows * cp // 16) * 16
     return kp, (xs + cb * (kp + _RG_WPAD) + _TL * (cb + _RG_OPAD) * 4
                 + 4 * kp + 20 * cb)
 
 
-def ragged_plan(c_in: int, c_out: int, k: int, dilation: int) -> dict:
-    """The ragged route's plan (any C_in and C_out, every form): ``cb``
+def ragged_plan(c_in: int, c_out: int, k: int, dilation: int,
+                stride: int = 1) -> dict:
+    """The ragged route's plan (any C_in, C_out and stride, every form):
+    ``cb``
     output channels per CTA (the smallest of 16, 32, 64 that holds C_out,
     else 128 with the last block cut), ``stages`` the weight taps staged at
     once (all k when they fit in 112 KB, for two CTAs per SM, or in the
@@ -247,15 +262,16 @@ def ragged_plan(c_in: int, c_out: int, k: int, dilation: int) -> dict:
     (:func:`ragged_plan_bytes`), or ValueError when not even one tap
     fits."""
     cb = next((cb for cb in (16, 32, 64) if c_out <= cb), 128)
-    kp, smem = ragged_plan_bytes(c_in, k, dilation, cb, 1)
+    kp, smem = ragged_plan_bytes(c_in, k, dilation, cb, 1, stride)
     if smem > SMEM_LIMIT:
-        raise ValueError(f"C_in={c_in}, k={k}, dilation={dilation}: the "
+        raise ValueError(f"C_in={c_in}, k={k}, dilation={dilation}, "
+                         f"stride={stride}: the "
                          f"ragged route's tile and one weight tap need "
                          f"{smem} B of shared memory, over {SMEM_LIMIT}")
     budget = _MMA_TARGET if smem <= _MMA_TARGET else SMEM_LIMIT
     taps = 1
     while taps < k:
-        more = ragged_plan_bytes(c_in, k, dilation, cb, taps + 1)
+        more = ragged_plan_bytes(c_in, k, dilation, cb, taps + 1, stride)
         if more[1] > budget:
             break
         taps += 1
@@ -301,9 +317,9 @@ def mma_plan_bytes(c_in: int, k: int, dilation: int, cb: int) -> int:
 
 
 #: the C entry's arguments: in_dtype, 10 pointers, n_rows, L, L_out, C_in,
-#: C_out, k, dilation, pad_l, act, route, cb, kw, stages, smem bytes, SM
-#: count, stream
-ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 15
+#: C_out, k, dilation, stride, pad_l, act, route, cb, kw, stages, smem
+#: bytes, SM count, stream
+ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 10 + [ctypes.c_int] * 16
             + [ctypes.c_void_p])
 _ROUTES = {"mma": 0, "wgmma": 1, "ragged": 2}
 
@@ -322,7 +338,7 @@ def _lib():
 
 
 def _launch(x, w, scale, inv_act, bias, dyt, in_mask, out_mask, residual,
-            out, dilation, pad_l, act, plan):
+            out, dilation, stride, pad_l, act, plan):
     """Launch the kernel on checked, contiguous CUDA tensors with ``plan``
     (:func:`int8_plan`'s dict)."""
     global launches
@@ -338,7 +354,7 @@ def _launch(x, w, scale, inv_act, bias, dyt, in_mask, out_mask, residual,
     err = _lib()(dtype_id, ptr(x), ptr(w), ptr(scale), ptr(inv_act),
                  ptr(bias), ptr(dyt), ptr(in_mask), ptr(out_mask),
                  ptr(residual), ptr(out), n, length, out.shape[1], c_in,
-                 c_out, k, dilation, pad_l, _ACT_IDS[act],
+                 c_out, k, dilation, stride, pad_l, _ACT_IDS[act],
                  _ROUTES[plan["route"]], plan["cb"], plan["kw"],
                  plan["stages"], plan["smem"], sms, stream)
     if err != 0:
@@ -348,7 +364,7 @@ def _launch(x, w, scale, inv_act, bias, dyt, in_mask, out_mask, residual,
     return out
 
 
-def _check_conv(name, x, w, x_dtypes, dilation, padding):
+def _check_conv(name, x, w, x_dtypes, dilation, padding, stride=1):
     """x and w checked and contiguous, and the launch plan."""
     if x.dtype not in x_dtypes:
         raise ValueError(f"{name}: unsupported dtype {x.dtype}")
@@ -363,7 +379,7 @@ def _check_conv(name, x, w, x_dtypes, dilation, padding):
         raise ValueError(f"{name}: x has {x.shape[2]} channels, w {c_in}")
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
-    plan = int8_plan(c_in, c_out, k, dilation, padding, x.dtype)
+    plan = int8_plan(c_in, c_out, k, dilation, padding, x.dtype, stride)
     # the ragged route reads x and w element by element; TMA and the
     # 16-byte loads of the other routes need 16-byte rows
     align = 1 if plan["route"] == "ragged" else 16
@@ -372,27 +388,29 @@ def _check_conv(name, x, w, x_dtypes, dilation, padding):
             _check("w", w, w.shape, torch.int8, dev, align), plan)
 
 
-def int8_conv_requant(x, w, scale, dilation: int = 1):
-    """SAME, stride-1 int8 conv with the requant epilogue (the Pallas
+def int8_conv_requant(x, w, scale, dilation: int = 1, stride: int = 1):
+    """SAME int8 conv with the requant epilogue (at stride 1 the Pallas
     kernel's function). ``scale``: a float or a 1-element f32 tensor."""
     if x.device.type == "cpu":
-        return reference_int8_conv_requant(x, w, scale, dilation)
+        return reference_int8_conv_requant(x, w, scale, dilation, stride)
     x, w, plan = _check_conv("int8_conv_requant", x, w, (torch.int8,),
-                             dilation, "same")
+                             dilation, "same", stride)
     k, _, c_out = w.shape
-    l_out, pad_l, _ = conv_geometry(x.shape[1], k, dilation, "SAME")
+    l_out, pad_l, _ = conv_geometry(x.shape[1], k, dilation, "SAME", stride)
     out = torch.empty(x.shape[0], l_out, c_out, dtype=torch.int8,
                       device=x.device)
     return _launch(x, w, _f32(scale, x.device, "scale"), None, None, None,
-                   None, None, None, out, dilation, pad_l, "none", plan)
+                   None, None, None, out, dilation, stride, pad_l, "none",
+                   plan)
 
 
 def int8_conv_dequant(x, w, inv_act, dq, bias=None, dyt=None, act="none",
-                      use_dyt=False, *, dilation=1, padding="same",
+                      use_dyt=False, *, dilation=1, padding="same", stride=1,
                       bias_then_dyt=False, in_mask=None, out_mask=None,
                       residual=None):
-    """Stride-1 int8 conv of a float activation, quantized on load and
-    dequantized per channel, with fused_conv_block's epilogue.
+    """Int8 conv of a float activation, quantized on load and dequantized
+    per channel, with fused_conv_block's epilogue (a stride above 1 takes
+    the ragged route).
 
     ``inv_act``: ``f32(1 / act_scale)`` as a float or 1-element tensor;
     ``dq`` ``(C_out,)`` f32; ``bias`` ``(C_out,)``; ``dyt`` ``(3, C_out)``;
@@ -402,17 +420,17 @@ def int8_conv_dequant(x, w, inv_act, dq, bias=None, dyt=None, act="none",
     if x.device.type == "cpu":
         return reference_int8_conv_dequant(
             x, w, inv_act, dq, bias, dyt, act, use_dyt, dilation=dilation,
-            padding=padding, bias_then_dyt=bias_then_dyt, in_mask=in_mask,
-            out_mask=out_mask, residual=residual)
+            padding=padding, stride=stride, bias_then_dyt=bias_then_dyt,
+            in_mask=in_mask, out_mask=out_mask, residual=residual)
     x, w, plan = _check_conv("int8_conv_dequant", x, w,
                              (torch.float32, torch.bfloat16), dilation,
-                             padding)
+                             padding, stride)
     if act not in _ACT_IDS:
         raise ValueError(f"unsupported activation {act!r}")
     bias, dyt = _epilogue_args(bias, dyt, use_dyt, bias_then_dyt)
     n, length, _ = x.shape
     k, _, c_out = w.shape
-    l_out, pad_l, _ = conv_geometry(length, k, dilation, padding)
+    l_out, pad_l, _ = conv_geometry(length, k, dilation, padding, stride)
     dev = x.device
     f32 = torch.float32
     dq = _check("dq", dq, (c_out,), f32, dev, align=4)
@@ -423,5 +441,5 @@ def int8_conv_dequant(x, w, inv_act, dq, bias=None, dyt=None, act="none",
     residual = _check("residual", residual, (n, l_out, c_out), x.dtype, dev)
     out = torch.empty(n, l_out, c_out, dtype=x.dtype, device=dev)
     return _launch(x, w, dq, _f32(inv_act, dev, "inv_act"), bias, dyt,
-                   in_mask, out_mask, residual, out, dilation, pad_l, act,
-                   plan)
+                   in_mask, out_mask, residual, out, dilation, stride, pad_l,
+                   act, plan)

@@ -299,8 +299,8 @@ def test_kernel_source_declares_its_interface():
     assert 'extern "C" int jt_int8_conv(' in src
     sig = src[src.index("jt_int8_conv("):]
     sig = sig[: sig.index(")")]
-    # 1 + 10 pointers + 15 ints + stream
-    assert sig.count(",") + 1 == len(int8_conv.ARGTYPES) == 27
+    # 1 + 10 pointers + 16 ints (the stride among them) + stream
+    assert sig.count(",") + 1 == len(int8_conv.ARGTYPES) == 28
     assert '#include "hopper.cuh"' in src
     assert "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8" in hopper
     for instr in ("wgmma_s8_rs", "tma_load_3d", "tma_store_3d",

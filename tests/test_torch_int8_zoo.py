@@ -2,8 +2,10 @@
 
 The narrow dvf (nucleotide input, one shared-weight conv per strand on the
 ``int8_conv`` ragged route: C_in 4, k 10, VALID), cross-frame and axial
-templates of ``tests/test_torch_templates.py``, and a narrow model with a
-``multi_scale_conv`` entry and ``parallel_branches`` of convs. These tests
+templates of ``tests/test_torch_templates.py``, a narrow model with a
+``multi_scale_conv`` entry and ``parallel_branches`` of convs, and a
+narrow model with a ``residual_block`` of ``strides: 2`` (its ``conv1``
+and ``conv_bypass`` strided, on the ragged route's stride). These tests
 replace ``test_torch_templates.py::test_int8_refused_for_layer_zoo``, which
 pinned the refusal the port no longer has. On the CPU:
 
@@ -23,7 +25,9 @@ pinned the refusal the port no longer has. On the CPU:
   every element within 1e-2 of the scale;
 * ``run_core --int8`` and ``--int8 auto`` at f32 give TSVs byte-identical
   to JAX ``run_core``'s (JAX with ``devices=1``) for the dvf and the
-  cross-frame templates.
+  cross-frame templates;
+* the plain int8 conv's stride equals ``F.conv1d`` on int-valued tensors
+  (XLA's SAME and VALID padding).
 """
 
 import copy
@@ -31,6 +35,7 @@ import copy
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 import flax.linen as fnn
 import jax
@@ -89,13 +94,43 @@ def multiscale_config() -> dict:
     }, "training": {}}
 
 
-MODELS = ("dvf", "crossframe", "axial", "multiscale")
+def strided_config() -> dict:
+    """A narrow model whose residual block has ``strides: 2``: its conv1
+    (k 3, 16 -> 24 channels) and its 1x1 conv_bypass are strided; conv2
+    is not."""
+    return {"model": {
+        "name": "strided_int8",
+        "classifier_out_dim": 3,
+        "class_label_map": [{"class": c, "label": i} for i, c in
+                            enumerate(["chromosome", "phage", "plasmid"])],
+        "embedding": {"use_embedding_layer": True,
+                      "input_type": "translated", "embedding_size": 16},
+        "string_processor": {"crop_size": 40, "codon": "CODON"},
+        "representation_learner": {"hidden_layers": [
+            {"name": "masked_conv1d",
+             "config": {"filters": 16, "kernel_size": 5}},
+            {"name": "masked_batchnorm"},
+            {"name": "gelu"},
+            {"name": "residual_block", "config": {
+                "block_size": 1, "filters": 24, "kernel_size": 3,
+                "strides": 2}},
+            {"name": "gelu"}], "pooling": "max"},
+        "classifier": {"hidden_layers": [
+            {"name": "dense", "config": {"units": 3}}]},
+    }, "training": {}}
+
+
+MODELS = ("dvf", "crossframe", "axial", "multiscale", "strided")
 #: int8 convs each narrow model has: the dvf conv; two residual convs; the
-#: multi-scale conv's two branches and one conv in each parallel branch
-INT8_CONVS = {"dvf": 1, "crossframe": 2, "axial": 2, "multiscale": 4}
+#: multi-scale conv's two branches and one conv in each parallel branch;
+#: the strided block's conv1, conv2 and conv_bypass
+INT8_CONVS = {"dvf": 1, "crossframe": 2, "axial": 2, "multiscale": 4,
+              "strided": 3}
 
 
 def _config(name: str) -> dict:
+    if name == "strided":
+        return strided_config()
     cfg = multiscale_config() if name == "multiscale" else narrow(name)
     cfg["model"].setdefault("name", f"{name}_int8")
     return cfg
@@ -206,6 +241,10 @@ def test_int8_forward_matches_jax(bundles, name, program):
     # dvf: one call per strand of the shared conv
     assert len(got_q) == len(want_q) == INT8_CONVS[name] * (
         2 if name == "dvf" else 1)
+    if name == "strided":
+        # the port's block runs conv_bypass before conv2 (the shortcut
+        # rides conv2's epilogue); JAX runs conv1, conv2, conv_bypass
+        got_q = [got_q[0], got_q[2], got_q[1]]
     flips = 0
     for g, w in zip(got_q, want_q):
         assert g.shape == w.shape
@@ -242,3 +281,37 @@ def test_run_core_int8_tsv_matches_jax(bundles, tmp_path, name, mode):
                    int8=mode, device="cpu", workers=1, **common)
     assert want.read_bytes().count(b"\n") == 10
     assert got.read_bytes() == want.read_bytes()
+
+
+@pytest.mark.parametrize("length,k,dil,stride,padding", [
+    (37, 3, 1, 2, "same"), (40, 5, 2, 2, "same"), (41, 1, 1, 2, "same"),
+    (50, 4, 1, 3, "valid"), (33, 10, 1, 2, "valid"), (64, 3, 3, 4, "same")])
+def test_plain_int8_conv_stride_matches_conv1d(length, k, dil, stride,
+                                               padding):
+    """The plain version's stride against ``F.conv1d`` on int-valued
+    float64 tensors with XLA's padding (every sum exact), in both forms."""
+    gen = torch.Generator().manual_seed(length * k + stride)
+    q = torch.randint(-127, 128, (3, length, 5), generator=gen,
+                      dtype=torch.int8)
+    w = torch.randint(-127, 128, (k, 5, 7), generator=gen, dtype=torch.int8)
+    l_out, pad_l, pad_r = int8_conv.conv_geometry(length, k, dil, padding,
+                                                  stride)
+    want = F.conv1d(F.pad(q.double().transpose(1, 2), (pad_l, pad_r)),
+                    w.double().permute(2, 1, 0), stride=stride,
+                    dilation=dil).transpose(1, 2)
+    assert want.shape[1] == l_out
+    if padding == "same":
+        assert l_out == -(-length // stride)
+        got = int8_conv.int8_conv_requant(q, w, 1.0, dilation=dil,
+                                          stride=stride)
+        ref = torch.clamp(torch.round(want.float()), -127, 127)
+        assert torch.equal(got.float(), ref)
+    dq = torch.ones(7)
+    got = int8_conv.int8_conv_dequant(q.float(), w, 1.0, dq, dilation=dil,
+                                      padding=padding, stride=stride)
+    assert torch.equal(got.double(), want)
+    assert int8_conv.int8_plan(5, 7, k, dil, padding, torch.bfloat16,
+                               stride)["route"] == "ragged"
+    if stride > 1:
+        assert int8_conv.int8_plan(16, 32, k, dil, padding, torch.bfloat16,
+                                   stride)["route"] == "ragged"

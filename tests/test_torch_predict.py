@@ -27,7 +27,7 @@ ROOT = Path(__file__).resolve().parents[1]
 FASTA = ROOT / "jaeger_tpu" / "data" / "test" / "test_contigs.fasta"
 DEMO = ROOT / "jaeger_tpu" / "data" / "models" / "demo"
 BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "ml_dtypes",
-           "jaeger_tpu", "triton")
+           "jaeger_tpu", "triton", "h5py", "joblib", "sklearn")
 
 
 def _port_modules() -> list[str]:
@@ -123,7 +123,9 @@ def test_port_imports_without_jax():
     modules = _port_modules()
     for name in ("ops.fused_conv", "ops.int8_conv", "models.conversion",
                  "ops.fused_conv_grad", "train.loop", "train.optimizers",
-                 "commands.train", "postprocess.threshold"):
+                 "commands.train", "postprocess.threshold", "models.legacy",
+                 "models.legacy_convert", "models.modern_convert",
+                 "commands.predict_legacy", "postprocess.legacy_collect"):
         assert f"jaeger_tpu_torch.{name}" in modules
     code = (
         "import sys\n"
