@@ -24,6 +24,9 @@ Run from the root of a checkout on a machine with CUDA:
     python3 chip_smoke.py --legacy    # phases 1, 2 and 11 only (the
                                       # kernels' route, the ragged
                                       # route's stride, the legacy models)
+    python3 chip_smoke.py --commands  # phases 1, 2 and 12 only (health,
+                                      # the model registry, taxonomy,
+                                      # utils optimize-data)
 
 Phases, each of which fails the run:
 
@@ -182,11 +185,33 @@ Phases, each of which fails the run:
    and ``predict-legacy`` (the shipped default bundle) on the card with
    TSVs byte-identical to ``--device cpu`` runs, the WRes forward on the
    card against the CPU, and its windows/s at batch 128 and 1024.
+12. the commands: ``python -m jaeger_tpu_torch.cli health`` in its own
+   process exits 0 with the card's name on its device line; phase 5's
+   flagship bundle goes through ``register-models`` into a temporary
+   registry, ``list-models --config`` lists it, and ``predict -m <its
+   name> --config <registry>`` (counts reset just before, read just after:
+   fused_conv_block launched) writes the TSV of ``predict -m <its path>``
+   byte for byte; ``taxonomy build`` on phase 7's seeded assembly (750
+   contigs, 30 Mb) with a seeded taxdump (75 species, 15 genera, 3
+   families) and ``taxonomy predict`` on a query of 100 contigs of
+   another seed plus the first 50 reference contigs, at the flagship's
+   width in bf16, batch 2048, ``--fsize 1505`` (counts reset just before
+   each command, read just after: fused_conv_block six launches a
+   forward, int8_conv none), with build and predict windows/s and the
+   search's ms; the same in f32, where every self-query window's first
+   neighbour is itself (score at least 1 - 1e-5); both commands in f32
+   on the card and with ``--cpu`` on the first 30 reference and query
+   contigs: taxid, rank, name, lineage and n_windows equal,
+   mean_knn_similarity within 1e-4, the neighbour lists equal wherever
+   neighbouring scores are more than 1e-5 apart; ``utils optimize-data``
+   on phase 6's seeded CSVs, and one ``train`` step of the flagship
+   template on the NPZ it wrote.
 
 The second-to-last line is the kernels JSON (each kernel also with its
 numbers at the templates' shape and its launches on phase 8's, phase 9's,
-phase 10's and phase 11's paths; int8_conv with its ragged route's numbers
-at the dvf shape and at the stride shape), the last ``{"ok": true, ...}``.
+phase 10's, phase 11's and phase 12's paths; int8_conv with its ragged
+route's numbers at the dvf shape and at the stride shape), the last
+``{"ok": true, ...}``.
 The script imports nothing of JAX or of jaeger_tpu.
 """
 
@@ -4350,6 +4375,342 @@ def phase_legacy(tmp: Path, card: str) -> dict:
                 forward={str(k): v for k, v in rates.items()})
 
 
+# --- phase 12: health, the model registry, taxonomy, the data commands ------
+
+#: phase 12's taxonomy: phase 7's assembly is the reference set; the query
+#: is 100 contigs of another seed, renamed, then the reference's first 50;
+#: the card is held against the CPU on the first 30 contigs of each
+TAX_QUERY_NEW = 100
+TAX_QUERY_SELF = 50
+TAX_CPU_CONTIGS = 30
+TAX_SPECIES, TAX_GENERA, TAX_FAMILIES = 75, 15, 3
+TAX_K = 5
+
+
+def _cli_out(argv) -> str:
+    """The port's CLI in this process -> what it printed (echoed too)."""
+    import io
+
+    from jaeger_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main([str(a) for a in argv])
+    sys.stdout.write(buf.getvalue())
+    return buf.getvalue()
+
+
+def _fasta_records(path: Path) -> list[bytes]:
+    """The records of a FASTA, each with its header line."""
+    data = path.read_bytes()
+    return [b">" + r.rstrip(b"\n") + b"\n" for r in data[1:].split(b"\n>")]
+
+
+def write_taxdump(root: Path, n_contigs: int, seed: int = 31) -> tuple:
+    """A seeded taxdump over the contigs ``ctg_<i>``: 3 families, 15
+    genera (genus g in family g % 3), 75 species (species s in genus
+    s % 15), each contig given a species drawn from ``seed``. Returns
+    (acc2taxid TSV, taxdump directory)."""
+    import numpy as np
+
+    dump = root / "taxdump"
+    dump.mkdir(parents=True)
+    nodes = ["1\t|\t1\t|\tno rank\t|"]
+    names = ["1\t|\troot\t|\t\t|\tscientific name\t|"]
+
+    def node(taxid, parent, rank, name):
+        nodes.append(f"{taxid}\t|\t{parent}\t|\t{rank}\t|")
+        names.append(f"{taxid}\t|\t{name}\t|\t\t|\tscientific name\t|")
+
+    for f in range(TAX_FAMILIES):
+        node(10 + f, 1, "family", f"Family{f}")
+    for g in range(TAX_GENERA):
+        node(100 + g, 10 + g % TAX_FAMILIES, "genus", f"Genus{g}")
+    for s in range(TAX_SPECIES):
+        node(1000 + s, 100 + s % TAX_GENERA, "species", f"Genus{s % TAX_GENERA} "
+             f"species{s}")
+    (dump / "nodes.dmp").write_text("\n".join(nodes) + "\n")
+    (dump / "names.dmp").write_text("\n".join(names) + "\n")
+    species = np.random.default_rng(seed).integers(0, TAX_SPECIES,
+                                                    size=n_contigs)
+    acc = root / "acc2taxid.tsv"
+    acc.write_text("".join(f"ctg_{i}\t{1000 + int(s)}\n"
+                           for i, s in enumerate(species)))
+    return acc, dump
+
+
+@contextlib.contextmanager
+def capture_search(store: list):
+    """Record every ``CosineIndex.search`` a command makes: the index, the
+    queries, the device and what the search returned."""
+    from jaeger_tpu_torch.commands import taxonomy
+
+    real = taxonomy.CosineIndex.search
+
+    def spy(self, queries, k=5, device=None):
+        scores, idx = real(self, queries, k=k, device=device)
+        store.append(dict(index=self, queries=queries, device=device,
+                          scores=scores, idx=idx))
+        return scores, idx
+
+    taxonomy.CosineIndex.search = spy
+    try:
+        yield store
+    finally:
+        taxonomy.CosineIndex.search = real
+
+
+def _taxonomy_run(tax: Path, bundle: Path, ref: Path, acc: Path, dump: Path,
+                  query: Path, tag: str, extra: list) -> dict:
+    """``taxonomy build`` then ``taxonomy predict`` through the CLI, each
+    with the kernel counts reset just before and read just after."""
+    import torch
+
+    from jaeger_tpu_torch.ops import fused_conv, int8_conv
+
+    common = ["-m", bundle, "--fsize", "1505", "--batch", "2048", *extra]
+    out = {}
+    for step in ("build", "predict"):
+        fused_conv.launches = int8_conv.launches = 0
+        captured: list = []
+        t0 = time.perf_counter()
+        if step == "build":
+            _cli_out(["taxonomy", "build", "-i", ref, "-a", acc, "-t", dump,
+                      "-o", tax / f"db_{tag}", *common])
+        else:
+            with capture_search(captured):
+                _cli_out(["taxonomy", "predict", "-d", tax / f"db_{tag}",
+                          "-i", query, "-o", tax / f"{tag}.tsv", *common])
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        out[f"{step}_s"] = time.perf_counter() - t0
+        out[f"{step}_launches"] = fused_conv.launches
+        out[f"{step}_int8_launches"] = int8_conv.launches
+        if step == "predict":
+            check(len(captured) == 1, f"taxonomy {tag}: {len(captured)} "
+                                      f"searches")
+            out["search"] = captured[0]
+    out["index_windows"] = json.loads(
+        (tax / f"db_{tag}" / "taxdb.json").read_text())["windows"]
+    out["rows"] = _read_tsv(tax / f"{tag}.tsv")
+    out["query_windows"] = sum(int(r["n_windows"]) for r in out["rows"])
+    return out
+
+
+def _check_launches(run: dict, tag: str, on_card: bool) -> None:
+    for step in ("build", "predict"):
+        n = run[f"{step}_launches"]
+        ok = n > 0 and n % 6 == 0 if on_card else n == 0
+        check(ok and run[f"{step}_int8_launches"] == 0,
+              f"taxonomy {step} {tag}: {n} fused_conv_block and "
+              f"{run[f'{step}_int8_launches']} int8_conv launches")
+
+
+def phase_commands(tmp: Path, card: str, bundle: Path) -> dict:
+    """``health``, the model registry, ``taxonomy build|predict`` at the
+    flagship's width and ``utils optimize-data`` feeding ``train``."""
+    import os
+
+    import numpy as np
+    import torch
+    import yaml
+
+    from jaeger_tpu_torch.commands.train import train_fragment_core
+    from jaeger_tpu_torch.ops import fused_conv
+    from jaeger_tpu_torch.utils.config import load_model_config
+
+    res: dict = {}
+    # 1. health on the card, in its own process
+    proc = subprocess.run(
+        [sys.executable, "-m", "jaeger_tpu_torch.cli", "health"], cwd=ROOT,
+        capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, JAEGER_TPU_HOME=str(tmp / "home")))
+    lines = [ln.strip() for ln in proc.stdout.splitlines()]
+    device = [ln for ln in lines if ln.startswith("device   :")]
+    check(proc.returncode == 0 and lines and lines[-1] == "health: OK",
+          f"health exited {proc.returncode}: {proc.stdout[-3000:]}"
+          f"{proc.stderr[-3000:]}")
+    check(device and torch.cuda.get_device_name(0) in device[0],
+          f"health's device line {device}")
+    print(f"health on the card: OK ({device[0]})")
+
+    # 2. the registry: a registered name predicts as its path does
+    reg = tmp / "registry.json"
+    _cli_out(["register-models", "-p", bundle, "-c", reg])
+    name = load_model_config(bundle / "project.yaml")["model"]["name"]
+    listed = _cli_out(["list-models", "--config", reg])
+    check(listed.startswith(f"{name}\t"), f"list-models: {listed!r}")
+    common = ["-i", FASTA, "--fsize", "1505", "--batch", "2048"]
+    fused_conv.launches = 0
+    _cli_out(["predict", "-o", tmp / "by_name", "-m", name, "--config", reg,
+              *common])
+    res["registry_launches"] = fused_conv.launches
+    check(res["registry_launches"] > 0 and res["registry_launches"] % 6 == 0,
+          f"predict -m {name}: {res['registry_launches']} launches")
+    _cli_out(["predict", "-o", tmp / "by_path", "-m", bundle, *common])
+    tsv = "test_contigs_default_jaeger.tsv"
+    check((tmp / "by_name" / tsv).read_bytes()
+          == (tmp / "by_path" / tsv).read_bytes(),
+          "predict -m <registered name> differs from -m <path>")
+    print(f"registry: predict -m {name} --config <registry> byte-identical "
+          f"to -m <path>, {res['registry_launches']} fused_conv_block "
+          f"launches")
+
+    # 3. taxonomy at the flagship's width
+    tax = tmp / "taxonomy"
+    tax.mkdir()
+    ref = tax / "reference.fasta"
+    ref_bases = write_synthetic_fasta(ref, BIG_CONTIGS)
+    recs = _fasta_records(ref)
+    write_synthetic_fasta(tax / "new.fasta", TAX_QUERY_NEW, seed=29)
+    new = [r.replace(b">ctg_", b">qry_", 1)
+           for r in _fasta_records(tax / "new.fasta")]
+    query = tax / "query.fasta"
+    query.write_bytes(b"".join(new + recs[:TAX_QUERY_SELF]))
+    acc, dump = write_taxdump(tax, len(recs))
+    bf = _taxonomy_run(tax, bundle, ref, acc, dump, query, "bf16", [])
+    _check_launches(bf, "bf16", True)
+    check(len(bf["rows"]) == TAX_QUERY_NEW + TAX_QUERY_SELF,
+          f"taxonomy predict: {len(bf['rows'])} rows")
+    check(all(math.isfinite(float(r["mean_knn_similarity"]))
+              for r in bf["rows"]), "taxonomy predict: a similarity is not "
+                                    "finite")
+    s = bf["search"]
+    q = np.asarray(s["queries"])
+    s["index"].search(q, TAX_K, device=s["device"])
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        s["index"].search(q, TAX_K, device=s["device"])
+        times.append((time.perf_counter() - t0) * 1e3)
+    search_ms = sorted(times)[2]
+    res["taxonomy"] = dict(
+        reference_bases=ref_bases, index_windows=bf["index_windows"],
+        query_windows=bf["query_windows"],
+        build_windows_per_s=bf["index_windows"] / bf["build_s"],
+        predict_windows_per_s=bf["query_windows"] / bf["predict_s"],
+        build_s=bf["build_s"], predict_s=bf["predict_s"],
+        search_ms=search_ms, search_shape=[int(q.shape[0]),
+                                           bf["index_windows"], TAX_K],
+        build_launches=bf["build_launches"],
+        predict_launches=bf["predict_launches"])
+    print(f"taxonomy build (bf16, batch 2048) on {card}: {bf['index_windows']}"
+          f" windows of {ref_bases / 1e6:.1f} Mb in {bf['build_s']:.2f} s = "
+          f"{res['taxonomy']['build_windows_per_s']:,.0f} windows/s, "
+          f"{bf['build_launches']} fused_conv_block launches; predict: "
+          f"{bf['query_windows']} windows in {bf['predict_s']:.2f} s = "
+          f"{res['taxonomy']['predict_windows_per_s']:,.0f} windows/s, "
+          f"{bf['predict_launches']} launches; search {search_ms:.2f} ms "
+          f"for {q.shape[0]} queries x {bf['index_windows']} index rows, "
+          f"k {TAX_K} (host clock, median of 5, with the copies)")
+
+    # f32: every self-query window finds itself first
+    f32 = _taxonomy_run(tax, bundle, ref, acc, dump, query, "f32",
+                        ["--precision", "float32"])
+    _check_launches(f32, "f32", True)
+    n_self = sum(int(r["n_windows"]) for r in f32["rows"]
+                 if r["contig_id"].startswith("ctg_"))
+    scores, idx = f32["search"]["scores"], f32["search"]["idx"]
+    self_s, self_i = scores[-n_self:], idx[-n_self:]
+    hits = int((self_i[:, 0] == np.arange(n_self)).sum())
+    check(hits == n_self and float(self_s[:, 0].min()) >= 1 - 1e-5,
+          f"f32 self queries: {hits}/{n_self} find themselves first, "
+          f"lowest top score {self_s[:, 0].min()}")
+    res["taxonomy"]["f32_self_windows"] = n_self
+    print(f"taxonomy f32: all {n_self} self-query windows find themselves "
+          f"first (lowest score {self_s[:, 0].min():.7f}); build "
+          f"{f32['index_windows'] / f32['build_s']:,.0f} windows/s")
+
+    # f32 on the card against the CPU, on the first 30 contigs of each set
+    (tax / "ref30.fasta").write_bytes(b"".join(recs[:TAX_CPU_CONTIGS]))
+    (tax / "q30.fasta").write_bytes(b"".join(new[:TAX_CPU_CONTIGS]))
+    runs = {}
+    for tag, extra in (("card30", []), ("cpu30", ["--cpu"])):
+        runs[tag] = _taxonomy_run(tax, bundle, tax / "ref30.fasta", acc, dump,
+                                  tax / "q30.fasta", tag,
+                                  ["--precision", "float32", *extra])
+        _check_launches(runs[tag], tag, tag == "card30")
+        sr = runs[tag]["search"]
+        # one neighbour more, to see the gap after the k-th
+        runs[tag]["s6"], runs[tag]["i6"] = sr["index"].search(
+            sr["queries"], TAX_K + 1, device=sr["device"])
+    card_rows, cpu_rows = runs["card30"]["rows"], runs["cpu30"]["rows"]
+    check(len(card_rows) == len(cpu_rows) == TAX_CPU_CONTIGS,
+          f"card / CPU rows {len(card_rows)} / {len(cpu_rows)}")
+    worst = 0.0
+    for a, b in zip(card_rows, cpu_rows):
+        for key in ("contig_id", "taxid", "rank", "name", "lineage",
+                    "n_windows"):
+            check(a[key] == b[key], f"taxonomy card vs CPU: {key} "
+                                    f"{a[key]!r} != {b[key]!r}")
+        worst = max(worst, abs(float(a["mean_knn_similarity"])
+                               - float(b["mean_knn_similarity"])))
+    check(worst <= 1e-4, f"mean_knn_similarity card vs CPU: {worst}")
+    s6, i6 = runs["card30"]["s6"], runs["card30"]["i6"]
+    c6 = runs["cpu30"]["i6"]
+    gaps = np.abs(np.diff(s6, axis=1))              # (n, k): p to p+1
+    before = np.concatenate([np.full((len(s6), 1), np.inf), gaps], axis=1)
+    clear = np.minimum(before[:, :TAX_K], gaps[:, :TAX_K]) > 1e-5
+    same = (i6[:, :TAX_K] == c6[:, :TAX_K])
+    check(bool(same[clear].all()), f"neighbour lists card vs CPU: "
+                                   f"{int((~same & clear).sum())} differ")
+    score_diff = float(np.abs(s6[:, :TAX_K]
+                              - runs["cpu30"]["s6"][:, :TAX_K])[clear].max())
+    res["taxonomy"].update(cpu_windows=runs["card30"]["query_windows"],
+                           cpu_max_similarity_diff=worst,
+                           cpu_max_score_diff=score_diff,
+                           cpu_neighbours_compared=int(clear.sum()),
+                           cpu_neighbours_tied=int((~clear).sum()),
+                           cpu_s=runs["cpu30"]["build_s"]
+                           + runs["cpu30"]["predict_s"])
+    print(f"taxonomy f32 card vs CPU ({TAX_CPU_CONTIGS} + {TAX_CPU_CONTIGS} "
+          f"contigs, {runs['card30']['query_windows']} query windows): "
+          f"taxid, rank, name, lineage, n_windows equal; similarity within "
+          f"{worst:.2e} (TSV), neighbour scores within {score_diff:.2e}; "
+          f"{int(clear.sum())} neighbours equal, "
+          f"{int((~clear).sum())} within 1e-5 of a neighbour not compared; "
+          f"CPU {res['taxonomy']['cpu_s']:.1f} s")
+    res["launches"] = (res["registry_launches"] + bf["build_launches"]
+                       + bf["predict_launches"] + f32["build_launches"]
+                       + f32["predict_launches"]
+                       + runs["card30"]["build_launches"]
+                       + runs["card30"]["predict_launches"])
+
+    # 4. utils optimize-data feeds train
+    opt = tmp / "optimize"
+    opt.mkdir()
+    data = write_train_data(opt, seed=20261018, crop_nt=1505, n_rows=1024)
+    npz = {}
+    t0 = time.perf_counter()
+    for split in ("train", "val"):
+        npz[split] = opt / f"{split}.npz"
+        _cli_out(["utils", "optimize-data", "-i", data[split], "-o",
+                  npz[split], "--crop-size", "1505", "--num-classes", "6"])
+    opt_s = time.perf_counter() - t0
+    cfg = load_model_config(TEMPLATE)
+    cfg["model"]["string_processor"]["data_format"] = "numpy"
+    tcfg = cfg["training"]
+    tcfg.update(classifier_epochs=1, classifier_train_steps=1,
+                classifier_validation_steps=1, reliability_epochs=0)
+    classes = ["bacteria", "phage", "eukarya", "archaea", "virus", "plasmid"]
+    tcfg["fragment_classifier_data"] = {
+        split: [{"class": classes, "path": [str(npz[key])],
+                 "label": list(range(6))}]
+        for split, key in (("train", "train"), ("validation", "val"))}
+    cfg_path = opt / "train.yaml"
+    cfg_path.write_text(yaml.safe_dump(cfg, sort_keys=False))
+    results = train_fragment_core(str(cfg_path), str(opt / "run"))
+    losses = [h["loss"] for h in results["history"]["classifier"]]
+    check(len(losses) == 1 and math.isfinite(losses[0]),
+          f"train on optimize-data's NPZ: losses {losses}")
+    check((opt / "run" / "params.msgpack").exists(),
+          "train on optimize-data's NPZ wrote no bundle")
+    res["optimize_data_s"] = opt_s
+    print(f"utils optimize-data: 1024 + 512 rows in {opt_s:.2f} s; train "
+          f"took a step on its NPZ (loss {losses[0]:.4f})")
+    return res
+
+
 def main(argv: list[str]) -> int:
     try:
         import torch
@@ -4415,6 +4776,14 @@ def main(argv: list[str]) -> int:
             print(f"legacy run done in "
                   f"{time.perf_counter() - t_start:.0f} s")
             return 0
+        if "--commands" in argv:
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+                commands = phase_commands(Path(tmp), card,
+                                          flagship_bundle(Path(tmp)))
+            print(json.dumps({"commands": commands}))
+            print(f"commands run done in "
+                  f"{time.perf_counter() - t_start:.0f} s")
+            return 0
         if "--templates" in argv:
             kern_zoo = phase_templates_kernel(card)
             with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -4463,6 +4832,7 @@ def main(argv: list[str]) -> int:
             stride = phase_ragged_stride(card)
             strided = phase_int8_strided_predict(Path(tmp), card)
             legacy = phase_legacy(Path(tmp), card)
+            commands = phase_commands(Path(tmp), card, bundle)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
@@ -4485,7 +4855,7 @@ def main(argv: list[str]) -> int:
                "templates_kernels": kern_zoo, "zoo_f32": zoo_f32,
                "hyena": hyena, "int8_zoo": zoo8, "ensemble": ens,
                "route": route, "int8_strided_predict": strided,
-               "legacy": legacy}
+               "legacy": legacy, "commands": commands}
     print(json.dumps(summary))
     print(f"all phases passed in {time.perf_counter() - t_start:.0f} s")
     print(card)
@@ -4524,7 +4894,8 @@ def main(argv: list[str]) -> int:
                                      zl["fused_conv_block"]),
               templates_dgrad=at_templates("dgrad", zl["fused_conv_block"]),
               hyena_launches=hl["fused_conv_block"],
-              route_predict_launches=route["predict_launches"]),
+              route_predict_launches=route["predict_launches"],
+              commands_launches=commands["launches"]),
         entry("int8_conv", "cuda", "jaeger_tpu_torch/csrc/int8_conv.cu",
               "experiments/pallas_int8_conv.py:67", launches8, kern8,
               templates_launches=zl["int8_conv"],

@@ -114,16 +114,23 @@ def crop_length_warning(config: dict, fsize: int) -> str | None:
     )
 
 
-def resolve_model_path(model: str | None) -> str:
-    """A bundle path, or the bundled demo model when omitted."""
+def resolve_model_path(model: str | None,
+                       registry_path: str | None = None) -> str:
+    """Resolve a model argument: a bundle path, a name in the model
+    registry (``registry_path``, else the default registry file), or the
+    bundled demo model when omitted; as
+    `jaeger_tpu/commands/predict.py::resolve_model_path`."""
     if model is None:
-        logger.info("no model given; using the bundled demo model")
+        logger.info(
+            "no model given; using the bundled demo model "
+            "(train or register a real model for production use)"
+        )
         return str(BUNDLED_DEMO_MODEL)
-    if not Path(model).exists():
-        raise NotImplementedError(
-            f"model {model!r} is not a bundle directory; the model registry "
-            f"is not yet ported to jaeger_tpu_torch")
-    return model
+    if Path(model).exists():
+        return model
+    from jaeger_tpu_torch.utils.registry import AvailableModels
+
+    return AvailableModels(registry_path=registry_path).resolve(model)
 
 
 def resolve_int8_bundle(model_path: str) -> str:

@@ -125,7 +125,12 @@ def test_port_imports_without_jax():
                  "ops.fused_conv_grad", "train.loop", "train.optimizers",
                  "commands.train", "postprocess.threshold", "models.legacy",
                  "models.legacy_convert", "models.modern_convert",
-                 "commands.predict_legacy", "postprocess.legacy_collect"):
+                 "commands.predict_legacy", "postprocess.legacy_collect",
+                 "commands.health", "commands.taxonomy", "commands.utils",
+                 "utils.registry", "utils.stats", "utils.receptive_field",
+                 "seqops.stats", "seqops.transform", "seqops.synthetic",
+                 "dataops.split", "dataops.ood", "dataops.dedupe",
+                 "dataops.convert"):
         assert f"jaeger_tpu_torch.{name}" in modules
     code = (
         "import sys\n"
