@@ -27,6 +27,10 @@ Run from the root of a checkout on a machine with CUDA:
     python3 chip_smoke.py --commands  # phases 1, 2 and 12 only (health,
                                       # the model registry, taxonomy,
                                       # utils optimize-data)
+    python3 chip_smoke.py --ragged    # phases 1, 2 and the ragged route's
+                                      # kernel checks and times of phases
+                                      # 10 and 11, then its cycles a tile
+                                      # by phase (a probe build)
 
 Phases, each of which fails the run:
 
@@ -34,7 +38,8 @@ Phases, each of which fails the run:
 2. build: nvcc builds csrc/fused_conv_block.cu, csrc/int8_conv.cu,
    csrc/fused_conv_wgrad.cu and csrc/conv_epilogue_bwd.cu for sm_90a, one
    nvcc per source, started together; ptxas' registers, stack and spills
-   of each instance of the wgmma kernels, wgrad_f32 and conv_epilogue_bwd;
+   of each instance of the wgmma kernels, int8_ragged, wgrad_f32 and
+   conv_epilogue_bwd;
 3. each kernel against its plain version on the card. fused_conv_block:
    the Pallas kernel's test cases, each extension, the demo and flagship
    shapes, and the bf16 kernel's edges (L = 1, 63, 65; N = 1; C = 16, 64,
@@ -334,6 +339,8 @@ def phase_build() -> None:
     print(f"build: all kernels ready in {time.perf_counter() - t0:.1f} s")
     for name, kernel in (("fused_conv_block", "conv_bf16_wgmma"),
                          ("int8_conv", "int8_wgmma"),
+                         ("int8_conv", "int8_ragged"),
+                         ("int8_conv", "int8_ragged_staged"),
                          ("fused_conv_wgrad", "wgrad_bf16"),
                          ("fused_conv_wgrad", "wgrad_f32"),
                          ("conv_epilogue_bwd", "conv_epilogue_bwd")):
@@ -343,12 +350,14 @@ def phase_build() -> None:
 
 def ptxas_summary(log: str, kernel: str) -> list[str]:
     """Registers, shared memory and spills that ``-Xptxas -v`` reported for
-    each instance of ``kernel`` (C++ name fragment) in ``log``."""
+    each instance of ``kernel`` (a C++ name, matched as the mangled name's
+    length-prefixed identifier, so ``int8_ragged`` leaves out
+    ``int8_ragged_staged``) in ``log``."""
     out, entry = [], None
     for line in log.splitlines():
         if "Compiling entry function" in line:
             name = line.split("'")[1] if "'" in line else line
-            entry = name if kernel in name else None
+            entry = name if f"{len(kernel)}{kernel}" in name else None
         elif entry is not None and ("Used" in line or "spill" in line):
             out.append(f"{kernel}<{_template_args(entry.rsplit(kernel, 1)[1])}>"
                        f": {line.split(':', 1)[-1].strip()}")
@@ -655,9 +664,22 @@ def _int8_ext_args(gen, ext, n, length, l_out, c_out, dt, dyt, device):
     return kw
 
 
+def _misaligned(t):
+    """``t``'s values in a contiguous view one element past the start of
+    a larger buffer (so its base is not 16-byte aligned)."""
+    import torch
+
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
 def _plan_tag(plan: dict) -> str:
+    ragged = (f" wgs={plan['wgs']} ring={plan['ring']}"
+              if plan["route"] == "ragged" else "")
     return (f"{plan['route']} cb={plan['cb']} kw={plan['kw']} "
-            f"stages={plan['stages']} smem={plan['smem']}")
+            f"stages={plan['stages']}{ragged} smem={plan['smem']}")
 
 
 def phase_int8_kernel(card: str) -> dict:
@@ -3601,6 +3623,42 @@ def phase_ragged_kernel(card: str) -> dict:
             worst = max(worst, max_err)
         del x, w, out, ref, err
 
+    # x and in_mask contiguous views whose base is not 16-byte aligned (the
+    # route takes any alignment): the copies take the aligned span around
+    # a tile's rows, x's 4-channel groups are read one element at a time
+    for name, n, length, c_in, c_out, k, pad, dt, act, ext in (
+            ("C4_to_500_misaligned_bf16", 8, 200, 4, 500, 10, "valid", bf16,
+             "relu", "in_mask"),
+            ("C12_to_30_misaligned_f32", 6, 130, 12, 30, 3, "same", f32,
+             "gelu", "model")):
+        x, w, inv_act, dq, bias, dyt = _int8_dequant_inputs(
+            gen, n, length, c_in, c_out, k, dt, dev)
+        l_out = int8_conv.conv_geometry(length, k, 1, pad)[0]
+        kw = dict(bias=bias, padding=pad, act=act)
+        kw.update(_int8_ext_args(gen, ext, n, length, l_out, c_out, dt, dyt,
+                                 dev))
+        x = _misaligned(x)
+        kw["in_mask"] = _misaligned(kw["in_mask"])
+        check(x.data_ptr() % 16 != 0 and kw["in_mask"].data_ptr() % 16 != 0,
+              f"{name}: views aligned")
+        plan = int8_conv.int8_plan(c_in, c_out, k, 1, pad, dt)
+        check(plan["route"] == "ragged", f"dequant {name}: plan {plan}")
+        before = int8_conv.launches
+        out = int8_conv.int8_conv_dequant(x, w, inv_act, dq, **kw)
+        torch.cuda.synchronize()
+        check(int8_conv.launches == before + 1, f"{name}: kernel not launched")
+        ref = int8_conv.reference_int8_conv_dequant(x, w, inv_act, dq, **kw)
+        err = (out.float() - ref.float()).abs()
+        tol = F32_TOL if dt == f32 else BF16_TOL
+        bad = (err > tol + tol * ref.float().abs()).sum().item()
+        max_err = err.max().item()
+        print(f"int8 ragged dequant {name} x at {x.data_ptr() % 16} mod 16 "
+              f"[{_plan_tag(plan)}]: max_abs_err {max_err:.3e} (tol {tol}) "
+              f"{'ok' if bad == 0 and math.isfinite(max_err) else 'FAIL'}")
+        check(out.shape == ref.shape and bad == 0 and math.isfinite(max_err),
+              f"ragged {name}: {bad} elements beyond tolerance")
+        del x, w, out, ref, err
+
     # times at the dvf shape in the form the dvf model runs
     x, w, inv_act, dq, bias, _ = _int8_dequant_inputs(
         gen, DVF_N, DVF_L, DVF_CIN, DVF_COUT, DVF_K, bf16, dev)
@@ -4141,6 +4199,16 @@ def phase_ragged_stride(card: str) -> dict:
         ("C16_L1_s2", 4, 1, 16, 16, 3, 1, 2, "same", bf16, "none", "bias"),
         ("C16_L65_s2", 3, 65, 16, 16, 3, 1, 2, "same", f32, "gelu_tanh",
          "all"),
+        # f32 at C 128: the one-warpgroup layouts (wgs 1) that phase 11's
+        # strided predict at float32 launches, conv1 with masks, DYT and a
+        # residual (the general epilogue) and bias-only (the plain one),
+        # and the 1x1 bypass
+        ("conv1_f32_model", 16, 500, 128, 128, 5, 1, 2, "same", f32, "gelu",
+         "model"),
+        ("conv1_f32_in_mask", 16, 500, 128, 128, 5, 1, 2, "same", f32,
+         "gelu_tanh", "in_mask"),
+        ("bypass_f32", 16, 500, 128, 128, 1, 1, 2, "same", f32, "none",
+         "bias"),
     ]
     worst = 0.0
     for name, n, length, c_in, c_out, k, dil, s, pad, dt, act, ext in cases:
@@ -4153,6 +4221,8 @@ def phase_ragged_stride(card: str) -> dict:
         kw.update(ext_kw)
         plan = int8_conv.int8_plan(c_in, c_out, k, dil, pad, dt, s)
         check(plan["route"] == "ragged", f"dequant {name}: plan {plan}")
+        if dt == f32 and c_in == 128:
+            check(plan["wgs"] == 1, f"{name}: plan {plan}, not one warpgroup")
         before = int8_conv.launches
         out = int8_conv.int8_conv_dequant(x, w, inv_act, dq, **kw)
         torch.cuda.synchronize()
@@ -4217,6 +4287,100 @@ def phase_ragged_stride(card: str) -> dict:
           f"{t['bound_ms']:.3f} ms ({t['bound_by']}), "
           f"{t['bound_share']:.1%} of the bound")
     return t
+
+
+#: what the probes of each ragged kernel (``--ragged``) time, in order: the
+#: staged kernel (weights restaged when a column block's taps do not fit)
+#: and the resident one
+RAGGED_PHASES = {
+    "staged": ("CTA sync in", "x load", "weights + tile wait", "products",
+               "s32 through shared", "epilogue"),
+    "resident": ("x wait", "quantize", "products", "epilogue", "store"),
+}
+
+
+def build_ragged_probes():
+    """``csrc/int8_conv.cu`` built with ``-DJT_RAGGED_CYCLES`` beside the
+    plain build: the ragged kernels' clock64 probes."""
+    from jaeger_tpu_torch.ops import cuda_build
+
+    return cuda_build.load("int8_conv", extra_flags=("-DJT_RAGGED_CYCLES",))
+
+
+def phase_ragged_cycles(card: str, lib) -> dict:
+    """Cycles a tile by phase of the ragged route at the dvf and the stride
+    shapes (the forms phases 10 and 11 time): the probe build launched
+    through the same wrapper, three launches each; one thread of every CTA
+    (of the staged kernel) or of every warpgroup (of the resident kernel,
+    whose two warpgroups take tiles in turn) sums the clock64 cycles of
+    each phase over its tiles. The probes' launches are not counted."""
+    import ctypes
+
+    import torch
+
+    from jaeger_tpu_torch.ops import int8_conv
+
+    fn = lib.jt_int8_conv
+    fn.restype = ctypes.c_int
+    fn.argtypes = int8_conv.ARGTYPES
+    read = lib.jt_int8_ragged_cycles
+    read.restype = ctypes.c_int
+    read.argtypes = [ctypes.c_void_p]
+    sums = (ctypes.c_ulonglong * 8)()
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(1313)
+    bf16 = torch.bfloat16
+    shapes = (("dvf", DVF_N, DVF_L, DVF_CIN, DVF_COUT, DVF_K, 1, "valid"),
+              ("stride", STRIDE_N, STRIDE_L, STRIDE_C, STRIDE_C, STRIDE_K,
+               STRIDE_S, "same"))
+    saved = int8_conv._lib
+    launches = int8_conv.launches
+    routes = dict(int8_conv.route_launches)
+    result = {}
+    int8_conv._lib = lambda: fn
+    try:
+        for name, n, length, c_in, c_out, k, s, pad in shapes:
+            x, w, inv_act, dq, bias, _ = _int8_dequant_inputs(
+                gen, n, length, c_in, c_out, k, bf16, dev)
+
+            def run():
+                return int8_conv.int8_conv_dequant(x, w, inv_act, dq, bias,
+                                                   padding=pad, stride=s)
+
+            ref = run()
+            torch.cuda.synchronize()
+            check(read(sums) == 0, "ragged cycle probes: no probe build")
+            ms = cuda_ms(run, iters=3, warmup=0)
+            check(read(sums) == 0, "ragged cycle probes: read failed")
+            check(torch.equal(run(), ref), f"{name}: probe runs differ")
+            v = [int(c) for c in sums]
+            tiles, probes = v[6], v[7]
+            check(tiles > 0 and probes > 0, f"{name}: no probe counts")
+            plan = int8_conv.int8_plan(c_in, c_out, k, 1, pad, bf16, s)
+            kind = "resident" if plan["ring"] else "staged"
+            per_tile = {ph: v[i] / tiles
+                        for i, ph in enumerate(RAGGED_PHASES[kind])}
+            probe_cycles = sum(v[:6]) / probes
+            result[name] = dict(kernel=kind, plan=_plan_tag(plan),
+                                cycles_per_tile=per_tile,
+                                tiles_per_probe=tiles / probes,
+                                probes=probes // 3,
+                                probe_cycles_per_launch=probe_cycles,
+                                ms_with_probes=ms,
+                                implied_ghz=probe_cycles / (ms * 1e6))
+            print(f"ragged cycles {name} [{kind}: {_plan_tag(plan)}] on "
+                  f"{card}: {probes // 3} probes (CTAs or warpgroups), "
+                  f"{tiles / probes:.1f} tiles each, a tile "
+                  + ", ".join(f"{ph} {c:.0f}" for ph, c in per_tile.items())
+                  + f" cycles; {ms:.3f} ms with the probes "
+                  f"({probe_cycles / (ms * 1e6):.2f} GHz implied)")
+            del x, w, ref
+    finally:
+        int8_conv._lib = saved
+        int8_conv.launches = launches
+        int8_conv.route_launches.clear()
+        int8_conv.route_launches.update(routes)
+    return result
 
 
 def phase_int8_strided_predict(tmp: Path, card: str) -> dict:
@@ -4782,6 +4946,19 @@ def main(argv: list[str]) -> int:
                                           flagship_bundle(Path(tmp)))
             print(json.dumps({"commands": commands}))
             print(f"commands run done in "
+                  f"{time.perf_counter() - t_start:.0f} s")
+            return 0
+        if "--ragged" in argv:
+            from concurrent.futures import ThreadPoolExecutor
+
+            with ThreadPoolExecutor(1) as pool:
+                probes = pool.submit(build_ragged_probes)
+                ragged = phase_ragged_kernel(card)
+                stride = phase_ragged_stride(card)
+                cycles = phase_ragged_cycles(card, probes.result())
+            print(json.dumps({"ragged_route": ragged, "ragged_stride": stride,
+                              "ragged_cycles": cycles}))
+            print(f"ragged run done in "
                   f"{time.perf_counter() - t_start:.0f} s")
             return 0
         if "--templates" in argv:

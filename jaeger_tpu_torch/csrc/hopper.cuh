@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: mbarriers,
 // TMA tensor maps and loads, 1-D bulk copies, wgmma descriptors (K-major and
-// MN-major) and instructions (bf16 and s8, A from registers), ldmatrix.
+// MN-major) and instructions (bf16 and s8, A from registers), ldmatrix,
+// cp.async.
 //
 // Header only; each helper is a thin wrapper around one PTX instruction
 // (or, on the host, one driver call), so a kernel reads as the sequence of
@@ -149,6 +150,25 @@ __device__ __forceinline__ void bulk_commit() {
 template <int N>
 __device__ __forceinline__ void bulk_wait_read() {
   asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// 16 bytes from global to shared memory (both 16-byte aligned), cached in
+// L2 only; tracked by this thread's cp.async groups
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// waits until at most N of this thread's committed cp.async groups are
+// still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // the TMA swizzle of a byte offset inside a 1024-byte aligned region whose
@@ -564,6 +584,93 @@ __device__ __forceinline__ void wgmma_s8_rs(int (&d)[64],
         "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(scale_d),
         "l"(desc));
+}
+
+// The same product that overwrites d (scale_d = 0) and reads none of it:
+// d is an output only, so its registers hold nothing live before the first
+// wgmma of a tile (the epilogue's last read of them ends their life); early
+// clobbers, so that no input shares a register with d, which the
+// asynchronous product writes while it may still read a.
+
+__device__ __forceinline__ void wgmma_s8_rs_first(int (&d)[8],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %12, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %13, p;\n}\n"
+      : "=&r"(d[0]), "=&r"(d[1]), "=&r"(d[2]), "=&r"(d[3]), "=&r"(d[4]), "=&r"(d[5]),
+        "=&r"(d[6]), "=&r"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(0), "l"(desc));
+}
+
+__device__ __forceinline__ void wgmma_s8_rs_first(int (&d)[16],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %20, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %21, p;\n}\n"
+      : "=&r"(d[0]), "=&r"(d[1]), "=&r"(d[2]), "=&r"(d[3]), "=&r"(d[4]), "=&r"(d[5]),
+        "=&r"(d[6]), "=&r"(d[7]), "=&r"(d[8]), "=&r"(d[9]), "=&r"(d[10]), "=&r"(d[11]),
+        "=&r"(d[12]), "=&r"(d[13]), "=&r"(d[14]), "=&r"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(0), "l"(desc));
+}
+
+__device__ __forceinline__ void wgmma_s8_rs_first(int (&d)[32],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %36, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %37, p;\n}\n"
+      : "=&r"(d[0]), "=&r"(d[1]), "=&r"(d[2]), "=&r"(d[3]), "=&r"(d[4]), "=&r"(d[5]),
+        "=&r"(d[6]), "=&r"(d[7]), "=&r"(d[8]), "=&r"(d[9]), "=&r"(d[10]), "=&r"(d[11]),
+        "=&r"(d[12]), "=&r"(d[13]), "=&r"(d[14]), "=&r"(d[15]), "=&r"(d[16]), "=&r"(d[17]),
+        "=&r"(d[18]), "=&r"(d[19]), "=&r"(d[20]), "=&r"(d[21]), "=&r"(d[22]), "=&r"(d[23]),
+        "=&r"(d[24]), "=&r"(d[25]), "=&r"(d[26]), "=&r"(d[27]), "=&r"(d[28]), "=&r"(d[29]),
+        "=&r"(d[30]), "=&r"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(0), "l"(desc));
+}
+
+__device__ __forceinline__ void wgmma_s8_rs_first(int (&d)[64],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %68, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %69, p;\n}\n"
+      : "=&r"(d[0]), "=&r"(d[1]), "=&r"(d[2]), "=&r"(d[3]), "=&r"(d[4]), "=&r"(d[5]),
+        "=&r"(d[6]), "=&r"(d[7]), "=&r"(d[8]), "=&r"(d[9]), "=&r"(d[10]), "=&r"(d[11]),
+        "=&r"(d[12]), "=&r"(d[13]), "=&r"(d[14]), "=&r"(d[15]), "=&r"(d[16]), "=&r"(d[17]),
+        "=&r"(d[18]), "=&r"(d[19]), "=&r"(d[20]), "=&r"(d[21]), "=&r"(d[22]), "=&r"(d[23]),
+        "=&r"(d[24]), "=&r"(d[25]), "=&r"(d[26]), "=&r"(d[27]), "=&r"(d[28]), "=&r"(d[29]),
+        "=&r"(d[30]), "=&r"(d[31]), "=&r"(d[32]), "=&r"(d[33]), "=&r"(d[34]), "=&r"(d[35]),
+        "=&r"(d[36]), "=&r"(d[37]), "=&r"(d[38]), "=&r"(d[39]), "=&r"(d[40]), "=&r"(d[41]),
+        "=&r"(d[42]), "=&r"(d[43]), "=&r"(d[44]), "=&r"(d[45]), "=&r"(d[46]), "=&r"(d[47]),
+        "=&r"(d[48]), "=&r"(d[49]), "=&r"(d[50]), "=&r"(d[51]), "=&r"(d[52]), "=&r"(d[53]),
+        "=&r"(d[54]), "=&r"(d[55]), "=&r"(d[56]), "=&r"(d[57]), "=&r"(d[58]), "=&r"(d[59]),
+        "=&r"(d[60]), "=&r"(d[61]), "=&r"(d[62]), "=&r"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(0), "l"(desc));
 }
 
 }  // namespace hopper

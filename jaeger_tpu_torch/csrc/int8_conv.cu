@@ -35,7 +35,7 @@
 // Three routes, chosen before launch by ops/int8_conv.py::int8_plan; the
 // entry below recomputes the plan's layout and refuses one that disagrees.
 // "wgmma" and "mma" take C_in and C_out multiples of 16 at stride 1,
-// "ragged" the rest.
+// "ragged" the rest, on one of its two kernels.
 //
 // Route "wgmma" (int8_wgmma<T, CB, KB>: requant, and dequant in bf16, with
 // C_in % 32 == 0 and 64 + d(K-1) <= 256 rows), on the schedule of
@@ -106,49 +106,62 @@
 // transposed to (C_out, C_in), and runs mma.sync m16n8k32 (k16 for a C_in
 // tail of 16).
 //
-// Route "ragged" (int8_ragged<T, CB, VEC>: C_in or C_out not a multiple of
-// 16, C_in < 16 included; all three forms). The dvf template's conv is its
-// shape: one-hot nucleotides, C_in 4, C_out 500, K 10, VALID, bf16 out, N
-// 2048 rows of L 500 a strand. Per launch that is 40.2 G int8 operations
-// (0.020 ms at 1,979 TOP/s) against 1.01 GB of bf16 output (0.300 ms at
-// 3.35 TB/s): bound by the output's bytes, and the products are nearly
-// free, so the design is the simple one, a first kernel:
-//  * Persistent: a CTA of 8 warps owns a column block of CB output
-//    channels (16, 32, 64 or 128; the last block cut at C_out) and walks
-//    tiles of 64 output positions; grid.x is the CTAs that fit on the card
-//    at once (occupancy API, the carveout set to shared memory) shared out
-//    over the column blocks.
-//  * The tile's 64 + d(K-1) input rows are loaded element by element
-//    (consecutive threads on consecutive elements: one contiguous span of
-//    x), quantized as x is read, into shared memory as s8 with the
-//    channels padded with zeros to cp, a multiple of 4. At stride s the
-//    tile holds the 63 s + d(K-1) + 1 input rows of its 64 outputs.
-//  * The contraction K * cp is laid out tap-major and padded to a multiple
-//    of 32: output row r at index j * cp + c reads tile row r + j * d,
-//    channel c, so each 4-byte A group lies in one tap and comes by one
-//    32-bit shared load at a table's offset (kp entries, made with the
-//    weights), with no im2col copy. The weights of the column block are
-//    staged once per CTA (as many taps a stage as fit in 112 KB; then
-//    restaged per tile), transposed to (CB, kp) rows with zeros past K,
-//    C_in and C_out, beside the block's dq, bias and DYT rows. mma.sync
-//    m16n8k32 s8 with s32 sums (output row r's A row starts at tile row
-//    r * s); each warp has 16 rows by CB / 2 columns
-//    and skips n8 tiles past C_out.
-//  * The s32 sums go through shared memory. The epilogue (the mma route's
-//    operations, in f32) gives each thread VEC fixed channels (4 when 4
-//    divides C_out, as at 500, else 1) and walks the rows with
-//    the activation a template argument: one s32 load from shared memory,
-//    one VEC-wide store (8 bytes of bf16 at VEC 4), a warp on consecutive
-//    channels of a row; channels past C_out and rows past L_out are not
-//    stored.
-//  Measured at the dvf shape (NVIDIA H100 80GB HBM3, 700 W): the first
-//  version, one element a thread with its index divided out, its
-//  parameters loaded and its activation switched per element, took
-//  2.84 ms; this one 1.07 ms, 28 % of the bound. Prefetching the next
-//  tile's x during the epilogue, 64-channel blocks (more CTAs an SM) and
-//  grids of short-lived CTAs each measured no faster (1.10-1.37 ms), and a
-//  variant that skipped the stores still took 0.93 ms: the per-tile
-//  chain of x load, products and epilogue, not the bytes, holds it.
+// Route "ragged" (C_in or C_out not a multiple of 16, C_in < 16 included,
+// and every stride above 1; all three forms). Its two shapes on the paths
+// are bound by bytes: the dvf template's conv (one-hot nucleotides, C_in 4,
+// C_out 500, K 10, VALID, bf16, N 2048 rows of L 500: 40.2 G int8
+// operations, 0.020 ms at 1,979 TOP/s, against 1.01 GB of bf16 output,
+// 0.300 ms at 3.35 TB/s) and a strided residual conv1 at the flagship's
+// width (C 128, K 5, stride 2, N 12288, L 500: 0.50 T operations, 0.25 ms,
+// against 2.36 GB of bf16 in and out, 0.70 ms). Two kernels:
+//
+// int8_ragged<T, CB, MINB> (the resident kernel) wherever its layout fits
+// (ragged_resident; every shape on the paths):
+//  * Weights resident: a CTA owns a column block of CB output channels
+//    (16, 32, 64 or 128; the last block cut at C_out) with all K taps,
+//    staged once with 16-byte loads (4-byte or single-byte ones where
+//    C_out's alignment does not allow them) and 4 x 4 byte transposes,
+//    K-major in regions of kb = 128, 64 or 32 contraction bytes swizzled to
+//    that width. The contraction is tap-major, kk = j * cp + c (cp = C_in
+//    rounded up to 4), padded with zeros to kp, a multiple of 32.
+//  * Two warpgroups (one where two do not fit) take the CTA's tiles of 64
+//    output positions in turn and never wait for each other. Each keeps a
+//    ring of one or two x stages: a tile's 63 s + d(K-1) + 1 input rows as
+//    they lie in device memory (one contiguous span), copied by 16-byte
+//    cp.async of the 16-byte aligned span around them (any C_in, any
+//    alignment), its in_mask bytes beside them. The next tile's copy is
+//    issued as soon as a stage is quantized and lands while this tile's
+//    products, epilogue and stores run.
+//  * Quantized once into an s8 tile (a 4-channel word a step; rows outside
+//    [0, L), masked rows and channels past C_in as 0) whose rows are padded
+//    so that the A loads are conflict-free (ragged_pitch).
+//  * Products: s8 wgmma m64nCBk32 with B the resident weights and A from
+//    registers: a thread's four 32-bit A words of a k32 step come from the
+//    s8 tile at row r * s + j * d through a table of contraction offsets
+//    (any cp, any stride); up to four steps a group, retired before A is
+//    reloaded (a second A register set under a running group makes ptxas
+//    serialize every s8 wgmma, warning C7513).
+//  * Epilogue from the accumulators, the staged kernel's f32 operations in
+//    its order, into an output image in shared memory, then to device
+//    memory as streaming stores of the widest unit a row of the column
+//    block allows (16 bytes at C_out 128 in bf16, 8 at C_out 500).
+//
+// int8_ragged_staged<T, CB, VEC> (the route's first kernel, PR 10) where
+// the x stages and all K taps do not fit (a C_in near 1000):
+//  * Persistent CTAs of 8 warps over tiles of 64 output positions for a
+//    column block; the tile's input rows loaded element by element,
+//    quantized as x is read, into an s8 tile with the channels padded to
+//    cp; the weights staged as many taps a stage as fit in 112 KB (else in
+//    227 KB), restaged every tile when that is fewer than K.
+//  * The same tap-major contraction through the offset table, mma.sync
+//    m16n8k32 (each warp 16 rows by CB / 2 columns), the s32 sums through
+//    shared memory, an epilogue of VEC channels a thread (4 when 4 divides
+//    C_out) on consecutive channels of a row.
+//  It ran the paths' shapes before the resident kernel (NVIDIA H100 80GB
+//  HBM3, 700 W): 1.064 ms at the dvf shape, 28 % of its bound (each tile
+//  one serial chain: x load, products, s32 through shared memory,
+//  epilogue), and 23.67 ms at the stride shape, 3 % (its 3 taps a stage
+//  restaged every tile, byte by byte).
 
 // Built with nvcc into a shared library with a plain C interface and loaded
 // with ctypes (jaeger_tpu_torch/ops/cuda_build.py).
@@ -156,6 +169,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -1020,7 +1035,7 @@ cudaError_t dispatch_mma(const Params& p, int cb, size_t smem, int n_rows,
 }
 
 // ---------------------------------------------------------------------------
-// route "ragged": C_in or C_out not a multiple of 16 (see the note at the top)
+// route "ragged", staged kernel (see the note at the top)
 // ---------------------------------------------------------------------------
 
 constexpr int RG_TL = 64;        // output rows per tile
@@ -1029,6 +1044,43 @@ constexpr int RG_WPAD = 16;      // weight row padding, bytes
 constexpr int RG_OPAD = 8;       // accumulator row padding, words
 constexpr int RG_TARGET = 112 * 1024;  // two CTAs per SM when one tap fits
 constexpr int RG_MIN_CTAS = 4;  // CTAs per SM the registers must allow (64 each)
+
+// Cycle probes (a build with -DJT_RAGGED_CYCLES only; chip_smoke.py
+// --ragged): one thread of each CTA (of each warpgroup in the resident
+// kernel) adds the clock64 cycles of each phase of its tiles, its tile
+// count and 1 to g_rg_cycles; jt_int8_ragged_cycles reads and clears the
+// sums.
+#ifdef JT_RAGGED_CYCLES
+constexpr int RG_PHASES = 6;
+__device__ unsigned long long g_rg_cycles[RG_PHASES + 2];
+#define RG_CLOCK_INIT(on)                              \
+  const bool rg_on = (on);                             \
+  long long rg_t = clock64(), rg_sum[RG_PHASES] = {};  \
+  long long rg_tiles = 0
+#define RG_MARK(i)                                \
+  do {                                            \
+    if (rg_on) {                                  \
+      const long long rg_now = clock64();         \
+      rg_sum[i] += rg_now - rg_t;                 \
+      rg_t = rg_now;                              \
+    }                                             \
+  } while (0)
+#define RG_TILE() (rg_tiles += rg_on)
+#define RG_CLOCK_FLUSH()                                                 \
+  do {                                                                   \
+    if (rg_on) {                                                         \
+      for (int i = 0; i < RG_PHASES; ++i)                                \
+        atomicAdd(&g_rg_cycles[i], (unsigned long long)rg_sum[i]);       \
+      atomicAdd(&g_rg_cycles[RG_PHASES], (unsigned long long)rg_tiles);  \
+      atomicAdd(&g_rg_cycles[RG_PHASES + 1], 1ull);                      \
+    }                                                                    \
+  } while (0)
+#else
+#define RG_CLOCK_INIT(on) do {} while (0)
+#define RG_MARK(i) do {} while (0)
+#define RG_TILE() do {} while (0)
+#define RG_CLOCK_FLUSH() do {} while (0)
+#endif
 
 // Shared-memory layout of the ragged route, byte offsets:
 // [x tile: rows = 63 * stride + dil * (K - 1) + 1 input rows x cp s8 (cp =
@@ -1200,7 +1252,7 @@ __device__ __forceinline__ void ragged_dequant_rows(const Params& p,
 // channels per thread: one load and one store of VEC elements.
 template <typename T, int CB, int VEC>
 __global__ void __launch_bounds__(RG_THREADS, RG_MIN_CTAS)
-int8_ragged(Params p, RaggedLayout lay, int l_tiles, int m_tiles) {
+int8_ragged_staged(Params p, RaggedLayout lay, int l_tiles, int m_tiles) {
   constexpr int NT = CB / 16;  // n8 tiles of a warp's column half
   constexpr int TPR = CB / VEC;            // epilogue threads per row
   constexpr int RSTEP = RG_THREADS / TPR;  // rows per epilogue pass
@@ -1228,11 +1280,14 @@ int8_ragged(Params p, RaggedLayout lay, int l_tiles, int m_tiles) {
   // of the column block (all past C_out or none: VEC divides C_out)
   const int ec = (tid % TPR) * VEC;
   const bool e_live = ec < ncols;
+  RG_CLOCK_INIT(tid == 0);
 
   for (int m = blockIdx.x; m < m_tiles; m += gridDim.x) {
     const int n = m / l_tiles, l0 = (m - n * l_tiles) * RG_TL;
     const long long xrow0 = (long long)n * p.L;
+    RG_TILE();
     __syncthreads();  // the last tile's reads of xs and os are done
+    RG_MARK(0);
     // the tile's input rows l0 * stride - pad_l .. + rows - 1, quantized,
     // with channels C_in .. cp - 1, rows outside [0, L) and masked rows 0:
     // one contiguous span of x, consecutive threads on consecutive elements
@@ -1250,6 +1305,7 @@ int8_ragged(Params p, RaggedLayout lay, int l_tiles, int m_tiles) {
       }
       xs[i] = (int8_t)q;
     }
+    RG_MARK(1);
     if (m == (int)blockIdx.x) {
       // the column block's epilogue parameters, once a CTA
       for (int c = tid; c < CB; c += RG_THREADS) {
@@ -1291,6 +1347,7 @@ int8_ragged(Params p, RaggedLayout lay, int l_tiles, int m_tiles) {
         }
       }
       __syncthreads();  // x tile, weights, offsets, parameters complete
+      RG_MARK(2);
       // a 4-byte group of the contraction never straddles taps (cp % 4 ==
       // 0); output row r reads from tile row r * stride on
       const int8_t* xr = xs + r0 * row_step;
@@ -1311,6 +1368,7 @@ int8_ragged(Params p, RaggedLayout lay, int l_tiles, int m_tiles) {
           }
         }
       }
+      RG_MARK(3);
     }
     // accumulator (nt, e): row r0 + 8 * (e / 2), column c_warp + nt * 8 +
     // 2t + e % 2
@@ -1323,6 +1381,7 @@ int8_ragged(Params p, RaggedLayout lay, int l_tiles, int m_tiles) {
           make_int2(acc[nt][2], acc[nt][3]);
     }
     __syncthreads();
+    RG_MARK(4);
     // epilogue: a row's channels on consecutive threads, VEC a thread; the
     // tail of C_out and rows past L_out are not stored
     if (!e_live) continue;
@@ -1368,23 +1427,25 @@ int8_ragged(Params p, RaggedLayout lay, int l_tiles, int m_tiles) {
           break;
       }
     }
+    RG_MARK(5);
   }
+  RG_CLOCK_FLUSH();
 }
 
 template <typename T, int CB, int VEC>
-cudaError_t launch_ragged(const Params& p, const RaggedLayout& lay,
+cudaError_t launch_staged(const Params& p, const RaggedLayout& lay,
                           int n_rows, int sms, cudaStream_t stream) {
   cudaError_t e = cudaFuncSetAttribute(
-      int8_ragged<T, CB, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)lay.bytes);
+      int8_ragged_staged<T, CB, VEC>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)lay.bytes);
   if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(int8_ragged<T, CB, VEC>,
+  e = cudaFuncSetAttribute(int8_ragged_staged<T, CB, VEC>,
                            cudaFuncAttributePreferredSharedMemoryCarveout,
                            cudaSharedmemCarveoutMaxShared);
   if (e != cudaSuccess) return e;
   int per_sm = 0;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, int8_ragged<T, CB, VEC>, RG_THREADS, lay.bytes);
+      &per_sm, int8_ragged_staged<T, CB, VEC>, RG_THREADS, lay.bytes);
   if (e != cudaSuccess) return e;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
   const int l_tiles = (p.L_out + RG_TL - 1) / RG_TL;
@@ -1396,32 +1457,707 @@ cudaError_t launch_ragged(const Params& p, const RaggedLayout& lay,
   long long gx = (long long)sms * per_sm / n_cb;
   if (gx < 1) gx = 1;
   if (gx > m_tiles) gx = m_tiles;
-  int8_ragged<T, CB, VEC><<<dim3((unsigned)gx, (unsigned)n_cb), RG_THREADS,
-                            lay.bytes, stream>>>(p, lay, l_tiles,
-                                                 (int)m_tiles);
+  int8_ragged_staged<T, CB, VEC><<<dim3((unsigned)gx, (unsigned)n_cb),
+                                   RG_THREADS, lay.bytes, stream>>>(
+      p, lay, l_tiles, (int)m_tiles);
   return cudaGetLastError();
 }
 
 template <typename T, int CB>
-cudaError_t ragged_vec(const Params& p, const RaggedLayout& lay, int n_rows,
+cudaError_t staged_vec(const Params& p, const RaggedLayout& lay, int n_rows,
                        int sms, cudaStream_t s) {
-  if (p.C_out % 4 == 0) return launch_ragged<T, CB, 4>(p, lay, n_rows, sms, s);
-  return launch_ragged<T, CB, 1>(p, lay, n_rows, sms, s);
+  if (p.C_out % 4 == 0) return launch_staged<T, CB, 4>(p, lay, n_rows, sms, s);
+  return launch_staged<T, CB, 1>(p, lay, n_rows, sms, s);
 }
 
 template <typename T>
-cudaError_t dispatch_ragged(const Params& p, const RaggedLayout& lay, int cb,
+cudaError_t dispatch_staged(const Params& p, const RaggedLayout& lay, int cb,
                             int n_rows, int sms, cudaStream_t s) {
   switch (cb) {
-    case 128: return ragged_vec<T, 128>(p, lay, n_rows, sms, s);
-    case 64: return ragged_vec<T, 64>(p, lay, n_rows, sms, s);
-    case 32: return ragged_vec<T, 32>(p, lay, n_rows, sms, s);
-    case 16: return ragged_vec<T, 16>(p, lay, n_rows, sms, s);
+    case 128: return staged_vec<T, 128>(p, lay, n_rows, sms, s);
+    case 64: return staged_vec<T, 64>(p, lay, n_rows, sms, s);
+    case 32: return staged_vec<T, 32>(p, lay, n_rows, sms, s);
+    case 16: return staged_vec<T, 16>(p, lay, n_rows, sms, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// route "ragged", resident kernel (see the note at the top)
+// ---------------------------------------------------------------------------
+
+constexpr int RR_SLACK = 48;  // bytes around a stage's 16-byte span
+
+// Shared-memory layout of the resident kernel, byte offsets from a 1024-byte
+// aligned base:
+// [weights: kp / kb regions of cb rows x kb bytes (K-major, swizzled to kb)]
+// [contraction offsets: kp / 8 pairs of s32]
+// [epilogue parameters: 5 x cb f32]
+// [per warpgroup (`wgs` of them): `ring` x stages (rows x C_in elements of x, as they lie in
+//  device memory, plus RR_SLACK), `ring` in_mask stages (rows bytes plus
+//  RR_SLACK), the s8 tile (rows x pitch) and the output image (64 rows x
+//  opitch bytes)]
+struct ResidentLayout {
+  int cp, rows, kp, kb, pitch, ring, wgs;
+  uint32_t xstage, mstage, s8, opitch, off_k, off_p, off_wg, wg_bytes, bytes;
+};
+
+inline uint32_t round16(uint32_t v) { return (v + 15u) & ~15u; }
+
+// s8 tile row bytes: cp, padded when cp % 16 == 0 so that stride * pitch / 4
+// is 4 mod 8 (the eight rows of an A fragment on eight distinct 4-bank
+// groups: conflict-free 32-bit loads)
+int ragged_pitch(int cp, int stride) {
+  if (cp % 16) return cp;
+  for (int pad = 0; pad < 32; pad += 4)
+    if (stride * ((cp + pad) / 4) % 8 == 4) return cp + pad;
+  return cp;
+}
+
+ResidentLayout resident_layout(int C_in, int K, int dil, int stride, int esize,
+                               int cb, int wgs, int ring) {
+  ResidentLayout lay;
+  lay.cp = (C_in + 3) & ~3;
+  lay.rows = (RG_TL - 1) * stride + dil * (K - 1) + 1;
+  lay.kp = (K * lay.cp + 31) & ~31;
+  lay.kb = lay.kp % 128 == 0 ? 128 : lay.kp % 64 == 0 ? 64 : 32;
+  lay.pitch = ragged_pitch(lay.cp, stride);
+  lay.ring = ring;
+  lay.wgs = wgs;
+  lay.xstage = round16((uint32_t)lay.rows * C_in * esize + RR_SLACK);
+  lay.mstage = round16((uint32_t)lay.rows + RR_SLACK);
+  lay.s8 = round16((uint32_t)(lay.rows * lay.pitch));
+  lay.opitch = (uint32_t)(cb + 8) * esize;
+  lay.off_k = (uint32_t)(lay.kp * cb);
+  lay.off_p = lay.off_k + (uint32_t)lay.kp;  // kp / 8 pairs of s32
+  lay.off_wg = lay.off_p + 20u * cb;
+  lay.wg_bytes = ring * (lay.xstage + lay.mstage) + lay.s8 + RG_TL * lay.opitch;
+  lay.bytes = lay.off_wg + wgs * lay.wg_bytes + 1024u;  // + alignment slack
+  return lay;
+}
+
+// The first resident layout that fits of two warpgroups with two x stages
+// each, then one stage; one warpgroup with two, then one; false when none
+// fits (the staged kernel takes the shape).
+bool ragged_resident(int C_in, int K, int dil, int stride, int esize, int cb,
+                     ResidentLayout* lay) {
+  for (int wgs = 2; wgs >= 1; --wgs)
+    for (int ring = 2; ring >= 1; --ring) {
+      *lay = resident_layout(C_in, K, dil, stride, esize, cb, wgs, ring);
+      if (lay->bytes <= (uint32_t)SMEM_LIMIT) return true;
+    }
+  return false;
+}
+
+// four quantized channels from a 4-element aligned group of x in shared
+// memory (T's bytes as they lie in device memory)
+__device__ __forceinline__ uint32_t quant_group(const int8_t* s, float) {
+  return *reinterpret_cast<const uint32_t*>(s);
+}
+__device__ __forceinline__ uint32_t quant_group(const __nv_bfloat16* s,
+                                                float inv) {
+  const uint2 v = *reinterpret_cast<const uint2*>(s);
+  const float2 lo =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
+  const float2 hi =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
+  return quant8x4(lo.x, lo.y, hi.x, hi.y, inv);
+}
+__device__ __forceinline__ uint32_t quant_group(const float* s, float inv) {
+  const float4 v = *reinterpret_cast<const float4*>(s);
+  return quant8x4(v.x, v.y, v.z, v.w, inv);
+}
+// the same one element at a time, channels from `live` on as 0
+template <typename T>
+__device__ __forceinline__ uint32_t quant_elems(const T* s, int live,
+                                                float inv) {
+  uint32_t q = 0;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    if (e < live) {
+      uint32_t b;
+      if constexpr (sizeof(T) == 1)
+        b = (uint8_t)s[e];
+      else
+        b = quant8(to_f32(s[e]), inv);
+      q |= b << (8 * e);
+    }
+  }
+  return q;
+}
+
+// Quantize a tile's x stage (row r at xd + r * rowbytes, its in_mask byte
+// at md[r]) into the s8 tile (row r at s8 + r * pitch): units of G words
+// (4 channels each) a step, two units a thread in flight (their loads, then
+// their stores). G = 4: 16 channels of aligned vectors (C_in % 16 == 0);
+// G = 1: one 4-channel group, as an aligned vector (vec) or element by
+// element with the channels past C_in as 0.
+template <typename T, int G>
+__device__ __forceinline__ void quantize_tile(const Params& p,
+                                              const unsigned char* xd,
+                                              const unsigned char* md,
+                                              int8_t* s8, int pos0, int rows,
+                                              int pitch, long long rowbytes,
+                                              int wpr, bool vec, float inv,
+                                              int wt) {
+  const int upr = wpr / G;  // units a row
+  const int units = rows * upr;
+  const int dr = 128 / upr, dc = 128 % upr;
+  int r = wt / upr, c = wt - (wt / upr) * upr;
+  for (int u = wt; u < units; u += 2 * 128) {
+    int rr[2], cc[2];
+    uint32_t q[2][G];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      rr[e] = r;
+      cc[e] = c;
+      const int pos = pos0 + r;
+#pragma unroll
+      for (int k = 0; k < G; ++k) q[e][k] = 0;
+      if (u + 128 * e < units && pos >= 0 && pos < p.L &&
+          (!p.in_mask || md[r])) {
+        const T* src = reinterpret_cast<const T*>(xd + r * rowbytes) + 4 * G * c;
+        if constexpr (G == 4) {
+#pragma unroll
+          for (int k = 0; k < 4; ++k) q[e][k] = quant_group(src + 4 * k, inv);
+        } else {
+          q[e][0] = vec ? quant_group(src, inv)
+                        : quant_elems(src, p.C_in - 4 * c, inv);
+        }
+      }
+      r += dr;
+      c += dc;
+      if (c >= upr) {
+        c -= upr;
+        ++r;
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      if (u + 128 * e >= units) break;
+#pragma unroll
+      for (int k = 0; k < G; ++k)
+        *reinterpret_cast<uint32_t*>(s8 + rr[e] * pitch + 4 * (G * cc[e] + k)) =
+            q[e][k];
+    }
+  }
+}
+
+// NS k32 steps from step q: A fragments (rows r and r + 8 of the warp, the
+// s8 tile rows r * stride + j * d at the contraction offsets of the step's
+// bytes 4t and 16 + 4t), then NS wgmmas on the resident weights, retired
+// before A is reloaded. FIRST: the tile's first steps, whose first wgmma
+// overwrites acc.
+template <int NS, bool FIRST, int R>
+__device__ __forceinline__ void resident_steps(int (&acc)[R],
+                                               const int8_t* arow, int a8,
+                                               const int2* koff, int t, int q,
+                                               uint64_t desc0, int kb_log2,
+                                               uint32_t region) {
+  uint32_t a[NS][4];
+#pragma unroll
+  for (int u = 0; u < NS; ++u) {
+    const int2 o = koff[4 * (q + u) + t];
+    const int o0 = o.x, o1 = o.y;
+    a[u][0] = o0 >= 0 ? ld32(arow + o0) : 0u;
+    a[u][1] = o0 >= 0 ? ld32(arow + a8 + o0) : 0u;
+    a[u][2] = o1 >= 0 ? ld32(arow + o1) : 0u;
+    a[u][3] = o1 >= 0 ? ld32(arow + a8 + o1) : 0u;
+  }
+  if (!FIRST) hopper::fence_regs(acc);
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int u = 0; u < NS; ++u) {
+    const uint32_t kk = 32u * (q + u);
+    const uint32_t off = (kk >> kb_log2) * region + (kk & ((1u << kb_log2) - 1));
+    if (FIRST && u == 0)
+      hopper::wgmma_s8_rs_first(acc, a[u], desc0 + (off >> 4));
+    else
+      hopper::wgmma_s8_rs(acc, a[u], desc0 + (off >> 4), 1);
+  }
+  hopper::wgmma_commit();
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(a);
+}
+
+template <typename T>
+__device__ __forceinline__ uint32_t pack_pair(float a, float b);
+template <>
+__device__ __forceinline__ uint32_t pack_pair<__nv_bfloat16>(float a, float b) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The dequant epilogue of a warpgroup's tile from its accumulators into
+// the output image: thread (warp, g, t) holds rows rl = 16 warp + g and rl
+// + 8, columns 8 j + 2t (+1); dq, bias, DYT, out_mask (z), residual,
+// activation in f32, each multiply and the bias add an explicit _rn
+// operation. PLAIN: a bias and nothing else before the activation (the
+// forms on the paths), the column pair's dq and bias loaded once for both
+// rows, the activation ACT; else the activation p.act, chosen at run time.
+template <typename T, int CB, int ACT, bool PLAIN>
+__device__ __forceinline__ void resident_dequant_as(
+    const Params& p, const int (&acc)[CB / 2], const float* par,
+    unsigned char* img, uint32_t opitch, int rl, int t, const bool (&z)[2],
+    long long row0, int l_live, int ncols, int col0) {
+#pragma unroll
+  for (int j = 0; j < CB / 8; ++j) {
+    const int c = 8 * j + 2 * t;
+    const float2 dq = *reinterpret_cast<const float2*>(par + c);
+    float2 bias = make_float2(0.f, 0.f);
+    if (PLAIN) bias = *reinterpret_cast<const float2*>(par + CB + c);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = rl + 8 * h;
+      float y[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float u = __fmul_rn(__int2float_rn(acc[4 * j + 2 * h + e]),
+                            e ? dq.y : dq.x);
+        if (PLAIN) {
+          u = __fadd_rn(u, e ? bias.y : bias.x);
+          y[e] = act_fn(u, ACT);
+        } else {
+          if (p.bias) u = __fadd_rn(u, par[CB + c + e]);
+          if (p.dyt)
+            u = tanhf(u * par[2 * CB + c + e]) * par[3 * CB + c + e] +
+                par[4 * CB + c + e];
+          if (z[h]) u = 0.f;
+          if (p.residual && r < l_live && c + e < ncols)
+            u += to_f32(static_cast<const T*>(p.residual)
+                            [(row0 + r) * p.C_out + col0 + c + e]);
+          y[e] = act_fn(u, p.act);
+        }
+      }
+      unsigned char* dst = img + r * opitch + c * sizeof(T);
+      if constexpr (sizeof(T) == 4)
+        *reinterpret_cast<float2*>(dst) = make_float2(y[0], y[1]);
+      else
+        *reinterpret_cast<uint32_t*>(dst) = pack_pair<T>(y[0], y[1]);
+    }
+    // no column's parameters loaded ahead of the last column's stores: 64
+    // accumulators leave room for no more at 128 registers
+    asm volatile("" ::: "memory");
+  }
+}
+
+template <typename T, int CB>
+__device__ __forceinline__ void resident_dequant(
+    const Params& p, const int (&acc)[CB / 2], const float* par,
+    unsigned char* img, uint32_t opitch, int rl, int t, const bool (&z)[2],
+    long long row0, int l_live, int ncols, int col0) {
+#define RG_DEQUANT(ACT, PLAIN)                                            \
+  resident_dequant_as<T, CB, ACT, PLAIN>(p, acc, par, img, opitch, rl, t, \
+                                         z, row0, l_live, ncols, col0)
+  if (!p.bias || p.dyt || p.out_mask || p.residual) {
+    RG_DEQUANT(ACT_NONE, false);
+    return;
+  }
+  switch (p.act) {
+    case ACT_RELU: RG_DEQUANT(ACT_RELU, true); break;
+    case ACT_TANH: RG_DEQUANT(ACT_TANH, true); break;
+    case ACT_GELU: RG_DEQUANT(ACT_GELU, true); break;
+    case ACT_GELU_TANH: RG_DEQUANT(ACT_GELU_TANH, true); break;
+    default: RG_DEQUANT(ACT_NONE, true); break;
+  }
+#undef RG_DEQUANT
+}
+
+// rows 0 .. rows - 1 of the image (units of U bytes, `upr` a row) to device
+// memory, row r at og + r * gpitch, as streaming stores (plain ones below 4
+// bytes), two units a thread in flight
+template <int U>
+__device__ __forceinline__ void copy_image(const unsigned char* img,
+                                           uint32_t opitch, char* og,
+                                           long long gpitch, int rows,
+                                           int upr, int wt) {
+  using V = typename std::conditional<
+      U == 16, uint4,
+      typename std::conditional<
+          U == 8, uint2,
+          typename std::conditional<
+              U == 4, unsigned int,
+              typename std::conditional<U == 2, unsigned short,
+                                        unsigned char>::type>::type>::type>::
+      type;
+  const int dr = 128 / upr, dc = 128 % upr;
+  int r = wt / upr, c = wt - (wt / upr) * upr;
+  while (r < rows) {
+    int rr[2], cc[2];
+    V v[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      rr[e] = r;
+      cc[e] = c;
+      if (r < rows) v[e] = *reinterpret_cast<const V*>(img + r * opitch + c * U);
+      r += dr;
+      c += dc;
+      if (c >= upr) {
+        c -= upr;
+        ++r;
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      if (rr[e] >= rows) break;
+      V* dst = reinterpret_cast<V*>(og + rr[e] * gpitch + cc[e] * U);
+      if constexpr (U >= 4)
+        __stcs(dst, v[e]);
+      else
+        *dst = v[e];
+    }
+  }
+}
+
+// T = int8_t: requant form; T = __nv_bfloat16 / float: dequant form. CTA
+// (blockIdx.x, blockIdx.y) owns column block blockIdx.y (CB channels, the
+// last cut at C_out) with its K taps resident, and its tiles (n, 64 output
+// positions) blockIdx.x, + gridDim.x, ...: warpgroup wg takes every second
+// one from the wg-th (with two warpgroups). MINB: the CTAs an SM the
+// registers must allow (2: at most 128 a thread; 1 where the layout leaves
+// room for one CTA only).
+template <typename T, int CB, int MINB>
+__global__ void __launch_bounds__(256, MINB)
+int8_ragged(Params p, ResidentLayout lay, int l_tiles, int m_tiles) {
+  using namespace hopper;
+  constexpr bool REQUANT = sizeof(T) == 1;
+  constexpr int ES = sizeof(T);
+  constexpr int R = CB / 2;  // accumulator registers a thread
+  // k32 steps a wgmma group: two when 64 accumulators must share 128
+  // registers with the rest
+  constexpr int NSMAX = CB == 128 && MINB == 2 ? 2 : 4;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* sb = smem_raw + (base - raw);
+  int2* koff = reinterpret_cast<int2*>(sb + lay.off_k);
+  float* par = reinterpret_cast<float*>(sb + lay.off_p);
+  const int tid = threadIdx.x;
+  const int wg = tid / 128, wt = tid % 128;
+  const int warp = wt / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int col0 = blockIdx.y * CB;
+  const int ncols = min(CB, p.C_out - col0);
+  const int C = p.C_in, K = p.K, cp = lay.cp, S = p.stride;
+  const long long rowbytes = (long long)C * ES;
+  unsigned char* wgs = sb + lay.off_wg + wg * lay.wg_bytes;
+  unsigned char* mst = wgs + lay.ring * lay.xstage;
+  int8_t* s8 = reinterpret_cast<int8_t*>(mst + lay.ring * lay.mstage);
+  unsigned char* img = reinterpret_cast<unsigned char*>(s8) + lay.s8;
+  const int m_step = lay.wgs * gridDim.x;
+  const int m_first = blockIdx.x + wg * gridDim.x;
+  const int n_local =
+      m_first < m_tiles ? (m_tiles - m_first + m_step - 1) / m_step : 0;
+  const uintptr_t xg = reinterpret_cast<uintptr_t>(p.x);
+  const uintptr_t mg = reinterpret_cast<uintptr_t>(p.in_mask);
+
+  // Tile li's rows pos0 .. pos0 + rows - 1 (those inside [0, L)) into x
+  // stage li % ring, the in_mask bytes beside them: the 16-byte aligned span
+  // around them, placed so that shared memory matches device memory mod 16
+  // (x row r at stage + 16 + (x + (n L + pos0) * rowbytes) % 16 + r *
+  // rowbytes); then one cp.async group, empty past the last tile.
+  auto issue = [&](int li) {
+    if (li < n_local) {
+      const int m = m_first + li * m_step;
+      const int n = m / l_tiles, l0 = (m - n * l_tiles) * RG_TL;
+      const int pos0 = l0 * S - p.pad_l;
+      const int lo = max(pos0, 0), hi = min(pos0 + lay.rows, p.L);
+      const long long row_lo = (long long)n * p.L + lo;
+      const long long row_hi = (long long)n * p.L + hi;
+      const int st = li % lay.ring;
+      {
+        const uintptr_t ga = xg + row_lo * rowbytes, gb = xg + row_hi * rowbytes;
+        const uintptr_t a16 = ga & ~(uintptr_t)15;
+        const uint32_t dst = smem_u32(wgs + st * lay.xstage) + 16u +
+                             (uint32_t)((xg + ((long long)n * p.L + pos0) *
+                                                  rowbytes) & 15) +
+                             (uint32_t)((lo - pos0) * rowbytes) -
+                             (uint32_t)(ga - a16);
+        const int chunks = (int)((((gb + 15) & ~(uintptr_t)15) - a16) >> 4);
+        for (int i = wt; i < chunks; i += 128)
+          cp_async16(dst + 16u * i, reinterpret_cast<const void*>(a16 + 16u * i));
+      }
+      if (p.in_mask) {
+        const uintptr_t ga = mg + row_lo, gb = mg + row_hi;
+        const uintptr_t a16 = ga & ~(uintptr_t)15;
+        const uint32_t dst = smem_u32(mst + st * lay.mstage) + 16u +
+                             (uint32_t)((mg + (long long)n * p.L + pos0) & 15) +
+                             (uint32_t)(lo - pos0) - (uint32_t)(ga - a16);
+        const int chunks = (int)((((gb + 15) & ~(uintptr_t)15) - a16) >> 4);
+        for (int i = wt; i < chunks; i += 128)
+          cp_async16(dst + 16u * i, reinterpret_cast<const void*>(a16 + 16u * i));
+      }
+    }
+    cp_async_commit();
+  };
+  for (int li = 0; li < lay.ring; ++li) issue(li);
+
+  // resident weights: w[j][c][col0 + nn] -> B row nn, contraction byte kk =
+  // j * cp + c (region kk / kb, swizzled to kb), zeros past C_in, C_out and
+  // K * cp; an item is 4 channels x 16 output channels: four 16-byte loads
+  // (4-byte or single-byte ones where C_out's alignment does not allow them)
+  // and four 4 x 4 byte transposes
+  const int kb_log2 = lay.kb == 128 ? 7 : lay.kb == 64 ? 6 : 5;
+  const uint32_t region = (uint32_t)CB * lay.kb;
+  {
+    const int c4n = cp / 4;
+    const bool al16 = p.C_out % 16 == 0 &&
+                      (reinterpret_cast<uintptr_t>(p.w) & 15) == 0;
+    const bool al4 = p.C_out % 4 == 0 &&
+                     (reinterpret_cast<uintptr_t>(p.w) & 3) == 0;
+    auto put = [&](int nn, int kk, uint32_t v) {
+      *reinterpret_cast<uint32_t*>(
+          sb + (kk >> kb_log2) * region +
+          swizzle((uint32_t)nn * lay.kb + (kk & (lay.kb - 1)), lay.kb)) = v;
+    };
+    for (int i = tid; i < K * c4n * (CB / 16); i += blockDim.x) {
+      const int b = i % (CB / 16), jc = i / (CB / 16);
+      const int j = jc / c4n, c4 = jc - j * c4n;
+      uint32_t v[4][4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 4 * c4 + e, n0 = 16 * b;
+        const int8_t* src = p.w + ((long long)j * C + c) * p.C_out + col0 + n0;
+        if (c >= C || n0 >= ncols) {
+#pragma unroll
+          for (int u = 0; u < 4; ++u) v[e][u] = 0u;
+        } else if (al16 && n0 + 16 <= ncols) {
+          const uint4 w4 = *reinterpret_cast<const uint4*>(src);
+          v[e][0] = w4.x; v[e][1] = w4.y; v[e][2] = w4.z; v[e][3] = w4.w;
+        } else {
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const int nu = n0 + 4 * u;
+            if (al4 && nu + 4 <= ncols) {
+              v[e][u] = ld32(src + 4 * u);
+            } else {
+              uint32_t x4 = 0;
+              for (int k = 0; k < 4; ++k)
+                if (nu + k < ncols) x4 |= (uint32_t)(uint8_t)src[4 * u + k] << (8 * k);
+              v[e][u] = x4;
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        uint32_t o[4];
+        transpose4(v[0][u], v[1][u], v[2][u], v[3][u], o);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) put(16 * b + 4 * u + e, j * cp + 4 * c4, o[e]);
+      }
+    }
+    // the contraction's padding K * cp .. kp - 1
+    const int kz = (lay.kp - K * cp) / 4;
+    for (int i = tid; i < CB * kz; i += blockDim.x)
+      put(i / kz, K * cp + 4 * (i % kz), 0u);
+    // the 4-byte group at contraction byte kk reads s8 row r * stride + j *
+    // d, channel c, at this offset from row r * stride, or nothing (-1) past
+    // K * cp; entry 4 q + t holds step q's groups 4t and 16 + 4t
+    auto group = [&](int kk) {
+      const int j = kk / cp;
+      return j < K ? j * p.dil * lay.pitch + (kk - j * cp) : -1;
+    };
+    for (int i = tid; i < lay.kp / 8; i += blockDim.x) {
+      const int kk = 32 * (i / 4) + 4 * (i % 4);
+      koff[i] = make_int2(group(kk), group(kk + 16));
+    }
+    for (int c = tid; c < CB; c += blockDim.x) {
+      const int cc = col0 + c;
+      const bool live = c < ncols;
+      par[c] = REQUANT ? *p.scale : live ? p.scale[cc] : 0.f;
+      par[CB + c] = live && p.bias ? p.bias[cc] : 0.f;
+      par[2 * CB + c] = live && p.dyt ? p.dyt[cc] : 0.f;
+      par[3 * CB + c] = live && p.dyt ? p.dyt[p.C_out + cc] : 0.f;
+      par[4 * CB + c] = live && p.dyt ? p.dyt[2 * p.C_out + cc] : 0.f;
+    }
+  }
+  fence_proxy_async();  // the weights are read by wgmma (async proxy)
+  __syncthreads();
+
+  float inv = 1.f;  // the requant form copies int8 as it is
+  if constexpr (!REQUANT) inv = *p.inv_act;
+  // x in 4-channel groups as aligned vectors; in 16-channel ones
+  const bool vec = C % 4 == 0 && (xg & (4 * ES - 1)) == 0;
+  const bool v16 = C % 16 == 0 && (xg & 15) == 0;
+  const uint64_t desc0 = smem_desc(base, lay.kb);
+  const int nsteps = lay.kp / 32;
+  const int rl = 16 * warp + g;  // the thread's accumulator rows rl, rl + 8
+  const int8_t* arow = s8 + rl * S * lay.pitch;
+  const int a8 = 8 * S * lay.pitch;
+  const long long gpitch = (long long)p.C_out * ES;
+  const int seg = ncols * ES;  // bytes of a row of the column block
+  uint32_t ubits = (uint32_t)(reinterpret_cast<uintptr_t>(p.out) + col0 * ES) |
+                   (uint32_t)gpitch | (uint32_t)seg | lay.opitch | 16u;
+  const int U = (int)(ubits & (0u - ubits));
+  const int upr = seg / U;
+  RG_CLOCK_INIT(wt == 0);
+
+  for (int li = 0; li < n_local; ++li) {
+    const int m = m_first + li * m_step;
+    const int n = m / l_tiles, l0 = (m - n * l_tiles) * RG_TL;
+    const int pos0 = l0 * S - p.pad_l;
+    const int st = li % lay.ring;
+    RG_TILE();
+    // tile li's x has landed (every thread's copies), and the last tile's
+    // s8 reads and image stores are done
+    if (lay.ring == 2)
+      cp_async_wait<1>();
+    else
+      cp_async_wait<0>();
+    named_bar_sync(1 + wg, 128);
+    RG_MARK(0);
+    {
+      // quantize: s8 words from x rows; rows outside [0, L), rows in_mask
+      // masks and channels past C_in as 0
+      const unsigned char* xd =
+          wgs + st * lay.xstage + 16 +
+          ((xg + ((long long)n * p.L + pos0) * rowbytes) & 15);
+      const unsigned char* md =
+          mst + st * lay.mstage + 16 + ((mg + (long long)n * p.L + pos0) & 15);
+      if (v16)
+        quantize_tile<T, 4>(p, xd, md, s8, pos0, lay.rows, lay.pitch,
+                            rowbytes, cp / 4, true, inv, wt);
+      else
+        quantize_tile<T, 1>(p, xd, md, s8, pos0, lay.rows, lay.pitch,
+                            rowbytes, cp / 4, vec, inv, wt);
+    }
+    named_bar_sync(1 + wg, 128);  // the s8 tile is complete; stage st free
+    RG_MARK(1);
+    issue(li + lay.ring);
+    const long long row0 = (long long)n * p.L_out + l0;
+    const int l_live = min(RG_TL, p.L_out - l0);
+    bool z[2] = {false, false};
+    if constexpr (!REQUANT) {
+      if (p.out_mask) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          z[h] = rl + 8 * h < l_live && !p.out_mask[row0 + rl + 8 * h];
+      }
+    }
+    int acc[R];
+    int q = nsteps >= NSMAX ? NSMAX : nsteps >= 2 ? 2 : 1;
+    if (q == NSMAX)
+      resident_steps<NSMAX, true>(acc, arow, a8, koff, t, 0, desc0, kb_log2,
+                                  region);
+    else if (q == 2)
+      resident_steps<2, true>(acc, arow, a8, koff, t, 0, desc0, kb_log2, region);
+    else
+      resident_steps<1, true>(acc, arow, a8, koff, t, 0, desc0, kb_log2, region);
+    for (; q + NSMAX <= nsteps; q += NSMAX)
+      resident_steps<NSMAX, false>(acc, arow, a8, koff, t, q, desc0, kb_log2,
+                                   region);
+    if (q + 2 <= nsteps) {
+      resident_steps<2, false>(acc, arow, a8, koff, t, q, desc0, kb_log2,
+                               region);
+      q += 2;
+    }
+    if (q < nsteps)
+      resident_steps<1, false>(acc, arow, a8, koff, t, q, desc0, kb_log2,
+                               region);
+    fence_regs(acc);
+    RG_MARK(2);
+    if constexpr (REQUANT) {
+      const float sc = par[0];
+#pragma unroll
+      for (int j = 0; j < CB / 8; ++j) {
+        const int c = 8 * j + 2 * t;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          char2 v;
+          v.x = (signed char)clip127(__float2int_rn(
+              __fmul_rn(__int2float_rn(acc[4 * j + 2 * h]), sc)));
+          v.y = (signed char)clip127(__float2int_rn(
+              __fmul_rn(__int2float_rn(acc[4 * j + 2 * h + 1]), sc)));
+          *reinterpret_cast<char2*>(img + (rl + 8 * h) * lay.opitch + c) = v;
+        }
+      }
+    } else {
+      resident_dequant<T, CB>(p, acc, par, img, lay.opitch, rl, t, z, row0,
+                              l_live, ncols, col0);
+    }
+    named_bar_sync(1 + wg, 128);  // the image is complete
+    RG_MARK(3);
+    char* og = static_cast<char*>(p.out) + (row0 * p.C_out + col0) * ES;
+    switch (U) {
+      case 16: copy_image<16>(img, lay.opitch, og, gpitch, l_live, upr, wt); break;
+      case 8: copy_image<8>(img, lay.opitch, og, gpitch, l_live, upr, wt); break;
+      case 4: copy_image<4>(img, lay.opitch, og, gpitch, l_live, upr, wt); break;
+      case 2: copy_image<2>(img, lay.opitch, og, gpitch, l_live, upr, wt); break;
+      default: copy_image<1>(img, lay.opitch, og, gpitch, l_live, upr, wt); break;
+    }
+    RG_MARK(4);
+  }
+  cp_async_wait<0>();
+  RG_CLOCK_FLUSH();
+}
+
+template <typename T, int CB, int MINB>
+cudaError_t launch_resident(const Params& p, const ResidentLayout& lay,
+                            int n_rows, int sms, cudaStream_t stream) {
+  cudaError_t e = cudaFuncSetAttribute(
+      int8_ragged<T, CB, MINB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)lay.bytes);
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(int8_ragged<T, CB, MINB>,
+                           cudaFuncAttributePreferredSharedMemoryCarveout,
+                           cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return e;
+  int per_sm = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, int8_ragged<T, CB, MINB>, 128 * lay.wgs, lay.bytes);
+  if (e != cudaSuccess) return e;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const int l_tiles = (p.L_out + RG_TL - 1) / RG_TL;
+  const long long m_tiles = (long long)n_rows * l_tiles;
+  if (m_tiles > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const int n_cb = (p.C_out + CB - 1) / CB;
+  // persistent: the CTAs that fit on the card at once, shared out over the
+  // column blocks, each with at least one tile a warpgroup where there are
+  // enough
+  long long gx = (long long)sms * per_sm / n_cb;
+  if (gx > (m_tiles + lay.wgs - 1) / lay.wgs)
+    gx = (m_tiles + lay.wgs - 1) / lay.wgs;
+  if (gx < 1) gx = 1;
+  int8_ragged<T, CB, MINB><<<dim3((unsigned)gx, (unsigned)n_cb),
+                             128 * lay.wgs, lay.bytes, stream>>>(
+      p, lay, l_tiles, (int)m_tiles);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_resident(const Params& p, const ResidentLayout& lay,
+                              int cb, int n_rows, int sms, cudaStream_t s) {
+  switch (cb) {
+    // 128 output channels: the registers a thread may use depend on whether
+    // two CTAs' layouts fit on an SM
+    case 128:
+      return 2 * lay.bytes <= (uint32_t)SMEM_LIMIT
+                 ? launch_resident<T, 128, 2>(p, lay, n_rows, sms, s)
+                 : launch_resident<T, 128, 1>(p, lay, n_rows, sms, s);
+    case 64: return launch_resident<T, 64, 2>(p, lay, n_rows, sms, s);
+    case 32: return launch_resident<T, 32, 2>(p, lay, n_rows, sms, s);
+    case 16: return launch_resident<T, 16, 2>(p, lay, n_rows, sms, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
+
+// The ragged route's cycle sums since the last call (phases, tiles, CTAs:
+// RG_PHASES + 2 values) into `host`, then cleared; cudaErrorNotSupported
+// unless built with -DJT_RAGGED_CYCLES.
+extern "C" int jt_int8_ragged_cycles(unsigned long long* host) {
+#ifdef JT_RAGGED_CYCLES
+  cudaError_t e = cudaMemcpyFromSymbol(host, g_rg_cycles, sizeof(g_rg_cycles));
+  if (e != cudaSuccess) return (int)e;
+  const unsigned long long zero[RG_PHASES + 2] = {};
+  return (int)cudaMemcpyToSymbol(g_rg_cycles, zero, sizeof(zero));
+#else
+  (void)host;
+  return (int)cudaErrorNotSupported;
+#endif
+}
 
 // in_dtype: 0 = float32, 1 = bfloat16 (dequant form), 2 = int8 (requant
 // form). The launch plan of ops/int8_conv.py::int8_plan: route 1 = wgmma (cb
@@ -1470,17 +2206,31 @@ extern "C" int jt_int8_conv(int in_dtype, const void* x, const void* w,
   p.taps_per_stage = K;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (route == 2) {
+    if (sms <= 0 || cb != ragged_cb(C_out)) return (int)cudaErrorInvalidValue;
+    ResidentLayout rl;
+    if (ragged_resident(C_in, K, dil, stride, in_dtype == 0 ? 4 : 3 - in_dtype,
+                        cb, &rl)) {
+      if (rl.kp != kw || stages != K || rl.bytes != (uint32_t)smem_bytes)
+        return (int)cudaErrorInvalidValue;
+      switch (in_dtype) {
+        case 0: return (int)dispatch_resident<float>(p, rl, cb, n_rows, sms, s);
+        case 1:
+          return (int)dispatch_resident<__nv_bfloat16>(p, rl, cb, n_rows, sms,
+                                                       s);
+        default:
+          return (int)dispatch_resident<int8_t>(p, rl, cb, n_rows, sms, s);
+      }
+    }
     const int taps = ragged_taps(C_in, K, dil, stride, cb);
-    if (sms <= 0 || cb != ragged_cb(C_out) || taps == 0 || taps != stages)
-      return (int)cudaErrorInvalidValue;
+    if (taps == 0 || taps != stages) return (int)cudaErrorInvalidValue;
     const RaggedLayout lay = ragged_layout(C_in, K, dil, stride, cb, taps);
     if (lay.kp != kw || lay.bytes != (uint32_t)smem_bytes)
       return (int)cudaErrorInvalidValue;
     switch (in_dtype) {
-      case 0: return (int)dispatch_ragged<float>(p, lay, cb, n_rows, sms, s);
+      case 0: return (int)dispatch_staged<float>(p, lay, cb, n_rows, sms, s);
       case 1:
-        return (int)dispatch_ragged<__nv_bfloat16>(p, lay, cb, n_rows, sms, s);
-      default: return (int)dispatch_ragged<int8_t>(p, lay, cb, n_rows, sms, s);
+        return (int)dispatch_staged<__nv_bfloat16>(p, lay, cb, n_rows, sms, s);
+      default: return (int)dispatch_staged<int8_t>(p, lay, cb, n_rows, sms, s);
     }
   }
   if (C_in % 16 != 0 || C_out % 16 != 0 || C_out % cb != 0 || stride != 1)

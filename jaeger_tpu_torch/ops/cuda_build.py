@@ -24,8 +24,8 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "jaeger_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
-#: loaded libraries by source name, the seconds each build took and what
-#: nvcc printed
+#: loaded libraries by :func:`_key` (the source name, then any ``-D``
+#: flags), the seconds each build took and what nvcc printed
 _LIBS: dict[str, ctypes.CDLL] = {}
 build_seconds: dict[str, float] = {}
 build_logs: dict[str, str] = {}
@@ -53,15 +53,25 @@ def _digest(name: str, flags: tuple[str, ...]) -> str:
     return h.hexdigest()[:16]
 
 
+def _key(name: str, flags: tuple[str, ...]) -> str:
+    """A library's key: its source name and the ``-D`` flags among
+    ``flags``, the ones that change its code (a build with ``-Xptxas -v``,
+    which only changes what nvcc prints, is the library of its name)."""
+    return " ".join([name, *(f for f in flags if f.startswith("-D"))])
+
+
 def load(name: str, extra_flags: tuple[str, ...] = ()) -> ctypes.CDLL:
     """Build ``csrc/<name>.cu`` if needed and return the loaded library.
 
     ``extra_flags`` go to nvcc after the standard ones (for example
     ``("-Xptxas", "-v")`` to print register and shared-memory use); the
-    compiler's output is printed when it is non-empty.
+    compiler's output is printed when it is non-empty. The first load of a
+    name and ``-D`` flags is the library every later load of them returns
+    (:func:`_key`).
     """
-    if name in _LIBS:
-        return _LIBS[name]
+    key = _key(name, tuple(extra_flags))
+    if key in _LIBS:
+        return _LIBS[key]
     src = CSRC / f"{name}.cu"
     flags = NVCC_FLAGS + tuple(extra_flags)
     lib_path = BUILD_DIR / f"{name}-{_digest(name, flags)}.so"
@@ -72,14 +82,14 @@ def load(name: str, extra_flags: tuple[str, ...] = ()) -> ctypes.CDLL:
         proc = subprocess.run(
             [_nvcc(), *flags, "-o", str(tmp), str(src)],
             capture_output=True, text=True)
-        build_seconds[name] = time.perf_counter() - t0
+        build_seconds[key] = time.perf_counter() - t0
         if proc.returncode != 0:
             raise RuntimeError(
                 f"nvcc failed for {src}:\n{proc.stdout}\n{proc.stderr}")
-        build_logs[name] = proc.stdout + proc.stderr
-        if build_logs[name].strip():
-            print(build_logs[name], end="", flush=True)
+        build_logs[key] = proc.stdout + proc.stderr
+        if build_logs[key].strip():
+            print(build_logs[key], end="", flush=True)
         os.replace(tmp, lib_path)
     lib = ctypes.CDLL(str(lib_path))
-    _LIBS[name] = lib
+    _LIBS[key] = lib
     return lib

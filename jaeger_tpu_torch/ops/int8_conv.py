@@ -42,12 +42,21 @@ accumulators while a second warpgroup runs the next tile's products; the
 residual tile arrives by TMA. ``"mma"`` (f32 inputs, C_in % 32 == 16, or
 a shape whose weights and ring do not fit) is the first, simple
 ``mma.sync`` kernel. ``"ragged"`` takes C_in or C_out not a multiple of
-16, and every stride above 1 (the dvf template's conv: one-hot nucleotides, C_in 4, C_out 500,
-k 10, VALID; per launch at batch 2048 40.2 G int8 operations, 0.020 ms,
-against 1.01 GB of bf16 output, 0.300 ms: bound by bytes): 64-row tiles
-loaded element by element into shared memory as s8 with the channels
-padded to a multiple of 4, the ``k * C_in`` contraction read tap-major
-from that tile, ``mma.sync`` m16n8k32, the C_out tail predicated. A
+16, and every stride above 1 (the dvf template's conv: one-hot
+nucleotides, C_in 4, C_out 500, k 10, VALID, per launch at batch 2048
+40.2 G int8 operations, 0.020 ms, against 1.01 GB of bf16 output, 0.300
+ms; a strided flagship-width conv1, C 128, k 5, stride 2: 0.70 ms of bf16
+in and out; both bound by bytes). Its resident kernel keeps a column
+block's k taps in shared memory; two warpgroups take tiles of 64 output
+positions in turn, each with a ring of x stages that 16-byte ``cp.async``
+copies fill a tile ahead (the input rows as they lie in device memory,
+in_mask beside them), quantizes a stage once into an s8 tile, runs s8
+``wgmma`` with A from registers (the ``k * C_in`` contraction read
+tap-major from the s8 tile through an offset table, at row ``r s + j
+d``), and writes the epilogue from the accumulators through an output
+image as streaming stores. Shapes whose stages and taps do not fit take
+its staged kernel (the route's first: element-wise loads, weights
+restaged a stage of taps at a time, ``mma.sync`` m16n8k32). A
 route that fails raises; no other is ever tried.
 
 CPU tensors take the plain versions :func:`reference_int8_conv_requant`
@@ -175,9 +184,12 @@ _QSLOTS = 3
 _MMA_TL = 128
 _MMA_PAD = 16
 _MMA_TARGET = 112 * 1024
-#: the ragged route: weight and accumulator row padding (bytes, words)
+#: the ragged route's staged kernel: weight and accumulator row padding
+#: (bytes, words); its resident kernel: the bytes around an x stage's
+#: 16-byte aligned span
 _RG_WPAD = 16
 _RG_OPAD = 8
+_RG_SLACK = 48
 
 _ESIZE = {torch.int8: 1, torch.bfloat16: 2, torch.float32: 4}
 
@@ -214,7 +226,7 @@ def int8_plan(c_in: int, c_out: int, k: int, dilation: int = 1,
     if dtype not in _ESIZE:
         raise ValueError(f"unsupported dtype {dtype}")
     if c_in % 16 or c_out % 16 or stride > 1:
-        return ragged_plan(c_in, c_out, k, dilation, stride)
+        return ragged_plan(c_in, c_out, k, dilation, stride, dtype)
     if (dtype != torch.float32 and c_in % 32 == 0
             and _TL + dilation * (k - 1) <= 256):
         kw = 128 if c_in % 128 == 0 else 64 if c_in % 64 == 0 else 32
@@ -232,11 +244,49 @@ def int8_plan(c_in: int, c_out: int, k: int, dilation: int = 1,
                 smem=mma_plan_bytes(c_in, k, dilation, cb))
 
 
+def _round16(v: int) -> int:
+    return -(-v // 16) * 16
+
+
+def ragged_pitch(cp: int, stride: int) -> int:
+    """The resident kernel's s8 tile row bytes: ``cp``, padded when ``cp %
+    16 == 0`` so that ``stride * pitch / 4`` is 4 mod 8 (an A fragment's
+    eight rows on distinct banks)."""
+    if cp % 16 == 0:
+        for pad in range(0, 32, 4):
+            if stride * ((cp + pad) // 4) % 8 == 4:
+                return cp + pad
+    return cp
+
+
+def ragged_resident_bytes(c_in: int, k: int, dilation: int, cb: int,
+                          ring: int, stride: int = 1, esize: int = 2,
+                          wgs: int = 2) -> tuple[int, int]:
+    """(``kp``, shared memory) of the ragged route's resident kernel: all
+    ``k`` taps of the column block resident (``kp`` = ``k * cp`` rounded up
+    to 32 bytes of ``cb`` rows, ``cp`` = C_in rounded up to 4), ``kp / 4``
+    s32 contraction offsets and 5 x ``cb`` f32 epilogue parameters, then for
+    each of the ``wgs`` warpgroups ``ring`` x stages (the ``63 s + d(k-1) + 1``
+    input rows of 64 outputs at stride ``s``, ``esize`` bytes an element,
+    as they lie in device memory, plus 48 bytes of alignment room) and
+    ``ring`` in_mask stages, the s8 tile (``rows x ragged_pitch``) and the
+    output image (64 rows of ``cb + 8`` elements: conflict-free stores of
+    the accumulators' pairs); 1 KB of alignment slack."""
+    cp = -(-c_in // 4) * 4
+    rows = (_TL - 1) * stride + dilation * (k - 1) + 1
+    kp = -(-k * cp // 32) * 32
+    per_wg = (ring * (_round16(rows * c_in * esize + _RG_SLACK)
+                      + _round16(rows + _RG_SLACK))
+              + _round16(rows * ragged_pitch(cp, stride))
+              + _TL * (cb + 8) * esize)
+    return kp, kp * cb + kp + 20 * cb + wgs * per_wg + 1024
+
+
 def ragged_plan_bytes(c_in: int, k: int, dilation: int, cb: int,
                       taps: int, stride: int = 1) -> tuple[int, int]:
-    """(``kp``, shared memory) of the ragged route with ``taps`` weight
-    taps a stage: the x tile of ``63 s + d(k-1) + 1`` rows (the input rows
-    of 64 outputs at stride ``s``) of ``cp`` bytes (C_in
+    """(``kp``, shared memory) of the ragged route's staged kernel with
+    ``taps`` weight taps a stage: the x tile of ``63 s + d(k-1) + 1`` rows
+    (the input rows of 64 outputs at stride ``s``) of ``cp`` bytes (C_in
     rounded up to 4; the tile padded to 16 bytes), ``cb`` weight rows of
     ``kp + 16`` bytes (``kp`` = ``taps * cp`` rounded up to 32: one stage's
     contraction), 64 accumulator rows of ``cb + 8`` s32, the
@@ -251,17 +301,26 @@ def ragged_plan_bytes(c_in: int, k: int, dilation: int, cb: int,
 
 
 def ragged_plan(c_in: int, c_out: int, k: int, dilation: int,
-                stride: int = 1) -> dict:
+                stride: int = 1, dtype=torch.bfloat16) -> dict:
     """The ragged route's plan (any C_in, C_out and stride, every form):
-    ``cb``
-    output channels per CTA (the smallest of 16, 32, 64 that holds C_out,
-    else 128 with the last block cut), ``stages`` the weight taps staged at
-    once (all k when they fit in 112 KB, for two CTAs per SM, or in the
-    227 KB limit when one tap alone does not fit in 112 KB; else as many as
-    fit), ``kw`` one stage's contraction bytes (``kp``) and ``smem``
-    (:func:`ragged_plan_bytes`), or ValueError when not even one tap
-    fits."""
+    ``cb`` output channels per CTA (the smallest of 16, 32, 64 that holds
+    C_out, else 128 with the last block cut). The resident kernel takes
+    the shape when its layout fits in 227 KB (:func:`ragged_resident_bytes`)
+    with ``wgs`` 2 warpgroups a CTA of ``ring`` 2 x stages each, else 1;
+    else one warpgroup of 2, else 1 stages: ``stages`` = ``k`` taps, ``kw``
+    their contraction bytes. Else the staged kernel (``wgs`` and ``ring``
+    0): ``stages`` the weight taps staged at once (all k when they
+    fit in 112 KB, for two CTAs per SM, or in the 227 KB limit when one tap
+    alone does not fit in 112 KB; else as many as fit), ``kw`` one stage's
+    contraction bytes and ``smem`` (:func:`ragged_plan_bytes`), or
+    ValueError when not even one tap fits."""
     cb = next((cb for cb in (16, 32, 64) if c_out <= cb), 128)
+    for wgs, ring in ((2, 2), (2, 1), (1, 2), (1, 1)):
+        kp, smem = ragged_resident_bytes(c_in, k, dilation, cb, ring, stride,
+                                         _ESIZE[dtype], wgs)
+        if smem <= SMEM_LIMIT:
+            return dict(route="ragged", cb=cb, kw=kp, stages=k, wgs=wgs,
+                        ring=ring, smem=smem)
     kp, smem = ragged_plan_bytes(c_in, k, dilation, cb, 1, stride)
     if smem > SMEM_LIMIT:
         raise ValueError(f"C_in={c_in}, k={k}, dilation={dilation}, "
@@ -276,7 +335,8 @@ def ragged_plan(c_in: int, c_out: int, k: int, dilation: int,
             break
         taps += 1
         kp, smem = more
-    return dict(route="ragged", cb=cb, kw=kp, stages=taps, smem=smem)
+    return dict(route="ragged", cb=cb, kw=kp, stages=taps, wgs=0, ring=0,
+                smem=smem)
 
 
 def wgmma_plan_bytes(c_in: int, k: int, dilation: int, cb: int, kw: int,
@@ -380,8 +440,8 @@ def _check_conv(name, x, w, x_dtypes, dilation, padding, stride=1):
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
     plan = int8_plan(c_in, c_out, k, dilation, padding, x.dtype, stride)
-    # the ragged route reads x and w element by element; TMA and the
-    # 16-byte loads of the other routes need 16-byte rows
+    # the ragged route takes any alignment of x and w (its loads adapt to
+    # it); TMA and the 16-byte loads of the other routes need 16-byte rows
     align = 1 if plan["route"] == "ragged" else 16
     dev = x.device
     return (_check("x", x, x.shape, x.dtype, dev, align),

@@ -310,10 +310,68 @@ def test_kernel_source_declares_its_interface():
     assert "cp.async.bulk.tensor" in hopper
     assert "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32" in src
     assert "experiments/pallas_int8_conv.py" in src
-    # route 2, the ragged route, re-plans what int8_plan planned
-    for name in ("int8_ragged", "ragged_cb", "ragged_taps", "ragged_layout",
-                 "route == 2"):
+    # route 2, the ragged route, re-plans what int8_plan planned: the
+    # resident kernel where its layout fits, else the staged one
+    for name in ("int8_ragged", "int8_ragged_staged", "ragged_cb",
+                 "ragged_resident", "resident_layout", "ragged_pitch",
+                 "ragged_taps", "ragged_layout", "route == 2"):
         assert name in src, name
+    for instr in ("cp_async16", "cp_async_wait", "__stcs"):
+        assert instr in src, instr
+    assert "cp.async.cg.shared.global" in hopper
+
+
+def test_probe_build_is_its_own_library(monkeypatch, tmp_path):
+    """``chip_smoke.py --ragged`` loads ``csrc/int8_conv.cu`` built with
+    ``-DJT_RAGGED_CYCLES`` beside the plain build: the ``-D`` flag keys it
+    apart, so it is built (here: nvcc is missing, so the build raises)
+    instead of returning the plain library; phase 2's ``-Xptxas -v`` build
+    is the plain library."""
+    from jaeger_tpu_torch.ops import cuda_build
+
+    plain = object()
+    monkeypatch.setattr(cuda_build, "_LIBS", {"int8_conv": plain})
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path)
+    assert cuda_build.load("int8_conv") is plain
+    assert cuda_build.load("int8_conv", ("-Xptxas", "-v")) is plain
+
+    def no_nvcc():
+        raise RuntimeError("nvcc not found")
+
+    monkeypatch.setattr(cuda_build, "_nvcc", no_nvcc)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        cuda_build.load("int8_conv", ("-DJT_RAGGED_CYCLES",))
+    assert cuda_build._key("int8_conv", ("-Xptxas", "-v",
+                                         "-DJT_RAGGED_CYCLES")) == \
+        "int8_conv -DJT_RAGGED_CYCLES"
+    src = (ROOT / "jaeger_tpu_torch" / "csrc" / "int8_conv.cu").read_text()
+    assert 'extern "C" int jt_int8_ragged_cycles(' in src
+    assert "#ifdef JT_RAGGED_CYCLES" in src
+
+
+def test_ptxas_summary_tells_the_ragged_kernels_apart():
+    """Phase 2 prints ptxas' registers and spills of each ``int8_ragged``
+    instance and, apart, of each ``int8_ragged_staged`` one, by the mangled
+    name's length-prefixed identifier."""
+    import runpy
+
+    smoke = runpy.run_path(str(ROOT / "chip_smoke.py"), run_name="smoke")
+    log = (
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_111int8_"
+        "raggedI13__nv_bfloat16Li128ELi2EEEvNS_6ParamsENS_14ResidentLayoutE"
+        "ii' for 'sm_90a'\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 128 registers\n"
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_118int8_"
+        "ragged_stagedIaLi16ELi4EEEvNS_6ParamsENS_12RaggedLayoutEii' for "
+        "'sm_90a'\n"
+        "ptxas info    : Used 64 registers\n")
+    assert smoke["ptxas_summary"](log, "int8_ragged") == [
+        "int8_ragged<bf16, 128, 2>: 0 bytes stack frame, 0 bytes spill "
+        "stores, 0 bytes spill loads",
+        "int8_ragged<bf16, 128, 2>: Used 128 registers"]
+    assert smoke["ptxas_summary"](log, "int8_ragged_staged") == [
+        "int8_ragged_staged<int8, 16, 4>: Used 64 registers"]
 
 
 def test_fp32_pipe_rounding_matches_rint():
@@ -402,48 +460,99 @@ def test_int8_plan_refuses_what_cannot_fit(args):
         int8_conv.int8_plan(*args)
 
 
-# (c_in, c_out, k, dilation, padding, dtype, cb, kw, taps): C_in % 16 and
-# C_out % 16 (both once refused), the dvf conv in each form, C_in 24 /
-# C_out 40 with dilation 3, an aligned C_in with a ragged C_out, and a
-# C_in whose taps do not all fit (stages of two taps, one CTA an SM)
+# (c_in, c_out, k, dilation, padding, dtype, stride, cb, kw, taps, wgs,
+# ring): C_in % 16 and C_out % 16 (both once refused), the dvf conv in each
+# form, C_in 24 / C_out 40 with dilation 3, an aligned C_in with a ragged
+# C_out, the strided flagship-width conv1 in bf16 and f32 (all k taps
+# resident: two warpgroups of one x stage each, one warpgroup in f32), and
+# a C_in whose taps do not all fit (the staged kernel: stages of two taps,
+# one CTA an SM; wgs and ring 0)
 RAGGED_SHAPES = [
-    (24, 32, 3, 1, "same", torch.bfloat16, 32, 96, 3),
-    (32, 40, 3, 1, "same", torch.bfloat16, 64, 96, 3),
-    (4, 500, 10, 1, "valid", torch.bfloat16, 128, 64, 10),
-    (4, 500, 10, 1, "valid", torch.float32, 128, 64, 10),
-    (4, 20, 10, 1, "same", torch.int8, 32, 64, 10),
-    (24, 40, 3, 3, "same", torch.bfloat16, 64, 96, 3),
-    (16, 20, 5, 1, "same", torch.float32, 32, 96, 5),
-    (1000, 60, 10, 1, "same", torch.bfloat16, 64, 2016, 2),
+    (24, 32, 3, 1, "same", torch.bfloat16, 1, 32, 96, 3, 2, 2),
+    (32, 40, 3, 1, "same", torch.bfloat16, 1, 64, 96, 3, 2, 2),
+    (4, 500, 10, 1, "valid", torch.bfloat16, 1, 128, 64, 10, 2, 2),
+    (4, 500, 10, 1, "valid", torch.float32, 1, 128, 64, 10, 2, 2),
+    (4, 20, 10, 1, "same", torch.int8, 1, 32, 64, 10, 2, 2),
+    (24, 40, 3, 3, "same", torch.bfloat16, 1, 64, 96, 3, 2, 2),
+    (16, 20, 5, 1, "same", torch.float32, 1, 32, 96, 5, 2, 2),
+    (128, 128, 5, 1, "same", torch.bfloat16, 2, 128, 640, 5, 2, 1),
+    (128, 128, 5, 1, "same", torch.float32, 2, 128, 640, 5, 1, 1),
+    (1000, 60, 10, 1, "same", torch.bfloat16, 1, 64, 2016, 2, 0, 0),
 ]
 
 
-@pytest.mark.parametrize("c_in,c_out,k,dil,pad,dtype,cb,kw,taps",
-                         RAGGED_SHAPES)
-def test_int8_plan_ragged_route(c_in, c_out, k, dil, pad, dtype, cb, kw,
-                                taps):
-    """C_in or C_out not a multiple of 16 takes the ragged route: the
-    column block, one stage's contraction (taps x C_in rounded up to 4,
-    then to 32) and the taps a stage that ``csrc/int8_conv.cu::
-    ragged_cb`` / ``ragged_taps`` / ``ragged_layout`` compute, within the
-    shared-memory limit."""
-    plan = int8_conv.int8_plan(c_in, c_out, k, dil, pad, dtype)
-    assert plan == dict(route="ragged", cb=cb, kw=kw, stages=taps,
-                        smem=int8_conv.ragged_plan_bytes(c_in, k, dil, cb,
-                                                         taps)[1])
+@pytest.mark.parametrize("c_in,c_out,k,dil,pad,dtype,stride,cb,kw,taps,wgs,"
+                         "ring", RAGGED_SHAPES)
+def test_int8_plan_ragged_route(c_in, c_out, k, dil, pad, dtype, stride, cb,
+                                kw, taps, wgs, ring):
+    """C_in or C_out not a multiple of 16, or a stride, takes the ragged
+    route: the column block, the contraction (taps x C_in rounded up to 4,
+    then to 32), the taps resident or a stage, and the warpgroups and x
+    stages of the resident kernel that ``csrc/int8_conv.cu::ragged_cb`` /
+    ``ragged_resident`` / ``resident_layout`` (else ``ragged_taps`` /
+    ``ragged_layout``) compute, within the shared-memory limit."""
+    plan = int8_conv.int8_plan(c_in, c_out, k, dil, pad, dtype, stride)
+    esize = {torch.int8: 1, torch.bfloat16: 2, torch.float32: 4}[dtype]
+    if ring:
+        smem = int8_conv.ragged_resident_bytes(c_in, k, dil, cb, ring, stride,
+                                               esize, wgs)[1]
+    else:
+        smem = int8_conv.ragged_plan_bytes(c_in, k, dil, cb, taps, stride)[1]
+    assert plan == dict(route="ragged", cb=cb, kw=kw, stages=taps, wgs=wgs,
+                        ring=ring, smem=smem)
     assert plan["smem"] <= 232448
     cp = -(-c_in // 4) * 4
     assert kw == -(-taps * cp // 32) * 32 and cb >= min(c_out, 128)
-    if taps < k:                # the next tap would not fit
-        assert int8_conv.ragged_plan_bytes(c_in, k, dil, cb,
-                                           taps + 1)[1] > 232448
-    # the C entry's layout, by hand, at the dvf shape: the x tile (73 rows
-    # of 4 bytes, padded to 304), 128 weight rows of 64 + 16 bytes, 64
-    # accumulator rows of 136 s32, 64 contraction offsets and 5 x 128
-    # epilogue parameters
-    if (c_in, c_out, k) == (4, 500, 10):
-        assert plan["smem"] == (304 + 128 * 80 + 64 * 136 * 4 + 4 * 64
-                                + 20 * 128) == 48176
+    if ring:
+        assert taps == k        # every tap resident: no restaging
+        # no layout earlier in the kernel's order fits
+        for w, r in ((2, 2), (2, 1), (1, 2), (1, 1)):
+            if (w, r) == (wgs, ring):
+                break
+            assert int8_conv.ragged_resident_bytes(
+                c_in, k, dil, cb, r, stride, esize, w)[1] > 232448
+    else:
+        # not even one warpgroup of one x stage fits beside the taps
+        assert int8_conv.ragged_resident_bytes(
+            c_in, k, dil, cb, 1, stride, esize, 1)[1] > 232448
+        if taps < k:            # the next tap would not fit
+            assert int8_conv.ragged_plan_bytes(c_in, k, dil, cb,
+                                               taps + 1)[1] > 232448
+    # the C entry's layout, by hand, at the dvf shape in bf16: the weights
+    # (64 contraction bytes of 128 rows), 16 s32 contraction offsets, 5 x 128
+    # epilogue parameters, then two warpgroups of two x stages (73 rows of
+    # 8 bytes + 48, rounded to 16) and two in_mask stages (73 + 48 -> 128),
+    # the s8 tile (73 rows of 4 bytes -> 304) and the output image (64 rows
+    # of 128 + 8 bf16), and 1 KB of alignment slack
+    if (c_in, c_out, k, dtype) == (4, 500, 10, torch.bfloat16):
+        assert plan["smem"] == (64 * 128 + 64 + 20 * 128
+                                + 2 * (2 * (640 + 128) + 304 + 64 * 136 * 2)
+                                + 1024) == 50336
+    # and at the stride shape: 640 contraction bytes of 128 rows, one x
+    # stage a warpgroup (131 rows of 256 bytes + 48), the s8 tile's rows
+    # padded to 136 bytes (stride 2 x 136 / 4 = 68 = 4 mod 8; 131 x 136 =
+    # 17,816, rounded to 16)
+    if (c_in, k, stride, dtype) == (128, 5, 2, torch.bfloat16):
+        assert int8_conv.ragged_pitch(128, 2) == 136
+        assert plan["smem"] == (640 * 128 + 640 + 20 * 128
+                                + 2 * (33584 + 192 + 17824 + 64 * 136 * 2)
+                                + 1024) == 224160
+
+
+@pytest.mark.parametrize("stride", [1, 2, 3, 4])
+@pytest.mark.parametrize("cp", [16, 32, 64, 96, 128, 256])
+def test_ragged_pitch_spreads_banks(cp, stride):
+    """The resident kernel loads A fragments as 32-bit words: lane (g, t)
+    reads s8 row (r + g) * stride + j * d at byte c + 4 t of one tap (cp %
+    16 == 0 keeps a 16-byte group in one tap). With ``ragged_pitch`` the 32
+    lanes hit 32 distinct banks, for every row and channel offset."""
+    pitch = int8_conv.ragged_pitch(cp, stride)
+    assert pitch % 4 == 0 and cp <= pitch < cp + 32
+    for row in range(4):
+        for c in range(0, cp, 16):
+            banks = {(((row + g) * stride * pitch + c + 4 * t) // 4) % 32
+                     for g in range(8) for t in range(4)}
+            assert len(banks) == 32, (cp, stride, row, c)
 
 
 def test_int8_plan_ragged_refuses_what_cannot_fit():
