@@ -31,6 +31,9 @@ Run from the root of a checkout on a machine with CUDA:
                                       # kernel checks and times of phases
                                       # 10 and 11, then its cycles a tile
                                       # by phase (a probe build)
+    python3 chip_smoke.py --pretrain  # phases 1, 2 and 13 only (the
+                                      # projection pretraining and the
+                                      # reliability-data generator)
 
 Phases, each of which fails the run:
 
@@ -211,11 +214,31 @@ Phases, each of which fails the run:
    neighbouring scores are more than 1e-5 apart; ``utils optimize-data``
    on phase 6's seeded CSVs, and one ``train`` step of the flagship
    template on the NPZ it wrote.
+13. the projection pretraining and reliability-data generation: (a) one
+   f32 projection step of a narrow template with a projection head on
+   the card against the CPU (the ArcFace loss and every gradient,
+   ``class_weights`` included, within 1e-4 of the leaf's scale); (b)
+   ``train_fragment_core`` on the flagship template at full width with a
+   projection head added (dense 128 relu, dense 64, margin 0.5, scale 30;
+   no template ships one), batch 256, bf16, ``self_supervised_pretraining``
+   and ``generate_reliability`` on seeded CSVs with N runs: 2 x 10
+   projection steps, 10 classifier steps, reliability data generated from
+   a 4,096-row raw CSV (batch 512, multiplier 1.0), 4 reliability steps
+   (launch counts reset just before each stage, read just after: 18 / 6 /
+   6 a projection step, 6 fused_conv_block a generator forward); the
+   ArcFace loss finite and falling; the projection step's steady state
+   (host clock, profiler) and the generator's raw rows/s with its host and
+   device shares; ``predict`` on the bundle, which carries the projection
+   leaves; (c) the generator on the card against the CPU with the f32
+   model on 256 raw rows, thresholds at quantiles of the card's
+   confidences: reliability CSVs byte-identical save rows within 1e-4 of a
+   threshold (counted), the predictions CSV within 1e-4.
 
 The second-to-last line is the kernels JSON (each kernel also with its
 numbers at the templates' shape and its launches on phase 8's, phase 9's,
-phase 10's, phase 11's and phase 12's paths; int8_conv with its ragged
-route's numbers at the dvf shape and at the stride shape), the last
+phase 10's, phase 11's, phase 12's and phase 13's paths; int8_conv with
+its ragged route's numbers at the dvf shape and at the stride shape), the
+last
 ``{"ok": true, ...}``.
 The script imports nothing of JAX or of jaeger_tpu.
 """
@@ -4875,6 +4898,528 @@ def phase_commands(tmp: Path, card: str, bundle: Path) -> dict:
     return res
 
 
+# --- phase 13: the projection pretraining and reliability-data generation --
+
+#: the projection head phase 13 adds to the flagship template (no template
+#: in the repo ships one): dense 128 relu, then dense 64, margin 0.5, scale 30
+PROJECTION_HEAD = {"margin": 0.5, "scale": 30.0, "hidden_layers": [
+    {"name": "dense", "config": {"units": 128, "activation": "relu"}},
+    {"name": "dense", "config": {"units": 64}}]}
+#: rows of the raw CSV the generator classifies inside ``train``, and of the
+#: one it classifies on the card and on the CPU
+RELGEN_ROWS, RELGEN_CHECK_ROWS = 4096, 256
+PROJECTION_EPOCHS, PROJECTION_STEPS = 2, 10
+
+
+def _kernel_counts() -> dict:
+    from jaeger_tpu_torch.ops import fused_conv, int8_conv
+    from jaeger_tpu_torch.ops import fused_conv_grad as fg
+
+    return dict(fg.launches, fused_conv_block=fused_conv.launches,
+                int8_conv=int8_conv.launches)
+
+
+def _reset_kernel_counts() -> None:
+    from jaeger_tpu_torch.ops import fused_conv, int8_conv
+    from jaeger_tpu_torch.ops import fused_conv_grad as fg
+
+    fused_conv.launches = 0
+    int8_conv.launches = 0
+    for k in fg.launches:
+        fg.launches[k] = 0
+
+
+def pretrain_narrow_config() -> dict:
+    """Phase 6a's narrow template with a narrow projection head (dense 16
+    relu, then dense 8)."""
+    cfg = narrow_train_config()
+    cfg["model"]["projection"] = {"margin": 0.5, "scale": 30.0,
+                                  "hidden_layers": [
+        {"name": "dense", "config": {"units": 16, "activation": "relu"}},
+        {"name": "dense", "config": {"units": 8}}]}
+    return cfg
+
+
+def phase_pretrain_step_f32() -> float:
+    """13a. One f32 projection step of the narrow template on the card
+    against the same step on the CPU: the same seeded weights, ArcFace
+    ``class_weights`` and masked batch; the ArcFace loss within 1e-4 and
+    every gradient leaf, ``arcface/class_weights`` included, within 1e-4
+    of its scale (a leaf below 1e-4 of the largest gradient is held at
+    1e-4 of the largest, as phase 6a does). TF32 is off. The card's step
+    must launch every backward kernel."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from jaeger_tpu_torch.commands.train import (make_projection_step,
+                                                 projection_params)
+    from jaeger_tpu_torch.models.artifacts import init_params, load_state
+    from jaeger_tpu_torch.models.builder import build_model
+    from jaeger_tpu_torch.train.loop import to_device
+    from jaeger_tpu_torch.train.losses import ArcFaceLoss
+    from jaeger_tpu_torch.train.optimizers import make_optimizer
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = pretrain_narrow_config()
+    tcfg = cfg["training"]
+    rng = np.random.default_rng(29)
+    batch = None
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        model = build_model(copy.deepcopy(cfg))
+        load_state(model, init_params(cfg, torch.Generator().manual_seed(5)))
+        model.to(dev).train()
+        if batch is None:
+            batch = _train_batch(rng, model.crop_nt, "masked", 8, 6)
+        arcface = ArcFaceLoss(6, 8, margin=0.5, scale=30.0,
+                              generator=torch.Generator().manual_seed(6))
+        arcface.to(dev)
+        tx = make_optimizer(tcfg["optimizer"], tcfg["optimizer_params"])
+        opt_state = tx.init({k: p.detach() for k, p in
+                             projection_params(model, arcface).items()})
+        step = make_projection_step(model, arcface, tx,
+                                    tuple(model.regularizer_specs()))
+        before = _kernel_counts()
+        _, loss = step(opt_state, to_device(batch, dev))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            added = {k: v - before[k] for k, v in _kernel_counts().items()
+                     if k != "int8_conv"}
+            check(all(v > 0 for v in added.values()),
+                  f"f32 projection step: launches {added}")
+        runs[dev] = dict(loss=float(loss), grads={
+            k: v.float().cpu() for k, v in step.grads.items()})
+    gpu, cpu = runs["cuda"], runs["cpu"]
+    check(math.isfinite(cpu["loss"]) and abs(gpu["loss"] - cpu["loss"])
+          <= 1e-4 * max(abs(cpu["loss"]), 1.0),
+          f"f32 projection step: loss {gpu['loss']} vs {cpu['loss']}")
+    check("arcface/class_weights" in cpu["grads"],
+          "f32 projection step: no ArcFace gradient")
+    overall = max(float(g.abs().max()) for g in cpu["grads"].values())
+    worst = 0.0
+    for k, g in cpu["grads"].items():
+        scale = max(float(g.abs().max()), 1e-12)
+        if scale < 1e-4 * overall:
+            scale = overall
+        e = float((gpu["grads"][k] - g).abs().max()) / scale
+        check(e <= 1e-4, f"f32 projection step: grad {k} rel err {e:.2e}")
+        worst = max(worst, e)
+    print(f"projection step f32 (narrow template, card vs CPU): ArcFace "
+          f"loss {gpu['loss']:.6f} vs {cpu['loss']:.6f}, worst grad err "
+          f"{worst:.2e} of its scale over {len(cpu['grads'])} leaves "
+          f"(tol 1e-4) ok")
+    return worst
+
+
+def pretrain_train_config(root: Path, data: dict, raw: str) -> Path:
+    """The flagship template with ``PROJECTION_HEAD``, 2 x 10 projection
+    steps, 1 x 10 classifier steps, 1 x 4 reliability steps on generated
+    data (the raw CSV ``raw``, inference batch 512, multiplier 1.0,
+    thresholds 0: every real row and every synthetic row kept, so the
+    generated data has a known size), 2 validation steps and a 1024-row
+    shuffle buffer; the model, batch 256, bf16, the optimizer, losses and
+    callbacks as the template has them."""
+    import copy
+
+    import yaml
+
+    from jaeger_tpu_torch.utils.config import load_model_config
+
+    cfg = load_model_config(TEMPLATE)
+    t = cfg["training"]
+    cfg["model"]["string_processor"]["buffer_size"] = 1024
+    cfg["model"]["projection"] = copy.deepcopy(PROJECTION_HEAD)
+    t.update(projection_epochs=PROJECTION_EPOCHS,
+             classifier_epochs=1, classifier_train_steps=PROJECTION_STEPS,
+             classifier_validation_steps=2, reliability_epochs=1,
+             reliability_train_steps=4, reliability_validation_steps=2)
+    classes = ["bacteria", "phage", "eukarya", "archaea", "virus", "plasmid"]
+    t["fragment_classifier_data"] = {
+        "train": [{"class": classes, "path": [data["train"]],
+                   "label": list(range(6))}],
+        "validation": [{"class": classes, "path": [data["val"]],
+                        "label": list(range(6))}]}
+    t.pop("fragment_reliability_data", None)
+    t["reliability_data_generation"] = {
+        "raw_csv_paths": {"train": raw}, "inference_batch_size": 512,
+        "synthetic_ood_multiplier": 1.0, "id_threshold": 0.0,
+        "synthetic_ood_threshold": 0.0}
+    path = root / "pretrain_train.yaml"
+    path.write_text(yaml.safe_dump(cfg, sort_keys=False))
+    return path
+
+
+@contextlib.contextmanager
+def _patched(patches: dict):
+    """Module attributes replaced for the block: ``{(module, name): fn}``."""
+    saved = {key: getattr(*key) for key in patches}
+    for (mod, name), fn in patches.items():
+        setattr(mod, name, fn)
+    try:
+        yield
+    finally:
+        for (mod, name), fn in saved.items():
+            setattr(mod, name, fn)
+
+
+def phase_pretrain_flagship(tmp: Path, card: str) -> dict:
+    """13b. ``train_fragment_core`` with the flagship template at full width
+    (``pretrain_train_config``: batch 256, bf16) with
+    ``self_supervised_pretraining`` and ``generate_reliability`` on seeded
+    synthetic CSVs with N runs: 2 x 10 projection steps, 10 classifier
+    steps, reliability data generated from a 4,096-row raw CSV, 4
+    reliability steps, the export. The kernel launch counts are set to 0
+    just before each stage (``_train_projection``, ``_run_branch``,
+    ``_generate_reliability``) and read just after: the projection stage
+    launches 18 / 6 / 6 (``fused_conv_block`` / ``conv_wgrad`` /
+    ``conv_epilogue_bwd``) a step, as a dense classifier step does, and the
+    generator 6 ``fused_conv_block`` a forward and no backward kernel. The
+    ArcFace loss is finite and falls; the bundle carries the projection
+    leaves. Then the projection step's steady state and the generator's
+    rate, and ``predict`` on the bundle."""
+    import numpy as np
+    import torch
+
+    import jaeger_tpu_torch.commands.train as train_cmd
+    import jaeger_tpu_torch.dataops.reliability_generator as relgen
+    from jaeger_tpu_torch import cli
+    from jaeger_tpu_torch.models.artifacts import read_flax_msgpack
+
+    crop_nt = 1505
+    root = tmp / "pretrain"
+    (root / "raw").mkdir(parents=True)
+    t0 = time.perf_counter()
+    data = write_train_data(root, seed=20261017, crop_nt=crop_nt)
+    raw = write_train_data(root / "raw", seed=20261018, crop_nt=crop_nt,
+                           n_rows=RELGEN_ROWS)["train"]
+    cfg_path = pretrain_train_config(root, data, raw)
+    data_s = time.perf_counter() - t0
+
+    stages: dict = {}
+    forwards: list = []
+    host: dict = {"synthetic_s": 0.0, "classify_s": 0.0}
+
+    def staged(name_of, fn):
+        def run(*a, **kw):
+            name = name_of(a)
+            _reset_kernel_counts()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            stages[name] = dict(launches=_kernel_counts(),
+                                s=time.perf_counter() - t0)
+            return out
+        return run
+
+    def timed(key, fn, count=False):
+        def run(*a, **kw):
+            if count:
+                rows, bs = a[1], kw.get("batch_size", a[3] if len(a) > 3
+                                        else 512)
+                forwards.append(-(-len(rows) // bs))
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            host[key] += time.perf_counter() - t0
+            return out
+        return run
+
+    out = root / "trained"
+    torch.cuda.reset_peak_memory_stats()
+    with _patched({
+            (train_cmd, "_train_projection"): staged(
+                lambda a: "projection", train_cmd._train_projection),
+            (train_cmd, "_run_branch"): staged(
+                lambda a: a[0], train_cmd._run_branch),
+            (train_cmd, "_generate_reliability"): staged(
+                lambda a: "generation", train_cmd._generate_reliability),
+            (relgen, "_predict_csv_rows"): timed(
+                "classify_s", relgen._predict_csv_rows, count=True),
+            (relgen, "generate_synthetic_sequences"): timed(
+                "synthetic_s", relgen.generate_synthetic_sequences)}):
+        t0 = time.perf_counter()
+        results = train_cmd.train_fragment_core(
+            str(cfg_path), str(out), self_supervised_pretraining=True,
+            generate_reliability=True)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(set(stages) == {"projection", "classifier", "generation",
+                          "reliability"}, f"stages run: {sorted(stages)}")
+    hist = results["history"]
+    proj = [h["loss"] for h in hist.get("projection", [])]
+    check(len(proj) == PROJECTION_EPOCHS
+          and all(math.isfinite(v) for v in proj),
+          f"projection history {proj}")
+    check(proj[-1] < proj[0], f"ArcFace loss did not fall: {proj}")
+    for branch in ("classifier", "reliability"):
+        losses = [h["loss"] for h in hist.get(branch, [])]
+        check(len(losses) == 1 and math.isfinite(losses[0]),
+              f"{branch} history {losses}")
+    steps = PROJECTION_EPOCHS * PROJECTION_STEPS
+    want = {"fused_conv_block": 18 * steps, "conv_wgrad": 6 * steps,
+            "conv_epilogue_bwd": 6 * steps, "int8_conv": 0}
+    check(stages["projection"]["launches"] == want,
+          f"projection stage launches {stages['projection']['launches']}, "
+          f"expected {want} (18 / 6 / 6 a step)")
+    n_fwd = sum(forwards)
+    gen = stages["generation"]["launches"]
+    check(n_fwd > 0 and gen == {"fused_conv_block": 6 * n_fwd,
+                                "conv_wgrad": 0, "conv_epilogue_bwd": 0,
+                                "int8_conv": 0},
+          f"generation launches {gen} for {n_fwd} forwards")
+    gen_dir = out / "reliability_data"
+    n_rel = sum(len((gen_dir / f).read_text().splitlines())
+                for f in ("reliability_train.csv", "reliability_val.csv"))
+    check(n_rel == 2 * RELGEN_ROWS,
+          f"generated {n_rel} reliability rows, expected {2 * RELGEN_ROWS}")
+    tree = read_flax_msgpack(out / "params.msgpack")
+    check(set(tree["params"].get("projection", {})) == {"dense_0",
+                                                        "dense_1"},
+          "the bundle has no projection leaves")
+    check((out / "checkpoints" / "projection" / "converged.json").exists(),
+          "no projection convergence marker")
+    gen_s = stages["generation"]["s"]
+    print(f"pretrain flagship template (batch 256, bf16) on {card}: "
+          f"{train_s:.1f} s in all (data {data_s:.1f} s), ArcFace losses "
+          + " ".join(f"{v:.4f}" for v in proj)
+          + f", classifier loss {hist['classifier'][0]['loss']:.4f}, "
+          f"reliability loss {hist['reliability'][0]['loss']:.4f}, peak "
+          f"device memory {peak_gb:.2f} GB")
+    for name, st in stages.items():
+        print(f"  stage {name}: {st['s']:.2f} s, launches {st['launches']}")
+    print(f"  generation in train: {RELGEN_ROWS} raw rows in {gen_s:.2f} s "
+          f"({RELGEN_ROWS / gen_s:.0f} rows/s), {n_fwd} forwards of 512; "
+          f"host: synthetic sequences {host['synthetic_s']:.2f} s, "
+          f"classification {host['classify_s']:.2f} s")
+    res = dict(stages=stages, projection_losses=proj, train_s=train_s,
+               peak_gb=peak_gb, generation_forwards=n_fwd,
+               generation_in_train_s=gen_s, relgen_host=dict(host))
+    res.update(_pretrain_rates(out, cfg_path, raw, root, card))
+
+    _reset_kernel_counts()
+    cli.main(["predict", "-i", str(FASTA), "-o", str(root / "predict"),
+              "-m", str(out), "--fsize", "1505", "--batch", "256"])
+    res["predict_launches"] = _kernel_counts()["fused_conv_block"]
+    labels = ["bacteria", "phage", "eukarya", "archaea", "virus", "plasmid"]
+    tsv = root / "predict" / "test_contigs_default_jaeger.tsv"
+    _check_tsv(_read_tsv(tsv), labels, "predict on the pretrained bundle")
+    check(res["predict_launches"] > 0,
+          "predict on the pretrained bundle launched no fused_conv_block")
+    print(f"predict with the pretrained bundle (projection leaves loaded): "
+          f"fused_conv_block launches {res['predict_launches']}")
+    res["bundle"] = out
+    res["raw"] = raw
+    return res
+
+
+def _pretrain_rates(bundle: Path, cfg_path: Path, raw: str, root: Path,
+                    card: str) -> dict:
+    """The projection step's steady state on the trained bundle (batch 256,
+    bf16, clean windows: warm, then 10 steps that do not wait for the card,
+    on the host clock between two synchronizes; the host's share of one
+    step on an idle card, the median of 3; device ms from the profiler),
+    and the generator's rate on the raw CSV with the bf16 model (wall
+    seconds on the host clock, then device ms from a profiled second
+    run)."""
+    import numpy as np
+    import torch
+
+    from jaeger_tpu_torch.commands.train import (make_projection_step,
+                                                 projection_params)
+    from jaeger_tpu_torch.dataops.reliability_generator import \
+        generate_reliability_data
+    from jaeger_tpu_torch.models.artifacts import load_model
+    from jaeger_tpu_torch.train.loop import to_device
+    from jaeger_tpu_torch.train.losses import ArcFaceLoss
+    from jaeger_tpu_torch.train.optimizers import make_optimizer
+    from jaeger_tpu_torch.utils.config import load_model_config
+
+    t = load_model_config(cfg_path)["training"]
+    model, _, _ = load_model(bundle, dtype=torch.bfloat16)
+    model.train()
+    arcface = ArcFaceLoss(6, 64, generator=torch.Generator().manual_seed(1))
+    arcface.to("cuda")
+    tx = make_optimizer(t["optimizer"], t["optimizer_params"])
+    opt_state = tx.init({k: p.detach() for k, p in
+                         projection_params(model, arcface).items()})
+    step = make_projection_step(model, arcface, tx,
+                                tuple(model.regularizer_specs()))
+    batch = _train_batch(np.random.default_rng(3), model.crop_nt, "dense",
+                         256, 6)
+    for _ in range(2):                                   # warm
+        opt_state, _ = step(opt_state, to_device(batch, "cuda"))
+    reps = 10
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        opt_state, loss = step(opt_state, to_device(batch, "cuda"))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / reps * 1e3
+    host = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt_state, loss = step(opt_state, to_device(batch, "cuda"))
+        host.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    host_ms = sorted(host)[1]
+    holder = {"opt": opt_state}
+
+    def one():
+        holder["opt"], _ = step(holder["opt"], to_device(batch, "cuda"))
+
+    by_kernel = print_device_profile(one, "projection step", top=10)
+    device_ms = sum(by_kernel.values())
+    conv_ms = sum(v for k, v in by_kernel.items()
+                  if any(c in k for c in CONV_KERNELS))
+    check(math.isfinite(float(loss)), "steady projection loss not finite")
+    print(f"projection step (batch 256, bf16) on {card}: {ms:.2f} ms, "
+          f"{256 / ms * 1e3:.0f} windows/s; host {host_ms:.1f} ms a step; "
+          f"device {device_ms:.2f} ms ({device_ms / ms:.1%} busy), "
+          f"{conv_ms:.2f} ms in the conv kernels")
+    step_rates = dict(step_ms=ms, windows_per_s=256 / ms * 1e3,
+                      host_step_ms=host_ms, device_ms=device_ms,
+                      device_busy=device_ms / ms, conv_kernels_ms=conv_ms)
+
+    model.eval()
+    kw = dict(id_threshold=0.0, synthetic_ood_threshold=0.0,
+              synthetic_ood_multiplier=1.0, batch_size=512)
+    t0 = time.perf_counter()
+    generate_reliability_data(model, raw, str(root / "relgen_timed"),
+                              model.crop_nt, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    by_kernel = print_device_profile(
+        lambda: generate_reliability_data(
+            model, raw, str(root / "relgen_profiled"), model.crop_nt, **kw),
+        "reliability generator", top=6)
+    gen_device_ms = sum(by_kernel.values())
+    gen = dict(rows=RELGEN_ROWS, wall_s=wall, rows_per_s=RELGEN_ROWS / wall,
+               device_ms=gen_device_ms,
+               device_share=gen_device_ms / 1e3 / wall,
+               host_share=1 - gen_device_ms / 1e3 / wall)
+    print(f"reliability generator (bf16, batch 512) on {card}: "
+          f"{RELGEN_ROWS} raw rows + {RELGEN_ROWS} synthetic in {wall:.2f} s, "
+          f"{gen['rows_per_s']:.0f} raw rows/s; device {gen_device_ms:.1f} ms "
+          f"({gen['device_share']:.1%}), host {gen['host_share']:.1%}")
+    return dict(projection_step=step_rates, generator=gen)
+
+
+def phase_pretrain(tmp: Path, card: str) -> dict:
+    """Phase 13: 13a, 13b, 13c in turn."""
+    t0 = time.perf_counter()
+    step_f32 = phase_pretrain_step_f32()
+    res = phase_pretrain_flagship(tmp, card)
+    res["card_vs_cpu"] = phase_relgen_card_vs_cpu(tmp, res.pop("bundle"),
+                                                  res.pop("raw"))
+    res["step_f32_worst_grad_err"] = step_f32
+    res["phase_s"] = time.perf_counter() - t0
+    print(f"phase 13 done in {res['phase_s']:.0f} s")
+    return res
+
+
+def phase_relgen_card_vs_cpu(tmp: Path, bundle: Path, raw: str) -> dict:
+    """13c. The generator on the card against the CPU: the trained bundle in
+    f32 (TF32 off), a raw CSV of ``RELGEN_CHECK_ROWS`` rows of the 4,096
+    (rows 1920-2175: 16 of them with an interior N), multiplier 1.0, the
+    id threshold at the median of the card's confidences on the real rows
+    and the synthetic threshold at their lower quartile, so that both
+    split the rows. ``reliability_train.csv`` and ``reliability_val.csv``
+    byte-identical to a ``device="cpu"`` run unless a row's CPU confidence
+    lies within 1e-4 of its threshold or its top two probabilities within
+    1e-4 of each other (counted and printed; then every row whose
+    decision differs must be such a row); the ``_preds.csv`` rows equal in
+    ids and labels, logits and probabilities within 1e-4 (of the scale
+    where above 1)."""
+    import numpy as np
+    import torch
+
+    import jaeger_tpu_torch.dataops.reliability_generator as relgen
+    from jaeger_tpu_torch.models.artifacts import load_model
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    root = tmp / "relgen_check"
+    root.mkdir()
+    lines = Path(raw).read_text().splitlines(keepends=True)
+    small = root / "raw_small.csv"
+    small.write_text("".join(lines[1920:1920 + RELGEN_CHECK_ROWS]))
+    rows = [(int(a), b) for a, b in (ln.strip().split(",")
+                                     for ln in lines[1920:1920
+                                                     + RELGEN_CHECK_ROWS])]
+    gpu_model, _, _ = load_model(bundle)
+    cpu_model, _, _ = load_model(bundle, device="cpu")
+    crop = gpu_model.crop_nt
+    _, confs = relgen._predict_csv_rows(gpu_model, rows, crop, 512)
+    id_thr = float(np.quantile(confs, 0.5))
+    syn_thr = float(np.quantile(confs, 0.25))
+    kw = dict(id_threshold=id_thr, synthetic_ood_threshold=syn_thr,
+              synthetic_ood_multiplier=1.0, batch_size=512, seed=7)
+    seen: dict = {}
+    orig = relgen._predict_csv_rows
+
+    def capture(model, rows_, crop_nt, batch_size=512, return_logits=False):
+        out = orig(model, rows_, crop_nt, batch_size, return_logits)
+        key = "cuda" if next(model.parameters()).is_cuda else "cpu"
+        seen.setdefault(key, []).append(out)
+        return out
+
+    t0 = time.perf_counter()
+    with _patched({(relgen, "_predict_csv_rows"): capture}):
+        relgen.generate_reliability_data(gpu_model, str(small),
+                                         str(root / "cuda"), crop, **kw)
+        relgen.generate_reliability_data(cpu_model, str(small),
+                                         str(root / "cpu"), crop, **kw)
+    both_s = time.perf_counter() - t0
+    check(len(seen["cuda"]) == len(seen["cpu"]) == 2,
+          f"generator calls: {[(k, len(v)) for k, v in seen.items()]}")
+    near, flips = 0, 0
+    # the real rows (ID when confident and right, OOD when confident and
+    # wrong), then the synthetic rows (kept when confident)
+    for real, g, c in zip((True, False), seen["cuda"], seen["cpu"]):
+        thr = id_thr if real else syn_thr
+        at = np.abs(c[1] - thr) <= 1e-4
+        differ = (g[1] >= thr) != (c[1] >= thr)
+        if real:
+            probs = np.sort(c[3], axis=1)
+            at |= probs[:, -1] - probs[:, -2] <= 1e-4
+            differ |= g[0] != c[0]
+        check(not (differ & ~at).any(),
+              f"generator card vs CPU: {int((differ & ~at).sum())} "
+              f"decisions differ away from a threshold")
+        near += int(at.sum())
+        flips += int(differ.sum())
+    same = {}
+    for name in ("reliability_train.csv", "reliability_val.csv"):
+        same[name] = ((root / "cuda" / name).read_bytes()
+                      == (root / "cpu" / name).read_bytes())
+    if near == 0:
+        check(all(same.values()), f"generator card vs CPU: files {same}")
+    want = (root / "cpu" / "raw_small_preds.csv").read_text().splitlines()
+    got = (root / "cuda" / "raw_small_preds.csv").read_text().splitlines()
+    check(got[0] == want[0] and len(got) == len(want),
+          "generator card vs CPU: preds CSV shape")
+    w = np.array([r.split(",") for r in want[1:]])
+    g = np.array([r.split(",") for r in got[1:]])
+    check((w[:, :2] == g[:, :2]).all(), "preds CSV ids and labels differ")
+    wv, gv = w[:, 2:].astype(float), g[:, 2:].astype(float)
+    err = float(np.abs(gv - wv).max())
+    check(err <= 1e-4 * max(1.0, float(np.abs(wv).max())),
+          f"preds CSV logits/probs differ by {err:.2e}")
+    n_rows = sum(len((root / "cuda" / f).read_text().splitlines())
+                 for f in same)
+    print(f"generator card vs CPU (f32, {RELGEN_CHECK_ROWS} raw rows, id "
+          f"threshold {id_thr:.4f}, synthetic {syn_thr:.4f}): {n_rows} "
+          f"reliability rows, files identical {same}, rows within 1e-4 of a "
+          f"threshold or a tie {near}, decisions that differ {flips}, preds "
+          f"max abs diff {err:.2e} (tol 1e-4); both runs {both_s:.1f} s")
+    return dict(identical=same, near_threshold_rows=near, flips=flips,
+                preds_max_abs_err=err, rows=n_rows)
+
+
 def main(argv: list[str]) -> int:
     try:
         import torch
@@ -4961,6 +5506,13 @@ def main(argv: list[str]) -> int:
             print(f"ragged run done in "
                   f"{time.perf_counter() - t_start:.0f} s")
             return 0
+        if "--pretrain" in argv:
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+                pretrain = phase_pretrain(Path(tmp), card)
+            print(json.dumps({"pretrain": pretrain}))
+            print(f"pretrain run done in "
+                  f"{time.perf_counter() - t_start:.0f} s")
+            return 0
         if "--templates" in argv:
             kern_zoo = phase_templates_kernel(card)
             with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -5010,6 +5562,7 @@ def main(argv: list[str]) -> int:
             strided = phase_int8_strided_predict(Path(tmp), card)
             legacy = phase_legacy(Path(tmp), card)
             commands = phase_commands(Path(tmp), card, bundle)
+            pretrain = phase_pretrain(Path(tmp), card)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
@@ -5032,7 +5585,8 @@ def main(argv: list[str]) -> int:
                "templates_kernels": kern_zoo, "zoo_f32": zoo_f32,
                "hyena": hyena, "int8_zoo": zoo8, "ensemble": ens,
                "route": route, "int8_strided_predict": strided,
-               "legacy": legacy, "commands": commands}
+               "legacy": legacy, "commands": commands,
+               "pretrain": pretrain}
     print(json.dumps(summary))
     print(f"all phases passed in {time.perf_counter() - t_start:.0f} s")
     print(card)
@@ -5046,6 +5600,7 @@ def main(argv: list[str]) -> int:
                 "bound_share": k["bound_ms"] / k["ms"], **extra}
 
     tl = train["launches"]
+    pl = pretrain["stages"]["projection"]["launches"]
     zl = zoo["launches"]
     hl = hyena["launches"]
 
@@ -5072,7 +5627,10 @@ def main(argv: list[str]) -> int:
               templates_dgrad=at_templates("dgrad", zl["fused_conv_block"]),
               hyena_launches=hl["fused_conv_block"],
               route_predict_launches=route["predict_launches"],
-              commands_launches=commands["launches"]),
+              commands_launches=commands["launches"],
+              pretrain_launches=pl["fused_conv_block"],
+              relgen_launches=pretrain["stages"]["generation"]["launches"][
+                  "fused_conv_block"]),
         entry("int8_conv", "cuda", "jaeger_tpu_torch/csrc/int8_conv.cu",
               "experiments/pallas_int8_conv.py:67", launches8, kern8,
               templates_launches=zl["int8_conv"],
@@ -5089,7 +5647,8 @@ def main(argv: list[str]) -> int:
               kern_train["conv_wgrad"],
               host_us=kern_train["conv_wgrad"]["host_us"],
               templates=at_templates("conv_wgrad", zl["conv_wgrad"]),
-              hyena_launches=hl["conv_wgrad"]),
+              hyena_launches=hl["conv_wgrad"],
+              pretrain_launches=pl["conv_wgrad"]),
         entry("conv_epilogue_bwd", "cuda",
               "jaeger_tpu_torch/csrc/conv_epilogue_bwd.cu",
               "jaeger_tpu/ops/pallas_conv.py:70", tl["conv_epilogue_bwd"],
@@ -5097,7 +5656,8 @@ def main(argv: list[str]) -> int:
               host_us=kern_train["conv_epilogue_bwd"]["host_us"],
               templates=at_templates("conv_epilogue_bwd",
                                      zl["conv_epilogue_bwd"]),
-              hyena_launches=hl["conv_epilogue_bwd"]),
+              hyena_launches=hl["conv_epilogue_bwd"],
+              pretrain_launches=pl["conv_epilogue_bwd"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

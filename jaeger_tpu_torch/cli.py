@@ -17,9 +17,10 @@ legacy workflow with ``predict``'s defaults, as JAX's CLI does;
 ``quantize``, ``combine-models``). Commands that run a model take
 ``--device`` (``cuda`` by default; ``cpu`` runs on the CPU). Options of
 paths that are not ported yet (``--seq-shard``, ``--num-hosts``,
-``--devices N`` above 1, ``--host-id``, ``utils convert-weights``, ``utils
-convert-graph``) are accepted by the parser and refused with a message
-that names their ROADMAP.md item. A usage error exits 2 with its message,
+``--devices N`` above 1, ``--host-id``, ``train --coordinator`` /
+``--num-processes``, ``utils convert-weights``, ``utils convert-graph``)
+are accepted by the parser and refused with a message that names their
+ROADMAP.md item. A usage error exits 2 with its message,
 and a command error exits 1 with ``Error: <message>``, as click does.
 Built on ``argparse`` so the CLI needs nothing beyond the standard library.
 
@@ -396,14 +397,31 @@ def _train_parser(sub) -> None:
                    help="torch device (default cuda; 'cpu' runs on the "
                         "CPU).")
     p.add_argument("-v", "--verbose", action="count", default=0)
-    # later slices
     p.add_argument("--self-supervised-pretraining",
                    "--self_supervised_pretraining",
-                   dest="self_supervised_pretraining", action="store_true")
+                   dest="self_supervised_pretraining", action="store_true",
+                   help="Run the ArcFace projection pretraining branch "
+                        "first.")
     p.add_argument("--generate-reliability-data",
                    "--generate_reliability_data",
                    dest="generate_reliability_data", action="store_true",
-                   default=None)
+                   default=None,
+                   help="Generate ID/OOD reliability data with the "
+                        "classifier.")
+    p.add_argument("--id-threshold", "--id_threshold", dest="id_threshold",
+                   type=float, default=None,
+                   help="Reliability data: confidence above which a correct "
+                        "prediction counts as in-distribution.")
+    p.add_argument("--synthetic-ood-threshold", "--synthetic_ood_threshold",
+                   dest="synthetic_ood_threshold", type=float, default=None,
+                   help="Reliability data: confidence above which a "
+                        "synthetic corrupted sequence is kept as OOD.")
+    p.add_argument("--synthetic-ood-multiplier",
+                   "--synthetic_ood_multiplier",
+                   dest="synthetic_ood_multiplier", type=float, default=None,
+                   help="Reliability data: synthetic sequences generated per "
+                        "real record (overrides the config).")
+    # a later slice
     p.add_argument("--coordinator", default=None)
     p.add_argument("--num-processes", "--num_processes",
                    dest="num_processes", type=int, default=None)
@@ -418,7 +436,7 @@ def train(args: argparse.Namespace, parser) -> None:
     if args.coordinator or (args.num_processes or 1) > 1:
         raise NotImplementedError(
             "multi-device training is not yet ported to jaeger_tpu_torch "
-            "(ROADMAP.md queue 1, item 11)")
+            f"(ROADMAP.md queue 1, item {MULTI_DEVICE_ITEM})")
     results = train_fragment_core(
         config_path=args.config_path, output_dir=args.output_dir,
         epochs_override=args.epochs, steps_override=args.steps_per_epoch,
@@ -428,7 +446,10 @@ def train(args: argparse.Namespace, parser) -> None:
         ignore_convergence=args.ignore_convergence,
         only_classification_head=args.only_classification_head,
         only_reliability_head=args.only_reliability_head,
-        only_save=args.only_save, masking=args.masking,
+        only_save=args.only_save, id_threshold=args.id_threshold,
+        synthetic_ood_threshold=args.synthetic_ood_threshold,
+        synthetic_ood_multiplier=args.synthetic_ood_multiplier,
+        masking=args.masking,
         precision=args.precision, meta=args.meta, device=args.device)
     print(f"model written to {results.get('model_path')}")
 

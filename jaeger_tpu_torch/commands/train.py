@@ -1,18 +1,22 @@
-"""Training orchestration on one device: classifier -> reliability.
+"""Training orchestration on one device: projection -> classifier ->
+reliability.
 
 Counterpart of `jaeger_tpu/commands/train.py` (``train_fragment_core``):
 config-driven branch training with convergence markers, per-epoch
 checkpoints and resume (optimizer state included), callback state
-persistence, frequency-bias initialization, reliability threshold tuning
-and calibration, and the export: a flax-msgpack bundle both packages load,
-with a calibrated ``<out>/int8`` bundle beside it (the port's
-``quantize_bundle``). The inner loop is :mod:`jaeger_tpu_torch.train.loop`.
+persistence, frequency-bias initialization, the self-supervised ArcFace
+projection pretraining (``self_supervised_pretraining`` with a
+``model.projection`` section), reliability data generation
+(``generate_reliability``, :mod:`jaeger_tpu_torch.dataops.
+reliability_generator`), reliability threshold tuning and calibration, and
+the export: a flax-msgpack bundle both packages load (the projection head's
+leaves included), with a calibrated ``<out>/int8`` bundle beside it (the
+port's ``quantize_bundle``). The inner loop is
+:mod:`jaeger_tpu_torch.train.loop`.
 
 The port also writes ``<out>/history.csv`` (one row per branch epoch).
-Not ported yet, each refused with ``NotImplementedError`` naming its
-``ROADMAP.md`` item: the self-supervised projection pretraining,
-``--generate-reliability-data`` and multi-device training (queue 1, item
-11) and a ``model.parallel.seq_axis`` config (item 14).
+Multi-device training and a ``model.parallel.seq_axis`` config raise
+``NotImplementedError`` naming ``ROADMAP.md`` queue 1, item 14.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ from jaeger_tpu_torch.train.checkpoint import (CheckpointManager,
                                                resolve_resume_stage,
                                                write_convergence_marker)
 from jaeger_tpu_torch.train.loop import (StepConfig, TrainState,
+                                         flax_params,
                                          make_dispatching_train_step,
                                          model_inputs, to_device)
 from jaeger_tpu_torch.train.optimizers import (get_learning_rate,
@@ -46,13 +51,6 @@ from jaeger_tpu_torch.utils.config import load_model_config
 from jaeger_tpu_torch.utils.devices import resolve_device
 
 logger = logging.getLogger("jaeger_tpu_torch")
-
-_ROADMAP = "(ROADMAP.md queue 1, item 11)"
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not yet ported to jaeger_tpu_torch {_ROADMAP}")
 
 
 def _fragment_paths(train_cfg: dict, key: str = "fragment_classifier_data"):
@@ -258,22 +256,23 @@ def train_fragment_core(
     only_classification_head: bool = False,
     only_reliability_head: bool = False,
     only_save: bool = False,
+    id_threshold: float | None = None,
+    synthetic_ood_threshold: float | None = None,
+    synthetic_ood_multiplier: float | None = None,
     masking: bool | None = None,
     precision: str | None = None,
     meta: str | None = None,
     device=None,
 ) -> dict:
-    """Train the classifier and reliability branches of ``config_path`` on
-    one device (default ``cuda``; raises without CUDA unless
-    ``device="cpu"``) and export the bundle. Returns the results dict
-    (model name, history, parameter count, paths)."""
+    """Train the projection, classifier and reliability branches of
+    ``config_path`` on one device (default ``cuda``; raises without CUDA
+    unless ``device="cpu"``) and export the bundle. Returns the results
+    dict (model name, history, parameter count, paths)."""
     dev = resolve_device(device)
     config = load_model_config(config_path)
     model_cfg = config.get("model", {})
     train_cfg = config.get("training", {})
     sp = model_cfg.get("string_processor", {})
-    if self_supervised_pretraining:
-        raise _not_ported("self-supervised projection pretraining")
     if (model_cfg.get("parallel") or {}).get("seq_axis"):
         raise NotImplementedError(
             "sequence-parallel training (model.parallel.seq_axis) is not "
@@ -394,6 +393,23 @@ def train_fragment_core(
             step_fn.program_counts)
         return hist
 
+    # === PROJECTION (self-supervised ArcFace pretraining) ===
+    proj_cfg = model_cfg.get("projection")
+    proj_epochs = int(train_cfg.get("projection_epochs", 0) or 0)
+    proj_dir = ckpt_root / "projection"
+    if (proj_cfg and proj_epochs > 0 and self_supervised_pretraining
+            and train_paths and converged(proj_dir) is None
+            and not (only_reliability_head or only_save)):
+        logger.info("training projection branch (ArcFace)")
+        history["projection"] = _train_projection(
+            model, proj_cfg, train_cfg, num_classes, reg_specs,
+            lambda e: make_batches(train_paths, e), proj_epochs,
+            int(steps_override or train_cfg.get("classifier_train_steps",
+                                                100)),
+            dev, generator, torch.Generator().manual_seed(seed))
+        write_convergence_marker(proj_dir, "projection",
+                                 {"epochs": proj_epochs})
+
     # === CLASSIFIER ===
     cls_epochs = int(epochs_override if epochs_override is not None
                      else train_cfg.get("classifier_epochs", 1))
@@ -443,8 +459,10 @@ def train_fragment_core(
     rel_paths = _fragment_paths(train_cfg, "fragment_reliability_data")
     if rel_cfg and rel_epochs > 0 and not only_save:
         if generate_reliability:
-            raise _not_ported("reliability data generation (needs "
-                              "dataops/reliability_generator.py)")
+            rel_paths = _generate_reliability(
+                model, train_cfg, train_paths, rel_paths, out_root, crop_nt,
+                id_threshold, synthetic_ood_threshold,
+                synthetic_ood_multiplier)
         rel_train = rel_paths.get("train", {}).get("paths", [])
         rel_val = rel_paths.get("validation", {}).get("paths", [])
         if start_epochs["reliability"] == 0:
@@ -502,6 +520,131 @@ def train_fragment_core(
                 {"model_path": str(out_root),
                  "experiment_path": str(Path(out_root).parent)}, indent=2))
     return results
+
+
+def _train_projection(model, proj_cfg, train_cfg, num_classes, reg_specs,
+                      make_train_batches, epochs, steps, device, generator,
+                      init_generator) -> list[dict]:
+    """The ArcFace pretraining of the projection head, as JAX's ``proj_step``:
+    one optimizer over the model's parameters and the ArcFace
+    ``class_weights`` (not exported), the training forward of the
+    ``projection`` head alone (batch statistics updated), the ArcFace loss
+    plus the model's regularization. Returns each epoch's last loss."""
+    proj_dim = None
+    for entry in reversed(proj_cfg.get("hidden_layers", [])):
+        units = (entry.get("config") or {}).get("units")
+        if units:
+            proj_dim = int(units)
+            break
+    arcface = losses_lib.ArcFaceLoss(
+        num_classes, proj_dim, margin=float(proj_cfg.get("margin", 0.5)),
+        scale=float(proj_cfg.get("scale", 30.0)),
+        generator=init_generator).to(device)
+    tx = make_optimizer(train_cfg.get("optimizer", "adam"),
+                        train_cfg.get("optimizer_params", {}))
+    params = projection_params(model, arcface)
+    opt_state = tx.init({k: p.detach() for k, p in params.items()})
+    step = make_projection_step(model, arcface, tx, reg_specs)
+    hist = []
+    model.train()
+    for epoch in range(epochs):
+        loss = None
+        for i, batch in enumerate(make_train_batches(epoch)):
+            if i >= steps:
+                break
+            opt_state, loss = step(opt_state, to_device(batch, device),
+                                   generator)
+        if loss is not None:
+            hist.append({"epoch": epoch, "loss": float(loss)})
+            logger.info(f"projection epoch {epoch}: loss={float(loss):.4f}")
+    model.eval()
+    return hist
+
+
+def projection_params(model, arcface) -> dict[str, torch.nn.Parameter]:
+    """The projection step's parameters by flax path: JAX's
+    ``{"model": params, "arcface": arcface params}`` tree."""
+    params = {f"model/{k}": p for k, p in flax_params(model).items()}
+    params["arcface/class_weights"] = arcface.class_weights
+    return params
+
+
+def make_projection_step(model, arcface, tx, reg_specs=()):
+    """``(opt_state, batch, generator) -> (opt_state, loss)``: one
+    projection step on a device batch (``bases``/``lengths`` or
+    ``translated``, one-hot ``labels``), updating the parameters and batch
+    statistics in place; ``step.grads`` holds the last gradients (flax
+    paths under ``model/`` and ``arcface/``). ``loss`` is the ArcFace loss
+    without the regularization, as JAX's ``proj_step`` returns it."""
+    def step(opt_state, batch, generator=None):
+        params = projection_params(model, arcface)
+        for p in params.values():
+            p.requires_grad_(True)
+        out = model(**model_inputs(batch), train=True,
+                    heads=("projection",), generator=generator)
+        loss = arcface(batch["labels"], out["projection"])
+        reg = losses_lib.regularization_loss(flax_params(model),
+                                             list(reg_specs))
+        got = torch.autograd.grad(loss + reg, list(params.values()),
+                                  allow_unused=True)
+        grads = {k: (torch.zeros_like(p) if g is None else g.float())
+                 for (k, p), g in zip(params.items(), got)}
+        for p in params.values():
+            p.requires_grad_(False)
+        with torch.no_grad():
+            values = {k: p.detach() for k, p in params.items()}
+            updates, opt_state = tx.update(grads, opt_state, values)
+            for k, p in params.items():
+                p.add_(updates[k])
+        step.grads = grads
+        return opt_state, loss.detach()
+
+    step.grads = None
+    return step
+
+
+def _generate_reliability(model, train_cfg, train_paths, rel_paths,
+                          out_root, crop_nt, id_threshold,
+                          synthetic_ood_threshold, synthetic_ood_multiplier):
+    """``--generate-reliability-data``: the knobs of
+    ``training.reliability_data_generation`` (the arguments override
+    its thresholds and multiplier) -> the generated reliability paths."""
+    from jaeger_tpu_torch.dataops.reliability_generator import \
+        generate_reliability_data
+
+    gen_cfg = train_cfg.get("reliability_data_generation", {}) or {}
+    raw_csvs = gen_cfg.get("raw_csv_paths") or {}
+    raw_train = (raw_csvs.get("train")
+                 or (train_paths[0] if train_paths else None)
+                 or gen_cfg.get("raw_csv_path"))
+    if not raw_train:
+        raise ValueError(
+            "--generate_reliability_data requires raw CSV sequences. Set "
+            "reliability_data_generation.raw_csv_paths.train in the config "
+            "or provide CSV classifier training data.")
+    if rel_paths.get("train", {}).get("paths"):
+        logger.warning("--generate_reliability_data is active; ignoring "
+                       "fragment_reliability_data paths provided in the "
+                       "config")
+
+    def knob(arg, key, default):
+        return float(arg if arg is not None else gen_cfg.get(key, default))
+
+    return generate_reliability_data(
+        model, raw_train,
+        gen_cfg.get("output_dir") or str(out_root / "reliability_data"),
+        crop_nt,
+        id_threshold=knob(id_threshold, "id_threshold", 0.8),
+        synthetic_ood_threshold=knob(synthetic_ood_threshold,
+                                     "synthetic_ood_threshold", 0.8),
+        synthetic_ood_multiplier=knob(synthetic_ood_multiplier,
+                                      "synthetic_ood_multiplier", 1.0),
+        batch_size=int(gen_cfg.get("inference_batch_size", 512)),
+        perturbations=gen_cfg.get("perturbations"),
+        val_fraction=float(gen_cfg.get("val_fraction", 0.1)),
+        raw_val_csv_path=raw_csvs.get("val"),
+        synthetic_source_sample_size=gen_cfg.get(
+            "synthetic_source_sample_size"))
 
 
 def _tune_threshold(model, csv_path, crop_nt, batch_size, device, rel_dir,

@@ -171,11 +171,11 @@ def save_model(state: dict[str, torch.Tensor], config: dict,
 
 
 def load_state(model: torch.nn.Module, state: dict[str, torch.Tensor]) -> None:
-    """Load ``state`` into ``model``; every model entry must be present.
-    ``quant`` entries (``<conv>.kernel_q`` / ``w_scale`` / ``act_scale``)
-    switch their conv to int8 execution. Entries of heads the port does
-    not build at inference (the self-supervised ``projection``) are
-    ignored; any other extra raises."""
+    """Load ``state`` into ``model``; its entries must be the model's, no
+    more and no fewer (the ``projection`` head's included, which the model
+    builds wherever the config has one). ``quant`` entries
+    (``<conv>.kernel_q`` / ``w_scale`` / ``act_scale``) switch their conv to
+    int8 execution."""
     for key in state:
         *scopes, leaf = key.split(".")
         if leaf == "kernel_q":
@@ -184,8 +184,7 @@ def load_state(model: torch.nn.Module, state: dict[str, torch.Tensor]) -> None:
                              for name in QUANT_LEAVES))
     own = model.state_dict()
     missing = sorted(set(own) - set(state))
-    extra = sorted(k for k in set(state) - set(own)
-                   if not k.startswith("projection."))
+    extra = sorted(set(state) - set(own))
     if missing or extra:
         raise KeyError(f"weights do not match the model: missing {missing}, "
                        f"unexpected {extra}")

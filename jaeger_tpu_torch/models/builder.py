@@ -2,7 +2,8 @@
 
 Counterpart of `jaeger_tpu/models/builder.py`: the same config schema
 (``embedding``, ``string_processor``, ``representation_learner``,
-``classifier``, ``reliability_model``) builds one ``nn.Module`` whose
+``classifier``, ``projection``, ``reliability_model``) builds one
+``nn.Module`` whose
 forward pass runs the device-side codon encoding, the embedding, the
 representation learner and the heads. Module and parameter names follow
 the flax tree (``rep.residual_block_3.block_0.conv1.kernel`` is flax's
@@ -492,7 +493,10 @@ class JaegerModel(nn.Module):
     ``forward(bases, lengths)`` returns a dict with ``prediction``
     (classifier logits), ``embedding`` (pooled representation), ``nmd``,
     ``gate`` (a gated pooler's frame gates) and ``reliability`` where
-    configured. ``assume_dense=True`` skips the mask (exact only when every
+    configured; ``projection`` (the self-supervised pretraining head over
+    the pooled representation) where configured and asked for
+    (``with_projection=True`` or ``"projection"`` in ``heads``).
+    ``assume_dense=True`` skips the mask (exact only when every
     window fills the crop with unambiguous bases); ``mask_layers`` selects
     the bounded-mask program (see :func:`mask_cut_plan`).
 
@@ -597,6 +601,12 @@ class JaegerModel(nn.Module):
             self.classifier = LayerStack(
                 _freeze_layers(class_cfg.get("hidden_layers", [])),
                 rep_width, dtype=dtype)
+        proj_cfg = cfg.get("projection")
+        self.projection = None
+        if proj_cfg:
+            self.projection = LayerStack(
+                _freeze_layers(proj_cfg.get("hidden_layers", [])),
+                rep_width, dtype=dtype)
         self.reliability = None
         if rel_cfg:
             if nmd_width == 0:
@@ -660,7 +670,8 @@ class JaegerModel(nn.Module):
     def forward(self, bases: torch.Tensor | None = None,
                 lengths: torch.Tensor | None = None,
                 assume_dense: bool = False, mask_layers=None, *,
-                train: bool = False, heads: tuple | None = None,
+                train: bool = False, with_projection: bool = False,
+                heads: tuple | None = None,
                 tokens: torch.Tensor | None = None,
                 frame_perm: torch.Tensor | None = None,
                 generator: torch.Generator | None = None
@@ -668,8 +679,10 @@ class JaegerModel(nn.Module):
         """``tokens`` (B, 6, L) replaces ``bases``/``lengths`` with
         pre-encoded frames; ``frame_perm`` (B, 6) reorders each example's
         frames (train-time augmentation); ``heads`` limits the outputs
-        (None = all) as ``jaeger_tpu/models/builder.py:815-824`` does;
-        ``train`` with ``generator`` for dropout."""
+        (None = all) as ``jaeger_tpu/models/builder.py:815-824`` does, and
+        the projection head runs only with ``with_projection`` or when
+        ``heads`` names it (``:911-922``); ``train`` with ``generator`` for
+        dropout."""
         x, mask, fold_table = self._inputs(bases, lengths, tokens,
                                            frame_perm, assume_dense)
         if self.pos_embedding is not None:
@@ -708,6 +721,10 @@ class JaegerModel(nn.Module):
             logits = self.classifier(rep, **kw)[0]
         if logits is not None:
             outputs["prediction"] = logits
+        if self.projection is not None and (
+                with_projection or (heads is not None
+                                    and "projection" in heads)):
+            outputs["projection"] = self.projection(rep, **kw)[0]
         if need_rel:
             rel_in = nmd
             if self.rel_mode == "nmd_plus_signals":

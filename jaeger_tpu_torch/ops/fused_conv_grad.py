@@ -69,7 +69,7 @@ launches = {"conv_wgrad": 0, "conv_epilogue_bwd": 0}
 
 _EVEN_K = ("a fused conv with an even kernel_size has no SAME-conv data "
            "gradient on the fused kernel; even-k fused gradients are not "
-           "yet ported to jaeger_tpu_torch (ROADMAP.md queue 1, item 11)")
+           "yet ported to jaeger_tpu_torch (ROADMAP.md queue 2, item 7)")
 
 
 # ---------------------------------------------------------------------------

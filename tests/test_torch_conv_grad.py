@@ -117,7 +117,7 @@ def test_fused_conv_backward_matches_jax_vjp(form, k, c, masked):
 
 def test_even_k_refused_before_launch():
     x = torch.zeros(2, 9, 16, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="queue 2, item 7"):
         fg.FusedConvBlockFn.apply(x, torch.zeros(4, 16, 16), None, None,
                                   None, None, None, "none", False)
 
