@@ -34,6 +34,8 @@ Run from the root of a checkout on a machine with CUDA:
     python3 chip_smoke.py --pretrain  # phases 1, 2 and 13 only (the
                                       # projection pretraining and the
                                       # reliability-data generator)
+    python3 chip_smoke.py --multi     # phases 1, 2 and 14 only (hosts,
+                                      # meshes, process groups)
 
 Phases, each of which fails the run:
 
@@ -234,11 +236,24 @@ Phases, each of which fails the run:
    confidences: reliability CSVs byte-identical save rows within 1e-4 of a
    threshold (counted), the predictions CSV within 1e-4.
 
+14. several devices and processes on the one card (no scaling is
+   measured; repeated devices and groups run every new path with the hand
+   kernels in it): ``predict --num-hosts 2 --host-id 0|1`` as two CLI
+   worker processes at once (``chip_smoke.py --cli-worker``), the merged
+   rows against one host; the engine and ``run_core`` on
+   ``DeviceMesh(("cuda:0",) * 2)`` against one device; the flagship
+   template's dense step (bf16, global batch 256) without a group, in a
+   one-rank NCCL group and in a two-rank gloo group on cuda:0 (each in
+   fresh ``--train-worker`` processes; step ms and launches per rank), the
+   two-rank f32 step against the one-rank one; ``--seq-shard`` on two
+   cuda:0 devices; the row-sharded k-NN search at widths 1, 2 and 4 at
+   phase 12's size. ``phase_multi`` has the tolerances.
+
 The second-to-last line is the kernels JSON (each kernel also with its
 numbers at the templates' shape and its launches on phase 8's, phase 9's,
-phase 10's, phase 11's, phase 12's and phase 13's paths; int8_conv with
-its ragged route's numbers at the dvf shape and at the stride shape), the
-last
+phase 10's, phase 11's, phase 12's, phase 13's and phase 14's paths;
+int8_conv with its ragged route's numbers at the dvf shape and at the
+stride shape), the last
 ``{"ok": true, ...}``.
 The script imports nothing of JAX or of jaeger_tpu.
 """
@@ -246,6 +261,7 @@ The script imports nothing of JAX or of jaeger_tpu.
 from __future__ import annotations
 
 import contextlib
+import copy
 import csv
 import json
 import math
@@ -4629,15 +4645,16 @@ def write_taxdump(root: Path, n_contigs: int, seed: int = 31) -> tuple:
 @contextlib.contextmanager
 def capture_search(store: list):
     """Record every ``CosineIndex.search`` a command makes: the index, the
-    queries, the device and what the search returned."""
+    queries, the device, the mesh (None on one card) and what the search
+    returned."""
     from jaeger_tpu_torch.commands import taxonomy
 
     real = taxonomy.CosineIndex.search
 
-    def spy(self, queries, k=5, device=None):
-        scores, idx = real(self, queries, k=k, device=device)
+    def spy(self, queries, k=5, device=None, mesh=None):
+        scores, idx = real(self, queries, k=k, device=device, mesh=mesh)
         store.append(dict(index=self, queries=queries, device=device,
-                          scores=scores, idx=idx))
+                          mesh=mesh, scores=scores, idx=idx))
         return scores, idx
 
     taxonomy.CosineIndex.search = spy
@@ -5420,6 +5437,556 @@ def phase_relgen_card_vs_cpu(tmp: Path, bundle: Path, raw: str) -> dict:
                 preds_max_abs_err=err, rows=n_rows)
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: several devices and processes (one card: repeated devices,
+# one-rank and two-rank groups; no scaling is measured)
+# ---------------------------------------------------------------------------
+
+#: phase 12's search: query windows x index rows, k; the flagship's
+#: embedding width
+SHARD_Q, SHARD_N, SHARD_K, SHARD_D = 3968, 19753, 5, 128
+#: timed train steps a rank runs after two warm ones
+MULTI_STEPS = 10
+#: the Hyena model of the JAX package's own --seq-shard test
+#: (tests/test_hyena_seq_cli.py): crop 83 codons, so the length pads
+SEQ_HYENA_CFG = {
+    "model": {
+        "name": "hyena_seq", "seed": 3, "classifier_out_dim": 3,
+        "class_label_map": [{"class": "chromosome", "label": 0},
+                            {"class": "phage", "label": 1},
+                            {"class": "plasmid", "label": 2}],
+        "embedding": {"use_embedding_layer": True,
+                      "input_type": "translated", "embedding_size": 16},
+        "string_processor": {"crop_size": 83, "seq_onehot": False},
+        "representation_learner": {
+            "hidden_layers": [
+                {"name": "masked_conv1d",
+                 "config": {"filters": 16, "kernel_size": 3,
+                            "padding": "same"}},
+                {"name": "gelu"},
+                {"name": "hyena_block",
+                 "config": {"dim": 16, "order": 2, "filter_hidden": 8,
+                            "filter_layers": 2, "dropout": 0.0}},
+            ],
+            "pooling": "average",
+        },
+        "classifier": {"hidden_layers": [{"name": "dense",
+                                          "config": {"units": 3}}]},
+    },
+    "training": {},
+}
+
+
+def _worker_result(text: str) -> dict:
+    """The ``WORKER {json}`` line a worker process printed."""
+    for line in text.splitlines():
+        if line.startswith("WORKER "):
+            return json.loads(line[len("WORKER "):])
+    raise SmokeFailure(f"a worker printed no result:\n{text[-3000:]}")
+
+
+def _run_workers(argvs: list, timeout: float = 300) -> tuple[list, float]:
+    """Start every worker at once (``chip_smoke.py --cli-worker`` or
+    ``--train-worker``), wait for all with a timeout; their results and
+    the wall seconds until the last ended. Every worker is stopped before
+    this returns."""
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                               *a], cwd=ROOT, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for a in argvs]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    except subprocess.TimeoutExpired as e:
+        raise SmokeFailure(f"a worker ran past {timeout} s: {e.cmd}") from e
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    wall = time.perf_counter() - t0
+    for a, p, out in zip(argvs, procs, outs):
+        check(p.returncode == 0,
+              f"worker {a[:2]} exited {p.returncode}:\n{out[-3000:]}")
+    return [_worker_result(o) for o in outs], wall
+
+
+def cli_worker(argv: list[str]) -> int:
+    """``--cli-worker <cli args>``: one CLI command in this process, then
+    ``WORKER {seconds, fused_conv_block and int8_conv launches}``."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from jaeger_tpu_torch import cli
+    from jaeger_tpu_torch.ops import fused_conv, int8_conv
+
+    fused_conv.launches = int8_conv.launches = 0
+    t0 = time.perf_counter()
+    cli.main(argv)
+    torch.cuda.synchronize()
+    print("WORKER " + json.dumps({"s": time.perf_counter() - t0,
+                                  "fused_conv_block": fused_conv.launches,
+                                  "int8_conv": int8_conv.launches}))
+    return 0
+
+
+def _multi_train(world: int, rank: int, f32_out: str | None,
+                 device: str = "cuda:0", template: Path = TEMPLATE) -> dict:
+    """The flagship template at full width (bf16, seeded weights) in this
+    process's share of a dense global batch of 256: two warm steps, then
+    ``MULTI_STEPS`` on the host clock between two synchronizes, the
+    hand kernels' launches counted over them; then one f32 step on a
+    global batch of 64 from the same weights. The bf16 parameters before
+    and after the steps, and the f32 step's parameters and gradients, go to
+    ``f32_out``."""
+    import numpy as np
+    import torch
+
+    from jaeger_tpu_torch.models.artifacts import init_params, load_state
+    from jaeger_tpu_torch.models.builder import build_model
+    from jaeger_tpu_torch.ops import fused_conv, int8_conv
+    from jaeger_tpu_torch.ops import fused_conv_grad as fg
+    from jaeger_tpu_torch.parallel import multihost as mh
+    from jaeger_tpu_torch.train import loop
+    from jaeger_tpu_torch.train.optimizers import make_optimizer
+    from jaeger_tpu_torch.utils.config import load_model_config
+
+    cfg = load_model_config(template)
+    t = cfg["training"]
+    dev = torch.device(device)
+    batcher = mh.GlobalBatcher() if world else None
+
+    def make(dtype):
+        model = build_model(cfg, dtype=dtype)
+        load_state(model, init_params(cfg, torch.Generator().manual_seed(42)))
+        model.to(dev)
+        state = loop.TrainState.create(model, make_optimizer(
+            t["optimizer"], t["optimizer_params"]))
+        step = loop.make_dispatching_train_step(model, loop.StepConfig(
+            loss_name=t["loss_classifier"],
+            loss_params=t["loss_params_classifier"], heads=("prediction",)),
+            dev, global_batcher=batcher)
+        return model, state, step
+
+    def params(model):
+        return {k: p.detach().float().cpu()
+                for k, p in loop.flax_params(model).items()}
+
+    gen = torch.Generator(device=dev).manual_seed(42)
+    model, state, step = make(torch.bfloat16)
+    bf16_init = params(model)
+    batch = _train_batch(np.random.default_rng(14), model.crop_nt, "dense",
+                         256, 6)
+    for _ in range(2):
+        state, metrics = step(state, batch, gen)
+    _sync(dev)
+    fused_conv.launches = int8_conv.launches = 0
+    for k in fg.launches:
+        fg.launches[k] = 0
+    t0 = time.perf_counter()
+    for _ in range(MULTI_STEPS):
+        state, metrics = step(state, batch, gen)
+    _sync(dev)
+    step_ms = (time.perf_counter() - t0) / MULTI_STEPS * 1e3
+    launches = dict(fg.launches, fused_conv_block=fused_conv.launches,
+                    int8_conv=int8_conv.launches)
+    loss = float(metrics["loss"])
+    bf16_final = params(model)
+    del model, state, step
+    model32, state32, step32 = make(torch.float32)
+    b32 = _train_batch(np.random.default_rng(15), model32.crop_nt, "dense",
+                       64, 6)
+    state32, m32 = step32(state32, b32, gen)
+    if f32_out:
+        torch.save({"params": params(model32),
+                    "grads": {k: g.cpu() for k, g in state32.grads.items()},
+                    "loss": float(m32["loss"]), "bf16_init": bf16_init,
+                    "bf16_final": bf16_final}, f32_out)
+    peak = (torch.cuda.max_memory_allocated() / 1e9 if dev.type == "cuda"
+            else None)
+    return dict(world=world, rank=rank, step_ms=step_ms, launches=launches,
+                loss=loss, f32_loss=float(m32["loss"]), peak_gb=peak)
+
+
+def _sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def train_worker(argv: list[str]) -> int:
+    """``--train-worker <rank> <world> <backend> <port> <f32 out>``: join
+    the group on ``cuda:0`` (the process group's timeout bounds every
+    collective; world 0: no group), run :func:`_multi_train`, print
+    ``WORKER {json}``."""
+    import torch
+
+    sys.path.insert(0, str(ROOT))
+    from jaeger_tpu_torch.parallel import multihost as mh
+
+    rank, world, backend, port, out = (int(argv[0]), int(argv[1]), argv[2],
+                                       argv[3], argv[4])
+    torch.cuda.set_device(0)
+    if world:
+        mh.initialize_distributed(f"127.0.0.1:{port}", world, rank,
+                                  backend=backend, device="cuda:0",
+                                  timeout_s=240)
+    try:
+        res = _multi_train(world, rank, out if rank == 0 else None)
+    finally:
+        mh.shutdown_distributed()
+    print("WORKER " + json.dumps(dict(res, backend=backend)))
+    return 0
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _sorted_rows(path: Path) -> tuple:
+    head, *rows = path.read_bytes().split(b"\n")
+    return head, sorted(rows)
+
+
+def _rank_shape_kernels() -> dict:
+    """The hand kernels at one rank's share of phase 14's two-rank steps,
+    against their plain versions with phase 3 and 3b's tolerances: bf16 at
+    128 windows (N = 6 * 128 rows) and f32 at 32 windows (N = 6 * 32), L
+    500, C 128, k 5. ``fused_conv_block`` in the flagship's conv2 form, the
+    flipped-weight data gradient, ``conv_wgrad``, ``conv_epilogue_bwd``
+    (conv1 and conv2 forms) and FusedConvBlockFn's whole backward. The
+    launch counts are put back: these are not the path's launches."""
+    import torch
+
+    from jaeger_tpu_torch.ops import fused_conv
+    from jaeger_tpu_torch.ops import fused_conv_grad as fg
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(1415)
+    saved = dict(fg.launches), fused_conv.launches
+    worst = {}
+    for windows, dt in ((128, torch.bfloat16), (32, torch.float32)):
+        n, length, c, k = 6 * windows, TRAIN_L, TRAIN_C, TRAIN_K
+        bf16 = dt == torch.bfloat16
+        act = "gelu_tanh" if bf16 else "gelu"       # the model's forms
+        tol = BF16_KERNEL_TOL if bf16 else (F32_TOL,)
+        label = f"rank shape N={n} L={length} C={c} k={k} {str(dt)[6:]}"
+        x, w, bias, dyt = _conv_inputs(gen, n, length, c, k, dt, dev)
+        kw = dict(bias=bias, dyt=dyt, **_extension_args(gen, x, "model", dev))
+        im, om, r = kw["in_mask"], kw["out_mask"], kw["residual"]
+        before = dict(fg.launches), fused_conv.launches
+        out = fused_conv.fused_conv_block(x, w, act=act, **kw)
+        ref = fused_conv.reference_conv_block(x, w, act=act, **kw)
+        err = (out.float() - ref.float()).abs()
+        etol = BF16_TOL if bf16 else F32_TOL
+        bad = int((err > etol + etol * ref.float().abs()).sum())
+        worst[f"fused_conv_block_{str(dt)[6:]}"] = float(err.max())
+        check(bad == 0 and math.isfinite(float(err.max())),
+              f"fused_conv_block {label}: {bad} elements beyond tolerance")
+        print(f"kernel fused_conv_block conv2 form {label}: max_abs_err "
+              f"{float(err.max()):.3e} (tol {etol}) ok")
+        du = (torch.randn(n, length, c, generator=gen) * 0.1).to(dev, dt)
+        wf = fg.flipped_weights(w.to(dt))
+        dx = fused_conv.fused_conv_block(du, wf, out_mask=im)
+        _check_close(f"dgrad {label}", {"dx": (
+            dx, fused_conv.reference_conv_block(du, wf, out_mask=im))}, *tol)
+        dw, db = fg.conv_wgrad(x, du, im, k)
+        rdw, rdb = fg.reference_conv_wgrad(x, du, im, k)
+        _check_close(f"conv_wgrad {label}", {"dW": (dw, rdw), "db": (db, rdb)},
+                     1e-3 if bf16 else F32_TOL)
+        u = torch.randn(n, length, c, generator=gen).to(dev, dt)
+        for form, res in (("conv1", None), ("conv2", r)):
+            got = fg.conv_epilogue_bwd(du, u, res, om, dyt, act)
+            want = fg.reference_conv_epilogue_bwd(du, u, res, om, dyt,
+                                                  act)
+            _check_close(f"conv_epilogue_bwd {form} {label}",
+                         {"du": (got[0], want[0]),
+                          "dr": (got[1], want[1] if res is not None
+                                 else None),
+                          "ddyt": (got[2], want[2])}, *tol)
+        torch.cuda.synchronize()
+        check(fused_conv.launches == before[1] + 2
+              and fg.launches["conv_wgrad"] == before[0]["conv_wgrad"] + 1
+              and fg.launches["conv_epilogue_bwd"]
+              == before[0]["conv_epilogue_bwd"] + 2,
+              f"{label}: a kernel was not launched")
+        dy = torch.randn(n, length, c, generator=gen).to(dev, dt)
+        bkw = dict(dyt=dyt, act=act, bias_then_dyt=True, in_mask=im,
+                   out_mask=om, residual=r)
+        got = fg.conv_block_backward(dy, x, w, bias, **bkw)
+        want = fg.reference_conv_block_backward(dy, x, w, bias, **bkw)
+        _check_close(f"FusedConvBlockFn backward conv2 {label}",
+                     dict(zip(("dx", "dW", "db", "ddyt", "dr"),
+                              zip(got, want))),
+                     *(BF16_BACKWARD_TOL if bf16 else (F32_TOL,)))
+        del x, out, ref, err, du, dx, u, dy, got, want
+    fg.launches.update(saved[0])
+    fused_conv.launches = saved[1]
+    return worst
+
+
+def phase_multi(tmp: Path, card: str, bundle: Path) -> dict:
+    """Phase 14: the multi-device paths on one card. (a) ``predict
+    --num-hosts 2 --host-id 0|1`` as two CLI processes at once on the
+    test contigs with the flagship bundle in f32, then one host's process
+    alone: the merged TSV's rows byte-identical to one host's (the merge
+    lists host 0's contigs first, as JAX's does), the hosts' command
+    seconds against the one host's; (b) the
+    engine and ``run_core`` on ``DeviceMesh(("cuda:0",) * 2)`` against
+    ``("cuda:0",)``: f32 outputs within 1e-5 of the scale on dense and
+    split batches, the TSV identical; (c) the flagship template at full
+    width in bf16: the step without a group, in a one-rank
+    NCCL group and in a two-rank gloo group on cuda:0 (each rank half the
+    global 256 rows), step ms and the hand kernels' launches per rank; the
+    two-rank bf16 run against the one-rank one after its 12 steps: the
+    last loss within 1e-2 relative and the parameters' distance under 5 %
+    of the distance they moved; the two-rank f32 step's gradients within
+    1e-4 of the one-rank step's scale and its parameters within 1e-4
+    wherever the gradient exceeds 1e-6 (Adam's first step is about lr *
+    sign(g): a gradient of rounding noise may flip it), all within 2 lr;
+    then the hand kernels at one rank's shapes against their plain
+    versions (:func:`_rank_shape_kernels`); (d) ``run_core`` with
+    ``seq_mesh=DeviceMesh(("cuda:0",) * 2, "seq")`` on the seeded Hyena
+    model of JAX's --seq-shard test: the TSV identical to width 1; (e)
+    the row-sharded search at phase 12's size (3,968 x 19,753, k 5) at
+    widths 1, 2 and 4 against the one-device search: scores within 1e-6,
+    indices equal wherever neighbouring scores are more than 1e-6 apart.
+    Launches of the hand kernels on (a), (b) and (c)'s ranks are this
+    phase's main path (counts reset just before each, read just after).
+    No int8 bundle runs here, so ``int8_conv``'s count reads 0."""
+    import numpy as np
+    import torch
+
+    from jaeger_tpu_torch import native
+    from jaeger_tpu_torch.commands.predict import run_core
+    from jaeger_tpu_torch.commands.taxonomy import CosineIndex
+    from jaeger_tpu_torch.infer.engine import InferenceEngine
+    from jaeger_tpu_torch.models.artifacts import (init_params, load_model,
+                                                   save_model)
+    from jaeger_tpu_torch.ops import fused_conv, int8_conv
+    from jaeger_tpu_torch.parallel.mesh import DeviceMesh
+    from jaeger_tpu_torch.utils.config import load_model_config
+
+    res: dict = {}
+    root = tmp / "multi"
+    root.mkdir()
+    tsv = "test_contigs_default_jaeger.tsv"
+    common = ["-i", str(FASTA), "-m", str(bundle), "--precision", "float32",
+              "--fsize", "1505", "--stride", "1505", "--workers", "2"]
+
+    # (a) two host processes at once, then one host in a process alone;
+    # the native host library is built first, so no worker times a g++
+    check(native.available(), "the native host library did not build")
+    hosts, wall = _run_workers(
+        [["--cli-worker", "predict", "-o", str(root / "hosts"), *common,
+          "--num-hosts", "2", "--host-id", str(h)] for h in range(2)])
+    (one,), one_wall = _run_workers(
+        [["--cli-worker", "predict", "-o", str(root / "one"), *common]])
+    one_s, one_launches = one["s"], one["fused_conv_block"]
+    check(not list((root / "hosts").glob("*.shard*")),
+          "multi-host predict left shards")
+    check(_sorted_rows(root / "hosts" / tsv) == _sorted_rows(root / "one"
+                                                             / tsv),
+          "multi-host predict: the merged rows differ from one host's")
+    host_launches = [h["fused_conv_block"] for h in hosts]
+    check(all(n > 0 for n in host_launches),
+          f"multi-host predict launches {host_launches}")
+    cli_int8 = sum(h["int8_conv"] for h in (*hosts, one))
+    res["hosts"] = dict(host_s=[h["s"] for h in hosts], wall_s=wall,
+                        one_host_s=one_s, one_host_wall_s=one_wall,
+                        launches=host_launches,
+                        one_host_launches=one_launches,
+                        int8_conv_launches=cli_int8)
+    print(f"predict --num-hosts 2 (f32, test contigs) on {card}: the "
+          "hosts' commands " + " / ".join(f"{h['s']:.2f}" for h in hosts)
+          + f" s, {wall:.2f} s wall with process start; one host "
+          f"{one_s:.2f} s, {one_wall:.2f} s wall; merged rows "
+          f"byte-identical; launches {host_launches} (one host "
+          f"{one_launches})")
+
+    # (b) the engine on a repeated-device data mesh
+    model, _, _ = load_model(bundle)
+    rng = np.random.default_rng(140)
+    crop = model.crop_nt
+    bases = rng.integers(0, 4, size=(700, crop)).astype(np.uint8)
+    lengths = np.full(700, crop, np.int32)
+    bases[[5, 300, 650], [100, 700, 1200]] = 4          # split batches
+    mesh2 = DeviceMesh(("cuda:0",) * 2)
+    fused_conv.launches = int8_conv.launches = 0
+    got = InferenceEngine(model, batch_size=256, mesh=mesh2
+                          ).predict_windows(bases, lengths)
+    run_core(str(FASTA), str(root / "mesh"), str(bundle), fsize=1505,
+             stride=1505, precision="float32", workers=2, mesh=mesh2)
+    torch.cuda.synchronize()
+    mesh_launches, mesh_int8 = fused_conv.launches, int8_conv.launches
+    want = InferenceEngine(model, batch_size=256,
+                           mesh=DeviceMesh(("cuda:0",))
+                           ).predict_windows(bases, lengths)
+    err = max(float(np.abs(got[k] - want[k]).max())
+              / max(float(np.abs(want[k]).max()), 1e-6) for k in want)
+    check(err <= 1e-5, f"engine on two cuda:0 devices: {err:.2e} of the "
+                       f"scale from one")
+    check((root / "mesh" / tsv).read_bytes() == (root / "one" / tsv)
+          .read_bytes(), "run_core on the mesh: the TSV differs")
+    check(mesh_launches > 0, "the mesh path launched no fused_conv_block")
+    res["engine_mesh"] = dict(max_err=err, launches=mesh_launches,
+                              int8_conv_launches=mesh_int8)
+    print(f"engine on ('cuda:0',) * 2 against ('cuda:0',), f32: worst "
+          f"{err:.2e} of the scale (tol 1e-5); run_core TSV identical; "
+          f"{mesh_launches} fused_conv_block launches")
+    del model
+
+    # (c) training, each in a fresh process: no group (the reference),
+    # one-rank NCCL, two-rank gloo
+    torch.cuda.empty_cache()
+    runs = {}
+    for name, world, backend in (("none", 0, "none"), ("nccl1", 1, "nccl"),
+                                 ("gloo2", 2, "gloo")):
+        port = str(_free_port())
+        runs[name], _ = _run_workers(
+            [["--train-worker", str(r), str(world), backend, port,
+              str(root / f"f32_{name}.pt")] for r in range(max(world, 1))],
+            timeout=400)
+    for name, rs in runs.items():
+        for r in rs:
+            check(math.isfinite(r["loss"]), f"{name} rank {r['rank']} loss")
+            check(r["launches"] == {"fused_conv_block": 18 * MULTI_STEPS,
+                                    "conv_wgrad": 6 * MULTI_STEPS,
+                                    "conv_epilogue_bwd": 6 * MULTI_STEPS,
+                                    "int8_conv": 0},
+                  f"{name} rank {r['rank']} launches {r['launches']}")
+    check(runs["gloo2"][0]["loss"] == runs["gloo2"][1]["loss"],
+          "the two ranks report different losses")
+    f32_one = torch.load(root / "f32_nccl1.pt")
+    f32_two = torch.load(root / "f32_gloo2.pt")
+    # bf16: the two-rank run against the one-rank run after 12 steps
+    loss_one, loss_two = runs["nccl1"][0]["loss"], runs["gloo2"][0]["loss"]
+    bf16_loss_err = abs(loss_two - loss_one) / abs(loss_one)
+    check(bf16_loss_err <= 1e-2, f"two-rank bf16 loss {loss_two} against "
+                                 f"one rank's {loss_one}")
+    moved = apart = 0.0
+    for k, p0 in f32_one["bf16_init"].items():
+        moved += float((f32_one["bf16_final"][k] - p0).square().sum())
+        apart += float((f32_two["bf16_final"][k]
+                        - f32_one["bf16_final"][k]).square().sum())
+    bf16_param_ratio = math.sqrt(apart / moved)
+    check(moved > 0 and bf16_param_ratio <= 0.05,
+          f"two-rank bf16 parameters {bf16_param_ratio:.2e} of the distance "
+          f"moved from one rank's")
+    lr = float(load_model_config(TEMPLATE)["training"]["optimizer_params"]
+               ["learning_rate"])
+    g_err = p_err = 0.0
+    for k, g in f32_one["grads"].items():
+        scale = max(float(g.abs().max()), 1e-12)
+        g_err = max(g_err,
+                    float((f32_two["grads"][k] - g).abs().max()) / scale)
+        d = (f32_two["params"][k] - f32_one["params"][k]).abs()
+        check(float(d.max()) <= 2 * lr + 1e-7, f"f32 params {k} beyond 2 lr")
+        live = g.abs() > 1e-6
+        if bool(live.any()):
+            p_err = max(p_err, float(d[live].max()))
+    check(g_err <= 1e-4, f"two-rank f32 gradients {g_err:.2e} of the scale")
+    check(p_err <= 1e-4, f"two-rank f32 parameters {p_err:.2e} apart")
+    res["train"] = {name: [dict(r) for r in rs] for name, rs in runs.items()}
+    res["train"].update(f32_grad_err=g_err, f32_param_err=p_err,
+                        f32_loss_one_rank=f32_one["loss"],
+                        f32_loss_two_ranks=f32_two["loss"],
+                        bf16_loss_rel_err=bf16_loss_err,
+                        bf16_param_ratio=bf16_param_ratio)
+    for name, rs in runs.items():
+        print(f"train flagship dense step (batch 256 global, bf16) {name} on "
+              f"{card}: " + ", ".join(f"rank {r['rank']} {r['step_ms']:.2f} "
+                                      f"ms, launches {r['launches']}"
+                                      for r in rs))
+    print(f"two-rank f32 step against one rank: gradients {g_err:.2e} of "
+          f"the scale, parameters {p_err:.2e} apart (tol 1e-4); bf16 after "
+          f"{MULTI_STEPS + 2} steps: loss {loss_two:.6f} against "
+          f"{loss_one:.6f} "
+          f"({bf16_loss_err:.1e} relative, tol 1e-2), parameters "
+          f"{bf16_param_ratio:.2e} of the distance moved apart (tol 5e-2)")
+    res["rank_shape_kernels"] = _rank_shape_kernels()
+
+    # (d) the sequence ring on two cuda:0 devices
+    hy = root / "hyena"
+    hy_cfg = copy.deepcopy(SEQ_HYENA_CFG)
+    save_model(init_params(hy_cfg, torch.Generator().manual_seed(3)),
+               hy_cfg, hy / "model")
+    rng = np.random.default_rng(11)
+    with (hy / "contigs.fasta").open("w") as fh:
+        for i, ln in enumerate([900, 720, 505, 300]):
+            fh.write(f">hy_contig_{i}\n"
+                     + "".join(rng.choice(list("ACGT"), size=ln)) + "\n")
+    kw = dict(fsize=300, stride=300, min_len=300, batch=16,
+              precision="float32", scan_termini=False)
+    w1 = run_core(str(hy / "contigs.fasta"), str(hy / "w1"), str(hy / "model"),
+                  **kw).read_bytes()
+    w2 = run_core(str(hy / "contigs.fasta"), str(hy / "w2"), str(hy / "model"),
+                  seq_mesh=DeviceMesh(("cuda:0",) * 2, "seq"), **kw
+                  ).read_bytes()
+    check(w1.count(b"\n") == 5, "seq-shard predict: rows")
+    check(w2 == w1, "--seq-shard on two cuda:0 devices: the TSV differs "
+                    "from width 1")
+    res["seq_shard"] = dict(tsv_identical=True)
+    print("run_core --seq-shard on ('cuda:0',) * 2 (f32): TSV identical to "
+          "width 1")
+
+    # (e) the row-sharded search at phase 12's size
+    rng = np.random.default_rng(12)
+    index = CosineIndex(rng.normal(size=(SHARD_N, SHARD_D)).astype(
+        np.float32), np.arange(1, SHARD_N + 1))
+    q = rng.normal(size=(SHARD_Q, SHARD_D)).astype(np.float32)
+    q[:50] = index.embeddings[:50]
+    ref_s, ref_i = index.search(q, SHARD_K + 1, device="cuda")
+    search = {}
+    for width in (1, 2, 4):
+        mesh = DeviceMesh(("cuda:0",) * width)
+        index.search(q, SHARD_K, mesh=mesh)
+        times = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            s, i = index.search(q, SHARD_K, mesh=mesh)
+            times.append((time.perf_counter() - t0) * 1e3)
+        s_err = float(np.abs(s - ref_s[:, :SHARD_K]).max())
+        gaps = np.abs(np.diff(ref_s, axis=1)) > 1e-6       # (Q, K)
+        # position j is decided where it is apart from both neighbours
+        decided = gaps[:, :SHARD_K].copy()
+        decided[:, 1:] &= gaps[:, :SHARD_K - 1]
+        bad = int(((i != ref_i[:, :SHARD_K]) & decided).sum())
+        check(s_err <= 1e-6, f"sharded search width {width}: scores "
+                             f"{s_err:.2e} apart")
+        check(bad == 0, f"sharded search width {width}: {bad} decided "
+                        f"neighbours differ")
+        check(bool((i[:50, 0] == np.arange(50)).all()),
+              f"sharded search width {width}: a self-query is not first")
+        search[width] = dict(ms=sorted(times)[2], max_score_err=s_err)
+        print(f"sharded search width {width} on ('cuda:0',) * {width}: "
+              f"{sorted(times)[2]:.2f} ms for {SHARD_Q} x {SHARD_N}, k "
+              f"{SHARD_K} (host clock, median of 5, with the copies); "
+              f"scores {s_err:.1e} from one device")
+    res["search"] = search
+    res["launches"] = {
+        "int8_conv": cli_int8 + mesh_int8 + sum(
+            r["launches"]["int8_conv"]
+            for name in ("nccl1", "gloo2") for r in runs[name]),
+        "fused_conv_block": sum(host_launches) + one_launches
+        + mesh_launches + sum(
+            r["launches"]["fused_conv_block"]
+            for name in ("nccl1", "gloo2") for r in runs[name]),
+        "conv_wgrad": sum(r["launches"]["conv_wgrad"]
+                          for name in ("nccl1", "gloo2") for r in runs[name]),
+        "conv_epilogue_bwd": sum(r["launches"]["conv_epilogue_bwd"]
+                                 for name in ("nccl1", "gloo2")
+                                 for r in runs[name])}
+    return res
+
+
 def main(argv: list[str]) -> int:
     try:
         import torch
@@ -5434,6 +6001,10 @@ def main(argv: list[str]) -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    if argv[:1] == ["--cli-worker"]:
+        return cli_worker(argv[1:])
+    if argv[:1] == ["--train-worker"]:
+        return train_worker(argv[1:])
     quick = "--quick" in argv
     t_start = time.perf_counter()
     try:
@@ -5506,6 +6077,14 @@ def main(argv: list[str]) -> int:
             print(f"ragged run done in "
                   f"{time.perf_counter() - t_start:.0f} s")
             return 0
+        if "--multi" in argv:
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+                multi = phase_multi(Path(tmp), card,
+                                    flagship_bundle(Path(tmp)))
+            print(json.dumps({"multi": multi}))
+            print(f"multi run done in "
+                  f"{time.perf_counter() - t_start:.0f} s")
+            return 0
         if "--pretrain" in argv:
             with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
                 pretrain = phase_pretrain(Path(tmp), card)
@@ -5563,6 +6142,7 @@ def main(argv: list[str]) -> int:
             legacy = phase_legacy(Path(tmp), card)
             commands = phase_commands(Path(tmp), card, bundle)
             pretrain = phase_pretrain(Path(tmp), card)
+            multi = phase_multi(Path(tmp), card, bundle)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
@@ -5586,7 +6166,7 @@ def main(argv: list[str]) -> int:
                "hyena": hyena, "int8_zoo": zoo8, "ensemble": ens,
                "route": route, "int8_strided_predict": strided,
                "legacy": legacy, "commands": commands,
-               "pretrain": pretrain}
+               "pretrain": pretrain, "multi": multi}
     print(json.dumps(summary))
     print(f"all phases passed in {time.perf_counter() - t_start:.0f} s")
     print(card)
@@ -5603,6 +6183,7 @@ def main(argv: list[str]) -> int:
     pl = pretrain["stages"]["projection"]["launches"]
     zl = zoo["launches"]
     hl = hyena["launches"]
+    ml = multi["launches"]
 
     def at_templates(key, n):
         """The kernel at the templates' residual-conv shape: launches on
@@ -5630,7 +6211,8 @@ def main(argv: list[str]) -> int:
               commands_launches=commands["launches"],
               pretrain_launches=pl["fused_conv_block"],
               relgen_launches=pretrain["stages"]["generation"]["launches"][
-                  "fused_conv_block"]),
+                  "fused_conv_block"],
+              multi_launches=ml["fused_conv_block"]),
         entry("int8_conv", "cuda", "jaeger_tpu_torch/csrc/int8_conv.cu",
               "experiments/pallas_int8_conv.py:67", launches8, kern8,
               templates_launches=zl["int8_conv"],
@@ -5639,7 +6221,8 @@ def main(argv: list[str]) -> int:
               ragged_route=dict(ragged,
                                 launches=zoo8["launches"]["ragged"]),
               ragged_stride=dict(stride,
-                                 launches=strided["launches"]["ragged"])),
+                                 launches=strided["launches"]["ragged"]),
+              multi_launches=ml["int8_conv"]),
         # train's main path: the backward of the fused conv block
         entry("conv_wgrad", "cuda",
               "jaeger_tpu_torch/csrc/fused_conv_wgrad.cu",
@@ -5648,7 +6231,8 @@ def main(argv: list[str]) -> int:
               host_us=kern_train["conv_wgrad"]["host_us"],
               templates=at_templates("conv_wgrad", zl["conv_wgrad"]),
               hyena_launches=hl["conv_wgrad"],
-              pretrain_launches=pl["conv_wgrad"]),
+              pretrain_launches=pl["conv_wgrad"],
+              multi_launches=ml["conv_wgrad"]),
         entry("conv_epilogue_bwd", "cuda",
               "jaeger_tpu_torch/csrc/conv_epilogue_bwd.cu",
               "jaeger_tpu/ops/pallas_conv.py:70", tl["conv_epilogue_bwd"],
@@ -5657,7 +6241,8 @@ def main(argv: list[str]) -> int:
               templates=at_templates("conv_epilogue_bwd",
                                      zl["conv_epilogue_bwd"]),
               hyena_launches=hl["conv_epilogue_bwd"],
-              pretrain_launches=pl["conv_epilogue_bwd"]),
+              pretrain_launches=pl["conv_epilogue_bwd"],
+              multi_launches=ml["conv_epilogue_bwd"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

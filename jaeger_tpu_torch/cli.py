@@ -1,26 +1,28 @@
 """jaeger_tpu_torch command-line interface.
 
 Counterpart of `jaeger_tpu/cli.py`: ``predict``, with the JAX command's
-options for the one-device modern-model path (``--int8 [full|auto]``,
+options for the modern-model path (``--int8 [full|auto]``,
 ``--quantized``, ``--prophage`` with ``-s/--sensitivity``, ``--lc`` and
 ``--plot-type``, ``--refine`` with the ``--refine-*`` options,
 ``--mask-tandem``, ``--profile``, ``--model_path``, ``--config`` (the model
-registry), ``--getalllabels`` and the device flags ``--cpu``,
-``--physicalid``, ``--mem``, ``--xla`` included) plus ``--device``;
+registry), ``--getalllabels``, the device flags ``--cpu``,
+``--physicalid``, ``--mem``, ``--xla``, and ``--devices``,
+``--seq-shard``, ``--num-hosts``, ``--host-id`` included) plus
+``--device``;
 ``predict -m default|experimental[_N]`` (without ``--model_path``) runs the
 legacy workflow with ``predict``'s defaults, as JAX's CLI does;
-``predict-legacy``; ``train`` (fragment models on one device);
+``predict-legacy``; ``train`` (fragment models; ``--coordinator``,
+``--num-processes`` and ``--process-id`` run it data-parallel over a
+``torch.distributed`` process group: nccl on CUDA, gloo on the CPU);
 ``health``; ``taxonomy build|predict``; ``register-models``,
 ``list-models`` and ``download``; and the ``utils`` commands
 (``optimize-data``, ``fragment``, ``mask-tandem``, ``mask``, ``convert``,
 ``stats``, ``split``, ``ood-data``, ``receptive-field``, ``dataset``,
 ``quantize``, ``combine-models``). Commands that run a model take
-``--device`` (``cuda`` by default; ``cpu`` runs on the CPU). Options of
-paths that are not ported yet (``--seq-shard``, ``--num-hosts``,
-``--devices N`` above 1, ``--host-id``, ``train --coordinator`` /
-``--num-processes``, ``utils convert-weights``, ``utils convert-graph``)
-are accepted by the parser and refused with a message that names their
-ROADMAP.md item. A usage error exits 2 with its message,
+``--device`` (``cuda`` by default; ``cpu`` runs on the CPU). The commands
+of paths that are not ported yet (``utils convert-weights``, ``utils
+convert-graph``) are accepted by the parser and refused with a message
+that names their ROADMAP.md item. A usage error exits 2 with its message,
 and a command error exits 1 with ``Error: <message>``, as click does.
 Built on ``argparse`` so the CLI needs nothing beyond the standard library.
 
@@ -61,8 +63,6 @@ logger = logging.getLogger("jaeger_tpu_torch")
 LEGACY_MODELS = ("default", "experimental", "experimental_1",
                  "experimental_2")
 
-#: the item of ROADMAP.md queue 1 that ports multi-device runs
-MULTI_DEVICE_ITEM = 14
 #: the item that ports the rest of the converters
 CONVERTERS_ITEM = 13
 
@@ -208,12 +208,21 @@ def _predict_parser(sub) -> None:
                    help="Write a torch.profiler trace of the inference "
                         "loop into <output>/profile.")
     p.add_argument("--devices", default="auto",
-                   help="Data-parallel device count: 'auto' or 1 (more "
-                        "devices are not ported yet).")
-    # later slices
-    p.add_argument("--seq-shard", type=int, default=1)
-    p.add_argument("--num-hosts", type=int, default=1)
-    p.add_argument("--host-id", type=int, default=None)
+                   help="Data-parallel device count: 'auto' uses every "
+                        "visible card, an integer caps it (1 disables the "
+                        "mesh).")
+    p.add_argument("--seq-shard", type=int, default=1,
+                   help="Shard the sequence length of Hyena long "
+                        "convolutions over N devices (full-contig models). "
+                        "Excludes data parallelism; outputs are identical "
+                        "to --seq-shard 1.")
+    p.add_argument("--num-hosts", type=int, default=1,
+                   help="Shard contigs deterministically across N "
+                        "independent host processes; each writes a TSV "
+                        "shard and the last to finish merges.")
+    p.add_argument("--host-id", type=int, default=None,
+                   help="This process's shard index in [0, num-hosts); "
+                        "defaults to the process group's rank, else 0.")
     p.set_defaults(handler=predict, parser=p)
 
 
@@ -228,16 +237,12 @@ def predict(args: argparse.Namespace, parser: argparse.ArgumentParser) -> None:
             "--onnx: the engine zoo is replaced by a single XLA path "
             "here (see docs/optimizations.md); use --quantized full_int8 "
             "for the int8 bundle.")
+    devices = "auto"
     if args.devices != "auto":
         try:
-            n_devices = int(args.devices)
+            devices = int(args.devices)
         except ValueError:
             parser.error(f"--devices {args.devices!r}: 'auto' or an integer")
-        if n_devices > 1:
-            parser.error(_not_ported(f"--devices {n_devices}",
-                                     MULTI_DEVICE_ITEM))
-    if args.host_id is not None:
-        parser.error(_not_ported("--host-id", MULTI_DEVICE_ITEM))
     if args.registry_config is not None and not Path(
             args.registry_config).exists():
         parser.error(f"--config {args.registry_config!r}: no such file")
@@ -290,7 +295,8 @@ def predict(args: argparse.Namespace, parser: argparse.ArgumentParser) -> None:
         getsequences=args.getsequences, save_embedding=args.save_embedding,
         save_nmd=args.save_nmd, overwrite=args.overwrite,
         int8=args.int8, quantized=args.quantized, seq_shard=args.seq_shard,
-        num_hosts=args.num_hosts, prophage=args.prophage,
+        num_hosts=args.num_hosts, host_id=args.host_id, devices=devices,
+        prophage=args.prophage,
         sensitivity=args.sensitivity, lc=args.lc, plot_type=args.plot_type,
         refine=args.refine, refine_mode=args.refine_mode,
         refine_min_windows=args.refine_min_windows,
@@ -421,36 +427,63 @@ def _train_parser(sub) -> None:
                    dest="synthetic_ood_multiplier", type=float, default=None,
                    help="Reliability data: synthetic sequences generated per "
                         "real record (overrides the config).")
-    # a later slice
-    p.add_argument("--coordinator", default=None)
+    p.add_argument("--coordinator", default=None,
+                   help="Multi-process training: the process group's "
+                        "HOST:PORT (run one process per card with "
+                        "--num-processes/--process-id; batch rows shard "
+                        "over the processes, process 0 writes artifacts).")
     p.add_argument("--num-processes", "--num_processes",
-                   dest="num_processes", type=int, default=None)
+                   dest="num_processes", type=int, default=None,
+                   help="Multi-process training: total process count.")
     p.add_argument("--process-id", "--process_id", dest="process_id",
-                   type=int, default=None)
+                   type=int, default=None,
+                   help="Multi-process training: this process's index.")
     p.set_defaults(handler=train, parser=p)
 
 
 def train(args: argparse.Namespace, parser) -> None:
     from jaeger_tpu_torch.commands.train import train_fragment_core
 
-    if args.coordinator or (args.num_processes or 1) > 1:
-        raise NotImplementedError(
-            "multi-device training is not yet ported to jaeger_tpu_torch "
-            f"(ROADMAP.md queue 1, item {MULTI_DEVICE_ITEM})")
-    results = train_fragment_core(
-        config_path=args.config_path, output_dir=args.output_dir,
-        epochs_override=args.epochs, steps_override=args.steps_per_epoch,
-        self_supervised_pretraining=args.self_supervised_pretraining,
-        generate_reliability=args.generate_reliability_data,
-        from_last_checkpoint=args.from_last_checkpoint, force=args.force,
-        ignore_convergence=args.ignore_convergence,
-        only_classification_head=args.only_classification_head,
-        only_reliability_head=args.only_reliability_head,
-        only_save=args.only_save, id_threshold=args.id_threshold,
-        synthetic_ood_threshold=args.synthetic_ood_threshold,
-        synthetic_ood_multiplier=args.synthetic_ood_multiplier,
-        masking=args.masking,
-        precision=args.precision, meta=args.meta, device=args.device)
+    device = args.device
+    if args.coordinator:
+        # join the process group before any device use; with a bare
+        # `cuda` each process takes its own card
+        from jaeger_tpu_torch.parallel import multihost as mh
+
+        if args.num_processes is None or args.process_id is None:
+            parser.error("--coordinator needs --num-processes and "
+                         "--process-id")
+        device = str(mh.rank_device(device, args.process_id))
+        if device.startswith("cuda"):
+            import torch
+
+            torch.cuda.set_device(torch.device(device))
+        pid, nproc = mh.initialize_distributed(
+            args.coordinator, args.num_processes, args.process_id,
+            device=device)
+        print(f"torch.distributed: process {pid}/{nproc} on {device}",
+              file=sys.stderr)
+    elif (args.num_processes or 1) > 1:
+        parser.error("--num-processes above 1 needs --coordinator")
+    try:
+        results = train_fragment_core(
+            config_path=args.config_path, output_dir=args.output_dir,
+            epochs_override=args.epochs,
+            steps_override=args.steps_per_epoch,
+            self_supervised_pretraining=args.self_supervised_pretraining,
+            generate_reliability=args.generate_reliability_data,
+            from_last_checkpoint=args.from_last_checkpoint,
+            force=args.force, ignore_convergence=args.ignore_convergence,
+            only_classification_head=args.only_classification_head,
+            only_reliability_head=args.only_reliability_head,
+            only_save=args.only_save, id_threshold=args.id_threshold,
+            synthetic_ood_threshold=args.synthetic_ood_threshold,
+            synthetic_ood_multiplier=args.synthetic_ood_multiplier,
+            masking=args.masking, precision=args.precision, meta=args.meta,
+            device=device)
+    finally:
+        if args.coordinator:
+            mh.shutdown_distributed()
     print(f"model written to {results.get('model_path')}")
 
 

@@ -1,4 +1,4 @@
-"""End-to-end prediction on one device (PyTorch).
+"""End-to-end prediction (PyTorch).
 
 Counterpart of `jaeger_tpu/commands/predict.py` (``run_core``): validate
 the FASTA -> load the model bundle -> window the contigs -> batched device
@@ -31,8 +31,18 @@ JAX CLI does, so an ensemble without a ``params_int8.msgpack`` of its own
 (or an ``int8/`` or ``_int8`` beside it) raises ``FileNotFoundError``
 there.
 
-Not ported yet, and refused with ``NotImplementedError``: sequence
-sharding and multi-host sharding.
+Several devices and hosts (:mod:`jaeger_tpu_torch.parallel`):
+``devices`` runs the engine data-parallel over a device mesh (``"auto"``:
+every visible card for a bare ``cuda``; an integer caps it; on the CPU an
+integer repeats the CPU in the mesh); ``seq_shard`` rebuilds a Hyena
+model with ``parallel.seq_axis`` and shards its sequence over that many
+devices instead; ``mesh`` / ``seq_mesh`` pass a
+:class:`~jaeger_tpu_torch.parallel.mesh.DeviceMesh` directly (a device
+may repeat in it). ``num_hosts`` > 1 keeps the contigs that
+:func:`~jaeger_tpu_torch.parallel.multihost.contig_owner` assigns to
+``host_id`` (default: the process group's rank, else 0), writes
+``<table>.shard<K>`` (an empty shard when the host owns no contig) and
+per-host aux files, and the last host to finish merges the shards.
 """
 
 from __future__ import annotations
@@ -48,6 +58,8 @@ from jaeger_tpu_torch.infer.engine import InferenceEngine
 from jaeger_tpu_torch.models.artifacts import class_names_in_order, load_model
 from jaeger_tpu_torch.models.conversion import int8_conv_count
 from jaeger_tpu_torch.models.ensemble import is_ensemble, load_ensemble
+from jaeger_tpu_torch.parallel import multihost as mh
+from jaeger_tpu_torch.parallel.mesh import mesh_of, visible_width
 from jaeger_tpu_torch.postprocess import collect
 from jaeger_tpu_torch.postprocess.termini import scan_for_terminal_repeats
 from jaeger_tpu_torch.seqops.fasta import fasta_stem, validate_fasta_entries
@@ -264,10 +276,20 @@ def _prophage_stage(output_dir: Path, stem: str, input_path: Path,
         cutoff_length=lc)
 
 
-def _not_ported(option: str, item: int) -> NotImplementedError:
-    return NotImplementedError(f"{option} is not yet ported to "
-                               f"jaeger_tpu_torch (ROADMAP.md queue 1, "
-                               f"item {item})")
+def _maybe_merge_shards(output_dir: Path, stem: str,
+                        num_hosts: int) -> Path | None:
+    """Merge per-host TSV shards when every host's shard exists.
+
+    Whichever host finishes last performs the merge; of two that finish
+    together one merges (:func:`multihost.merge_when_complete`). Returns
+    the merged table path, or None if shards are still outstanding or
+    another host merges them."""
+    merged = mh.merge_when_complete(
+        output_dir / f"{stem}_default_jaeger.tsv", num_hosts,
+        also=(output_dir / f"{stem}_default_phages_jaeger.tsv",))
+    if merged is not None:
+        logger.info(f"all {num_hosts} shards present; merged to {merged}")
+    return merged
 
 
 def _profiled(run, trace_dir: Path, dev: torch.device):
@@ -320,6 +342,10 @@ def run_core(
     quantized: str | None = None,
     seq_shard: int = 1,
     num_hosts: int = 1,
+    host_id: int | None = None,
+    devices: int | str = "auto",
+    mesh=None,
+    seq_mesh=None,
     prophage: bool = False,
     sensitivity: float = 1.5,
     lc: int = 500_000,
@@ -333,10 +359,6 @@ def run_core(
     mask_tandem: bool = False,
     profile: bool = False,
 ) -> Path:
-    for flag, name in ((seq_shard > 1, "--seq-shard"),
-                       (num_hosts > 1, "multi-host predict (--num-hosts)")):
-        if flag:
-            raise _not_ported(name, 14)
     if int8 not in (None, "full", "auto"):
         raise ValueError(f"int8 must be None, 'full' or 'auto', got {int8!r}")
     if quantized not in (None, "dynamic", "full_int8", "float16"):
@@ -356,6 +378,21 @@ def run_core(
     input_path = Path(input_path)
     output_dir = Path(output_dir)
     output_dir.mkdir(parents=True, exist_ok=True)
+
+    # multi-host contig sharding: each host keeps the contigs a
+    # deterministic hash assigns it, writes a TSV shard, and whichever
+    # host finishes last merges
+    contig_filter = None
+    if num_hosts > 1:
+        if host_id is None:
+            host_id = mh.process_index()
+        if not (0 <= host_id < num_hosts):
+            raise ValueError(
+                f"host_id {host_id} out of range for {num_hosts} hosts")
+        contig_filter = (
+            lambda h: mh.contig_owner(h, num_hosts) == host_id)
+        logger.info(f"multi-host predict: host {host_id}/{num_hosts} "
+                    f"(deterministic contig sharding)")
 
     existing = output_dir / f"{fasta_stem(input_path)}_default_jaeger.tsv"
     if existing.exists() and not overwrite:
@@ -383,6 +420,22 @@ def run_core(
     model, config, classes = load(model_path, dtype=DTYPES[precision],
                                   device=dev)
     indices, labels = class_names_in_order(classes)
+
+    # sequence sharding (--seq-shard N): the model is rebuilt with
+    # parallel.seq_axis, so its Hyena blocks run length-sharded over a
+    # "seq" mesh; the devices are spent on the sequence axis
+    if seq_mesh is None and int(seq_shard) > 1:
+        want = int(seq_shard)
+        width = max(1, min(want, visible_width(dev, want)))
+        if width > 1:
+            seq_mesh = mesh_of(dev, width, "seq")
+    if seq_mesh is not None:
+        model = _with_seq_axis(model, config, DTYPES[precision], dev,
+                               seq_mesh.axis)
+        mesh = None
+        devices = 1
+        logger.info(f"sequence-sharded Hyena over {seq_mesh.size} devices "
+                    f"(seq axis)")
     warning = crop_length_warning(config, fsize)
     if warning:
         logger.warning(warning)
@@ -403,6 +456,17 @@ def run_core(
             scan_for_terminal_repeats, str(windowing_input), fsize=fsize,
             workers=workers)
 
+    # data parallel (--devices): a 1-D data mesh; the engine pads the
+    # batch to a device multiple
+    if mesh is None and devices not in (1, "1"):
+        want = (0 if devices in ("auto", None) else int(devices))
+        n_avail = visible_width(dev, max(want, 1))
+        width = n_avail if want == 0 else max(1, min(want, n_avail))
+        if width > 1:
+            mesh = mesh_of(dev, width, "data")
+    if mesh is not None:
+        logger.info(f"data-parallel inference over {mesh.size} devices")
+
     wanted = ["prediction", "reliability"]
     if save_embedding:
         wanted.append("embedding")
@@ -421,11 +485,13 @@ def run_core(
                 "utils quantize --mode full_int8`)")
     engine = InferenceEngine(model, batch_size=batch, device=dev,
                              output_keys=tuple(wanted),
-                             int8_model=int8_model)
+                             int8_model=int8_model, mesh=mesh,
+                             seq_mesh=seq_mesh)
     batches = window_batches(
         str(windowing_input), fragsize=fsize, stride=stride, min_len=min_len,
         dustmask=dustmask, dynamic_stride=dynamic_stride,
-        dynamic_stride_threshold=dynamic_stride_threshold, workers=workers,
+        dynamic_stride_threshold=dynamic_stride_threshold,
+        contig_filter=contig_filter, workers=workers,
     )
     needs_full = bool(
         crf_switch_cost is not None or prophage or save_window_scores
@@ -450,6 +516,16 @@ def run_core(
         if term_pool is not None:
             term_pool.shutdown(wait=False, cancel_futures=True)
     if not result:
+        if num_hosts > 1:
+            # this host owned no windowable contigs: an empty shard keeps
+            # the shard accounting complete; merge if last
+            stem0 = fasta_stem(input_path)
+            base = output_dir / f"{stem0}_default_jaeger.tsv"
+            mh.shard_path(base, host_id).touch()
+            _maybe_merge_shards(output_dir, stem0, num_hosts)
+            logger.info(
+                f"host {host_id} owned no contigs; empty shard written")
+            return base
         raise ValueError(f"no windows produced from {input_path}")
     meta = collect.PredictionMeta.from_batches(kept)
 
@@ -486,13 +562,24 @@ def run_core(
     stem = fasta_stem(input_path)
     table = output_dir / f"{stem}_default_jaeger.tsv"
     phage_table = output_dir / f"{stem}_default_phages_jaeger.tsv"
+    if num_hosts > 1:
+        table = mh.shard_path(table, host_id)
+        phage_table = mh.shard_path(phage_table, host_id)
+    # a host's shards are written aside and renamed into place, the table
+    # last: the merging host takes a shard that exists as whole
+    partial = {t: t.with_name(t.name + ".partial") if num_hosts > 1 else t
+               for t in (table, phage_table)}
     n = collect.write_output(
-        data, output_table_path=table, output_phage_table_path=phage_table,
+        data, output_table_path=partial[table],
+        output_phage_table_path=partial[phage_table],
         labels=labels or [str(i) for i in range(outputs["prediction"].shape[-1])],
         indices=indices or list(range(outputs["prediction"].shape[-1])),
         reliability_cutoff=reliability_cutoff, phage_score=phage_score,
         refined_contig=refined_contig,
     )
+    for final in (phage_table, table):
+        if partial[final] != final and partial[final].exists():
+            partial[final].replace(final)
     if getsequences and phage_table.exists():
         out_fasta = output_dir / f"{stem}_phages_jaeger.fasta"
         collect.write_fasta_from_results(str(input_path), str(phage_table),
@@ -502,6 +589,8 @@ def run_core(
         _prophage_stage(output_dir, stem, input_path, data_full, indices,
                         labels, fsize=fsize, stride=stride, lc=lc,
                         sensitivity=sensitivity, plot_type=plot_type)
+    # a per-host suffix keeps the aux outputs of the hosts apart
+    aux_suffix = f".host{host_id:03d}" if num_hosts > 1 else ""
     if save_window_scores:
         def objs(seq):
             arr = np.empty(len(seq), dtype=object)
@@ -509,7 +598,7 @@ def run_core(
             return arr
 
         np.savez(
-            output_dir / f"{stem}_window_scores.npz",
+            output_dir / f"{stem}_window_scores{aux_suffix}.npz",
             headers=data_full["headers"], lengths=data_full["lengths"],
             predictions=objs(data_full["predictions"]),
             gc_skews=objs(data_full["gc_skews"]), gcs=objs(data_full["gcs"]),
@@ -519,12 +608,35 @@ def run_core(
         np.asarray(meta.seqlen, np.int64) < fsize, kind="stable")
     for key, flag in (("embedding", save_embedding), ("nmd", save_nmd)):
         if flag and key in outputs:
+            name = "embeddings" if key == "embedding" else key
             np.savez_compressed(
-                output_dir / f"{stem}_{'embeddings' if key == 'embedding' else key}.npz",
+                output_dir / f"{stem}_{name}{aux_suffix}.npz",
                 **{key: np.asarray(outputs[key])[win_order]},
                 headers=np.asarray(meta.headers, dtype=str)[win_order],
             )
     dt = time.time() - t0
     logger.info(f"predict: {n} contigs, {n_windows} windows in {dt:.2f}s "
                 f"({n_windows / dt:.0f} windows/s) on {dev}")
+    if num_hosts > 1:
+        merged = _maybe_merge_shards(output_dir, stem, num_hosts)
+        if merged is not None:
+            return merged
     return table
+
+
+def _with_seq_axis(model, config: dict, dtype, dev, axis: str):
+    """The model rebuilt with ``model.parallel.seq_axis = axis`` and the
+    same weights (the parameter tree does not depend on it)."""
+    import copy
+
+    from jaeger_tpu_torch.models.artifacts import load_state
+    from jaeger_tpu_torch.models.builder import build_model
+
+    cfg = copy.deepcopy(config)
+    mcfg = cfg["model"] if "model" in cfg else cfg
+    if not isinstance(mcfg.get("parallel"), dict):
+        mcfg["parallel"] = {}
+    mcfg["parallel"]["seq_axis"] = axis
+    sharded = build_model(cfg, dtype=dtype)
+    load_state(sharded, {k: v for k, v in model.state_dict().items()})
+    return sharded.to(dev).eval()

@@ -10,9 +10,9 @@ The forward runs through the port's ``InferenceEngine`` (the residual
 convs on the ``fused_conv_block`` kernel on the card). The search is one
 matmul of the normalized queries against the index and a top-k, on the
 same device, with ties broken toward the lower index row as
-``jax.lax.top_k`` breaks them. On one device the port searches the whole
-index; the row-sharded multi-device search comes with the port's
-multi-device work (ROADMAP.md queue 1, item 14).
+``jax.lax.top_k`` breaks them. Over several devices (a ``DeviceMesh``)
+the index rows are sharded and the local top-k lists merged, with the
+one-device results (``CosineIndex._search_sharded``).
 """
 
 from __future__ import annotations
@@ -158,6 +158,29 @@ def topk_lower_index(sims, k: int):
     return scores, idx.gather(1, order)
 
 
+def _merge_shards(chunk, k: int, index: list, devices: list, n: int):
+    """One query chunk's global top-k from the index shards: local top-k a
+    shard, then the stable merge on ``devices[0]``."""
+    import torch
+
+    home = devices[0]
+    per = index[0].shape[0]
+    s_all, g_all = [], []
+    for r, (x, dev) in enumerate(zip(index, devices)):
+        sims = chunk.to(dev) @ x.T                          # (B, per)
+        gid = r * per + torch.arange(per, device=dev)
+        sims = torch.where(gid[None, :] < n, sims,
+                           torch.full((), -torch.inf, device=dev))
+        s, i = topk_lower_index(sims, min(k, per))
+        s_all.append(s.to(home))
+        g_all.append((i + r * per).to(home))
+    s_all = torch.cat(s_all, dim=1)
+    g_all = torch.cat(g_all, dim=1)
+    order = torch.sort(s_all, dim=1, descending=True,
+                       stable=True).indices[:, :k]
+    return s_all.gather(1, order), g_all.gather(1, order)
+
+
 class CosineIndex:
     """Flat cosine index: one matmul + top-k per chunk of queries.
 
@@ -175,20 +198,57 @@ class CosineIndex:
         )
         self.taxids = np.asarray(taxids, np.int64)
 
-    def search(self, queries: np.ndarray, k: int = 5, device=None):
-        import torch
-
+    def search(self, queries: np.ndarray, k: int = 5, device=None,
+               mesh=None):
+        """(scores, indices) of each query's ``k`` nearest index rows. With
+        ``mesh`` (a :class:`~jaeger_tpu_torch.parallel.mesh.DeviceMesh`)
+        the index rows are sharded over its devices
+        (:meth:`_search_sharded`), with the same results."""
         from jaeger_tpu_torch.utils.devices import resolve_device
 
-        dev = resolve_device(device)
         n = self.embeddings.shape[0]
         k = min(k, n)
         q = _l2_normalize(np.asarray(queries, np.float32))
         n_q = q.shape[0]
         if k == 0:
             return np.zeros((n_q, 0), np.float32), np.zeros((n_q, 0), np.int64)
-        index = torch.from_numpy(self.embeddings).to(dev)
-        rows = max(1, SEARCH_CHUNK_ELEMENTS // n)
+        if mesh is not None:
+            return self._search_sharded(q, k, mesh)
+        return self._search(q, k, [self.embeddings], [resolve_device(device)])
+
+    def _search_sharded(self, q: np.ndarray, k: int, mesh):
+        """Row-sharded search of normalized queries ``q``, as
+        `jaeger_tpu/commands/taxonomy.py::_search_sharded`: device ``d``
+        holds index rows ``[d·R, (d+1)·R)`` (``R = ceil(n / N)``, zero rows
+        past ``n``); see :meth:`_search`."""
+        n, d = self.embeddings.shape
+        per = -(-n // mesh.size)
+        padded = np.zeros((per * mesh.size, d), np.float32)
+        padded[:n] = self.embeddings
+        return self._search(
+            q, k, [padded[i * per:(i + 1) * per] for i in range(mesh.size)],
+            list(mesh.devices))
+
+    def _search(self, q: np.ndarray, k: int, shards: list, devices: list):
+        """The search over index ``shards`` (equal row counts, shard ``r``
+        on ``devices[r]``), queries in chunks of at most
+        ``SEARCH_CHUNK_ELEMENTS`` scores a shard. The whole index on one
+        device: one product and :func:`topk_lower_index`. Sharded: each
+        device's local top-k (rows past ``n`` score ``-inf``, so they
+        never win), the lists gathered on the first device in shard order
+        and merged by a stable descending sort, so equal scores keep the
+        lower global row first, as the one-device search orders them."""
+        import torch
+
+        from jaeger_tpu_torch.utils.devices import resolve_device
+
+        n = self.embeddings.shape[0]
+        n_q = q.shape[0]
+        per = shards[0].shape[0]
+        devices = [resolve_device(d) for d in devices]
+        index = [torch.from_numpy(x).to(d) for x, d in zip(shards, devices)]
+        whole = len(shards) == 1 and per == n
+        rows = max(1, SEARCH_CHUNK_ELEMENTS // per)
         if q.shape[0] > rows and q.shape[0] % rows:
             # every chunk the same shape, so the product takes the same
             # route for each, wherever a query row lands
@@ -196,8 +256,11 @@ class CosineIndex:
                                              q.shape[1]), np.float32)])
         scores, idx = [], []
         for lo in range(0, q.shape[0], rows):
-            qm = torch.from_numpy(q[lo: lo + rows]).to(dev)
-            s, i = topk_lower_index(qm @ index.T, k)
+            chunk = torch.from_numpy(q[lo: lo + rows])
+            if whole:
+                s, i = topk_lower_index(chunk.to(devices[0]) @ index[0].T, k)
+            else:
+                s, i = _merge_shards(chunk, k, index, devices, n)
             scores.append(s.cpu().numpy())
             idx.append(i.cpu().numpy())
         if not scores:
@@ -321,8 +384,12 @@ def predict_taxonomy(
     workers: int = 0,
     overwrite: bool = False,
     device=None,
+    mesh=None,
 ) -> Path:
-    """Assign a lineage per contig via embedding k-NN + majority LCA."""
+    """Assign a lineage per contig via embedding k-NN + majority LCA.
+    ``mesh`` (a :class:`~jaeger_tpu_torch.parallel.mesh.DeviceMesh`)
+    shards the index search over its devices; by default
+    the search shards over every visible card of a bare ``cuda``."""
     db_dir = Path(db_dir)
     index = CosineIndex.load(db_dir / "genomes_index.npz")
     taxdb = TaxDb(db_dir / "tax")
@@ -330,7 +397,17 @@ def predict_taxonomy(
     embeddings, headers = _embed_fasta(model_path, fasta, fsize, batch,
                                        precision=precision, stride=stride,
                                        workers=workers, device=device)
-    scores, idx = index.search(embeddings, k=k, device=device)
+    # shard the index rows over every visible card (capacity scales with
+    # the mesh; the results are those of the one-device search)
+    if mesh is None:
+        from jaeger_tpu_torch.parallel.mesh import mesh_of, visible_width
+        from jaeger_tpu_torch.utils.devices import resolve_device
+
+        dev = resolve_device(device)
+        width = visible_width(dev, 1)
+        if width > 1:
+            mesh = mesh_of(dev, width, "data")
+    scores, idx = index.search(embeddings, k=k, device=device, mesh=mesh)
     window_taxids = index.taxids[idx]  # (n, k)
 
     rows = []

@@ -1,5 +1,4 @@
-"""Training orchestration on one device: projection -> classifier ->
-reliability.
+"""Training orchestration: projection -> classifier -> reliability.
 
 Counterpart of `jaeger_tpu/commands/train.py` (``train_fragment_core``):
 config-driven branch training with convergence markers, per-epoch
@@ -15,12 +14,16 @@ port's ``quantize_bundle``). The inner loop is
 :mod:`jaeger_tpu_torch.train.loop`.
 
 The port also writes ``<out>/history.csv`` (one row per branch epoch).
-Multi-device training and a ``model.parallel.seq_axis`` config raise
-``NotImplementedError`` naming ``ROADMAP.md`` queue 1, item 14.
+Multi-process data-parallel training runs under a ``torch.distributed``
+process group (``train --coordinator``; the primary process writes every
+file, the others generate reliability data into ``<dir>.proc<K>``), and
+a ``model.parallel.seq_axis`` config trains sequence-sharded Hyena blocks
+(:func:`train_fragment_core`).
 """
 
 from __future__ import annotations
 
+import copy
 import csv
 import logging
 import shutil
@@ -33,6 +36,9 @@ import torch
 from jaeger_tpu_torch.models.artifacts import (init_params, load_state,
                                                save_model)
 from jaeger_tpu_torch.models.builder import build_model
+from jaeger_tpu_torch.parallel import multihost as mh
+from jaeger_tpu_torch.parallel.mesh import (mesh_of, pad_to_multiple,
+                                            use_mesh, visible_width)
 from jaeger_tpu_torch.train import data as data_lib
 from jaeger_tpu_torch.train import losses as losses_lib
 from jaeger_tpu_torch.train.callbacks import build_callbacks
@@ -241,6 +247,26 @@ def _apply_frequency_biases(config, model, train_paths, train_cfg, sp,
                         f"{branch_paths[-1]}")
 
 
+def _decide_seq_mesh(config: dict, dev):
+    """The sequence mesh of a ``model.parallel.seq_axis`` config:
+    ``training.seq_shard`` devices (capped by the visible cards; on the
+    CPU it repeats the CPU), else every visible card. None when the
+    config has no ``seq_axis`` or the width is 1: the run then uses the
+    model without the knob."""
+    model_cfg = config.get("model", config)
+    seq_axis = (model_cfg.get("parallel") or {}).get("seq_axis")
+    if not seq_axis:
+        return None
+    want = int(config.get("training", {}).get("seq_shard", 0) or 0)
+    n_avail = visible_width(dev, max(want, 1))
+    width = max(1, min(want or n_avail, n_avail))
+    if width <= 1:
+        return None
+    logger.info(f"sequence-sharded Hyena training over {width} devices "
+                f"(axis {seq_axis!r})")
+    return mesh_of(dev, width, str(seq_axis))
+
+
 def train_fragment_core(
     config_path: str,
     output_dir: str | None = None,
@@ -265,266 +291,308 @@ def train_fragment_core(
     device=None,
 ) -> dict:
     """Train the projection, classifier and reliability branches of
-    ``config_path`` on one device (default ``cuda``; raises without CUDA
+    ``config_path`` on ``device`` (default ``cuda``; raises without CUDA
     unless ``device="cpu"``) and export the bundle. Returns the results
-    dict (model name, history, parameter count, paths)."""
+    dict (model name, history, parameter count, paths).
+
+    Under a ``torch.distributed`` process group (``train --coordinator``)
+    the run is data parallel: the global batch is padded to a multiple of
+    the world size, each process trains on its rows of it, and only the
+    primary process writes files. A ``model.parallel.seq_axis`` config
+    length-shards its Hyena blocks over the mesh that
+    :func:`_decide_seq_mesh` picks, and the whole run (steps, evaluation,
+    generation, threshold tuning) runs under that ambient mesh; without
+    one the model is built without the knob."""
     dev = resolve_device(device)
     config = load_model_config(config_path)
-    model_cfg = config.get("model", {})
-    train_cfg = config.get("training", {})
-    sp = model_cfg.get("string_processor", {})
-    if (model_cfg.get("parallel") or {}).get("seq_axis"):
-        raise NotImplementedError(
-            "sequence-parallel training (model.parallel.seq_axis) is not "
-            "yet ported to jaeger_tpu_torch (ROADMAP.md queue 1, item 14)")
-    if masking is not None:
-        model_cfg["use_masking"] = bool(masking)
-    policy = str(precision if precision is not None
-                 else train_cfg.get("mixed_precision", "") or "").lower()
-    compute_dtype = (torch.bfloat16 if policy in (
-        "bfloat16", "mixed_bfloat16", "bf16", "fp16", "mixed_float16",
-        "float16") else torch.float32)
+    seq_mesh = _decide_seq_mesh(config, dev)
+    with use_mesh(seq_mesh):
+        model_cfg = config.get("model", {})
+        train_cfg = config.get("training", {})
+        sp = model_cfg.get("string_processor", {})
+        if masking is not None:
+            model_cfg["use_masking"] = bool(masking)
+        policy = str(precision if precision is not None
+                     else train_cfg.get("mixed_precision", "") or "").lower()
+        compute_dtype = (torch.bfloat16 if policy in (
+            "bfloat16", "mixed_bfloat16", "bf16", "fp16", "mixed_float16",
+            "float16") else torch.float32)
 
-    seed = int(model_cfg.get("seed", 42))
-    model = build_model(config, dtype=compute_dtype)
-    load_state(model, init_params(config, torch.Generator().manual_seed(seed)))
-    model.to(dev)
-    generator = torch.Generator(device=dev).manual_seed(seed)
-    crop_nt = model.crop_nt
-    num_classes = int(model_cfg.get("classifier_out_dim", 3))
+        seed = int(model_cfg.get("seed", 42))
+        build_cfg = config
+        if seq_mesh is None and (model_cfg.get("parallel") or {}).get(
+                "seq_axis"):
+            # no mesh materialized: run the twin without the knob (the
+            # parameter tree is the same)
+            build_cfg = copy.deepcopy(config)
+            build_cfg["model"]["parallel"].pop("seq_axis")
+        model = build_model(build_cfg, dtype=compute_dtype)
+        load_state(model, init_params(
+            config, torch.Generator().manual_seed(seed)))
+        model.to(dev)
+        generator = torch.Generator(device=dev).manual_seed(seed)
+        crop_nt = model.crop_nt
+        num_classes = int(model_cfg.get("classifier_out_dim", 3))
 
-    out_root = Path(output_dir or train_cfg.get("model_saving", {}).get(
-        "path", "model_out"))
-    ckpt_root = out_root / "checkpoints"
-    ensure_save_path_available(out_root, force=force,
-                               resuming=from_last_checkpoint)
-    data_format = sp.get("data_format", "csv")
-    batch_size = int(batch_override or train_cfg.get("batch_size", 64))
+        out_root = Path(output_dir or train_cfg.get("model_saving", {}).get(
+            "path", "model_out"))
+        ckpt_root = out_root / "checkpoints"
+        ensure_save_path_available(out_root, force=force,
+                                   resuming=from_last_checkpoint)
+        data_format = sp.get("data_format", "csv")
+        batch_size = int(batch_override or train_cfg.get("batch_size", 64))
+        global_batcher = None
+        if mh.is_distributed() and seq_mesh is None:
+            # data parallel: every process loads the identical global batch
+            # stream and trains on its row slice; batch_size is the GLOBAL
+            # batch
+            batch_size = pad_to_multiple(batch_size, mh.process_count())
+            global_batcher = mh.GlobalBatcher()
+            logger.info(f"multi-process training: process "
+                        f"{mh.process_index()}/{mh.process_count()}, global "
+                        f"batch {batch_size}")
+        elif (seq_mesh is None and dev.type == "cuda"
+              and torch.cuda.device_count() > 1):
+            # JAX's train spans every local device in one process; the
+            # port's data parallelism is one process a card
+            logger.warning(
+                f"training on one of {torch.cuda.device_count()} cards: "
+                f"start one process a card with --coordinator HOST:PORT "
+                f"--num-processes N --process-id K to train on all")
 
-    if only_save:
-        from_last_checkpoint = True
-    start_epochs = {"projection": 0, "classifier": 0, "reliability": 0}
-    resume_entry = resume_stage = None
-    if from_last_checkpoint:
-        stage, entry = resolve_resume_stage(ckpt_root)
-        if stage is not None:
-            load_state(model, CheckpointManager(ckpt_root / stage)
-                       .restore(entry))
-            model.to(dev)
-            start_epochs[stage] = entry["epoch"] + 1
-            resume_entry, resume_stage = entry, stage
-            logger.info(f"resumed from {stage} checkpoint epoch "
-                        f"{entry['epoch']}")
+        if only_save:
+            from_last_checkpoint = True
+        start_epochs = {"projection": 0, "classifier": 0, "reliability": 0}
+        resume_entry = resume_stage = None
+        if from_last_checkpoint:
+            stage, entry = resolve_resume_stage(ckpt_root)
+            if stage is not None:
+                load_state(model, CheckpointManager(ckpt_root / stage)
+                           .restore(entry))
+                model.to(dev)
+                start_epochs[stage] = entry["epoch"] + 1
+                resume_entry, resume_stage = entry, stage
+                logger.info(f"resumed from {stage} checkpoint epoch "
+                            f"{entry['epoch']}")
 
-    def resume_opt_state(stage: str, state: TrainState) -> TrainState:
-        if resume_stage == stage and resume_entry is not None:
-            state.opt_state = CheckpointManager(
-                ckpt_root / stage).restore_opt_state(resume_entry,
-                                                     state.opt_state)
-        return state
+        def resume_opt_state(stage: str, state: TrainState) -> TrainState:
+            if resume_stage == stage and resume_entry is not None:
+                state.opt_state = CheckpointManager(
+                    ckpt_root / stage).restore_opt_state(resume_entry,
+                                                         state.opt_state)
+            return state
 
-    paths = _fragment_paths(train_cfg)
-    train_paths = paths.get("train", {}).get("paths", [])
-    val_paths = paths.get("validation", {}).get("paths", [])
-    label_map = _label_map(sp)
-    if not any(start_epochs.values()):
-        _apply_frequency_biases(config, model, train_paths, train_cfg, sp,
-                                branches=("classifier",))
+        paths = _fragment_paths(train_cfg)
+        train_paths = paths.get("train", {}).get("paths", [])
+        val_paths = paths.get("validation", {}).get("paths", [])
+        label_map = _label_map(sp)
+        if not any(start_epochs.values()):
+            _apply_frequency_biases(config, model, train_paths, train_cfg, sp,
+                                    branches=("classifier",))
 
-    def csv_batches(paths_, epoch_seed, repeat=True):
-        return data_lib.batches_from_csv(
-            paths_, batch_size=batch_size, crop_nt=crop_nt,
-            num_classes=num_classes,
-            shuffle_buffer=int(sp.get("buffer_size", 50000)),
-            seed=seed + epoch_seed, label_map=label_map, repeat=repeat)
+        def csv_batches(paths_, epoch_seed, repeat=True):
+            return data_lib.batches_from_csv(
+                paths_, batch_size=batch_size, crop_nt=crop_nt,
+                num_classes=num_classes,
+                shuffle_buffer=int(sp.get("buffer_size", 50000)),
+                seed=seed + epoch_seed, label_map=label_map, repeat=repeat)
 
-    def npz_batches(paths_, epoch_seed, repeat=True):
-        val = not repeat
-        crop_sizes = sp.get("validation_crop_sizes" if val
-                            else "crop_sizes") or sp.get("crop_sizes")
-        if crop_sizes:
-            return data_lib.cropped_batches_from_npz(
+        def npz_batches(paths_, epoch_seed, repeat=True):
+            val = not repeat
+            crop_sizes = sp.get("validation_crop_sizes" if val
+                                else "crop_sizes") or sp.get("crop_sizes")
+            if crop_sizes:
+                return data_lib.cropped_batches_from_npz(
+                    paths_[0], batch_size=batch_size, num_classes=num_classes,
+                    crop_sizes=crop_sizes,
+                    strides=sp.get("validation_strides" if val else "strides"),
+                    overlap=sp.get("validation_overlap" if val else "overlap"),
+                    crop_mode=sp.get("crop_mode", "all"),
+                    seed=seed + epoch_seed, repeat=repeat)
+            return data_lib.batches_from_npz(
                 paths_[0], batch_size=batch_size, num_classes=num_classes,
-                crop_sizes=crop_sizes,
-                strides=sp.get("validation_strides" if val else "strides"),
-                overlap=sp.get("validation_overlap" if val else "overlap"),
-                crop_mode=sp.get("crop_mode", "all"), seed=seed + epoch_seed,
-                repeat=repeat)
-        return data_lib.batches_from_npz(
-            paths_[0], batch_size=batch_size, num_classes=num_classes,
-            seed=seed + epoch_seed, repeat=repeat)
+                seed=seed + epoch_seed, repeat=repeat)
 
-    make_raw = npz_batches if data_format == "numpy" else csv_batches
-    shuffle_frames = bool(sp.get("shuffle_frames", False))
+        make_raw = npz_batches if data_format == "numpy" else csv_batches
+        shuffle_frames = bool(sp.get("shuffle_frames", False))
 
-    def make_batches(paths_, epoch_seed, repeat=True):
-        batches = make_raw(paths_, epoch_seed, repeat=repeat)
-        if shuffle_frames and repeat:
-            batches = data_lib.with_frame_shuffle(
-                batches, seed=seed + 7919 * (epoch_seed + 1))
-        return batches
+        def make_batches(paths_, epoch_seed, repeat=True):
+            batches = make_raw(paths_, epoch_seed, repeat=repeat)
+            if shuffle_frames and repeat:
+                batches = data_lib.with_frame_shuffle(
+                    batches, seed=seed + 7919 * (epoch_seed + 1))
+            return batches
 
-    reg_specs = tuple(model.regularizer_specs())
-    history: dict = {}
-    results: dict = {"model": model_cfg.get("name", "jaeger_model")}
+        reg_specs = tuple(model.regularizer_specs())
+        history: dict = {}
+        results: dict = {"model": model_cfg.get("name", "jaeger_model")}
 
-    def converged(branch_dir):
-        if ignore_convergence:
-            return None
-        from jaeger_tpu_torch.train.checkpoint import read_convergence_marker
-        return read_convergence_marker(branch_dir)
+        def converged(branch_dir):
+            if ignore_convergence:
+                return None
+            from jaeger_tpu_torch.train.checkpoint import (
+                read_convergence_marker)
+            return read_convergence_marker(branch_dir)
 
-    def run(branch, step_cfg, tx, batches, val_batches, epochs, steps,
-            val_steps, loss_name, output_key):
-        state = resume_opt_state(branch, TrainState.create(model, tx))
-        step_fn = make_dispatching_train_step(model, step_cfg, dev)
-        callbacks = build_callbacks(
-            train_cfg.get("callbacks", {}).get(branch, []))
-        branch_dir = ckpt_root / branch
-        TrainingStatePersistence(branch_dir).restore_into(callbacks)
-        evaluate = make_eval_fn(model, loss_name, dev, output_key)
-        model.train()
-        state, hist = _run_branch(
-            branch, state, step_fn, batches, val_batches, epochs, steps,
-            val_steps, branch_dir, callbacks, evaluate, generator,
-            start_epoch=start_epochs[branch])
-        model.eval()
-        results.setdefault("programs", {})[branch] = dict(
-            step_fn.program_counts)
-        return hist
+        def run(branch, step_cfg, tx, batches, val_batches, epochs, steps,
+                val_steps, loss_name, output_key):
+            state = resume_opt_state(branch, TrainState.create(model, tx))
+            step_fn = make_dispatching_train_step(
+                model, step_cfg, dev, global_batcher=global_batcher)
+            callbacks = build_callbacks(
+                train_cfg.get("callbacks", {}).get(branch, []))
+            branch_dir = ckpt_root / branch
+            TrainingStatePersistence(branch_dir).restore_into(callbacks)
+            evaluate = make_eval_fn(model, loss_name, dev, output_key)
+            model.train()
+            state, hist = _run_branch(
+                branch, state, step_fn, batches, val_batches, epochs, steps,
+                val_steps, branch_dir, callbacks, evaluate, generator,
+                start_epoch=start_epochs[branch])
+            model.eval()
+            results.setdefault("programs", {})[branch] = dict(
+                step_fn.program_counts)
+            return hist
 
-    # === PROJECTION (self-supervised ArcFace pretraining) ===
-    proj_cfg = model_cfg.get("projection")
-    proj_epochs = int(train_cfg.get("projection_epochs", 0) or 0)
-    proj_dir = ckpt_root / "projection"
-    if (proj_cfg and proj_epochs > 0 and self_supervised_pretraining
-            and train_paths and converged(proj_dir) is None
-            and not (only_reliability_head or only_save)):
-        logger.info("training projection branch (ArcFace)")
-        history["projection"] = _train_projection(
-            model, proj_cfg, train_cfg, num_classes, reg_specs,
-            lambda e: make_batches(train_paths, e), proj_epochs,
-            int(steps_override or train_cfg.get("classifier_train_steps",
-                                                100)),
-            dev, generator, torch.Generator().manual_seed(seed))
-        write_convergence_marker(proj_dir, "projection",
-                                 {"epochs": proj_epochs})
+        # === PROJECTION (self-supervised ArcFace pretraining) ===
+        proj_cfg = model_cfg.get("projection")
+        proj_epochs = int(train_cfg.get("projection_epochs", 0) or 0)
+        proj_dir = ckpt_root / "projection"
+        if (proj_cfg and proj_epochs > 0 and self_supervised_pretraining
+                and train_paths and converged(proj_dir) is None
+                and not (only_reliability_head or only_save)):
+            logger.info("training projection branch (ArcFace)")
+            history["projection"] = _train_projection(
+                model, proj_cfg, train_cfg, num_classes, reg_specs,
+                lambda e: make_batches(train_paths, e), proj_epochs,
+                int(steps_override or train_cfg.get("classifier_train_steps",
+                                                    100)),
+                dev, generator, torch.Generator().manual_seed(seed),
+                global_batcher)
+            write_convergence_marker(proj_dir, "projection",
+                                     {"epochs": proj_epochs})
 
-    # === CLASSIFIER ===
-    cls_epochs = int(epochs_override if epochs_override is not None
-                     else train_cfg.get("classifier_epochs", 1))
-    cls_dir = ckpt_root / "classifier"
-    if cls_epochs > 0 and train_paths and (
-            converged(cls_dir) is None or epochs_override) and not (
-            only_reliability_head or only_save):
-        loss_name = train_cfg.get("loss_classifier",
-                                  "categorical_crossentropy")
-        tx = make_optimizer(
-            train_cfg.get("optimizer", "adam"),
-            train_cfg.get("optimizer_params", {}),
-            accumulation_steps=int(train_cfg.get("accumulation_steps", 1)
-                                   or 1))
-        step_cfg = StepConfig(
-            loss_name=loss_name,
-            loss_params=train_cfg.get("loss_params_classifier", {}),
-            class_weights=_class_weights(train_cfg,
-                                         "classifier_class_weights",
-                                         num_classes, dev),
-            reg_specs=reg_specs,
-            frozen_prefixes=(("embedding", "translated_embedding", "rep",
-                              "rep_branch", "projection")
-                             if only_classification_head else ()),
-            heads=("prediction",))
-        cls_hist = run(
-            "classifier", step_cfg, tx,
-            lambda e: make_batches(train_paths, e),
-            (lambda: make_batches(val_paths, 999, repeat=False))
-            if val_paths else None,
-            cls_epochs,
-            int(steps_override or train_cfg.get("classifier_train_steps",
-                                                100)),
-            int(train_cfg.get("classifier_validation_steps", 10)),
-            loss_name, "prediction")
-        write_convergence_marker(cls_dir, "classifier", {
-            "epochs": cls_epochs, "final": cls_hist[-1] if cls_hist else {}})
-        history["classifier"] = cls_hist
-
-    # === RELIABILITY ===
-    rel_cfg = model_cfg.get("reliability_model")
-    rel_epochs = int(train_cfg.get("reliability_epochs", 0) or 0)
-    rel_dir = ckpt_root / "reliability"
-    if generate_reliability is None:
-        generate_reliability = bool(train_cfg.get("generate_reliability_data",
-                                                  False))
-    rel_paths = _fragment_paths(train_cfg, "fragment_reliability_data")
-    if rel_cfg and rel_epochs > 0 and not only_save:
-        if generate_reliability:
-            rel_paths = _generate_reliability(
-                model, train_cfg, train_paths, rel_paths, out_root, crop_nt,
-                id_threshold, synthetic_ood_threshold,
-                synthetic_ood_multiplier)
-        rel_train = rel_paths.get("train", {}).get("paths", [])
-        rel_val = rel_paths.get("validation", {}).get("paths", [])
-        if start_epochs["reliability"] == 0:
-            _apply_frequency_biases(config, model, train_paths, train_cfg,
-                                    sp, reliability_paths=rel_train,
-                                    branches=("reliability_model",))
-        if rel_train:
-            logger.info("training reliability branch (rep+classifier "
-                        "frozen)")
-            loss_name = train_cfg.get("loss_reliability",
-                                      "binary_crossentropy")
-            tx = make_optimizer(train_cfg.get("optimizer", "adam"),
-                                train_cfg.get("optimizer_params", {}))
+        # === CLASSIFIER ===
+        cls_epochs = int(epochs_override if epochs_override is not None
+                         else train_cfg.get("classifier_epochs", 1))
+        cls_dir = ckpt_root / "classifier"
+        if cls_epochs > 0 and train_paths and (
+                converged(cls_dir) is None or epochs_override) and not (
+                only_reliability_head or only_save):
+            loss_name = train_cfg.get("loss_classifier",
+                                      "categorical_crossentropy")
+            tx = make_optimizer(
+                train_cfg.get("optimizer", "adam"),
+                train_cfg.get("optimizer_params", {}),
+                accumulation_steps=int(train_cfg.get("accumulation_steps", 1)
+                                       or 1))
             step_cfg = StepConfig(
                 loss_name=loss_name,
-                loss_params=train_cfg.get("loss_params_reliability", {}),
-                output_key="reliability",
-                frozen_prefixes=("embedding", "rep", "classifier",
-                                 "projection"),
-                heads=("reliability",))
+                loss_params=train_cfg.get("loss_params_classifier", {}),
+                class_weights=_class_weights(train_cfg,
+                                             "classifier_class_weights",
+                                             num_classes, dev),
+                reg_specs=reg_specs,
+                frozen_prefixes=(("embedding", "translated_embedding", "rep",
+                                  "rep_branch", "projection")
+                                 if only_classification_head else ()),
+                heads=("prediction",))
+            cls_hist = run(
+                "classifier", step_cfg, tx,
+                lambda e: make_batches(train_paths, e),
+                (lambda: make_batches(val_paths, 999, repeat=False))
+                if val_paths else None,
+                cls_epochs,
+                int(steps_override or train_cfg.get("classifier_train_steps",
+                                                    100)),
+                int(train_cfg.get("classifier_validation_steps", 10)),
+                loss_name, "prediction")
+            write_convergence_marker(cls_dir, "classifier", {
+                "epochs": cls_epochs,
+                "final": cls_hist[-1] if cls_hist else {}})
+            history["classifier"] = cls_hist
 
-            def rel_batches(paths_, epoch_seed, repeat=True):
-                return data_lib.batches_from_csv(
-                    paths_, batch_size=batch_size, crop_nt=crop_nt,
-                    num_classes=1, seed=seed + epoch_seed, repeat=repeat,
-                    label_map=_label_map(sp, "reliability"))
+        # === RELIABILITY ===
+        rel_cfg = model_cfg.get("reliability_model")
+        rel_epochs = int(train_cfg.get("reliability_epochs", 0) or 0)
+        rel_dir = ckpt_root / "reliability"
+        if generate_reliability is None:
+            generate_reliability = bool(
+                train_cfg.get("generate_reliability_data", False))
+        rel_paths = _fragment_paths(train_cfg, "fragment_reliability_data")
+        if rel_cfg and rel_epochs > 0 and not only_save:
+            if generate_reliability:
+                rel_paths = _generate_reliability(
+                    model, train_cfg, train_paths, rel_paths, out_root,
+                    crop_nt, id_threshold, synthetic_ood_threshold,
+                    synthetic_ood_multiplier)
+            rel_train = rel_paths.get("train", {}).get("paths", [])
+            rel_val = rel_paths.get("validation", {}).get("paths", [])
+            if start_epochs["reliability"] == 0:
+                _apply_frequency_biases(config, model, train_paths, train_cfg,
+                                        sp, reliability_paths=rel_train,
+                                        branches=("reliability_model",))
+            if rel_train:
+                logger.info("training reliability branch (rep+classifier "
+                            "frozen)")
+                loss_name = train_cfg.get("loss_reliability",
+                                          "binary_crossentropy")
+                tx = make_optimizer(train_cfg.get("optimizer", "adam"),
+                                    train_cfg.get("optimizer_params", {}))
+                step_cfg = StepConfig(
+                    loss_name=loss_name,
+                    loss_params=train_cfg.get("loss_params_reliability", {}),
+                    output_key="reliability",
+                    frozen_prefixes=("embedding", "rep", "classifier",
+                                     "projection"),
+                    heads=("reliability",))
 
-            rel_hist = run(
-                "reliability", step_cfg, tx,
-                lambda e: rel_batches(rel_train, e),
-                (lambda: rel_batches(rel_val, 999, repeat=False))
-                if rel_val else None,
-                rel_epochs,
-                int(steps_override or train_cfg.get(
-                    "reliability_train_steps", 100)),
-                int(train_cfg.get("reliability_validation_steps", 10)),
-                loss_name, "reliability")
-            write_convergence_marker(rel_dir, "reliability",
-                                     {"epochs": rel_epochs})
-            history["reliability"] = rel_hist
-            if rel_val:
-                _tune_threshold(model, rel_val[0], crop_nt, batch_size, dev,
-                                rel_dir, results)
+                def rel_batches(paths_, epoch_seed, repeat=True):
+                    return data_lib.batches_from_csv(
+                        paths_, batch_size=batch_size, crop_nt=crop_nt,
+                        num_classes=1, seed=seed + epoch_seed, repeat=repeat,
+                        label_map=_label_map(sp, "reliability"))
 
-    results["history"] = history
-    results["params"] = int(sum(p.numel() for p in model.parameters()))
-    trained_this_run = bool(history) or any(start_epochs.values())
-    if save:
-        _export(model, config, train_cfg, out_root, trained_this_run,
-                history, results, dev)
-        if meta:
-            import json
+                rel_hist = run(
+                    "reliability", step_cfg, tx,
+                    lambda e: rel_batches(rel_train, e),
+                    (lambda: rel_batches(rel_val, 999, repeat=False))
+                    if rel_val else None,
+                    rel_epochs,
+                    int(steps_override or train_cfg.get(
+                        "reliability_train_steps", 100)),
+                    int(train_cfg.get("reliability_validation_steps", 10)),
+                    loss_name, "reliability")
+                write_convergence_marker(rel_dir, "reliability",
+                                         {"epochs": rel_epochs})
+                history["reliability"] = rel_hist
+                if rel_val:
+                    _tune_threshold(model, rel_val[0], crop_nt, batch_size,
+                                    dev, rel_dir, results)
 
-            Path(meta).write_text(json.dumps(
-                {"model_path": str(out_root),
-                 "experiment_path": str(Path(out_root).parent)}, indent=2))
-    return results
+        results["history"] = history
+        results["params"] = int(sum(p.numel() for p in model.parameters()))
+        trained_this_run = bool(history) or any(start_epochs.values())
+        if save and not mh.is_primary():
+            # the other processes computed the same model; the export, the
+            # int8 calibration and the metadata are the primary's to write
+            results["model_path"] = str(out_root)
+            return results
+        if save:
+            _export(model, config, train_cfg, out_root, trained_this_run,
+                    history, results, dev)
+            if meta:
+                import json
+
+                Path(meta).write_text(json.dumps(
+                    {"model_path": str(out_root),
+                     "experiment_path": str(Path(out_root).parent)}, indent=2))
+        return results
 
 
 def _train_projection(model, proj_cfg, train_cfg, num_classes, reg_specs,
                       make_train_batches, epochs, steps, device, generator,
-                      init_generator) -> list[dict]:
+                      init_generator, global_batcher=None) -> list[dict]:
     """The ArcFace pretraining of the projection head, as JAX's ``proj_step``:
     one optimizer over the model's parameters and the ArcFace
     ``class_weights`` (not exported), the training forward of the
@@ -552,6 +620,8 @@ def _train_projection(model, proj_cfg, train_cfg, num_classes, reg_specs,
         for i, batch in enumerate(make_train_batches(epoch)):
             if i >= steps:
                 break
+            if global_batcher is not None:
+                batch = global_batcher.shard(batch)
             opt_state, loss = step(opt_state, to_device(batch, device),
                                    generator)
         if loss is not None:
@@ -591,13 +661,19 @@ def make_projection_step(model, arcface, tx, reg_specs=()):
                  for (k, p), g in zip(params.items(), got)}
         for p in params.values():
             p.requires_grad_(False)
+        loss = loss.detach()
+        if mh.is_distributed():
+            # data parallel: the means over the processes, one buffer
+            reduced = mh.all_reduce_mean({**grads, ("metric", "loss"): loss})
+            loss = reduced.pop(("metric", "loss"))
+            grads = reduced
         with torch.no_grad():
             values = {k: p.detach() for k, p in params.items()}
             updates, opt_state = tx.update(grads, opt_state, values)
             for k, p in params.items():
                 p.add_(updates[k])
         step.grads = grads
-        return opt_state, loss.detach()
+        return opt_state, loss
 
     step.grads = None
     return step
@@ -630,10 +706,14 @@ def _generate_reliability(model, train_cfg, train_paths, rel_paths,
     def knob(arg, key, default):
         return float(arg if arg is not None else gen_cfg.get(key, default))
 
+    gen_out = gen_cfg.get("output_dir") or str(out_root / "reliability_data")
+    if mh.is_multiprocess() and not mh.is_primary():
+        # generation is seeded, so every process makes the same data, but
+        # only the primary writes the canonical directory
+        gen_out = str(Path(gen_out).with_name(
+            Path(gen_out).name + f".proc{mh.process_index()}"))
     return generate_reliability_data(
-        model, raw_train,
-        gen_cfg.get("output_dir") or str(out_root / "reliability_data"),
-        crop_nt,
+        model, raw_train, gen_out, crop_nt,
         id_threshold=knob(id_threshold, "id_threshold", 0.8),
         synthetic_ood_threshold=knob(synthetic_ood_threshold,
                                      "synthetic_ood_threshold", 0.8),
@@ -660,9 +740,10 @@ def _tune_threshold(model, csv_path, crop_nt, batch_size, device, rel_dir,
         write_calibration_outputs, write_threshold_outputs)
 
     best, rows, summary = tune_reliability_threshold(scores, labels)
-    write_threshold_outputs(rel_dir, best, rows)
     ece, _, cal_rows = calibration_summary(scores, labels)
-    write_calibration_outputs(rel_dir, cal_rows)
+    if mh.is_primary():
+        write_threshold_outputs(rel_dir, best, rows)
+        write_calibration_outputs(rel_dir, cal_rows)
     results["reliability_threshold"] = best
     results["reliability_auroc"] = summary["auroc"]
     logger.info(f"reliability threshold={best} auroc={summary['auroc']:.3f} "

@@ -1,6 +1,6 @@
-"""Batched inference engine on one device (PyTorch).
+"""Batched inference engine (PyTorch).
 
-Counterpart of `jaeger_tpu/infer/engine.py`, one device: windows stream
+Counterpart of `jaeger_tpu/infer/engine.py`: windows stream
 through the model in fixed-size batches (the last one padded and
 trimmed); base IDs cross host->device nibble-packed (two per byte) and
 are unpacked on the device; logits come back in float32. Per batch, one
@@ -22,6 +22,17 @@ the base of a split batch, runs on that model, as the JAX engine's
 on the float model. A model without a ``config`` (an
 :class:`~jaeger_tpu_torch.models.ensemble.EnsembleModel`) has no
 bounded-mask cuts, as in the JAX engine's ``_mask_plans``.
+
+Data parallel (``mesh``, a :class:`~jaeger_tpu_torch.parallel.mesh.
+DeviceMesh`, as JAX's data mesh): the batch size is padded to a multiple
+of the mesh size, the split bucket is a multiple of it, each program's
+rows are cut into one equal share a device, each device runs its own
+replica of the model on its share, and the outputs are gathered back in
+row order on the first device. Eval mode has no cross-row state, so no
+collective runs. ``seq_mesh``: a model built with ``parallel.seq_axis``
+runs its Hyena blocks length-sharded over that mesh
+(:mod:`jaeger_tpu_torch.parallel.hyena_sp`); the two meshes exclude each
+other.
 
 Pipelining: on CUDA the packed bases are copied from pinned host memory
 with ``non_blocking=True`` and the forward is enqueued without waiting,
@@ -46,6 +57,7 @@ from jaeger_tpu_torch.ops.encode import (bounded_mask_levels,
                                          dense_window_rows, pack_bases,
                                          unpack_bases)
 from jaeger_tpu_torch.ops.reduce import ContigAccumulator, contig_partials
+from jaeger_tpu_torch.parallel.mesh import pad_to_multiple, use_mesh
 from jaeger_tpu_torch.seqops.windows import WindowBatch
 from jaeger_tpu_torch.utils.devices import resolve_device
 
@@ -64,7 +76,17 @@ class InferenceEngine:
         output_keys: tuple | None = None,
         split_mixed: bool = True,
         int8_model=None,
+        mesh=None,
+        seq_mesh=None,
     ):
+        if mesh is not None and seq_mesh is not None:
+            raise ValueError("mesh and seq_mesh are mutually exclusive")
+        self.mesh = mesh
+        self.seq_mesh = seq_mesh
+        if mesh is not None:
+            for dev in mesh.devices:
+                resolve_device(dev)
+            device = mesh.devices[0]
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         # `predict --int8 auto`: the dense program, and the dense base
@@ -74,6 +96,13 @@ class InferenceEngine:
         self.int8_model = (None if int8_model is None
                            else int8_model.to(self.device).eval())
         self.batch_size = int(batch_size)
+        if mesh is not None:
+            # data parallel: a replica of each model on each device, the
+            # batch padded to a device multiple
+            self.batch_size = pad_to_multiple(self.batch_size, mesh.size)
+            self._replicas = {id(m): mesh.replicate(m)
+                              for m in (self.model, self.int8_model)
+                              if m is not None}
         self.output_keys = tuple(output_keys) if output_keys else None
         self.split_mixed = bool(split_mixed)
         cfg = getattr(model, "config", None) or {}
@@ -103,10 +132,11 @@ class InferenceEngine:
             return True, None, None
 
         bs = self.batch_size
+        mult = self.mesh.size if self.mesh is not None else 1
 
         def bucket_for(k: int):
             for b in (bs // 16, bs // 8):
-                b = max(b, 1)
+                b = -(-max(b, 1) // mult) * mult
                 if b >= bs:
                     break
                 if k <= b:
@@ -150,18 +180,17 @@ class InferenceEngine:
         ln[midx] = b.shape[1]
         return mb, mln, b, ln
 
-    def _to_device(self, arr: np.ndarray) -> torch.Tensor:
+    def _to_device(self, arr: np.ndarray, device=None) -> torch.Tensor:
+        device = self.device if device is None else device
         t = torch.from_numpy(np.ascontiguousarray(arr))
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
+        if device.type == "cuda":
+            return t.pin_memory().to(device, non_blocking=True)
         return t
 
     def _forward(self, bases: np.ndarray, lengths: np.ndarray,
                  dense: bool = False, mask_cut=None) -> dict:
-        """Enqueue one forward; returns device float32 outputs."""
-        dev_bases = unpack_bases(self._to_device(pack_bases(bases)),
-                                 bases.shape[1])
-        ln = self._to_device(np.asarray(lengths, np.int32))
+        """Enqueue one forward; returns device float32 outputs (on the
+        first device of a data mesh, gathered in row order)."""
         mask_cut = None if dense else mask_cut
         program = ("dense" if dense else "masked" if mask_cut is None
                    else ("bounded", mask_cut))
@@ -170,7 +199,28 @@ class InferenceEngine:
         if dense and self.int8_model is not None:
             model = self.int8_model
             self.int8_forwards += 1
-        with torch.inference_mode():
+        packed = pack_bases(bases)
+        lengths = np.asarray(lengths, np.int32)
+        if self.mesh is None:
+            return self._run(model, self.device, packed, lengths,
+                             bases.shape[1], dense, mask_cut)
+        # each device runs its replica on its rows; no collective (eval
+        # mode has no cross-row state)
+        n = self.mesh.size
+        per = bases.shape[0] // n
+        parts = [self._run(replica, dev, packed[i * per:(i + 1) * per],
+                           lengths[i * per:(i + 1) * per], bases.shape[1],
+                           dense, mask_cut)
+                 for i, (replica, dev) in enumerate(zip(
+                     self._replicas[id(model)], self.mesh.devices))]
+        return {k: self.mesh.gather([p[k] for p in parts])
+                for k in parts[0]}
+
+    def _run(self, model, device, packed, lengths, width: int, dense: bool,
+             mask_cut) -> dict:
+        dev_bases = unpack_bases(self._to_device(packed, device), width)
+        ln = self._to_device(lengths, device)
+        with torch.inference_mode(), use_mesh(self.seq_mesh):
             out = model(dev_bases, ln, assume_dense=dense,
                         mask_layers=mask_cut)
         if self.output_keys is not None:

@@ -141,8 +141,8 @@ def save_model(state: dict[str, torch.Tensor], config: dict,
                path: str | Path, classes: dict | None = None) -> Path:
     """Write a bundle that both packages load: ``state`` (the port's state
     dict) as flax msgpack under ``params`` / ``batch_stats`` (and
-    ``quant`` when the model has int8 convs), the config and the label
-    map."""
+    ``quant`` when the model has int8 convs), the config without
+    ``model.parallel.seq_axis`` and the label map."""
     import yaml
 
     path = Path(path)
@@ -162,6 +162,18 @@ def save_model(state: dict[str, torch.Tensor], config: dict,
         if not tree[coll]:
             del tree[coll]
     write_flax_msgpack(tree, path / "params.msgpack")
+    # parallel.seq_axis is a run-time knob (sequence-sharded execution
+    # needs an ambient mesh), not a property of the model: strip it so the
+    # bundle loads anywhere; predict puts it back for --seq-shard
+    mcfg = config.get("model", config)
+    if (mcfg.get("parallel") or {}).get("seq_axis"):
+        import copy
+
+        config = copy.deepcopy(config)
+        mcfg = config.get("model", config)
+        mcfg.get("parallel", {}).pop("seq_axis", None)
+        if not mcfg.get("parallel"):
+            mcfg.pop("parallel", None)
     (path / "project.yaml").write_text(yaml.safe_dump(config, sort_keys=False))
     if classes is None:
         label_map = config.get("model", config).get("class_label_map", [])

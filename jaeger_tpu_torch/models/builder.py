@@ -20,8 +20,9 @@ The port always re-zeroes after DYT norms, so it needs none of the JAX
 builder's defer-remask analysis. ``model.remat`` recomputes each residual
 stack and Hyena block of the representation learner in the backward
 (``torch.utils.checkpoint``; :func:`_remat`), as JAX's ``nn.remat``.
-``model.parallel.seq_axis`` (a length-sharded Hyena stack) raises
-``NotImplementedError`` naming ``ROADMAP.md`` queue 1, item 14.
+``model.parallel.seq_axis`` builds the Hyena blocks length-sharded over
+the ambient mesh of that axis (:mod:`jaeger_tpu_torch.parallel.hyena_sp`);
+the parameters are the same with or without it.
 """
 
 from __future__ import annotations
@@ -241,8 +242,8 @@ class LayerStack(nn.Module):
     ``global_<pooling>pool``). ``out_channels`` is the feature width after
     the stack, ``nmd_width`` the width of the merged NMD vector (0 without
     NMD taps). ``remat``: residual stacks and Hyena blocks recompute in the
-    backward of a training forward (:func:`_remat`). ``seq_axis`` (JAX's
-    length-sharded Hyena) is refused.
+    backward of a training forward (:func:`_remat`). ``seq_axis``: the
+    Hyena blocks run length-sharded over the ambient mesh of that axis.
     """
 
     def __init__(self, layer_configs: tuple, in_channels: int,
@@ -318,11 +319,6 @@ class LayerStack(nn.Module):
                     ignore_mask=cfg.get("ignore_mask", False), dtype=dtype)
                 c = 2 * mod.units
             elif name == "hyena_block":
-                if seq_axis:
-                    raise NotImplementedError(
-                        f"a length-sharded Hyena stack (model.parallel."
-                        f"seq_axis {seq_axis!r}) is not yet ported to "
-                        f"jaeger_tpu_torch (ROADMAP.md queue 1, item 14)")
                 mod = L.HyenaBlock(
                     c, cfg["dim"], order=cfg.get("order", 2),
                     filter_hidden=cfg.get("filter_hidden", 32),
@@ -331,7 +327,7 @@ class LayerStack(nn.Module):
                     dropout=cfg.get("dropout", 0.0),
                     output_projection=cfg.get("output_projection", False),
                     filter_normalize=cfg.get("filter_normalize", False),
-                    dtype=dtype)
+                    dtype=dtype, seq_axis=seq_axis)
                 c = int(cfg["dim"])
             elif name == "parallel_branches":
                 merge = cfg.get("merge", "concat").lower()

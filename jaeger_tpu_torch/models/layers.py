@@ -74,6 +74,7 @@ from jaeger_tpu_torch.ops.fused_conv import conv_plan, fused_conv_block
 from jaeger_tpu_torch.ops.fused_conv_grad import (check_wgrad_shape,
                                                   fused_conv_block_train)
 from jaeger_tpu_torch.ops.int8_conv import conv_geometry, int8_conv_dequant
+from jaeger_tpu_torch.parallel import multihost as mh
 
 # ---------------------------------------------------------------------------
 # Activations
@@ -434,20 +435,29 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer("moving_variance", torch.ones(channels))
 
     def _batch_stats(self, x, mask):
-        """(mean, variance) over every axis but channels, in f32."""
+        """(mean, variance) over every axis but channels, in f32. Under a
+        process group the statistics are the global batch's
+        (:func:`~jaeger_tpu_torch.parallel.multihost.all_reduce_sum`: the
+        masked sum and count, then the squared deviations; the dense sum
+        and sum of squares), JAX's two formulas on the global batch."""
         reduce_axes = tuple(range(x.dim() - 1))
         if self.use_masking and mask is not None:
             mf = mask[..., None]
-            valid = torch.sum(mf, dim=reduce_axes,
-                              dtype=torch.float32) + self.epsilon
-            mean = torch.sum(apply_mask(x, mask), dim=reduce_axes,
-                             dtype=torch.float32) / valid
+            total, count = mh.all_reduce_sum(
+                torch.sum(apply_mask(x, mask), dim=reduce_axes,
+                          dtype=torch.float32),
+                torch.sum(mf, dim=reduce_axes, dtype=torch.float32))
+            valid = count + self.epsilon
+            mean = total / valid
             sq = torch.square(x.float() - mean) * mf.float()
-            return mean, torch.sum(sq, dim=reduce_axes) / valid
-        n = math.prod(x.shape[a] for a in reduce_axes)
-        mean = torch.sum(x, dim=reduce_axes, dtype=torch.float32) / n
-        return mean, (torch.sum(torch.square(x.float()), dim=reduce_axes) / n
-                      - torch.square(mean))
+            return mean, mh.all_reduce_sum(
+                torch.sum(sq, dim=reduce_axes)) / valid
+        n = math.prod(x.shape[a] for a in reduce_axes) * mh.process_count()
+        total, squares = mh.all_reduce_sum(
+            torch.sum(x, dim=reduce_axes, dtype=torch.float32),
+            torch.sum(torch.square(x.float()), dim=reduce_axes))
+        mean = total / n
+        return mean, squares / n - torch.square(mean)
 
     def forward(self, x, mask=None, train: bool = False):
         if train:
@@ -843,7 +853,8 @@ class ResidualBlockStack(nn.Module):
 class NMDLayer(nn.Module):
     """Standalone neural-mean-discrepancy vector: the per-example channel
     mean minus the moving mean (eval) or the batch mean (train, which also
-    updates the moving mean). Side output only."""
+    updates the moving mean; the global batch's under a process group).
+    Side output only."""
 
     def __init__(self, channels: int, epsilon: float = 1e-5,
                  momentum: float = 0.9):
@@ -862,12 +873,17 @@ class NMDLayer(nn.Module):
             mean_ch = torch.sum(masked, dim=example_axes) / (
                 torch.sum(mf, dim=example_axes) + self.epsilon)
             if train:
-                mean_b = torch.sum(masked, dim=reduce_axes) / (
-                    torch.sum(mf, dim=reduce_axes) + self.epsilon)
+                total, count = mh.all_reduce_sum(
+                    torch.sum(masked, dim=reduce_axes),
+                    torch.sum(mf, dim=reduce_axes))
+                mean_b = total / (count + self.epsilon)
         else:
             mean_ch = torch.mean(xf, dim=example_axes)
             if train:
-                mean_b = torch.mean(xf, dim=reduce_axes)
+                n = (math.prod(xf.shape[a] for a in reduce_axes)
+                     * mh.process_count())
+                mean_b = mh.all_reduce_sum(torch.sum(
+                    xf, dim=reduce_axes)) / n
         if not train:
             return (mean_ch - self.moving_mean).to(x.dtype)
         with torch.no_grad():
@@ -879,13 +895,21 @@ class NMDLayer(nn.Module):
 def dropout(x: torch.Tensor, rate: float, generator: torch.Generator):
     """``flax.linen.Dropout`` in train mode: keep each element with
     probability ``1 - rate`` (drawn from ``generator``) and scale kept ones
-    by ``1 / (1 - rate)``."""
+    by ``1 / (1 - rate)``. Under a process group each process draws the
+    mask of the global batch (its leading axis times the world size) from
+    the same seeded generator and keeps its own rows, so N processes
+    drop what one process with the whole batch drops."""
     if rate <= 0.0:
         return x
     if rate >= 1.0:
         return torch.zeros_like(x)
-    keep = torch.rand(x.shape, generator=generator,
+    world = mh.process_count()
+    shape = (x.shape[0] * world, *x.shape[1:])
+    keep = torch.rand(shape, generator=generator,
                       device=generator.device) < (1.0 - rate)
+    if world > 1:
+        rank = mh.process_index()
+        keep = keep[rank * x.shape[0]:(rank + 1) * x.shape[0]]
     return torch.where(keep.to(x.device), x / (1.0 - rate),
                        torch.zeros((), dtype=x.dtype, device=x.device))
 
@@ -1496,9 +1520,11 @@ class HyenaOperator(nn.Module):
     def __init__(self, channels: int, dim: int, order: int = 2,
                  filter_hidden: int = 32, filter_layers: int = 2,
                  filter_activation: str = "gelu",
-                 filter_normalize: bool = False, dtype=torch.float32):
+                 filter_normalize: bool = False, dtype=torch.float32,
+                 seq_axis: str | None = None):
         super().__init__()
         self.order = int(order)
+        self.seq_axis = seq_axis
         for i in range(self.order + 1):
             self.add_module(f"proj_{i}", Dense(channels, dim, use_bias=False,
                                                dtype=dtype))
@@ -1516,10 +1542,35 @@ class HyenaOperator(nn.Module):
                 .reshape(-1, length, b).permute(2, 0, 1)     # (B, dim, L)
                 for i in range(self.order + 1)]
         filters = self.filter(length)
+        if self.seq_axis:
+            return self._sharded_recurrence(proj, filters).transpose(1, 2)
         z = proj[0]
         for i in range(self.order):
             z = causal_fft_convolve(z, filters[i]) * proj[i + 1]
         return z.transpose(1, 2)
+
+    def _sharded_recurrence(self, proj, filters):
+        """The recurrence length-sharded over the ambient mesh
+        (:func:`jaeger_tpu_torch.parallel.mesh.use_mesh`), whose axis must
+        be ``seq_axis`` (:mod:`jaeger_tpu_torch.parallel.hyena_sp`'s ring).
+        L is right-padded to a multiple of the mesh size with zero
+        projections and zero filter taps; causality keeps the first L
+        outputs those of the unpadded recurrence."""
+        from jaeger_tpu_torch.parallel.hyena_sp import hyena_recurrence_sp
+        from jaeger_tpu_torch.parallel.mesh import current_mesh
+
+        mesh = current_mesh()
+        if mesh is None or mesh.axis != self.seq_axis:
+            raise ValueError(
+                f"seq_axis {self.seq_axis!r} not in the ambient mesh "
+                f"{mesh}; run under parallel.mesh.use_mesh(DeviceMesh(..., "
+                f"{self.seq_axis!r}))")
+        length = proj[0].shape[-1]
+        pad = -(-length // mesh.size) * mesh.size - length
+        if pad:
+            proj = [F.pad(p, (0, pad)) for p in proj]
+            filters = F.pad(filters, (0, pad))
+        return hyena_recurrence_sp(proj, filters, mesh)[..., :length]
 
 
 class HyenaBlock(nn.Module):
@@ -1531,14 +1582,16 @@ class HyenaBlock(nn.Module):
                  filter_hidden: int = 32, filter_layers: int = 2,
                  filter_activation: str = "gelu", dropout: float = 0.0,
                  output_projection: bool = False,
-                 filter_normalize: bool = False, dtype=torch.float32):
+                 filter_normalize: bool = False, dtype=torch.float32,
+                 seq_axis: str | None = None):
         super().__init__()
         self.dropout = float(dropout)
         self.norm = LayerNorm(channels)
         self.hyena = HyenaOperator(
             channels, dim, order=order, filter_hidden=filter_hidden,
             filter_layers=filter_layers, filter_activation=filter_activation,
-            filter_normalize=filter_normalize, dtype=dtype)
+            filter_normalize=filter_normalize, dtype=dtype,
+            seq_axis=seq_axis)
         self.out_proj = (Dense(dim, dim, dtype=dtype) if output_projection
                          else None)
 

@@ -9,6 +9,7 @@ Parity targets: the Keras callbacks the reference configs name
 epoch metrics; their state is serialized by
 :class:`jaeger_tpu.train.checkpoint.TrainingStatePersistence`, matching
 the reference's ``TrainingStateCallback`` (``nnlib/builder.py:101-206``).
+In multi-process training only the primary process writes the CSV log.
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ import math
 from pathlib import Path
 
 import numpy as np
+
+from jaeger_tpu_torch.parallel.multihost import is_primary
 
 
 def _resolve_mode(mode: str, monitor: str) -> str:
@@ -184,6 +187,8 @@ class CSVLogger:
         self._fh = None
 
     def on_epoch_end(self, epoch: int, metrics: dict) -> None:
+        if not is_primary():
+            return  # multi-process training: the log is the primary's
         row = {"epoch": epoch, **{k: float(v) for k, v in metrics.items()}}
         if self._fh is None:
             self.path.parent.mkdir(parents=True, exist_ok=True)

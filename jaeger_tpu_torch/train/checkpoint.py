@@ -8,7 +8,8 @@ index (epoch, path, metrics, opt_path; the last ``keep`` epochs) from which
 resume picks the latest or best entry. ``TrainingStatePersistence``
 (``training_state.json``), the ``converged.json`` markers and
 ``resolve_resume_stage`` keep the JAX package's formats, so a run
-directory has the same layout.
+directory has the same layout. In multi-process training only the primary
+process writes any of them (``is_primary``).
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ from pathlib import Path
 from typing import Any
 
 import torch
+
+from jaeger_tpu_torch.parallel.multihost import is_primary
 
 logger = logging.getLogger("jaeger_tpu_torch")
 
@@ -52,7 +55,8 @@ def _to_device(tree, device):
 class CheckpointManager:
     def __init__(self, directory: str | Path, keep: int = 3):
         self.directory = Path(directory)
-        self.directory.mkdir(parents=True, exist_ok=True)
+        if is_primary():
+            self.directory.mkdir(parents=True, exist_ok=True)
         self.keep = keep
         self._index_path = self.directory / "checkpoints.json"
 
@@ -70,6 +74,9 @@ class CheckpointManager:
         accumulator, step) persists beside it so resume continues the
         optimizer where it stopped."""
         path = (self.directory / f"epoch_{epoch:03d}.pt").resolve()
+        if not is_primary():
+            # multi-process training: the files are the primary's
+            return path
         torch.save(_to_cpu(variables), path)
         entry = {
             "epoch": epoch,
@@ -140,6 +147,8 @@ class TrainingStatePersistence:
         self.path = Path(directory) / "training_state.json"
 
     def save(self, epoch: int, lr: float | None, callbacks: dict) -> None:
+        if not is_primary():
+            return
         state = {"epoch": epoch, "learning_rate": lr}
         for name in ("early_stopping", "reduce_lr"):
             if name in callbacks:
@@ -164,6 +173,8 @@ class TrainingStatePersistence:
 
 def write_convergence_marker(directory: str | Path, branch: str,
                              info: dict) -> None:
+    if not is_primary():
+        return
     directory = Path(directory)
     directory.mkdir(parents=True, exist_ok=True)
     (directory / "converged.json").write_text(

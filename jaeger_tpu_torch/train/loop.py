@@ -1,6 +1,6 @@
 """The training step and the per-batch program dispatch (PyTorch).
 
-Counterpart of `jaeger_tpu/train/loop.py` on one device: the step runs the
+Counterpart of `jaeger_tpu/train/loop.py`: the step runs the
 model's training forward (batch statistics, dropout, the fused convs on
 ``FusedConvBlockFn``), the branch loss plus the regularization penalty,
 autograd for the gradients, zeroes the frozen parameters' gradients and
@@ -9,6 +9,14 @@ bounded or masked program per host batch with the port's
 ``dense_window_batch`` and ``bounded_mask_levels``, as the JAX step does:
 the bounded program is bitwise the masked forward on batches that qualify,
 so the same function's gradients.
+
+Under a ``torch.distributed`` process group (multi-process training,
+:mod:`jaeger_tpu_torch.parallel.multihost`) each process runs the step on
+its rows of the global batch: the batch statistics are the global
+batch's (the layers all-reduce them), and the step all-reduces the
+gradients with the loss and accuracy in one flat buffer and divides by
+the world size, so every process applies the same update and reports
+the global metrics.
 
 Frozen parameters (``StepConfig.frozen_prefixes``, matched against flax
 paths) get zero gradients as ``_mask_frozen`` gives them; the port does not
@@ -27,6 +35,7 @@ import torch
 
 from jaeger_tpu_torch.models.builder import mask_cut_plan
 from jaeger_tpu_torch.ops.encode import bounded_mask_levels, dense_window_batch
+from jaeger_tpu_torch.parallel import multihost as mh
 from jaeger_tpu_torch.train import losses as losses_lib
 from jaeger_tpu_torch.train.optimizers import Optimizer, global_norm
 
@@ -144,6 +153,24 @@ def make_train_step(model, cfg: StepConfig) -> Callable:
                 grads[k] = g.float()
         for p in params.values():
             p.requires_grad_(False)
+        accuracy = None
+        if labels.dim() == 2 and logits.shape == labels.shape:
+            accuracy = torch.mean(
+                (torch.argmax(logits, -1) == torch.argmax(labels, -1)).float())
+        loss = loss.detach()
+        if mh.is_distributed():
+            # data parallel: every process holds an equal share of the
+            # global batch and each loss is a mean over its rows, so the
+            # global gradient, loss and accuracy are the means over the
+            # processes (one all-reduce of one flat buffer)
+            extra = {("metric", "loss"): loss}
+            if accuracy is not None:
+                extra[("metric", "accuracy")] = accuracy
+            reduced = mh.all_reduce_mean({**grads, **extra})
+            loss = reduced.pop(("metric", "loss"))
+            accuracy = reduced.pop(("metric", "accuracy"), None)
+            grads = reduced
+            total = loss + reg
         with torch.no_grad():
             values = {k: p.detach() for k, p in params.items()}
             updates, state.opt_state = state.tx.update(
@@ -151,26 +178,47 @@ def make_train_step(model, cfg: StepConfig) -> Callable:
             for k, p in params.items():
                 p.add_(updates[k])
         state.grads = grads
-        metrics = {"loss": loss.detach(),
+        metrics = {"loss": loss,
                    "reg_loss": torch.as_tensor(reg).detach(),
                    "total_loss": total.detach(),
                    "grad_norm": global_norm(grads)}
-        if labels.dim() == 2 and logits.shape == labels.shape:
-            metrics["accuracy"] = torch.mean(
-                (torch.argmax(logits, -1) == torch.argmax(labels, -1)).float())
+        if accuracy is not None:
+            metrics["accuracy"] = accuracy
         return state, metrics
 
     return train_step
 
 
-def make_dispatching_train_step(model, cfg: StepConfig, device) -> Callable:
+def shard_train_step(train_step: Callable, batcher, device) -> Callable:
+    """``(state, host_batch, generator) -> (state, metrics)``: the step on
+    the host batch uploaded to ``device``; with a ``batcher``
+    (:class:`~jaeger_tpu_torch.parallel.multihost.GlobalBatcher`) on this
+    process's rows of the global batch only, the counterpart of JAX's jit
+    with the batch sharded over the data axis (the step all-reduces the
+    gradients and statistics)."""
+    def step(state, batch, generator=None):
+        if batcher is not None:
+            batch = batcher.shard(batch)
+        return train_step(state, to_device(batch, device), generator)
+    return step
+
+
+def make_dispatching_train_step(model, cfg: StepConfig, device,
+                                global_batcher=None) -> Callable:
     """``(state, host_batch, generator) -> (state, metrics)`` choosing the
     dense, bounded or masked program per host batch (numpy, before
     upload), as ``jaeger_tpu/train/loop.py:175-265``. Batches without raw
     ``bases`` always take the masked program. ``program_counts`` on the
     returned function counts the steps by program. The step does not wait
     for the card; the upload of the next batch waits for the step before
-    it, after the next batch's program is chosen on the host."""
+    it, after the next batch's program is chosen on the host.
+
+    ``global_batcher`` (multi-process training): the program is chosen on
+    the full global host batch, so every process takes the same program
+    and issues the same collectives; the step then runs on this process's
+    rows (:func:`shard_train_step`). A model built with
+    ``parallel.seq_axis`` length-shards its Hyena blocks over the ambient
+    mesh (``parallel.mesh.use_mesh``), differentiably."""
     crop_nt = getattr(model, "crop_nt", None)
     masking = getattr(model, "masking_enabled", True)
     mask_plans = mask_cut_plan(
@@ -195,11 +243,12 @@ def make_dispatching_train_step(model, cfg: StepConfig, device) -> Callable:
                                      else ("bounded", mask_cut))
         fn = steps.get(key)
         if fn is None:
-            fn = steps[key] = make_train_step(model, replace(
-                cfg, assume_dense=dense, mask_layers=mask_cut))
+            fn = steps[key] = shard_train_step(make_train_step(model, replace(
+                cfg, assume_dense=dense, mask_layers=mask_cut)),
+                global_batcher, device)
         name = key if isinstance(key, str) else "bounded"
         counts[name] = counts.get(name, 0) + 1
-        return fn(state, to_device(batch, device), generator)
+        return fn(state, batch, generator)
 
     step_fn.program_counts = counts
     return step_fn

@@ -427,11 +427,7 @@ def test_search_ties_go_to_the_lower_row(case, monkeypatch):
     (["--onnx"], 2, "--onnx: the engine zoo is replaced by a single XLA path "
                     "here (see docs/optimizations.md); use --quantized "
                     "full_int8 for the int8 bundle."),
-    (["--devices", "2"], 2, "--devices 2 is not yet ported to "
-                            "jaeger_tpu_torch (ROADMAP.md queue 1, item 14)"),
     (["--devices", "many"], 2, "--devices 'many': 'auto' or an integer"),
-    (["--host-id", "0"], 2, "--host-id is not yet ported to jaeger_tpu_torch "
-                            "(ROADMAP.md queue 1, item 14)"),
     (["--physicalid", "7"], 2, "--physicalid 7: only"),
     (["--config", "no_such_registry.json"], 2, "no such file"),
 ])

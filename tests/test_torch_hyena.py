@@ -25,7 +25,9 @@ Inputs and weights come from numpy seeds; JAX runs on the CPU. Covered:
   blocks and for residual stacks (masked batch norm, and DYT convs on the
   fused kernel's autograd path);
 * ``init_params``' Hyena leaves; the quantized bundles' leaves against
-  JAX's ``quantize_bundle``; a length-sharded config refused.
+  JAX's ``quantize_bundle``. The length-sharded stack
+  (``model.parallel.seq_axis``, ``predict --seq-shard``) is
+  ``tests/test_torch_hyena_sp.py``'s.
 
 Tolerances: f32 to 1e-5 of the scale (sums in another order; the FFT
 route is pocketfft in JAX and PyTorch's own FFT here); bf16 outputs
@@ -720,24 +722,3 @@ def test_quantized_bundles_match_jax(tmp_path, mode):
     with torch.inference_mode():
         out = model(torch.from_numpy(bases), torch.from_numpy(lengths))
     assert torch.isfinite(out["prediction"]).all()
-
-
-def test_sequence_sharded_hyena_refused(tmp_path):
-    """``model.parallel.seq_axis`` and ``predict --seq-shard`` stay
-    refused, naming ROADMAP.md queue 1, item 14."""
-    from jaeger_tpu_torch.commands.predict import run_core
-    from jaeger_tpu_torch.commands.train import train_fragment_core
-
-    import yaml
-
-    path = _train_data(tmp_path, "hyena", narrow())
-    cfg = yaml.safe_load(path.read_text())
-    cfg["model"]["parallel"] = {"seq_axis": "seq"}
-    path.write_text(yaml.safe_dump(cfg, sort_keys=False))
-    with pytest.raises(NotImplementedError, match="queue 1, item 14"):
-        build_model(copy.deepcopy(cfg))
-    with pytest.raises(NotImplementedError, match="queue 1, item 14"):
-        train_fragment_core(str(path), str(tmp_path / "out"), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1, item 14"):
-        run_core(FASTA, str(tmp_path / "p"),
-                 "jaeger_tpu/data/models/demo", seq_shard=2, device="cpu")

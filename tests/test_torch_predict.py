@@ -72,21 +72,17 @@ def test_predict_tsv_byte_identical_to_jax(tmp_path, full_logits):
                 np.testing.assert_allclose(wb, wa, rtol=1e-5, atol=1e-5)
 
 
-def test_predict_refuses_later_slices(tmp_path):
-    """Sequence sharding and multi-host runs are refused; the prophage,
-    refinement, tandem-masking and profiler stages are ported
-    (tests/test_torch_predict_stages.py), and so are ensembles, which were
-    refused here too: a one-member ensemble of the demo predicts the
-    demo's own TSV (tests/test_torch_ensemble.py holds ensembles against
-    JAX)."""
+def test_predict_seq_shard_without_hyena_and_an_ensemble(tmp_path):
+    """``seq_shard`` on a model without Hyena blocks (the demo) rebuilds it
+    with the seq axis and predicts the demo's own TSV (the sharded Hyena
+    stack is tests/test_torch_hyena_sp.py's, multi-host runs
+    tests/test_torch_multihost.py's); a one-member ensemble of the demo
+    predicts the demo's own TSV too (tests/test_torch_ensemble.py holds
+    ensembles against JAX)."""
     import yaml
 
     from jaeger_tpu_torch.commands.predict import run_core
 
-    for kw in ({"seq_shard": 2}, {"num_hosts": 2}):
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            run_core(str(FASTA), str(tmp_path), str(DEMO), device="cpu",
-                     **kw)
     ensemble = tmp_path / "ensemble"
     ensemble.mkdir()
     (ensemble / "ensemble.yaml").write_text(yaml.safe_dump(
@@ -97,6 +93,9 @@ def test_predict_refuses_later_slices(tmp_path):
                    **common)
     want = run_core(str(FASTA), str(tmp_path / "demo"), str(DEMO), **common)
     assert got.read_bytes() == want.read_bytes()
+    sharded = run_core(str(FASTA), str(tmp_path / "seq"), str(DEMO),
+                       seq_shard=2, **common)
+    assert sharded.read_bytes() == want.read_bytes()
 
 
 def test_entry_points_raise_without_cuda(tmp_path):
@@ -130,7 +129,8 @@ def test_port_imports_without_jax():
                  "utils.registry", "utils.stats", "utils.receptive_field",
                  "seqops.stats", "seqops.transform", "seqops.synthetic",
                  "dataops.split", "dataops.ood", "dataops.dedupe",
-                 "dataops.convert"):
+                 "dataops.convert", "parallel.mesh", "parallel.multihost",
+                 "parallel.hyena_sp"):
         assert f"jaeger_tpu_torch.{name}" in modules
     code = (
         "import sys\n"

@@ -607,19 +607,27 @@ def test_train_cli_cpu_bundle_loads_in_both_and_resumes(tmp_path):
         _close(got[k].numpy(), want[k], k)
 
 
-def test_train_refuses_unported_paths(tmp_path):
-    """Multi-device training is refused, citing its ROADMAP.md item; the
-    self-supervised pretraining runs, and on a config without a
-    ``projection`` section (the tiny one) it is a no-op, as in JAX."""
+def test_train_pretraining_noop_and_process_flags(tmp_path, capsys):
+    """The self-supervised pretraining runs, and on a config without a
+    ``projection`` section (the tiny one) it is a no-op, as in JAX; the
+    multi-process flags need each other (two processes train in
+    tests/test_torch_parallel.py)."""
     from jaeger_tpu_torch import cli
     from jaeger_tpu_torch.commands.train import train_fragment_core
 
     r = train_fragment_core(TINY, str(tmp_path / "a"), device="cpu",
                             self_supervised_pretraining=True, save=False)
     assert "projection" not in r["history"] and r["history"]["classifier"]
-    with pytest.raises(NotImplementedError, match="item 14"):
-        cli.main(["train", "-c", TINY, "-o", str(tmp_path / "b"),
-                  "--device", "cpu", "--coordinator", "localhost:1234"])
+    for extra, msg in ((["--coordinator", "localhost:1234"],
+                        "--coordinator needs --num-processes"),
+                       (["--num-processes", "2"],
+                        "--num-processes above 1 needs --coordinator")):
+        with pytest.raises(SystemExit) as e:
+            cli.main(["train", "-c", TINY, "-o", str(tmp_path / "b"),
+                      "--device", "cpu", *extra])
+        assert e.value.code == 2
+        assert msg in capsys.readouterr().err
+    assert not (tmp_path / "b").exists()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             train_fragment_core(TINY, str(tmp_path / "c"))
