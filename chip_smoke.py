@@ -36,6 +36,8 @@ Run from the root of a checkout on a machine with CUDA:
                                       # reliability-data generator)
     python3 chip_smoke.py --multi     # phases 1, 2 and 14 only (hosts,
                                       # meshes, process groups)
+    python3 chip_smoke.py --convert   # phases 1, 2 and 15 only (the
+                                      # exported torch.export programs)
 
 Phases, each of which fails the run:
 
@@ -249,9 +251,29 @@ Phases, each of which fails the run:
    cuda:0 devices; the row-sharded k-NN search at widths 1, 2 and 4 at
    phase 12's size. ``phase_multi`` has the tolerances.
 
+15. the converters: ``utils convert-graph`` through the CLI exports phase
+   5's seeded flagship bundle (crop 1505 nt, full width) in f32 and bf16
+   at batch 96 and 2048, each export timed; a fresh process that cannot
+   import the port, the JAX package or JAX (TF32 off) loads every
+   program, runs it on the card after ``move_to_device_pass`` on the
+   windows of ``test_contigs.fasta`` padded to the batch (the f32 one at
+   96 also on the CPU) and times the programs at 2048 with CUDA events.
+   The engine's forward of the same windows on the card (the full masked
+   program, the hand kernels; launch counts reset just before, read just
+   after: 6 fused_conv_block a forward) is the reference: f32 outputs
+   within 2e-4 of each output's scale on the real windows, as is the
+   program on the CPU; bf16 outputs within 5e-2 of each output's scale
+   (phase 4's plain-against-kernel rule), class scores (the prediction's
+   softmax) within 0.01 of the CPU's f32 ones, and the argmax equal to
+   the engine's on every window whose two top logits are more than twice
+   that tolerance apart. The
+   port's forward at 2048 is timed beside the programs'. The programs
+   hold the kernels' plain versions, so they are slower by design.
+
 The second-to-last line is the kernels JSON (each kernel also with its
 numbers at the templates' shape and its launches on phase 8's, phase 9's,
-phase 10's, phase 11's, phase 12's, phase 13's and phase 14's paths;
+phase 10's, phase 11's, phase 12's, phase 13's, phase 14's and phase 15's
+paths;
 int8_conv with its ragged route's numbers at the dvf shape and at the
 stride shape), the last
 ``{"ok": true, ...}``.
@@ -5987,6 +6009,259 @@ def phase_multi(tmp: Path, card: str, bundle: Path) -> dict:
     return res
 
 
+# --- phase 15: the converters ---------------------------------------------------
+
+#: the batches phase 15 exports the flagship at: JAX's default and the
+#: engine's
+CONVERT_BATCHES = (96, 2048)
+#: a program's bf16 class scores against the CPU's f32 ones (the card rule
+#: of PERF.md §2)
+SCORE_TOL = 0.01
+
+#: runs the exported programs in a process that cannot import the port,
+#: the JAX package or JAX, with TF32 off as ``resolve_device`` sets it:
+#: each on the CPU where asked, then on the card after
+#: ``move_to_device_pass``, timed with CUDA events where asked
+GRAPH_RUNNER = r"""
+import json, sys
+for m in ("jaeger_tpu_torch", "jaeger_tpu", "jax", "jaxlib", "flax"):
+    sys.modules[m] = None
+import numpy as np
+import torch
+from torch.export.passes import move_to_device_pass
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+result = {}
+for item in json.load(open(sys.argv[1])):
+    ep = torch.export.load(item["program"])
+    z = np.load(item["inputs"])
+    bases = torch.from_numpy(z["bases"])
+    lengths = torch.from_numpy(z["lengths"])
+    out = {}
+    with torch.no_grad():
+        if item["cpu"]:
+            got = ep.module()(bases, lengths)
+            out.update({"cpu_" + k: v.numpy() for k, v in got.items()})
+        fwd = move_to_device_pass(ep, "cuda").module()
+        b, l = bases.cuda(), lengths.cuda()
+        got = fwd(b, l)
+        out.update({k: v.cpu().numpy() for k, v in got.items()})
+        ms = None
+        if item["time"]:
+            for _ in range(2):
+                fwd(b, l)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            for _ in range(5):
+                fwd(b, l)
+            end.record()
+            torch.cuda.synchronize()
+            ms = start.elapsed_time(end) / 5
+    np.savez(item["out"], **out)
+    result[item["name"]] = {"ms": ms,
+                            "dtypes": sorted({str(v.dtype) for v in got.values()})}
+    del ep, fwd, got
+    torch.cuda.empty_cache()
+print("RESULT " + json.dumps(result))
+"""
+
+
+def _contig_windows(crop: int):
+    """The windows of ``test_contigs.fasta`` at the crop, as ``predict``
+    cuts them: (bases, lengths)."""
+    import numpy as np
+
+    from jaeger_tpu_torch.seqops.windows import window_batches
+
+    batches = list(window_batches(str(FASTA), fragsize=crop, stride=crop))
+    return (np.concatenate([b.bases for b in batches]),
+            np.concatenate([b.length for b in batches]))
+
+
+def _padded(bases, lengths, batch: int):
+    """The first ``batch`` windows, padded with empty all-N rows as the
+    engine pads a batch: (bases, lengths, real rows)."""
+    import numpy as np
+
+    n = min(len(bases), batch)
+    b = np.full((batch, bases.shape[1]), 4, np.uint8)
+    b[:n] = bases[:n]
+    ln = np.zeros(batch, np.int32)
+    ln[:n] = lengths[:n]
+    return b, ln, n
+
+
+def _softmax(x):
+    import numpy as np
+
+    e = np.exp(x - x.max(axis=-1, keepdims=True))
+    return e / e.sum(axis=-1, keepdims=True)
+
+
+def phase_convert(tmp: Path, card: str, bundle: Path) -> dict:
+    """``utils convert-graph`` on the flagship bundle and its programs run
+    without the port, against the engine's forward (the module docstring,
+    phase 15)."""
+    import numpy as np
+    import torch
+
+    from jaeger_tpu_torch import cli
+    from jaeger_tpu_torch.infer.engine import InferenceEngine
+    from jaeger_tpu_torch.models.artifacts import load_model
+
+    t_phase = time.perf_counter()
+    out = tmp / "graphs"
+    out.mkdir()
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    models = {p: load_model(bundle, dtype=dt)[0] for p, dt in dtypes.items()}
+    windows, wlengths = _contig_windows(models["float32"].crop_nt)
+    inputs = {}
+    for batch in CONVERT_BATCHES:
+        b, ln, n = _padded(windows, wlengths, batch)
+        path = out / f"windows_b{batch}.npz"
+        np.savez(path, bases=b, lengths=ln)
+        inputs[batch] = (b, ln, n, path)
+    spec, export_s, sizes = [], {}, {}
+    for precision in dtypes:
+        for batch in CONVERT_BATCHES:
+            name = f"{precision}_b{batch}"
+            program = out / f"flagship_{name}.pt2"
+            t0 = time.perf_counter()
+            cli.main(["utils", "convert-graph", "-m", str(bundle), "-o",
+                      str(program), "--precision", precision, "--batch",
+                      str(batch)])
+            export_s[name] = time.perf_counter() - t0
+            sizes[name] = program.stat().st_size
+            spec.append({"name": name, "program": str(program),
+                         "inputs": str(inputs[batch][3]),
+                         "out": str(out / f"out_{name}.npz"),
+                         "cpu": name == "float32_b96",
+                         "time": batch == max(CONVERT_BATCHES)})
+    (out / "spec.json").write_text(json.dumps(spec))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", GRAPH_RUNNER,
+                           str(out / "spec.json")], cwd=out,
+                          capture_output=True, text=True, timeout=600)
+    runner_s = time.perf_counter() - t0
+    check(proc.returncode == 0 and "RESULT " in proc.stdout,
+          f"convert-graph programs: {proc.stderr[-3000:]}")
+    ran = json.loads(proc.stdout.split("RESULT ", 1)[1])
+    for name, r in ran.items():
+        check(r["dtypes"] == ["torch.float32"],
+              f"program {name}: outputs {r['dtypes']}, not float32")
+
+    # the engine's forward of the same windows on the card: counts reset
+    # just before, read just after
+    _reset_kernel_counts()
+    want = {}
+    for precision, model in models.items():
+        for batch in CONVERT_BATCHES:
+            b, ln, _, _ = inputs[batch]
+            eng = InferenceEngine(model, batch_size=batch, device="cuda")
+            with torch.inference_mode():
+                got = eng._forward(b, ln)
+            want[f"{precision}_b{batch}"] = {
+                k: v.cpu().numpy() for k, v in got.items()}
+    torch.cuda.synchronize()
+    launches = _kernel_counts()
+    forwards = len(dtypes) * len(CONVERT_BATCHES)
+    check(launches["fused_conv_block"] == 6 * forwards
+          and launches["int8_conv"] == 0,
+          f"phase 15 engine forwards: launches {launches}")
+
+    report = {}
+    cpu_ref = dict(np.load(out / "out_float32_b96.npz"))
+    for name, eng_out in want.items():
+        precision, batch = name.split("_b")
+        batch = int(batch)
+        n = inputs[batch][2]
+        got = dict(np.load(out / f"out_{name}.npz"))
+        check(set(eng_out) <= set(got),
+              f"program {name}: outputs {sorted(got)}")
+        for k in eng_out:
+            check(got[k].shape == eng_out[k].shape
+                  and bool(np.isfinite(got[k]).all()),
+                  f"program {name}: {k} {got[k].shape} not finite")
+        errs = {}
+        if precision == "float32":
+            for k, v in eng_out.items():
+                scale = max(float(np.abs(v[:n]).max()), 1e-6)
+                errs[k] = float(np.abs(got[k][:n] - v[:n]).max()) / scale
+                check(errs[k] <= F32_TOL,
+                      f"program {name}: {k} {errs[k]:.2e} of the scale "
+                      f"from the engine's forward")
+            if "cpu_prediction" in got:
+                for k, v in eng_out.items():
+                    scale = max(float(np.abs(v[:n]).max()), 1e-6)
+                    e = float(np.abs(got["cpu_" + k][:n] - v[:n]).max())
+                    errs["cpu_" + k] = e / scale
+                    check(e <= F32_TOL * scale,
+                          f"program {name} on the CPU: {k} {e / scale:.2e} "
+                          f"of the scale from the engine's forward")
+        else:
+            # the plain versions against the hand kernels, as phase 4
+            for k, v in eng_out.items():
+                scale = max(float(np.abs(v[:n]).max()), 1e-3)
+                errs[k] = float(np.abs(got[k][:n] - v[:n]).max()) / scale
+                check(errs[k] <= BF16_TOL,
+                      f"program {name}: {k} {errs[k]:.2e} of the scale "
+                      f"from the engine's forward")
+            rows = min(n, cpu_ref["cpu_prediction"].shape[0])
+            ref = _softmax(cpu_ref["cpu_prediction"][:rows].astype(
+                np.float64))
+            prob = _softmax(got["prediction"][:rows].astype(np.float64))
+            errs["scores"] = float(np.abs(prob - ref).max())
+            check(errs["scores"] <= SCORE_TOL,
+                  f"program {name}: class scores {errs['scores']:.4f} from "
+                  f"the CPU's f32 ones")
+            # the argmax on every window whose two top logits lie further
+            # apart than the two forwards may (BF16_TOL of the scale each)
+            logits = eng_out["prediction"][:n]
+            top2 = np.sort(logits, axis=-1)[:, -2:]
+            clear = (top2[:, 1] - top2[:, 0]) > (
+                2 * BF16_TOL * float(np.abs(logits).max()))
+            same = got["prediction"][:n].argmax(-1) == logits.argmax(-1)
+            check(bool(same[clear].all()),
+                  f"program {name}: argmax differs from the engine's on "
+                  f"{int((~same & clear).sum())} clear windows")
+            errs["argmax_equal"] = int(same.sum())
+            errs["clear_windows"] = int(clear.sum())
+        report[name] = dict(errs=errs, export_s=export_s[name],
+                            bytes=sizes[name], real_rows=n)
+
+    # the programs' forward at the largest batch beside the port's
+    big = max(CONVERT_BATCHES)
+    b, ln, _, _ = inputs[big]
+    tb, tl = torch.from_numpy(b).cuda(), torch.from_numpy(ln).cuda()
+    times = {}
+    for precision, model in models.items():
+        with torch.inference_mode():
+            port_ms = cuda_ms(lambda: model(tb, tl), iters=5)
+        prog_ms = ran[f"{precision}_b{big}"]["ms"]
+        times[precision] = dict(program_ms=prog_ms, port_ms=port_ms,
+                                ratio=prog_ms / port_ms)
+        print(f"convert-graph flagship {precision}: program forward at "
+              f"{big} {prog_ms:.2f} ms, the port's {port_ms:.2f} ms "
+              f"({prog_ms / port_ms:.2f} x); export "
+              + ", ".join(f"b{bt} {export_s[f'{precision}_b{bt}']:.1f} s"
+                          for bt in CONVERT_BATCHES) + f" ({card})")
+    for name, r in report.items():
+        print(f"convert-graph {name}: {r['real_rows']} windows, "
+              + " ".join(f"{k} {v:.2e}" if isinstance(v, float)
+                         else f"{k} {v}" for k, v in r["errs"].items()))
+    del tb, tl, models
+    phase_s = time.perf_counter() - t_phase
+    print(f"phase 15: {launches['fused_conv_block']} fused_conv_block "
+          f"launches in {forwards} engine forwards; the programs' process "
+          f"took {runner_s:.1f} s, the phase {phase_s:.1f} s")
+    return dict(programs=report, times=times, runner_s=runner_s,
+                phase_s=phase_s, launches=launches)
+
+
 def main(argv: list[str]) -> int:
     try:
         import torch
@@ -6085,6 +6360,14 @@ def main(argv: list[str]) -> int:
             print(f"multi run done in "
                   f"{time.perf_counter() - t_start:.0f} s")
             return 0
+        if "--convert" in argv:
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+                convert = phase_convert(Path(tmp), card,
+                                        flagship_bundle(Path(tmp)))
+            print(json.dumps({"convert": convert}))
+            print(f"convert run done in "
+                  f"{time.perf_counter() - t_start:.0f} s")
+            return 0
         if "--pretrain" in argv:
             with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
                 pretrain = phase_pretrain(Path(tmp), card)
@@ -6143,6 +6426,7 @@ def main(argv: list[str]) -> int:
             commands = phase_commands(Path(tmp), card, bundle)
             pretrain = phase_pretrain(Path(tmp), card)
             multi = phase_multi(Path(tmp), card, bundle)
+            convert = phase_convert(Path(tmp), card, bundle)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
@@ -6166,7 +6450,7 @@ def main(argv: list[str]) -> int:
                "hyena": hyena, "int8_zoo": zoo8, "ensemble": ens,
                "route": route, "int8_strided_predict": strided,
                "legacy": legacy, "commands": commands,
-               "pretrain": pretrain, "multi": multi}
+               "pretrain": pretrain, "multi": multi, "convert": convert}
     print(json.dumps(summary))
     print(f"all phases passed in {time.perf_counter() - t_start:.0f} s")
     print(card)
@@ -6212,7 +6496,8 @@ def main(argv: list[str]) -> int:
               pretrain_launches=pl["fused_conv_block"],
               relgen_launches=pretrain["stages"]["generation"]["launches"][
                   "fused_conv_block"],
-              multi_launches=ml["fused_conv_block"]),
+              multi_launches=ml["fused_conv_block"],
+              convert_launches=convert["launches"]["fused_conv_block"]),
         entry("int8_conv", "cuda", "jaeger_tpu_torch/csrc/int8_conv.cu",
               "experiments/pallas_int8_conv.py:67", launches8, kern8,
               templates_launches=zl["int8_conv"],
@@ -6222,7 +6507,8 @@ def main(argv: list[str]) -> int:
                                 launches=zoo8["launches"]["ragged"]),
               ragged_stride=dict(stride,
                                  launches=strided["launches"]["ragged"]),
-              multi_launches=ml["int8_conv"]),
+              multi_launches=ml["int8_conv"],
+              convert_launches=convert["launches"]["int8_conv"]),
         # train's main path: the backward of the fused conv block
         entry("conv_wgrad", "cuda",
               "jaeger_tpu_torch/csrc/fused_conv_wgrad.cu",

@@ -18,11 +18,9 @@ legacy workflow with ``predict``'s defaults, as JAX's CLI does;
 ``list-models`` and ``download``; and the ``utils`` commands
 (``optimize-data``, ``fragment``, ``mask-tandem``, ``mask``, ``convert``,
 ``stats``, ``split``, ``ood-data``, ``receptive-field``, ``dataset``,
-``quantize``, ``combine-models``). Commands that run a model take
-``--device`` (``cuda`` by default; ``cpu`` runs on the CPU). The commands
-of paths that are not ported yet (``utils convert-weights``, ``utils
-convert-graph``) are accepted by the parser and refused with a message
-that names their ROADMAP.md item. A usage error exits 2 with its message,
+``quantize``, ``combine-models``, ``convert-weights``, ``convert-graph``).
+Commands that run a model take ``--device`` (``cuda`` by default; ``cpu``
+runs on the CPU). A usage error exits 2 with its message,
 and a command error exits 1 with ``Error: <message>``, as click does.
 Built on ``argparse`` so the CLI needs nothing beyond the standard library.
 
@@ -47,6 +45,10 @@ Built on ``argparse`` so the CLI needs nothing beyond the standard library.
     python -m jaeger_tpu_torch.cli train -c config.yaml -o model/
     python -m jaeger_tpu_torch.cli utils combine-models -i model_a \
         -i model_b -o ensemble -c mv
+    python -m jaeger_tpu_torch.cli utils convert-weights -i WRes_1024.h5 \
+        -o wres/
+    python -m jaeger_tpu_torch.cli utils convert-graph -m model \
+        -o model.pt2 --precision float32
 """
 
 from __future__ import annotations
@@ -63,18 +65,10 @@ logger = logging.getLogger("jaeger_tpu_torch")
 LEGACY_MODELS = ("default", "experimental", "experimental_1",
                  "experimental_2")
 
-#: the item that ports the rest of the converters
-CONVERTERS_ITEM = 13
-
 
 class CommandError(Exception):
     """A command's error: ``main`` prints ``Error: <message>`` and exits
     1, as click does for ``ClickException``."""
-
-
-def _not_ported(what: str, item: int) -> str:
-    return (f"{what} is not yet ported to jaeger_tpu_torch (ROADMAP.md "
-            f"queue 1, item {item})")
 
 
 def _add_device_flags(p: argparse.ArgumentParser) -> None:
@@ -765,27 +759,38 @@ def _data_parsers(usub) -> None:
                         "instead of the in-repo MinHash.")
     p.set_defaults(handler=dataset, parser=p)
 
-    # JAX's options, so that a call written for JAX reaches the refusal
-    p = usub.add_parser("convert-weights", help="Not ported yet (ROADMAP.md "
-                                                "queue 1, item 13).")
-    p.add_argument("-i", "--input", dest="input_path")
-    p.add_argument("-o", "--output", dest="output_path")
+    p = usub.add_parser("convert-weights",
+                        help="Convert reference checkpoints to jaeger-tpu "
+                             "weights (no TensorFlow needed): legacy WRes "
+                             "SavedModels or .h5 files, or modern-builder "
+                             "Keras-3 .weights.h5 files plus their "
+                             "project.yaml.")
+    p.add_argument("-i", "--input", dest="input_path", required=True,
+                   help="TF SavedModel dir (wres) or Keras-3 .weights.h5 "
+                        "(modern).")
+    p.add_argument("-o", "--output", dest="output_path", required=True)
     p.add_argument("--family", default="wres", choices=["wres", "modern"])
-    p.add_argument("-c", "--config", dest="config_path", default=None)
+    p.add_argument("-c", "--config", dest="config_path", default=None,
+                   help="project.yaml / train config for --family modern.")
     p.add_argument("--num-res-blocks", type=int, default=5)
-    p.set_defaults(handler=converter_not_ported, parser=p)
-    p = usub.add_parser("convert-graph", help="Not ported yet (ROADMAP.md "
-                                              "queue 1, item 13).")
-    p.add_argument("-m", "--model", dest="model_path")
-    p.add_argument("-o", "--output", dest="output_path")
+    p.set_defaults(handler=convert_weights, parser=p)
+    p = usub.add_parser("convert-graph",
+                        help="Export the forward pass as a portable "
+                             "torch.export program (.pt2).")
+    p.add_argument("-m", "--model", dest="model_path", required=True)
+    p.add_argument("-o", "--output", dest="output_path", required=True)
     p.add_argument("--mode", default="xla",
-                   choices=["xla", "tflite", "onnx", "tensorrt"])
-    p.add_argument("--int8", action="store_true")
+                   choices=["xla", "tflite", "onnx", "tensorrt"],
+                   help="Conversion mode; only the xla path exists here "
+                        "(it writes a torch.export program).")
+    p.add_argument("--int8", action="store_true",
+                   help="Export from the int8-quantized weights (make the "
+                        "bundle with 'utils quantize' first).")
     p.add_argument("--batch", type=int, default=96)
     p.add_argument("--precision", default="bfloat16",
                    choices=["bfloat16", "float32"])
     p.add_argument("-v", "--verbose", action="count", default=0)
-    p.set_defaults(handler=converter_not_ported, parser=p)
+    p.set_defaults(handler=convert_graph, parser=p)
 
 
 def optimize_data(args: argparse.Namespace, parser) -> None:
@@ -937,8 +942,73 @@ def dataset(args: argparse.Namespace, parser) -> None:
     print(summary)
 
 
-def converter_not_ported(args: argparse.Namespace, parser) -> None:
-    parser.error(_not_ported(f"utils {args.utils_command}", CONVERTERS_ITEM))
+def convert_weights(args: argparse.Namespace, parser) -> None:
+    """JAX's ``utils convert-weights`` (`jaeger_tpu/cli.py:889-946`): the
+    same options, messages and files."""
+    _existing(parser, args.input_path, "-i/--input")
+    _existing(parser, args.config_path, "-c/--config")
+    out = Path(args.output_path)
+    if args.family == "modern":
+        if args.config_path is None:
+            parser.error("--family modern needs -c/--config (the "
+                         "project.yaml saved next to the weights)")
+        from jaeger_tpu_torch.models.artifacts import save_model
+        from jaeger_tpu_torch.models.modern_convert import (
+            convert_modern_weights)
+        from jaeger_tpu_torch.utils.config import load_model_config
+
+        config = load_model_config(args.config_path)
+        variables = convert_modern_weights(config, args.input_path)
+        save_model(variables, config, out)
+        print(f"converted modern bundle written to {out}")
+        return
+
+    from jaeger_tpu_torch.models.artifacts import write_flax_msgpack
+    from jaeger_tpu_torch.models.legacy_convert import (
+        convert_wres_checkpoint, convert_wres_h5)
+
+    if Path(args.input_path).is_file():
+        if not str(args.input_path).endswith(".h5"):
+            parser.error(f"{args.input_path}: expected a SavedModel "
+                         f"directory or a .h5 weights file")
+        variables = convert_wres_h5(args.input_path,
+                                    num_res_blocks=args.num_res_blocks)
+    else:
+        variables = convert_wres_checkpoint(
+            args.input_path, num_res_blocks=args.num_res_blocks)
+    out.mkdir(parents=True, exist_ok=True)
+    write_flax_msgpack(variables, out / "params.msgpack")
+    (out / "legacy.yaml").write_text(
+        "family: wres\nnum_res_blocks: %d\nsource: %s\n"
+        % (args.num_res_blocks, args.input_path))
+    print(f"converted weights written to {out}")
+
+
+def convert_graph(args: argparse.Namespace, parser) -> None:
+    """JAX's ``utils convert-graph`` (`jaeger_tpu/cli.py:973-1006`): the
+    xla mode writes a ``torch.export`` program where JAX writes
+    StableHLO; every other mode is refused with JAX's message."""
+    _existing(parser, args.model_path, "-m/--model")
+    if args.mode != "xla":
+        parser.error(
+            f"--mode {args.mode}: the TFLite/ONNX/TensorRT engine zoo is "
+            "replaced by the single XLA path (see docs/optimizations.md); "
+            "use --mode xla.")
+    import torch
+
+    from jaeger_tpu_torch.commands.predict import resolve_int8_bundle
+    from jaeger_tpu_torch.models.conversion import export_graph
+
+    model_path = args.model_path
+    if args.int8:
+        try:
+            model_path = resolve_int8_bundle(model_path)
+        except FileNotFoundError as e:
+            parser.error(str(e))
+    dtype = torch.bfloat16 if args.precision == "bfloat16" else torch.float32
+    out = export_graph(model_path, args.output_path, batch=args.batch,
+                       dtype=dtype)
+    print(f"torch.export program written to {out}")
 
 
 # --- health, taxonomy, the model registry -----------------------------------

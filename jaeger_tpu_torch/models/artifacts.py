@@ -137,16 +137,11 @@ def write_flax_msgpack(tree: dict, path: str | Path) -> None:
         msgpack.packb(tree, default=_ext_default, strict_types=True))
 
 
-def save_model(state: dict[str, torch.Tensor], config: dict,
-               path: str | Path, classes: dict | None = None) -> Path:
-    """Write a bundle that both packages load: ``state`` (the port's state
-    dict) as flax msgpack under ``params`` / ``batch_stats`` (and
-    ``quant`` when the model has int8 convs), the config without
-    ``model.parallel.seq_axis`` and the label map."""
-    import yaml
-
-    path = Path(path)
-    path.mkdir(parents=True, exist_ok=True)
+def flax_variables(state: dict[str, torch.Tensor]) -> dict:
+    """The inverse of :func:`params_from_jax`: the port's state dict as a
+    flax variables tree of numpy arrays, in the state's order, under
+    ``params``, ``batch_stats`` (the moving statistics) and ``quant``
+    (int8 convs); empty collections are left out."""
     tree: dict = {"params": {}, "batch_stats": {}, "quant": {}}
     for key, t in state.items():
         *scopes, leaf = key.split(".")
@@ -161,6 +156,22 @@ def save_model(state: dict[str, torch.Tensor], config: dict,
     for coll in ("batch_stats", "quant"):
         if not tree[coll]:
             del tree[coll]
+    return tree
+
+
+def save_model(state: dict, config: dict, path: str | Path,
+               classes: dict | None = None) -> Path:
+    """Write a bundle that both packages load: ``state`` (the port's state
+    dict, or a flax variables tree, which is written as it is) as flax
+    msgpack under ``params`` / ``batch_stats`` (and ``quant`` when the
+    model has int8 convs), the config without ``model.parallel.seq_axis``
+    and the label map."""
+    import yaml
+
+    path = Path(path)
+    path.mkdir(parents=True, exist_ok=True)
+    tree = (state if isinstance(state.get("params"), dict)
+            else flax_variables(state))
     write_flax_msgpack(tree, path / "params.msgpack")
     # parallel.seq_axis is a run-time knob (sequence-sharded execution
     # needs an ambient mesh), not a property of the model: strip it so the

@@ -1,8 +1,11 @@
-"""Quantized bundles: ``utils quantize`` and the int8 bundle loader.
+"""Model export and quantization: ``utils convert-graph``, ``utils
+quantize`` and the int8 bundle loader.
 
-Counterpart of `jaeger_tpu/models/conversion.py` (``export_stablehlo`` is
-not ported). ``quantize_bundle`` writes the same three kinds of bundle as
-the JAX package, as flax msgpack that both packages load:
+Counterpart of `jaeger_tpu/models/conversion.py`. ``export_graph`` is the
+counterpart of ``export_stablehlo``: it writes the bundle's eval forward
+as a ``torch.export`` program (``.pt2``) where JAX writes StableHLO.
+``quantize_bundle`` writes the same three kinds of bundle as the JAX
+package, as flax msgpack that both packages load:
 
 * ``dynamic``: large float kernels stored as ``{"_q": int8, "_scale":
   f32}`` per output channel, dequantized at load (``load_quantized``);
@@ -32,7 +35,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from jaeger_tpu_torch.models.artifacts import (load_state, params_from_jax,
+from jaeger_tpu_torch.models.artifacts import (load_model, load_state,
+                                               params_from_jax,
                                                read_flax_msgpack,
                                                write_flax_msgpack)
 from jaeger_tpu_torch.models.builder import build_model
@@ -41,6 +45,45 @@ from jaeger_tpu_torch.utils.config import load_model_config
 from jaeger_tpu_torch.utils.devices import resolve_device
 
 QUANT_MODES = ("dynamic", "full_int8", "float16")
+
+
+class _EvalForward(torch.nn.Module):
+    """The full masked eval forward (JAX's ``model.apply(...,
+    train=False)``: no ``assume_dense``, no ``mask_layers``), every output
+    in float32."""
+
+    def __init__(self, model: torch.nn.Module):
+        super().__init__()
+        self.model = model
+
+    def forward(self, bases: torch.Tensor, lengths: torch.Tensor) -> dict:
+        return {k: v.float() for k, v in self.model(bases, lengths).items()}
+
+
+def export_graph(model_path: str | Path, output_path: str | Path,
+                 batch: int = 96, dtype=torch.bfloat16) -> Path:
+    """Serialize the model's forward pass as a portable ``torch.export``
+    program.
+
+    The program takes ``bases`` ``(batch, crop_nt)`` uint8 and ``lengths``
+    ``(batch,)`` int32 and returns the bundle's outputs in float32. A
+    fresh process with no bundle, no config and no ``jaeger_tpu_torch``
+    can ``torch.export.load`` it and run it on the CPU, or on a card
+    after ``torch.export.passes.move_to_device_pass(ep, "cuda")``. It is
+    traced on the CPU, so it holds the kernels' plain versions: the hand
+    kernels are bound through ``ctypes``, which ``torch.export`` cannot
+    trace (JAX's StableHLO artifact holds no Pallas call either).
+    """
+    model, _, _ = load_model(model_path, dtype=dtype, device="cpu")
+    crop_nt = model.crop_nt
+    example = (torch.zeros((batch, crop_nt), dtype=torch.uint8),
+               torch.full((batch,), crop_nt, dtype=torch.int32))
+    with torch.no_grad():
+        program = torch.export.export(_EvalForward(model), example)
+    output_path = Path(output_path)
+    output_path.parent.mkdir(parents=True, exist_ok=True)
+    torch.export.save(program, output_path)
+    return output_path
 
 _QUANT_MIN_SIZE = 1024  # don't quantize tiny vectors (biases, norms)
 

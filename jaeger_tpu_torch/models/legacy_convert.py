@@ -1,14 +1,17 @@
 """Counterpart of `jaeger_tpu/models/legacy_convert.py`: legacy weights into
 the port.
 
-Keras ``.h5`` weight files -> flax variable trees (``{"params",
-"batch_stats"}``, numpy leaves) for the legacy models of
-:mod:`jaeger_tpu_torch.models.legacy`, which load them with
-``load_state(model, params_from_jax(variables))``
+Keras ``.h5`` weight files and TF SavedModel checkpoints -> flax
+variable trees (``{"params", "batch_stats"}``, numpy leaves) for the
+legacy models of :mod:`jaeger_tpu_torch.models.legacy`, which load them
+with ``load_state(model, params_from_jax(variables))``
 (:mod:`jaeger_tpu_torch.models.artifacts`):
 
 * :func:`convert_wres_h5`: the production ``WRes_1024.h5`` (the
   ``default`` model) -> :class:`WResModel` variables, by layer name;
+* :func:`convert_wres_checkpoint`: a WRes SavedModel directory ->
+  :class:`WResModel` variables, read without TensorFlow
+  (:mod:`jaeger_tpu_torch.models.tf_checkpoint`);
 * :func:`convert_experimental_h5`: a v2 ``experimental_*`` ``.h5`` ->
   :class:`ExperimentalModel` variables, by the structural matcher of
   :mod:`jaeger_tpu_torch.models.modern_convert` on the port's own
@@ -19,8 +22,7 @@ Keras ``.h5`` weight files -> flax variable trees (``{"params",
   ``h5py`` nor scikit-learn, runs ``default``.
 
 ``h5py`` and ``joblib`` are imported inside the functions that read those
-files. The TF SavedModel route (``convert_wres_checkpoint``) needs the
-port of ``models/tf_checkpoint.py`` and is refused.
+files.
 """
 
 from __future__ import annotations
@@ -31,11 +33,23 @@ from pathlib import Path
 
 import numpy as np
 
+from jaeger_tpu_torch.models.tf_checkpoint import load_checkpoint
+
 #: the files of a default bundle, as :func:`build_default_bundle` writes
 #: them and ``commands/predict_legacy.py`` reads them
 PARAMS_FILE = "params.msgpack"
 OOD_FILE = "ood_default.npz"
 STATS_FILES = ("batch_means.npy", "batch_std.npy")
+
+
+def _by_suffix(tensors: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
+    """Index tensors by their trailing ``layer/attr`` name."""
+    out = {}
+    for key, value in tensors.items():
+        parts = key.split("/")
+        if len(parts) >= 2:
+            out["/".join(parts[-2:])] = value
+    return out
 
 
 def convert_wres_h5(h5_path: str | Path, num_res_blocks: int = 5) -> dict:
@@ -65,13 +79,9 @@ def convert_wres_h5(h5_path: str | Path, num_res_blocks: int = 5) -> dict:
 
 def convert_wres_checkpoint(saved_model_dir: str | Path,
                             num_res_blocks: int = 5) -> dict:
-    """A reference TF SavedModel directory -> WResModel variables: not
-    ported yet (it needs ``models/tf_checkpoint.py``)."""
-    raise NotImplementedError(
-        f"{saved_model_dir}: TF SavedModel weights need "
-        f"models/tf_checkpoint.py, which is not yet ported to "
-        f"jaeger_tpu_torch (ROADMAP.md queue 1, item 13); use a Keras .h5 "
-        f"(WRes_1024.h5)")
+    """SavedModel variables -> WResModel flax variables dict."""
+    t = _by_suffix(load_checkpoint(saved_model_dir))
+    return _assemble_wres(t, num_res_blocks)
 
 
 def _assemble_wres(t: dict[str, np.ndarray], num_res_blocks: int = 5) -> dict:

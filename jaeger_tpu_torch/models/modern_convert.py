@@ -1,5 +1,6 @@
-"""Copy of the parts of `jaeger_tpu/models/modern_convert.py` that the
-legacy ``experimental_*`` converter reaches.
+"""Counterpart of `jaeger_tpu/models/modern_convert.py`: modern-builder
+Keras-3 ``.weights.h5`` files (and the legacy ``experimental_*`` ones)
+into flax variable trees.
 
 Reads Keras ``.h5`` weight files **without TensorFlow or Keras**
 (:func:`read_keras_weight_groups`; ``h5py`` is imported inside it) and
@@ -7,10 +8,10 @@ maps their variable groups onto a flax variable tree of numpy arrays
 (:func:`map_weights_to_tree`): slots (one per module, leaves in the
 canonical Keras order) match groups on the ordered shape signature, then
 on layer-name token overlap, then on the Keras creation ordinal. The tree
-can come from the port's own modules
+comes from the port's own modules: the model of a config
+(:func:`convert_modern_weights`, ``utils convert-weights --family
+modern``) or a legacy model
 (:func:`jaeger_tpu_torch.models.legacy.variables_from_state`).
-``convert_modern_weights`` (``utils convert-weights``) is not ported yet
-(ROADMAP.md queue 1, item 13).
 """
 
 from __future__ import annotations
@@ -363,3 +364,35 @@ def map_weights_to_tree(variables: dict, groups, name_map=None) -> dict:
     logger.info("mapped %d tensors across %d modules", n_assigned,
                 len(slots))
     return out
+
+
+def _sorted_tree(tree):
+    """Nested dicts with their keys sorted at every level: the order of
+    JAX's converted tree (``jax.tree_util.tree_map`` rebuilds dicts in
+    sorted key order), so that both packages write the same bytes."""
+    if isinstance(tree, dict):
+        return {k: _sorted_tree(tree[k]) for k in sorted(tree)}
+    return tree
+
+
+def convert_modern_weights(config: dict, h5_path: str | Path,
+                           name_map=None) -> dict:
+    """Build the port's model of *config* and fill it from *h5_path*.
+
+    ``config`` is the same project.yaml dict the reference's
+    ``DynamicModelBuilder`` consumed; the h5 is the Keras-3
+    ``<name>.weights.h5`` written next to the SavedModel. The template
+    tree is the model's state in the flax layout that
+    :func:`jaeger_tpu_torch.models.artifacts.save_model` writes, in
+    module creation order, which the matcher's tie-break relies on.
+    Every module must find its group (:func:`_match` raises ``KeyError``
+    naming the first that does not), so no leaf keeps its initial value.
+    """
+    from jaeger_tpu_torch.models.artifacts import flax_variables
+    from jaeger_tpu_torch.models.builder import build_model
+
+    variables = flax_variables(build_model(config).state_dict())
+    groups = read_keras_weight_groups(h5_path)
+    if not groups:
+        raise ValueError(f"{h5_path}: no weight groups found")
+    return _sorted_tree(map_weights_to_tree(variables, groups, name_map))

@@ -466,10 +466,23 @@ def argparse_namespace(**kw):
     return argparse.Namespace(**base)
 
 
-@pytest.mark.parametrize("command,argv", [
-    ("convert-weights", ["-i", "weights.h5", "-o", "out"]),
-    ("convert-graph", ["-m", "model", "-o", "out.stablehlo"])])
-def test_converters_refused(capsys, command, argv):
+@pytest.mark.parametrize("command,argv,message", [
+    ("convert-weights", ["-i", "weights.bin", "-o", "out"],
+     "weights.bin: expected a SavedModel directory or a .h5 weights file"),
+    ("convert-graph", ["-m", "model", "-o", "out.pt2", "--mode", "onnx"],
+     "--mode onnx: the TFLite/ONNX/TensorRT engine zoo is replaced by the "
+     "single XLA path (see docs/optimizations.md); use --mode xla.")])
+def test_converters_refused(tmp_path, monkeypatch, capsys, command, argv,
+                            message):
+    """The converters are ported: they refuse only what JAX's refuse,
+    with JAX's messages, and no message of the port names a queue item
+    that is done."""
+    monkeypatch.chdir(tmp_path)
+    (tmp_path / "weights.bin").write_bytes(b"\0")
+    (tmp_path / "model").mkdir()
     assert _run(["utils", command, *argv]) == 2
-    assert (f"utils {command} is not yet ported to jaeger_tpu_torch "
-            f"(ROADMAP.md queue 1, item 13)") in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert message in err
+    assert "not yet ported" not in err
+    for path in (ROOT / "jaeger_tpu_torch").rglob("*.py"):
+        assert "item 13" not in path.read_text(), path

@@ -109,9 +109,11 @@ def engine_model():
 @pytest.fixture
 def one_cpu_thread():
     """Torch's CPU kernels on one thread for the test. The first
-    multi-threaded CPU forward of a process was seen to differ from the
-    later ones by up to 3.5e-5 of the embedding's scale (a sum split by
-    the threads it ran on); one thread sums in one order."""
+    multi-threaded ``torch.tanh`` of a process sometimes computes one
+    OpenMP thread's share of the tensor with another approximation (up
+    to about 1,500 ulps), which moved the engine's first forward by up to
+    3.5e-5 of the embedding's scale; on one thread the first call agrees
+    with the later ones (ROADMAP.md queue 3, "About the reference")."""
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     yield
