@@ -38,6 +38,10 @@ Run from the root of a checkout on a machine with CUDA:
                                       # meshes, process groups)
     python3 chip_smoke.py --convert   # phases 1, 2 and 15 only (the
                                       # exported torch.export programs)
+    python3 chip_smoke.py --f32       # phases 1, 2 (the three conv
+                                      # sources) and the f32 parts of 3
+                                      # and 3b only; with --sweep, the f32
+                                      # kernels under other launch plans
 
 Phases, each of which fails the run:
 
@@ -45,7 +49,8 @@ Phases, each of which fails the run:
 2. build: nvcc builds csrc/fused_conv_block.cu, csrc/int8_conv.cu,
    csrc/fused_conv_wgrad.cu and csrc/conv_epilogue_bwd.cu for sm_90a, one
    nvcc per source, started together; ptxas' registers, stack and spills
-   of each instance of the wgmma kernels, int8_ragged, wgrad_f32 and
+   of each instance of the wgmma kernels, the f32 kernels (conv_f32_ring,
+   conv_f32_fma, wgrad_f32, wgrad_f32_ring), int8_ragged and
    conv_epilogue_bwd;
 3. each kernel against its plain version on the card. fused_conv_block:
    the Pallas kernel's test cases, each extension, the demo and flagship
@@ -54,7 +59,17 @@ Phases, each of which fails the run:
    with residual; every activation) at 2e-4 in f32, 5e-2 in bf16; kernel,
    plain and library (F.conv1d + the same epilogue) times at the flagship
    shape (batch 2048: N = 12288, L = 500, C = 128, k = 5) in the conv1,
-   conv2 and bias-only forms, each with its bound and share of it.
+   conv2 and bias-only forms, each with its bound and share of it. The
+   f32 forms (TF32 off throughout): route f32_ring's edges against the
+   plain version at 2e-4 (L 1 / 127 / 129 / 600, N 1, C 16 / 48 / 64 /
+   256, k 1 / 3 / 4 / 7 / 9, in_mask runs across its 32-row units and the
+   halo, out_mask with residual, the data gradient's form, every
+   activation), one shape on route f32_staged (k 11); at the flagship
+   shape the conv1, conv2 and bias-only forms on both f32 routes against
+   the plain version, each route's time in the same call beside the
+   plain, the library (F.conv1d + the epilogue, TF32 off) and the bound at
+   the card's f32 peak; the model form against the plain version in
+   float64 (below 1e-5 of the scale).
    int8_conv: the plan of the main path's shapes names the wgmma route;
    the requant form equal to its plain version at the Pallas parity case,
    the Pallas chip shape (N = 12288, L = 500, C = 128, k = 5, dilation 3)
@@ -78,7 +93,14 @@ Phases, each of which fails the run:
    to run; bf16 outputs within 2 ulps + 1e-4 of the scale, f32 within 2e-4
    (conv_wgrad 1e-3 in bf16); FusedConvBlockFn's whole backward at the
    train shape within 2 ulps + 5e-3 of the scale; kernel, plain, library
-   and bound times, and each kernel's host microseconds a call;
+   and bound times, and each kernel's host microseconds a call. The f32
+   forms: conv_wgrad's route fma_ring against its plain version at 2e-4
+   (the train shape, C 64 / 128 / 256, k 1 / 3 / 5 / 7, L 1 / 31 / 33 /
+   65, N 1, in_mask none, random and runs), the same bits run to run; at
+   the train shape the data gradient (both f32 routes), conv_wgrad (route
+   fma_ring and the per-output route fma in the same call) and
+   conv_epilogue_bwd's conv2 form, each beside its plain version, the
+   library (TF32 off) and the bound at the card's f32 peak;
 4. the flagship (128 channels, 1505 nt crop, 6 classes; seeded weights,
    bf16) through the port's InferenceEngine at batch 2048, on windows
    that select the dense, the bounded-cut and the split (dense + masked
@@ -94,8 +116,9 @@ Phases, each of which fails the run:
    bundle and with a demo int8 bundle made by ``utils quantize`` (kernel
    launch counts reset just before each, read just after); the TSV rows
    are checked, the demo's against a CPU float32 run (float and int8);
-6. training: one f32 step of a narrow flagship template on the card
-   against the CPU in each program (dense, bounded, masked);
+6. training: one f32 step of a narrow flagship template (C 16, and C 128,
+   whose convs take the f32 ring routes, launches by route read) on the
+   card against the CPU in each program (dense, bounded, masked);
    ``train_fragment_core`` with the flagship template at full width
    (batch 256, bf16) on synthetic CSVs from a seed, 30 classifier and 4
    reliability steps through all three programs (launch counts reset just
@@ -267,21 +290,26 @@ Phases, each of which fails the run:
    softmax) within 0.01 of the CPU's f32 ones, and the argmax equal to
    the engine's on every window whose two top logits are more than twice
    that tolerance apart. The
-   port's forward at 2048 is timed beside the programs'. The programs
-   hold the kernels' plain versions, so they are slower by design.
+   port's forward at 2048 is timed beside the programs' and must be the
+   faster in each precision; the f32 forwards' convs must take route
+   f32_ring. The programs hold the kernels' plain versions, so they are
+   slower by design.
 
 The second-to-last line is the kernels JSON (each kernel also with its
 numbers at the templates' shape and its launches on phase 8's, phase 9's,
 phase 10's, phase 11's, phase 12's, phase 13's, phase 14's and phase 15's
 paths;
 int8_conv with its ragged route's numbers at the dvf shape and at the
-stride shape), the last
+stride shape; the f32 forms of fused_conv_block and conv_wgrad as entries
+of their own, with their launches by route on phase 15's f32 forwards and
+phase 6's C 128 f32 steps), the last
 ``{"ok": true, ...}``.
 The script imports nothing of JAX or of jaeger_tpu.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import copy
 import csv
@@ -384,26 +412,29 @@ KERNEL_SOURCES = ("fused_conv_block", "int8_conv", "fused_conv_wgrad",
                   "conv_epilogue_bwd")
 
 
-def phase_build() -> None:
+def phase_build(sources=KERNEL_SOURCES) -> None:
     """One nvcc per source, all started together."""
     from concurrent.futures import ThreadPoolExecutor
 
     from jaeger_tpu_torch.ops import cuda_build
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+    with ThreadPoolExecutor(len(sources)) as pool:
         list(pool.map(lambda name: cuda_build.load(
-            name, extra_flags=("-Xptxas", "-v")), KERNEL_SOURCES))
-    for name in KERNEL_SOURCES:
+            name, extra_flags=("-Xptxas", "-v")), sources))
+    for name in sources:
         print(f"build: {name} (nvcc "
               f"{cuda_build.build_seconds.get(name, 0.0):.1f} s)")
     print(f"build: all kernels ready in {time.perf_counter() - t0:.1f} s")
     for name, kernel in (("fused_conv_block", "conv_bf16_wgmma"),
+                         ("fused_conv_block", "conv_f32_ring"),
+                         ("fused_conv_block", "conv_f32_fma"),
                          ("int8_conv", "int8_wgmma"),
                          ("int8_conv", "int8_ragged"),
                          ("int8_conv", "int8_ragged_staged"),
                          ("fused_conv_wgrad", "wgrad_bf16"),
                          ("fused_conv_wgrad", "wgrad_f32"),
+                         ("fused_conv_wgrad", "wgrad_f32_ring"),
                          ("conv_epilogue_bwd", "conv_epilogue_bwd")):
         for line in ptxas_summary(cuda_build.build_logs.get(name, ""), kernel):
             print(f"ptxas: {line}")
@@ -654,6 +685,488 @@ def phase_sweep(card: str) -> None:
                       f"(products at the bf16 peak {bound:.3f} ms)")
         del x, w
     fused_conv.launches = launches_before
+
+
+# --- phase 3, f32: the f32 forms of fused_conv_block ------------------------
+
+def _route_counts() -> dict:
+    """Launches by ``kernel:route`` of fused_conv_block and conv_wgrad."""
+    from jaeger_tpu_torch.ops import fused_conv
+    from jaeger_tpu_torch.ops import fused_conv_grad as fg
+
+    out = {f"fused_conv_block:{r}": n
+           for r, n in fused_conv.route_launches.items()}
+    out.update({f"conv_wgrad:{r}": n
+                for r, n in fg.wgrad_route_launches.items()})
+    return out
+
+
+#: the inference shape: batch 2048 of the flagship, six frames
+FLAG_N, FLAG_L, FLAG_C, FLAG_K = 6 * 2048, 500, 128, 5
+#: the f32 kernel against the plain version in float64 at the flagship
+#: shape, relative to the output's scale: f32 FMAs give about 1e-6, TF32
+#: products (10 mantissa bits) about 1e-3
+F64_TOL = 1e-5
+
+
+def tf32_off() -> None:
+    """Full f32 in cuDNN and cuBLAS, asserted: the f32 yardsticks (cuDNN
+    runs f32 convolutions in TF32 by default)."""
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    check(not torch.backends.cudnn.allow_tf32
+          and not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
+
+
+def _bound(flops: float, nbytes: float, peak: float) -> tuple[float, str]:
+    """(ms, what sets it): the larger of operations / peak and bytes / the
+    HBM rate."""
+    t_ops = flops / peak * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def _print_timing(what: str, t: dict, card: str) -> None:
+    olds = "".join(f", {r} {ms:.3f} ms" for r, ms in t.get("routes_ms",
+                                                             {}).items())
+    print(f"timing {what} on {card}: kernel {t['ms']:.3f} ms [{t['route']}]"
+          f"{olds}, plain {t['plain_ms']:.3f} ms, library "
+          f"{t['library_ms']:.3f} ms (TF32 off), bound {t['bound_ms']:.3f} ms "
+          f"({t['bound_by']}: {t['flops']:.3e} FLOP, "
+          f"{t['bytes'] / 1e9:.3f} GB), {t['bound_ms'] / t['ms']:.1%} of the "
+          f"bound")
+
+
+def f32_conv_plans(c: int, k: int) -> dict:
+    """The f32 launch plans of fused_conv_block for (C, k) by route, the
+    default first, then the staged kernel: each is timed in the same
+    call."""
+    import torch
+
+    from jaeger_tpu_torch.ops import fused_conv
+
+    plan = fused_conv.conv_plan(c, k, torch.float32)
+    return {plan["route"]: plan,
+            "f32_staged": fused_conv.f32_staged_plan(c, k)}
+
+
+def reference_conv_block_f64(x, w, bias=None, dyt=None, act="none", *,
+                             in_mask=None, out_mask=None, residual=None):
+    """The plain version in float64 throughout (bias, then DYT when dyt is
+    given): the f32 kernel's accuracy yardstick."""
+    import torch
+    import torch.nn.functional as F
+
+    length = x.shape[1]
+    k = w.shape[0]
+    pad_l = (k - 1) // 2
+    xd = x.double()
+    if in_mask is not None:
+        xd = xd * in_mask[..., None]
+    xd = F.pad(xd, (0, 0, pad_l, k - 1 - pad_l))
+    wd = w.double()
+    y = xd[:, 0:length] @ wd[0]
+    for j in range(1, k):
+        y = y + xd[:, j:j + length] @ wd[j]
+    if bias is not None:
+        y = y + bias.double()
+    if dyt is not None:
+        d = dyt.double()
+        y = torch.tanh(y * d[0]) * d[1] + d[2]
+    if out_mask is not None:
+        y = y * out_mask[..., None]
+    if residual is not None:
+        y = y + residual.double()
+    if act == "gelu":
+        return F.gelu(y)
+    check(act == "none", f"reference_conv_block_f64: act {act}")
+    return y
+
+
+def _f32_runs_mask(n: int, length: int, device):
+    """in_mask with masked runs across the f32 ring kernel's 256-row tile
+    edges and into the halo at both ends of each row."""
+    import torch
+
+    m = torch.ones(n, length, dtype=torch.bool)
+    for lo, hi in ((0, 3), (60, 69), (250, 262), (509, 515),
+                   (length - 3, length)):
+        m[:, max(lo, 0):min(hi, length)] = False
+    return m.to(device)
+
+
+def phase_f32_kernel(card: str) -> dict:
+    """The f32 forms of fused_conv_block: the ring route's edges against
+    the plain version at F32_TOL (L 1, 127, 129 and 600, past two 256-row
+    tiles; N 1; C 16, 48, 64, 256; k 1, 3, 4, 7, 9; in_mask runs across
+    the tile edges and the halo; out_mask with residual; every
+    activation), one shape on route f32_staged; then at the flagship shape
+    (N 12288, L 500, C 128, k 5) conv1 (bias, DYT, gelu), conv2 (+
+    residual) and bias-only on every f32 route (the default first, both
+    held against the plain version and timed in the same call), beside the
+    plain version, the library yardstick with TF32 off and the bound at
+    the card's f32 peak; then the model form (in and out masks, residual)
+    against the plain version in float64."""
+    import torch
+
+    from jaeger_tpu_torch.ops import fused_conv
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(4321)
+    f32 = torch.float32
+    launches_before = fused_conv.launches, dict(fused_conv.route_launches)
+    tf32_off()
+    # (name, n, length, c, k, act, extension case, route)
+    cases = [("f32_L1", 4, 1, 128, 5, "gelu", "model", "f32_ring"),
+             ("f32_L127", 3, 127, 128, 5, "gelu", "model", "f32_ring"),
+             ("f32_L129", 3, 129, 128, 5, "gelu", "model", "f32_ring"),
+             ("f32_L600", 3, 600, 128, 5, "gelu", "model", "f32_ring"),
+             ("f32_N1", 1, 500, 128, 5, "gelu", "model", "f32_ring"),
+             ("f32_C16_k3", 6, 300, 16, 3, "gelu", "all", "f32_ring"),
+             ("f32_C48_k4", 6, 300, 48, 4, "gelu", "all", "f32_ring"),
+             ("f32_C64_k3", 6, 300, 64, 3, "gelu", "model", "f32_ring"),
+             ("f32_C256_k5", 6, 300, 256, 5, "gelu", "model", "f32_ring"),
+             ("f32_k1", 6, 300, 128, 1, "gelu", "model", "f32_ring"),
+             ("f32_k4", 6, 300, 128, 4, "gelu", "model", "f32_ring"),
+             ("f32_k7", 6, 300, 128, 7, "gelu", "model", "f32_ring"),
+             ("f32_k9", 6, 300, 128, 9, "gelu", "model", "f32_ring"),
+             ("f32_in_mask_runs", 6, 600, 128, 5, "gelu", "runs",
+              "f32_ring"),
+             ("f32_out_mask_residual", 6, 300, 128, 5, "gelu",
+              "out_mask_residual", "f32_ring"),
+             ("f32_dgrad_form", 6, 300, 128, 5, "none", "out_mask",
+              "f32_ring"),
+             ("f32_staged_k11", 6, 300, 64, 11, "gelu", "model",
+              "f32_staged")]
+    cases += [(f"f32_act_{act}", 6, 300, 128, 3, act, "all", "f32_ring")
+              for act in ("none", "relu", "tanh", "gelu", "gelu_tanh")]
+    worst = 0.0
+    for name, n, length, c, k, act, ext, route in cases:
+        x, w, bias, dyt = _conv_inputs(gen, n, length, c, k, f32, dev)
+        if ext == "runs":
+            kw = dict(bias=bias, dyt=dyt, use_dyt=True, bias_then_dyt=True,
+                      in_mask=_f32_runs_mask(n, length, dev))
+        elif ext == "out_mask":  # the data gradient's form: no bias
+            kw = dict(out_mask=(torch.rand(n, length, generator=gen)
+                                > 0.2).to(dev))
+        else:
+            kw = dict(bias=bias, dyt=dyt, **_extension_args(gen, x, ext, dev))
+        plan = fused_conv.conv_plan(c, k, f32)
+        check(plan["route"] == route, f"{name}: plan {plan}")
+        before = fused_conv.route_launches[route]
+        out = fused_conv.fused_conv_block(x, w, act=act, **kw)
+        torch.cuda.synchronize()
+        check(fused_conv.route_launches[route] == before + 1,
+              f"{name}: route {route} not launched")
+        ref = fused_conv.reference_conv_block(x, w, act=act, **kw)
+        err = (out - ref).abs()
+        bad = (err > F32_TOL + F32_TOL * ref.abs()).sum().item()
+        max_err = err.max().item()
+        print(f"kernel {name} N={n} L={length} C={c} k={k} {act} [{route} "
+              f"cb={plan['cb']} stages={plan['stages']}]: max_abs_err "
+              f"{max_err:.3e} (tol {F32_TOL}) "
+              f"{'ok' if bad == 0 and math.isfinite(max_err) else 'FAIL'}")
+        check(bad == 0 and math.isfinite(max_err),
+              f"{name}: {bad} elements beyond tolerance")
+        if "out_mask" in kw and "residual" not in kw:
+            check(bool((out[~kw["out_mask"]] == 0).all()),
+                  f"{name}: out_mask positions not zero")
+        worst = max(worst, max_err)
+        del x, w, out, ref, err
+
+    n, length, c, k = FLAG_N, FLAG_L, FLAG_C, FLAG_K
+    x, w, bias, dyt = _conv_inputs(gen, n, length, c, k, f32, dev)
+    res = torch.randn(n, length, c, generator=gen).to(dev)
+    plans = f32_conv_plans(c, k)
+    default = next(iter(plans))
+    forms = {"conv1": ((bias, dyt), "gelu", None),
+             "conv2": ((bias, dyt), "gelu", res),
+             "bias_only": ((bias, None), "none", None)}
+    flops = 2.0 * n * length * c * c * k
+    times = {}
+    for form, ((b, d), act, r) in forms.items():
+        ref = fused_conv.reference_conv_block(
+            x, w, b, d, act, d is not None, bias_then_dyt=d is not None,
+            residual=r)
+        for route, plan in plans.items():
+            out = fused_conv._launch(x, w, b, d, act, None, None, r, plan)
+            err = (out - ref).abs()
+            bad = (err > F32_TOL + F32_TOL * ref.abs()).sum().item()
+            max_err = err.max().item()
+            print(f"kernel f32 flagship {form} [{route}]: max_abs_err "
+                  f"{max_err:.3e} (tol {F32_TOL}) "
+                  f"{'ok' if bad == 0 and math.isfinite(max_err) else 'FAIL'}")
+            check(bad == 0 and math.isfinite(max_err),
+                  f"f32 flagship {form} {route}: {bad} elements beyond "
+                  f"tolerance")
+            worst = max(worst, max_err)
+            del out, err
+        del ref
+        routes = {route: cuda_ms(lambda: fused_conv._launch(
+            x, w, b, d, act, None, None, r, plan),
+            iters=20 if route == default else 5, warmup=1)
+            for route, plan in plans.items()}
+        plain = cuda_ms(lambda: fused_conv.reference_conv_block(
+            x, w, b, d, act, d is not None, bias_then_dyt=d is not None,
+            residual=r), iters=3, warmup=1)
+        tf32_off()
+        lib = cuda_ms(lambda: library_conv_block(x, w, b, d, act, r),
+                      iters=5, warmup=1)
+        nbytes = (4 * n * length * c * (3 if r is not None else 2)
+                  + 4 * k * c * c + 4 * c * (4 if d is not None else 1))
+        bound, by = _bound(flops, nbytes, PEAK_F32_FLOPS)
+        times[form] = dict(ms=routes[default], route=default,
+                           routes_ms={rt: ms for rt, ms in routes.items()
+                                      if rt != default},
+                           plain_ms=plain, library_ms=lib, bound_ms=bound,
+                           bound_by=by, flops=flops, bytes=nbytes)
+        _print_timing(f"f32 {form} N={n} L={length} C={c} k={k}",
+                      times[form], card)
+    # the model form against float64, row chunks of the full-shape output
+    kw = dict(bias=bias, dyt=dyt, use_dyt=True, bias_then_dyt=True,
+              in_mask=(torch.rand(n, length, generator=gen) > 0.2).to(dev),
+              out_mask=(torch.rand(n, length, generator=gen) > 0.2).to(dev),
+              residual=res)
+    out = fused_conv.fused_conv_block(x, w, act="gelu", **kw)
+    torch.cuda.synchronize()
+    err = scale = 0.0
+    for lo in range(0, n, 1024):
+        sl = slice(lo, lo + 1024)
+        ref = reference_conv_block_f64(
+            x[sl], w, bias, dyt, "gelu", in_mask=kw["in_mask"][sl],
+            out_mask=kw["out_mask"][sl], residual=res[sl])
+        err = max(err, (out[sl].double() - ref).abs().max().item())
+        scale = max(scale, ref.abs().max().item())
+        del ref
+    rel = err / scale
+    print(f"kernel f32 flagship model form [{default}] against float64: "
+          f"max_abs_err {err:.3e}, scale {scale:.3e}, {rel:.2e} of the scale "
+          f"(tol {F64_TOL}) {'ok' if rel < F64_TOL else 'FAIL'}")
+    check(rel < F64_TOL, f"f32 kernel {rel:.2e} of the scale from float64")
+    # checks and timings are not the main path
+    fused_conv.launches = launches_before[0]
+    fused_conv.route_launches.clear()
+    fused_conv.route_launches.update(launches_before[1])
+    del x, w, res, out
+    return {"max_abs_err": worst, "f64_rel_err": rel,
+            "f64_max_abs_err": err, **times["conv1"],
+            "conv2": times["conv2"], "bias_only": times["bias_only"]}
+
+
+def phase_f32_train_kernel(card: str) -> dict:
+    """The f32 backward kernels: conv_wgrad's f32 ring route against its
+    plain version at F32_TOL (the train shape, C 64 / 128 / 256, k 1 / 3 /
+    5 / 7, L 1, 31, 33 and 65, in_mask random and in runs, N 1), the same
+    bits run to run; then at the train shape (N 1536, L 500, C 128, k 5)
+    the data gradient (fused_conv_block with the flipped weights and
+    out_mask, every f32 route), conv_wgrad (every f32 route, the default
+    first) and the conv2 form of conv_epilogue_bwd, each beside its plain
+    version, the library yardstick with TF32 off and the bound at the
+    card's f32 peak."""
+    import torch
+
+    from jaeger_tpu_torch.ops import fused_conv
+    from jaeger_tpu_torch.ops import fused_conv_grad as fg
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(8642)
+    f32 = torch.float32
+    n, length, c, k = TRAIN_N, TRAIN_L, TRAIN_C, TRAIN_K
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    saved = (dict(fg.launches), fused_conv.launches,
+             dict(fused_conv.route_launches), dict(fg.wgrad_route_launches))
+    tf32_off()
+    worst = 0.0
+    for name, cn, cl, cc, ck, mk in [
+            ("f32_train_shape", n, length, c, k, "random"),
+            ("f32_C64_k3", 6, 300, 64, 3, "runs"),
+            ("f32_C256_k5", 6, 300, 256, 5, "random"),
+            ("f32_k1", 6, 300, 128, 1, "none"),
+            ("f32_k7_runs", 6, 300, 128, 7, "runs"),
+            ("f32_L1", 4, 1, 128, 5, "none"),
+            ("f32_L31", 3, 31, 128, 5, "random"),
+            ("f32_L33", 3, 33, 128, 3, "runs"),
+            ("f32_L65_N1", 1, 65, 128, 5, "random")]:
+        xx = torch.randn(cn, cl, cc, generator=gen).to(dev)
+        dd = (torch.randn(cn, cl, cc, generator=gen) * 0.1).to(dev)
+        if mk == "runs":
+            mm = _f32_runs_mask(cn, cl, dev)
+        elif mk == "random":
+            mm = (torch.rand(cn, cl, generator=gen) > 0.2).to(dev)
+        else:
+            mm = None
+        plan = fg.wgrad_plan(cn, cl, cc, ck, f32, sms)
+        check(plan["route"] == "fma_ring", f"conv_wgrad {name}: plan {plan}")
+        before = fg.wgrad_route_launches["fma_ring"]
+        dw, db = fg.conv_wgrad(xx, dd, mm, ck)
+        torch.cuda.synchronize()
+        check(fg.wgrad_route_launches["fma_ring"] == before + 1,
+              f"conv_wgrad {name}: route fma_ring not launched")
+        again = fg.conv_wgrad(xx, dd, mm, ck)
+        check(torch.equal(again[0], dw) and torch.equal(again[1], db),
+              f"conv_wgrad {name}: not the same bits run to run")
+        rdw, rdb = fg.reference_conv_wgrad(xx, dd, mm, ck)
+        worst = max(worst, _check_close(
+            f"conv_wgrad {name} N={cn} L={cl} C={cc} k={ck} float32 "
+            f"mask={mk} [fma_ring groups={plan['groups']}x{plan['group']} "
+            f"block={plan['co_block']}]", {"dW": (dw, rdw), "db": (db, rdb)},
+            F32_TOL))
+        del xx, dd, dw, db, rdw, rdb, again
+
+    x = torch.randn(n, length, c, generator=gen).to(dev)
+    du = (torch.randn(n, length, c, generator=gen) * 0.1).to(dev)
+    w = (torch.randn(k, c, c, generator=gen) * 0.05).to(dev)
+    im = (torch.rand(n, length, generator=gen) > 0.2).to(dev)
+    x_ncl = x.transpose(1, 2).contiguous()
+    du_ncl = du.transpose(1, 2).contiguous()
+    flops = 2.0 * n * length * c * c * k
+    times = {}
+
+    # the data gradient
+    wf = fg.flipped_weights(w)
+    plans = f32_conv_plans(c, k)
+    default = next(iter(plans))
+    ref = fused_conv.reference_conv_block(du, wf, out_mask=im)
+    errs = {route: _check_close(f"dgrad f32 train shape [{route}]", {"dx": (
+        fused_conv._launch(du, wf, None, None, "none", None, im, None,
+                           plan), ref)}, F32_TOL)
+        for route, plan in plans.items()}
+    del ref
+    routes = {route: cuda_ms(lambda: fused_conv._launch(
+        du, wf, None, None, "none", None, im, None, plan),
+        iters=20 if route == default else 5)
+        for route, plan in plans.items()}
+    nbytes = 4 * 2 * n * length * c + 4 * k * c * c + n * length
+    bound, by = _bound(flops, nbytes, PEAK_F32_FLOPS)
+    times["dgrad"] = dict(
+        ms=routes[default], route=default,
+        routes_ms={rt: ms for rt, ms in routes.items() if rt != default},
+        plain_ms=cuda_ms(lambda: fused_conv.reference_conv_block(
+            du, wf, out_mask=im), iters=3, warmup=1),
+        library_ms=cuda_ms(lambda: torch.nn.grad.conv1d_input(
+            (n, c, length), w.permute(2, 1, 0), du_ncl,
+            padding=(k - 1) // 2), iters=10),
+        bound_ms=bound, bound_by=by, flops=flops, bytes=nbytes,
+        max_abs_err=errs[default])
+
+    # conv_wgrad: the default plan and route fma's kernel (a thread per output,
+    # four row splits an SM)
+    plan = fg.wgrad_plan(n, length, c, k, f32, sms)
+    wdefault = plan["route"]
+    wplans = {wdefault: plan, "fma": dict(
+        route="fma", groups=4 * sms, group=1, ctas=4 * sms, co_block=0,
+        stages=0, smem=0, cluster=False)}
+    dw_new, db_new = fg.conv_wgrad(x, du, im, k)
+    dw_old, db_old = fg.conv_wgrad(x, du, im, k, plan=wplans["fma"])
+    rdw, rdb = fg.reference_conv_wgrad(x, du, im, k)
+    _check_close("conv_wgrad f32 train shape [fma]",
+                 {"dW": (dw_old, rdw), "db": (db_old, rdb)}, F32_TOL)
+    _check_close(f"conv_wgrad f32 train shape [{wdefault}] against [fma]",
+                 {"dW": (dw_new, dw_old), "db": (db_new, db_old)}, F32_TOL)
+    del dw_new, db_new, dw_old, db_old, rdw, rdb
+    routes = {route: cuda_ms(lambda: fg.conv_wgrad(x, du, im, k, plan=plan),
+                             iters=20 if route == wdefault else 3, warmup=1)
+              for route, plan in wplans.items()}
+    nbytes = 4 * 2 * n * length * c + n * length + 4 * (k * c * c + c)
+    bound, by = _bound(flops, nbytes, PEAK_F32_FLOPS)
+    times["conv_wgrad"] = dict(
+        ms=routes[wdefault], route=wdefault,
+        routes_ms={rt: ms for rt, ms in routes.items() if rt != wdefault},
+        plain_ms=cuda_ms(lambda: fg.reference_conv_wgrad(x, du, im, k),
+                         iters=3, warmup=1),
+        library_ms=cuda_ms(lambda: torch.nn.grad.conv1d_weight(
+            x_ncl, (c, c, k), du_ncl, padding=(k - 1) // 2), iters=10),
+        bound_ms=bound, bound_by=by, flops=flops, bytes=nbytes,
+        plan=wplans[wdefault])
+    del x_ncl, du_ncl
+
+    # conv_epilogue_bwd, conv2 form: dy, u, r, out_mask in; du, dr out
+    dy = torch.randn(n, length, c, generator=gen).to(dev)
+    r = torch.randn(n, length, c, generator=gen).to(dev)
+    dyt = torch.stack([torch.full((c,), 0.7), torch.randn(c, generator=gen),
+                       torch.randn(c, generator=gen)]).to(dev)
+    lib = library_epilogue_bwd(dy, x, r, im, dyt)
+    nbytes = 5 * 4 * n * length * c + n * length + 4 * 6 * c
+    bound, by = _bound(0.0, nbytes, PEAK_F32_FLOPS)
+    times["conv_epilogue_bwd"] = dict(
+        ms=cuda_ms(lambda: fg.conv_epilogue_bwd(dy, x, r, im, dyt,
+                                                "gelu_tanh"), iters=20),
+        route="cuda", plain_ms=cuda_ms(
+            lambda: fg.reference_conv_epilogue_bwd(dy, x, r, im, dyt,
+                                                   "gelu_tanh"),
+            iters=3, warmup=1),
+        library_ms=cuda_ms(lib, iters=10), bound_ms=bound, bound_by=by,
+        flops=0.0, bytes=nbytes)
+    del lib
+    # checks and timings are not the main path
+    fg.launches.update(saved[0])
+    fused_conv.launches = saved[1]
+    for counter, before in ((fused_conv.route_launches, saved[2]),
+                            (fg.wgrad_route_launches, saved[3])):
+        counter.clear()
+        counter.update(before)
+    times["conv_wgrad"]["max_abs_err"] = worst
+    for key, t in times.items():
+        _print_timing(f"f32 {key} N={n} L={length} C={c} k={k}", t, card)
+    return times
+
+
+def phase_f32_sweep(card: str) -> None:
+    """``--f32 --sweep``: the f32 ring kernels under other launch plans:
+    the forward's column block and ring stages (bias-only form at the
+    flagship shape) and with fewer taps (k 1, 3: 1/5 and 3/5 of the
+    products over the same bytes), conv_wgrad's ring stages at the train
+    shape."""
+    import torch
+
+    from jaeger_tpu_torch.ops import fused_conv
+    from jaeger_tpu_torch.ops import fused_conv_grad as fg
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(77)
+    f32 = torch.float32
+    saved = (fused_conv.launches, dict(fused_conv.route_launches),
+             dict(fg.launches), dict(fg.wgrad_route_launches))
+    n, length, c = FLAG_N, FLAG_L, FLAG_C
+    for k in (5, 3, 1):
+        x, w, bias, _ = _conv_inputs(gen, n, length, c, k, f32, dev)
+        for cb in ((64, 32, 16) if k == 5 else (64,)):
+            for stages in (4, 3, 2):
+                smem = fused_conv.f32_plan_bytes(c, k, cb, stages)
+                if smem > fused_conv.SMEM_LIMIT:
+                    continue
+                plan = dict(route="f32_ring", cb=cb, kw=0,
+                            tile=fused_conv.F32_TILE, stages=stages,
+                            smem=smem)
+                ms = cuda_ms(lambda: fused_conv._launch(
+                    x, w, bias, None, "none", None, None, None, plan),
+                    iters=10)
+                bound = 2.0 * n * length * c * c * k / PEAK_F32_FLOPS * 1e3
+                print(f"sweep f32 k={k} cb={cb} stages={stages} bias_only on "
+                      f"{card}: {ms:.3f} ms (products at the f32 peak "
+                      f"{bound:.3f} ms, {bound / ms:.1%})")
+        del x, w
+    n, length, c, k = TRAIN_N, TRAIN_L, TRAIN_C, TRAIN_K
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    x = torch.randn(n, length, c, generator=gen).to(dev)
+    du = torch.randn(n, length, c, generator=gen).to(dev)
+    im = (torch.rand(n, length, generator=gen) > 0.2).to(dev)
+    for stages in (2, 3, 4):
+        plan = fg.wgrad_plan(n, length, c, k, f32, sms, stages)
+        for mname, m in (("none", None), ("random", im)):
+            ms = cuda_ms(lambda: fg.conv_wgrad(x, du, m, k, plan=plan),
+                         iters=10)
+            print(f"sweep f32 conv_wgrad stages={stages} in_mask={mname} on "
+                  f"{card}: {ms:.3f} ms")
+    fused_conv.launches = saved[0]
+    fg.launches.update(saved[2])
+    for counter, before in ((fused_conv.route_launches, saved[1]),
+                            (fg.wgrad_route_launches, saved[3])):
+        counter.clear()
+        counter.update(before)
 
 
 def shifted_copies(q, k: int, dilation: int):
@@ -1472,9 +1985,9 @@ def phase_train_sweep(card: str) -> None:
 TEMPLATE = ROOT / "train_config" / "fragment_6class_1500bp.yaml"
 
 
-def narrow_train_config() -> dict:
-    """The flagship training template cut to C = 16, a 40-codon crop and
-    narrow heads (phase 6a's card-vs-CPU step)."""
+def narrow_train_config(filters: int = 16) -> dict:
+    """The flagship training template cut to C = ``filters`` (16), a
+    40-codon crop and narrow heads (phase 6a's card-vs-CPU step)."""
     from jaeger_tpu_torch.utils.config import load_model_config
 
     cfg = load_model_config(TEMPLATE)
@@ -1483,7 +1996,7 @@ def narrow_train_config() -> dict:
     m["string_processor"]["crop_size"] = 40
     for layer in m["representation_learner"]["hidden_layers"]:
         if "filters" in (layer.get("config") or {}):
-            layer["config"]["filters"] = 16
+            layer["config"]["filters"] = filters
     m["reliability_model"]["hidden_layers"][0]["config"]["units"] = 8
     return cfg
 
@@ -1503,8 +2016,10 @@ def _train_batch(rng, crop: int, program: str, n: int, n_classes: int):
     return {"bases": bases, "lengths": lengths, "labels": labels}
 
 
-def phase_train_step_f32() -> dict:
-    """One f32 train step of the narrow template on the card against the
+def phase_train_step_f32(filters: int = 16) -> dict:
+    """One f32 train step of the narrow template (``filters`` channels: 16,
+    and 128, the flagship's width, whose convs take the f32 ring routes of
+    fused_conv_block and conv_wgrad) on the card against the
     same step on the CPU, in each program (dense, bounded, masked): the
     loss within 1e-5, every gradient leaf within 1e-4 of its scale (a leaf
     below 1e-4 of the largest gradient is rounding noise around an exact
@@ -1529,11 +2044,12 @@ def phase_train_step_f32() -> dict:
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = narrow_train_config()
+    cfg = narrow_train_config(filters)
     tcfg = cfg["training"]
     lr = float(tcfg["optimizer_params"]["learning_rate"])
     rng = np.random.default_rng(17)
     worst = {}
+    routes = collections.Counter()
     for program in ("dense", "bounded", "masked"):
         runs = {}
         batch = None
@@ -1553,7 +2069,8 @@ def phase_train_step_f32() -> dict:
                     loss_name=tcfg["loss_classifier"],
                     loss_params=tcfg["loss_params_classifier"],
                     heads=("prediction",)), dev)
-            before = (dict(fg.launches), fused_conv.launches)
+            before = (dict(fg.launches), fused_conv.launches,
+                      _route_counts())
             state, metrics = step(state, batch)
             if dev == "cuda":
                 torch.cuda.synchronize()
@@ -1561,6 +2078,8 @@ def phase_train_step_f32() -> dict:
                 added["fused_conv_block"] = fused_conv.launches - before[1]
                 check(all(v > 0 for v in added.values()),
                       f"f32 step {program}: launches {added}")
+                routes.update(_route_counts())
+                routes.subtract(before[2])
             check(step.program_counts == {program: 1},
                   f"f32 step {program}: ran {step.program_counts}")
             runs[dev] = dict(
@@ -1597,10 +2116,18 @@ def phase_train_step_f32() -> dict:
             check(bool((diff[big] <= 2e-3 * du_cpu[big].abs() + 1e-7).all()),
                   f"f32 step {program}: {k} update beyond 2e-3")
         worst[program] = g_err
-        print(f"train step f32 {program} (narrow template, card vs CPU): "
-              f"loss {gpu['loss']:.6f} vs {cpu['loss']:.6f}, worst grad "
-              f"err {g_err:.2e} of its scale (tol 1e-4) ok")
-    return worst
+        print(f"train step f32 {program} (narrow template, C {filters}, card "
+              f"vs CPU): loss {gpu['loss']:.6f} vs {cpu['loss']:.6f}, worst "
+              f"grad err {g_err:.2e} of its scale (tol 1e-4) ok")
+    routes = {k: v for k, v in routes.items() if v}
+    print(f"train step f32 C {filters}: launches by route {routes}")
+    if filters % 64 == 0:
+        check(routes.get("fused_conv_block:f32_ring", 0) > 0
+              and routes.get("conv_wgrad:fma_ring", 0) > 0
+              and not routes.get("fused_conv_block:f32_staged")
+              and not routes.get("conv_wgrad:fma"),
+              f"f32 step C {filters}: routes {routes}")
+    return dict(worst, routes=routes)
 
 
 def write_train_data(root: Path, seed: int, crop_nt: int,
@@ -4966,6 +5493,8 @@ def _reset_kernel_counts() -> None:
     int8_conv.launches = 0
     for k in fg.launches:
         fg.launches[k] = 0
+    fused_conv.route_launches.clear()
+    fg.wgrad_route_launches.clear()
 
 
 def pretrain_narrow_config() -> dict:
@@ -6168,10 +6697,16 @@ def phase_convert(tmp: Path, card: str, bundle: Path) -> dict:
                 k: v.cpu().numpy() for k, v in got.items()}
     torch.cuda.synchronize()
     launches = _kernel_counts()
+    routes = _route_counts()
     forwards = len(dtypes) * len(CONVERT_BATCHES)
     check(launches["fused_conv_block"] == 6 * forwards
           and launches["int8_conv"] == 0,
           f"phase 15 engine forwards: launches {launches}")
+    # each f32 forward's six convs on the f32 ring route, bf16's on wgmma
+    per = 6 * len(CONVERT_BATCHES)
+    check(routes == {"fused_conv_block:f32_ring": per,
+                     "fused_conv_block:wgmma": per},
+          f"phase 15 engine forwards: routes {routes}")
 
     report = {}
     cpu_ref = dict(np.load(out / "out_float32_b96.npz"))
@@ -6244,6 +6779,10 @@ def phase_convert(tmp: Path, card: str, bundle: Path) -> dict:
         prog_ms = ran[f"{precision}_b{big}"]["ms"]
         times[precision] = dict(program_ms=prog_ms, port_ms=port_ms,
                                 ratio=prog_ms / port_ms)
+        # the hand kernels against the plain versions the program holds
+        check(port_ms < prog_ms,
+              f"{precision} forward at {big}: the port {port_ms:.2f} ms, "
+              f"the exported program {prog_ms:.2f} ms")
         print(f"convert-graph flagship {precision}: program forward at "
               f"{big} {prog_ms:.2f} ms, the port's {port_ms:.2f} ms "
               f"({prog_ms / port_ms:.2f} x); export "
@@ -6259,7 +6798,7 @@ def phase_convert(tmp: Path, card: str, bundle: Path) -> dict:
           f"launches in {forwards} engine forwards; the programs' process "
           f"took {runner_s:.1f} s, the phase {phase_s:.1f} s")
     return dict(programs=report, times=times, runner_s=runner_s,
-                phase_s=phase_s, launches=launches)
+                phase_s=phase_s, launches=launches, routes=routes)
 
 
 def main(argv: list[str]) -> int:
@@ -6284,9 +6823,20 @@ def main(argv: list[str]) -> int:
     t_start = time.perf_counter()
     try:
         card = phase_device()
-        phase_build()
+        phase_build(("fused_conv_block", "fused_conv_wgrad",
+                     "conv_epilogue_bwd") if "--f32" in argv
+                    else KERNEL_SOURCES)
+        if "--f32" in argv:
+            f32 = dict(forward=phase_f32_kernel(card),
+                       backward=phase_f32_train_kernel(card))
+            if "--sweep" in argv:
+                phase_f32_sweep(card)
+            print(json.dumps({"f32": f32}, default=str))
+            print(f"f32 run done in {time.perf_counter() - t_start:.0f} s")
+            return 0
         if "--backward" in argv:
             phase_train_kernel(card)
+            phase_f32_train_kernel(card)
             if "--sweep" in argv:
                 phase_train_sweep(card)
             print(f"backward run done in {time.perf_counter() - t_start:.0f} s")
@@ -6387,8 +6937,10 @@ def main(argv: list[str]) -> int:
                   f"{time.perf_counter() - t_start:.0f} s")
             return 0
         kern = phase_kernel(card)
+        kern_f32 = phase_f32_kernel(card)
         kern8 = phase_int8_kernel(card)
         kern_train = phase_train_kernel(card)
+        kern_f32_train = phase_f32_train_kernel(card)
         if "--sweep" in argv:
             phase_sweep(card)
             phase_int8_sweep(card)
@@ -6404,6 +6956,7 @@ def main(argv: list[str]) -> int:
             launches = phase_predict(Path(tmp), bundle)
             launches8 = phase_int8_predict(Path(tmp), bundle)
             step_f32 = phase_train_step_f32()
+            step_f32_wide = phase_train_step_f32(128)
             train = phase_train_flagship(Path(tmp), card)
             phase_train_predict(Path(tmp), train["bundle"])
             host = phase_host_pipeline(Path(tmp), bundle, card)
@@ -6439,6 +6992,9 @@ def main(argv: list[str]) -> int:
                "int8_conv_bias_only_form": kern8["bias_only"],
                "int8_conv_requant_pallas_shape": kern8["requant"],
                "train_step_f32_worst_grad_err": step_f32,
+               "train_step_f32_c128": step_f32_wide,
+               "fused_conv_f32": kern_f32,
+               "f32_backward": kern_f32_train,
                "train_flagship": {k: v for k, v in train.items()
                                   if k != "bundle"},
                "conv_epilogue_bwd_conv1_form": {
@@ -6451,7 +7007,7 @@ def main(argv: list[str]) -> int:
                "route": route, "int8_strided_predict": strided,
                "legacy": legacy, "commands": commands,
                "pretrain": pretrain, "multi": multi, "convert": convert}
-    print(json.dumps(summary))
+    print(json.dumps(summary, default=str))
     print(f"all phases passed in {time.perf_counter() - t_start:.0f} s")
     print(card)
 
@@ -6519,10 +7075,33 @@ def main(argv: list[str]) -> int:
               hyena_launches=hl["conv_wgrad"],
               pretrain_launches=pl["conv_wgrad"],
               multi_launches=ml["conv_wgrad"]),
+        # the f32 forms (other kernel functions of the same sources): the
+        # forward and the data gradient on route f32_ring (the staged kernel,
+        # route f32_staged, timed beside it), its launches by route in
+        # phase 15's f32 engine forwards and phase 6a's C 128 f32 steps
+        entry("fused_conv_block_f32", "cuda",
+              "jaeger_tpu_torch/csrc/fused_conv_block.cu",
+              "jaeger_tpu/ops/pallas_conv.py:70",
+              convert["routes"]["fused_conv_block:f32_ring"], kern_f32,
+              kernel="conv_f32_ring", form="conv1",
+              staged_ms=kern_f32["routes_ms"]["f32_staged"],
+              conv2=kern_f32["conv2"], bias_only=kern_f32["bias_only"],
+              dgrad=kern_f32_train["dgrad"],
+              f64_rel_err=kern_f32["f64_rel_err"],
+              convert_routes=convert["routes"],
+              train_f32_routes=step_f32_wide["routes"]),
+        entry("conv_wgrad_f32", "cuda",
+              "jaeger_tpu_torch/csrc/fused_conv_wgrad.cu",
+              "jaeger_tpu/ops/pallas_conv.py:70",
+              step_f32_wide["routes"]["conv_wgrad:fma_ring"],
+              kern_f32_train["conv_wgrad"], kernel="wgrad_f32_ring",
+              fma_ms=kern_f32_train["conv_wgrad"]["routes_ms"]["fma"],
+              train_f32_routes=step_f32_wide["routes"]),
         entry("conv_epilogue_bwd", "cuda",
               "jaeger_tpu_torch/csrc/conv_epilogue_bwd.cu",
               "jaeger_tpu/ops/pallas_conv.py:70", tl["conv_epilogue_bwd"],
               kern_train["conv_epilogue_bwd"],
+              f32=kern_f32_train["conv_epilogue_bwd"],
               host_us=kern_train["conv_epilogue_bwd"]["host_us"],
               templates=at_templates("conv_epilogue_bwd",
                                      zl["conv_epilogue_bwd"]),

@@ -73,10 +73,63 @@
 //    conv_plan (ops/fused_conv.py); the entry below recomputes the layout and
 //    refuses a plan that disagrees with it.
 //
-// f32: conv_f32_fma, plain FMAs in full precision (no TF32), one CTA per (row,
-// 64 positions, column block), input tile and one weight tap at a time in
-// shared memory. Not on the default (bf16) path.
-//
+// f32: conv_f32_ring, a persistent kernel of plain FMAs in full precision
+// (never TF32: the f32 route is the one held against the reference's f32).
+// Taken by predict / train / taxonomy --precision float32 and by the f32
+// data gradient.
+//  * What bounds it: at the flagship shape a call is 1.0e12 FLOPs, 15.0 ms
+//    at the card's 67 TFLOP/s f32 rate outside the tensor cores, against
+//    6.3 GB of f32 in and out (1.9 ms at 3.35 TB/s; conv2 9.4 GB, 2.8 ms):
+//    bound by operations, so the design is about keeping the FMA pipes
+//    fed from registers. (The first f32 kernel, kept as conv_f32_fma
+//    below, started a CTA per 64 positions that restaged all k * C * CB
+//    weights one tap at a time, about 32 GB of L2 reads a call behind two
+//    barriers a tap, and issued a shared load for every FMA: 18 % of the
+//    bound.)
+//  * Schedule: about one CTA per SM (the count comes from the wrapper),
+//    each owning column block b % n_cb (CB = 64, 32 or 16 channels, the
+//    plan's). Its 8 warps are independent workers: warp w of CTA b walks
+//    the units (n, 32 positions) w', w' + W, ... of the column block (w'
+//    its worker index, W the workers), so a sequence of 500 positions
+//    wastes 12 rows, not a tile's worth, and no warp waits for another.
+//  * Weights resident: each CTA stages w[:, :, col0:col0+CB] once (k * C *
+//    CB f32: 163,840 B at C = 128, k = 5, CB = 64) with the per-channel
+//    bias, alpha, gamma, beta, and keeps them for every unit; after that
+//    one __syncthreads the warps never meet again.
+//  * A ring per warp: stages of its unit's 32 + k - 1 rows (halo
+//    included) x 16 channels (64-byte rows), 2-4 of them, filled by the
+//    warp's own lanes with 16-byte cp.async copies, one group a stage,
+//    S - 1 stages ahead and across unit boundaries, so the next unit's
+//    loads run under this unit's products and epilogue; __syncwarp is the
+//    only barrier. Rows before 0, past L - 1 or masked by in_mask are zero
+//    filled by the copy itself (src-size 0).
+//  * Register blocking: lane (tr, tc) owns 8 rows (8 tr ..) x CB / 8
+//    columns (8 VW g + VW tc .., VW = 4 or 2): 64 f32 accumulators at CB
+//    64. For 4 channels it loads the window of its 8 + k - 1 rows once
+//    (float4 each) and reuses it for all k taps (tap j of row r is window
+//    row r + j), and each weight float4 of (tap, channel) feeds 32 FMAs: 13
+//    shared loads per 320 FMAs at k 5. The tap loop is a template of k
+//    (1..9) chosen once a stage, so the window stays in registers.
+//  * Bank conflicts: a row's 16-byte unit u is stored at u ^ ((row >> 3) &
+//    3), so the four row groups of a warp (rows 8 apart, 64-byte rows) read
+//    four different bank quarters; the lanes of a row group read the same
+//    address (a broadcast). The weight reads of a warp are 8 consecutive
+//    16-byte units of one row.
+//  * Epilogue from the accumulator registers, in the plain version's order
+//    (bias, DYT with tanhf, out_mask, residual, activation with erff /
+//    tanhf): the residual and out_mask of the thread's 8 rows are loaded
+//    first, all at once (the residual lines were prefetched into L2 at
+//    the start of the unit's last stage), then each step runs over all 64
+//    values behind one uniform branch: per-element branches on the
+//    activation and the options cost more than the products' 69 % rate
+//    left (measured on the H100). float4 stores: a warp writes 128 contiguous
+//    bytes a row. While one warp runs its epilogue, the others multiply.
+//  * The plan (CB, unit rows, stages, bytes) is made in one place, the
+//    wrapper's conv_plan / f32_plan; the entry recomputes the layout and
+//    refuses a plan that disagrees. Shapes it cannot hold (k > 9) take
+//    route f32_staged, the first f32 kernel, conv_f32_fma: one CTA per
+//    (row, 64 positions, column block), the input tile and one weight tap
+//    at a time in shared memory.
 // Built with nvcc into a shared library with a plain C interface and loaded
 // with ctypes (jaeger_tpu_torch/ops/cuda_build.py).
 
@@ -565,15 +618,408 @@ conv_f32_fma(Params p, int l_tiles, int CB) {
   }
 }
 
-cudaError_t launch_f32(const Params& p, int n_rows, cudaStream_t stream) {
+// the staged kernel's shared memory: the input tile and one weight tap
+inline size_t staged_bytes(int C, int K) {
+  const int CB = C <= 128 ? C : 128;
+  return ((size_t)(F_TL + K - 1) * C + (size_t)C * CB) * 4;
+}
+
+cudaError_t launch_f32_staged(const Params& p, int n_rows,
+                              cudaStream_t stream) {
   const int CB = p.C <= 128 ? p.C : 128;
   const int l_tiles = (p.L + F_TL - 1) / F_TL;
-  const size_t smem = ((size_t)(F_TL + p.K - 1) * p.C + (size_t)p.C * CB) * 4;
+  const size_t smem = staged_bytes(p.C, p.K);
   cudaError_t e = cudaFuncSetAttribute(
       conv_f32_fma, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((unsigned)(n_rows * l_tiles), (unsigned)(p.C / CB));
   conv_f32_fma<<<grid, CB * (F_TL / F_RPT), smem, stream>>>(p, l_tiles, CB);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// f32: conv_f32_ring, the persistent FMA kernel (see the note at the top)
+// ---------------------------------------------------------------------------
+
+constexpr int R_RT = 8;         // output rows per thread
+constexpr int R_WM = 4 * R_RT;  // output rows per warp unit: 4 row groups
+constexpr int R_CK = 16;        // channels per ring stage: 64-byte rows
+constexpr int R_KMAX = 9;       // taps the register window can hold
+
+// warps a CTA: more would cap the registers below what 8 rows x CB / 8
+// columns of accumulators, the tap window and the weights in flight need
+// (12 or 16 warps spilled and ran slower on the H100)
+constexpr int R_WARPS = 8;
+constexpr int R_THREADS = 32 * R_WARPS;
+
+// Shared-memory layout, byte offsets from a 16-byte aligned base:
+// [weights: K * C rows of CB f32] [bias, alpha, gamma, beta: 4 x CB f32]
+// [x rings: R_WARPS warps x stages x (R_WM + K - 1) rows x R_CK f32]
+struct RingLayout {
+  int stages;
+  int rows;     // R_WM + K - 1: a warp's stage
+  int n_cb;     // C / CB column blocks
+  int nkc;      // C / R_CK channel chunks a unit
+  int l_units;  // ceil(L / R_WM)
+  long long units;  // n_rows * l_units warp units
+  uint32_t stage, off_par, off_x, bytes;
+};
+
+// false if (cb, tile, stages) cannot hold this shape; tile is R_WM, the
+// rows of a warp unit
+bool make_ring_layout(int n_rows, int L, int C, int K, int cb, int tile,
+                      int stages, RingLayout* lay) {
+  if (tile != R_WM || K < 1 || K > R_KMAX) return false;
+  if ((cb != 16 && cb != 32 && cb != 64) || C % cb || C % R_CK) return false;
+  if (stages < 2 || stages > 4) return false;
+  lay->stages = stages;
+  lay->rows = R_WM + K - 1;
+  lay->n_cb = C / cb;
+  lay->nkc = C / R_CK;
+  lay->l_units = (L + R_WM - 1) / R_WM;
+  lay->units = (long long)n_rows * lay->l_units;
+  lay->stage = (uint32_t)lay->rows * R_CK * 4;
+  lay->off_par = (uint32_t)K * C * cb * 4;
+  lay->off_x = lay->off_par + 16u * cb;
+  lay->bytes = lay->off_x + R_WARPS * stages * lay->stage;
+  return lay->bytes <= (uint32_t)SMEM_LIMIT;
+}
+
+// The byte offset of (row, 16-byte unit u) in a warp's stage: the unit is
+// XORed with bits 3-4 of the row, so the four row groups of a warp (rows 8
+// apart, 64-byte rows) read four different bank quarters.
+__device__ __forceinline__ uint32_t ring_off(int row, int u) {
+  return (uint32_t)row * (R_CK * 4) + ((u ^ ((row >> 3) & 3)) << 4);
+}
+
+// The products of one ring stage (R_CK channels) for K taps. The thread's
+// window is rows 8 tr .. 8 tr + R_RT + K - 2 of its warp's stage, 4
+// channels at a time in registers: tap j of output row r reads window row
+// r + j, so each window value feeds every tap without a second shared
+// load, and each weight float4 feeds R_RT rows. wc: the weights of the
+// stage's first channel at this thread's first column; tap j is tap_stride
+// floats further, channel c cb further.
+template <int K, int CT>
+__device__ __forceinline__ void ring_products(float (&acc)[R_RT][CT],
+                                              const unsigned char* xs,
+                                              const float* __restrict__ wc,
+                                              int tap_stride, int cb, int tr) {
+  constexpr int VW = CT >= 4 ? 4 : 2, NG = CT / VW, W = R_RT + K - 1;
+  const unsigned char* xr = xs + tr * R_RT * (R_CK * 4);
+#pragma unroll 1
+  for (int c4 = 0; c4 < R_CK / 4; ++c4) {
+    // ring_off of window row i: (8 tr + i) >> 3 & 3 is (tr + i / 8) & 3
+    const int o0 = (c4 ^ tr) << 4, o1 = (c4 ^ ((tr + 1) & 3)) << 4;
+    float4 a[W];
+#pragma unroll
+    for (int i = 0; i < W; ++i)
+      a[i] = *reinterpret_cast<const float4*>(xr + i * (R_CK * 4) +
+                                              (i < 8 ? o0 : o1));
+#pragma unroll
+    for (int cc = 0; cc < 4; ++cc) {
+      const float* wr = wc + (4 * c4 + cc) * cb;
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        float b[CT];
+#pragma unroll
+        for (int g = 0; g < NG; ++g) {
+          const float* src = wr + j * tap_stride + g * 8 * VW;
+          if constexpr (VW == 4) {
+            const float4 v = *reinterpret_cast<const float4*>(src);
+            b[4 * g] = v.x;
+            b[4 * g + 1] = v.y;
+            b[4 * g + 2] = v.z;
+            b[4 * g + 3] = v.w;
+          } else {
+            const float2 v = *reinterpret_cast<const float2*>(src);
+            b[2 * g] = v.x;
+            b[2 * g + 1] = v.y;
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < R_RT; ++r) {
+          const float4& v = a[r + j];
+          const float av = cc == 0 ? v.x : cc == 1 ? v.y : cc == 2 ? v.z : v.w;
+#pragma unroll
+          for (int e = 0; e < CT; ++e) acc[r][e] = fmaf(av, b[e], acc[r][e]);
+        }
+      }
+    }
+  }
+}
+
+template <int CB>
+__global__ void __launch_bounds__(R_THREADS, 1)
+conv_f32_ring(Params p, RingLayout lay) {
+  constexpr int CT = CB / 8;  // columns a thread: 8, 4 or 2
+  constexpr int VW = CT >= 4 ? 4 : 2, NG = CT / VW;
+  extern __shared__ __align__(16) unsigned char smem_f[];
+  float* ws = reinterpret_cast<float*>(smem_f);
+  float* par = reinterpret_cast<float*>(smem_f + lay.off_par);
+
+  const int C = p.C, K = p.K, L = p.L, S = lay.stages, nkc = lay.nkc;
+  const int pad_l = (K - 1) / 2;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int col0 = (blockIdx.x % lay.n_cb) * CB;
+  // warp units (n, 32 rows) of this column block: worker w of W walks
+  // units w, w + W, ...
+  const long long worker =
+      (long long)(blockIdx.x / lay.n_cb) * R_WARPS + warp;
+  const long long workers = (long long)(gridDim.x / lay.n_cb) * R_WARPS;
+  const int n_local =
+      worker < lay.units
+          ? (int)((lay.units - worker + workers - 1) / workers)
+          : 0;
+  const int total = n_local * nkc;  // (unit, channel chunk) stages to walk
+  const float* x = static_cast<const float*>(p.x);
+  const float* __restrict__ res = static_cast<const float*>(p.residual);
+  float* __restrict__ out = static_cast<float*>(p.out);
+  // this warp's ring: rows l0 - pad_l .. of each of its units
+  const unsigned char* xring =
+      smem_f + lay.off_x + (size_t)warp * S * lay.stage;
+  const uint32_t x_s = hopper::smem_u32(xring);
+
+  // resident weights w[j][ci][col0 .. col0 + CB), row j * C + ci, and the
+  // epilogue's parameters of this column block
+  {
+    const float* w = static_cast<const float*>(p.w);
+    constexpr int V = CB / 4;
+    for (int i = tid; i < K * C * V; i += R_THREADS) {
+      const int v = i % V, jc = i / V;
+      reinterpret_cast<float4*>(ws)[i] = *reinterpret_cast<const float4*>(
+          w + (long long)jc * C + col0 + 4 * v);
+    }
+    for (int c = tid; c < CB; c += R_THREADS) {
+      par[c] = p.bias ? p.bias[col0 + c] : 0.f;
+      if (p.dyt) {
+        par[CB + c] = p.dyt[col0 + c];
+        par[2 * CB + c] = p.dyt[C + col0 + c];
+        par[3 * CB + c] = p.dyt[2 * C + col0 + c];
+      }
+    }
+  }
+  __syncthreads();  // the only CTA-wide barrier: the warps run apart
+
+  // ---- this warp's ring: lane copies 16-byte units of stage rows lane /
+  // 4 + 8 mm (unit lane % 4) with cp.async; rows before 0, past L - 1 or
+  // masked by in_mask are zero filled. One cp.async group a stage, empty
+  // past the last one. ----
+  const int cu = lane & 3, row_a = lane >> 2;
+  uint32_t pvalid = 0;  // bit mm: row row_a + 8 mm of the producer's tile
+  long long pbase = 0;  // global row of the warp's stage row 0
+  auto issue = [&](int q) {
+    if (q < total) {
+      const int i = q / nkc, kc = q - i * nkc;
+      if (kc == 0) {
+        const long long u = worker + i * workers;
+        const long long n = u / lay.l_units;
+        const int p0 = (int)(u - n * lay.l_units) * R_WM - pad_l;
+        pbase = (long long)n * L + p0;
+        pvalid = 0;
+        for (int mm = 0; row_a + 8 * mm < lay.rows; ++mm) {
+          const int pos = p0 + row_a + 8 * mm;
+          if (pos >= 0 && pos < L &&
+              (!p.in_mask || p.in_mask[(long long)n * L + pos]))
+            pvalid |= 1u << mm;
+        }
+      }
+      const uint32_t st = x_s + (uint32_t)(q % S) * lay.stage;
+      for (int mm = 0; row_a + 8 * mm < lay.rows; ++mm) {
+        const int row = row_a + 8 * mm;
+        const bool ok = (pvalid >> mm) & 1u;
+        const float* src =
+            ok ? x + (pbase + row) * C + kc * R_CK + 4 * cu : x;
+        hopper::cp_async16_zfill(st + ring_off(row, cu), src, ok);
+      }
+    }
+    hopper::cp_async_commit();
+  };
+
+  // ---- the products: lane (tr, tc) = (lane / 8, lane % 8) owns rows 8
+  // tr .. + 7 of the unit and columns 8 VW g + VW tc .. + VW - 1 of the
+  // block (g < NG) ----
+  const int tr = lane / 8, tc = lane % 8;
+  const int rb = tr * R_RT;
+  float acc[R_RT][CT];
+#pragma unroll
+  for (int r = 0; r < R_RT; ++r)
+#pragma unroll
+    for (int e = 0; e < CT; ++e) acc[r][e] = 0.f;
+
+  for (int q = 0; q < S - 1; ++q) issue(q);
+  for (int q = 0; q < total; ++q) {
+    // stage q has landed (this lane's copies, then the warp's), and stage
+    // q - 1 is free: every lane of the warp has finished its products
+    if (S == 2)
+      hopper::cp_async_wait<0>();
+    else if (S == 3)
+      hopper::cp_async_wait<1>();
+    else
+      hopper::cp_async_wait<2>();
+    __syncwarp();
+    issue(q + S - 1);
+    const int i = q / nkc, kc = q - i * nkc;
+    const long long u = worker + i * workers;
+    const long long n = u / lay.l_units;
+    const int l0 = (int)(u - n * lay.l_units) * R_WM;
+    if (res && kc == nkc - 1 && tc == 0) {
+      // the epilogue's residual rows into L2 while the last products run
+#pragma unroll
+      for (int r = 0; r < R_RT; ++r)
+        if (l0 + rb + r < L)
+#pragma unroll
+          for (int g = 0; g < NG; ++g)
+            hopper::prefetch_l2(res + (n * L + l0 + rb + r) * C + col0 +
+                                g * 8 * VW);
+    }
+    const unsigned char* xs = xring + (size_t)(q % S) * lay.stage;
+    const float* wc = ws + kc * R_CK * CB + tc * VW;
+    switch (K) {
+      case 1: ring_products<1, CT>(acc, xs, wc, C * CB, CB, tr); break;
+      case 2: ring_products<2, CT>(acc, xs, wc, C * CB, CB, tr); break;
+      case 3: ring_products<3, CT>(acc, xs, wc, C * CB, CB, tr); break;
+      case 4: ring_products<4, CT>(acc, xs, wc, C * CB, CB, tr); break;
+      case 5: ring_products<5, CT>(acc, xs, wc, C * CB, CB, tr); break;
+      case 6: ring_products<6, CT>(acc, xs, wc, C * CB, CB, tr); break;
+      case 7: ring_products<7, CT>(acc, xs, wc, C * CB, CB, tr); break;
+      case 8: ring_products<8, CT>(acc, xs, wc, C * CB, CB, tr); break;
+      default: ring_products<9, CT>(acc, xs, wc, C * CB, CB, tr); break;
+    }
+    if (kc != nkc - 1) continue;
+
+    // ---- epilogue of unit i from the registers (the warp's next stages
+    // are in flight, the other warps run their products): the residual
+    // and out_mask of all 8 rows are loaded first (rows past L read row
+    // l0, and are not stored), then each step (bias, DYT, out_mask,
+    // residual, activation) runs over all the values behind one uniform
+    // branch ----
+    float rv[R_RT][CT];
+    bool keep[R_RT];
+    const float* rbase = res ? res : static_cast<const float*>(p.x);
+#pragma unroll
+    for (int r = 0; r < R_RT; ++r) {
+      const int l = l0 + rb + r;
+      const long long row = n * L + (l < L ? l : l0);
+      keep[r] = !p.out_mask || p.out_mask[row];
+      if (res) {
+#pragma unroll
+        for (int g = 0; g < NG; ++g) {
+          const float* src = rbase + row * C + col0 + g * 8 * VW + tc * VW;
+          if constexpr (VW == 4) {
+            const float4 v = *reinterpret_cast<const float4*>(src);
+            rv[r][4 * g] = v.x;
+            rv[r][4 * g + 1] = v.y;
+            rv[r][4 * g + 2] = v.z;
+            rv[r][4 * g + 3] = v.w;
+          } else {
+            const float2 v = *reinterpret_cast<const float2*>(src);
+            rv[r][2 * g] = v.x;
+            rv[r][2 * g + 1] = v.y;
+          }
+        }
+      }
+    }
+    // column e of the thread is cix(e) of the block
+    auto cix = [&](int e) { return (e / VW) * 8 * VW + tc * VW + e % VW; };
+    if (p.bias) {
+#pragma unroll
+      for (int e = 0; e < CT; ++e) {
+        const float b = par[cix(e)];
+#pragma unroll
+        for (int r = 0; r < R_RT; ++r) acc[r][e] += b;
+      }
+    }
+    if (p.dyt) {
+#pragma unroll
+      for (int e = 0; e < CT; ++e) {
+        const float al = par[CB + cix(e)], ga = par[2 * CB + cix(e)],
+                    be = par[3 * CB + cix(e)];
+#pragma unroll
+        for (int r = 0; r < R_RT; ++r)
+          acc[r][e] = tanhf(acc[r][e] * al) * ga + be;
+      }
+    }
+    if (p.out_mask) {
+#pragma unroll
+      for (int r = 0; r < R_RT; ++r)
+#pragma unroll
+        for (int e = 0; e < CT; ++e)
+          if (!keep[r]) acc[r][e] = 0.f;
+    }
+    if (res) {
+#pragma unroll
+      for (int r = 0; r < R_RT; ++r)
+#pragma unroll
+        for (int e = 0; e < CT; ++e) acc[r][e] += rv[r][e];
+    }
+    switch (p.act) {
+      case ACT_RELU:
+#pragma unroll
+        for (int r = 0; r < R_RT; ++r)
+#pragma unroll
+          for (int e = 0; e < CT; ++e) acc[r][e] = fmaxf(acc[r][e], 0.f);
+        break;
+      case ACT_TANH:
+#pragma unroll
+        for (int r = 0; r < R_RT; ++r)
+#pragma unroll
+          for (int e = 0; e < CT; ++e) acc[r][e] = tanhf(acc[r][e]);
+        break;
+      case ACT_GELU:
+#pragma unroll
+        for (int r = 0; r < R_RT; ++r)
+#pragma unroll
+          for (int e = 0; e < CT; ++e)
+            acc[r][e] = act_fn(acc[r][e], ACT_GELU);
+        break;
+      case ACT_GELU_TANH:
+#pragma unroll
+        for (int r = 0; r < R_RT; ++r)
+#pragma unroll
+          for (int e = 0; e < CT; ++e)
+            acc[r][e] = act_fn(acc[r][e], ACT_GELU_TANH);
+        break;
+      default:
+        break;
+    }
+#pragma unroll
+    for (int r = 0; r < R_RT; ++r) {
+      const int l = l0 + rb + r;
+      if (l < L) {
+        float* dst = out + (n * L + l) * C + col0 + tc * VW;
+#pragma unroll
+        for (int g = 0; g < NG; ++g) {
+          if constexpr (VW == 4)
+            *reinterpret_cast<float4*>(dst + g * 8 * VW) =
+                make_float4(acc[r][4 * g], acc[r][4 * g + 1],
+                            acc[r][4 * g + 2], acc[r][4 * g + 3]);
+          else
+            *reinterpret_cast<float2*>(dst) =
+                make_float2(acc[r][0], acc[r][1]);
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < CT; ++e) acc[r][e] = 0.f;
+    }
+  }
+  hopper::cp_async_wait<0>();
+}
+
+template <int CB>
+cudaError_t launch_f32_ring(const Params& p, const RingLayout& lay, int sms,
+                            cudaStream_t stream) {
+  cudaError_t e = cudaFuncSetAttribute(
+      conv_f32_ring<CB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)lay.bytes);
+  if (e != cudaSuccess) return e;
+  // persistent: as many CTAs per column block as fit one per SM, no more
+  // than its warps have units
+  long long per_cb = sms / lay.n_cb;
+  const long long need = (lay.units + R_WARPS - 1) / R_WARPS;
+  if (per_cb > need) per_cb = need;
+  if (per_cb < 1) per_cb = 1;
+  conv_f32_ring<CB><<<(unsigned)(per_cb * lay.n_cb), R_THREADS, lay.bytes,
+                      stream>>>(p, lay);
   return cudaGetLastError();
 }
 
@@ -608,8 +1054,11 @@ cudaError_t launch_bf16(const Params& p, const Layout& lay, int n_rows,
 // bf16 takes the launch plan of ops/fused_conv.py::conv_plan: cb output
 // channels per CTA (16, 32, 64 or 128), kw channels per x / weight chunk,
 // `stages` ring stages and smem_bytes of shared memory, which must equal the
-// layout this file computes; sms is the card's SM count. f32 ignores them and
-// takes C % 16 == 0 with C <= 128 or C % 128 == 0.
+// layout this file computes; sms is the card's SM count. f32 takes C % 16 ==
+// 0 with C <= 128 or C % 128 == 0 and the plan of f32_plan: kw is the rows
+// of a warp's unit (32, route f32_ring: cb 64, 32 or 16, stages 2-4,
+// smem_bytes the layout's) or 0 (route f32_staged: cb min(C, 128), stages
+// 0, smem_bytes the staged kernel's).
 extern "C" int jt_fused_conv_block(int dtype, const void* x, const void* w,
                                    const void* bias, const void* dyt,
                                    const void* in_mask, const void* out_mask,
@@ -635,7 +1084,22 @@ extern "C" int jt_fused_conv_block(int dtype, const void* x, const void* w,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     if (C > 128 && C % 128 != 0) return (int)cudaErrorInvalidValue;
-    return (int)launch_f32(p, n_rows, s);
+    if (kw == 0) {  // route f32_staged
+      if (cb != (C <= 128 ? C : 128) || stages != 0 ||
+          (size_t)smem_bytes != staged_bytes(C, K) ||
+          smem_bytes > SMEM_LIMIT)
+        return (int)cudaErrorInvalidValue;
+      return (int)launch_f32_staged(p, n_rows, s);
+    }
+    RingLayout lay;  // route f32_ring
+    if (!make_ring_layout(n_rows, L, C, K, cb, kw, stages, &lay) ||
+        lay.bytes != (uint32_t)smem_bytes || sms <= 0)
+      return (int)cudaErrorInvalidValue;
+    switch (cb) {
+      case 64: return (int)launch_f32_ring<64>(p, lay, sms, s);
+      case 32: return (int)launch_f32_ring<32>(p, lay, sms, s);
+      default: return (int)launch_f32_ring<16>(p, lay, sms, s);
+    }
   }
   if (dtype != 1) return (int)cudaErrorInvalidValue;
   Layout lay;

@@ -73,8 +73,33 @@
 //    wgrad_plan (ops/fused_conv_grad.py); the entry below recomputes the
 //    layout and refuses a plan that disagrees with it.
 // The bf16 kernel is built for the shapes the training configs give it: k 3
-// and 5, C a multiple of 64. f32 inputs take plain FMAs (one output element
-// per thread, any odd k, C % 16 == 0), never TF32.
+// and 5, C a multiple of 64.
+//
+// f32 (plain FMAs, never TF32): wgrad_f32_ring for C % 64 == 0.
+//  * What bounds it: at the train shape 1.26e11 FLOPs, 1.88 ms at the
+//    card's 67 TFLOP/s f32 rate, against 0.79 GB of f32 in (0.24 ms):
+//    operations. (The first f32 kernel, kept as wgrad_f32 for the other
+//    C, gave each thread one output and two global loads per FMA: 1 % of
+//    the bound, 173 ms.)
+//  * Schedule: groups of k x (C / B)^2 CTAs, B = 128 where it divides C,
+//    else 64: one CTA per (tap j, ci block, co block), neighbours in the
+//    grid, walking the same contiguous share of the N * L rows, two CTAs
+//    an SM (the plan's groups).
+//  * A cp.async ring of 32-row stages (2 by default): the CTA's B ci of x
+//    already shifted by its tap, so the products need no halo: row r of the
+//    stage holds x[n, l + j - pad] for du row (n, l), zero filled by the
+//    copy where that position is outside [0, L) or in_mask is false, and
+//    the B co of du. A thread's copies keep their rows' (sequence,
+//    position) and move them on by 32 a stage, without a division.
+//  * Register blocking: thread (ti, to) of 16 x 8 accumulates ci 64 g +
+//    4 ti + e x co 32 h + 4 to + e (8 x 16 f32 at B 128): each row's
+//    16-byte x unit feeds 64 FMAs, each du unit 32; a quarter-warp's du
+//    reads are 128 contiguous bytes.
+//  * db in the (tap 0, ci block 0) CTAs: thread (ti, to) sums rows ti and
+//    ti + 16 of each stage, and the 16 row groups' sums are added in ti
+//    order through shared memory at the end.
+//  * Partials of each row share go to the share's slot and the second pass
+//    sums them in share order, as for bf16: the same bits run to run.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -469,6 +494,209 @@ __global__ void wgrad_f32(Args a, long long rows_per_split) {
 }
 
 // ---------------------------------------------------------------------------
+// f32: wgrad_f32_ring, persistent FMA outer products (see the note at the top)
+// ---------------------------------------------------------------------------
+
+constexpr int F_THREADS = 128;  // 16 x 8 threads, two CTAs an SM
+constexpr int F_WR = 32;        // rows a ring stage
+
+// The stage layout: x rows (already shifted by the CTA's tap, masked rows
+// zero) then du rows, each F_WR rows x B f32 of the CTA's ci / co block.
+__host__ __device__ inline uint32_t f32_stage_bytes(int B) {
+  return 2u * F_WR * B * 4;
+}
+
+// false unless (co_block, stages, smem) is the f32 ring plan of (C, K)
+bool f32_ring_fits(int C, int co_block, int stages, int smem_bytes) {
+  const int B = C % 128 == 0 ? 128 : 64;
+  return C % 64 == 0 && co_block == B && stages >= 2 && stages <= 4 &&
+         (uint32_t)smem_bytes == stages * f32_stage_bytes(B) &&
+         smem_bytes <= SMEM_LIMIT;
+}
+
+// CTA (grp, member): member = (j * nb + cib) * nb + cob for tap j, ci block
+// cib and co block cob of B channels (nb = C / B); the group's CTAs walk
+// the rows [R grp / groups, R (grp + 1) / groups) of the R = N * L rows.
+template <int B>
+__global__ void __launch_bounds__(F_THREADS, 2)
+wgrad_f32_ring(Args a, int stages) {
+  constexpr int TI = B / 16;   // ci a thread: 8 or 4
+  constexpr int TO = B / 8;    // co a thread: 16 or 8
+  constexpr int U = B / 4;     // 16-byte units a row
+  extern __shared__ __align__(16) unsigned char smem_w[];
+  const uint32_t ring = hopper::smem_u32(smem_w);
+  const float* ringf = reinterpret_cast<const float*>(smem_w);
+  const int S = stages;
+  const int C = a.C, L = a.L, nb = C / B;
+  const int group = a.K * nb * nb;
+  const int grp = blockIdx.x / group, member = blockIdx.x % group;
+  const int cob = member % nb, cib = (member / nb) % nb;
+  const int j = member / (nb * nb);
+  const int n_groups = gridDim.x / group;
+  const long long r_begin = a.n_rows_total * grp / n_groups;
+  const long long r_end = a.n_rows_total * (grp + 1) / n_groups;
+  const int total = (int)((r_end - r_begin + F_WR - 1) / F_WR);
+  const int shift = j - a.pad;
+  const bool does_bias = j == 0 && cib == 0;
+  const float* x = static_cast<const float*>(a.x);
+  const float* du = static_cast<const float*>(a.du);
+  const int tid = threadIdx.x;
+
+  // ---- the ring: each thread copies units idx = tid + 128 m of a stage,
+  // x rows first (row (idx / U) % F_WR, unit idx % U), du rows after; rows
+  // past the share, x rows outside [0, L) or masked are zero filled. issue
+  // is called for q = 0, 1, 2, ... in turn: the (sequence, position) of
+  // each x row this thread copies moves on by F_WR rows a call. ----
+  constexpr int XM = F_WR * U / F_THREADS;  // x rows a thread copies
+  int xn[XM], xl[XM];
+#pragma unroll
+  for (int m = 0; m < XM; ++m) {
+    const long long g = r_begin + (tid + F_THREADS * m) / U;
+    xn[m] = (int)(g / L);
+    xl[m] = (int)(g - (long long)xn[m] * L);
+  }
+  auto issue = [&](int q) {
+    if (q < total) {
+      const uint32_t st = ring + (uint32_t)(q % S) * f32_stage_bytes(B);
+      const long long g0 = r_begin + (long long)q * F_WR;
+#pragma unroll
+      for (int m = 0; m < 2 * XM; ++m) {
+        const int idx = tid + F_THREADS * m;
+        const int r = (idx / U) % F_WR, u = idx % U;
+        bool ok = g0 + r < r_end;
+        const float* src = x;
+        if (m < XM) {
+          const int pos = xl[m] + shift;
+          ok = ok && pos >= 0 && pos < L &&
+               (a.in_mask == nullptr ||
+                a.in_mask[(long long)xn[m] * L + pos]);
+          if (ok) src = x + ((long long)xn[m] * L + pos) * C + cib * B + 4 * u;
+        } else if (ok) {
+          src = du + (g0 + r) * C + cob * B + 4 * u;
+        }
+        hopper::cp_async16_zfill(st + (uint32_t)idx * 16u, src, ok);
+      }
+    }
+    hopper::cp_async_commit();
+#pragma unroll
+    for (int m = 0; m < XM; ++m) {
+      xl[m] += F_WR;
+      while (xl[m] >= L) {
+        xl[m] -= L;
+        ++xn[m];
+      }
+    }
+  };
+
+  // ---- the products: thread (ti, to) = (tid / 8, tid % 8) owns ci 64 g +
+  // 4 ti + e (g < TI / 4) and co 32 h + 4 to + e (h < TO / 4) of the block:
+  // each row's 16-byte x unit feeds 4 TO FMAs, each du unit 4 TI ----
+  const int ti = tid / 8, to = tid % 8;
+  float acc[TI][TO];
+  float dbs[TO];
+#pragma unroll
+  for (int e = 0; e < TO; ++e) {
+    dbs[e] = 0.f;
+#pragma unroll
+    for (int i = 0; i < TI; ++i) acc[i][e] = 0.f;
+  }
+  auto load4 = [](float* d, const float* s) {
+    const float4 v = *reinterpret_cast<const float4*>(s);
+    d[0] = v.x;
+    d[1] = v.y;
+    d[2] = v.z;
+    d[3] = v.w;
+  };
+
+  for (int q = 0; q < S - 1; ++q) issue(q);
+  for (int q = 0; q < total; ++q) {
+    if (S == 2)
+      hopper::cp_async_wait<0>();
+    else if (S == 3)
+      hopper::cp_async_wait<1>();
+    else
+      hopper::cp_async_wait<2>();
+    __syncthreads();
+    issue(q + S - 1);
+    const float* xs = ringf + (size_t)(q % S) * (2 * F_WR * B);
+    const float* ds = xs + F_WR * B;
+#pragma unroll 4
+    for (int r = 0; r < F_WR; ++r) {
+      float xv[TI], dv[TO];
+#pragma unroll
+      for (int g = 0; g < TI / 4; ++g)
+        load4(xv + 4 * g, xs + r * B + 64 * g + 4 * ti);
+#pragma unroll
+      for (int h = 0; h < TO / 4; ++h)
+        load4(dv + 4 * h, ds + r * B + 32 * h + 4 * to);
+#pragma unroll
+      for (int i = 0; i < TI; ++i)
+#pragma unroll
+        for (int e = 0; e < TO; ++e) acc[i][e] = fmaf(xv[i], dv[e], acc[i][e]);
+    }
+    if (does_bias) {
+      // db: this thread sums rows ti and ti + 16 of the stage, in order
+#pragma unroll
+      for (int rr = 0; rr < F_WR; rr += 16) {
+        float dv[TO];
+#pragma unroll
+        for (int h = 0; h < TO / 4; ++h)
+          load4(dv + 4 * h, ds + (rr + ti) * B + 32 * h + 4 * to);
+#pragma unroll
+        for (int e = 0; e < TO; ++e) dbs[e] += dv[e];
+      }
+    }
+  }
+  hopper::cp_async_wait<0>();
+
+  // partial block: dW[j][cib B + ci][cob B + co] of this row share
+  const long long CC = C;
+  float* pw = a.part_w + ((long long)grp * a.K + j) * CC * CC;
+#pragma unroll
+  for (int g = 0; g < TI / 4; ++g)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int ci = cib * B + 64 * g + 4 * ti + e;
+#pragma unroll
+      for (int h = 0; h < TO / 4; ++h) {
+        const int co = cob * B + 32 * h + 4 * to;
+        *reinterpret_cast<float4*>(pw + ci * CC + co) =
+            make_float4(acc[4 * g + e][4 * h], acc[4 * g + e][4 * h + 1],
+                        acc[4 * g + e][4 * h + 2], acc[4 * g + e][4 * h + 3]);
+      }
+    }
+  if (does_bias) {
+    // the 16 row groups' sums of each co, added in ti order
+    __syncthreads();  // every thread is past its last ring read
+    float* red = reinterpret_cast<float*>(smem_w);  // 16 x B
+#pragma unroll
+    for (int h = 0; h < TO / 4; ++h)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        red[ti * B + 32 * h + 4 * to + e] = dbs[4 * h + e];
+    __syncthreads();
+    for (int co = tid; co < B; co += F_THREADS) {
+      float sum = 0.f;
+      for (int t = 0; t < 16; ++t) sum += red[t * B + co];
+      a.part_b[(long long)grp * C + cob * B + co] = sum;
+    }
+  }
+}
+
+template <int B>
+cudaError_t launch_f32_ring(const Args& a, int groups, int stages,
+                            int smem_bytes, cudaStream_t stream) {
+  cudaError_t e = cudaFuncSetAttribute(
+      wgrad_f32_ring<B>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_bytes);
+  if (e != cudaSuccess) return e;
+  const int nb = a.C / B;
+  wgrad_f32_ring<B><<<groups * a.K * nb * nb, F_THREADS, smem_bytes,
+                      stream>>>(a, stages);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
 // second pass: sum the partials over the row splits, in split order
 // ---------------------------------------------------------------------------
 
@@ -517,8 +745,11 @@ cudaError_t launch_bf16(const Args& a, const Layout& lay, int groups,
 // takes the launch plan of ops/fused_conv_grad.py::wgrad_plan: `groups` tile
 // shares of C/64 x C/co_block CTAs each, co_block 64 or 128 dividing C,
 // `stages` ring stages and smem_bytes of shared memory, which must equal the
-// layout this file computes; K in {3, 5}. f32: groups row splits, any odd
-// K, co_block = stages = smem_bytes = 0. Returns a cudaError_t (0 = success).
+// layout this file computes; K in {3, 5}. f32, any odd K: groups row shares
+// of K x (C / B)^2 CTAs, co_block = B (128 where it divides C, else 64; C %
+// 64 == 0), `stages` 2-4 and smem_bytes = stages x 2 x 32 x B x 4 (route
+// fma_ring), or groups row splits with co_block = stages = smem_bytes = 0
+// (route fma). Returns a cudaError_t (0 = success).
 extern "C" int jt_conv_wgrad(int dtype, const void* x, const void* du,
                              const void* in_mask, void* part_w, void* part_b,
                              void* dw, void* db, int n_rows, int L, int C,
@@ -543,9 +774,14 @@ extern "C" int jt_conv_wgrad(int dtype, const void* x, const void* du,
   a.n_rows_total = (long long)n_rows * L;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
-  if (dtype == 0) {
-    if (co_block != 0 || stages != 0 || smem_bytes != 0)
+  if (dtype == 0 && co_block != 0) {  // route fma_ring
+    if (!f32_ring_fits(C, co_block, stages, smem_bytes))
       return (int)cudaErrorInvalidValue;
+    e = co_block == 128
+            ? launch_f32_ring<128>(a, groups, stages, smem_bytes, s)
+            : launch_f32_ring<64>(a, groups, stages, smem_bytes, s);
+  } else if (dtype == 0) {  // route fma
+    if (stages != 0 || smem_bytes != 0) return (int)cudaErrorInvalidValue;
     const long long n_out = (long long)K * C * C + C;
     const long long per = (a.n_rows_total + groups - 1) / groups;
     const dim3 grid((unsigned)groups, (unsigned)((n_out + 255) / 256));

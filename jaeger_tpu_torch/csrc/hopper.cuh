@@ -160,6 +160,20 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
                : "memory");
 }
 
+// the same, or 16 zero bytes when `valid` is false (src is then not read:
+// a row outside the tensor or masked out)
+__device__ __forceinline__ void cp_async16_zfill(uint32_t dst, const void* src,
+                                                 bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// asks L2 to fetch the line of `p` (global memory)
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }

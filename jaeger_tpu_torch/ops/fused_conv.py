@@ -35,15 +35,22 @@ producer warp, runs the k shifted products as ``wgmma`` (A from
 registers, B from the resident weights) and applies the whole epilogue
 from the accumulator registers while a second warpgroup runs the next
 tile's products. :func:`conv_plan` sizes it. f32 inputs use plain FMAs,
-never TF32.
+never TF32 (1.0e12 FLOPs at the flagship shape: 15.0 ms at the card's
+67 TFLOP/s f32 rate): route ``f32_ring``, a persistent kernel whose CTAs
+keep a column block of the weights resident and whose warps each walk
+32-row units through a ``cp.async`` ring of their own, with 8-row x
+CB / 8-column outer products in registers and the epilogue from them;
+route ``f32_staged`` (the first f32 kernel) only for k > 9. :func:`f32_plan`
+sizes them.
 
 CPU tensors take :func:`reference_conv_block`, the plain PyTorch version;
 CUDA tensors launch the kernel or raise. ``launches`` counts kernel
-launches.
+launches, ``route_launches`` the same by route.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 
@@ -52,6 +59,8 @@ import torch.nn.functional as F
 
 #: kernel launches since the last reset (set to 0 to reset)
 launches = 0
+#: launches by route ("wgmma": bf16; "f32_ring", "f32_staged": f32)
+route_launches: collections.Counter = collections.Counter()
 
 _ACT_IDS = {None: 0, "none": 0, "linear": 0, "relu": 1, "tanh": 2,
             "gelu": 3, "gelu_exact": 3, "gelu_tanh": 4}
@@ -129,21 +138,13 @@ def conv_plan(c: int, k: int, dtype=torch.bfloat16) -> dict:
     TMA box (64, 32 or 16: the box is ``kw * 2`` bytes wide, the swizzle
     width); ``stages`` (2-4); ``smem`` bytes, the kernel's layout
     (weights, ring, per-channel parameters, barriers, 1 KB alignment
-    slack), which the C entry recomputes and must equal. f32: ``cb`` and
-    ``smem`` of the FMA kernel (64-row tiles, one weight tap at a time).
+    slack), which the C entry recomputes and must equal. f32: see
+    :func:`f32_plan`.
     """
     if c <= 0 or c % 16:
         raise ValueError(f"C={c}: the kernel takes C % 16 == 0")
     if dtype == torch.float32:
-        if c > 128 and c % 128:
-            raise ValueError(f"C={c}: the f32 kernel takes C <= 128 or "
-                             f"C % 128 == 0")
-        cb = min(c, 128)
-        smem = ((_TL + k - 1) * c + c * cb) * 4
-        if smem > SMEM_LIMIT:
-            raise ValueError(f"C={c}, k={k}: the f32 kernel needs {smem} B "
-                             f"of shared memory, over {SMEM_LIMIT}")
-        return dict(cb=cb, kw=0, stages=0, smem=smem)
+        return f32_plan(c, k)
     rows = _TL + k - 1
     if rows > 256 or k + _TL // 8 > 64:
         raise ValueError(f"k={k}: the bf16 kernel takes k <= 56 (a TMA box "
@@ -159,6 +160,68 @@ def conv_plan(c: int, k: int, dtype=torch.bfloat16) -> dict:
     raise ValueError(f"C={c}, k={k}: k * C * 16 bf16 weights and two "
                      f"x stages of {64 + k - 1} x C exceed {SMEM_LIMIT} B "
                      f"of shared memory")
+
+
+#: the f32 ring kernel: output rows of a warp's unit, its warps a CTA,
+#: channels per ring stage, the most taps its register window holds, and
+#: its column blocks
+F32_TILE = 32
+F32_WARPS = 8
+F32_CHUNK = 16
+F32_MAX_TAPS = 9
+_F32_CBS = (64, 32, 16)
+
+
+def f32_staged_plan(c: int, k: int) -> dict:
+    """The plan of route ``f32_staged`` (the first f32 kernel: 64-row
+    tiles, one weight tap at a time in shared memory), or ValueError: C %
+    16 == 0 and C <= 128 or C % 128 == 0, the tile and one tap within
+    shared memory. This rule is the set of (C, k) the f32 kernel takes."""
+    if c <= 0 or c % 16:
+        raise ValueError(f"C={c}: the kernel takes C % 16 == 0")
+    if c > 128 and c % 128:
+        raise ValueError(f"C={c}: the f32 kernel takes C <= 128 or "
+                         f"C % 128 == 0")
+    cb = min(c, 128)
+    smem = ((_TL + k - 1) * c + c * cb) * 4
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"C={c}, k={k}: the f32 kernel needs {smem} B "
+                         f"of shared memory, over {SMEM_LIMIT}")
+    return dict(route="f32_staged", cb=cb, kw=0, tile=0, stages=0, smem=smem)
+
+
+def f32_plan_bytes(c: int, k: int, cb: int, stages: int) -> int:
+    """Shared memory of the f32 ring kernel's layout: the resident ``k * C
+    * cb`` f32 weights, 4 x cb f32 parameters and each of the
+    ``F32_WARPS`` warps' rings of ``stages`` stages of its unit's
+    ``F32_TILE + k - 1`` rows x ``F32_CHUNK`` f32."""
+    rows = F32_TILE + k - 1
+    return (4 * k * c * cb + 16 * cb
+            + F32_WARPS * stages * rows * F32_CHUNK * 4)
+
+
+def f32_plan(c: int, k: int) -> dict:
+    """The f32 launch plan for C channels and k taps, or ValueError.
+
+    The set of (C, k) taken is :func:`f32_staged_plan`'s. Route
+    ``f32_ring`` (persistent, resident weights, each warp its own
+    ``cp.async`` ring of x rows, 8 x CB / 8 outer products a thread)
+    wherever k <= ``F32_MAX_TAPS`` and its layout fits: ``cb`` the largest
+    of 64, 32, 16 that divides C with at least 2 stages, ``tile`` the
+    ``F32_TILE`` rows of a warp's unit, ``stages`` (2-4) and ``smem``
+    bytes (:func:`f32_plan_bytes`), which the C entry recomputes and must
+    equal. Else route ``f32_staged``."""
+    staged = f32_staged_plan(c, k)
+    if k <= F32_MAX_TAPS:
+        for cb in _F32_CBS:
+            if c % cb:
+                continue
+            for stages in (4, 3, 2):
+                smem = f32_plan_bytes(c, k, cb, stages)
+                if smem <= SMEM_LIMIT:
+                    return dict(route="f32_ring", cb=cb, kw=0,
+                                tile=F32_TILE, stages=stages, smem=smem)
+    return staged
 
 
 def plan_bytes(c: int, k: int, cb: int, kw: int, stages: int) -> int:
@@ -257,12 +320,16 @@ def _launch(x, w, bias, dyt, act, in_mask, out_mask, residual, plan):
     fn = _lib()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    err = fn(1 if x.dtype == torch.bfloat16 else 0, ptr(x), ptr(w),
+    bf16 = x.dtype == torch.bfloat16
+    # f32 passes the plan's tile rows where bf16 passes kw (0: f32_staged)
+    err = fn(1 if bf16 else 0, ptr(x), ptr(w),
              ptr(bias), ptr(dyt), ptr(in_mask), ptr(out_mask), ptr(residual),
              ptr(out), n, length, c, w.shape[0], _ACT_IDS[act], plan["cb"],
-             plan["kw"], plan["stages"], plan["smem"], sms, stream)
+             plan["kw"] if bf16 else plan["tile"], plan["stages"],
+             plan["smem"], sms, stream)
     if err != 0:
         raise RuntimeError(f"fused_conv_block kernel launch failed: CUDA "
                            f"error {err}")
     launches += 1
+    route_launches[plan.get("route", "wgmma")] += 1
     return out

@@ -30,8 +30,13 @@ On CUDA tensors the backward runs three kernels:
   :func:`conv_wgrad`): ``dW`` and ``db``; bf16 is a persistent ``wgmma``
   kernel fed by TMA, each CTA holding a 64-ci block of dW for all taps in
   registers over a contiguous share of the row tiles
-  (:func:`wgrad_plan`); partials summed in a second fixed-order pass (no
-  float atomics: the same bits run to run).
+  (:func:`wgrad_plan`); f32 with C % 64 == 0 is a persistent FMA kernel,
+  one CTA per (tap, ci block, co block) over a contiguous row share, x
+  rows pre-shifted by its tap through a ``cp.async`` ring, 8 x 16
+  outer products a thread (route ``fma_ring``); other f32 C keep the
+  first f32 kernel, a thread per output (route ``fma``). Partials summed
+  in a second fixed-order pass (no float atomics: the same bits run to
+  run).
 * the data gradient: no new kernel. For odd k the transposed SAME conv is
   a SAME conv with the flipped, transposed weights, so ``dx`` is one more
   launch of ``fused_conv_block`` (act none, no bias, ``out_mask = m_in``).
@@ -47,11 +52,13 @@ dy``).
 
 CPU tensors take :func:`reference_conv_block_backward`, the plain version
 (explicit formulas in f32, not autograd). ``launches`` counts each
-kernel's launches by name.
+kernel's launches by name, ``wgrad_route_launches`` conv_wgrad's by
+route.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import math
@@ -66,6 +73,8 @@ from jaeger_tpu_torch.ops.fused_conv import (_ACT_IDS, _check,
 
 #: kernel launches since the last reset, by kernel (set each to 0 to reset)
 launches = {"conv_wgrad": 0, "conv_epilogue_bwd": 0}
+#: conv_wgrad's launches by route ("wgmma": bf16; "fma_ring", "fma": f32)
+wgrad_route_launches: collections.Counter = collections.Counter()
 
 _EVEN_K = ("a fused conv with an even kernel_size has no SAME-conv data "
            "gradient on the fused kernel; even-k fused gradients are not "
@@ -192,6 +201,11 @@ WGRAD_CB = 64
 #: rows per tile of the bf16 kernel and its ring stages
 _WGRAD_TL = 64
 _WGRAD_STAGES = 4
+#: rows per ring stage of the f32 ring kernel, its ring stages, and the
+#: shared memory two of its CTAs may hold on one SM together
+_WGRAD_F32_ROWS = 32
+_WGRAD_F32_STAGES = 2
+_WGRAD_F32_SM_BYTES = 227 * 1024
 
 
 @functools.cache
@@ -230,7 +244,7 @@ def _sm_count(index: int) -> int:
 
 @functools.lru_cache(maxsize=256)
 def wgrad_plan(n: int, length: int, c: int, k: int, dtype, sms: int,
-               stages: int = _WGRAD_STAGES) -> dict:
+               stages: int | None = None) -> dict:
     """The launch plan of :func:`conv_wgrad`, or ValueError.
 
     bf16 (``route`` "wgmma"): ``co_block`` (128 where it divides C, else
@@ -242,14 +256,33 @@ def wgrad_plan(n: int, length: int, c: int, k: int, dtype, sms: int,
     1 KB aligned, + two du boxes) +
     3 x stages mbarriers + 1 KB slack), which the C entry recomputes and
     must equal; ``cluster`` False (the group's
-    CTAs share the du tile through L2, not by multicast). f32 (``route``
-    "fma"): ``groups`` row splits, four per SM. Cached: do not modify the
-    dict."""
+    CTAs share the du tile through L2, not by multicast). f32 with C % 64
+    == 0 (``route`` "fma_ring"): ``co_block`` B (128 where it divides C,
+    else 64), ``group`` k x (C / B)^2 CTAs per row share (one per tap, ci
+    block and co block, neighbours in the grid walking the same rows),
+    ``groups`` contiguous row shares (at most two CTAs per SM in all where
+    two fit its shared memory, else one), ``stages`` of the ``cp.async``
+    ring of ``_WGRAD_F32_ROWS``-row x and du tiles (2 unless given) and
+    ``smem`` = stages x 2 x rows x B x 4 bytes, which the C entry
+    recomputes. Other f32 C (``route`` "fma", the first f32 kernel, a
+    thread per output): ``groups`` row splits, four per SM. Cached: do not
+    modify the dict."""
     check_wgrad_shape(c, k, dtype)
+    if dtype == torch.float32 and c % 64 == 0:
+        block = 128 if c % 128 == 0 else 64
+        group = k * (c // block) ** 2
+        stages = stages or _WGRAD_F32_STAGES
+        smem = stages * 2 * _WGRAD_F32_ROWS * block * 4
+        per_sm = 2 if 2 * smem <= _WGRAD_F32_SM_BYTES else 1
+        groups = max(1, min(per_sm * sms // group, n * length))
+        return dict(route="fma_ring", groups=groups, group=group,
+                    ctas=groups * group, co_block=block, stages=stages,
+                    smem=smem, cluster=False)
     if dtype == torch.float32:
         groups = max(1, min(4 * sms, n * length))
         return dict(route="fma", groups=groups, group=1, ctas=groups,
                     co_block=0, stages=0, smem=0, cluster=False)
+    stages = stages or _WGRAD_STAGES
     co_block = 128 if c % 128 == 0 else 64
     group = (c // WGRAD_CB) * (c // co_block)
     tiles = n * -(-length // _WGRAD_TL)
@@ -308,6 +341,7 @@ def conv_wgrad(x, du, in_mask=None, k=5, *, plan=None):
     if err != 0:
         raise RuntimeError(f"conv_wgrad kernel launch failed: CUDA error {err}")
     launches["conv_wgrad"] += 1
+    wgrad_route_launches[plan["route"]] += 1
     return dw, db
 
 

@@ -250,3 +250,44 @@ def test_wrappers_launch_or_raise_on_other_devices():
     y = torch.randn(2, 5, 16)
     dw, db = fg.conv_wgrad(y, y, None, 3)
     assert dw.shape == (3, 16, 16) and db.shape == (16,)
+
+
+def test_wgrad_f32_ring_plan_and_source():
+    f32 = torch.float32
+    # train shape: one CTA per tap (C = 128 is one 128-block), two CTAs an
+    # SM: 52 row shares of 5 CTAs; 2 stages of 32 x rows and 32 du rows of
+    # 128 f32
+    assert fg.wgrad_plan(1536, 500, 128, 5, f32, 132) == {
+        "route": "fma_ring", "groups": 52, "group": 5, "ctas": 260,
+        "co_block": 128, "stages": 2, "smem": 2 * 2 * 32 * 128 * 4,
+        "cluster": False}
+    c64 = fg.wgrad_plan(6, 300, 64, 3, f32, 132)
+    assert (c64["route"], c64["co_block"], c64["group"], c64["groups"],
+            c64["smem"]) == ("fma_ring", 64, 3, 88, 2 * 2 * 32 * 64 * 4)
+    c256 = fg.wgrad_plan(6, 300, 256, 5, f32, 132)
+    assert (c256["co_block"], c256["group"], c256["groups"]) == (128, 20, 13)
+    # four stages (a sweep's plan) leave room for one CTA an SM
+    four = fg.wgrad_plan(1536, 500, 128, 5, f32, 132, 4)
+    assert (four["stages"], four["groups"]) == (4, 26)
+    # more CTAs a share than SMs: one share
+    assert fg.wgrad_plan(6, 300, 512, 9, f32, 132)["groups"] == 1
+    assert fg.wgrad_plan(1, 1, 128, 5, f32, 132)["groups"] == 1
+    # C % 64 != 0 keeps the per-output kernel (route fma); f32 still takes
+    # every
+    # odd k and C % 16 == 0
+    for c in range(16, 513, 16):
+        for k in (1, 3, 5, 7, 9):
+            plan = fg.wgrad_plan(6, 300, c, k, f32, 132)
+            assert plan["route"] == ("fma_ring" if c % 64 == 0 else "fma")
+            assert plan["smem"] <= 232448
+        with pytest.raises(ValueError):
+            fg.wgrad_plan(6, 300, c, 4, f32, 132)
+    src = (ROOT / "jaeger_tpu_torch" / "csrc" / "fused_conv_wgrad.cu"
+           ).read_text()
+    assert "__global__ void __launch_bounds__(F_THREADS, 2)\nwgrad_f32_ring(" \
+        in src
+    assert "constexpr int F_WR = %d;" % fg._WGRAD_F32_ROWS in src
+    assert "f32_ring_fits(C, co_block, stages, smem_bytes)" in src
+    assert "cp_async16_zfill" in src and ".tf32" not in src
+    assert isinstance(fg.wgrad_route_launches, __import__(
+        "collections").Counter)

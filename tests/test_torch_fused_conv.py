@@ -252,3 +252,93 @@ def test_build_digest_covers_headers(tmp_path, monkeypatch):
     assert cuda_build._digest("fused_conv_block", flags) != before
     assert cuda_build._digest("fused_conv_block", flags + ("-G",)) != \
         cuda_build._digest("fused_conv_block", flags)
+
+
+# the f32 plan: route f32_ring (the persistent FMA kernel) with the
+# largest column block of 64, 32, 16 whose resident weights and >= 2 ring
+# stages fit, the most stages (<= 4) beside them; (route, cb, stages)
+F32_REPO_PLANS = {
+    (32, 3): ("f32_ring", 32, 4),
+    (64, 3): ("f32_ring", 64, 4),
+    (128, 5): ("f32_ring", 64, 3),
+    (128, 7): ("f32_ring", 32, 4),
+    (256, 5): ("f32_ring", 32, 3),
+}
+
+
+@pytest.mark.parametrize("c,k", REPO_SHAPES)
+def test_f32_plan_route_block_and_bytes(c, k):
+    plan = fused_conv.conv_plan(c, k, torch.float32)
+    route, cb, stages = F32_REPO_PLANS[(c, k)]
+    # the weights, 4 x cb parameters, and 8 warps' rings: stages of a warp
+    # unit's 32 + k - 1 rows x 16 f32
+    smem = 4 * k * c * cb + 16 * cb + 8 * stages * (32 + k - 1) * 64
+    assert plan == dict(route=route, cb=cb, kw=0, tile=32, stages=stages,
+                        smem=smem)
+    assert smem <= fused_conv.SMEM_LIMIT
+    assert smem == fused_conv.f32_plan_bytes(c, k, cb, stages)
+    # one more stage would not fit
+    if stages < 4:
+        assert fused_conv.f32_plan_bytes(c, k, cb, stages + 1) > 232448
+    # the flagship keeps a 64-column block of all five taps resident
+    # (163,840 B) beside 8 warps' rings of three 36-row x 16-channel stages
+    if (c, k) == (128, 5):
+        assert smem == 220160
+    # the staged kernel stays as route f32_staged, its plan unchanged
+    staged = fused_conv.f32_staged_plan(c, k)
+    assert staged == dict(route="f32_staged", cb=min(c, 128), kw=0, tile=0,
+                          stages=0, smem=((64 + k - 1) * c + c * min(c, 128))
+                          * 4)
+
+
+def _f32_rule(c: int, k: int) -> bool:
+    """The set of (C, k) the f32 kernel took before the ring route: C %
+    16 == 0, C <= 128 or C % 128 == 0, a 64 + k - 1 row tile of C f32 and
+    one weight tap of C x min(C, 128) f32 within 232,448 B."""
+    return (c % 16 == 0 and (c <= 128 or c % 128 == 0)
+            and ((64 + k - 1) * c + c * min(c, 128)) * 4 <= 232448)
+
+
+@pytest.mark.parametrize("c", range(16, 513, 16))
+def test_f32_plan_takes_the_same_shapes(c):
+    for k in range(1, 10):
+        if _f32_rule(c, k):
+            plan = fused_conv.conv_plan(c, k, torch.float32)
+            assert plan["route"] == "f32_ring", (c, k, plan)
+            assert c % plan["cb"] == 0 and plan["smem"] <= 232448
+        else:
+            with pytest.raises(ValueError):
+                fused_conv.conv_plan(c, k, torch.float32)
+    # past the register window's 9 taps the staged kernel takes the shape
+    if _f32_rule(c, 11):
+        assert fused_conv.conv_plan(c, 11, torch.float32)["route"] == \
+            "f32_staged"
+
+
+def test_f32_kernel_source_declares_its_interface():
+    """The f32 ring kernel, its layout's constants (as the wrapper's plan
+    computes them) and the C entry's f32 routes."""
+    import re
+
+    src = (_csrc() / "fused_conv_block.cu").read_text()
+    hopper = (_csrc() / "hopper.cuh").read_text()
+    assert "__global__ void __launch_bounds__(R_THREADS, 1)\nconv_f32_ring(" \
+        in src
+    assert "conv_f32_fma(" in src  # route f32_staged
+    consts = dict(re.findall(r"constexpr int (R_\w+) = (\d+);", src))
+    # a warp's unit: 4 row groups of R_RT rows
+    assert 4 * int(consts["R_RT"]) == fused_conv.F32_TILE
+    assert int(consts["R_CK"]) == fused_conv.F32_CHUNK
+    assert int(consts["R_KMAX"]) == fused_conv.F32_MAX_TAPS
+    assert int(consts["R_WARPS"]) == fused_conv.F32_WARPS == 8
+    assert "make_ring_layout(n_rows, L, C, K, cb, kw, stages, &lay)" in src
+    assert "lay.bytes != (uint32_t)smem_bytes" in src
+    assert "staged_bytes(C, K)" in src
+    for cb in fused_conv._F32_CBS:
+        assert f"launch_f32_ring<{cb}>" in src
+    # x tiles by cp.async with zero fill, never TF32 (no tensor-core f32)
+    assert "cp_async16_zfill" in src and "cp.async.cg.shared.global" in hopper
+    assert ".tf32" not in src and "float_to_tf32" not in src
+    assert "fmaf(" in src
+    assert isinstance(fused_conv.route_launches, __import__(
+        "collections").Counter)
