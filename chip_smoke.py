@@ -39,9 +39,10 @@ Run from the root of a checkout on a machine with CUDA:
     python3 chip_smoke.py --convert   # phases 1, 2 and 15 only (the
                                       # exported torch.export programs)
     python3 chip_smoke.py --f32       # phases 1, 2 (the three conv
-                                      # sources) and the f32 parts of 3
-                                      # and 3b only; with --sweep, the f32
-                                      # kernels under other launch plans
+                                      # sources), the f32 parts of 3 and
+                                      # 3b and phase 6's f32 steps only;
+                                      # with --sweep, the f32 kernels
+                                      # under other launch plans
 
 Phases, each of which fails the run:
 
@@ -50,8 +51,7 @@ Phases, each of which fails the run:
    csrc/fused_conv_wgrad.cu and csrc/conv_epilogue_bwd.cu for sm_90a, one
    nvcc per source, started together; ptxas' registers, stack and spills
    of each instance of the wgmma kernels, the f32 kernels (conv_f32_ring,
-   conv_f32_fma, wgrad_f32, wgrad_f32_ring), int8_ragged and
-   conv_epilogue_bwd;
+   wgrad_f32_ring, wgrad_f32_taps), int8_ragged and conv_epilogue_bwd;
 3. each kernel against its plain version on the card. fused_conv_block:
    the Pallas kernel's test cases, each extension, the demo and flagship
    shapes, and the bf16 kernel's edges (L = 1, 63, 65; N = 1; C = 16, 64,
@@ -60,16 +60,21 @@ Phases, each of which fails the run:
    plain and library (F.conv1d + the same epilogue) times at the flagship
    shape (batch 2048: N = 12288, L = 500, C = 128, k = 5) in the conv1,
    conv2 and bias-only forms, each with its bound and share of it. The
-   f32 forms (TF32 off throughout): route f32_ring's edges against the
-   plain version at 2e-4 (L 1 / 127 / 129 / 600, N 1, C 16 / 48 / 64 /
-   256, k 1 / 3 / 4 / 7 / 9, in_mask runs across its 32-row units and the
-   halo, out_mask with residual, the data gradient's form, every
-   activation), one shape on route f32_staged (k 11); at the flagship
-   shape the conv1, conv2 and bias-only forms on both f32 routes against
-   the plain version, each route's time in the same call beside the
-   plain, the library (F.conv1d + the epilogue, TF32 off) and the bound at
-   the card's f32 peak; the model form against the plain version in
-   float64 (below 1e-5 of the scale).
+   f32 forms (TF32 off throughout), route f32_ring: its edges against
+   the plain version at 2e-4, the same bits run to run (L 1 / 127 / 129 /
+   600, N 1, C 16 / 48 / 64 / 256, k 1 / 3 / 4 / 7 / 9, and past 9 taps k
+   11 / 21 / 23 / 31 at C 16 / 64 / 128 and k 13 at C 256, where the
+   weights are resident in tap blocks or streamed; in_mask runs across
+   its 32-row units and the halo, out_mask with residual, the data
+   gradient's form, every activation); at the flagship shape the conv1,
+   conv2 and bias-only forms against the plain version, each timed beside
+   the plain, the library (F.conv1d + the epilogue, TF32 off) and the
+   bound at the card's f32 peak; the model form against the plain version
+   in float64 (below 1e-5 of the scale); then the kernel table's further
+   f32 shapes (L 500): the forward at N 12288, C 128, k 11 (the three
+   forms) and bias-only at N 1536, k 31, the data gradient at N 1536, k
+   11, and conv_wgrad at N 1536, k 5, C 16 / 48 / 96 with a random
+   in_mask, each against its plain version and timed the same way.
    int8_conv: the plan of the main path's shapes names the wgmma route;
    the requant form equal to its plain version at the Pallas parity case,
    the Pallas chip shape (N = 12288, L = 500, C = 128, k = 5, dilation 3)
@@ -95,12 +100,12 @@ Phases, each of which fails the run:
    train shape within 2 ulps + 5e-3 of the scale; kernel, plain, library
    and bound times, and each kernel's host microseconds a call. The f32
    forms: conv_wgrad's route fma_ring against its plain version at 2e-4
-   (the train shape, C 64 / 128 / 256, k 1 / 3 / 5 / 7, L 1 / 31 / 33 /
-   65, N 1, in_mask none, random and runs), the same bits run to run; at
-   the train shape the data gradient (both f32 routes), conv_wgrad (route
-   fma_ring and the per-output route fma in the same call) and
-   conv_epilogue_bwd's conv2 form, each beside its plain version, the
-   library (TF32 off) and the bound at the card's f32 peak;
+   (the train shape, C 16 / 32 / 48 / 64 / 80 / 96 / 112 / 128 / 144 /
+   256, k 1 / 3 / 5 / 7 / 9 / 11, L 1 / 31 / 33 / 65, N 1, in_mask none,
+   random and runs), the same bits run to run; at the train shape the
+   data gradient, conv_wgrad and conv_epilogue_bwd's conv2 form, each
+   beside its plain version, the library (TF32 off) and the bound at the
+   card's f32 peak;
 4. the flagship (128 channels, 1505 nt crop, 6 classes; seeded weights,
    bf16) through the port's InferenceEngine at batch 2048, on windows
    that select the dense, the bounded-cut and the split (dense + masked
@@ -116,9 +121,10 @@ Phases, each of which fails the run:
    bundle and with a demo int8 bundle made by ``utils quantize`` (kernel
    launch counts reset just before each, read just after); the TSV rows
    are checked, the demo's against a CPU float32 run (float and int8);
-6. training: one f32 step of a narrow flagship template (C 16, and C 128,
-   whose convs take the f32 ring routes, launches by route read) on the
-   card against the CPU in each program (dense, bounded, masked);
+6. training: one f32 step of a narrow flagship template (C 16, C 96, and
+   C 128 with k 11 residual convs; its convs take only the f32 routes
+   f32_ring and fma_ring, launches by route read) on the card against
+   the CPU in each program (dense, bounded, masked);
    ``train_fragment_core`` with the flagship template at full width
    (batch 256, bf16) on synthetic CSVs from a seed, 30 classifier and 4
    reliability steps through all three programs (launch counts reset just
@@ -428,13 +434,12 @@ def phase_build(sources=KERNEL_SOURCES) -> None:
     print(f"build: all kernels ready in {time.perf_counter() - t0:.1f} s")
     for name, kernel in (("fused_conv_block", "conv_bf16_wgmma"),
                          ("fused_conv_block", "conv_f32_ring"),
-                         ("fused_conv_block", "conv_f32_fma"),
                          ("int8_conv", "int8_wgmma"),
                          ("int8_conv", "int8_ragged"),
                          ("int8_conv", "int8_ragged_staged"),
                          ("fused_conv_wgrad", "wgrad_bf16"),
-                         ("fused_conv_wgrad", "wgrad_f32"),
                          ("fused_conv_wgrad", "wgrad_f32_ring"),
+                         ("fused_conv_wgrad", "wgrad_f32_taps"),
                          ("conv_epilogue_bwd", "conv_epilogue_bwd")):
         for line in ptxas_summary(cuda_build.build_logs.get(name, ""), kernel):
             print(f"ptxas: {line}")
@@ -730,27 +735,12 @@ def _bound(flops: float, nbytes: float, peak: float) -> tuple[float, str]:
 
 
 def _print_timing(what: str, t: dict, card: str) -> None:
-    olds = "".join(f", {r} {ms:.3f} ms" for r, ms in t.get("routes_ms",
-                                                             {}).items())
     print(f"timing {what} on {card}: kernel {t['ms']:.3f} ms [{t['route']}]"
-          f"{olds}, plain {t['plain_ms']:.3f} ms, library "
+          f", plain {t['plain_ms']:.3f} ms, library "
           f"{t['library_ms']:.3f} ms (TF32 off), bound {t['bound_ms']:.3f} ms "
           f"({t['bound_by']}: {t['flops']:.3e} FLOP, "
           f"{t['bytes'] / 1e9:.3f} GB), {t['bound_ms'] / t['ms']:.1%} of the "
           f"bound")
-
-
-def f32_conv_plans(c: int, k: int) -> dict:
-    """The f32 launch plans of fused_conv_block for (C, k) by route, the
-    default first, then the staged kernel: each is timed in the same
-    call."""
-    import torch
-
-    from jaeger_tpu_torch.ops import fused_conv
-
-    plan = fused_conv.conv_plan(c, k, torch.float32)
-    return {plan["route"]: plan,
-            "f32_staged": fused_conv.f32_staged_plan(c, k)}
 
 
 def reference_conv_block_f64(x, w, bias=None, dyt=None, act="none", *,
@@ -787,29 +777,31 @@ def reference_conv_block_f64(x, w, bias=None, dyt=None, act="none", *,
 
 
 def _f32_runs_mask(n: int, length: int, device):
-    """in_mask with masked runs across the f32 ring kernel's 256-row tile
-    edges and into the halo at both ends of each row."""
+    """in_mask with masked runs across the f32 kernels' 32-row units and
+    ring stages and into the halo at both ends of each row (runs longer
+    than a tap window too)."""
     import torch
 
     m = torch.ones(n, length, dtype=torch.bool)
-    for lo, hi in ((0, 3), (60, 69), (250, 262), (509, 515),
-                   (length - 3, length)):
+    for lo, hi in ((0, 3), (29, 35), (60, 69), (120, 161), (250, 262),
+                   (509, 515), (length - 3, length)):
         m[:, max(lo, 0):min(hi, length)] = False
     return m.to(device)
 
 
 def phase_f32_kernel(card: str) -> dict:
-    """The f32 forms of fused_conv_block: the ring route's edges against
-    the plain version at F32_TOL (L 1, 127, 129 and 600, past two 256-row
-    tiles; N 1; C 16, 48, 64, 256; k 1, 3, 4, 7, 9; in_mask runs across
-    the tile edges and the halo; out_mask with residual; every
-    activation), one shape on route f32_staged; then at the flagship shape
-    (N 12288, L 500, C 128, k 5) conv1 (bias, DYT, gelu), conv2 (+
-    residual) and bias-only on every f32 route (the default first, both
-    held against the plain version and timed in the same call), beside the
-    plain version, the library yardstick with TF32 off and the bound at
-    the card's f32 peak; then the model form (in and out masks, residual)
-    against the plain version in float64."""
+    """The f32 forms of fused_conv_block (route f32_ring): its edges
+    against the plain version at F32_TOL, the same bits run to run (L 1,
+    127, 129 and 600; N 1; C 16, 48, 64, 256; k 1, 3, 4, 7, 9; past 9 taps
+    k 11, 21, 23 (weights resident, in tap blocks) and 31 (streamed) at C
+    16, 64 and 128 and k 13 at C 256 (streamed); in_mask runs across the
+    units and the halo; out_mask with residual; every activation; the
+    data gradient's form); then at the flagship shape (N 12288, L 500, C
+    128, k 5) conv1 (bias, DYT, gelu), conv2 (+ residual) and bias-only
+    against the plain version, timed beside the plain version, the
+    library yardstick with TF32 off and the bound at the card's f32 peak;
+    then the model form (in and out masks, residual) against the plain
+    version in float64."""
     import torch
 
     from jaeger_tpu_torch.ops import fused_conv
@@ -838,10 +830,27 @@ def phase_f32_kernel(card: str) -> dict:
              ("f32_out_mask_residual", 6, 300, 128, 5, "gelu",
               "out_mask_residual", "f32_ring"),
              ("f32_dgrad_form", 6, 300, 128, 5, "none", "out_mask",
-              "f32_ring"),
-             ("f32_staged_k11", 6, 300, 64, 11, "gelu", "model",
-              "f32_staged")]
+              "f32_ring")]
     cases += [(f"f32_act_{act}", 6, 300, 128, 3, act, "all", "f32_ring")
+              for act in ("none", "relu", "tanh", "gelu", "gelu_tanh")]
+    # past the register window's 9 taps: tap blocks over resident weights
+    # (k 11, 21, 23), streamed weights (C 128 k 31, C 256 k 13)
+    cases += [(f"f32_C{c}_k{k}", 6, 300, c, k, "gelu", "model", "f32_ring")
+              for c in (16, 64, 128) for k in (11, 21, 23, 31)]
+    cases += [("f32_C256_k13", 6, 300, 256, 13, "gelu", "model", "f32_ring"),
+              ("f32_k11_in_mask_runs", 6, 600, 128, 11, "gelu", "runs",
+               "f32_ring"),
+              ("f32_k31_in_mask_runs", 5, 600, 128, 31, "gelu", "runs",
+               "f32_ring"),
+              ("f32_k21_out_mask_residual", 6, 300, 128, 21, "gelu",
+               "out_mask_residual", "f32_ring"),
+              ("f32_k11_dgrad_form", 6, 300, 128, 11, "none", "out_mask",
+               "f32_ring"),
+              ("f32_k31_dgrad_form", 6, 300, 128, 31, "none", "out_mask",
+               "f32_ring"),
+              ("f32_k13_L1", 4, 1, 256, 13, "gelu", "model", "f32_ring"),
+              ("f32_k31_N1", 1, 500, 128, 31, "gelu", "model", "f32_ring")]
+    cases += [(f"f32_k11_act_{act}", 6, 300, 64, 11, act, "all", "f32_ring")
               for act in ("none", "relu", "tanh", "gelu", "gelu_tanh")]
     worst = 0.0
     for name, n, length, c, k, act, ext, route in cases:
@@ -861,12 +870,15 @@ def phase_f32_kernel(card: str) -> dict:
         torch.cuda.synchronize()
         check(fused_conv.route_launches[route] == before + 1,
               f"{name}: route {route} not launched")
+        check(torch.equal(fused_conv.fused_conv_block(x, w, act=act, **kw),
+                          out), f"{name}: not the same bits run to run")
         ref = fused_conv.reference_conv_block(x, w, act=act, **kw)
         err = (out - ref).abs()
         bad = (err > F32_TOL + F32_TOL * ref.abs()).sum().item()
         max_err = err.max().item()
         print(f"kernel {name} N={n} L={length} C={c} k={k} {act} [{route} "
-              f"cb={plan['cb']} stages={plan['stages']}]: max_abs_err "
+              f"cb={plan['cb']} taps={plan['taps']} stages="
+              f"{plan['stages']}]: max_abs_err "
               f"{max_err:.3e} (tol {F32_TOL}) "
               f"{'ok' if bad == 0 and math.isfinite(max_err) else 'FAIL'}")
         check(bad == 0 and math.isfinite(max_err),
@@ -880,8 +892,7 @@ def phase_f32_kernel(card: str) -> dict:
     n, length, c, k = FLAG_N, FLAG_L, FLAG_C, FLAG_K
     x, w, bias, dyt = _conv_inputs(gen, n, length, c, k, f32, dev)
     res = torch.randn(n, length, c, generator=gen).to(dev)
-    plans = f32_conv_plans(c, k)
-    default = next(iter(plans))
+    plan = fused_conv.conv_plan(c, k, f32)
     forms = {"conv1": ((bias, dyt), "gelu", None),
              "conv2": ((bias, dyt), "gelu", res),
              "bias_only": ((bias, None), "none", None)}
@@ -891,24 +902,19 @@ def phase_f32_kernel(card: str) -> dict:
         ref = fused_conv.reference_conv_block(
             x, w, b, d, act, d is not None, bias_then_dyt=d is not None,
             residual=r)
-        for route, plan in plans.items():
-            out = fused_conv._launch(x, w, b, d, act, None, None, r, plan)
-            err = (out - ref).abs()
-            bad = (err > F32_TOL + F32_TOL * ref.abs()).sum().item()
-            max_err = err.max().item()
-            print(f"kernel f32 flagship {form} [{route}]: max_abs_err "
-                  f"{max_err:.3e} (tol {F32_TOL}) "
-                  f"{'ok' if bad == 0 and math.isfinite(max_err) else 'FAIL'}")
-            check(bad == 0 and math.isfinite(max_err),
-                  f"f32 flagship {form} {route}: {bad} elements beyond "
-                  f"tolerance")
-            worst = max(worst, max_err)
-            del out, err
-        del ref
-        routes = {route: cuda_ms(lambda: fused_conv._launch(
-            x, w, b, d, act, None, None, r, plan),
-            iters=20 if route == default else 5, warmup=1)
-            for route, plan in plans.items()}
+        out = fused_conv._launch(x, w, b, d, act, None, None, r, plan)
+        err = (out - ref).abs()
+        bad = (err > F32_TOL + F32_TOL * ref.abs()).sum().item()
+        max_err = err.max().item()
+        print(f"kernel f32 flagship {form} [{plan['route']}]: max_abs_err "
+              f"{max_err:.3e} (tol {F32_TOL}) "
+              f"{'ok' if bad == 0 and math.isfinite(max_err) else 'FAIL'}")
+        check(bad == 0 and math.isfinite(max_err),
+              f"f32 flagship {form}: {bad} elements beyond tolerance")
+        worst = max(worst, max_err)
+        del out, err, ref
+        ms = cuda_ms(lambda: fused_conv._launch(
+            x, w, b, d, act, None, None, r, plan), iters=20, warmup=1)
         plain = cuda_ms(lambda: fused_conv.reference_conv_block(
             x, w, b, d, act, d is not None, bias_then_dyt=d is not None,
             residual=r), iters=3, warmup=1)
@@ -918,9 +924,7 @@ def phase_f32_kernel(card: str) -> dict:
         nbytes = (4 * n * length * c * (3 if r is not None else 2)
                   + 4 * k * c * c + 4 * c * (4 if d is not None else 1))
         bound, by = _bound(flops, nbytes, PEAK_F32_FLOPS)
-        times[form] = dict(ms=routes[default], route=default,
-                           routes_ms={rt: ms for rt, ms in routes.items()
-                                      if rt != default},
+        times[form] = dict(ms=ms, route=plan["route"],
                            plain_ms=plain, library_ms=lib, bound_ms=bound,
                            bound_by=by, flops=flops, bytes=nbytes)
         _print_timing(f"f32 {form} N={n} L={length} C={c} k={k}",
@@ -942,7 +946,8 @@ def phase_f32_kernel(card: str) -> dict:
         scale = max(scale, ref.abs().max().item())
         del ref
     rel = err / scale
-    print(f"kernel f32 flagship model form [{default}] against float64: "
+    print(f"kernel f32 flagship model form [{plan['route']}] against "
+          f"float64: "
           f"max_abs_err {err:.3e}, scale {scale:.3e}, {rel:.2e} of the scale "
           f"(tol {F64_TOL}) {'ok' if rel < F64_TOL else 'FAIL'}")
     check(rel < F64_TOL, f"f32 kernel {rel:.2e} of the scale from float64")
@@ -958,14 +963,15 @@ def phase_f32_kernel(card: str) -> dict:
 
 def phase_f32_train_kernel(card: str) -> dict:
     """The f32 backward kernels: conv_wgrad's f32 ring route against its
-    plain version at F32_TOL (the train shape, C 64 / 128 / 256, k 1 / 3 /
-    5 / 7, L 1, 31, 33 and 65, in_mask random and in runs, N 1), the same
-    bits run to run; then at the train shape (N 1536, L 500, C 128, k 5)
-    the data gradient (fused_conv_block with the flipped weights and
-    out_mask, every f32 route), conv_wgrad (every f32 route, the default
-    first) and the conv2 form of conv_epilogue_bwd, each beside its plain
-    version, the library yardstick with TF32 off and the bound at the
-    card's f32 peak."""
+    plain version at F32_TOL (the train shape; C 64 / 128 / 256 and the
+    block widths of other C, 16 / 32 / 48 / 80 / 96 / 112 / 144, whose
+    CTAs take several taps at 16, 32, 48; k 1 / 3 / 5 / 7 / 9 / 11; L 1,
+    31, 33 and 65; in_mask none, random and in runs across its ring
+    stages; N 1), the same bits run to run; then at the train shape (N
+    1536, L 500, C 128, k 5) the data gradient (fused_conv_block with the
+    flipped weights and out_mask), conv_wgrad and the conv2 form of
+    conv_epilogue_bwd, each beside its plain version, the library
+    yardstick with TF32 off and the bound at the card's f32 peak."""
     import torch
 
     from jaeger_tpu_torch.ops import fused_conv
@@ -989,7 +995,27 @@ def phase_f32_train_kernel(card: str) -> dict:
             ("f32_L1", 4, 1, 128, 5, "none"),
             ("f32_L31", 3, 31, 128, 5, "random"),
             ("f32_L33", 3, 33, 128, 3, "runs"),
-            ("f32_L65_N1", 1, 65, 128, 5, "random")]:
+            ("f32_L65_N1", 1, 65, 128, 5, "random"),
+            # the block widths of C % 64 != 0 (several taps a CTA at 16,
+            # 32, 48: tap blocks of near equal size)
+            ("f32_C16_k5", 6, 300, 16, 5, "random"),
+            ("f32_C16_k11_runs", 6, 300, 16, 11, "runs"),
+            ("f32_C16_k1_L1", 4, 1, 16, 1, "none"),
+            ("f32_C32_k5_runs", 6, 300, 32, 5, "runs"),
+            ("f32_C32_k9", 6, 300, 32, 9, "random"),
+            ("f32_C32_L31", 3, 31, 32, 3, "none"),
+            ("f32_C48_k5", 6, 300, 48, 5, "random"),
+            ("f32_C48_k3_L33", 3, 33, 48, 3, "runs"),
+            ("f32_C48_k11_N1", 1, 65, 48, 11, "random"),
+            ("f32_C80_k3", 6, 300, 80, 3, "runs"),
+            ("f32_C80_k1_L65", 3, 65, 80, 1, "random"),
+            ("f32_C96_k5", 6, 300, 96, 5, "random"),
+            ("f32_C96_k9_runs", 6, 300, 96, 9, "runs"),
+            ("f32_C96_L1", 4, 1, 96, 5, "none"),
+            ("f32_C112_k5", 6, 300, 112, 5, "random"),
+            ("f32_C112_k11_L31", 3, 31, 112, 11, "runs"),
+            ("f32_C144_k3", 6, 300, 144, 3, "random"),
+            ("f32_C144_k5_L65_N1", 1, 65, 144, 5, "runs")]:
         xx = torch.randn(cn, cl, cc, generator=gen).to(dev)
         dd = (torch.randn(cn, cl, cc, generator=gen) * 0.1).to(dev)
         if mk == "runs":
@@ -1027,60 +1053,38 @@ def phase_f32_train_kernel(card: str) -> dict:
 
     # the data gradient
     wf = fg.flipped_weights(w)
-    plans = f32_conv_plans(c, k)
-    default = next(iter(plans))
+    plan = fused_conv.conv_plan(c, k, f32)
     ref = fused_conv.reference_conv_block(du, wf, out_mask=im)
-    errs = {route: _check_close(f"dgrad f32 train shape [{route}]", {"dx": (
+    err = _check_close(f"dgrad f32 train shape [{plan['route']}]", {"dx": (
         fused_conv._launch(du, wf, None, None, "none", None, im, None,
                            plan), ref)}, F32_TOL)
-        for route, plan in plans.items()}
     del ref
-    routes = {route: cuda_ms(lambda: fused_conv._launch(
-        du, wf, None, None, "none", None, im, None, plan),
-        iters=20 if route == default else 5)
-        for route, plan in plans.items()}
     nbytes = 4 * 2 * n * length * c + 4 * k * c * c + n * length
     bound, by = _bound(flops, nbytes, PEAK_F32_FLOPS)
     times["dgrad"] = dict(
-        ms=routes[default], route=default,
-        routes_ms={rt: ms for rt, ms in routes.items() if rt != default},
+        ms=cuda_ms(lambda: fused_conv._launch(
+            du, wf, None, None, "none", None, im, None, plan), iters=20),
+        route=plan["route"],
         plain_ms=cuda_ms(lambda: fused_conv.reference_conv_block(
             du, wf, out_mask=im), iters=3, warmup=1),
         library_ms=cuda_ms(lambda: torch.nn.grad.conv1d_input(
             (n, c, length), w.permute(2, 1, 0), du_ncl,
             padding=(k - 1) // 2), iters=10),
         bound_ms=bound, bound_by=by, flops=flops, bytes=nbytes,
-        max_abs_err=errs[default])
+        max_abs_err=err)
 
-    # conv_wgrad: the default plan and route fma's kernel (a thread per output,
-    # four row splits an SM)
+    # conv_wgrad (checked at this shape above)
     plan = fg.wgrad_plan(n, length, c, k, f32, sms)
-    wdefault = plan["route"]
-    wplans = {wdefault: plan, "fma": dict(
-        route="fma", groups=4 * sms, group=1, ctas=4 * sms, co_block=0,
-        stages=0, smem=0, cluster=False)}
-    dw_new, db_new = fg.conv_wgrad(x, du, im, k)
-    dw_old, db_old = fg.conv_wgrad(x, du, im, k, plan=wplans["fma"])
-    rdw, rdb = fg.reference_conv_wgrad(x, du, im, k)
-    _check_close("conv_wgrad f32 train shape [fma]",
-                 {"dW": (dw_old, rdw), "db": (db_old, rdb)}, F32_TOL)
-    _check_close(f"conv_wgrad f32 train shape [{wdefault}] against [fma]",
-                 {"dW": (dw_new, dw_old), "db": (db_new, db_old)}, F32_TOL)
-    del dw_new, db_new, dw_old, db_old, rdw, rdb
-    routes = {route: cuda_ms(lambda: fg.conv_wgrad(x, du, im, k, plan=plan),
-                             iters=20 if route == wdefault else 3, warmup=1)
-              for route, plan in wplans.items()}
     nbytes = 4 * 2 * n * length * c + n * length + 4 * (k * c * c + c)
     bound, by = _bound(flops, nbytes, PEAK_F32_FLOPS)
     times["conv_wgrad"] = dict(
-        ms=routes[wdefault], route=wdefault,
-        routes_ms={rt: ms for rt, ms in routes.items() if rt != wdefault},
+        ms=cuda_ms(lambda: fg.conv_wgrad(x, du, im, k), iters=20, warmup=1),
+        route=plan["route"],
         plain_ms=cuda_ms(lambda: fg.reference_conv_wgrad(x, du, im, k),
                          iters=3, warmup=1),
         library_ms=cuda_ms(lambda: torch.nn.grad.conv1d_weight(
             x_ncl, (c, c, k), du_ncl, padding=(k - 1) // 2), iters=10),
-        bound_ms=bound, bound_by=by, flops=flops, bytes=nbytes,
-        plan=wplans[wdefault])
+        bound_ms=bound, bound_by=by, flops=flops, bytes=nbytes, plan=plan)
     del x_ncl, du_ncl
 
     # conv_epilogue_bwd, conv2 form: dy, u, r, out_mask in; du, dr out
@@ -1114,12 +1118,167 @@ def phase_f32_train_kernel(card: str) -> dict:
     return times
 
 
+#: the f32 kernel table's further shapes: (name, op, N, C, k); L 500
+F32_SHAPES = (("fwd_k11", "forward", FLAG_N, 128, 11),
+              ("fwd_k31", "forward", 6 * 256, 128, 31),
+              ("dgrad_k11", "dgrad", 6 * 256, 128, 11),
+              ("wgrad_C16", "wgrad", 6 * 256, 16, 5),
+              ("wgrad_C48", "wgrad", 6 * 256, 48, 5),
+              ("wgrad_C96", "wgrad", 6 * 256, 96, 5))
+
+
+def phase_f32_shapes(card: str) -> dict:
+    """The f32 kernels at the kernel table's further shapes, L 500, TF32
+    off: the forward at N 12288, C 128, k 11 (conv1, conv2 and bias-only
+    forms) and bias-only at N 1536, k 31 (weights too large to stay
+    resident), the data gradient at N 1536, C 128, k 11, and conv_wgrad
+    with a random in_mask at N 1536, k 5, C 16 / 48 / 96; each held
+    against its plain version at F32_TOL (conv_wgrad also the same bits
+    run to run) and timed beside the plain version, the library call and
+    the bound at the card's f32 peak."""
+    import torch
+
+    from jaeger_tpu_torch.ops import fused_conv
+    from jaeger_tpu_torch.ops import fused_conv_grad as fg
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(1818)
+    f32 = torch.float32
+    length = FLAG_L
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    saved = (dict(fg.launches), fused_conv.launches,
+             dict(fused_conv.route_launches), dict(fg.wgrad_route_launches))
+    tf32_off()
+    out = {}
+
+    def close(name, got, ref):
+        err = (got - ref).abs()
+        bad = (err > F32_TOL + F32_TOL * ref.abs()).sum().item()
+        max_err = err.max().item()
+        ok = bad == 0 and math.isfinite(max_err)
+        print(f"kernel f32 {name}: max_abs_err {max_err:.3e} (tol {F32_TOL}) "
+              f"{'ok' if ok else 'FAIL'}")
+        check(ok, f"f32 {name}: {bad} elements beyond tolerance")
+        return max_err
+
+    for name, op, n, c, k in F32_SHAPES:
+        flops = 2.0 * n * length * c * c * k
+        if op == "forward":
+            x, w, bias, dyt = _conv_inputs(gen, n, length, c, k, f32, dev)
+            res = (torch.randn(n, length, c, generator=gen).to(dev)
+                   if k == 11 else None)
+            plan = fused_conv.conv_plan(c, k, f32)
+            forms = {"bias_only": ((bias, None), "none", None)}
+            if res is not None:
+                forms = {"conv1": ((bias, dyt), "gelu", None),
+                         "conv2": ((bias, dyt), "gelu", res), **forms}
+            for form, ((b, d), act, r) in forms.items():
+                kw = dict(use_dyt=d is not None, bias_then_dyt=d is not None,
+                          residual=r)
+                ref = fused_conv.reference_conv_block(x, w, b, d, act, **kw)
+                err = close(f"{name} {form} N={n} C={c} k={k} "
+                            f"[{plan['route']}]",
+                            fused_conv.fused_conv_block(x, w, b, d, act, **kw),
+                            ref)
+                del ref
+                nbytes = (4 * n * length * c * (3 if r is not None else 2)
+                          + 4 * k * c * c + 4 * c * (4 if d is not None else 1))
+                bound, by = _bound(flops, nbytes, PEAK_F32_FLOPS)
+                t = dict(
+                    ms=cuda_ms(lambda: fused_conv.fused_conv_block(
+                        x, w, b, d, act, **kw), iters=5, warmup=1),
+                    route=plan["route"], plan=plan,
+                    plain_ms=cuda_ms(lambda: fused_conv.reference_conv_block(
+                        x, w, b, d, act, **kw), iters=2, warmup=1),
+                    library_ms=cuda_ms(lambda: library_conv_block(
+                        x, w, b, d, act, r), iters=3, warmup=1),
+                    bound_ms=bound, bound_by=by, flops=flops, bytes=nbytes,
+                    max_abs_err=err)
+                out[f"{name}_{form}"] = t
+                _print_timing(f"f32 {name} {form} N={n} L={length} C={c} "
+                              f"k={k}", t, card)
+            del x, w, res
+        elif op == "dgrad":
+            du = (torch.randn(n, length, c, generator=gen) * 0.1).to(dev)
+            w = (torch.randn(k, c, c, generator=gen) * 0.05).to(dev)
+            im = (torch.rand(n, length, generator=gen) > 0.2).to(dev)
+            wf = fg.flipped_weights(w)
+            plan = fused_conv.conv_plan(c, k, f32)
+            ref = fused_conv.reference_conv_block(du, wf, out_mask=im)
+            err = close(f"{name} N={n} C={c} k={k} [{plan['route']}]",
+                        fused_conv.fused_conv_block(du, wf, out_mask=im), ref)
+            del ref
+            du_ncl = du.transpose(1, 2).contiguous()
+            nbytes = 4 * 2 * n * length * c + 4 * k * c * c + n * length
+            bound, by = _bound(flops, nbytes, PEAK_F32_FLOPS)
+            t = dict(
+                ms=cuda_ms(lambda: fused_conv.fused_conv_block(
+                    du, wf, out_mask=im), iters=10),
+                route=plan["route"], plan=plan,
+                plain_ms=cuda_ms(lambda: fused_conv.reference_conv_block(
+                    du, wf, out_mask=im), iters=3, warmup=1),
+                library_ms=cuda_ms(lambda: torch.nn.grad.conv1d_input(
+                    (n, c, length), w.permute(2, 1, 0), du_ncl,
+                    padding=(k - 1) // 2), iters=5),
+                bound_ms=bound, bound_by=by, flops=flops, bytes=nbytes,
+                max_abs_err=err)
+            out[name] = t
+            _print_timing(f"f32 {name} N={n} L={length} C={c} k={k}", t,
+                          card)
+            del du, w, wf, im, du_ncl
+        else:
+            x = torch.randn(n, length, c, generator=gen).to(dev)
+            du = (torch.randn(n, length, c, generator=gen) * 0.1).to(dev)
+            im = (torch.rand(n, length, generator=gen) > 0.2).to(dev)
+            plan = fg.wgrad_plan(n, length, c, k, f32, sms)
+            dw, db = fg.conv_wgrad(x, du, im, k)
+            again = fg.conv_wgrad(x, du, im, k)
+            check(torch.equal(again[0], dw) and torch.equal(again[1], db),
+                  f"conv_wgrad {name}: not the same bits run to run")
+            rdw, rdb = fg.reference_conv_wgrad(x, du, im, k)
+            err = _check_close(
+                f"conv_wgrad f32 {name} N={n} C={c} k={k} mask=random "
+                f"[{plan['route']} groups={plan['groups']}x{plan['group']} "
+                f"block={plan['co_block']}]",
+                {"dW": (dw, rdw), "db": (db, rdb)}, F32_TOL)
+            del dw, db, again, rdw, rdb
+            x_ncl = x.transpose(1, 2).contiguous()
+            du_ncl = du.transpose(1, 2).contiguous()
+            nbytes = 4 * 2 * n * length * c + n * length + 4 * (k * c * c + c)
+            bound, by = _bound(flops, nbytes, PEAK_F32_FLOPS)
+            t = dict(
+                ms=cuda_ms(lambda: fg.conv_wgrad(x, du, im, k), iters=10,
+                           warmup=1),
+                route=plan["route"], plan=plan,
+                plain_ms=cuda_ms(lambda: fg.reference_conv_wgrad(
+                    x, du, im, k), iters=3, warmup=1),
+                library_ms=cuda_ms(lambda: torch.nn.grad.conv1d_weight(
+                    x_ncl, (c, c, k), du_ncl, padding=(k - 1) // 2),
+                    iters=10),
+                bound_ms=bound, bound_by=by, flops=flops, bytes=nbytes,
+                max_abs_err=err)
+            out[name] = t
+            _print_timing(f"f32 {name} N={n} L={length} C={c} k={k}", t,
+                          card)
+            del x, du, im, x_ncl, du_ncl
+    # checks and timings are not the main path
+    fg.launches.update(saved[0])
+    fused_conv.launches = saved[1]
+    for counter, before in ((fused_conv.route_launches, saved[2]),
+                            (fg.wgrad_route_launches, saved[3])):
+        counter.clear()
+        counter.update(before)
+    return out
+
+
 def phase_f32_sweep(card: str) -> None:
     """``--f32 --sweep``: the f32 ring kernels under other launch plans:
     the forward's column block and ring stages (bias-only form at the
     flagship shape) and with fewer taps (k 1, 3: 1/5 and 3/5 of the
-    products over the same bytes), conv_wgrad's ring stages at the train
-    shape."""
+    products over the same bytes); past 9 taps (bias-only, N 1536, C 128,
+    k 11 / 23 / 31) every resident and streamed plan that fits;
+    conv_wgrad's ring stages and fewer row shares at the train shape and
+    at C 96 / 48 / 16."""
     import torch
 
     from jaeger_tpu_torch.ops import fused_conv
@@ -1139,7 +1298,7 @@ def phase_f32_sweep(card: str) -> None:
                 if smem > fused_conv.SMEM_LIMIT:
                     continue
                 plan = dict(route="f32_ring", cb=cb, kw=0,
-                            tile=fused_conv.F32_TILE, stages=stages,
+                            tile=fused_conv.F32_TILE, taps=k, stages=stages,
                             smem=smem)
                 ms = cuda_ms(lambda: fused_conv._launch(
                     x, w, bias, None, "none", None, None, None, plan),
@@ -1149,18 +1308,50 @@ def phase_f32_sweep(card: str) -> None:
                       f"{card}: {ms:.3f} ms (products at the f32 peak "
                       f"{bound:.3f} ms, {bound / ms:.1%})")
         del x, w
+    n = TRAIN_N
+    for k in (11, 23, 31):
+        x, w, bias, _ = _conv_inputs(gen, n, length, c, k, f32, dev)
+        plans = [(cb, k, st) for cb in (64, 32, 16) for st in (4, 3, 2)]
+        plans += [(cb, taps, 2) for cb in (64, 32, 16)
+                  for taps in range(1, min(k - 1, 9) + 1)
+                  if fused_conv.f32_tap_blocks(k, taps)[1] == taps]
+        for cb, taps, stages in plans:
+            smem = fused_conv.f32_plan_bytes(c, k, cb, stages, taps)
+            if smem > fused_conv.SMEM_LIMIT:
+                continue
+            plan = dict(route="f32_ring", cb=cb, kw=0,
+                        tile=fused_conv.F32_TILE, taps=taps, stages=stages,
+                        smem=smem)
+            ms = cuda_ms(lambda: fused_conv._launch(
+                x, w, bias, None, "none", None, None, None, plan), iters=5)
+            bound = 2.0 * n * length * c * c * k / PEAK_F32_FLOPS * 1e3
+            print(f"sweep f32 N={n} k={k} cb={cb} taps={taps} "
+                  f"stages={stages} bias_only on {card}: {ms:.3f} ms "
+                  f"({bound / ms:.1%} of the products at the f32 peak)")
+        del x, w
     n, length, c, k = TRAIN_N, TRAIN_L, TRAIN_C, TRAIN_K
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    x = torch.randn(n, length, c, generator=gen).to(dev)
-    du = torch.randn(n, length, c, generator=gen).to(dev)
-    im = (torch.rand(n, length, generator=gen) > 0.2).to(dev)
-    for stages in (2, 3, 4):
-        plan = fg.wgrad_plan(n, length, c, k, f32, sms, stages)
-        for mname, m in (("none", None), ("random", im)):
-            ms = cuda_ms(lambda: fg.conv_wgrad(x, du, m, k, plan=plan),
+    for c in (c, 96, 48, 16):
+        x = torch.randn(n, length, c, generator=gen).to(dev)
+        du = torch.randn(n, length, c, generator=gen).to(dev)
+        im = (torch.rand(n, length, generator=gen) > 0.2).to(dev)
+        for stages in (2, 3, 4):
+            plan = fg.wgrad_plan(n, length, c, k, f32, sms, stages)
+            for mname, m in (("none", None), ("random", im)):
+                ms = cuda_ms(lambda: fg.conv_wgrad(x, du, m, k, plan=plan),
+                             iters=10)
+                print(f"sweep f32 conv_wgrad C={c} stages={stages} "
+                      f"in_mask={mname} on {card}: {ms:.3f} ms")
+        # fewer row shares: a shorter second pass, fewer CTAs
+        plan = fg.wgrad_plan(n, length, c, k, f32, sms)
+        for div in (2, 4, 8):
+            groups = max(1, plan["groups"] // div)
+            p2 = dict(plan, groups=groups, ctas=groups * plan["group"])
+            ms = cuda_ms(lambda: fg.conv_wgrad(x, du, im, k, plan=p2),
                          iters=10)
-            print(f"sweep f32 conv_wgrad stages={stages} in_mask={mname} on "
-                  f"{card}: {ms:.3f} ms")
+            print(f"sweep f32 conv_wgrad C={c} groups={groups} "
+                  f"in_mask=random on {card}: {ms:.3f} ms")
+        del x, du, im
     fused_conv.launches = saved[0]
     fg.launches.update(saved[2])
     for counter, before in ((fused_conv.route_launches, saved[1]),
@@ -1985,9 +2176,11 @@ def phase_train_sweep(card: str) -> None:
 TEMPLATE = ROOT / "train_config" / "fragment_6class_1500bp.yaml"
 
 
-def narrow_train_config(filters: int = 16) -> dict:
+def narrow_train_config(filters: int = 16,
+                        kernel_size: int | None = None) -> dict:
     """The flagship training template cut to C = ``filters`` (16), a
-    40-codon crop and narrow heads (phase 6a's card-vs-CPU step)."""
+    40-codon crop and narrow heads (phase 6a's card-vs-CPU step), its
+    residual blocks' convs at ``kernel_size`` taps where given."""
     from jaeger_tpu_torch.utils.config import load_model_config
 
     cfg = load_model_config(TEMPLATE)
@@ -1997,6 +2190,8 @@ def narrow_train_config(filters: int = 16) -> dict:
     for layer in m["representation_learner"]["hidden_layers"]:
         if "filters" in (layer.get("config") or {}):
             layer["config"]["filters"] = filters
+        if kernel_size and layer["name"] == "residual_block":
+            layer["config"]["kernel_size"] = kernel_size
     m["reliability_model"]["hidden_layers"][0]["config"]["units"] = 8
     return cfg
 
@@ -2016,10 +2211,11 @@ def _train_batch(rng, crop: int, program: str, n: int, n_classes: int):
     return {"bases": bases, "lengths": lengths, "labels": labels}
 
 
-def phase_train_step_f32(filters: int = 16) -> dict:
+def phase_train_step_f32(filters: int = 16,
+                         kernel_size: int | None = None) -> dict:
     """One f32 train step of the narrow template (``filters`` channels: 16,
-    and 128, the flagship's width, whose convs take the f32 ring routes of
-    fused_conv_block and conv_wgrad) on the card against the
+    96 and 128, the flagship's width, there with its residual convs at
+    ``kernel_size`` 11) on the card against the
     same step on the CPU, in each program (dense, bounded, masked): the
     loss within 1e-5, every gradient leaf within 1e-4 of its scale (a leaf
     below 1e-4 of the largest gradient is rounding noise around an exact
@@ -2029,7 +2225,8 @@ def phase_train_step_f32(filters: int = 16) -> dict:
     and > 1e-3 of the leaf's largest; Adam's first step is close to
     lr * sign(g)) and within 2 lr everywhere. TF32 is off for cuDNN and
     cuBLAS (the entry conv and the dense heads). The card's step must
-    launch every backward kernel."""
+    launch every backward kernel, and its convs take only the f32 routes
+    f32_ring and fma_ring, each at least once."""
     import copy
 
     import numpy as np
@@ -2044,12 +2241,14 @@ def phase_train_step_f32(filters: int = 16) -> dict:
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = narrow_train_config(filters)
+    cfg = narrow_train_config(filters, kernel_size)
+    label = f"C {filters}" + (f" k {kernel_size}" if kernel_size else "")
     tcfg = cfg["training"]
     lr = float(tcfg["optimizer_params"]["learning_rate"])
     rng = np.random.default_rng(17)
     worst = {}
     routes = collections.Counter()
+    launched = collections.Counter()
     for program in ("dense", "bounded", "masked"):
         runs = {}
         batch = None
@@ -2062,6 +2261,11 @@ def phase_train_step_f32(filters: int = 16) -> dict:
             model.to(dev)
             if batch is None:
                 batch = _train_batch(rng, model.crop_nt, program, 8, 6)
+                if program == "masked" and kernel_size:
+                    # wider convs' bounded cuts clear a half-length row's
+                    # tail: a shorter row keeps the batch on the masked
+                    # program
+                    batch["lengths"][1] = model.crop_nt // 8
             tx = make_optimizer(tcfg["optimizer"], tcfg["optimizer_params"])
             state = loop.TrainState.create(model, tx)
             step = loop.make_dispatching_train_step(
@@ -2078,6 +2282,7 @@ def phase_train_step_f32(filters: int = 16) -> dict:
                 added["fused_conv_block"] = fused_conv.launches - before[1]
                 check(all(v > 0 for v in added.values()),
                       f"f32 step {program}: launches {added}")
+                launched.update(added)
                 routes.update(_route_counts())
                 routes.subtract(before[2])
             check(step.program_counts == {program: 1},
@@ -2116,18 +2321,28 @@ def phase_train_step_f32(filters: int = 16) -> dict:
             check(bool((diff[big] <= 2e-3 * du_cpu[big].abs() + 1e-7).all()),
                   f"f32 step {program}: {k} update beyond 2e-3")
         worst[program] = g_err
-        print(f"train step f32 {program} (narrow template, C {filters}, card "
+        print(f"train step f32 {program} (narrow template, {label}, card "
               f"vs CPU): loss {gpu['loss']:.6f} vs {cpu['loss']:.6f}, worst "
               f"grad err {g_err:.2e} of its scale (tol 1e-4) ok")
     routes = {k: v for k, v in routes.items() if v}
-    print(f"train step f32 C {filters}: launches by route {routes}")
-    if filters % 64 == 0:
-        check(routes.get("fused_conv_block:f32_ring", 0) > 0
-              and routes.get("conv_wgrad:fma_ring", 0) > 0
-              and not routes.get("fused_conv_block:f32_staged")
-              and not routes.get("conv_wgrad:fma"),
-              f"f32 step C {filters}: routes {routes}")
-    return dict(worst, routes=routes)
+    print(f"train step f32 {label}: launches by route {routes}, by kernel "
+          f"{dict(launched)}")
+    check(set(routes) == {"fused_conv_block:f32_ring", "conv_wgrad:fma_ring"},
+          f"f32 step {label}: routes {routes}")
+    return dict(worst, routes=routes, launches=dict(launched))
+
+
+#: phase 6's f32 steps: (filters, residual-conv taps or None)
+F32_STEPS = {"C16": (16, None), "C96": (96, None), "C128_k11": (128, 11)}
+
+
+def phase_train_steps_f32() -> dict:
+    """``phase_train_step_f32`` on each of ``F32_STEPS``: the narrow
+    template at C 16 and C 96 (conv_wgrad's blocks of other widths than
+    64 and 128) and at the flagship's C 128 with k 11 residual convs
+    (fused_conv_block's tap blocks)."""
+    return {name: phase_train_step_f32(c, k)
+            for name, (c, k) in F32_STEPS.items()}
 
 
 def write_train_data(root: Path, seed: int, crop_nt: int,
@@ -6828,7 +7043,9 @@ def main(argv: list[str]) -> int:
                     else KERNEL_SOURCES)
         if "--f32" in argv:
             f32 = dict(forward=phase_f32_kernel(card),
-                       backward=phase_f32_train_kernel(card))
+                       backward=phase_f32_train_kernel(card),
+                       shapes=phase_f32_shapes(card),
+                       steps=phase_train_steps_f32())
             if "--sweep" in argv:
                 phase_f32_sweep(card)
             print(json.dumps({"f32": f32}, default=str))
@@ -6941,6 +7158,7 @@ def main(argv: list[str]) -> int:
         kern8 = phase_int8_kernel(card)
         kern_train = phase_train_kernel(card)
         kern_f32_train = phase_f32_train_kernel(card)
+        kern_f32_shapes = phase_f32_shapes(card)
         if "--sweep" in argv:
             phase_sweep(card)
             phase_int8_sweep(card)
@@ -6955,8 +7173,7 @@ def main(argv: list[str]) -> int:
             rates8 = phase_int8_flagship(bundle, profile)
             launches = phase_predict(Path(tmp), bundle)
             launches8 = phase_int8_predict(Path(tmp), bundle)
-            step_f32 = phase_train_step_f32()
-            step_f32_wide = phase_train_step_f32(128)
+            steps_f32 = phase_train_steps_f32()
             train = phase_train_flagship(Path(tmp), card)
             phase_train_predict(Path(tmp), train["bundle"])
             host = phase_host_pipeline(Path(tmp), bundle, card)
@@ -6991,8 +7208,8 @@ def main(argv: list[str]) -> int:
                "int8_conv_conv2_form": kern8["conv2"],
                "int8_conv_bias_only_form": kern8["bias_only"],
                "int8_conv_requant_pallas_shape": kern8["requant"],
-               "train_step_f32_worst_grad_err": step_f32,
-               "train_step_f32_c128": step_f32_wide,
+               "train_steps_f32": steps_f32,
+               "fused_conv_f32_shapes": kern_f32_shapes,
                "fused_conv_f32": kern_f32,
                "f32_backward": kern_f32_train,
                "train_flagship": {k: v for k, v in train.items()
@@ -7020,6 +7237,7 @@ def main(argv: list[str]) -> int:
                 "bound_share": k["bound_ms"] / k["ms"], **extra}
 
     tl = train["launches"]
+    f32_routes = {name: st["routes"] for name, st in steps_f32.items()}
     pl = pretrain["stages"]["projection"]["launches"]
     zl = zoo["launches"]
     hl = hyena["launches"]
@@ -7076,32 +7294,36 @@ def main(argv: list[str]) -> int:
               pretrain_launches=pl["conv_wgrad"],
               multi_launches=ml["conv_wgrad"]),
         # the f32 forms (other kernel functions of the same sources): the
-        # forward and the data gradient on route f32_ring (the staged kernel,
-        # route f32_staged, timed beside it), its launches by route in
-        # phase 15's f32 engine forwards and phase 6a's C 128 f32 steps
+        # forward and the data gradient on route f32_ring, its launches in
+        # phase 15's f32 engine forwards and by route in phase 6's f32
+        # steps; the table's further shapes (k 11, k 31, C 16 / 48 / 96)
         entry("fused_conv_block_f32", "cuda",
               "jaeger_tpu_torch/csrc/fused_conv_block.cu",
               "jaeger_tpu/ops/pallas_conv.py:70",
               convert["routes"]["fused_conv_block:f32_ring"], kern_f32,
               kernel="conv_f32_ring", form="conv1",
-              staged_ms=kern_f32["routes_ms"]["f32_staged"],
               conv2=kern_f32["conv2"], bias_only=kern_f32["bias_only"],
               dgrad=kern_f32_train["dgrad"],
               f64_rel_err=kern_f32["f64_rel_err"],
+              shapes={k: v for k, v in kern_f32_shapes.items()
+                      if not k.startswith("wgrad")},
               convert_routes=convert["routes"],
-              train_f32_routes=step_f32_wide["routes"]),
+              train_f32_routes=f32_routes),
         entry("conv_wgrad_f32", "cuda",
               "jaeger_tpu_torch/csrc/fused_conv_wgrad.cu",
               "jaeger_tpu/ops/pallas_conv.py:70",
-              step_f32_wide["routes"]["conv_wgrad:fma_ring"],
+              sum(r["conv_wgrad:fma_ring"] for r in f32_routes.values()),
               kern_f32_train["conv_wgrad"], kernel="wgrad_f32_ring",
-              fma_ms=kern_f32_train["conv_wgrad"]["routes_ms"]["fma"],
-              train_f32_routes=step_f32_wide["routes"]),
+              shapes={k: v for k, v in kern_f32_shapes.items()
+                      if k.startswith("wgrad")},
+              train_f32_routes=f32_routes),
         entry("conv_epilogue_bwd", "cuda",
               "jaeger_tpu_torch/csrc/conv_epilogue_bwd.cu",
               "jaeger_tpu/ops/pallas_conv.py:70", tl["conv_epilogue_bwd"],
               kern_train["conv_epilogue_bwd"],
-              f32=kern_f32_train["conv_epilogue_bwd"],
+              f32=dict(kern_f32_train["conv_epilogue_bwd"], launches=sum(
+                  st["launches"]["conv_epilogue_bwd"]
+                  for st in steps_f32.values())),
               host_us=kern_train["conv_epilogue_bwd"]["host_us"],
               templates=at_templates("conv_epilogue_bwd",
                                      zl["conv_epilogue_bwd"]),

@@ -76,60 +76,73 @@
 // f32: conv_f32_ring, a persistent kernel of plain FMAs in full precision
 // (never TF32: the f32 route is the one held against the reference's f32).
 // Taken by predict / train / taxonomy --precision float32 and by the f32
-// data gradient.
+// data gradient, for every (C, k) the f32 forward takes.
 //  * What bounds it: at the flagship shape a call is 1.0e12 FLOPs, 15.0 ms
 //    at the card's 67 TFLOP/s f32 rate outside the tensor cores, against
 //    6.3 GB of f32 in and out (1.9 ms at 3.35 TB/s; conv2 9.4 GB, 2.8 ms):
-//    bound by operations, so the design is about keeping the FMA pipes
-//    fed from registers. (The first f32 kernel, kept as conv_f32_fma
-//    below, started a CTA per 64 positions that restaged all k * C * CB
-//    weights one tap at a time, about 32 GB of L2 reads a call behind two
-//    barriers a tap, and issued a shared load for every FMA: 18 % of the
-//    bound.)
+//    bound by operations (at k 11 2.2e12 FLOPs, 33.1 ms), so the design is
+//    about keeping the FMA pipes fed from registers. (The first f32 kernel
+//    started a CTA per 64 positions that restaged all k * C * CB weights
+//    one tap at a time, about 32 GB of L2 reads a call behind two barriers
+//    a tap, and issued a shared load for every FMA: 18-19 % of the bound,
+//    81 ms at k 5 and 173 ms at k 11.)
 //  * Schedule: about one CTA per SM (the count comes from the wrapper),
 //    each owning column block b % n_cb (CB = 64, 32 or 16 channels, the
-//    plan's). Its 8 warps are independent workers: warp w of CTA b walks
-//    the units (n, 32 positions) w', w' + W, ... of the column block (w'
-//    its worker index, W the workers), so a sequence of 500 positions
-//    wastes 12 rows, not a tile's worth, and no warp waits for another.
-//  * Weights resident: each CTA stages w[:, :, col0:col0+CB] once (k * C *
-//    CB f32: 163,840 B at C = 128, k = 5, CB = 64) with the per-channel
-//    bias, alpha, gamma, beta, and keeps them for every unit; after that
-//    one __syncthreads the warps never meet again.
-//  * A ring per warp: stages of its unit's 32 + k - 1 rows (halo
-//    included) x 16 channels (64-byte rows), 2-4 of them, filled by the
-//    warp's own lanes with 16-byte cp.async copies, one group a stage,
-//    S - 1 stages ahead and across unit boundaries, so the next unit's
-//    loads run under this unit's products and epilogue; __syncwarp is the
-//    only barrier. Rows before 0, past L - 1 or masked by in_mask are zero
-//    filled by the copy itself (src-size 0).
+//    plan's). Its 8 warps are workers: warp w of CTA b walks the units (n,
+//    32 positions) w', w' + W, ... of the column block (w' its worker
+//    index, W the workers), so a sequence of 500 positions wastes 12 rows,
+//    not a tile's worth.
+//  * Tap blocks: a unit's k taps are cut into blocks of at most 9, of near
+//    equal size (k 11: 5 + 6), each a pass over the unit's channels; the
+//    accumulators stay in registers across the blocks.
+//  * Weights resident where all k taps of the column block fit beside the
+//    ring (k * C * CB f32: 163,840 B at C = 128, k = 5, CB = 64; C 128 to
+//    k 11 at CB 32): each CTA stages them once with the per-channel bias,
+//    alpha, gamma, beta, and after that one __syncthreads the warps never
+//    meet again. Past that (C 128 from k 12, C 256 from k 6) the weights
+//    are streamed: two buffers of one tap block (of at most `taps`: 3 at
+//    C 128, CB 64), the CTA's warps walk their units in step, and the first
+//    ring stage of each block carries the block's weights, copied by the
+//    whole CTA with cp.async into the buffer the block before last used;
+//    one __syncthreads at each block start makes them visible and frees
+//    the other buffer. (On the H100 a streamed CB 64 ran 53 % of the f32
+//    peak where resident weights fit only at CB 16, 45 %: the wrapper's
+//    plan prefers it.) Up to 9 taps with resident weights (one block) the
+//    kernel is built without the block bookkeeping (TAPS false).
+//  * A ring per warp: stages of its unit's tap block window, 32 + block -
+//    1 rows (halo included, starting at the block's first tap) x 16
+//    channels (64-byte rows), 2-4 of them, filled by the warp's own lanes
+//    with 16-byte cp.async copies, one group a stage, S - 1 stages ahead
+//    and across block and unit boundaries, so the next loads run under
+//    this stage's products and epilogue; __syncwarp is the only barrier
+//    with resident weights. Rows before 0, past L - 1 or masked by in_mask
+//    are zero filled by the copy itself (src-size 0).
 //  * Register blocking: lane (tr, tc) owns 8 rows (8 tr ..) x CB / 8
 //    columns (8 VW g + VW tc .., VW = 4 or 2): 64 f32 accumulators at CB
-//    64. For 4 channels it loads the window of its 8 + k - 1 rows once
-//    (float4 each) and reuses it for all k taps (tap j of row r is window
-//    row r + j), and each weight float4 of (tap, channel) feeds 32 FMAs: 13
-//    shared loads per 320 FMAs at k 5. The tap loop is a template of k
-//    (1..9) chosen once a stage, so the window stays in registers.
+//    64. For 4 channels it loads the window of its 8 + kb - 1 rows once
+//    (float4 each) and reuses it for all kb taps of the block (tap j of row
+//    r is window row r + j), and each weight float4 of (tap, channel) feeds
+//    32 FMAs: 13 shared loads per 320 FMAs at k 5. The tap loop is a
+//    template of the block's taps (1..9) chosen once a stage, so the window
+//    stays in registers.
 //  * Bank conflicts: a row's 16-byte unit u is stored at u ^ ((row >> 3) &
 //    3), so the four row groups of a warp (rows 8 apart, 64-byte rows) read
 //    four different bank quarters; the lanes of a row group read the same
 //    address (a broadcast). The weight reads of a warp are 8 consecutive
 //    16-byte units of one row.
-//  * Epilogue from the accumulator registers, in the plain version's order
-//    (bias, DYT with tanhf, out_mask, residual, activation with erff /
-//    tanhf): the residual and out_mask of the thread's 8 rows are loaded
-//    first, all at once (the residual lines were prefetched into L2 at
-//    the start of the unit's last stage), then each step runs over all 64
-//    values behind one uniform branch: per-element branches on the
-//    activation and the options cost more than the products' 69 % rate
-//    left (measured on the H100). float4 stores: a warp writes 128 contiguous
-//    bytes a row. While one warp runs its epilogue, the others multiply.
-//  * The plan (CB, unit rows, stages, bytes) is made in one place, the
+//  * Epilogue from the accumulator registers after the last block, in the
+//    plain version's order (bias, DYT with tanhf, out_mask, residual,
+//    activation with erff / tanhf): the residual and out_mask of the
+//    thread's 8 rows are loaded first, all at once (the residual lines were
+//    prefetched into L2 at the start of the unit's last stage), then each
+//    step runs over all 64 values behind one uniform branch: per-element
+//    branches on the activation and the options cost more than the
+//    products' 69 % rate left (measured on the H100). float4 stores: a
+//    warp writes 128 contiguous bytes a row. While one warp runs its
+//    epilogue, the others multiply.
+//  * The plan (CB, weight taps, stages, bytes) is made in one place, the
 //    wrapper's conv_plan / f32_plan; the entry recomputes the layout and
-//    refuses a plan that disagrees. Shapes it cannot hold (k > 9) take
-//    route f32_staged, the first f32 kernel, conv_f32_fma: one CTA per
-//    (row, 64 positions, column block), the input tile and one weight tap
-//    at a time in shared memory.
+//    refuses a plan that disagrees.
 // Built with nvcc into a shared library with a plain C interface and loaded
 // with ctypes (jaeger_tpu_torch/ops/cuda_build.py).
 
@@ -178,16 +191,6 @@ __device__ __forceinline__ float act_fn(float y, int act) {
     default:
       return y;
   }
-}
-
-__device__ __forceinline__ float epilogue(float acc, const Params& p, int c,
-                                          long long row, float res) {
-  float y = acc;
-  if (p.bias) y += p.bias[c];
-  if (p.dyt) y = tanhf(y * p.dyt[c]) * p.dyt[p.C + c] + p.dyt[2 * p.C + c];
-  if (p.out_mask && !p.out_mask[row]) y = 0.f;
-  if (p.residual) y += res;
-  return act_fn(y, p.act);
 }
 
 // ---------------------------------------------------------------------------
@@ -550,101 +553,13 @@ conv_bf16_wgmma(Params p, Layout lay, const __grid_constant__ CUtensorMap xmap,
 }
 
 // ---------------------------------------------------------------------------
-// f32: FMA in full precision. CB * 4 threads; thread (c, g) computes column c
-// for rows 16g..16g+15 of the CTA's 64 positions.
-// ---------------------------------------------------------------------------
-
-constexpr int F_TL = 64;
-constexpr int F_RPT = 16;
-
-__global__ void __launch_bounds__(512)
-conv_f32_fma(Params p, int l_tiles, int CB) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int C = p.C, K = p.K, L = p.L;
-  const int rows_in = F_TL + K - 1;
-  float* xs = reinterpret_cast<float*>(smem);  // rows_in x C
-  float* ws = xs + rows_in * C;                // C x CB
-
-  const int n = blockIdx.x / l_tiles;
-  const int l0 = (blockIdx.x % l_tiles) * F_TL;
-  const int col0 = blockIdx.y * CB;
-  const int pad_l = (K - 1) / 2;
-  const int tid = threadIdx.x;
-  const int c = tid % CB;
-  const int g = tid / CB;
-  const float* x = static_cast<const float*>(p.x);
-  const float* w = static_cast<const float*>(p.w);
-
-  for (int i = tid; i < rows_in * C; i += blockDim.x) {
-    const int r = i / C, ci = i - r * C;
-    const int pos = l0 - pad_l + r;
-    float v = 0.f;
-    if (pos >= 0 && pos < L) {
-      const long long row = (long long)n * L + pos;
-      if (!p.in_mask || p.in_mask[row]) v = x[row * C + ci];
-    }
-    xs[i] = v;
-  }
-
-  float acc[F_RPT];
-#pragma unroll
-  for (int r = 0; r < F_RPT; ++r) acc[r] = 0.f;
-
-  for (int j = 0; j < K; ++j) {
-    __syncthreads();
-    const float* wj = w + (long long)j * C * C + col0;
-    for (int i = tid; i < C * CB; i += blockDim.x) {
-      const int ci = i / CB, cc = i - ci * CB;
-      ws[i] = wj[(long long)ci * C + cc];
-    }
-    __syncthreads();
-    const float* xr = xs + (g * F_RPT + j) * C;
-    for (int ci = 0; ci < C; ++ci) {
-      const float wv = ws[ci * CB + c];
-#pragma unroll
-      for (int r = 0; r < F_RPT; ++r) acc[r] = fmaf(xr[r * C + ci], wv, acc[r]);
-    }
-  }
-
-  const float* res = static_cast<const float*>(p.residual);
-  float* out = static_cast<float*>(p.out);
-#pragma unroll
-  for (int r = 0; r < F_RPT; ++r) {
-    const int l = l0 + g * F_RPT + r;
-    if (l >= L) continue;
-    const long long row = (long long)n * L + l;
-    const long long off = row * C + col0 + c;
-    out[off] = epilogue(acc[r], p, col0 + c, row, res ? res[off] : 0.f);
-  }
-}
-
-// the staged kernel's shared memory: the input tile and one weight tap
-inline size_t staged_bytes(int C, int K) {
-  const int CB = C <= 128 ? C : 128;
-  return ((size_t)(F_TL + K - 1) * C + (size_t)C * CB) * 4;
-}
-
-cudaError_t launch_f32_staged(const Params& p, int n_rows,
-                              cudaStream_t stream) {
-  const int CB = p.C <= 128 ? p.C : 128;
-  const int l_tiles = (p.L + F_TL - 1) / F_TL;
-  const size_t smem = staged_bytes(p.C, p.K);
-  cudaError_t e = cudaFuncSetAttribute(
-      conv_f32_fma, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((unsigned)(n_rows * l_tiles), (unsigned)(p.C / CB));
-  conv_f32_fma<<<grid, CB * (F_TL / F_RPT), smem, stream>>>(p, l_tiles, CB);
-  return cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
 // f32: conv_f32_ring, the persistent FMA kernel (see the note at the top)
 // ---------------------------------------------------------------------------
 
 constexpr int R_RT = 8;         // output rows per thread
 constexpr int R_WM = 4 * R_RT;  // output rows per warp unit: 4 row groups
 constexpr int R_CK = 16;        // channels per ring stage: 64-byte rows
-constexpr int R_KMAX = 9;       // taps the register window can hold
+constexpr int R_KMAX = 9;       // taps a ring stage and the window hold
 
 // warps a CTA: more would cap the registers below what 8 rows x CB / 8
 // columns of accumulators, the tap window and the weights in flight need
@@ -652,34 +567,50 @@ constexpr int R_KMAX = 9;       // taps the register window can hold
 constexpr int R_WARPS = 8;
 constexpr int R_THREADS = 32 * R_WARPS;
 
+// A unit's k taps are cut into nblk tap blocks, block b the taps [b K /
+// nblk, (b + 1) K / nblk): at most R_KMAX each where the weights are
+// resident, at most `taps` where they are streamed.
 // Shared-memory layout, byte offsets from a 16-byte aligned base:
-// [weights: K * C rows of CB f32] [bias, alpha, gamma, beta: 4 x CB f32]
-// [x rings: R_WARPS warps x stages x (R_WM + K - 1) rows x R_CK f32]
+// [weights: K * C rows of CB f32 (resident), or two buffers of taps * C
+// rows of CB f32 (streamed)] [bias, alpha, gamma, beta: 4 x CB f32]
+// [x rings: R_WARPS warps x stages x (R_WM + the largest block - 1) rows x
+// R_CK f32]
 struct RingLayout {
   int stages;
-  int rows;     // R_WM + K - 1: a warp's stage
+  int taps;     // weight taps a buffer holds: K when resident
+  int stream;   // 1: the weights are streamed a tap block at a time
+  int nblk;     // tap blocks a unit
+  int rows;     // R_WM + the largest block - 1: a warp's stage
   int n_cb;     // C / CB column blocks
-  int nkc;      // C / R_CK channel chunks a unit
+  int nkc;      // C / R_CK channel chunks a tap block
   int l_units;  // ceil(L / R_WM)
   long long units;  // n_rows * l_units warp units
-  uint32_t stage, off_par, off_x, bytes;
+  uint32_t stage, wbuf, off_par, off_x, bytes;
 };
 
-// false if (cb, tile, stages) cannot hold this shape; tile is R_WM, the
-// rows of a warp unit
-bool make_ring_layout(int n_rows, int L, int C, int K, int cb, int tile,
+// false if (cb, taps, stages) cannot hold this shape; taps < K streams the
+// weights in blocks of at most `taps` (the largest block: two buffers, two
+// ring stages, so a block's weights land with the stage before its first)
+bool make_ring_layout(int n_rows, int L, int C, int K, int cb, int taps,
                       int stages, RingLayout* lay) {
-  if (tile != R_WM || K < 1 || K > R_KMAX) return false;
+  if (K < 1 || taps < 1 || taps > K) return false;
   if ((cb != 16 && cb != 32 && cb != 64) || C % cb || C % R_CK) return false;
   if (stages < 2 || stages > 4) return false;
+  const bool stream = taps < K;
+  lay->nblk = (K + (stream ? taps : R_KMAX) - 1) / (stream ? taps : R_KMAX);
+  const int block = (K + lay->nblk - 1) / lay->nblk;
+  if (stream && (taps > R_KMAX || block != taps || stages != 2)) return false;
   lay->stages = stages;
-  lay->rows = R_WM + K - 1;
+  lay->taps = taps;
+  lay->stream = stream;
+  lay->rows = R_WM + block - 1;
   lay->n_cb = C / cb;
   lay->nkc = C / R_CK;
   lay->l_units = (L + R_WM - 1) / R_WM;
   lay->units = (long long)n_rows * lay->l_units;
   lay->stage = (uint32_t)lay->rows * R_CK * 4;
-  lay->off_par = (uint32_t)K * C * cb * 4;
+  lay->wbuf = (uint32_t)taps * C * cb * 4;
+  lay->off_par = (stream ? 2u : 1u) * lay->wbuf;
   lay->off_x = lay->off_par + 16u * cb;
   lay->bytes = lay->off_x + R_WARPS * stages * lay->stage;
   return lay->bytes <= (uint32_t)SMEM_LIMIT;
@@ -748,7 +679,9 @@ __device__ __forceinline__ void ring_products(float (&acc)[R_RT][CT],
   }
 }
 
-template <int CB>
+// TAPS false: one resident tap block (k <= 9), the tap-block bookkeeping
+// compiled out
+template <int CB, bool TAPS>
 __global__ void __launch_bounds__(R_THREADS, 1)
 conv_f32_ring(Params p, RingLayout lay) {
   constexpr int CT = CB / 8;  // columns a thread: 8, 4 or 2
@@ -758,19 +691,23 @@ conv_f32_ring(Params p, RingLayout lay) {
   float* par = reinterpret_cast<float*>(smem_f + lay.off_par);
 
   const int C = p.C, K = p.K, L = p.L, S = lay.stages, nkc = lay.nkc;
+  const int nblk = TAPS ? lay.nblk : 1;
+  const bool stream = TAPS && lay.stream;
   const int pad_l = (K - 1) / 2;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int col0 = (blockIdx.x % lay.n_cb) * CB;
   // warp units (n, 32 rows) of this column block: worker w of W walks
-  // units w, w + W, ...
-  const long long worker =
-      (long long)(blockIdx.x / lay.n_cb) * R_WARPS + warp;
+  // units w, w + W, ...; with streamed weights the CTA's warps walk in
+  // step, as many rounds as its first worker has units
+  const long long first = (long long)(blockIdx.x / lay.n_cb) * R_WARPS;
+  const long long worker = first + warp;
   const long long workers = (long long)(gridDim.x / lay.n_cb) * R_WARPS;
+  const long long lead = stream ? first : worker;
   const int n_local =
-      worker < lay.units
-          ? (int)((lay.units - worker + workers - 1) / workers)
-          : 0;
-  const int total = n_local * nkc;  // (unit, channel chunk) stages to walk
+      lead < lay.units ? (int)((lay.units - lead + workers - 1) / workers)
+                       : 0;
+  // (unit, tap block, channel chunk) stages to walk
+  const int total = n_local * nblk * nkc;
   const float* x = static_cast<const float*>(p.x);
   const float* __restrict__ res = static_cast<const float*>(p.residual);
   float* __restrict__ out = static_cast<float*>(p.out);
@@ -781,10 +718,10 @@ conv_f32_ring(Params p, RingLayout lay) {
 
   // resident weights w[j][ci][col0 .. col0 + CB), row j * C + ci, and the
   // epilogue's parameters of this column block
+  const float* w = static_cast<const float*>(p.w);
+  constexpr int V = CB / 4;
   {
-    const float* w = static_cast<const float*>(p.w);
-    constexpr int V = CB / 4;
-    for (int i = tid; i < K * C * V; i += R_THREADS) {
+    for (int i = tid; i < (stream ? 0 : K * C * V); i += R_THREADS) {
       const int v = i % V, jc = i / V;
       reinterpret_cast<float4*>(ws)[i] = *reinterpret_cast<const float4*>(
           w + (long long)jc * C + col0 + 4 * v);
@@ -798,29 +735,58 @@ conv_f32_ring(Params p, RingLayout lay) {
       }
     }
   }
-  __syncthreads();  // the only CTA-wide barrier: the warps run apart
+  // resident weights: the only CTA-wide barrier, after it the warps run
+  // apart; streamed weights: one more at the start of each tap block
+  __syncthreads();
 
   // ---- this warp's ring: lane copies 16-byte units of stage rows lane /
-  // 4 + 8 mm (unit lane % 4) with cp.async; rows before 0, past L - 1 or
+  // 4 + 8 mm (unit lane % 4) with cp.async: the rows of tap block tb of the
+  // unit start at its first tap's input row; rows before 0, past L - 1 or
   // masked by in_mask are zero filled. One cp.async group a stage, empty
-  // past the last one. ----
+  // past the last one. Streamed weights: the first stage of block tb of
+  // round i also carries the block's weights into buffer (i nblk + tb) % 2,
+  // copied by the whole CTA. ----
   const int cu = lane & 3, row_a = lane >> 2;
+  const uint32_t w_s = hopper::smem_u32(smem_f);
   uint32_t pvalid = 0;  // bit mm: row row_a + 8 mm of the producer's tile
   long long pbase = 0;  // global row of the warp's stage row 0
+  // (unit round, tap block, chunk) of the next stage to issue: issue is
+  // called for q = 0, 1, 2, ... in turn
+  int qi = 0, qtb = 0, qkc = 0;
   auto issue = [&](int q) {
     if (q < total) {
-      const int i = q / nkc, kc = q - i * nkc;
+      const int i = qi, tb = qtb, kc = qkc;
+      if (++qkc == nkc) {
+        qkc = 0;
+        if (++qtb == nblk) {
+          qtb = 0;
+          ++qi;
+        }
+      }
       if (kc == 0) {
         const long long u = worker + i * workers;
-        const long long n = u / lay.l_units;
-        const int p0 = (int)(u - n * lay.l_units) * R_WM - pad_l;
-        pbase = (long long)n * L + p0;
+        const int j0 = TAPS ? tb * K / nblk : 0;
         pvalid = 0;
-        for (int mm = 0; row_a + 8 * mm < lay.rows; ++mm) {
-          const int pos = p0 + row_a + 8 * mm;
-          if (pos >= 0 && pos < L &&
-              (!p.in_mask || p.in_mask[(long long)n * L + pos]))
-            pvalid |= 1u << mm;
+        if (u < lay.units) {
+          const long long n = u / lay.l_units;
+          const int p0 = (int)(u - n * lay.l_units) * R_WM - pad_l + j0;
+          pbase = (long long)n * L + p0;
+          for (int mm = 0; row_a + 8 * mm < lay.rows; ++mm) {
+            const int pos = p0 + row_a + 8 * mm;
+            if (pos >= 0 && pos < L &&
+                (!p.in_mask || p.in_mask[(long long)n * L + pos]))
+              pvalid |= 1u << mm;
+          }
+        }
+        if (stream) {
+          const int kb = (tb + 1) * K / nblk - j0;
+          const uint32_t dst =
+              w_s + (uint32_t)((i * nblk + tb) & 1) * lay.wbuf;
+          for (int v = tid; v < kb * C * V; v += R_THREADS)
+            hopper::cp_async16_zfill(
+                dst + (uint32_t)v * 16u,
+                w + ((long long)j0 * C + v / V) * C + col0 + 4 * (v % V),
+                true);
         }
       }
       const uint32_t st = x_s + (uint32_t)(q % S) * lay.stage;
@@ -846,23 +812,50 @@ conv_f32_ring(Params p, RingLayout lay) {
 #pragma unroll
     for (int e = 0; e < CT; ++e) acc[r][e] = 0.f;
 
+  // (unit round, tap block, chunk) of stage q, the block's taps and
+  // weights
+  int ni = 0, ntb = 0, nkc_ = 0;
+  int j0 = 0, kb = K;
+  const float* wb = ws;
   for (int q = 0; q < S - 1; ++q) issue(q);
   for (int q = 0; q < total; ++q) {
     // stage q has landed (this lane's copies, then the warp's), and stage
-    // q - 1 is free: every lane of the warp has finished its products
+    // q - 1 is free: every lane of the warp has finished its products.
+    // Streamed weights, first stage of a block: the block's weights have
+    // landed (every thread's copies) and every warp is past the block
+    // before, whose buffer the next block's copies (issued below) take.
+    const int i = ni, tb = ntb, kc = nkc_;
+    if (++nkc_ == nkc) {
+      nkc_ = 0;
+      if (++ntb == nblk) {
+        ntb = 0;
+        ++ni;
+      }
+    }
+    if (TAPS && kc == 0) {
+      // the block's taps: from the resident weights, or its buffer
+      j0 = tb * K / nblk;
+      kb = (tb + 1) * K / nblk - j0;
+      wb = stream ? ws + (size_t)((i * nblk + tb) & 1) * (lay.wbuf / 4)
+                  : ws + (size_t)j0 * C * CB;
+    }
     if (S == 2)
       hopper::cp_async_wait<0>();
     else if (S == 3)
       hopper::cp_async_wait<1>();
     else
       hopper::cp_async_wait<2>();
-    __syncwarp();
+    if (stream && kc == 0)
+      __syncthreads();
+    else
+      __syncwarp();
     issue(q + S - 1);
-    const int i = q / nkc, kc = q - i * nkc;
     const long long u = worker + i * workers;
-    const long long n = u / lay.l_units;
+    if (stream && u >= lay.units) continue;  // a round past this warp's units
+    const bool last = tb == nblk - 1 && kc == nkc - 1;
+    const long long n = last ? u / lay.l_units : 0;
     const int l0 = (int)(u - n * lay.l_units) * R_WM;
-    if (res && kc == nkc - 1 && tc == 0) {
+    if (res && last && tc == 0) {
       // the epilogue's residual rows into L2 while the last products run
 #pragma unroll
       for (int r = 0; r < R_RT; ++r)
@@ -873,8 +866,8 @@ conv_f32_ring(Params p, RingLayout lay) {
                                 g * 8 * VW);
     }
     const unsigned char* xs = xring + (size_t)(q % S) * lay.stage;
-    const float* wc = ws + kc * R_CK * CB + tc * VW;
-    switch (K) {
+    const float* wc = wb + kc * R_CK * CB + tc * VW;
+    switch (kb) {
       case 1: ring_products<1, CT>(acc, xs, wc, C * CB, CB, tr); break;
       case 2: ring_products<2, CT>(acc, xs, wc, C * CB, CB, tr); break;
       case 3: ring_products<3, CT>(acc, xs, wc, C * CB, CB, tr); break;
@@ -885,7 +878,7 @@ conv_f32_ring(Params p, RingLayout lay) {
       case 8: ring_products<8, CT>(acc, xs, wc, C * CB, CB, tr); break;
       default: ring_products<9, CT>(acc, xs, wc, C * CB, CB, tr); break;
     }
-    if (kc != nkc - 1) continue;
+    if (!last) continue;
 
     // ---- epilogue of unit i from the registers (the warp's next stages
     // are in flight, the other warps run their products): the residual
@@ -1005,11 +998,11 @@ conv_f32_ring(Params p, RingLayout lay) {
   hopper::cp_async_wait<0>();
 }
 
-template <int CB>
-cudaError_t launch_f32_ring(const Params& p, const RingLayout& lay, int sms,
-                            cudaStream_t stream) {
+template <int CB, bool TAPS>
+cudaError_t launch_ring(const Params& p, const RingLayout& lay, int sms,
+                        cudaStream_t stream) {
   cudaError_t e = cudaFuncSetAttribute(
-      conv_f32_ring<CB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      conv_f32_ring<CB, TAPS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)lay.bytes);
   if (e != cudaSuccess) return e;
   // persistent: as many CTAs per column block as fit one per SM, no more
@@ -1018,9 +1011,17 @@ cudaError_t launch_f32_ring(const Params& p, const RingLayout& lay, int sms,
   const long long need = (lay.units + R_WARPS - 1) / R_WARPS;
   if (per_cb > need) per_cb = need;
   if (per_cb < 1) per_cb = 1;
-  conv_f32_ring<CB><<<(unsigned)(per_cb * lay.n_cb), R_THREADS, lay.bytes,
-                      stream>>>(p, lay);
+  conv_f32_ring<CB, TAPS><<<(unsigned)(per_cb * lay.n_cb), R_THREADS,
+                            lay.bytes, stream>>>(p, lay);
   return cudaGetLastError();
+}
+
+template <int CB>
+cudaError_t launch_f32_ring(const Params& p, const RingLayout& lay, int sms,
+                            cudaStream_t stream) {
+  return lay.nblk > 1 || lay.stream
+             ? launch_ring<CB, true>(p, lay, sms, stream)
+             : launch_ring<CB, false>(p, lay, sms, stream);
 }
 
 template <int CB, int KW>
@@ -1055,10 +1056,10 @@ cudaError_t launch_bf16(const Params& p, const Layout& lay, int n_rows,
 // channels per CTA (16, 32, 64 or 128), kw channels per x / weight chunk,
 // `stages` ring stages and smem_bytes of shared memory, which must equal the
 // layout this file computes; sms is the card's SM count. f32 takes C % 16 ==
-// 0 with C <= 128 or C % 128 == 0 and the plan of f32_plan: kw is the rows
-// of a warp's unit (32, route f32_ring: cb 64, 32 or 16, stages 2-4,
-// smem_bytes the layout's) or 0 (route f32_staged: cb min(C, 128), stages
-// 0, smem_bytes the staged kernel's).
+// 0 with C <= 128 or C % 128 == 0 and the plan of f32_plan: cb 64, 32 or
+// 16, kw the weight taps a buffer holds (K: resident; fewer: streamed in
+// tap blocks of at most kw, stages 2), stages 2-4 and smem_bytes the
+// layout's.
 extern "C" int jt_fused_conv_block(int dtype, const void* x, const void* w,
                                    const void* bias, const void* dyt,
                                    const void* in_mask, const void* out_mask,
@@ -1084,14 +1085,7 @@ extern "C" int jt_fused_conv_block(int dtype, const void* x, const void* w,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     if (C > 128 && C % 128 != 0) return (int)cudaErrorInvalidValue;
-    if (kw == 0) {  // route f32_staged
-      if (cb != (C <= 128 ? C : 128) || stages != 0 ||
-          (size_t)smem_bytes != staged_bytes(C, K) ||
-          smem_bytes > SMEM_LIMIT)
-        return (int)cudaErrorInvalidValue;
-      return (int)launch_f32_staged(p, n_rows, s);
-    }
-    RingLayout lay;  // route f32_ring
+    RingLayout lay;
     if (!make_ring_layout(n_rows, L, C, K, cb, kw, stages, &lay) ||
         lay.bytes != (uint32_t)smem_bytes || sms <= 0)
       return (int)cudaErrorInvalidValue;

@@ -75,28 +75,40 @@
 // The bf16 kernel is built for the shapes the training configs give it: k 3
 // and 5, C a multiple of 64.
 //
-// f32 (plain FMAs, never TF32): wgrad_f32_ring for C % 64 == 0.
+// f32 (plain FMAs, never TF32), every C % 16 == 0: wgrad_f32_ring<B> for
+// blocks of 128 and 64 channels, its sibling wgrad_f32_taps<B, NT> for the
+// other block widths (the same design with several taps a CTA; kept apart
+// because one template for both ran 3.7 % slower at B 128 on the H100, its
+// register spills moved).
 //  * What bounds it: at the train shape 1.26e11 FLOPs, 1.88 ms at the
 //    card's 67 TFLOP/s f32 rate, against 0.79 GB of f32 in (0.24 ms):
-//    operations. (The first f32 kernel, kept as wgrad_f32 for the other
-//    C, gave each thread one output and two global loads per FMA: 1 % of
-//    the bound, 173 ms.)
-//  * Schedule: groups of k x (C / B)^2 CTAs, B = 128 where it divides C,
-//    else 64: one CTA per (tap j, ci block, co block), neighbours in the
-//    grid, walking the same contiguous share of the N * L rows, two CTAs
-//    an SM (the plan's groups).
-//  * A cp.async ring of 32-row stages (2 by default): the CTA's B ci of x
-//    already shifted by its tap, so the products need no halo: row r of the
-//    stage holds x[n, l + j - pad] for du row (n, l), zero filled by the
-//    copy where that position is outside [0, L) or in_mask is false, and
-//    the B co of du. A thread's copies keep their rows' (sequence,
-//    position) and move them on by 32 a stage, without a division.
-//  * Register blocking: thread (ti, to) of 16 x 8 accumulates ci 64 g +
-//    4 ti + e x co 32 h + 4 to + e (8 x 16 f32 at B 128): each row's
-//    16-byte x unit feeds 64 FMAs, each du unit 32; a quarter-warp's du
-//    reads are 128 contiguous bytes.
-//  * db in the (tap 0, ci block 0) CTAs: thread (ti, to) sums rows ti and
-//    ti + 16 of each stage, and the 16 row groups' sums are added in ti
+//    operations; at C 96 7.08e10 FLOPs (1.06 ms); at C 16 the bytes (0.10
+//    GB, 0.030 ms). (The first f32 kernel gave each thread one output and
+//    two global loads per FMA: 1 % of the bound, 173 ms at C 128 and
+//    95.2 ms at C 96.)
+//  * Blocks: the CTA's ci and co block B is 128 or 64 where it divides C,
+//    else the largest of 112, 96, 80, 48, 32, 16 that does; where B is
+//    narrow a CTA takes several taps (NT = 8 at B 16, 4 at 32, 2 at 48, else
+//    1; the k taps cut into ceil(k / NT) blocks of near equal size), so a
+//    thread still owns 16 or more outputs and reads its du rows once for
+//    all of them.
+//  * Schedule: groups of ceil(k / NT) x (C / B)^2 CTAs, one per (tap block,
+//    ci block, co block), neighbours in the grid, walking the same
+//    contiguous share of the N * L rows, two CTAs an SM (the plan's groups).
+//  * A cp.async ring of 32-row stages (2 by default): for each tap j of the
+//    CTA the B ci of x already shifted by it, so the products need no halo:
+//    row r of the tap's rows holds x[n, l + j - pad] for du row (n, l), zero
+//    filled by the copy where that position is outside [0, L) or in_mask is
+//    false; then the B co of du. A thread's copies keep their rows'
+//    (sequence, position) and move them on by 32 a stage, without a
+//    division.
+//  * Register blocking: thread (ti, to) of 16 x 8 accumulates, for each tap,
+//    B / 16 ci x B / 8 co (8 x 16 f32 at B 128, 6 x 12 at B 96), the ci
+//    XV-vectors 16 XV apart and the co DV-vectors 8 DV apart (XV, DV = 4 or
+//    2 where B allows): a row's du values feed B / 16 FMAs of every tap, its
+//    x values B / 8; a quarter-warp's du reads are contiguous.
+//  * db in the (tap block 0, ci block 0) CTAs: thread (ti, to) sums rows ti
+//    and ti + 16 of each stage, and the 16 row groups' sums are added in ti
 //    order through shared memory at the end.
 //  * Partials of each row share go to the share's slot and the second pass
 //    sums them in share order, as for bf16: the same bits run to run.
@@ -459,59 +471,61 @@ wgrad_bf16(Args a, Layout lay, const __grid_constant__ CUtensorMap xmap,
 }
 
 // ---------------------------------------------------------------------------
-// f32: one output element per thread, plain FMAs
-// ---------------------------------------------------------------------------
-
-__global__ void wgrad_f32(Args a, long long rows_per_split) {
-  const long long C = a.C;
-  const long long n_w = (long long)a.K * C * C;
-  const long long idx = (long long)blockIdx.y * blockDim.x + threadIdx.x;
-  if (idx >= n_w + C) return;
-  const long long r0 = (long long)blockIdx.x * rows_per_split;
-  long long r1 = r0 + rows_per_split;
-  if (r1 > a.n_rows_total) r1 = a.n_rows_total;
-  const float* x = static_cast<const float*>(a.x);
-  const float* du = static_cast<const float*>(a.du);
-  float acc = 0.f;
-  if (idx < n_w) {
-    const int j = (int)(idx / (C * C));
-    const int ci = (int)((idx / C) % C);
-    const int co = (int)(idx % C);
-    for (long long r = r0; r < r1; ++r) {
-      const long long n = r / a.L;
-      const int l = (int)(r % a.L) + j - a.pad;
-      if (l < 0 || l >= a.L) continue;
-      const long long xr = n * a.L + l;
-      if (a.in_mask != nullptr && !a.in_mask[xr]) continue;
-      acc = fmaf(x[xr * C + ci], du[r * C + co], acc);
-    }
-    a.part_w[(long long)blockIdx.x * n_w + idx] = acc;
-  } else {
-    const int co = (int)(idx - n_w);
-    for (long long r = r0; r < r1; ++r) acc += du[r * C + co];
-    a.part_b[(long long)blockIdx.x * C + co] = acc;
-  }
-}
-
-// ---------------------------------------------------------------------------
 // f32: wgrad_f32_ring, persistent FMA outer products (see the note at the top)
 // ---------------------------------------------------------------------------
 
 constexpr int F_THREADS = 128;  // 16 x 8 threads, two CTAs an SM
 constexpr int F_WR = 32;        // rows a ring stage
 
-// The stage layout: x rows (already shifted by the CTA's tap, masked rows
-// zero) then du rows, each F_WR rows x B f32 of the CTA's ci / co block.
-__host__ __device__ inline uint32_t f32_stage_bytes(int B) {
-  return 2u * F_WR * B * 4;
+// The ci and co block B of C channels: 128 or 64 where they divide C, else
+// the largest of 112, 96, 80, 48, 32 and 16 that does (a thread then owns
+// B / 16 x B / 8 outputs of each of its CTA's taps)
+inline int f32_block(int C) {
+  if (C % 128 == 0) return 128;
+  if (C % 64 == 0) return 64;
+  const int blocks[] = {112, 96, 80, 48, 32};
+  for (int b : blocks)
+    if (C % b == 0) return b;
+  return 16;
 }
 
-// false unless (co_block, stages, smem) is the f32 ring plan of (C, K)
+// The most taps of a CTA for block B: several where B is narrow, so that
+// the CTA's du rows are read once for all of them and a thread still owns
+// 16 or more outputs
+__host__ __device__ constexpr int f32_taps(int B) {
+  return B == 16 ? 8 : B == 32 ? 4 : B == 48 ? 2 : 1;
+}
+
+// The stage layout: for each of the CTA's taps F_WR x rows (already shifted
+// by the tap, masked rows zero), then F_WR du rows, each B f32 of the CTA's
+// ci / co block.
+__host__ __device__ inline uint32_t f32_stage_bytes(int B) {
+  return (uint32_t)(f32_taps(B) + 1) * F_WR * B * 4;
+}
+
+// false unless (co_block, stages, smem) is the f32 ring plan of C
 bool f32_ring_fits(int C, int co_block, int stages, int smem_bytes) {
-  const int B = C % 128 == 0 ? 128 : 64;
-  return C % 64 == 0 && co_block == B && stages >= 2 && stages <= 4 &&
-         (uint32_t)smem_bytes == stages * f32_stage_bytes(B) &&
+  return co_block == f32_block(C) && stages >= 2 && stages <= 4 &&
+         (uint32_t)smem_bytes == stages * f32_stage_bytes(co_block) &&
          smem_bytes <= SMEM_LIMIT;
+}
+
+// V floats from shared memory into d (V = 1, 2 or 4, aligned to V floats)
+template <int V>
+__device__ __forceinline__ void load_v(float* d, const float* s) {
+  if constexpr (V == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(s);
+    d[0] = v.x;
+    d[1] = v.y;
+    d[2] = v.z;
+    d[3] = v.w;
+  } else if constexpr (V == 2) {
+    const float2 v = *reinterpret_cast<const float2*>(s);
+    d[0] = v.x;
+    d[1] = v.y;
+  } else {
+    d[0] = *s;
+  }
 }
 
 // CTA (grp, member): member = (j * nb + cib) * nb + cob for tap j, ci block
@@ -683,16 +697,229 @@ wgrad_f32_ring(Args a, int stages) {
   }
 }
 
+// The sibling for the other block widths (C % 64 != 0), several taps a CTA
+// where B is narrow.
+// CTA (grp, member): member = (tb * nb + cib) * nb + cob for tap block tb
+// (taps [tb K / nblk, (tb + 1) K / nblk) of the nblk = ceil(K / NT) blocks,
+// at most NT each), ci block cib and co block cob of B channels (nb = C /
+// B); the group's CTAs walk the rows [R grp / groups, R (grp + 1) / groups)
+// of the R = N * L rows.
+template <int B, int NT>
+__global__ void __launch_bounds__(F_THREADS, 2)
+wgrad_f32_taps(Args a, int stages) {
+  constexpr int TI = B / 16;   // ci a thread, each tap
+  constexpr int TO = B / 8;    // co a thread, each tap
+  // ci of thread ti: 16 XV g + XV ti + e (e < XV); co of thread to: 8 DV h
+  // + DV to + e (e < DV): a quarter-warp's loads are neighbours
+  constexpr int XV = B % 64 == 0 ? 4 : B % 32 == 0 ? 2 : 1;
+  constexpr int DV = B % 32 == 0 ? 4 : 2;
+  constexpr int U = B / 4;                  // 16-byte units a row
+  constexpr int XR = NT * F_WR;             // x rows a stage
+  constexpr int XM = XR * U / F_THREADS;    // x units a thread copies
+  constexpr int DM = F_WR * U / F_THREADS;  // du units a thread copies
+  static_assert(XR * U % F_THREADS == 0 && F_WR * U % F_THREADS == 0,
+                "B % 16 == 0");
+  extern __shared__ __align__(16) unsigned char smem_w[];
+  const uint32_t ring = hopper::smem_u32(smem_w);
+  const float* ringf = reinterpret_cast<const float*>(smem_w);
+  const int S = stages;
+  const int C = a.C, L = a.L, K = a.K, nb = C / B;
+  const int nblk = (K + NT - 1) / NT;
+  const int group = nblk * nb * nb;
+  const int grp = blockIdx.x / group, member = blockIdx.x % group;
+  const int cob = member % nb, cib = (member / nb) % nb;
+  const int tb = member / (nb * nb);
+  const int j0 = tb * K / nblk, nt = (tb + 1) * K / nblk - j0;
+  const int shift = j0 - a.pad;
+  const int n_groups = gridDim.x / group;
+  const long long r_begin = a.n_rows_total * grp / n_groups;
+  const long long r_end = a.n_rows_total * (grp + 1) / n_groups;
+  const int total = (int)((r_end - r_begin + F_WR - 1) / F_WR);
+  const bool does_bias = tb == 0 && cib == 0;
+  const float* x = static_cast<const float*>(a.x);
+  const float* du = static_cast<const float*>(a.du);
+  const int tid = threadIdx.x;
+
+  // ---- the ring: each thread copies units idx = tid + 128 m of a stage, x
+  // rows first (tap idx / (F_WR U), row (idx / U) % F_WR, unit idx % U), du
+  // rows after; rows past the share, taps past the block, x rows outside
+  // [0, L) or masked are zero filled. issue is called for q = 0, 1, 2, ...
+  // in turn: the (sequence, position) of each x row this thread copies
+  // moves on by F_WR rows a call. ----
+  int xn[XM], xl[XM];
+#pragma unroll
+  for (int m = 0; m < XM; ++m) {
+    const long long g = r_begin + ((tid + F_THREADS * m) / U) % F_WR;
+    xn[m] = (int)(g / L);
+    xl[m] = (int)(g - (long long)xn[m] * L);
+  }
+  auto issue = [&](int q) {
+    if (q < total) {
+      const uint32_t st = ring + (uint32_t)(q % S) * f32_stage_bytes(B);
+      const long long g0 = r_begin + (long long)q * F_WR;
+#pragma unroll
+      for (int m = 0; m < XM; ++m) {
+        const int idx = tid + F_THREADS * m;
+        const int t = NT == 1 ? 0 : idx / (F_WR * U);
+        const int r = (idx / U) % F_WR, u = idx % U;
+        const int pos = xl[m] + shift + t;
+        const bool ok = (NT == 1 || t < nt) && g0 + r < r_end && pos >= 0 &&
+                        pos < L &&
+                        (a.in_mask == nullptr ||
+                         a.in_mask[(long long)xn[m] * L + pos]);
+        const float* src =
+            ok ? x + ((long long)xn[m] * L + pos) * C + cib * B + 4 * u : x;
+        hopper::cp_async16_zfill(st + (uint32_t)idx * 16u, src, ok);
+      }
+#pragma unroll
+      for (int m = 0; m < DM; ++m) {
+        const int idx = tid + F_THREADS * m;
+        const int r = idx / U, u = idx % U;
+        const bool ok = g0 + r < r_end;
+        const float* src = ok ? du + (g0 + r) * C + cob * B + 4 * u : du;
+        hopper::cp_async16_zfill(st + (uint32_t)(XR * U + idx) * 16u, src,
+                                 ok);
+      }
+    }
+    hopper::cp_async_commit();
+#pragma unroll
+    for (int m = 0; m < XM; ++m) {
+      xl[m] += F_WR;
+      while (xl[m] >= L) {
+        xl[m] -= L;
+        ++xn[m];
+      }
+    }
+  };
+
+  // ---- the products: thread (ti, to) = (tid / 8, tid % 8) owns, for each
+  // tap t of its block, ci 16 XV g + XV ti + e and co 8 DV h + DV to + e:
+  // each row's du values feed TI FMAs of every tap, each x value TO ----
+  const int ti = tid / 8, to = tid % 8;
+  float acc[NT][TI][TO];
+  float dbs[TO];
+#pragma unroll
+  for (int e = 0; e < TO; ++e) {
+    dbs[e] = 0.f;
+#pragma unroll
+    for (int t = 0; t < NT; ++t)
+#pragma unroll
+      for (int i = 0; i < TI; ++i) acc[t][i][e] = 0.f;
+  }
+
+  for (int q = 0; q < S - 1; ++q) issue(q);
+  for (int q = 0; q < total; ++q) {
+    if (S == 2)
+      hopper::cp_async_wait<0>();
+    else if (S == 3)
+      hopper::cp_async_wait<1>();
+    else
+      hopper::cp_async_wait<2>();
+    __syncthreads();
+    issue(q + S - 1);
+    const float* xs = ringf + (size_t)(q % S) * (XR + F_WR) * B;
+    const float* ds = xs + XR * B;
+#pragma unroll 4
+    for (int r = 0; r < F_WR; ++r) {
+      // x of tap 0, then the row's du, then the other taps' x
+      float xv[TI], dv[TO];
+#pragma unroll
+      for (int g = 0; g < TI / XV; ++g)
+        load_v<XV>(xv + XV * g, xs + r * B + 16 * XV * g + XV * ti);
+#pragma unroll
+      for (int h = 0; h < TO / DV; ++h)
+        load_v<DV>(dv + DV * h, ds + r * B + 8 * DV * h + DV * to);
+#pragma unroll
+      for (int t = 0; t < NT; ++t) {
+        if (t > 0) {
+          if (t >= nt) break;
+#pragma unroll
+          for (int g = 0; g < TI / XV; ++g)
+            load_v<XV>(xv + XV * g,
+                       xs + (t * F_WR + r) * B + 16 * XV * g + XV * ti);
+        }
+#pragma unroll
+        for (int i = 0; i < TI; ++i)
+#pragma unroll
+          for (int e = 0; e < TO; ++e)
+            acc[t][i][e] = fmaf(xv[i], dv[e], acc[t][i][e]);
+      }
+    }
+    if (does_bias) {
+      // db: this thread sums rows ti and ti + 16 of the stage, in order
+#pragma unroll
+      for (int rr = 0; rr < F_WR; rr += 16) {
+        float dv[TO];
+#pragma unroll
+        for (int h = 0; h < TO / DV; ++h)
+          load_v<DV>(dv + DV * h, ds + (rr + ti) * B + 8 * DV * h + DV * to);
+#pragma unroll
+        for (int e = 0; e < TO; ++e) dbs[e] += dv[e];
+      }
+    }
+  }
+  hopper::cp_async_wait<0>();
+
+  // partial block: dW[j0 + t][cib B + ci][cob B + co] of this row share
+  const long long CC = C;
+  float* pw = a.part_w + (long long)grp * K * CC * CC;
+#pragma unroll
+  for (int t = 0; t < NT; ++t) {
+    if (NT > 1 && t >= nt) break;
+#pragma unroll
+    for (int g = 0; g < TI / XV; ++g)
+#pragma unroll
+      for (int e = 0; e < XV; ++e) {
+        const int ci = cib * B + 16 * XV * g + XV * ti + e;
+        const int i = XV * g + e;
+#pragma unroll
+        for (int h = 0; h < TO / DV; ++h) {
+          float* dst = pw + ((long long)(j0 + t) * CC + ci) * CC + cob * B +
+                       8 * DV * h + DV * to;
+          if constexpr (DV == 4)
+            *reinterpret_cast<float4*>(dst) =
+                make_float4(acc[t][i][4 * h], acc[t][i][4 * h + 1],
+                            acc[t][i][4 * h + 2], acc[t][i][4 * h + 3]);
+          else
+            *reinterpret_cast<float2*>(dst) =
+                make_float2(acc[t][i][2 * h], acc[t][i][2 * h + 1]);
+        }
+      }
+  }
+  if (does_bias) {
+    // the 16 row groups' sums of each co, added in ti order
+    __syncthreads();  // every thread is past its last ring read
+    float* red = reinterpret_cast<float*>(smem_w);  // 16 x B
+#pragma unroll
+    for (int h = 0; h < TO / DV; ++h)
+#pragma unroll
+      for (int e = 0; e < DV; ++e)
+        red[ti * B + 8 * DV * h + DV * to + e] = dbs[DV * h + e];
+    __syncthreads();
+    for (int co = tid; co < B; co += F_THREADS) {
+      float sum = 0.f;
+      for (int t = 0; t < 16; ++t) sum += red[t * B + co];
+      a.part_b[(long long)grp * C + cob * B + co] = sum;
+    }
+  }
+}
+
 template <int B>
 cudaError_t launch_f32_ring(const Args& a, int groups, int stages,
                             int smem_bytes, cudaStream_t stream) {
+  constexpr int NT = f32_taps(B);
+  void (*kernel)(Args, int);
+  if constexpr (B % 64 == 0)
+    kernel = wgrad_f32_ring<B>;
+  else
+    kernel = wgrad_f32_taps<B, NT>;
   cudaError_t e = cudaFuncSetAttribute(
-      wgrad_f32_ring<B>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (e != cudaSuccess) return e;
   const int nb = a.C / B;
-  wgrad_f32_ring<B><<<groups * a.K * nb * nb, F_THREADS, smem_bytes,
-                      stream>>>(a, stages);
+  const int nblk = (a.K + NT - 1) / NT;
+  kernel<<<groups * nblk * nb * nb, F_THREADS, smem_bytes, stream>>>(a,
+                                                                     stages);
   return cudaGetLastError();
 }
 
@@ -745,11 +972,10 @@ cudaError_t launch_bf16(const Args& a, const Layout& lay, int groups,
 // takes the launch plan of ops/fused_conv_grad.py::wgrad_plan: `groups` tile
 // shares of C/64 x C/co_block CTAs each, co_block 64 or 128 dividing C,
 // `stages` ring stages and smem_bytes of shared memory, which must equal the
-// layout this file computes; K in {3, 5}. f32, any odd K: groups row shares
-// of K x (C / B)^2 CTAs, co_block = B (128 where it divides C, else 64; C %
-// 64 == 0), `stages` 2-4 and smem_bytes = stages x 2 x 32 x B x 4 (route
-// fma_ring), or groups row splits with co_block = stages = smem_bytes = 0
-// (route fma). Returns a cudaError_t (0 = success).
+// layout this file computes; K in {3, 5}. f32, any odd K and C % 16 == 0:
+// groups row shares of ceil(K / NT) x (C / B)^2 CTAs, co_block = B (f32_block
+// of C, NT = f32_taps of B), `stages` 2-4 and smem_bytes = stages x (NT + 1)
+// x 32 x B x 4. Returns a cudaError_t (0 = success).
 extern "C" int jt_conv_wgrad(int dtype, const void* x, const void* du,
                              const void* in_mask, void* part_w, void* part_b,
                              void* dw, void* db, int n_rows, int L, int C,
@@ -774,19 +1000,27 @@ extern "C" int jt_conv_wgrad(int dtype, const void* x, const void* du,
   a.n_rows_total = (long long)n_rows * L;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
-  if (dtype == 0 && co_block != 0) {  // route fma_ring
+  if (dtype == 0) {
     if (!f32_ring_fits(C, co_block, stages, smem_bytes))
       return (int)cudaErrorInvalidValue;
-    e = co_block == 128
-            ? launch_f32_ring<128>(a, groups, stages, smem_bytes, s)
-            : launch_f32_ring<64>(a, groups, stages, smem_bytes, s);
-  } else if (dtype == 0) {  // route fma
-    if (stages != 0 || smem_bytes != 0) return (int)cudaErrorInvalidValue;
-    const long long n_out = (long long)K * C * C + C;
-    const long long per = (a.n_rows_total + groups - 1) / groups;
-    const dim3 grid((unsigned)groups, (unsigned)((n_out + 255) / 256));
-    wgrad_f32<<<grid, 256, 0, s>>>(a, per);
-    e = cudaGetLastError();
+    switch (co_block) {
+      case 128: e = launch_f32_ring<128>(a, groups, stages, smem_bytes, s);
+        break;
+      case 112: e = launch_f32_ring<112>(a, groups, stages, smem_bytes, s);
+        break;
+      case 96: e = launch_f32_ring<96>(a, groups, stages, smem_bytes, s);
+        break;
+      case 80: e = launch_f32_ring<80>(a, groups, stages, smem_bytes, s);
+        break;
+      case 64: e = launch_f32_ring<64>(a, groups, stages, smem_bytes, s);
+        break;
+      case 48: e = launch_f32_ring<48>(a, groups, stages, smem_bytes, s);
+        break;
+      case 32: e = launch_f32_ring<32>(a, groups, stages, smem_bytes, s);
+        break;
+      default: e = launch_f32_ring<16>(a, groups, stages, smem_bytes, s);
+        break;
+    }
   } else if (dtype == 1) {
     Layout lay;
     if (!make_layout(C, K, co_block, stages, &lay) ||

@@ -37,11 +37,11 @@ from the accumulator registers while a second warpgroup runs the next
 tile's products. :func:`conv_plan` sizes it. f32 inputs use plain FMAs,
 never TF32 (1.0e12 FLOPs at the flagship shape: 15.0 ms at the card's
 67 TFLOP/s f32 rate): route ``f32_ring``, a persistent kernel whose CTAs
-keep a column block of the weights resident and whose warps each walk
-32-row units through a ``cp.async`` ring of their own, with 8-row x
-CB / 8-column outer products in registers and the epilogue from them;
-route ``f32_staged`` (the first f32 kernel) only for k > 9. :func:`f32_plan`
-sizes them.
+keep a column block of the weights resident (or, where its k taps do not
+fit, stream it a tap block at a time) and whose warps each walk 32-row
+units, tap block by tap block of at most 9 taps, through a ``cp.async``
+ring of their own, with 8-row x CB / 8-column outer products in
+registers and the epilogue from them. :func:`f32_plan` sizes it.
 
 CPU tensors take :func:`reference_conv_block`, the plain PyTorch version;
 CUDA tensors launch the kernel or raise. ``launches`` counts kernel
@@ -59,7 +59,7 @@ import torch.nn.functional as F
 
 #: kernel launches since the last reset (set to 0 to reset)
 launches = 0
-#: launches by route ("wgmma": bf16; "f32_ring", "f32_staged": f32)
+#: launches by route ("wgmma": bf16; "f32_ring": f32)
 route_launches: collections.Counter = collections.Counter()
 
 _ACT_IDS = {None: 0, "none": 0, "linear": 0, "relu": 1, "tanh": 2,
@@ -163,8 +163,8 @@ def conv_plan(c: int, k: int, dtype=torch.bfloat16) -> dict:
 
 
 #: the f32 ring kernel: output rows of a warp's unit, its warps a CTA,
-#: channels per ring stage, the most taps its register window holds, and
-#: its column blocks
+#: channels per ring stage, the most taps a tap block (its register
+#: window) holds, and its column blocks
 F32_TILE = 32
 F32_WARPS = 8
 F32_CHUNK = 16
@@ -172,56 +172,106 @@ F32_MAX_TAPS = 9
 _F32_CBS = (64, 32, 16)
 
 
-def f32_staged_plan(c: int, k: int) -> dict:
-    """The plan of route ``f32_staged`` (the first f32 kernel: 64-row
-    tiles, one weight tap at a time in shared memory), or ValueError: C %
-    16 == 0 and C <= 128 or C % 128 == 0, the tile and one tap within
-    shared memory. This rule is the set of (C, k) the f32 kernel takes."""
+def check_f32_shape(c: int, k: int) -> None:
+    """ValueError unless the f32 kernel takes C channels and k taps: C %
+    16 == 0, C <= 128 or C % 128 == 0, and a 64 + k - 1 row tile of C f32
+    with one weight tap of C x min(C, 128) f32 within shared memory (the
+    set of (C, k) the f32 kernel has taken since its first version)."""
     if c <= 0 or c % 16:
         raise ValueError(f"C={c}: the kernel takes C % 16 == 0")
     if c > 128 and c % 128:
         raise ValueError(f"C={c}: the f32 kernel takes C <= 128 or "
                          f"C % 128 == 0")
-    cb = min(c, 128)
-    smem = ((_TL + k - 1) * c + c * cb) * 4
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"C={c}, k={k}: the f32 kernel needs {smem} B "
-                         f"of shared memory, over {SMEM_LIMIT}")
-    return dict(route="f32_staged", cb=cb, kw=0, tile=0, stages=0, smem=smem)
+    smem = ((_TL + k - 1) * c + c * min(c, 128)) * 4
+    if k < 1 or smem > SMEM_LIMIT:
+        raise ValueError(f"C={c}, k={k}: the f32 kernel takes k >= 1 and "
+                         f"(64 + k - 1) x C + C x min(C, 128) f32 within "
+                         f"{SMEM_LIMIT} B ({smem} B)")
 
 
-def f32_plan_bytes(c: int, k: int, cb: int, stages: int) -> int:
-    """Shared memory of the f32 ring kernel's layout: the resident ``k * C
-    * cb`` f32 weights, 4 x cb f32 parameters and each of the
+def f32_tap_blocks(k: int, taps: int) -> tuple[int, int]:
+    """(blocks, largest): the tap blocks of the f32 kernel for k taps whose
+    weight buffer holds ``taps`` (k: resident, at most ``F32_MAX_TAPS`` a
+    block; fewer: streamed, at most ``taps`` a block); block b has the taps
+    ``[b k // blocks, (b + 1) k // blocks)``."""
+    most = taps if taps < k else F32_MAX_TAPS
+    blocks = -(-k // most)
+    return blocks, -(-k // blocks)
+
+
+def f32_plan_bytes(c: int, k: int, cb: int, stages: int,
+                   taps: int | None = None) -> int:
+    """Shared memory of the f32 ring kernel's layout: the weights (``taps``
+    = k, the default: all ``k * C * cb`` f32 resident; fewer: two buffers
+    of ``taps * C * cb`` f32), 4 x cb f32 parameters and each of the
     ``F32_WARPS`` warps' rings of ``stages`` stages of its unit's
-    ``F32_TILE + k - 1`` rows x ``F32_CHUNK`` f32."""
-    rows = F32_TILE + k - 1
-    return (4 * k * c * cb + 16 * cb
+    ``F32_TILE`` + largest tap block - 1 rows x ``F32_CHUNK`` f32."""
+    taps = k if taps is None else taps
+    rows = F32_TILE + f32_tap_blocks(k, taps)[1] - 1
+    buffers = 1 if taps == k else 2
+    return (buffers * 4 * taps * c * cb + 16 * cb
             + F32_WARPS * stages * rows * F32_CHUNK * 4)
 
 
-def f32_plan(c: int, k: int) -> dict:
-    """The f32 launch plan for C channels and k taps, or ValueError.
+def _f32_fmas_per_load(cb: int, taps: int) -> float:
+    """FMAs a thread of the f32 ring kernel does per shared-memory load in
+    a tap block of ``taps`` taps at column block ``cb``: per 4 channels
+    ``8 + taps - 1`` window loads and ``4 * taps`` weight loads of CB / 8
+    columns (two float4 loads at cb 64), ``4 * taps * 8 * cb / 8``
+    FMAs."""
+    weight_loads = 2 if cb == 64 else 1
+    return 4 * taps * cb / ((7 + taps) + 4 * taps * weight_loads)
 
-    The set of (C, k) taken is :func:`f32_staged_plan`'s. Route
-    ``f32_ring`` (persistent, resident weights, each warp its own
-    ``cp.async`` ring of x rows, 8 x CB / 8 outer products a thread)
-    wherever k <= ``F32_MAX_TAPS`` and its layout fits: ``cb`` the largest
-    of 64, 32, 16 that divides C with at least 2 stages, ``tile`` the
-    ``F32_TILE`` rows of a warp's unit, ``stages`` (2-4) and ``smem``
-    bytes (:func:`f32_plan_bytes`), which the C entry recomputes and must
-    equal. Else route ``f32_staged``."""
-    staged = f32_staged_plan(c, k)
-    if k <= F32_MAX_TAPS:
-        for cb in _F32_CBS:
+
+def f32_plan(c: int, k: int) -> dict:
+    """The f32 launch plan for C channels and k taps, or ValueError
+    (:func:`check_f32_shape`'s set).
+
+    Route ``f32_ring`` (persistent, each warp its own ``cp.async`` ring
+    of x rows, tap block by tap block, 8 x CB / 8 outer products a
+    thread), in this order of preference (as ``chip_smoke.py --f32
+    --sweep`` measured it on the H100): all k taps resident (``taps`` =
+    k) at a column block
+    ``cb`` of 64 or 32, the largest that fits with at least 2 ring stages,
+    ``stages`` (2-4) the most that fit; else, where C % 32 == 0, the
+    weights streamed (2 ring stages, two buffers of ``taps`` < k taps, at
+    most ``F32_MAX_TAPS``) at the (cb 64 or 32, taps) that fits with the
+    most FMAs per shared load (:func:`_f32_fmas_per_load`); else resident
+    at cb 16; else streamed at cb 16 with the most taps that fit. ``tile``
+    the ``F32_TILE`` rows of a warp's unit and ``smem`` bytes
+    (:func:`f32_plan_bytes`), which the C entry recomputes and must
+    equal."""
+    check_f32_shape(c, k)
+
+    def resident(cbs):
+        for cb in cbs:
             if c % cb:
                 continue
             for stages in (4, 3, 2):
                 smem = f32_plan_bytes(c, k, cb, stages)
                 if smem <= SMEM_LIMIT:
                     return dict(route="f32_ring", cb=cb, kw=0,
-                                tile=F32_TILE, stages=stages, smem=smem)
-    return staged
+                                tile=F32_TILE, taps=k, stages=stages,
+                                smem=smem)
+        return None
+
+    def streamed(cbs):
+        fits = [(_f32_fmas_per_load(cb, taps), cb, taps) for cb in cbs
+                if c % cb == 0
+                for taps in range(1, min(k - 1, F32_MAX_TAPS) + 1)
+                if f32_tap_blocks(k, taps)[1] == taps
+                and f32_plan_bytes(c, k, cb, 2, taps) <= SMEM_LIMIT]
+        if not fits:
+            return None
+        _, cb, taps = max(fits)
+        return dict(route="f32_ring", cb=cb, kw=0, tile=F32_TILE, taps=taps,
+                    stages=2, smem=f32_plan_bytes(c, k, cb, 2, taps))
+
+    plan = (resident((64, 32)) or streamed((64, 32)) or resident((16,))
+            or streamed((16,)))
+    if plan is None:
+        raise ValueError(f"C={c}, k={k}: no f32 layout fits {SMEM_LIMIT} B")
+    return plan
 
 
 def plan_bytes(c: int, k: int, cb: int, kw: int, stages: int) -> int:
@@ -321,11 +371,11 @@ def _launch(x, w, bias, dyt, act, in_mask, out_mask, residual, plan):
     stream = torch.cuda.current_stream(x.device).cuda_stream
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     bf16 = x.dtype == torch.bfloat16
-    # f32 passes the plan's tile rows where bf16 passes kw (0: f32_staged)
+    # f32 passes the plan's weight taps a buffer holds where bf16 passes kw
     err = fn(1 if bf16 else 0, ptr(x), ptr(w),
              ptr(bias), ptr(dyt), ptr(in_mask), ptr(out_mask), ptr(residual),
              ptr(out), n, length, c, w.shape[0], _ACT_IDS[act], plan["cb"],
-             plan["kw"] if bf16 else plan["tile"], plan["stages"],
+             plan["kw"] if bf16 else plan["taps"], plan["stages"],
              plan["smem"], sms, stream)
     if err != 0:
         raise RuntimeError(f"fused_conv_block kernel launch failed: CUDA "

@@ -30,13 +30,13 @@ On CUDA tensors the backward runs three kernels:
   :func:`conv_wgrad`): ``dW`` and ``db``; bf16 is a persistent ``wgmma``
   kernel fed by TMA, each CTA holding a 64-ci block of dW for all taps in
   registers over a contiguous share of the row tiles
-  (:func:`wgrad_plan`); f32 with C % 64 == 0 is a persistent FMA kernel,
-  one CTA per (tap, ci block, co block) over a contiguous row share, x
-  rows pre-shifted by its tap through a ``cp.async`` ring, 8 x 16
-  outer products a thread (route ``fma_ring``); other f32 C keep the
-  first f32 kernel, a thread per output (route ``fma``). Partials summed
-  in a second fixed-order pass (no float atomics: the same bits run to
-  run).
+  (:func:`wgrad_plan`); f32 is a persistent FMA kernel (route
+  ``fma_ring``), one CTA per (tap block, ci block, co block) over a
+  contiguous row share, x rows pre-shifted by each of its taps through a
+  ``cp.async`` ring, B / 16 x B / 8 outer products a thread and tap for
+  its ci and co block B (several taps a CTA where B is 16, 32 or 48).
+  Partials summed in a second fixed-order pass (no float atomics: the
+  same bits run to run).
 * the data gradient: no new kernel. For odd k the transposed SAME conv is
   a SAME conv with the flipped, transposed weights, so ``dx`` is one more
   launch of ``fused_conv_block`` (act none, no bias, ``out_mask = m_in``).
@@ -73,7 +73,7 @@ from jaeger_tpu_torch.ops.fused_conv import (_ACT_IDS, _check,
 
 #: kernel launches since the last reset, by kernel (set each to 0 to reset)
 launches = {"conv_wgrad": 0, "conv_epilogue_bwd": 0}
-#: conv_wgrad's launches by route ("wgmma": bf16; "fma_ring", "fma": f32)
+#: conv_wgrad's launches by route ("wgmma": bf16; "fma_ring": f32)
 wgrad_route_launches: collections.Counter = collections.Counter()
 
 _EVEN_K = ("a fused conv with an even kernel_size has no SAME-conv data "
@@ -206,6 +206,10 @@ _WGRAD_STAGES = 4
 _WGRAD_F32_ROWS = 32
 _WGRAD_F32_STAGES = 2
 _WGRAD_F32_SM_BYTES = 227 * 1024
+#: the f32 kernel's ci / co blocks where neither 128 nor 64 divides C, in
+#: order of preference, and the most taps a CTA takes at each block width
+_WGRAD_F32_BLOCKS = (112, 96, 80, 48, 32, 16)
+_WGRAD_F32_TAPS = {16: 8, 32: 4, 48: 2}
 
 
 @functools.cache
@@ -256,32 +260,29 @@ def wgrad_plan(n: int, length: int, c: int, k: int, dtype, sms: int,
     1 KB aligned, + two du boxes) +
     3 x stages mbarriers + 1 KB slack), which the C entry recomputes and
     must equal; ``cluster`` False (the group's
-    CTAs share the du tile through L2, not by multicast). f32 with C % 64
-    == 0 (``route`` "fma_ring"): ``co_block`` B (128 where it divides C,
-    else 64), ``group`` k x (C / B)^2 CTAs per row share (one per tap, ci
-    block and co block, neighbours in the grid walking the same rows),
-    ``groups`` contiguous row shares (at most two CTAs per SM in all where
-    two fit its shared memory, else one), ``stages`` of the ``cp.async``
-    ring of ``_WGRAD_F32_ROWS``-row x and du tiles (2 unless given) and
-    ``smem`` = stages x 2 x rows x B x 4 bytes, which the C entry
-    recomputes. Other f32 C (``route`` "fma", the first f32 kernel, a
-    thread per output): ``groups`` row splits, four per SM. Cached: do not
+    CTAs share the du tile through L2, not by multicast). f32 (``route``
+    "fma_ring"): ``co_block`` B (:func:`wgrad_f32_block`: 128 or 64
+    where it divides C, else the largest of ``_WGRAD_F32_BLOCKS`` that
+    does; NT, the most taps a CTA takes, 8, 4, 2 at B 16, 32, 48, else
+    1), ``group`` ceil(k / NT) x (C / B)^2 CTAs per row share
+    (one per tap block, ci block and co block, neighbours in the grid
+    walking the same rows), ``groups`` contiguous row shares (at most two
+    CTAs per SM in all where two fit its shared memory, else one),
+    ``stages`` of the ``cp.async`` ring of ``_WGRAD_F32_ROWS``-row tiles
+    (NT of x, one of du; 2 unless given) and ``smem`` = stages x (NT + 1)
+    x rows x B x 4 bytes, which the C entry recomputes. Cached: do not
     modify the dict."""
     check_wgrad_shape(c, k, dtype)
-    if dtype == torch.float32 and c % 64 == 0:
-        block = 128 if c % 128 == 0 else 64
-        group = k * (c // block) ** 2
+    if dtype == torch.float32:
+        block, taps = wgrad_f32_block(c)
+        group = -(-k // taps) * (c // block) ** 2
         stages = stages or _WGRAD_F32_STAGES
-        smem = stages * 2 * _WGRAD_F32_ROWS * block * 4
+        smem = stages * (taps + 1) * _WGRAD_F32_ROWS * block * 4
         per_sm = 2 if 2 * smem <= _WGRAD_F32_SM_BYTES else 1
         groups = max(1, min(per_sm * sms // group, n * length))
         return dict(route="fma_ring", groups=groups, group=group,
                     ctas=groups * group, co_block=block, stages=stages,
                     smem=smem, cluster=False)
-    if dtype == torch.float32:
-        groups = max(1, min(4 * sms, n * length))
-        return dict(route="fma", groups=groups, group=1, ctas=groups,
-                    co_block=0, stages=0, smem=0, cluster=False)
     stages = stages or _WGRAD_STAGES
     co_block = 128 if c % 128 == 0 else 64
     group = (c // WGRAD_CB) * (c // co_block)
@@ -294,6 +295,18 @@ def wgrad_plan(n: int, length: int, c: int, k: int, dtype, sms: int,
     return dict(route="wgmma", groups=groups, group=group,
                 ctas=groups * group, co_block=co_block, stages=stages,
                 smem=smem, cluster=False)
+
+
+def wgrad_f32_block(c: int) -> tuple[int, int]:
+    """(B, NT): the f32 kernel's ci / co block for C channels and the most
+    taps one of its CTAs takes (the kernel's ``f32_block`` and
+    ``f32_taps``)."""
+    if c % 128 == 0:
+        return 128, 1
+    if c % 64 == 0:
+        return 64, 1
+    block = next(b for b in _WGRAD_F32_BLOCKS if c % b == 0)
+    return block, _WGRAD_F32_TAPS.get(block, 1)
 
 
 def wgrad_shares(n: int, length: int, groups: int) -> list[range]:

@@ -31,6 +31,7 @@ import jax
 import jax.numpy as jnp
 
 from jaeger_tpu.models import layers as JL
+from jaeger_tpu.ops.pallas_conv import reference_conv_block as jax_reference
 from jaeger_tpu_torch.ops import fused_conv_grad as fg
 from jaeger_tpu_torch.ops.fused_conv import reference_conv_block
 
@@ -115,6 +116,44 @@ def test_fused_conv_backward_matches_jax_vjp(form, k, c, masked):
                                    err_msg=f"d{name}")
 
 
+# the f32 weight gradient's block widths (C 16 / 48 / 96: several taps a
+# CTA at 16 and 48) and the forward's tap blocks (C 128, k 11)
+WIDTH_CASES = [(16, 5), (48, 5), (96, 5), (128, 11)]
+
+
+@pytest.mark.parametrize("c,k", WIDTH_CASES)
+def test_backward_matches_jax_grad_of_reference(c, k):
+    """``FusedConvBlockFn`` (DYT, gelu, in_mask) against ``jax.grad`` of
+    ``jaeger_tpu``'s XLA reference conv on x * in_mask: dx, dW and the DYT
+    rows to 5e-5 of each gradient's scale (the k * C products and the N *
+    L rows summed in other orders)."""
+    rng = np.random.default_rng(c * 100 + k)
+    n, length = 3, 45
+    x = rng.normal(size=(n, length, c)).astype(np.float32)
+    w = (rng.normal(size=(k, c, c)) * 0.1).astype(np.float32)
+    dyt = np.stack([np.full(c, 0.6), 1 + 0.3 * rng.normal(size=c),
+                    rng.normal(size=c)]).astype(np.float32)
+    m = rng.random((n, length)) > 0.25
+    dy = rng.normal(size=(n, length, c)).astype(np.float32)
+
+    def loss(x_, w_, dyt_):
+        y = jax_reference(x_ * jnp.asarray(m)[..., None], w_, dyt=dyt_,
+                          act="gelu", use_dyt=True)
+        return jnp.sum(y * jnp.asarray(dy))
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(dyt))
+    tx, tw, td = (torch.from_numpy(a).requires_grad_() for a in (x, w, dyt))
+    y = fg.fused_conv_block_train(tx, tw, dyt=td, act="gelu",
+                                  in_mask=torch.from_numpy(m))
+    y.backward(torch.from_numpy(dy))
+    for name, got, ref in (("dx", tx.grad, want[0]), ("dw", tw.grad, want[1]),
+                           ("ddyt", td.grad, want[2])):
+        ref = np.asarray(ref)
+        err = np.abs(got.numpy() - ref).max()
+        assert err <= 5e-5 * np.abs(ref).max(), (name, err)
+
+
 def test_even_k_refused_before_launch():
     x = torch.zeros(2, 9, 16, requires_grad=True)
     with pytest.raises(NotImplementedError, match="queue 2, item 7"):
@@ -163,8 +202,11 @@ def test_wgrad_plan_and_c_interface():
     assert big["ctas"] <= 132 and big["smem"] <= 232448
     # one tile: one share, whatever the SM count
     assert fg.wgrad_plan(1, 64, 128, 5, torch.bfloat16, 132)["groups"] == 1
-    assert fg.wgrad_plan(6, 300, 32, 5, torch.float32, 132)["route"] == "fma"
-    assert fg.wgrad_plan(6, 300, 48, 7, torch.float32, 132)["co_block"] == 0
+    # every f32 C takes the ring kernel, at a block of its own width where
+    # 64 does not divide C
+    assert fg.wgrad_plan(6, 300, 32, 5, torch.float32, 132)["route"] == \
+        "fma_ring"
+    assert fg.wgrad_plan(6, 300, 48, 7, torch.float32, 132)["co_block"] == 48
     for bad in ((6, 30, 24, 5, torch.bfloat16), (6, 30, 64, 4, torch.bfloat16),
                 (6, 30, 64, 7, torch.bfloat16), (6, 30, 64, 1, torch.bfloat16),
                 (6, 30, 48, 3, torch.bfloat16), (6, 30, 24, 3, torch.float32)):
@@ -179,7 +221,10 @@ def test_wgrad_plan_and_c_interface():
     assert "wgmma.mma_async" in hdr and "cp.async.bulk.tensor" in hdr
     assert "tma_load_3d" in src and "mbar_wait" in src and "mbarrier" in hdr
     assert "atomicAdd" not in src
-    assert "__global__ void wgrad_f32" in src
+    # one f32 kernel: the per-output kernel (route fma) is gone
+    assert re.search(r"\bwgrad_f32\b", src) is None
+    assert "__global__ void __launch_bounds__(F_THREADS, 2)\nwgrad_f32_ring(" \
+        in src
     assert "jaeger_tpu/ops/pallas_conv.py" in src
 
 
@@ -272,14 +317,35 @@ def test_wgrad_f32_ring_plan_and_source():
     # more CTAs a share than SMs: one share
     assert fg.wgrad_plan(6, 300, 512, 9, f32, 132)["groups"] == 1
     assert fg.wgrad_plan(1, 1, 128, 5, f32, 132)["groups"] == 1
-    # C % 64 != 0 keeps the per-output kernel (route fma); f32 still takes
-    # every
-    # odd k and C % 16 == 0
+    # C % 64 != 0: blocks of 112, 96, 80, 48, 32 or 16, several taps a
+    # CTA at 16, 32, 48 (8, 4, 2)
+    c96 = fg.wgrad_plan(1536, 500, 96, 5, f32, 132)
+    assert (c96["co_block"], c96["group"], c96["groups"], c96["smem"]) == (
+        96, 5, 52, 2 * 2 * 32 * 96 * 4)
+    c16 = fg.wgrad_plan(1536, 500, 16, 5, f32, 132)
+    assert (c16["co_block"], c16["group"], c16["groups"], c16["smem"]) == (
+        16, 1, 264, 2 * 9 * 32 * 16 * 4)
+    c48 = fg.wgrad_plan(1536, 500, 48, 5, f32, 132)
+    assert (c48["co_block"], c48["group"], c48["groups"]) == (48, 3, 88)
+    # every C % 16 == 0 and odd k to 31 in f32: route fma_ring, its block
+    # divides C, a thread owns B / 16 x B / 8 outputs of each of up to NT
+    # taps (16 or more outputs wherever B >= 32 or k >= 8), the bytes fit
     for c in range(16, 513, 16):
-        for k in (1, 3, 5, 7, 9):
+        block, taps = fg.wgrad_f32_block(c)
+        assert c % block == 0 and block % 16 == 0 and block <= 128
+        assert block == (128 if c % 128 == 0 else 64 if c % 64 == 0 else
+                         max(b for b in (112, 96, 80, 48, 32, 16)
+                             if c % b == 0))
+        assert taps == {16: 8, 32: 4, 48: 2}.get(block, 1)
+        assert (block // 16) * (block // 8) * taps >= 16
+        for k in range(1, 32, 2):
             plan = fg.wgrad_plan(6, 300, c, k, f32, 132)
-            assert plan["route"] == ("fma_ring" if c % 64 == 0 else "fma")
-            assert plan["smem"] <= 232448
+            assert plan["route"] == "fma_ring" and plan["co_block"] == block
+            assert plan["group"] == -(-k // taps) * (c // block) ** 2
+            assert plan["stages"] == 2
+            assert plan["smem"] == 2 * (taps + 1) * 32 * block * 4
+            assert 2 * plan["smem"] <= 227 * 1024  # two CTAs an SM
+            assert plan["ctas"] == plan["groups"] * plan["group"]
         with pytest.raises(ValueError):
             fg.wgrad_plan(6, 300, c, 4, f32, 132)
     src = (ROOT / "jaeger_tpu_torch" / "csrc" / "fused_conv_wgrad.cu"
@@ -288,6 +354,9 @@ def test_wgrad_f32_ring_plan_and_source():
         in src
     assert "constexpr int F_WR = %d;" % fg._WGRAD_F32_ROWS in src
     assert "f32_ring_fits(C, co_block, stages, smem_bytes)" in src
+    for b in (128, 112, 96, 80, 64, 48, 32, 16):
+        assert f"launch_f32_ring<{b}>" in src
+    assert "return B == 16 ? 8 : B == 32 ? 4 : B == 48 ? 2 : 1;" in src
     assert "cp_async16_zfill" in src and ".tf32" not in src
     assert isinstance(fg.wgrad_route_launches, __import__(
         "collections").Counter)

@@ -48,6 +48,31 @@ PALLAS_CASES = {
 }
 
 
+# past the f32 kernel's 9-tap register window: tap blocks over resident
+# weights (C 48 and 128 at k 11; C 48 at k 31) and streamed weights (C 128
+# at k 31)
+WIDE_TAP_CASES = [(48, 11), (48, 31), (128, 11), (128, 31)]
+
+
+@pytest.mark.parametrize("c,k", WIDE_TAP_CASES)
+def test_twin_matches_pallas_kernel_past_nine_taps(rng, c, k):
+    """f32, DYT + gelu: the twin against the Pallas kernel in interpret
+    mode and its XLA reference, to 1e-5 of the output's scale (the sums
+    of k * C products in another order)."""
+    x, w, bias, dyt = _data(rng, 3, 70, c, k)
+    pallas = jax_fused(jnp.asarray(x), jnp.asarray(w), dyt=jnp.asarray(dyt),
+                       act="gelu", use_dyt=True, interpret=True, tile_n=2,
+                       tile_l=32)
+    xla = jax_reference(jnp.asarray(x), jnp.asarray(w), dyt=jnp.asarray(dyt),
+                        act="gelu", use_dyt=True)
+    got = fused_conv.fused_conv_block(
+        torch.from_numpy(x), torch.from_numpy(w), dyt=torch.from_numpy(dyt),
+        act="gelu", use_dyt=True).numpy()
+    for ref in (pallas, xla):
+        ref = np.asarray(ref, np.float32)
+        assert np.abs(got - ref).max() <= 1e-5 * np.abs(ref).max()
+
+
 @pytest.mark.parametrize("case", sorted(PALLAS_CASES))
 def test_twin_matches_pallas_kernel(rng, case):
     n, length, k, act, use_dyt, dt, tol = PALLAS_CASES[case]
@@ -255,8 +280,9 @@ def test_build_digest_covers_headers(tmp_path, monkeypatch):
 
 
 # the f32 plan: route f32_ring (the persistent FMA kernel) with the
-# largest column block of 64, 32, 16 whose resident weights and >= 2 ring
-# stages fit, the most stages (<= 4) beside them; (route, cb, stages)
+# largest column block of 64, 32, 16 whose resident weights (all k taps)
+# and >= 2 ring stages fit, the most stages (<= 4) beside them; (route,
+# cb, stages)
 F32_REPO_PLANS = {
     (32, 3): ("f32_ring", 32, 4),
     (64, 3): ("f32_ring", 64, 4),
@@ -273,8 +299,8 @@ def test_f32_plan_route_block_and_bytes(c, k):
     # the weights, 4 x cb parameters, and 8 warps' rings: stages of a warp
     # unit's 32 + k - 1 rows x 16 f32
     smem = 4 * k * c * cb + 16 * cb + 8 * stages * (32 + k - 1) * 64
-    assert plan == dict(route=route, cb=cb, kw=0, tile=32, stages=stages,
-                        smem=smem)
+    assert plan == dict(route=route, cb=cb, kw=0, tile=32, taps=k,
+                        stages=stages, smem=smem)
     assert smem <= fused_conv.SMEM_LIMIT
     assert smem == fused_conv.f32_plan_bytes(c, k, cb, stages)
     # one more stage would not fit
@@ -284,11 +310,8 @@ def test_f32_plan_route_block_and_bytes(c, k):
     # (163,840 B) beside 8 warps' rings of three 36-row x 16-channel stages
     if (c, k) == (128, 5):
         assert smem == 220160
-    # the staged kernel stays as route f32_staged, its plan unchanged
-    staged = fused_conv.f32_staged_plan(c, k)
-    assert staged == dict(route="f32_staged", cb=min(c, 128), kw=0, tile=0,
-                          stages=0, smem=((64 + k - 1) * c + c * min(c, 128))
-                          * 4)
+    # up to 9 taps the whole window is one tap block
+    assert fused_conv.f32_tap_blocks(k, plan["taps"]) == (1, k)
 
 
 def _f32_rule(c: int, k: int) -> bool:
@@ -299,20 +322,49 @@ def _f32_rule(c: int, k: int) -> bool:
             and ((64 + k - 1) * c + c * min(c, 128)) * 4 <= 232448)
 
 
+def _f32_max_taps(c: int) -> int:
+    """The most taps ``_f32_rule`` takes at C channels (0: none)."""
+    if c % 16 or (c > 128 and c % 128):
+        return 0
+    return max(0, 232448 // 4 // c - min(c, 128) - 63)
+
+
 @pytest.mark.parametrize("c", range(16, 513, 16))
 def test_f32_plan_takes_the_same_shapes(c):
-    for k in range(1, 10):
-        if _f32_rule(c, k):
-            plan = fused_conv.conv_plan(c, k, torch.float32)
-            assert plan["route"] == "f32_ring", (c, k, plan)
-            assert c % plan["cb"] == 0 and plan["smem"] <= 232448
-        else:
+    """Every (C, k) of the rule, k up to its limit, goes to route
+    f32_ring: all k taps resident (tap blocks of at most 9) where they fit
+    at a column block of 64 or 32, else streamed in blocks of ``taps`` < k
+    with two weight buffers and two ring stages (at a column block of 64
+    or 32 where C % 32 == 0), else resident at 16, else streamed at 16;
+    the layout's bytes fit. Past the limit, ValueError."""
+    top = _f32_max_taps(c)
+    for k in range(1, top + 3):
+        if not _f32_rule(c, k):
+            assert k > top
             with pytest.raises(ValueError):
                 fused_conv.conv_plan(c, k, torch.float32)
-    # past the register window's 9 taps the staged kernel takes the shape
-    if _f32_rule(c, 11):
-        assert fused_conv.conv_plan(c, 11, torch.float32)["route"] == \
-            "f32_staged"
+            continue
+        plan = fused_conv.conv_plan(c, k, torch.float32)
+        assert plan["route"] == "f32_ring", (c, k, plan)
+        assert c % plan["cb"] == 0 and plan["cb"] in (16, 32, 64)
+        taps, stages = plan["taps"], plan["stages"]
+        blocks, block = fused_conv.f32_tap_blocks(k, taps)
+        rows = 32 + block - 1
+        if taps == k:
+            assert block <= 9 and block * blocks >= k > (block - 1) * blocks
+            weights = 4 * k * c * plan["cb"]
+        else:
+            assert stages == 2 and 1 <= taps <= 9 and block == taps
+            weights = 2 * 4 * taps * c * plan["cb"]
+            # resident would not fit at a column block this wide or wider
+            for cb in (64, 32, 16):
+                if c % cb == 0 and cb >= min(plan["cb"], 32):
+                    assert fused_conv.f32_plan_bytes(c, k, cb, 2) > 232448
+            assert (plan["cb"] >= 32) == (c % 32 == 0)
+        assert plan["smem"] == (weights + 16 * plan["cb"]
+                                + 8 * stages * rows * 64) <= 232448
+        assert plan["smem"] == fused_conv.f32_plan_bytes(
+            c, k, plan["cb"], stages, taps)
 
 
 def test_f32_kernel_source_declares_its_interface():
@@ -324,7 +376,9 @@ def test_f32_kernel_source_declares_its_interface():
     hopper = (_csrc() / "hopper.cuh").read_text()
     assert "__global__ void __launch_bounds__(R_THREADS, 1)\nconv_f32_ring(" \
         in src
-    assert "conv_f32_fma(" in src  # route f32_staged
+    # one f32 kernel and route: the first f32 kernel is gone
+    assert "conv_f32_fma" not in src and "staged_bytes" not in src
+    assert "f32_staged" not in src
     consts = dict(re.findall(r"constexpr int (R_\w+) = (\d+);", src))
     # a warp's unit: 4 row groups of R_RT rows
     assert 4 * int(consts["R_RT"]) == fused_conv.F32_TILE
@@ -333,7 +387,9 @@ def test_f32_kernel_source_declares_its_interface():
     assert int(consts["R_WARPS"]) == fused_conv.F32_WARPS == 8
     assert "make_ring_layout(n_rows, L, C, K, cb, kw, stages, &lay)" in src
     assert "lay.bytes != (uint32_t)smem_bytes" in src
-    assert "staged_bytes(C, K)" in src
+    # tap blocks, resident or streamed through two weight buffers
+    assert "ring_products<9, CT>(acc, xs, wc, C * CB, CB, tr)" in src
+    assert "lay->off_par = (stream ? 2u : 1u) * lay->wbuf;" in src
     for cb in fused_conv._F32_CBS:
         assert f"launch_f32_ring<{cb}>" in src
     # x tiles by cp.async with zero fill, never TF32 (no tensor-core f32)
