@@ -43,6 +43,10 @@ Run from the root of a checkout on a machine with CUDA:
                                       # 3b and phase 6's f32 steps only;
                                       # with --sweep, the f32 kernels
                                       # under other launch plans
+    python3 chip_smoke.py --domain    # phases 1, 2 (the three conv
+                                      # sources), 16 and 11's route
+                                      # cases; with --sweep, the new
+                                      # routes under other launch plans
 
 Phases, each of which fails the run:
 
@@ -210,12 +214,15 @@ Phases, each of which fails the run:
    the card against the members' own card outputs combined in numpy,
    ``predict`` with it, and its forward at batch 2048.
 11. the kernels' route, the ragged route's stride and the legacy models:
-   for each residual-conv shape the fused kernel's plans refuse (C 40 in
-   bf16, C 192 in f32, bf16 training at k 7 and at C 96, training at an
-   even k) a seeded model's forward on the card against the CPU's,
-   ``predict`` (fused_conv_block launched only where ``conv_plan`` takes
-   the shape) and two train steps with no hand-kernel launch, with the
-   forward and step timed on cuDNN; int8_conv's ragged route at strides 2
+   for each residual-conv shape one of the fused kernel's plans refused
+   (C 40 in bf16, C 192 in f32, bf16 training at k 7 and at C 96,
+   training at an even k) a seeded model's forward on the card against
+   the CPU's, ``predict`` (fused_conv_block launched for every residual
+   conv, on the route ``conv_plan`` names: wgmma_stream for C 40,
+   f32_ring for f32 C 192) and two train steps (fused_conv_block,
+   conv_wgrad and conv_epilogue_bwd launched for f32 C 192, which
+   ``check_wgrad_shape`` takes; no hand-kernel launch for the others),
+   with the forward and step timed; int8_conv's ragged route at strides 2
    to 4 against its plain versions (requant equal, dequant within phase
    3's tolerances) and its kernel, plain, library (strided im2col +
    ``torch._int_mm``) and bound times at a strided flagship-width conv1
@@ -241,8 +248,8 @@ Phases, each of which fails the run:
    forward, int8_conv none), with build and predict windows/s and the
    search's ms; the same in f32, where every self-query window's first
    neighbour is itself (score at least 1 - 1e-5); both commands in f32
-   on the card and with ``--cpu`` on the first 30 reference and query
-   contigs: taxid, rank, name, lineage and n_windows equal,
+   on the card and with ``--cpu`` on the first 6 reference and query
+   contigs at batch 64: taxid, rank, name, lineage and n_windows equal,
    mean_knn_similarity within 1e-4, the neighbour lists equal wherever
    neighbouring scores are more than 1e-5 apart; ``utils optimize-data``
    on phase 6's seeded CSVs, and one ``train`` step of the flagship
@@ -263,7 +270,7 @@ Phases, each of which fails the run:
    (host clock, profiler) and the generator's raw rows/s with its host and
    device shares; ``predict`` on the bundle, which carries the projection
    leaves; (c) the generator on the card against the CPU with the f32
-   model on 256 raw rows, thresholds at quantiles of the card's
+   model on 128 raw rows at batch 64, thresholds at quantiles of the card's
    confidences: reliability CSVs byte-identical save rows within 1e-4 of a
    threshold (counted), the predictions CSV within 1e-4.
 
@@ -300,6 +307,25 @@ Phases, each of which fails the run:
    faster in each precision; the f32 forwards' convs must take route
    f32_ring. The programs hold the kernels' plain versions, so they are
    slower by design.
+16. fused_conv_block on the shapes its resident bf16 layout and its f32
+   ring refused before its plan covered the Pallas kernel's whole domain
+   (any C, any k): routes wgmma_stream (bf16: C 1, 5, 8, 24, 37, 40, 100,
+   200, 1000, 1024; k 1 to 129, even k; L 1, 127, 129; 16-byte copies and
+   2-byte loads) and f32_ring_pad / f32_ring (C 5, 24, 37, 40, 144, 192,
+   200, 512; C 1990 and 2048, whose weights stream in channel groups), each
+   case in the conv1 (DYT + gelu with in_mask), conv2 (+ residual),
+   bias-only and model forms against the plain version (2e-4 / 5e-2 of the
+   scale); kernel, plain, library (TF32 off) and bound times of the three
+   forms at the table's shapes (L 500: bf16 C 200 k 5, C 40 k 3, C 37 k 3
+   at N 12288, C 1024 k 5, C 128 k 61 at N 1536; f32 C 40 k 3, C 192 k
+   3, C 512 k 5 at N 1536); then the domain's main path: a seeded
+   flagship with 200 channels through ``predict`` in bf16 at batch 2048
+   (counts reset just before, read just after: six wgmma_stream launches a
+   forward) and in f32 on the card and on the CPU on the last three test
+   contigs (scores within 0.01; f32 on f32_ring_pad), and through the
+   engine at batch 2048 in the dense, bounded and split programs (six
+   launches a forward, the forward within 5e-2 of its plain version,
+   windows/s).
 
 The second-to-last line is the kernels JSON (each kernel also with its
 numbers at the templates' shape and its launches on phase 8's, phase 9's,
@@ -308,7 +334,9 @@ paths;
 int8_conv with its ragged route's numbers at the dvf shape and at the
 stride shape; the f32 forms of fused_conv_block and conv_wgrad as entries
 of their own, with their launches by route on phase 15's f32 forwards and
-phase 6's C 128 f32 steps), the last
+phase 6's C 128 f32 steps; fused_conv_block's routes wgmma_stream and
+f32_ring_pad as entries of their own, with their launches in the C 200
+flagship's bf16 and f32 ``predict``), the last
 ``{"ok": true, ...}``.
 The script imports nothing of JAX or of jaeger_tpu.
 """
@@ -418,31 +446,52 @@ KERNEL_SOURCES = ("fused_conv_block", "int8_conv", "fused_conv_wgrad",
                   "conv_epilogue_bwd")
 
 
-def phase_build(sources=KERNEL_SOURCES) -> None:
-    """One nvcc per source, all started together."""
+def phase_build(sources=KERNEL_SOURCES, later=()):
+    """One nvcc per source, all started together. The sources in
+    ``later`` go on building while the caller runs phases that need none
+    of them: the returned callable waits for them (every build is reported
+    once all are done)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from jaeger_tpu_torch.ops import cuda_build
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(sources)) as pool:
-        list(pool.map(lambda name: cuda_build.load(
-            name, extra_flags=("-Xptxas", "-v")), sources))
+    pool = ThreadPoolExecutor(len(sources))
+    builds = {name: pool.submit(cuda_build.load, name,
+                                extra_flags=("-Xptxas", "-v"))
+              for name in sources}
     for name in sources:
-        print(f"build: {name} (nvcc "
-              f"{cuda_build.build_seconds.get(name, 0.0):.1f} s)")
-    print(f"build: all kernels ready in {time.perf_counter() - t0:.1f} s")
-    for name, kernel in (("fused_conv_block", "conv_bf16_wgmma"),
-                         ("fused_conv_block", "conv_f32_ring"),
-                         ("int8_conv", "int8_wgmma"),
-                         ("int8_conv", "int8_ragged"),
-                         ("int8_conv", "int8_ragged_staged"),
-                         ("fused_conv_wgrad", "wgrad_bf16"),
-                         ("fused_conv_wgrad", "wgrad_f32_ring"),
-                         ("fused_conv_wgrad", "wgrad_f32_taps"),
-                         ("conv_epilogue_bwd", "conv_epilogue_bwd")):
-        for line in ptxas_summary(cuda_build.build_logs.get(name, ""), kernel):
-            print(f"ptxas: {line}")
+        if name not in later:
+            builds[name].result()
+    print(f"build: {', '.join(n for n in sources if n not in later)} ready "
+          f"in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    def join() -> None:
+        for name in sources:
+            builds[name].result()
+        pool.shutdown()
+        for name in sources:
+            print(f"build: {name} (nvcc "
+                  f"{cuda_build.build_seconds.get(name, 0.0):.1f} s)")
+        print(f"build: all kernels ready in "
+              f"{time.perf_counter() - t0:.1f} s")
+        for name, kernel in (("fused_conv_block", "conv_bf16_wgmma"),
+                             ("fused_conv_block", "conv_bf16_stream"),
+                             ("fused_conv_block", "conv_f32_ring"),
+                             ("int8_conv", "int8_wgmma"),
+                             ("int8_conv", "int8_ragged"),
+                             ("int8_conv", "int8_ragged_staged"),
+                             ("fused_conv_wgrad", "wgrad_bf16"),
+                             ("fused_conv_wgrad", "wgrad_f32_ring"),
+                             ("fused_conv_wgrad", "wgrad_f32_taps"),
+                             ("conv_epilogue_bwd", "conv_epilogue_bwd")):
+            for line in ptxas_summary(cuda_build.build_logs.get(name, ""),
+                                      kernel):
+                print(f"ptxas: {line}")
+
+    if not later:
+        join()
+    return join
 
 
 def ptxas_summary(log: str, kernel: str) -> list[str]:
@@ -2827,8 +2876,9 @@ def _read_tsv(path: Path) -> list[dict]:
         return list(csv.DictReader(fh, delimiter="\t"))
 
 
-def _check_tsv(rows: list[dict], labels: list[str], what: str) -> None:
-    check(len(rows) == 9, f"{what}: {len(rows)} rows, expected 9")
+def _check_tsv(rows: list[dict], labels: list[str], what: str,
+               n: int = 9) -> None:
+    check(len(rows) == n, f"{what}: {len(rows)} rows, expected {n}")
     for r in rows:
         check(r["prediction"] in labels, f"{what}: label {r['prediction']}")
         for lab in labels:
@@ -4736,24 +4786,32 @@ def phase_ensemble(tmp: Path, card: str, bundles: dict) -> dict:
 
 # --- phase 11: the route's faults, the strided ragged route, legacy ----------
 
-#: the shapes that the fused kernel's plans refuse (ROADMAP queue 3, F1):
-#: (name, C, k, dtype); each runs predict (whose residual convs take the
-#: kernel where conv_plan takes them) and two train steps (which take the
-#: kernel only where check_wgrad_shape takes them too: none of these)
+#: the shapes that one of the fused kernel's plans refused (ROADMAP queue
+#: 3, F1): (name, C, k, dtype, predict's route, whether training takes the
+#: kernel); each runs predict (conv_plan takes every shape since it covers
+#: the Pallas kernel's whole domain: C 40 on wgmma_stream, f32 C 192 on
+#: f32_ring) and two train steps (which take the kernel only where
+#: check_wgrad_shape takes the shape too: f32 C 192 alone)
 ROUTE_CASES = (
-    ("C40_bf16", 40, 3, "bfloat16"),
-    ("C192_f32", 192, 3, "float32"),
-    ("k7_bf16_train", 128, 7, "bfloat16"),
-    ("C96_bf16_train", 96, 3, "bfloat16"),
-    ("k4_even_train", 64, 4, "bfloat16"),
+    ("C40_bf16", 40, 3, "bfloat16", "wgmma_stream", False),
+    ("C192_f32", 192, 3, "float32", "f32_ring", True),
+    ("k7_bf16_train", 128, 7, "bfloat16", "wgmma", False),
+    ("C96_bf16_train", 96, 3, "bfloat16", "wgmma", False),
+    ("k4_even_train", 64, 4, "bfloat16", "wgmma", False),
 )
 
 
-def route_config(c: int, k: int, strides: int = 1) -> dict:
+def route_config(c: int, k: int, strides: int = 1,
+                 norm_type: str | None = None) -> dict:
     """A fragment model with one residual stack of two blocks of C
-    channels and k taps (the first strided by ``strides``) behind a k5
-    entry conv of C channels and masked batch norm: 3 classes, a 500 nt
-    (165 codon) crop, the demo's heads."""
+    channels and k taps (the first strided by ``strides``; the blocks'
+    norms ``norm_type``, batch norm by default) behind a k5 entry conv of C
+    channels and masked batch norm: 3 classes, a 500 nt (165 codon) crop,
+    the demo's heads."""
+    block = {"block_size": 2, "filters": c, "kernel_size": k,
+             "strides": strides}
+    if norm_type is not None:
+        block["norm_type"] = norm_type
     return {"model": {
         "name": f"route_c{c}_k{k}_s{strides}",
         "classifier_out_dim": 3,
@@ -4767,9 +4825,7 @@ def route_config(c: int, k: int, strides: int = 1) -> dict:
              "config": {"filters": c, "kernel_size": 5}},
             {"name": "masked_batchnorm", "config": {}},
             {"name": "gelu"},
-            {"name": "residual_block",
-             "config": {"block_size": 2, "filters": c, "kernel_size": k,
-                        "strides": strides}},
+            {"name": "residual_block", "config": block},
             {"name": "masked_batchnorm", "config": {}},
             {"name": "gelu"}], "pooling": "average"},
         "classifier": {"hidden_layers": [
@@ -4781,14 +4837,16 @@ def route_config(c: int, k: int, strides: int = 1) -> dict:
 
 
 def phase_route(tmp: Path, card: str) -> dict:
-    """Each shape of ``ROUTE_CASES`` (seeded weights): the forward on the
-    card against the same model on the CPU (masked windows; F32_TOL of the
-    scale in f32, BF16_TOL in bf16), ``run_core`` on the test contigs at
-    ``--fsize 500`` (fused_conv_block launched where conv_plan takes the
-    residual convs, not where it refuses them), two train steps on the card
-    (finite losses, no launch of fused_conv_block or its backward kernels:
-    check_wgrad_shape refuses every shape), and the dense forward and a
-    train step at batch 2048 / 256 timed (CUDA events)."""
+    """Each shape of ``ROUTE_CASES`` (seeded weights, DYT residual
+    blocks): the forward on the card against the same model on the CPU
+    (masked windows; F32_TOL of the scale in f32, BF16_TOL in bf16),
+    ``run_core`` on the test contigs at
+    ``--fsize 500`` (fused_conv_block launched on the case's route for
+    every residual conv), two train steps on the card (finite losses;
+    fused_conv_block, conv_wgrad and conv_epilogue_bwd launched where
+    check_wgrad_shape takes the shape, f32 C 192, else none of the three),
+    and the dense forward and a train step at batch 2048 / 256 timed (CUDA
+    events)."""
     import copy
 
     import numpy as np
@@ -4809,9 +4867,11 @@ def phase_route(tmp: Path, card: str) -> dict:
     labels = ["chromosome", "phage", "plasmid"]
     results = {}
     predict_launches = 0
-    for i, (name, c, k, precision) in enumerate(ROUTE_CASES):
+    for i, (name, c, k, precision, route, trains) in enumerate(ROUTE_CASES):
         dt = getattr(torch, precision)
-        cfg = route_config(c, k)
+        # the flagship's DYT blocks: a fused block's training backward
+        # runs conv_epilogue_bwd
+        cfg = route_config(c, k, norm_type="masked_dyt")
         state = init_params(cfg, torch.Generator().manual_seed(110 + i))
         bundle = save_model(state, cfg, tmp / f"route_{name}")
         models = {}
@@ -4823,8 +4883,9 @@ def phase_route(tmp: Path, card: str) -> dict:
                   if isinstance(m, ResidualBlock)]
         fused = [b.conv1.fused(dt, False) for b in blocks]
         fused_train = [b.conv1.fused(dt, True) for b in blocks]
-        check(not any(fused_train),
-              f"route {name}: training takes the fused kernel {fused_train}")
+        check(all(fused) and all(f == trains for f in fused_train),
+              f"route {name}: fused in predict {fused}, in training "
+              f"{fused_train}")
         rng = np.random.default_rng(120 + i)
         crop = models["cpu"].crop_nt
         batch = _train_batch(rng, crop, "masked", 64, 3)
@@ -4841,18 +4902,20 @@ def phase_route(tmp: Path, card: str) -> dict:
         check(math.isfinite(err) and err <= tol,
               f"route {name}: card forward differs from the CPU's by {err}")
 
-        before = fused_conv.launches
+        before = fused_conv.launches, fused_conv.route_launches[route]
         t0 = time.perf_counter()
         table = run_core(str(FASTA), str(tmp / f"route_{name}_predict"),
                          str(bundle), fsize=500, stride=500, batch=256,
                          precision=precision)
         predict_s = time.perf_counter() - t0
-        launched = fused_conv.launches - before
+        launched = fused_conv.launches - before[0]
         predict_launches += launched
         _check_tsv(_read_tsv(table), labels, f"route {name} predict")
-        check((launched > 0) == any(fused),
+        check(launched > 0 and launched % 4 == 0 and
+              fused_conv.route_launches[route] - before[1] == launched,
               f"route {name}: predict launched fused_conv_block {launched} "
-              f"times, route {fused}")
+              f"times, {fused_conv.route_launches[route] - before[1]} on "
+              f"route {route}")
 
         m = build_model(copy.deepcopy(cfg), dtype=dt)
         load_state(m, state)
@@ -4871,11 +4934,15 @@ def phase_route(tmp: Path, card: str) -> dict:
                 rng, crop, ("masked", "dense")[s], 64, 3))
             losses.append(float(metrics["loss"]))
         torch.cuda.synchronize()
-        train_launches = fused_conv.launches - before[1] + sum(
-            fg.launches[n] - before[0][n] for n in fg.launches)
-        check(all(math.isfinite(v) for v in losses) and train_launches == 0,
-              f"route {name}: train losses {losses}, {train_launches} "
-              f"kernel launches")
+        train_by = dict(fused_conv_block=fused_conv.launches - before[1],
+                        **{n: fg.launches[n] - before[0][n]
+                           for n in fg.launches})
+        train_launches = sum(train_by.values())
+        check(all(math.isfinite(v) for v in losses) and
+              (all(v > 0 for v in train_by.values()) if trains
+               else train_launches == 0),
+              f"route {name}: train losses {losses}, kernel launches "
+              f"{train_by}")
 
         bs = 2048
         bases = torch.from_numpy(rng.integers(0, 4, size=(bs, crop)).astype(
@@ -4893,8 +4960,9 @@ def phase_route(tmp: Path, card: str) -> dict:
 
         step_ms = cuda_ms(one_step, iters=3, warmup=1)
         results[name] = dict(C=c, k=k, dtype=precision, predict_fused=fused,
-                             forward_max_abs_err=err,
+                             route=route, forward_max_abs_err=err,
                              predict_launches=launched,
+                             train_launches=train_by,
                              predict_s=predict_s, train_losses=losses,
                              forward_ms_b2048=fwd_ms,
                              windows_per_s=bs / fwd_ms * 1e3,
@@ -4903,8 +4971,9 @@ def phase_route(tmp: Path, card: str) -> dict:
               f"residual convs fused in predict {fused}, in training "
               f"{fused_train}; card vs CPU forward max_abs_err {err:.2e} "
               f"(tol {tol:.2e}); predict {predict_s:.2f} s with {launched} "
-              f"fused_conv_block launches; train losses "
-              f"{losses[0]:.4f}, {losses[1]:.4f} with no kernel launch; "
+              f"fused_conv_block launches on route {route}; train losses "
+              f"{losses[0]:.4f}, {losses[1]:.4f} with kernel launches "
+              f"{train_by}; "
               f"dense forward at batch {bs} {fwd_ms:.2f} ms "
               f"({bs / fwd_ms * 1e3:.0f} windows/s), train step at batch "
               f"256 {step_ms:.2f} ms")
@@ -5346,10 +5415,13 @@ def phase_legacy(tmp: Path, card: str) -> dict:
 
 #: phase 12's taxonomy: phase 7's assembly is the reference set; the query
 #: is 100 contigs of another seed, renamed, then the reference's first 50;
-#: the card is held against the CPU on the first 30 contigs of each
+#: the card is held against the CPU on the first 6 contigs of each
 TAX_QUERY_NEW = 100
 TAX_QUERY_SELF = 50
-TAX_CPU_CONTIGS = 30
+TAX_CPU_CONTIGS = 6
+#: the batch of that comparison (the CPU computes every row of a padded
+#: batch: 185 windows at batch 2048 took as long as 2,048)
+TAX_CPU_BATCH = 64
 TAX_SPECIES, TAX_GENERA, TAX_FAMILIES = 75, 15, 3
 TAX_K = 5
 
@@ -5429,14 +5501,17 @@ def capture_search(store: list):
 
 
 def _taxonomy_run(tax: Path, bundle: Path, ref: Path, acc: Path, dump: Path,
-                  query: Path, tag: str, extra: list) -> dict:
-    """``taxonomy build`` then ``taxonomy predict`` through the CLI, each
-    with the kernel counts reset just before and read just after."""
+                  query: Path, tag: str, extra: list,
+                  batch: int = 2048) -> dict:
+    """``taxonomy build`` then ``taxonomy predict`` through the CLI at
+    ``batch``, each with the kernel counts reset just before and read just
+    after."""
     import torch
 
     from jaeger_tpu_torch.ops import fused_conv, int8_conv
 
-    common = ["-m", bundle, "--fsize", "1505", "--batch", "2048", *extra]
+    common = ["-m", bundle, "--fsize", "1505", "--batch", str(batch),
+              *extra]
     out = {}
     for step in ("build", "predict"):
         fused_conv.launches = int8_conv.launches = 0
@@ -5589,20 +5664,21 @@ def phase_commands(tmp: Path, card: str, bundle: Path) -> dict:
           f"first (lowest score {self_s[:, 0].min():.7f}); build "
           f"{f32['index_windows'] / f32['build_s']:,.0f} windows/s")
 
-    # f32 on the card against the CPU, on the first 30 contigs of each set
-    (tax / "ref30.fasta").write_bytes(b"".join(recs[:TAX_CPU_CONTIGS]))
-    (tax / "q30.fasta").write_bytes(b"".join(new[:TAX_CPU_CONTIGS]))
+    # f32 on the card against the CPU, on the first contigs of each set
+    (tax / "ref_cpu.fasta").write_bytes(b"".join(recs[:TAX_CPU_CONTIGS]))
+    (tax / "q_cpu.fasta").write_bytes(b"".join(new[:TAX_CPU_CONTIGS]))
     runs = {}
-    for tag, extra in (("card30", []), ("cpu30", ["--cpu"])):
-        runs[tag] = _taxonomy_run(tax, bundle, tax / "ref30.fasta", acc, dump,
-                                  tax / "q30.fasta", tag,
-                                  ["--precision", "float32", *extra])
-        _check_launches(runs[tag], tag, tag == "card30")
+    for tag, extra in (("card_f32", []), ("cpu_f32", ["--cpu"])):
+        runs[tag] = _taxonomy_run(tax, bundle, tax / "ref_cpu.fasta", acc,
+                                  dump, tax / "q_cpu.fasta", tag,
+                                  ["--precision", "float32", *extra],
+                                  batch=TAX_CPU_BATCH)
+        _check_launches(runs[tag], tag, tag == "card_f32")
         sr = runs[tag]["search"]
         # one neighbour more, to see the gap after the k-th
         runs[tag]["s6"], runs[tag]["i6"] = sr["index"].search(
             sr["queries"], TAX_K + 1, device=sr["device"])
-    card_rows, cpu_rows = runs["card30"]["rows"], runs["cpu30"]["rows"]
+    card_rows, cpu_rows = runs["card_f32"]["rows"], runs["cpu_f32"]["rows"]
     check(len(card_rows) == len(cpu_rows) == TAX_CPU_CONTIGS,
           f"card / CPU rows {len(card_rows)} / {len(cpu_rows)}")
     worst = 0.0
@@ -5614,8 +5690,8 @@ def phase_commands(tmp: Path, card: str, bundle: Path) -> dict:
         worst = max(worst, abs(float(a["mean_knn_similarity"])
                                - float(b["mean_knn_similarity"])))
     check(worst <= 1e-4, f"mean_knn_similarity card vs CPU: {worst}")
-    s6, i6 = runs["card30"]["s6"], runs["card30"]["i6"]
-    c6 = runs["cpu30"]["i6"]
+    s6, i6 = runs["card_f32"]["s6"], runs["card_f32"]["i6"]
+    c6 = runs["cpu_f32"]["i6"]
     gaps = np.abs(np.diff(s6, axis=1))              # (n, k): p to p+1
     before = np.concatenate([np.full((len(s6), 1), np.inf), gaps], axis=1)
     clear = np.minimum(before[:, :TAX_K], gaps[:, :TAX_K]) > 1e-5
@@ -5623,16 +5699,16 @@ def phase_commands(tmp: Path, card: str, bundle: Path) -> dict:
     check(bool(same[clear].all()), f"neighbour lists card vs CPU: "
                                    f"{int((~same & clear).sum())} differ")
     score_diff = float(np.abs(s6[:, :TAX_K]
-                              - runs["cpu30"]["s6"][:, :TAX_K])[clear].max())
-    res["taxonomy"].update(cpu_windows=runs["card30"]["query_windows"],
+                              - runs["cpu_f32"]["s6"][:, :TAX_K])[clear].max())
+    res["taxonomy"].update(cpu_windows=runs["card_f32"]["query_windows"],
                            cpu_max_similarity_diff=worst,
                            cpu_max_score_diff=score_diff,
                            cpu_neighbours_compared=int(clear.sum()),
                            cpu_neighbours_tied=int((~clear).sum()),
-                           cpu_s=runs["cpu30"]["build_s"]
-                           + runs["cpu30"]["predict_s"])
+                           cpu_s=runs["cpu_f32"]["build_s"]
+                           + runs["cpu_f32"]["predict_s"])
     print(f"taxonomy f32 card vs CPU ({TAX_CPU_CONTIGS} + {TAX_CPU_CONTIGS} "
-          f"contigs, {runs['card30']['query_windows']} query windows): "
+          f"contigs, {runs['card_f32']['query_windows']} query windows): "
           f"taxid, rank, name, lineage, n_windows equal; similarity within "
           f"{worst:.2e} (TSV), neighbour scores within {score_diff:.2e}; "
           f"{int(clear.sum())} neighbours equal, "
@@ -5641,8 +5717,8 @@ def phase_commands(tmp: Path, card: str, bundle: Path) -> dict:
     res["launches"] = (res["registry_launches"] + bf["build_launches"]
                        + bf["predict_launches"] + f32["build_launches"]
                        + f32["predict_launches"]
-                       + runs["card30"]["build_launches"]
-                       + runs["card30"]["predict_launches"])
+                       + runs["card_f32"]["build_launches"]
+                       + runs["card_f32"]["predict_launches"])
 
     # 4. utils optimize-data feeds train
     opt = tmp / "optimize"
@@ -5688,7 +5764,12 @@ PROJECTION_HEAD = {"margin": 0.5, "scale": 30.0, "hidden_layers": [
     {"name": "dense", "config": {"units": 64}}]}
 #: rows of the raw CSV the generator classifies inside ``train``, and of the
 #: one it classifies on the card and on the CPU
-RELGEN_ROWS, RELGEN_CHECK_ROWS = 4096, 256
+RELGEN_ROWS, RELGEN_CHECK_ROWS = 4096, 128
+#: the first of them: rows 1984-2111 hold the block with interior Ns
+RELGEN_CHECK_START = 1984
+#: the batch of the card / CPU generator runs (the CPU computes every row
+#: of a padded batch)
+RELGEN_CHECK_BATCH = 64
 PROJECTION_EPOCHS, PROJECTION_STEPS = 2, 10
 
 
@@ -6107,10 +6188,10 @@ def phase_pretrain(tmp: Path, card: str) -> dict:
 def phase_relgen_card_vs_cpu(tmp: Path, bundle: Path, raw: str) -> dict:
     """13c. The generator on the card against the CPU: the trained bundle in
     f32 (TF32 off), a raw CSV of ``RELGEN_CHECK_ROWS`` rows of the 4,096
-    (rows 1920-2175: 16 of them with an interior N), multiplier 1.0, the
-    id threshold at the median of the card's confidences on the real rows
-    and the synthetic threshold at their lower quartile, so that both
-    split the rows. ``reliability_train.csv`` and ``reliability_val.csv``
+    (rows 1984-2111: 16 of them with an interior N), batch 64, multiplier
+    1.0, the id threshold at the median of the card's confidences on the
+    real rows and the synthetic threshold at their lower quartile, so that
+    both split the rows. ``reliability_train.csv`` and ``reliability_val.csv``
     byte-identical to a ``device="cpu"`` run unless a row's CPU confidence
     lies within 1e-4 of its threshold or its top two probabilities within
     1e-4 of each other (counted and printed; then every row whose
@@ -6129,10 +6210,9 @@ def phase_relgen_card_vs_cpu(tmp: Path, bundle: Path, raw: str) -> dict:
     root.mkdir()
     lines = Path(raw).read_text().splitlines(keepends=True)
     small = root / "raw_small.csv"
-    small.write_text("".join(lines[1920:1920 + RELGEN_CHECK_ROWS]))
-    rows = [(int(a), b) for a, b in (ln.strip().split(",")
-                                     for ln in lines[1920:1920
-                                                     + RELGEN_CHECK_ROWS])]
+    picked = lines[RELGEN_CHECK_START:RELGEN_CHECK_START + RELGEN_CHECK_ROWS]
+    small.write_text("".join(picked))
+    rows = [(int(a), b) for a, b in (ln.strip().split(",") for ln in picked)]
     gpu_model, _, _ = load_model(bundle)
     cpu_model, _, _ = load_model(bundle, device="cpu")
     crop = gpu_model.crop_nt
@@ -6140,7 +6220,8 @@ def phase_relgen_card_vs_cpu(tmp: Path, bundle: Path, raw: str) -> dict:
     id_thr = float(np.quantile(confs, 0.5))
     syn_thr = float(np.quantile(confs, 0.25))
     kw = dict(id_threshold=id_thr, synthetic_ood_threshold=syn_thr,
-              synthetic_ood_multiplier=1.0, batch_size=512, seed=7)
+              synthetic_ood_multiplier=1.0, batch_size=RELGEN_CHECK_BATCH,
+              seed=7)
     seen: dict = {}
     orig = relgen._predict_csv_rows
 
@@ -7016,6 +7097,370 @@ def phase_convert(tmp: Path, card: str, bundle: Path) -> dict:
                 phase_s=phase_s, launches=launches, routes=routes)
 
 
+# --- phase 16: fused_conv_block on the whole domain of its Pallas kernel ----
+
+#: correctness cases of the routes that take the shapes the resident bf16
+#: kernel and the f32 ring refused before (wgmma_stream, f32_ring_pad and
+#: f32_ring past its old shape rule): (name, N, L, C, k, dtype); each runs
+#: in the three forms of phase 3 (conv1: DYT + gelu with in_mask, conv2:
+#: with the residual, bias-only) and the model form (every extension)
+DOMAIN_CASES = (
+    # bf16 wgmma_stream: 16-byte copies (C % 8 == 0), 2-byte loads (C % 8
+    # != 0), each (cb, kw) pair of its plans, column blocks cut at C, tap
+    # blocks (k > 56, large k * C * cb), even k, the 128-row tile's edges
+    ("C200_k5", 6, 300, 200, 5, "bfloat16"),
+    ("C200_L1", 4, 1, 200, 5, "bfloat16"),
+    ("C200_L127", 3, 127, 200, 5, "bfloat16"),
+    ("C200_L129_N1", 1, 129, 200, 5, "bfloat16"),
+    ("C40_k3", 6, 300, 40, 3, "bfloat16"),
+    ("C40_k4", 6, 300, 40, 4, "bfloat16"),
+    ("C37_k3", 6, 300, 37, 3, "bfloat16"),
+    ("C24_k3", 6, 300, 24, 3, "bfloat16"),
+    ("C8_k3", 6, 300, 8, 3, "bfloat16"),
+    ("C5_k2", 6, 300, 5, 2, "bfloat16"),
+    ("C1_k1", 4, 200, 1, 1, "bfloat16"),
+    ("C100_k3", 6, 300, 100, 3, "bfloat16"),
+    ("C1000_k5", 3, 200, 1000, 5, "bfloat16"),
+    ("C1024_k5", 3, 200, 1024, 5, "bfloat16"),
+    ("C128_k57", 4, 300, 128, 57, "bfloat16"),
+    ("C128_k61", 4, 300, 128, 61, "bfloat16"),
+    ("C37_k129", 3, 300, 37, 129, "bfloat16"),
+    # f32: channels padded to 16 (C % 4 == 0 by 16-byte, else 4-byte
+    # copies), resident / tap blocks / streamed weights, channel groups
+    ("f32_C40_k3", 6, 300, 40, 3, "float32"),
+    ("f32_C37_k3", 6, 300, 37, 3, "float32"),
+    ("f32_C24_k5", 6, 300, 24, 5, "float32"),
+    ("f32_C200_k5", 6, 300, 200, 5, "float32"),
+    ("f32_C37_k11", 4, 300, 37, 11, "float32"),
+    ("f32_C40_k4", 6, 300, 40, 4, "float32"),
+    ("f32_C5_k1", 4, 200, 5, 1, "float32"),
+    ("f32_C144_k3", 6, 300, 144, 3, "float32"),
+    ("f32_C192_k3", 6, 300, 192, 3, "float32"),
+    ("f32_C512_k5", 3, 300, 512, 5, "float32"),
+    ("f32_C2048_k3", 2, 100, 2048, 3, "float32"),
+    ("f32_C1990_k4", 2, 100, 1990, 4, "float32"),
+)
+
+#: the timed shapes (L 500): (name, N, C, k, dtype)
+DOMAIN_TIMED = (
+    ("bf16_C200_k5", 12288, 200, 5, "bfloat16"),
+    ("bf16_C40_k3", 12288, 40, 3, "bfloat16"),
+    ("bf16_C37_k3", 12288, 37, 3, "bfloat16"),
+    ("bf16_C1024_k5", 1536, 1024, 5, "bfloat16"),
+    ("bf16_C128_k61", 1536, 128, 61, "bfloat16"),
+    ("f32_C40_k3", 1536, 40, 3, "float32"),
+    ("f32_C192_k3", 1536, 192, 3, "float32"),
+    ("f32_C512_k5", 1536, 512, 5, "float32"),
+)
+
+
+def _domain_forms(gen, x, bias, dyt, dev):
+    """The forms of phase 3 for x: conv1, conv2, bias-only, and the model
+    form with every extension; (kwargs, activation) each. ``gen`` is a
+    generator on the CPU or on ``dev``."""
+    import torch
+
+    n, length, c = x.shape
+    bf16 = x.dtype == torch.bfloat16
+    gelu = "gelu_tanh" if bf16 else "gelu"
+    dyt_kw = dict(bias=bias, dyt=dyt, use_dyt=True, bias_then_dyt=True)
+    at = dict(generator=gen, device=gen.device)
+    mask = (torch.rand(n, length, **at) > 0.2).to(dev)
+    res = torch.randn(n, length, c, **at).to(dev, x.dtype)
+    if gen.device.type != "cpu":
+        return {"conv1": (dict(dyt_kw, in_mask=mask), gelu),
+                "conv2": (dict(dyt_kw, residual=res), gelu),
+                "bias_only": (dict(bias=bias), "none")}
+    return {
+        "conv1": (dict(dyt_kw, in_mask=mask), gelu),
+        "conv2": (dict(dyt_kw, residual=res), gelu),
+        "bias_only": (dict(bias=bias), "none"),
+        "model": (dict(dyt_kw, **_extension_args(gen, x, "model", dev)),
+                  gelu),
+    }
+
+
+def phase_domain(card: str) -> dict:
+    """fused_conv_block on the shapes its resident bf16 route and its
+    f32 ring took no plan for before (``DOMAIN_CASES``): each case in the
+    three forms of phase 3 and the model form against the plain version
+    (F32_TOL of the scale in f32, BF16_TOL in bf16, on the route its plan
+    names); then the kernel table's new shapes (``DOMAIN_TIMED``, L 500)
+    in the three forms, kernel, plain and library (cuDNN + the epilogue,
+    TF32 off) timed with CUDA events beside the bound."""
+    import torch
+
+    from jaeger_tpu_torch.ops import fused_conv
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(1919)
+    tf32_off()
+    saved = fused_conv.launches, dict(fused_conv.route_launches)
+    worst = {}
+    for name, n, length, c, k, precision in DOMAIN_CASES:
+        dt = getattr(torch, precision)
+        route = fused_conv.conv_plan(c, k, dt).get("route", "wgmma")
+        check(route != "wgmma", f"domain {name}: on the resident route")
+        x, w, bias, dyt = _conv_inputs(gen, n, length, c, k, dt, dev)
+        tol = F32_TOL if dt == torch.float32 else BF16_TOL
+        errs = []
+        for form, (kw, act) in _domain_forms(gen, x, bias, dyt, dev).items():
+            before = fused_conv.route_launches[route]
+            out = fused_conv.fused_conv_block(x, w, act=act, **kw)
+            torch.cuda.synchronize()
+            check(fused_conv.route_launches[route] == before + 1,
+                  f"domain {name} {form}: route {route} not launched")
+            ref = fused_conv.reference_conv_block(x, w, act=act, **kw)
+            check(out.dtype == x.dtype and out.shape == x.shape,
+                  f"domain {name} {form}: output {out.dtype} "
+                  f"{tuple(out.shape)}")
+            err = (out.float() - ref.float()).abs()
+            scale = max(ref.float().abs().max().item(), 1.0)
+            max_err = err.max().item()
+            check(math.isfinite(max_err) and max_err <= tol * scale,
+                  f"domain {name} {form}: max_abs_err {max_err:.3e} beyond "
+                  f"{tol} of the scale {scale:.3e}")
+            if "out_mask" in kw and "residual" not in kw:
+                check(bool((out[~kw["out_mask"]] == 0).all()),
+                      f"domain {name} {form}: out_mask positions not zero")
+            errs.append(max_err / scale)
+        worst[name] = max(errs)
+        print(f"domain {name} ({precision}, N {n}, L {length}, C {c}, k {k},"
+              f" route {route}): max error / scale {worst[name]:.3e} over "
+              f"conv1, conv2, bias-only, model (tol {tol}) ok")
+        del x, w, out, ref, err
+
+    times = {}
+    # the timed inputs are drawn on the card (N 12288 x 500 x 200 values
+    # take seconds on the host)
+    dgen = torch.Generator(device=dev).manual_seed(1920)
+    for name, n, c, k, precision in DOMAIN_TIMED:
+        dt = getattr(torch, precision)
+        length = FLAG_L
+        plan = fused_conv.conv_plan(c, k, dt)
+        x = torch.randn(n, length, c, generator=dgen, device=dev).to(dt)
+        w = torch.randn(k, c, c, generator=dgen, device=dev) * 0.05
+        bias = torch.randn(c, generator=dgen, device=dev)
+        dyt = torch.stack([torch.full((c,), 0.5, device=dev),
+                           torch.randn(c, generator=dgen, device=dev),
+                           torch.randn(c, generator=dgen, device=dev)])
+        forms = _domain_forms(dgen, x, bias, dyt, dev)
+        size = x.element_size()
+        peak = PEAK_BF16_FLOPS if dt == torch.bfloat16 else PEAK_F32_FLOPS
+        big = n * length * c * c * k > 4e11
+        out = {}
+        for form in ("conv1", "conv2", "bias_only"):
+            kw, act = forms[form]
+            got = fused_conv.fused_conv_block(x, w, act=act, **kw)
+            ref = fused_conv.reference_conv_block(x, w, act=act, **kw)
+            scale = max(ref.float().abs().max().item(), 1.0)
+            err = (got.float() - ref.float()).abs().max().item()
+            tol = F32_TOL if dt == torch.float32 else BF16_TOL
+            check(math.isfinite(err) and err <= tol * scale,
+                  f"domain timed {name} {form}: max_abs_err {err:.3e}")
+            del got, ref
+            kern = cuda_ms(lambda: fused_conv.fused_conv_block(
+                x, w, act=act, **kw), iters=5 if big else 20)
+            plain = cuda_ms(lambda: fused_conv.reference_conv_block(
+                x, w, act=act, **kw), iters=1 if big else 2, warmup=1)
+            lib = cuda_ms(lambda: library_conv_block(
+                x, w, bias, kw.get("dyt"), act, kw.get("residual")),
+                iters=5 if big else 10)
+            flops = 2.0 * n * length * c * c * k
+            nbytes = (size * n * length * c * (3 if "residual" in kw else 2)
+                      + size * k * c * c + 4 * c * (4 if "dyt" in kw else 1)
+                      + (n * length if "in_mask" in kw else 0))
+            bound, by = _bound(flops, nbytes, peak)
+            out[form] = dict(ms=kern, plain_ms=plain, library_ms=lib,
+                             bound_ms=bound, bound_by=by, flops=flops,
+                             bytes=nbytes, max_abs_err=err,
+                             route=plan.get("route", "wgmma"))
+            _print_timing(f"domain {name} {form} N={n} L={length} C={c} "
+                          f"k={k} {precision}", out[form], card)
+        times[name] = dict(out["bias_only"], plan=plan, conv1=out["conv1"],
+                           conv2=out["conv2"])
+        del x, w, forms
+        torch.cuda.empty_cache()
+    # checks and timings are not the path's launches
+    fused_conv.launches = saved[0]
+    fused_conv.route_launches.clear()
+    fused_conv.route_launches.update(saved[1])
+    return dict(cases=worst, times=times)
+
+
+#: the domain's main path: the flagship with this many channels (k 7 entry
+#: conv, DYT + NMD, three k 5 DYT residual blocks, crop 1505 nt)
+DOMAIN_FILTERS = 200
+
+
+def flagship_config_filters(filters: int) -> dict:
+    """The flagship config with ``filters`` channels in place of 128."""
+    from jaeger_tpu_torch.models.flagship import flagship_config
+
+    cfg = flagship_config()
+    for layer in cfg["model"]["representation_learner"]["hidden_layers"]:
+        if layer.get("config", {}).get("filters") == 128:
+            layer["config"]["filters"] = filters
+    return cfg
+
+
+def phase_flagship_c200(tmp: Path, card: str) -> dict:
+    """The domain's main path: a seeded flagship with 200 channels, whose
+    six residual convs a forward take route ``wgmma_stream`` in bf16 and
+    ``f32_ring_pad`` in f32. ``predict`` on the test contigs at batch 2048
+    in bf16 (counts reset just before, read just after: every
+    fused_conv_block launch on wgmma_stream, six a forward), in f32 on the
+    card and on the CPU on the last three of them (scores within 0.01;
+    the CPU's f32 forward of all nine takes about 20 s), then the engine
+    on windows of the flagship's batch (``_drive_flagship``: six launches
+    a forward in each program, the forward against its plain version,
+    windows/s)."""
+    import torch
+
+    from jaeger_tpu_torch import cli
+    from jaeger_tpu_torch.models.artifacts import (init_params, load_state,
+                                                   save_model)
+    from jaeger_tpu_torch.models.builder import build_model
+    from jaeger_tpu_torch.models.flagship import _CLASSES
+    from jaeger_tpu_torch.ops import fused_conv, int8_conv
+
+    cfg = flagship_config_filters(DOMAIN_FILTERS)
+    state = init_params(cfg, torch.Generator().manual_seed(42))
+    bundle = save_model(state, cfg, tmp / "flagship_c200_bundle")
+    few = tmp / "test_contigs_last3.fasta"
+    few.write_bytes(b"".join(_fasta_records(FASTA)[-3:]))
+    runs, counts = {}, {}
+    for name, fasta, extra in (
+            ("gpu_bf16", FASTA, ["--batch", "2048"]),
+            ("gpu_f32", few, ["--precision", "float32"]),
+            ("cpu_f32", few, ["--precision", "float32", "--device", "cpu"])):
+        out = tmp / f"flagship_c200_{name}"
+        # the main path: counts reset just before, read just after
+        fused_conv.launches = 0
+        fused_conv.route_launches.clear()
+        t0 = time.perf_counter()
+        cli.main(["predict", "-i", str(fasta), "-o", str(out), "-m",
+                  str(bundle), "--fsize", "1505"] + extra)
+        wall = time.perf_counter() - t0
+        counts[name] = dict(fused_conv.route_launches,
+                            launches=fused_conv.launches, wall_s=wall)
+        runs[name] = _read_tsv(out / f"{fasta.stem}_default_jaeger.tsv")
+        _check_tsv(runs[name], _CLASSES, f"flagship C200 predict {name}",
+                   9 if fasta == FASTA else 3)
+    bf16, f32 = counts["gpu_bf16"], counts["gpu_f32"]
+    check(bf16["launches"] > 0 and bf16["launches"] % 6 == 0
+          and bf16.get("wgmma_stream") == bf16["launches"],
+          f"flagship C200 bf16 predict: launches {bf16}")
+    check(f32["launches"] > 0 and f32["launches"] % 6 == 0
+          and f32.get("f32_ring_pad") == f32["launches"],
+          f"flagship C200 f32 predict: launches {f32}")
+    check(counts["cpu_f32"]["launches"] == 0,
+          f"flagship C200 CPU predict launched {counts['cpu_f32']}")
+    diff = _max_score_diff(runs["gpu_f32"], runs["cpu_f32"], _CLASSES)
+    check(diff <= 0.01, f"flagship C200 f32: card vs CPU score diff {diff}")
+    bf16_diff = _max_score_diff(
+        [r for r in runs["gpu_bf16"]
+         if r["contig_id"] in {q["contig_id"] for q in runs["cpu_f32"]}],
+        runs["cpu_f32"], _CLASSES)
+    print(f"flagship C200 predict on {card}: bf16 {bf16['launches']} "
+          f"launches (wgmma_stream {bf16.get('wgmma_stream')}) in "
+          f"{bf16['wall_s']:.2f} s; f32 {f32['launches']} launches "
+          f"(f32_ring_pad {f32.get('f32_ring_pad')}), scores within "
+          f"{diff:.2e} of the CPU's (tol 0.01; bf16 {bf16_diff:.3f})")
+    model = build_model(cfg, dtype=torch.bfloat16)
+    load_state(model, state)
+    before = dict(fused_conv.route_launches)
+    rates = _drive_flagship(model, "flagship C200",
+                            {fused_conv: 6, int8_conv: 0}, False)
+    check(fused_conv.route_launches["wgmma_stream"]
+          - before.get("wgmma_stream", 0) > 0,
+          "flagship C200 engine: no wgmma_stream launch")
+    return dict(predict=counts, f32_score_diff=diff,
+                bf16_score_diff=bf16_diff, rates=rates,
+                launches=bf16["launches"], f32_launches=f32["launches"])
+
+
+def phase_domain_sweep(card: str) -> None:
+    """``--domain --sweep``: the new routes under other launch plans, the
+    bias-only form at L 500: ``wgmma_stream`` at C 200 k 5 and C 40 k 3 (N
+    12288), C 1024 k 5 and C 128 k 61 (N 1536) with each (cb, kw) pair
+    of its plans, fewer taps a block and the most stages that fit or two;
+    the f32 forward at C 512 k 5 (N 1536) resident at CB 16 and streamed
+    in blocks of 1 to 3 taps."""
+    import torch
+
+    from jaeger_tpu_torch.ops import fused_conv
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(2020)
+    tf32_off()
+    saved = fused_conv.launches, dict(fused_conv.route_launches)
+    length = FLAG_L
+    for n, c, k, taps_set in ((12288, 200, 5, (5, 3, 2, 1)),
+                              (12288, 40, 3, (3, 1)),
+                              (1536, 1024, 5, (5, 3, 2, 1)),
+                              (1536, 128, 61, (5, 4, 3, 2))):
+        x, w, bias, _ = _conv_inputs(gen, n, length, c, k, torch.bfloat16,
+                                     dev)
+        bound = 2.0 * n * length * c * c * k / PEAK_BF16_FLOPS * 1e3
+        for cb, kw in fused_conv.STREAM_SHAPES:
+            for taps in taps_set:
+                taps = -(-k // -(-k // taps))
+                fits = [s for s in (2, 3, 4) if fused_conv.stream_plan_bytes(
+                    kw, cb, taps, s) <= fused_conv.SMEM_LIMIT]
+                for stages in sorted({fits[0], fits[-1]} if fits else ()):
+                    plan = dict(route="wgmma_stream", cb=cb, kw=kw,
+                                taps=taps, stages=stages,
+                                smem=fused_conv.stream_plan_bytes(
+                                    kw, cb, taps, stages))
+                    ms = cuda_ms(lambda: fused_conv._launch(
+                        x, w, bias, None, "none", None, None, None, plan),
+                        iters=5)
+                    print(f"sweep wgmma_stream N={n} C={c} k={k} cb={cb} "
+                          f"kw={kw} taps={taps} stages={stages} bias_only "
+                          f"on {card}: {ms:.3f} ms ({bound / ms:.1%} of the "
+                          f"bound {bound:.3f} ms)")
+        del x, w
+        torch.cuda.empty_cache()
+    n, c, k = 1536, 512, 5
+    x, w, bias, _ = _conv_inputs(gen, n, length, c, k, torch.float32, dev)
+    bound = 2.0 * n * length * c * c * k / PEAK_F32_FLOPS * 1e3
+    for cb, taps, stages in ((16, 5, 2), (32, 1, 2), (16, 1, 2), (16, 2, 2),
+                             (16, 3, 2), (64, 1, 2)):
+        smem = fused_conv.f32_plan_bytes(c, k, cb, stages, taps)
+        if smem > fused_conv.SMEM_LIMIT:
+            continue
+        plan = dict(route="f32_ring", cb=cb, kw=0, tile=fused_conv.F32_TILE,
+                    taps=taps, stages=stages, smem=smem)
+        ms = cuda_ms(lambda: fused_conv._launch(
+            x, w, bias, None, "none", None, None, None, plan), iters=3)
+        print(f"sweep f32 N={n} C={c} k={k} cb={cb} taps={taps} "
+              f"stages={stages} bias_only on {card}: {ms:.3f} ms "
+              f"({bound / ms:.1%} of the bound {bound:.3f} ms)")
+    del x, w
+    fused_conv.launches = saved[0]
+    fused_conv.route_launches.clear()
+    fused_conv.route_launches.update(saved[1])
+
+
+#: the flags that run one part of the script in place of the full run
+PART_FLAGS = ("--domain", "--f32", "--backward", "--host", "--hyena",
+              "--int8-zoo", "--legacy", "--commands", "--ragged", "--multi",
+              "--convert", "--pretrain", "--templates")
+#: wall seconds of each phase of the full run, by name
+PHASE_SECONDS: dict[str, float] = {}
+
+
+def timed(name: str, fn, *args):
+    """``fn(*args)``; its wall seconds printed and kept in
+    :data:`PHASE_SECONDS` under ``name``."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    PHASE_SECONDS[name] = time.perf_counter() - t0
+    print(f"phase {name}: {PHASE_SECONDS[name]:.1f} s", flush=True)
+    return out
+
+
 def main(argv: list[str]) -> int:
     try:
         import torch
@@ -7038,9 +7483,28 @@ def main(argv: list[str]) -> int:
     t_start = time.perf_counter()
     try:
         card = phase_device()
-        phase_build(("fused_conv_block", "fused_conv_wgrad",
-                     "conv_epilogue_bwd") if "--f32" in argv
-                    else KERNEL_SOURCES)
+        mode = next((a for a in argv if a in PART_FLAGS), None)
+        if mode in ("--f32", "--domain"):
+            phase_build(("fused_conv_block", "fused_conv_wgrad",
+                         "conv_epilogue_bwd"))
+        elif mode:
+            phase_build()
+        else:
+            # the full run: int8_conv, the longest build, goes on while
+            # the phases that need none of it run
+            join_build = phase_build(later=("int8_conv",))
+        if "--domain" in argv:
+            domain = phase_domain(card)
+            if "--sweep" in argv:
+                phase_domain_sweep(card)
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+                route = phase_route(Path(tmp), card)
+                c200 = phase_flagship_c200(Path(tmp), card)
+            print(json.dumps({"domain": domain, "route": route,
+                              "flagship_c200": c200}, default=str))
+            print(f"domain run done in "
+                  f"{time.perf_counter() - t_start:.0f} s")
+            return 0
         if "--f32" in argv:
             f32 = dict(forward=phase_f32_kernel(card),
                        backward=phase_f32_train_kernel(card),
@@ -7153,50 +7617,66 @@ def main(argv: list[str]) -> int:
             print(f"templates run done in "
                   f"{time.perf_counter() - t_start:.0f} s")
             return 0
-        kern = phase_kernel(card)
-        kern_f32 = phase_f32_kernel(card)
-        kern8 = phase_int8_kernel(card)
-        kern_train = phase_train_kernel(card)
-        kern_f32_train = phase_f32_train_kernel(card)
-        kern_f32_shapes = phase_f32_shapes(card)
+        # the phases that need no int8_conv run while its nvcc goes on
+        kern = timed("kernel", phase_kernel, card)
+        kern_f32 = timed("f32_kernel", phase_f32_kernel, card)
+        kern_train = timed("train_kernel", phase_train_kernel, card)
+        kern_f32_train = timed("f32_train_kernel", phase_f32_train_kernel,
+                               card)
+        kern_f32_shapes = timed("f32_shapes", phase_f32_shapes, card)
+        domain = timed("domain", phase_domain, card)
+        timed("build_int8_conv", join_build)
+        kern8 = timed("int8_kernel", phase_int8_kernel, card)
         if "--sweep" in argv:
             phase_sweep(card)
             phase_int8_sweep(card)
             phase_train_sweep(card)
+            phase_domain_sweep(card)
         if quick:
             print(f"quick run done in {time.perf_counter() - t_start:.0f} s")
             return 0
         profile = "--profile" in argv
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-            rates = phase_flagship(profile)
-            bundle = flagship_bundle(Path(tmp))
-            rates8 = phase_int8_flagship(bundle, profile)
-            launches = phase_predict(Path(tmp), bundle)
-            launches8 = phase_int8_predict(Path(tmp), bundle)
-            steps_f32 = phase_train_steps_f32()
-            train = phase_train_flagship(Path(tmp), card)
-            phase_train_predict(Path(tmp), train["bundle"])
-            host = phase_host_pipeline(Path(tmp), bundle, card)
-            kern_zoo = phase_templates_kernel(card)
-            zoo = phase_templates(Path(tmp), card)
-            zoo_f32 = phase_zoo_f32()
-            hyena = phase_hyena(Path(tmp), card)
-            hyena.update(routes=phase_hyena_routes(card),
-                         bilstm=phase_bilstm(card),
-                         bilstm_zoo_f32=phase_zoo_f32(bilstm_zoo_config(),
-                                                      "bilstm zoo"))
-            ragged = phase_ragged_kernel(card)
+            rates = timed("flagship", phase_flagship, profile)
+            bundle = timed("flagship_bundle", flagship_bundle, Path(tmp))
+            rates8 = timed("int8_flagship", phase_int8_flagship, bundle,
+                           profile)
+            launches = timed("predict", phase_predict, Path(tmp), bundle)
+            launches8 = timed("int8_predict", phase_int8_predict, Path(tmp),
+                              bundle)
+            steps_f32 = timed("train_steps_f32", phase_train_steps_f32)
+            train = timed("train_flagship", phase_train_flagship, Path(tmp),
+                          card)
+            timed("train_predict", phase_train_predict, Path(tmp),
+                  train["bundle"])
+            host = timed("host_pipeline", phase_host_pipeline, Path(tmp),
+                         bundle, card)
+            kern_zoo = timed("templates_kernel", phase_templates_kernel, card)
+            zoo = timed("templates", phase_templates, Path(tmp), card)
+            zoo_f32 = timed("zoo_f32", phase_zoo_f32)
+            hyena = timed("hyena", phase_hyena, Path(tmp), card)
+            hyena.update(routes=timed("hyena_routes", phase_hyena_routes,
+                                      card),
+                         bilstm=timed("bilstm", phase_bilstm, card),
+                         bilstm_zoo_f32=timed(
+                             "bilstm_zoo_f32", phase_zoo_f32,
+                             bilstm_zoo_config(), "bilstm zoo"))
+            ragged = timed("ragged_kernel", phase_ragged_kernel, card)
             bundles = zoo.pop("bundles")
-            zoo8 = phase_int8_zoo(Path(tmp), card, bundles)
-            ens = phase_ensemble(Path(tmp), card, bundles)
-            route = phase_route(Path(tmp), card)
-            stride = phase_ragged_stride(card)
-            strided = phase_int8_strided_predict(Path(tmp), card)
-            legacy = phase_legacy(Path(tmp), card)
-            commands = phase_commands(Path(tmp), card, bundle)
-            pretrain = phase_pretrain(Path(tmp), card)
-            multi = phase_multi(Path(tmp), card, bundle)
-            convert = phase_convert(Path(tmp), card, bundle)
+            zoo8 = timed("int8_zoo", phase_int8_zoo, Path(tmp), card, bundles)
+            ens = timed("ensemble", phase_ensemble, Path(tmp), card, bundles)
+            route = timed("route", phase_route, Path(tmp), card)
+            stride = timed("ragged_stride", phase_ragged_stride, card)
+            strided = timed("int8_strided_predict",
+                            phase_int8_strided_predict, Path(tmp), card)
+            legacy = timed("legacy", phase_legacy, Path(tmp), card)
+            commands = timed("commands", phase_commands, Path(tmp), card,
+                             bundle)
+            pretrain = timed("pretrain", phase_pretrain, Path(tmp), card)
+            multi = timed("multi", phase_multi, Path(tmp), card, bundle)
+            convert = timed("convert", phase_convert, Path(tmp), card, bundle)
+            c200 = timed("flagship_c200", phase_flagship_c200, Path(tmp),
+                         card)
     except SmokeFailure as e:
         print(f"chip_smoke FAILED: {e}", file=sys.stderr)
         return 1
@@ -7223,7 +7703,9 @@ def main(argv: list[str]) -> int:
                "hyena": hyena, "int8_zoo": zoo8, "ensemble": ens,
                "route": route, "int8_strided_predict": strided,
                "legacy": legacy, "commands": commands,
-               "pretrain": pretrain, "multi": multi, "convert": convert}
+               "pretrain": pretrain, "multi": multi, "convert": convert,
+               "domain": domain, "flagship_c200": c200,
+               "phase_seconds": PHASE_SECONDS}
     print(json.dumps(summary, default=str))
     print(f"all phases passed in {time.perf_counter() - t_start:.0f} s")
     print(card)
@@ -7330,6 +7812,32 @@ def main(argv: list[str]) -> int:
               hyena_launches=hl["conv_epilogue_bwd"],
               pretrain_launches=pl["conv_epilogue_bwd"],
               multi_launches=ml["conv_epilogue_bwd"]),
+        # the shapes the resident layouts cannot hold (phase 16): route
+        # wgmma_stream at the C 200 flagship's residual conv (conv1 form),
+        # its launches in that flagship's bf16 predict; route
+        # f32_ring_pad at C 40 (conv1 form), its launches in that
+        # flagship's f32 predict; every timed shape and form beside them
+        entry("fused_conv_block_stream", "cuda",
+              "jaeger_tpu_torch/csrc/fused_conv_block.cu",
+              "jaeger_tpu/ops/pallas_conv.py:70", c200["launches"],
+              domain["times"]["bf16_C200_k5"]["conv1"],
+              kernel="conv_bf16_stream", form="conv1",
+              shape="N=12288 L=500 C=200 k=5 bf16",
+              flagship_c200_rates=c200["rates"],
+              route_predict_launches=sum(
+                  v["predict_launches"] for v in route["cases"].values()
+                  if v["route"] == "wgmma_stream"),
+              shapes={k: v for k, v in domain["times"].items()
+                      if k.startswith("bf16")},
+              cases=domain["cases"]),
+        entry("fused_conv_block_f32_pad", "cuda",
+              "jaeger_tpu_torch/csrc/fused_conv_block.cu",
+              "jaeger_tpu/ops/pallas_conv.py:70", c200["f32_launches"],
+              domain["times"]["f32_C40_k3"]["conv1"],
+              kernel="conv_f32_ring<CB, TAPS, true>", form="conv1",
+              shape="N=1536 L=500 C=40 k=3 f32",
+              shapes={k: v for k, v in domain["times"].items()
+                      if k.startswith("f32")}),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

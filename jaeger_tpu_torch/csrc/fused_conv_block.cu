@@ -73,6 +73,51 @@
 //    conv_plan (ops/fused_conv.py); the entry below recomputes the layout and
 //    refuses a plan that disagrees with it.
 //
+// bf16, every shape the resident layout cannot hold: conv_bf16_stream
+// (route wgmma_stream). The Pallas kernel takes any C and K; the resident
+// kernel needs C % 16 == 0 (wgmma's K step), K <= 56 (the in_mask bits of a
+// fragment in one word, TMA boxes of at most 256 rows) and the k * C * CB
+// weights beside two whole-C x stages (C 1024 at K 5 does not fit).
+//  * What bounds it (L 500): C 200, K 5 at N 12288 2.46e12 FLOPs, 2.485
+//    ms (operations); C 40 / 37, K 3 at N 12288 0.98 / 0.91 GB of bf16 in
+//    and out, 0.293 / 0.271 ms (bytes); C 1024, K 5 at N 1536 8.143 ms and
+//    C 128, K 61 1.552 ms (operations).
+//  * Schedule: persistent as the resident kernel; CTA b owns column block
+//    b % n_cb (CB = 128, 64 or 32 output channels, the last block cut at
+//    C) and walks tiles of 128 rows (one 64-row wgmma M for each of the two
+//    consumer warpgroups), each tile a sequence of steps: the tap blocks
+//    (at most `taps` taps each, evened out) by the KW-channel chunks
+//    (ceil(C / KW), the last zero past C).
+//  * A step's stage holds the tile's x rows for the block's taps (128 +
+//    taps - 1 rows x KW channels, K-major, swizzled to KW * 2 bytes) and
+//    the block's weights for the chunk (taps x KW rows x CB columns,
+//    MN-major: the output channels contiguous as w stores them, in 64-column
+//    blocks swizzled to 128 bytes, so no transpose): wgmma reads B through a
+//    descriptor with the transpose bit (hopper.cuh smem_desc_mn), A (the x
+//    rows shifted by the tap) from registers by ldmatrix, as the resident
+//    kernel does. The accumulators stay in registers across the steps.
+//  * Producer: all 128 threads of the third warpgroup copy a step: where
+//    C % 8 == 0 (VEC) by 16-byte cp.async with zero fill, each thread's
+//    copies reported to the stage's full barrier by
+//    cp.async.mbarrier.arrive; else (rows not 16-byte aligned) by 2-byte
+//    loads into one 16-byte shared store and a plain arrival. Rows outside
+//    [0, L), rows in_mask masks and channels past C land as zeros; weights
+//    past C as zeros. The consumers hand a stage back once their wgmmas on
+//    it retired (one arrival a warp).
+//  * Epilogue: the resident kernel's (epilogue_regs), the residual pairs
+//    and out_mask bytes loaded at a tile's first step; stored from the
+//    registers (bf16 pairs where C % 8 == 0, else single elements), rows
+//    past L and columns past C not at all.
+//  * L2: every tile re-reads its column block's weights, k * C * CB * 2
+//    bytes (1.3 MB at C 1024, K 5, CB 128) per 128 rows, more than its x
+//    rows. The 128-row tile (both warpgroups share a step's weights) halves
+//    that against one 64-row M per CTA; sharing x across column blocks
+//    would not cut it (the weights' reads per position do not depend on
+//    CB). On the H100 the kernel's time goes with its steps, not its ring
+//    depth: about 1 us a step plus 0.74 us a tap at CB 128, KW 64
+//    (chip_smoke.py --domain --sweep), far from the tensor cores' 0.28 us
+//    a tap; it is the route's open question (ROADMAP queue 2).
+//
 // f32: conv_f32_ring, a persistent kernel of plain FMAs in full precision
 // (never TF32: the f32 route is the one held against the reference's f32).
 // Taken by predict / train / taxonomy --precision float32 and by the f32
@@ -140,6 +185,15 @@
 //    products' 69 % rate left (measured on the H100). float4 stores: a
 //    warp writes 128 contiguous bytes a row. While one warp runs its
 //    epilogue, the others multiply.
+//  * Route f32_ring_pad (the RAG instances): C % 16 != 0 counts the
+//    channels up to Cp, C rounded up to 16: the last ring stage and the
+//    weight rows past C are zero filled (16-byte copies where C % 4 == 0,
+//    else 4-byte ones), the last column block is cut at C, and the
+//    residual, stores and parameters past C are skipped. Where one tap of
+//    Cp x CB weights does not fit (C past about 1,560), the streamed
+//    weights come in groups of kw channels, a group's first stage carrying
+//    them as a tap block's does. Bound (L 500, N 1536): C 40, K 3 7.4e9
+//    FLOPs, 0.110 ms (operations).
 //  * The plan (CB, weight taps, stages, bytes) is made in one place, the
 //    wrapper's conv_plan / f32_plan; the entry recomputes the layout and
 //    refuses a plan that disagrees.
@@ -246,6 +300,96 @@ __device__ __forceinline__ float tanh_approx(float x) {
   float y;
   asm("tanh.approx.f32 %0, %1;" : "=f"(y) : "f"(x));
   return y;
+}
+
+// The epilogue on a consumer warpgroup's accumulator fragment, in the plain
+// version's order: columns 8 q + c_lane (+1) of rows r0 (acc[4q], [4q+1])
+// and r0 + 8 (acc[4q+2], [4q+3]) of a CB-column block; par holds the block's
+// bias (alpha * bias with DYT), alpha, gamma and beta, rv the residual's
+// bf16 pairs ([2q]: row r0, [2q+1]: row r0 + 8) when res, z0 / z1 the rows
+// that out_mask zeroes.
+template <int CB>
+__device__ __forceinline__ void epilogue_regs(float (&acc)[CB / 2],
+                                              const float* par,
+                                              const Params& p, bool z0,
+                                              bool z1, bool res,
+                                              const uint32_t (&rv)[CB / 4],
+                                              int c_lane) {
+  constexpr int R = CB / 2;
+  if (p.dyt) {
+    // tanh(alpha * (acc + bias)) * gamma + beta
+#pragma unroll
+    for (int q = 0; q < CB / 8; ++q) {
+      const int c = 8 * q + c_lane;
+      const float2 ab = *reinterpret_cast<const float2*>(par + c);
+      const float2 al = *reinterpret_cast<const float2*>(par + CB + c);
+      const float2 ga = *reinterpret_cast<const float2*>(par + 2 * CB + c);
+      const float2 be = *reinterpret_cast<const float2*>(par + 3 * CB + c);
+#pragma unroll
+      for (int h = 0; h < 4; h += 2) {
+        acc[4 * q + h] =
+            fmaf(tanh_approx(fmaf(acc[4 * q + h], al.x, ab.x)), ga.x, be.x);
+        acc[4 * q + h + 1] = fmaf(
+            tanh_approx(fmaf(acc[4 * q + h + 1], al.y, ab.y)), ga.y, be.y);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < CB / 8; ++q) {
+      const float2 b =
+          *reinterpret_cast<const float2*>(par + 8 * q + c_lane);
+      acc[4 * q] += b.x;
+      acc[4 * q + 1] += b.y;
+      acc[4 * q + 2] += b.x;
+      acc[4 * q + 3] += b.y;
+    }
+  }
+  if (z0 || z1) {
+#pragma unroll
+    for (int q = 0; q < CB / 8; ++q) {
+      if (z0) acc[4 * q] = acc[4 * q + 1] = 0.f;
+      if (z1) acc[4 * q + 2] = acc[4 * q + 3] = 0.f;
+    }
+  }
+  if (res) {
+#pragma unroll
+    for (int q = 0; q < CB / 8; ++q) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {  // bf16 -> f32 is a 16-bit shift
+        acc[4 * q + 2 * h] += __uint_as_float(rv[2 * q + h] << 16);
+        acc[4 * q + 2 * h + 1] +=
+            __uint_as_float(rv[2 * q + h] & 0xffff0000u);
+      }
+    }
+  }
+  switch (p.act) {
+    case ACT_RELU:
+#pragma unroll
+      for (int e = 0; e < R; ++e) acc[e] = fmaxf(acc[e], 0.f);
+      break;
+    case ACT_TANH:
+#pragma unroll
+      for (int e = 0; e < R; ++e) acc[e] = tanh_approx(acc[e]);
+      break;
+    case ACT_GELU:
+#pragma unroll
+      for (int e = 0; e < R; ++e)
+        acc[e] = 0.5f * acc[e] * (1.f + erff(acc[e] * 0.7071067811865476f));
+      break;
+    case ACT_GELU_TANH:
+#pragma unroll
+      for (int e = 0; e < R; ++e) {
+        // 0.5 y (1 + tanh(sqrt(2 / pi) (y + 0.044715 y^3)))
+        const float y = acc[e], hy = 0.5f * y;
+        const float u =
+            y * fmaf(0.7978845608028654f * 0.044715f, y * y,
+                     0.7978845608028654f);
+        acc[e] = fmaf(hy, tanh_approx(u), hy);
+      }
+      break;
+    default:
+      break;
+  }
 }
 
 template <int CB, int KW>
@@ -443,82 +587,8 @@ conv_bf16_wgmma(Params p, Layout lay, const __grid_constant__ CUtensorMap xmap,
       wgmma_wait<0>();
       fence_regs(acc);
 
-      // ---- epilogue: column 8 q + c_lane (+1) of rows r0 (acc[4q], [4q+1])
-      // and r0 + 8 (acc[4q+2], [4q+3]) ----
-      if (p.dyt) {
-        // tanh(alpha * (acc + bias)) * gamma + beta
-#pragma unroll
-        for (int q = 0; q < CB / 8; ++q) {
-          const int c = 8 * q + c_lane;
-          const float2 ab = *reinterpret_cast<const float2*>(par + c);
-          const float2 al = *reinterpret_cast<const float2*>(par + CB + c);
-          const float2 ga = *reinterpret_cast<const float2*>(par + 2 * CB + c);
-          const float2 be = *reinterpret_cast<const float2*>(par + 3 * CB + c);
-#pragma unroll
-          for (int h = 0; h < 4; h += 2) {
-            acc[4 * q + h] =
-                fmaf(tanh_approx(fmaf(acc[4 * q + h], al.x, ab.x)), ga.x, be.x);
-            acc[4 * q + h + 1] = fmaf(
-                tanh_approx(fmaf(acc[4 * q + h + 1], al.y, ab.y)), ga.y, be.y);
-          }
-        }
-      } else {
-#pragma unroll
-        for (int q = 0; q < CB / 8; ++q) {
-          const float2 b =
-              *reinterpret_cast<const float2*>(par + 8 * q + c_lane);
-          acc[4 * q] += b.x;
-          acc[4 * q + 1] += b.y;
-          acc[4 * q + 2] += b.x;
-          acc[4 * q + 3] += b.y;
-        }
-      }
-      if (z0 || z1) {
-#pragma unroll
-        for (int q = 0; q < CB / 8; ++q) {
-          if (z0) acc[4 * q] = acc[4 * q + 1] = 0.f;
-          if (z1) acc[4 * q + 2] = acc[4 * q + 3] = 0.f;
-        }
-      }
-      if (res) {
-#pragma unroll
-        for (int q = 0; q < CB / 8; ++q) {
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {  // bf16 -> f32 is a 16-bit shift
-            acc[4 * q + 2 * h] += __uint_as_float(rv[2 * q + h] << 16);
-            acc[4 * q + 2 * h + 1] +=
-                __uint_as_float(rv[2 * q + h] & 0xffff0000u);
-          }
-        }
-      }
-      switch (p.act) {
-        case ACT_RELU:
-#pragma unroll
-          for (int e = 0; e < R; ++e) acc[e] = fmaxf(acc[e], 0.f);
-          break;
-        case ACT_TANH:
-#pragma unroll
-          for (int e = 0; e < R; ++e) acc[e] = tanh_approx(acc[e]);
-          break;
-        case ACT_GELU:
-#pragma unroll
-          for (int e = 0; e < R; ++e)
-            acc[e] = 0.5f * acc[e] * (1.f + erff(acc[e] * 0.7071067811865476f));
-          break;
-        case ACT_GELU_TANH:
-#pragma unroll
-          for (int e = 0; e < R; ++e) {
-            // 0.5 y (1 + tanh(sqrt(2 / pi) (y + 0.044715 y^3)))
-            const float y = acc[e], hy = 0.5f * y;
-            const float u =
-                y * fmaf(0.7978845608028654f * 0.044715f, y * y,
-                         0.7978845608028654f);
-            acc[e] = fmaf(hy, tanh_approx(u), hy);
-          }
-          break;
-        default:
-          break;
-      }
+      // ---- epilogue from the registers ----
+      epilogue_regs<CB>(acc, par, p, z0, z1, res != nullptr, rv, c_lane);
       // The stage's x rows are consumed: it takes the output tile, in
       // chunks of OW channels, 64 rows x OW * 2 bytes each, swizzled to that
       // width, and one thread stores it with TMA (rows past L are clipped),
@@ -553,6 +623,303 @@ conv_bf16_wgmma(Params p, Layout lay, const __grid_constant__ CUtensorMap xmap,
 }
 
 // ---------------------------------------------------------------------------
+// bf16, every other shape: conv_bf16_stream (see the note at the top)
+// ---------------------------------------------------------------------------
+
+constexpr int ST_TM = TL * CONSUMERS;  // output rows a tile: both warpgroups'
+
+// Shared-memory layout, byte offsets from a 1024-byte aligned base:
+// [stages x (x rows: ST_TM + taps - 1 rows x KW * 2 bytes, 1 KB aligned;
+//  weights: CB / WN column blocks, each taps * KW rows of WN output channels
+//  x 2 bytes, WN = min(CB, 64))]
+// [bias, alpha, gamma, beta: 4 x CB f32] [full, empty mbarriers: 2 x stages]
+struct StreamLayout {
+  int stages;
+  int nblk;          // tap blocks: block b has taps [b K / nblk, (b + 1) K / nblk)
+  int nkc;           // ceil(C / KW) input-channel chunks
+  int n_cb;          // ceil(C / CB) column blocks
+  int l_tiles;       // ceil(L / ST_TM)
+  int m_tiles;       // n_rows * l_tiles
+  uint32_t xbytes;   // a stage's x rows
+  uint32_t wblock;   // a stage's weights of one WN-column block
+  uint32_t stage;    // bytes of one stage
+  uint32_t off_par, off_bar, bytes;
+};
+
+// false if (cb, kw, taps, stages) cannot hold this shape
+bool make_stream_layout(int n_rows, int L, int C, int K, int cb, int kw,
+                        int taps, int stages, StreamLayout* lay) {
+  if (kw != 16 && kw != 32 && kw != 64) return false;
+  if (cb != 32 && cb != 64 && cb != 128) return false;
+  if (stages < 2 || stages > 4 || taps < 1 || taps > K) return false;
+  const int wn = cb < 64 ? cb : 64;
+  lay->stages = stages;
+  lay->nblk = (K + taps - 1) / taps;
+  lay->nkc = (C + kw - 1) / kw;
+  lay->n_cb = (C + cb - 1) / cb;
+  lay->l_tiles = (L + ST_TM - 1) / ST_TM;
+  lay->m_tiles = n_rows * lay->l_tiles;
+  lay->xbytes = align1k((uint32_t)(ST_TM + taps - 1) * kw * 2);
+  lay->wblock = (uint32_t)taps * kw * wn * 2;
+  lay->stage = lay->xbytes + (uint32_t)(cb / wn) * lay->wblock;
+  lay->off_par = stages * lay->stage;
+  lay->off_bar = lay->off_par + 16u * cb;
+  lay->bytes = lay->off_bar + 16u * stages + 1024u;  // + alignment slack
+  return lay->bytes <= (uint32_t)SMEM_LIMIT;
+}
+
+// 8 bf16 from global to shared memory (dst 16-byte aligned), zeros where
+// `live` is false or past the first `n` elements (src is then not read;
+// `safe` is any mapped address). VEC: src is 16-byte aligned and n >= 8
+// whenever live (C % 8 == 0), one cp.async; else 2-byte loads and one
+// 16-byte store.
+template <bool VEC>
+__device__ __forceinline__ void copy8(unsigned char* sbase, uint32_t base,
+                                      uint32_t dst, const __nv_bfloat16* src,
+                                      const void* safe, bool live, int n) {
+  if constexpr (VEC) {
+    hopper::cp_async16_zfill(dst, live ? (const void*)src : safe, live);
+  } else {
+    const unsigned short* s = reinterpret_cast<const unsigned short*>(src);
+    uint32_t v[4];
+#pragma unroll
+    for (int h = 0; h < 4; ++h) {
+      const uint32_t lo = live && 2 * h < n ? s[2 * h] : 0u;
+      const uint32_t hi = live && 2 * h + 1 < n ? s[2 * h + 1] : 0u;
+      v[h] = lo | (hi << 16);
+    }
+    *reinterpret_cast<uint4*>(sbase + (dst - base)) =
+        make_uint4(v[0], v[1], v[2], v[3]);
+  }
+}
+
+template <int CB, int KW, bool VEC>
+__global__ void __launch_bounds__(THREADS, 1)
+conv_bf16_stream(Params p, StreamLayout lay) {
+  using namespace hopper;
+  constexpr int R = CB / 2;                // accumulator registers per thread
+  constexpr uint32_t RB = KW * 2;          // x row bytes (its swizzle width)
+  constexpr int WN = CB < 64 ? CB : 64;    // output channels a weight block
+  constexpr uint32_t WRB = WN * 2;         // weight row bytes (swizzle width)
+  constexpr int KS = KW / 16;              // k16 steps a tap of a chunk
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* sbase = smem_raw + (base - raw);
+
+  const int C = p.C, K = p.K, L = p.L, S = lay.stages;
+  const int pad_l = (K - 1) / 2;
+  const int tid = threadIdx.x;
+  const int col0 = (blockIdx.x % lay.n_cb) * CB;
+  const int m_first = blockIdx.x / lay.n_cb;
+  const int m_step = gridDim.x / lay.n_cb;
+  const int n_local = m_first < lay.m_tiles
+                          ? (lay.m_tiles - m_first + m_step - 1) / m_step
+                          : 0;
+  // the CTA walks (tile, tap block, channel chunk) steps, chunks fastest
+  const int steps = lay.nblk * lay.nkc;
+  const long long total = (long long)n_local * steps;
+  const uint32_t bar_s = base + lay.off_bar;
+  float* par = reinterpret_cast<float*>(sbase + lay.off_par);
+
+  // par: bias (alpha * bias with DYT), alpha, gamma, beta of this column
+  // block, zero past C
+  for (int c = tid; c < CB; c += THREADS) {
+    const int col = col0 + c;
+    const bool in = col < C;
+    const float b = p.bias && in ? p.bias[col] : 0.f;
+    par[c] = b;
+    if (p.dyt) {
+      par[c] = in ? p.dyt[col] * b : 0.f;
+      par[CB + c] = in ? p.dyt[col] : 0.f;
+      par[2 * CB + c] = in ? p.dyt[C + col] : 0.f;
+      par[3 * CB + c] = in ? p.dyt[2 * C + col] : 0.f;
+    }
+  }
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(bar_s + 8 * s, 128);                 // full: every producer
+      mbar_init(bar_s + 8 * (S + s), CONSUMERS * 4); // empty: every consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (tid >= CONSUMERS * 128) {
+    // ---- producer warpgroup: its 128 threads copy each step's x rows and
+    // weights into the ring ----
+    setmaxnreg_dec<40>();
+    const int pt = tid - CONSUMERS * 128;
+    const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(p.x);
+    const __nv_bfloat16* w = static_cast<const __nv_bfloat16*>(p.w);
+    for (long long q = 0; q < total; ++q) {
+      const int s = (int)(q % S);
+      const int i = (int)(q / steps), st = (int)(q % steps);
+      const int tb = st / lay.nkc, kc = st % lay.nkc;
+      const int m = m_first + i * m_step;
+      const int n = m / lay.l_tiles, l0 = (m % lay.l_tiles) * ST_TM;
+      const int j0 = tb * K / lay.nblk, kb = (tb + 1) * K / lay.nblk - j0;
+      const int c0 = kc * KW;
+      mbar_wait(bar_s + 8 * (S + s), ((int)(q / S) & 1) ^ 1);
+      const uint32_t xs = base + s * lay.stage;
+      const uint32_t ws = xs + lay.xbytes;
+      // x: input row r of the step is position l0 - pad_l + j0 + r; rows
+      // outside [0, L), masked by in_mask or channels past C read as zero
+      for (int u = pt; u < (ST_TM + kb - 1) * (KW / 8); u += 128) {
+        const int r = u / (KW / 8), cu = u % (KW / 8);
+        const int pos = l0 - pad_l + j0 + r;
+        const int c = c0 + 8 * cu;
+        const long long row = (long long)n * L + pos;
+        const bool live = pos >= 0 && pos < L && c < C &&
+                          (!p.in_mask || p.in_mask[row]);
+        copy8<VEC>(sbase, base, xs + swizzle(r * RB + cu * 16, RB),
+                   x + row * C + c, x, live, C - c);
+      }
+      // weights: w[j0 + jj][c0 + r][col0 + 8 v ..] -> column block 8 v /
+      // WN, row jj * KW + r (MN-major: output channels contiguous)
+      for (int u = pt; u < kb * KW * (CB / 8); u += 128) {
+        const int v = u % (CB / 8), jr = u / (CB / 8);
+        const int ci = c0 + jr % KW, co = col0 + 8 * v;
+        const long long src = ((long long)(j0 + jr / KW) * C + ci) * C + co;
+        copy8<VEC>(sbase, base,
+                   ws + (8 * v / WN) * lay.wblock +
+                       swizzle(jr * WRB + (v % (WN / 8)) * 16, WRB),
+                   w + src, w, ci < C && co < C, C - co);
+      }
+      if constexpr (VEC) {
+        cp_async_mbar_arrive(bar_s + 8 * s);
+      } else {
+        fence_proxy_async();  // the generic writes before wgmma reads them
+        mbar_arrive(bar_s + 8 * s);
+      }
+    }
+    if constexpr (VEC) cp_async_wait<0>();
+  } else {
+    setmaxnreg_inc<232>();
+    // ---- consumer warpgroups: rows 64 wg .. of every tile ----
+    const int wg = tid / 128;
+    const int warp = (tid % 128) / 32, lane = tid % 32;
+    const int r0 = TL * wg + 16 * warp + lane / 4;  // fragment rows r0, r0 + 8
+    const int lrow = TL * wg + 16 * warp + (lane & 15);  // ldmatrix row
+    const int lcol = (lane >> 4) * 8;          // ldmatrix column of this lane
+    const int c_lane = 2 * (lane % 4);         // accumulator column in 8
+    const __nv_bfloat16* res = static_cast<const __nv_bfloat16*>(p.residual);
+    __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out);
+    float acc[R] = {};
+    uint32_t rv[CB / 4];
+    bool v0 = false, v1 = false, z0 = false, z1 = false;
+    long long row0 = 0;
+    for (long long q = 0; q < total; ++q) {
+      const int s = (int)(q % S);
+      const int i = (int)(q / steps), st = (int)(q % steps);
+      const int tb = st / lay.nkc;
+      const int kb = (tb + 1) * K / lay.nblk - tb * K / lay.nblk;
+      if (st == 0) {
+        // the tile's epilogue inputs, loaded now so that they arrive
+        // during the products: the residual pairs ([2q]: row r0, [2q + 1]:
+        // row r0 + 8) and the out_mask bytes
+        const int m = m_first + i * m_step;
+        const int n = m / lay.l_tiles, l = (m % lay.l_tiles) * ST_TM + r0;
+        v0 = l < L;
+        v1 = l + 8 < L;
+        row0 = (long long)n * L + l;
+        if (res) {
+#pragma unroll
+          for (int qq = 0; qq < CB / 8; ++qq) {
+            const int col = col0 + 8 * qq + c_lane;
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const bool live = (h ? v1 : v0) && col < C;
+              const __nv_bfloat16* r = res + (row0 + 8 * h) * C + col;
+              if constexpr (VEC) {
+                rv[2 * qq + h] =
+                    live ? *reinterpret_cast<const uint32_t*>(r) : 0u;
+              } else {
+                const unsigned short* e =
+                    reinterpret_cast<const unsigned short*>(r);
+                rv[2 * qq + h] =
+                    (live ? (uint32_t)e[0] : 0u) |
+                    (live && col + 1 < C ? (uint32_t)e[1] << 16 : 0u);
+              }
+            }
+          }
+        }
+        z0 = p.out_mask && v0 && !p.out_mask[row0];
+        z1 = p.out_mask && v1 && !p.out_mask[row0 + 8];
+      }
+      mbar_wait(bar_s + 8 * s, (int)(q / S) & 1);
+      fence_proxy_async();  // the landed stage before wgmma reads it
+      const uint32_t xs = base + s * lay.stage;
+      // B of tap jj, k16 step t: rows jj KW + 16 t of the weights
+      const uint64_t wdesc = smem_desc_mn(xs + lay.xbytes, WRB, lay.wblock);
+
+      // One chunk: tap jj over the stage's KW channels, KS k16 steps. A:
+      // the x rows shifted by jj, by ldmatrix at swizzled addresses.
+      auto load_chunk = [&](uint32_t(&a)[KS][4], int jj) {
+        const uint32_t row = lrow + jj;
+        const uint32_t rbase = xs + row * RB;
+        const uint32_t sw = (((row * RB) >> 7) & (RB / 16 - 1)) << 4;
+#pragma unroll
+        for (int t = 0; t < KS; ++t)
+          ldmatrix_x4(a[t], rbase + (((t * 16 + lcol) * 2) ^ sw));
+      };
+      auto issue_chunk = [&](uint32_t(&a)[KS][4], int jj, bool first) {
+        wgmma_fence();
+#pragma unroll
+        for (int t = 0; t < KS; ++t)
+          wgmma_bf16_rs_mn(acc, a[t],
+                           wdesc + (((uint32_t)(jj * KW + 16 * t) * WRB) >> 4),
+                           !(first && t == 0));
+        wgmma_commit();
+      };
+      // two register sets: one tap's wgmmas run while the next tap's A
+      // fragments are loaded
+      uint32_t aA[KS][4], aB[KS][4];
+      load_chunk(aA, 0);
+      for (int jj = 0;; jj += 2) {
+        fence_regs(acc);
+        issue_chunk(aA, jj, st == 0 && jj == 0);
+        if (jj + 1 >= kb) break;
+        wgmma_wait<1>();  // tap jj - 1, the last reader of set B, is done
+        load_chunk(aB, jj + 1);
+        issue_chunk(aB, jj + 1, false);
+        if (jj + 2 >= kb) break;
+        wgmma_wait<1>();  // tap jj, the last reader of set A, is done
+        load_chunk(aA, jj + 2);
+      }
+      wgmma_wait<0>();
+      fence_regs(acc);
+      // every read of the stage is done: hand it back to the producer
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar_s + 8 * (S + s));
+      if (st != steps - 1) continue;
+
+      // ---- the tile's epilogue from the registers, stored from them:
+      // columns col0 + 8 q + c_lane (+1) of rows r0 and r0 + 8, those past
+      // L or C not at all ----
+      epilogue_regs<CB>(acc, par, p, z0, z1, res != nullptr, rv, c_lane);
+#pragma unroll
+      for (int qq = 0; qq < CB / 8; ++qq) {
+        const int col = col0 + 8 * qq + c_lane;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (!(h ? v1 : v0) || col >= C) continue;
+          __nv_bfloat16* o = out + (row0 + 8 * h) * C + col;
+          const float a0 = acc[4 * qq + 2 * h], a1 = acc[4 * qq + 2 * h + 1];
+          if constexpr (VEC) {
+            *reinterpret_cast<__nv_bfloat162*>(o) =
+                __floats2bfloat162_rn(a0, a1);
+          } else {
+            o[0] = __float2bfloat16_rn(a0);
+            if (col + 1 < C) o[1] = __float2bfloat16_rn(a1);
+          }
+        }
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // f32: conv_f32_ring, the persistent FMA kernel (see the note at the top)
 // ---------------------------------------------------------------------------
 
@@ -569,10 +936,14 @@ constexpr int R_THREADS = 32 * R_WARPS;
 
 // A unit's k taps are cut into nblk tap blocks, block b the taps [b K /
 // nblk, (b + 1) K / nblk): at most R_KMAX each where the weights are
-// resident, at most `taps` where they are streamed.
+// resident, at most `taps` where they are streamed. RAG (route
+// f32_ring_pad): the channels are counted up to Cp, C rounded up to R_CK,
+// and the weights may be streamed in groups of gk chunks (gk R_CK
+// channels).
 // Shared-memory layout, byte offsets from a 16-byte aligned base:
-// [weights: K * C rows of CB f32 (resident), or two buffers of taps * C
-// rows of CB f32 (streamed)] [bias, alpha, gamma, beta: 4 x CB f32]
+// [weights: K * Cp rows of CB f32 (resident), or two buffers of taps * Cp
+// (or taps * gk R_CK) rows of CB f32 (streamed)] [bias, alpha, gamma, beta:
+// 4 x CB f32]
 // [x rings: R_WARPS warps x stages x (R_WM + the largest block - 1) rows x
 // R_CK f32]
 struct RingLayout {
@@ -581,22 +952,28 @@ struct RingLayout {
   int stream;   // 1: the weights are streamed a tap block at a time
   int nblk;     // tap blocks a unit
   int rows;     // R_WM + the largest block - 1: a warp's stage
-  int n_cb;     // C / CB column blocks
-  int nkc;      // C / R_CK channel chunks a tap block
+  int n_cb;     // Cp / CB column blocks
+  int nkc;      // Cp / R_CK channel chunks a tap block
+  int gk;       // channel chunks a weight buffer holds: nkc but in groups
+  int ngrp;     // weight groups a tap block: ceil(nkc / gk)
   int l_units;  // ceil(L / R_WM)
   long long units;  // n_rows * l_units warp units
   uint32_t stage, wbuf, off_par, off_x, bytes;
 };
 
-// false if (cb, taps, stages) cannot hold this shape; taps < K streams the
-// weights in blocks of at most `taps` (the largest block: two buffers, two
-// ring stages, so a block's weights land with the stage before its first)
+// false if (cb, taps, stages, kw) cannot hold this shape; taps < K streams
+// the weights in blocks of at most `taps` (the largest block: two buffers,
+// two ring stages, so a block's weights land with the stage before its
+// first), kw > 0 in groups of kw channels (rag only); rag: C need not be a
+// multiple of R_CK or cb
 bool make_ring_layout(int n_rows, int L, int C, int K, int cb, int taps,
-                      int stages, RingLayout* lay) {
+                      int stages, int kw, bool rag, RingLayout* lay) {
   if (K < 1 || taps < 1 || taps > K) return false;
-  if ((cb != 16 && cb != 32 && cb != 64) || C % cb || C % R_CK) return false;
+  const int cp = (C + R_CK - 1) / R_CK * R_CK;
+  if ((cb != 16 && cb != 32 && cb != 64) || cp % cb) return false;
+  if (rag ? kw < 0 || kw % R_CK || kw >= cp : C % R_CK || kw) return false;
   if (stages < 2 || stages > 4) return false;
-  const bool stream = taps < K;
+  const bool stream = taps < K || kw > 0;
   lay->nblk = (K + (stream ? taps : R_KMAX) - 1) / (stream ? taps : R_KMAX);
   const int block = (K + lay->nblk - 1) / lay->nblk;
   if (stream && (taps > R_KMAX || block != taps || stages != 2)) return false;
@@ -604,12 +981,14 @@ bool make_ring_layout(int n_rows, int L, int C, int K, int cb, int taps,
   lay->taps = taps;
   lay->stream = stream;
   lay->rows = R_WM + block - 1;
-  lay->n_cb = C / cb;
-  lay->nkc = C / R_CK;
+  lay->n_cb = cp / cb;
+  lay->nkc = cp / R_CK;
+  lay->gk = kw ? kw / R_CK : lay->nkc;
+  lay->ngrp = (lay->nkc + lay->gk - 1) / lay->gk;
   lay->l_units = (L + R_WM - 1) / R_WM;
   lay->units = (long long)n_rows * lay->l_units;
   lay->stage = (uint32_t)lay->rows * R_CK * 4;
-  lay->wbuf = (uint32_t)taps * C * cb * 4;
+  lay->wbuf = (uint32_t)taps * (kw ? kw : cp) * cb * 4;
   lay->off_par = (stream ? 2u : 1u) * lay->wbuf;
   lay->off_x = lay->off_par + 16u * cb;
   lay->bytes = lay->off_x + R_WARPS * stages * lay->stage;
@@ -680,8 +1059,10 @@ __device__ __forceinline__ void ring_products(float (&acc)[R_RT][CT],
 }
 
 // TAPS false: one resident tap block (k <= 9), the tap-block bookkeeping
-// compiled out
-template <int CB, bool TAPS>
+// compiled out. RAG (route f32_ring_pad): C % 16 != 0 or weights streamed
+// in channel groups; every copy, load and store past C is guarded (zero
+// filled or skipped) and C is read at any alignment.
+template <int CB, bool TAPS, bool RAG>
 __global__ void __launch_bounds__(R_THREADS, 1)
 conv_f32_ring(Params p, RingLayout lay) {
   constexpr int CT = CB / 8;  // columns a thread: 8, 4 or 2
@@ -720,7 +1101,27 @@ conv_f32_ring(Params p, RingLayout lay) {
   // epilogue's parameters of this column block
   const float* w = static_cast<const float*>(p.w);
   constexpr int V = CB / 4;
-  {
+  // RAG: the weights' rows (per tap) and the channels of a streamed buffer
+  const int cp = nkc * R_CK;
+  const int wrows = RAG && stream ? lay.gk * R_CK : cp;
+  if constexpr (RAG) {
+    // resident weights as rows j * Cp + ci, zero past C either way
+    for (int i = tid; i < (stream ? 0 : K * cp * CB); i += R_THREADS) {
+      const int col = col0 + i % CB, jc = i / CB, ci = jc % cp;
+      ws[i] = ci < C && col < C
+                  ? w[((long long)(jc / cp) * C + ci) * C + col]
+                  : 0.f;
+    }
+    for (int c = tid; c < CB; c += R_THREADS) {
+      const bool in = col0 + c < C;
+      par[c] = p.bias && in ? p.bias[col0 + c] : 0.f;
+      if (p.dyt) {
+        par[CB + c] = in ? p.dyt[col0 + c] : 0.f;
+        par[2 * CB + c] = in ? p.dyt[C + col0 + c] : 0.f;
+        par[3 * CB + c] = in ? p.dyt[2 * C + col0 + c] : 0.f;
+      }
+    }
+  } else {
     for (int i = tid; i < (stream ? 0 : K * C * V); i += R_THREADS) {
       const int v = i % V, jc = i / V;
       reinterpret_cast<float4*>(ws)[i] = *reinterpret_cast<const float4*>(
@@ -778,7 +1179,7 @@ conv_f32_ring(Params p, RingLayout lay) {
               pvalid |= 1u << mm;
           }
         }
-        if (stream) {
+        if (!RAG && stream) {
           const int kb = (tb + 1) * K / nblk - j0;
           const uint32_t dst =
               w_s + (uint32_t)((i * nblk + tb) & 1) * lay.wbuf;
@@ -789,13 +1190,54 @@ conv_f32_ring(Params p, RingLayout lay) {
                 true);
         }
       }
+      if (RAG && stream && kc % lay.gk == 0) {
+        // group g of block tb: taps j0 .., channels g wrows .., into buffer
+        // ((i nblk + tb) ngrp + g) % 2; 4-byte copies where C % 4 != 0
+        const int g = kc / lay.gk;
+        const int j0 = tb * K / nblk, kb = (tb + 1) * K / nblk - j0;
+        const uint32_t dst =
+            w_s + (uint32_t)(((i * nblk + tb) * lay.ngrp + g) & 1) * lay.wbuf;
+        for (int v = tid; v < kb * wrows * V; v += R_THREADS) {
+          const int ci = g * wrows + (v / V) % wrows, col = col0 + 4 * (v % V);
+          const float* src =
+              w + ((long long)(j0 + v / (V * wrows)) * C + ci) * C + col;
+          if (C % 4 == 0) {
+            const bool ok = ci < C && col < C;
+            hopper::cp_async16_zfill(dst + (uint32_t)v * 16u, ok ? src : w,
+                                     ok);
+          } else {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const bool ok = ci < C && col + e < C;
+              hopper::cp_async4_zfill(dst + (uint32_t)v * 16u + 4 * e,
+                                      ok ? src + e : w, ok);
+            }
+          }
+        }
+      }
       const uint32_t st = x_s + (uint32_t)(q % S) * lay.stage;
       for (int mm = 0; row_a + 8 * mm < lay.rows; ++mm) {
         const int row = row_a + 8 * mm;
         const bool ok = (pvalid >> mm) & 1u;
-        const float* src =
-            ok ? x + (pbase + row) * C + kc * R_CK + 4 * cu : x;
-        hopper::cp_async16_zfill(st + ring_off(row, cu), src, ok);
+        if constexpr (RAG) {
+          // channels past C zero filled; 4-byte copies where C % 4 != 0
+          const int c = kc * R_CK + 4 * cu;
+          const float* src = x + (pbase + row) * C + c;
+          if (C % 4 == 0) {
+            hopper::cp_async16_zfill(st + ring_off(row, cu),
+                                     ok && c < C ? src : x, ok && c < C);
+          } else {
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              hopper::cp_async4_zfill(st + ring_off(row, cu) + 4 * e,
+                                      ok && c + e < C ? src + e : x,
+                                      ok && c + e < C);
+          }
+        } else {
+          const float* src =
+              ok ? x + (pbase + row) * C + kc * R_CK + 4 * cu : x;
+          hopper::cp_async16_zfill(st + ring_off(row, cu), src, ok);
+        }
       }
     }
     hopper::cp_async_commit();
@@ -832,12 +1274,19 @@ conv_f32_ring(Params p, RingLayout lay) {
         ++ni;
       }
     }
-    if (TAPS && kc == 0) {
+    // RAG: a streamed buffer holds one group of gk chunks
+    const bool wstart = RAG && stream ? kc % lay.gk == 0 : kc == 0;
+    if (TAPS && wstart) {
       // the block's taps: from the resident weights, or its buffer
       j0 = tb * K / nblk;
       kb = (tb + 1) * K / nblk - j0;
-      wb = stream ? ws + (size_t)((i * nblk + tb) & 1) * (lay.wbuf / 4)
-                  : ws + (size_t)j0 * C * CB;
+      if constexpr (RAG)
+        wb = stream ? ws + (size_t)(((i * nblk + tb) * lay.ngrp +
+                                     kc / lay.gk) & 1) * (lay.wbuf / 4)
+                    : ws + (size_t)j0 * cp * CB;
+      else
+        wb = stream ? ws + (size_t)((i * nblk + tb) & 1) * (lay.wbuf / 4)
+                    : ws + (size_t)j0 * C * CB;
     }
     if (S == 2)
       hopper::cp_async_wait<0>();
@@ -845,7 +1294,7 @@ conv_f32_ring(Params p, RingLayout lay) {
       hopper::cp_async_wait<1>();
     else
       hopper::cp_async_wait<2>();
-    if (stream && kc == 0)
+    if (stream && wstart)
       __syncthreads();
     else
       __syncwarp();
@@ -862,21 +1311,25 @@ conv_f32_ring(Params p, RingLayout lay) {
         if (l0 + rb + r < L)
 #pragma unroll
           for (int g = 0; g < NG; ++g)
-            hopper::prefetch_l2(res + (n * L + l0 + rb + r) * C + col0 +
-                                g * 8 * VW);
+            if (!RAG || col0 + g * 8 * VW < C)
+              hopper::prefetch_l2(res + (n * L + l0 + rb + r) * C + col0 +
+                                  g * 8 * VW);
     }
     const unsigned char* xs = xring + (size_t)(q % S) * lay.stage;
-    const float* wc = wb + kc * R_CK * CB + tc * VW;
+    // the weights of the stage's chunk; tap j is CW * CB floats further
+    const int CW = RAG ? wrows : C;
+    const float* wc =
+        wb + (RAG ? kc % (wrows / R_CK) : kc) * R_CK * CB + tc * VW;
     switch (kb) {
-      case 1: ring_products<1, CT>(acc, xs, wc, C * CB, CB, tr); break;
-      case 2: ring_products<2, CT>(acc, xs, wc, C * CB, CB, tr); break;
-      case 3: ring_products<3, CT>(acc, xs, wc, C * CB, CB, tr); break;
-      case 4: ring_products<4, CT>(acc, xs, wc, C * CB, CB, tr); break;
-      case 5: ring_products<5, CT>(acc, xs, wc, C * CB, CB, tr); break;
-      case 6: ring_products<6, CT>(acc, xs, wc, C * CB, CB, tr); break;
-      case 7: ring_products<7, CT>(acc, xs, wc, C * CB, CB, tr); break;
-      case 8: ring_products<8, CT>(acc, xs, wc, C * CB, CB, tr); break;
-      default: ring_products<9, CT>(acc, xs, wc, C * CB, CB, tr); break;
+      case 1: ring_products<1, CT>(acc, xs, wc, CW * CB, CB, tr); break;
+      case 2: ring_products<2, CT>(acc, xs, wc, CW * CB, CB, tr); break;
+      case 3: ring_products<3, CT>(acc, xs, wc, CW * CB, CB, tr); break;
+      case 4: ring_products<4, CT>(acc, xs, wc, CW * CB, CB, tr); break;
+      case 5: ring_products<5, CT>(acc, xs, wc, CW * CB, CB, tr); break;
+      case 6: ring_products<6, CT>(acc, xs, wc, CW * CB, CB, tr); break;
+      case 7: ring_products<7, CT>(acc, xs, wc, CW * CB, CB, tr); break;
+      case 8: ring_products<8, CT>(acc, xs, wc, CW * CB, CB, tr); break;
+      default: ring_products<9, CT>(acc, xs, wc, CW * CB, CB, tr); break;
     }
     if (!last) continue;
 
@@ -894,7 +1347,14 @@ conv_f32_ring(Params p, RingLayout lay) {
       const int l = l0 + rb + r;
       const long long row = n * L + (l < L ? l : l0);
       keep[r] = !p.out_mask || p.out_mask[row];
-      if (res) {
+      if (RAG && res) {
+        // column by column, none past C
+#pragma unroll
+        for (int e = 0; e < CT; ++e) {
+          const int col = col0 + (e / VW) * 8 * VW + tc * VW + e % VW;
+          rv[r][e] = col < C ? rbase[row * C + col] : 0.f;
+        }
+      } else if (res) {
 #pragma unroll
         for (int g = 0; g < NG; ++g) {
           const float* src = rbase + row * C + col0 + g * 8 * VW + tc * VW;
@@ -978,7 +1438,14 @@ conv_f32_ring(Params p, RingLayout lay) {
 #pragma unroll
     for (int r = 0; r < R_RT; ++r) {
       const int l = l0 + rb + r;
-      if (l < L) {
+      if (RAG && l < L) {
+        // column by column, none past C
+#pragma unroll
+        for (int e = 0; e < CT; ++e) {
+          const int col = col0 + (e / VW) * 8 * VW + tc * VW + e % VW;
+          if (col < C) out[(n * L + l) * C + col] = acc[r][e];
+        }
+      } else if (l < L) {
         float* dst = out + (n * L + l) * C + col0 + tc * VW;
 #pragma unroll
         for (int g = 0; g < NG; ++g) {
@@ -998,12 +1465,12 @@ conv_f32_ring(Params p, RingLayout lay) {
   hopper::cp_async_wait<0>();
 }
 
-template <int CB, bool TAPS>
+template <int CB, bool TAPS, bool RAG>
 cudaError_t launch_ring(const Params& p, const RingLayout& lay, int sms,
                         cudaStream_t stream) {
   cudaError_t e = cudaFuncSetAttribute(
-      conv_f32_ring<CB, TAPS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)lay.bytes);
+      conv_f32_ring<CB, TAPS, RAG>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)lay.bytes);
   if (e != cudaSuccess) return e;
   // persistent: as many CTAs per column block as fit one per SM, no more
   // than its warps have units
@@ -1011,17 +1478,17 @@ cudaError_t launch_ring(const Params& p, const RingLayout& lay, int sms,
   const long long need = (lay.units + R_WARPS - 1) / R_WARPS;
   if (per_cb > need) per_cb = need;
   if (per_cb < 1) per_cb = 1;
-  conv_f32_ring<CB, TAPS><<<(unsigned)(per_cb * lay.n_cb), R_THREADS,
-                            lay.bytes, stream>>>(p, lay);
+  conv_f32_ring<CB, TAPS, RAG><<<(unsigned)(per_cb * lay.n_cb), R_THREADS,
+                                 lay.bytes, stream>>>(p, lay);
   return cudaGetLastError();
 }
 
-template <int CB>
+template <int CB, bool RAG>
 cudaError_t launch_f32_ring(const Params& p, const RingLayout& lay, int sms,
                             cudaStream_t stream) {
   return lay.nblk > 1 || lay.stream
-             ? launch_ring<CB, true>(p, lay, sms, stream)
-             : launch_ring<CB, false>(p, lay, sms, stream);
+             ? launch_ring<CB, true, RAG>(p, lay, sms, stream)
+             : launch_ring<CB, false, RAG>(p, lay, sms, stream);
 }
 
 template <int CB, int KW>
@@ -1049,25 +1516,44 @@ cudaError_t launch_bf16(const Params& p, const Layout& lay, int n_rows,
   return cudaGetLastError();
 }
 
+template <int CB, int KW, bool VEC>
+cudaError_t launch_stream(const Params& p, const StreamLayout& lay, int sms,
+                          cudaStream_t stream) {
+  cudaError_t e = cudaFuncSetAttribute(
+      conv_bf16_stream<CB, KW, VEC>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)lay.bytes);
+  if (e != cudaSuccess) return e;
+  // persistent: as many CTAs per column block as fit one per SM (at least
+  // one), no more than there are tiles
+  int per_cb = sms / lay.n_cb;
+  if (per_cb < 1) per_cb = 1;
+  if (per_cb > lay.m_tiles) per_cb = lay.m_tiles;
+  conv_bf16_stream<CB, KW, VEC>
+      <<<per_cb * lay.n_cb, THREADS, lay.bytes, stream>>>(p, lay);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t (0 = success).
-// bf16 takes the launch plan of ops/fused_conv.py::conv_plan: cb output
-// channels per CTA (16, 32, 64 or 128), kw channels per x / weight chunk,
-// `stages` ring stages and smem_bytes of shared memory, which must equal the
-// layout this file computes; sms is the card's SM count. f32 takes C % 16 ==
-// 0 with C <= 128 or C % 128 == 0 and the plan of f32_plan: cb 64, 32 or
-// 16, kw the weight taps a buffer holds (K: resident; fewer: streamed in
-// tap blocks of at most kw, stages 2), stages 2-4 and smem_bytes the
-// layout's.
+// Every C >= 1 and K >= 1, with the launch plan of
+// ops/fused_conv.py::conv_plan; smem_bytes must equal the layout this file
+// computes for it, and sms is the card's SM count. bf16, taps = 0 (route
+// wgmma): cb output channels per CTA (16, 32, 64 or 128), kw channels per x
+// / weight chunk, `stages` ring stages. bf16, taps > 0 (route
+// wgmma_stream): cb 128, 64 or 32, kw 64, 32 or 16, taps a tap block,
+// stages 2-4. f32 (routes f32_ring, f32_ring_pad: C % 16 != 0 or kw > 0):
+// cb 64, 32 or 16, taps the weight taps a buffer holds (K: resident; fewer:
+// streamed in tap blocks of at most taps, stages 2), kw 0 or the channels a
+// streamed weight group holds, stages 2-4.
 extern "C" int jt_fused_conv_block(int dtype, const void* x, const void* w,
                                    const void* bias, const void* dyt,
                                    const void* in_mask, const void* out_mask,
                                    const void* residual, void* out, int n_rows,
                                    int L, int C, int K, int act, int cb, int kw,
-                                   int stages, int smem_bytes, int sms,
-                                   void* stream) {
-  if (n_rows <= 0 || L <= 0 || K <= 0 || C <= 0 || C % 16 != 0)
+                                   int taps, int stages, int smem_bytes,
+                                   int sms, void* stream) {
+  if (n_rows <= 0 || L <= 0 || K <= 0 || C <= 0 || sms <= 0)
     return (int)cudaErrorInvalidValue;
   Params p;
   p.x = x;
@@ -1084,21 +1570,48 @@ extern "C" int jt_fused_conv_block(int dtype, const void* x, const void* w,
   p.act = act;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    if (C > 128 && C % 128 != 0) return (int)cudaErrorInvalidValue;
+    const bool rag = C % R_CK != 0 || kw > 0;
     RingLayout lay;
-    if (!make_ring_layout(n_rows, L, C, K, cb, kw, stages, &lay) ||
-        lay.bytes != (uint32_t)smem_bytes || sms <= 0)
+    if (!make_ring_layout(n_rows, L, C, K, cb, taps, stages, kw, rag, &lay) ||
+        lay.bytes != (uint32_t)smem_bytes)
       return (int)cudaErrorInvalidValue;
-    switch (cb) {
-      case 64: return (int)launch_f32_ring<64>(p, lay, sms, s);
-      case 32: return (int)launch_f32_ring<32>(p, lay, sms, s);
-      default: return (int)launch_f32_ring<16>(p, lay, sms, s);
+    switch (cb * 2 + rag) {
+      case 128: return (int)launch_f32_ring<64, false>(p, lay, sms, s);
+      case 64: return (int)launch_f32_ring<32, false>(p, lay, sms, s);
+      case 32: return (int)launch_f32_ring<16, false>(p, lay, sms, s);
+      case 129: return (int)launch_f32_ring<64, true>(p, lay, sms, s);
+      case 65: return (int)launch_f32_ring<32, true>(p, lay, sms, s);
+      default: return (int)launch_f32_ring<16, true>(p, lay, sms, s);
     }
   }
   if (dtype != 1) return (int)cudaErrorInvalidValue;
+  if (taps > 0) {
+    StreamLayout lay;
+    if (!make_stream_layout(n_rows, L, C, K, cb, kw, taps, stages, &lay) ||
+        lay.bytes != (uint32_t)smem_bytes)
+      return (int)cudaErrorInvalidValue;
+    // the (cb, kw) pairs of conv_plan's stream_plan (STREAM_SHAPES), each
+    // with 16-byte copies (C % 8 == 0) or 2-byte loads
+    const bool vec = C % 8 == 0;
+    switch (kw * 1000 + cb) {
+      case 64128:
+        return (int)(vec ? launch_stream<128, 64, true>(p, lay, sms, s)
+                         : launch_stream<128, 64, false>(p, lay, sms, s));
+      case 64064:
+        return (int)(vec ? launch_stream<64, 64, true>(p, lay, sms, s)
+                         : launch_stream<64, 64, false>(p, lay, sms, s));
+      case 32032:
+        return (int)(vec ? launch_stream<32, 32, true>(p, lay, sms, s)
+                         : launch_stream<32, 32, false>(p, lay, sms, s));
+      case 16032:
+        return (int)(vec ? launch_stream<32, 16, true>(p, lay, sms, s)
+                         : launch_stream<32, 16, false>(p, lay, sms, s));
+      default: return (int)cudaErrorInvalidValue;
+    }
+  }
   Layout lay;
   if (!make_layout(n_rows, L, C, K, cb, kw, stages, &lay) ||
-      lay.bytes != (uint32_t)smem_bytes || sms <= 0)
+      lay.bytes != (uint32_t)smem_bytes)
     return (int)cudaErrorInvalidValue;
   // KW = 64 when C % 64 == 0, else 32 when C % 32 == 0 (then CB <= 32),
   // else 16 (then CB = 16)

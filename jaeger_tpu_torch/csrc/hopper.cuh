@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: mbarriers,
 // TMA tensor maps and loads, 1-D bulk copies, wgmma descriptors (K-major and
 // MN-major) and instructions (bf16 and s8, A from registers), ldmatrix,
-// cp.async.
+// cp.async (with mbarrier completion).
 //
 // Header only; each helper is a thin wrapper around one PTX instruction
 // (or, on the host, one driver call), so a kernel reads as the sequence of
@@ -166,6 +166,24 @@ __device__ __forceinline__ void cp_async16_zfill(uint32_t dst, const void* src,
                                                  bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
                "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// 4 bytes from global to shared memory (both 4-byte aligned), or 4 zero
+// bytes when `valid` is false (src is then not read); tracked by this
+// thread's cp.async groups
+__device__ __forceinline__ void cp_async4_zfill(uint32_t dst, const void* src,
+                                                bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// one arrival on `bar`, made once every cp.async this thread issued
+// before it has landed (counted among the barrier's expected arrivals)
+__device__ __forceinline__ void cp_async_mbar_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::
+                   "r"(bar)
                : "memory");
 }
 

@@ -145,7 +145,9 @@ def _param(*shape) -> nn.Parameter:
 def _kernel_takes(c: int, k: int, dtype: torch.dtype, train: bool) -> bool:
     """Whether the fused kernel's plans take C channels and k taps in
     ``dtype`` (and, in training, its backward's): asked before any
-    launch, never by catching a launch's error."""
+    launch, never by catching a launch's error. ``conv_plan`` takes every
+    C >= 1 and k >= 1, so only ``check_wgrad_shape`` (training) refuses:
+    C % 16, even k, and in bf16 k not 3 or 5 or C % 64."""
     try:
         conv_plan(c, k, dtype)
         if train:
@@ -205,11 +207,14 @@ class MaskedConv1D(nn.Module):
 
     def fused(self, dtype: torch.dtype, train: bool) -> bool:
         """Whether a residual block runs this conv on the fused kernel: it
-        has the kernel's form and the kernel's launch plan takes its shape
-        (``conv_plan``; in training also ``check_wgrad_shape``, which
-        takes odd k only). The answer is the same on every device, so the
-        CPU runs the route the card runs; a refused conv takes the cuDNN
-        conv and the torch epilogue, as dilated convs do."""
+        has the kernel's form and the kernel's launch plans take its shape.
+        ``conv_plan`` takes every shape, so in inference every fusable
+        conv is fused; in training ``check_wgrad_shape`` must take it too
+        (odd k, C % 16 == 0; in bf16 k 3 or 5 and C % 64 == 0). The
+        answer is the same on every device, so the CPU runs the route the
+        card runs; a refused conv takes the cuDNN conv and the torch
+        epilogue, as dilated, strided and VALID convs and C_in != C_out
+        do."""
         return self.fusable and _kernel_takes(self.filters,
                                               self.kernel_size, dtype, train)
 

@@ -16,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -24,9 +25,15 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "jaeger_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
+#: nvcc flags that change only what it prints, not the library
+PRINT_FLAGS = (("-Xptxas", "-v"),)
+
 #: loaded libraries by :func:`_key` (the source name, then any ``-D``
 #: flags), the seconds each build took and what nvcc printed
 _LIBS: dict[str, ctypes.CDLL] = {}
+#: one lock per key, so threads that load one library build it once
+_LOCKS: dict[str, threading.Lock] = {}
+_LOCKS_GUARD = threading.Lock()
 build_seconds: dict[str, float] = {}
 build_logs: dict[str, str] = {}
 
@@ -43,13 +50,26 @@ def _nvcc() -> str:
     return found
 
 
+def _code_flags(flags: tuple[str, ...]) -> tuple[str, ...]:
+    """``flags`` without the pairs of :data:`PRINT_FLAGS`."""
+    out, i = [], 0
+    while i < len(flags):
+        if tuple(flags[i:i + 2]) in PRINT_FLAGS:
+            i += 2
+            continue
+        out.append(flags[i])
+        i += 1
+    return tuple(out)
+
+
 def _digest(name: str, flags: tuple[str, ...]) -> str:
     """Hash of ``csrc/<name>.cu``, every ``csrc/*.cuh`` it may include, and
-    the nvcc flags."""
+    the nvcc flags that change the library (a build with ``-Xptxas -v``
+    writes the file every other process then loads)."""
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(b"\0" + header.name.encode() + b"\0" + header.read_bytes())
-    h.update("\0".join(flags).encode())
+    h.update("\0".join(_code_flags(flags)).encode())
     return h.hexdigest()[:16]
 
 
@@ -67,11 +87,17 @@ def load(name: str, extra_flags: tuple[str, ...] = ()) -> ctypes.CDLL:
     ``("-Xptxas", "-v")`` to print register and shared-memory use); the
     compiler's output is printed when it is non-empty. The first load of a
     name and ``-D`` flags is the library every later load of them returns
-    (:func:`_key`).
+    (:func:`_key`); threads that load it at once wait for one build.
     """
     key = _key(name, tuple(extra_flags))
-    if key in _LIBS:
-        return _LIBS[key]
+    with _LOCKS_GUARD:
+        lock = _LOCKS.setdefault(key, threading.Lock())
+    with lock:
+        return _LIBS.get(key) or _build(name, key, tuple(extra_flags))
+
+
+def _build(name: str, key: str, extra_flags: tuple[str, ...]) -> ctypes.CDLL:
+    """Build and load ``csrc/<name>.cu`` under ``key`` (see :func:`load`)."""
     src = CSRC / f"{name}.cu"
     flags = NVCC_FLAGS + tuple(extra_flags)
     lib_path = BUILD_DIR / f"{name}-{_digest(name, flags)}.so"

@@ -34,14 +34,26 @@ loads x tiles with their halo by TMA into an mbarrier ring fed by one
 producer warp, runs the k shifted products as ``wgmma`` (A from
 registers, B from the resident weights) and applies the whole epilogue
 from the accumulator registers while a second warpgroup runs the next
-tile's products. :func:`conv_plan` sizes it. f32 inputs use plain FMAs,
+tile's products. :func:`conv_plan` sizes it. Every other bf16 shape (C %
+16 != 0, k > 56, weights too large to stay resident: the Pallas kernel
+takes any C and k) takes route ``wgmma_stream``: a persistent kernel
+whose producer warpgroup copies each 128-row tile's x rows and one (tap
+block, channel chunk) of the weights per step into a ring (16-byte
+``cp.async`` where C % 8 == 0, else 2-byte loads; zero past C, outside
+[0, L) and where in_mask is false), and whose two consumer warpgroups
+keep their 64 x CB accumulators in registers across the steps
+(``wgmma`` with B MN-major), the epilogue stored from the registers with
+every column past C skipped. f32 inputs use plain FMAs,
 never TF32 (1.0e12 FLOPs at the flagship shape: 15.0 ms at the card's
 67 TFLOP/s f32 rate): route ``f32_ring``, a persistent kernel whose CTAs
 keep a column block of the weights resident (or, where its k taps do not
 fit, stream it a tap block at a time) and whose warps each walk 32-row
 units, tap block by tap block of at most 9 taps, through a ``cp.async``
 ring of their own, with 8-row x CB / 8-column outer products in
-registers and the epilogue from them. :func:`f32_plan` sizes it.
+registers and the epilogue from them. :func:`f32_plan` sizes it; C % 16
+!= 0 takes the same kernel with the channels zero-filled up to a
+multiple of 16 (route ``f32_ring_pad``), as do the widths whose weights
+stream in channel groups.
 
 CPU tensors take :func:`reference_conv_block`, the plain PyTorch version;
 CUDA tensors launch the kernel or raise. ``launches`` counts kernel
@@ -59,7 +71,8 @@ import torch.nn.functional as F
 
 #: kernel launches since the last reset (set to 0 to reset)
 launches = 0
-#: launches by route ("wgmma": bf16; "f32_ring": f32)
+#: launches by route ("wgmma", "wgmma_stream": bf16; "f32_ring",
+#: "f32_ring_pad": f32)
 route_launches: collections.Counter = collections.Counter()
 
 _ACT_IDS = {None: 0, "none": 0, "linear": 0, "relu": 1, "tanh": 2,
@@ -129,37 +142,85 @@ SMEM_LIMIT = 232448
 _TL = 64
 
 
-def conv_plan(c: int, k: int, dtype=torch.bfloat16) -> dict:
-    """The kernel's launch plan for C channels and k taps, or ValueError.
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
 
-    bf16: ``cb`` output channels per CTA, the largest of 128, 64, 32, 16
-    that divides C and leaves room for a ring of at least 2 x-tile
-    stages beside the resident ``k * C * cb`` weights; ``kw`` channels per
-    TMA box (64, 32 or 16: the box is ``kw * 2`` bytes wide, the swizzle
-    width); ``stages`` (2-4); ``smem`` bytes, the kernel's layout
-    (weights, ring, per-channel parameters, barriers, 1 KB alignment
-    slack), which the C entry recomputes and must equal. f32: see
-    :func:`f32_plan`.
+
+def _align1k(v: int) -> int:
+    return _ceil(v, 1024) * 1024
+
+
+def conv_plan(c: int, k: int, dtype=torch.bfloat16) -> dict:
+    """The kernel's launch plan for C channels and k taps: every C >= 1
+    and k >= 1 has one (ValueError otherwise).
+
+    bf16, route ``wgmma`` (the dict has no ``route`` key: the plans of
+    the shapes this route has always taken): C % 16 == 0, k <= 56 (a TMA
+    box of 64 + k - 1 rows, the in_mask bits of a fragment in one word),
+    and the resident ``k * C * cb`` weights beside a ring of at least 2
+    whole-C x stages within shared memory. ``cb`` output channels per
+    CTA, the largest of 128, 64, 32, 16 that divides C and leaves that
+    room; ``kw`` channels per TMA box (64, 32 or 16: the box is ``kw * 2``
+    bytes wide, the swizzle width); ``stages`` (2-4); ``smem`` bytes, the
+    kernel's layout (weights, ring, per-channel parameters, barriers, 1 KB
+    alignment slack), which the C entry recomputes and must equal. Every
+    other bf16 shape (C % 16 != 0, k > 56, weights too large) takes route
+    ``wgmma_stream`` (:func:`stream_plan`). f32: :func:`f32_plan`.
     """
-    if c <= 0 or c % 16:
-        raise ValueError(f"C={c}: the kernel takes C % 16 == 0")
+    if c <= 0 or k <= 0:
+        raise ValueError(f"C={c}, k={k}: the kernel takes C >= 1 and k >= 1")
     if dtype == torch.float32:
         return f32_plan(c, k)
-    rows = _TL + k - 1
-    if rows > 256 or k + _TL // 8 > 64:
-        raise ValueError(f"k={k}: the bf16 kernel takes k <= 56 (a TMA box "
-                         f"of 64 + k - 1 rows, in_mask bits in one word)")
-    kw = 64 if c % 64 == 0 else 32 if c % 32 == 0 else 16
-    for cb in (128, 64, 32, 16):
-        if c % cb:
-            continue
-        for stages in (4, 3, 2):
-            smem = plan_bytes(c, k, cb, kw, stages)
-            if smem <= SMEM_LIMIT:
-                return dict(cb=cb, kw=kw, stages=stages, smem=smem)
-    raise ValueError(f"C={c}, k={k}: k * C * 16 bf16 weights and two "
-                     f"x stages of {64 + k - 1} x C exceed {SMEM_LIMIT} B "
-                     f"of shared memory")
+    if c % 16 == 0 and k + _TL // 8 <= 64:
+        kw = 64 if c % 64 == 0 else 32 if c % 32 == 0 else 16
+        for cb in (128, 64, 32, 16):
+            if c % cb:
+                continue
+            for stages in (4, 3, 2):
+                smem = plan_bytes(c, k, cb, kw, stages)
+                if smem <= SMEM_LIMIT:
+                    return dict(cb=cb, kw=kw, stages=stages, smem=smem)
+    return stream_plan(c, k)
+
+
+#: output rows a tile of the streamed bf16 kernel: its two consumer
+#: warpgroups' 64-row wgmma M each
+STREAM_TILE = 2 * _TL
+#: the (cb, kw) pairs :func:`stream_plan` gives: the C entry's instances
+STREAM_SHAPES = ((128, 64), (64, 64), (32, 32), (32, 16))
+
+
+def stream_plan_bytes(kw: int, cb: int, taps: int, stages: int) -> int:
+    """Shared memory of the streamed bf16 kernel's layout: ``stages``
+    stages of a tile's x rows (``STREAM_TILE`` + taps - 1 rows x ``kw``
+    channels, 1 KB aligned) and the weights of ``taps`` taps x ``kw``
+    input x ``cb`` output channels, 4 x cb f32 parameters, 2 x stages
+    mbarriers and 1 KB of alignment slack."""
+    stage = _align1k((STREAM_TILE + taps - 1) * kw * 2) + taps * kw * cb * 2
+    return stages * stage + 16 * cb + 16 * stages + 1024
+
+
+def stream_plan(c: int, k: int) -> dict:
+    """Route ``wgmma_stream``: the bf16 kernel that streams the weights a
+    (tap block, channel chunk) at a time beside the x rows, for every C and
+    k. ``kw`` input channels a chunk (64, 32 or 16; the last chunk zero
+    past C) and ``cb`` output channels a CTA (128, 64 or 32; the last block
+    cut at C), each the width with the least padded work, a step's fixed
+    cost counted as 48 channels of a chunk and 32 columns of a block;
+    ``taps`` a tap block, the most that fit two stages, then evened out
+    over the blocks; ``stages`` (2-4) the most that fit; ``smem``
+    (:func:`stream_plan_bytes`), which the C entry recomputes and must
+    equal."""
+    kw = min((64, 32, 16), key=lambda w: (_ceil(c, w) * (w + 48), -w))
+    cb = min((128, 64, 32), key=lambda b: (_ceil(c, b) * (b + 32), -b))
+    taps = 1
+    while taps < k and stream_plan_bytes(kw, cb, taps + 1, 2) <= SMEM_LIMIT:
+        taps += 1
+    taps = _ceil(k, _ceil(k, taps))
+    stages = max(s for s in (2, 3, 4)
+                 if stream_plan_bytes(kw, cb, taps, s) <= SMEM_LIMIT)
+    return dict(route="wgmma_stream", cb=cb, kw=kw, taps=taps, stages=stages,
+                smem=stream_plan_bytes(kw, cb, taps, stages))
 
 
 #: the f32 ring kernel: output rows of a warp's unit, its warps a CTA,
@@ -170,23 +231,6 @@ F32_WARPS = 8
 F32_CHUNK = 16
 F32_MAX_TAPS = 9
 _F32_CBS = (64, 32, 16)
-
-
-def check_f32_shape(c: int, k: int) -> None:
-    """ValueError unless the f32 kernel takes C channels and k taps: C %
-    16 == 0, C <= 128 or C % 128 == 0, and a 64 + k - 1 row tile of C f32
-    with one weight tap of C x min(C, 128) f32 within shared memory (the
-    set of (C, k) the f32 kernel has taken since its first version)."""
-    if c <= 0 or c % 16:
-        raise ValueError(f"C={c}: the kernel takes C % 16 == 0")
-    if c > 128 and c % 128:
-        raise ValueError(f"C={c}: the f32 kernel takes C <= 128 or "
-                         f"C % 128 == 0")
-    smem = ((_TL + k - 1) * c + c * min(c, 128)) * 4
-    if k < 1 or smem > SMEM_LIMIT:
-        raise ValueError(f"C={c}, k={k}: the f32 kernel takes k >= 1 and "
-                         f"(64 + k - 1) x C + C x min(C, 128) f32 within "
-                         f"{SMEM_LIMIT} B ({smem} B)")
 
 
 def f32_tap_blocks(k: int, taps: int) -> tuple[int, int]:
@@ -200,16 +244,19 @@ def f32_tap_blocks(k: int, taps: int) -> tuple[int, int]:
 
 
 def f32_plan_bytes(c: int, k: int, cb: int, stages: int,
-                   taps: int | None = None) -> int:
+                   taps: int | None = None, kw: int = 0) -> int:
     """Shared memory of the f32 ring kernel's layout: the weights (``taps``
-    = k, the default: all ``k * C * cb`` f32 resident; fewer: two buffers
-    of ``taps * C * cb`` f32), 4 x cb f32 parameters and each of the
-    ``F32_WARPS`` warps' rings of ``stages`` stages of its unit's
-    ``F32_TILE`` + largest tap block - 1 rows x ``F32_CHUNK`` f32."""
+    = k and ``kw`` = 0, the default: all ``k * Cp * cb`` f32 resident, Cp
+    = C rounded up to ``F32_CHUNK``; fewer taps or ``kw`` channel groups:
+    two buffers of ``taps * (kw or Cp) * cb`` f32), 4 x cb f32 parameters
+    and each of the ``F32_WARPS`` warps' rings of ``stages`` stages of its
+    unit's ``F32_TILE`` + largest tap block - 1 rows x ``F32_CHUNK``
+    f32."""
     taps = k if taps is None else taps
     rows = F32_TILE + f32_tap_blocks(k, taps)[1] - 1
-    buffers = 1 if taps == k else 2
-    return (buffers * 4 * taps * c * cb + 16 * cb
+    buffers = 1 if taps == k and not kw else 2
+    group = kw or _ceil(c, F32_CHUNK) * F32_CHUNK
+    return (buffers * 4 * taps * group * cb + 16 * cb
             + F32_WARPS * stages * rows * F32_CHUNK * 4)
 
 
@@ -224,54 +271,81 @@ def _f32_fmas_per_load(cb: int, taps: int) -> float:
 
 
 def f32_plan(c: int, k: int) -> dict:
-    """The f32 launch plan for C channels and k taps, or ValueError
-    (:func:`check_f32_shape`'s set).
+    """The f32 launch plan for C >= 1 channels and k >= 1 taps.
 
     Route ``f32_ring`` (persistent, each warp its own ``cp.async`` ring
     of x rows, tap block by tap block, 8 x CB / 8 outer products a
-    thread), in this order of preference (as ``chip_smoke.py --f32
-    --sweep`` measured it on the H100): all k taps resident (``taps`` =
-    k) at a column block
-    ``cb`` of 64 or 32, the largest that fits with at least 2 ring stages,
-    ``stages`` (2-4) the most that fit; else, where C % 32 == 0, the
-    weights streamed (2 ring stages, two buffers of ``taps`` < k taps, at
-    most ``F32_MAX_TAPS``) at the (cb 64 or 32, taps) that fits with the
-    most FMAs per shared load (:func:`_f32_fmas_per_load`); else resident
-    at cb 16; else streamed at cb 16 with the most taps that fit. ``tile``
-    the ``F32_TILE`` rows of a warp's unit and ``smem`` bytes
-    (:func:`f32_plan_bytes`), which the C entry recomputes and must
-    equal."""
-    check_f32_shape(c, k)
+    thread) where C % 16 == 0, else ``f32_ring_pad`` (the same kernel
+    with the channels zero-filled up to Cp, C rounded up to 16, and the
+    last column block cut at C). In this order of preference (as
+    ``chip_smoke.py --f32 --sweep`` measured it on the H100): all k taps
+    resident (``taps`` = k) at a column block ``cb`` of 64 or 32 dividing
+    Cp, the largest that fits with at least 2 ring stages, ``stages``
+    (2-4) the most that fit; else, where Cp % 32 == 0, the weights
+    streamed (2 ring stages, two buffers of ``taps`` < k taps, 3 to
+    ``F32_MAX_TAPS``) at the (cb 64 or 32, taps) that fits with the most
+    FMAs per shared load (:func:`_f32_fmas_per_load`); else resident at
+    cb 16 (at C 512, k 5 it ran 64 ms a call where 1-tap blocks at cb 32
+    ran 103, ``chip_smoke.py --domain --sweep``); else streamed at cb 16
+    with the most taps that fit; else (one
+    tap of Cp x 16 weights does not fit: C past about 1,560) route
+    ``f32_ring_pad`` with the weights streamed in groups of ``kw``
+    channels, at the (cb, taps) with the most FMAs per shared load and
+    then the widest group that fits. ``kw`` 0 where one buffer holds all
+    Cp channels, ``tile`` the ``F32_TILE`` rows of a warp's unit and
+    ``smem`` bytes (:func:`f32_plan_bytes`), which the C entry recomputes
+    and must equal."""
+    if c <= 0 or k <= 0:
+        raise ValueError(f"C={c}, k={k}: the kernel takes C >= 1 and k >= 1")
+    cp = _ceil(c, F32_CHUNK) * F32_CHUNK
+    route = "f32_ring" if c == cp else "f32_ring_pad"
 
     def resident(cbs):
         for cb in cbs:
-            if c % cb:
+            if cp % cb:
                 continue
             for stages in (4, 3, 2):
                 smem = f32_plan_bytes(c, k, cb, stages)
                 if smem <= SMEM_LIMIT:
-                    return dict(route="f32_ring", cb=cb, kw=0,
-                                tile=F32_TILE, taps=k, stages=stages,
-                                smem=smem)
+                    return dict(route=route, cb=cb, kw=0, tile=F32_TILE,
+                                taps=k, stages=stages, smem=smem)
         return None
 
-    def streamed(cbs):
+    def balanced(taps):
+        return f32_tap_blocks(k, taps)[1] == taps
+
+    def streamed(cbs, fewest):
         fits = [(_f32_fmas_per_load(cb, taps), cb, taps) for cb in cbs
-                if c % cb == 0
-                for taps in range(1, min(k - 1, F32_MAX_TAPS) + 1)
-                if f32_tap_blocks(k, taps)[1] == taps
+                if cp % cb == 0
+                for taps in range(fewest, min(k - 1, F32_MAX_TAPS) + 1)
+                if balanced(taps)
                 and f32_plan_bytes(c, k, cb, 2, taps) <= SMEM_LIMIT]
         if not fits:
             return None
         _, cb, taps = max(fits)
-        return dict(route="f32_ring", cb=cb, kw=0, tile=F32_TILE, taps=taps,
+        return dict(route=route, cb=cb, kw=0, tile=F32_TILE, taps=taps,
                     stages=2, smem=f32_plan_bytes(c, k, cb, 2, taps))
 
-    plan = (resident((64, 32)) or streamed((64, 32)) or resident((16,))
-            or streamed((16,)))
-    if plan is None:
-        raise ValueError(f"C={c}, k={k}: no f32 layout fits {SMEM_LIMIT} B")
-    return plan
+    def grouped():
+        fits = []
+        for cb in _F32_CBS:
+            for taps in range(1, min(k, F32_MAX_TAPS) + 1):
+                if cp % cb or not balanced(taps):
+                    continue
+                # the bytes beside the weights: parameters and rings
+                rest = (f32_plan_bytes(c, k, cb, 2, taps, F32_CHUNK)
+                        - 8 * taps * F32_CHUNK * cb)
+                kw = min((SMEM_LIMIT - rest) // (8 * taps * cb)
+                         // F32_CHUNK * F32_CHUNK, cp - F32_CHUNK)
+                if kw >= F32_CHUNK:
+                    fits.append((_f32_fmas_per_load(cb, taps), kw, cb, taps))
+        _, kw, cb, taps = max(fits)
+        return dict(route="f32_ring_pad", cb=cb, kw=kw, tile=F32_TILE,
+                    taps=taps, stages=2,
+                    smem=f32_plan_bytes(c, k, cb, 2, taps, kw))
+
+    return (resident((64, 32)) or streamed((64, 32), 3) or resident((16,))
+            or streamed((16,), 1) or grouped())
 
 
 def plan_bytes(c: int, k: int, cb: int, kw: int, stages: int) -> int:
@@ -279,17 +353,14 @@ def plan_bytes(c: int, k: int, cb: int, kw: int, stages: int) -> int:
     ring of x stages (chunks of 64 + k - 1 rows x kw channels, each 1 KB
     aligned), 4 x cb f32 parameters, 2 x stages mbarriers and 1 KB of
     alignment slack."""
-    def align(v):
-        return -(-v // 1024) * 1024
-
-    stage = c // kw * align((_TL + k - 1) * kw * 2)
-    return (align(k * c * cb * 2) + stages * stage + 16 * cb + 16 * stages
-            + 1024)
+    stage = c // kw * _align1k((_TL + k - 1) * kw * 2)
+    return (_align1k(k * c * cb * 2) + stages * stage + 16 * cb
+            + 16 * stages + 1024)
 
 
 #: the C entry's arguments: dtype, 8 pointers, n_rows, L, C, k, act, cb,
-#: kw, stages, smem bytes, SM count, stream
-ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
+#: kw, taps, stages, smem bytes, SM count, stream
+ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11
             + [ctypes.c_void_p])
 
 
@@ -370,13 +441,12 @@ def _launch(x, w, bias, dyt, act, in_mask, out_mask, residual, plan):
     fn = _lib()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    bf16 = x.dtype == torch.bfloat16
-    # f32 passes the plan's weight taps a buffer holds where bf16 passes kw
-    err = fn(1 if bf16 else 0, ptr(x), ptr(w),
+    # taps 0: the resident bf16 route (its plans have no taps)
+    err = fn(1 if x.dtype == torch.bfloat16 else 0, ptr(x), ptr(w),
              ptr(bias), ptr(dyt), ptr(in_mask), ptr(out_mask), ptr(residual),
              ptr(out), n, length, c, w.shape[0], _ACT_IDS[act], plan["cb"],
-             plan["kw"] if bf16 else plan["taps"], plan["stages"],
-             plan["smem"], sms, stream)
+             plan["kw"], plan.get("taps", 0), plan["stages"], plan["smem"],
+             sms, stream)
     if err != 0:
         raise RuntimeError(f"fused_conv_block kernel launch failed: CUDA "
                            f"error {err}")

@@ -215,7 +215,7 @@ def test_kernel_source_declares_its_interface():
     assert 'extern "C" int jt_fused_conv_block(' in src
     sig = src[src.index("jt_fused_conv_block("):]
     sig = sig[: sig.index(")")]
-    assert sig.count(",") + 1 == len(fused_conv.ARGTYPES) == 20
+    assert sig.count(",") + 1 == len(fused_conv.ARGTYPES) == 21
     assert "jaeger_tpu/ops/pallas_conv.py" in src
     assert '#include "hopper.cuh"' in src
     for instr in ("wgmma.mma_async", "cp.async.bulk.tensor", "mbarrier",
@@ -249,16 +249,26 @@ def test_launch_plan_flagship_keeps_all_weights():
                                                 smem=222256)
 
 
-@pytest.mark.parametrize("c,k,dtype", [
-    (1024, 5, torch.bfloat16),     # k * C * 16 weights + two x stages
-    (24, 3, torch.bfloat16),       # C % 16
-    (128, 57, torch.bfloat16),     # in_mask bits / TMA box rows
-    (512, 5, torch.float32),       # f32 tile + weight tap
-    (144, 3, torch.float32),       # f32: C <= 128 or C % 128 == 0
+@pytest.mark.parametrize("c,k,dtype,route", [
+    (1024, 5, torch.bfloat16, "wgmma_stream"),  # k C 16 weights + 2 stages
+    (24, 3, torch.bfloat16, "wgmma_stream"),    # C % 16
+    (128, 57, torch.bfloat16, "wgmma_stream"),  # in_mask bits / box rows
+    (512, 5, torch.float32, "f32_ring"),        # the old f32 tile rule
+    (144, 3, torch.float32, "f32_ring"),        # C <= 128 or C % 128 == 0
+    (0, 3, torch.bfloat16, None),               # no channels
+    (16, 0, torch.float32, None),               # no taps
 ])
-def test_launch_plan_refuses_what_cannot_fit(c, k, dtype):
-    with pytest.raises(ValueError):
-        fused_conv.conv_plan(c, k, dtype)
+def test_launch_plan_refuses_what_cannot_fit(c, k, dtype, route):
+    """The shapes the resident layouts cannot hold take a route of their
+    own (these five were refused until the plan covered the Pallas
+    kernel's whole domain); the plan refuses only C < 1 or k < 1."""
+    if route is None:
+        with pytest.raises(ValueError):
+            fused_conv.conv_plan(c, k, dtype)
+        return
+    plan = fused_conv.conv_plan(c, k, dtype)
+    assert plan["route"] == route
+    assert plan["smem"] <= fused_conv.SMEM_LIMIT
 
 
 def test_build_digest_covers_headers(tmp_path, monkeypatch):
@@ -277,6 +287,42 @@ def test_build_digest_covers_headers(tmp_path, monkeypatch):
     assert cuda_build._digest("fused_conv_block", flags) != before
     assert cuda_build._digest("fused_conv_block", flags + ("-G",)) != \
         cuda_build._digest("fused_conv_block", flags)
+
+
+def test_build_with_ptxas_report_is_the_library_of_its_name(tmp_path,
+                                                            monkeypatch):
+    """A build with ``-Xptxas -v`` (which changes only what nvcc prints)
+    writes the file a load without it finds, so another process does not
+    build the source again; a loaded library is built once when threads
+    load it at once."""
+    import threading
+    import time
+
+    from jaeger_tpu_torch.ops import cuda_build
+
+    flags = cuda_build.NVCC_FLAGS
+    assert cuda_build._digest("fused_conv_block", flags + ("-Xptxas", "-v")) \
+        == cuda_build._digest("fused_conv_block", flags)
+    assert cuda_build._code_flags(("-Xptxas", "-v", "-DX=1", "-v")) == \
+        ("-DX=1", "-v")
+    builds = []
+
+    def fake_build(name, key, extra_flags):
+        builds.append(key)
+        time.sleep(0.05)            # the other threads arrive meanwhile
+        return cuda_build._LIBS.setdefault(key, object())
+
+    monkeypatch.setattr(cuda_build, "_LIBS", {})
+    monkeypatch.setattr(cuda_build, "_build", fake_build)
+    threads = [threading.Thread(target=cuda_build.load,
+                                args=("probe", ("-Xptxas", "-v")))
+               for _ in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert builds == ["probe"]
+    assert cuda_build.load("probe") is cuda_build._LIBS["probe"]
 
 
 # the f32 plan: route f32_ring (the persistent FMA kernel) with the
@@ -336,13 +382,14 @@ def test_f32_plan_takes_the_same_shapes(c):
     at a column block of 64 or 32, else streamed in blocks of ``taps`` < k
     with two weight buffers and two ring stages (at a column block of 64
     or 32 where C % 32 == 0), else resident at 16, else streamed at 16;
-    the layout's bytes fit. Past the limit, ValueError."""
+    the layout's bytes fit. Past the limit the plan takes the shape too
+    (``tests/test_torch_domain.py`` holds every shape's plan)."""
     top = _f32_max_taps(c)
     for k in range(1, top + 3):
         if not _f32_rule(c, k):
             assert k > top
-            with pytest.raises(ValueError):
-                fused_conv.conv_plan(c, k, torch.float32)
+            assert fused_conv.conv_plan(c, k, torch.float32)["smem"] <= \
+                fused_conv.SMEM_LIMIT
             continue
         plan = fused_conv.conv_plan(c, k, torch.float32)
         assert plan["route"] == "f32_ring", (c, k, plan)
@@ -385,13 +432,15 @@ def test_f32_kernel_source_declares_its_interface():
     assert int(consts["R_CK"]) == fused_conv.F32_CHUNK
     assert int(consts["R_KMAX"]) == fused_conv.F32_MAX_TAPS
     assert int(consts["R_WARPS"]) == fused_conv.F32_WARPS == 8
-    assert "make_ring_layout(n_rows, L, C, K, cb, kw, stages, &lay)" in src
+    assert ("make_ring_layout(n_rows, L, C, K, cb, taps, stages, kw, rag, "
+            "&lay)") in src
     assert "lay.bytes != (uint32_t)smem_bytes" in src
     # tap blocks, resident or streamed through two weight buffers
-    assert "ring_products<9, CT>(acc, xs, wc, C * CB, CB, tr)" in src
+    assert "ring_products<9, CT>(acc, xs, wc, CW * CB, CB, tr)" in src
     assert "lay->off_par = (stream ? 2u : 1u) * lay->wbuf;" in src
     for cb in fused_conv._F32_CBS:
-        assert f"launch_f32_ring<{cb}>" in src
+        for rag in ("false", "true"):
+            assert f"launch_f32_ring<{cb}, {rag}>" in src
     # x tiles by cp.async with zero fill, never TF32 (no tensor-core f32)
     assert "cp_async16_zfill" in src and "cp.async.cg.shared.global" in hopper
     assert ".tf32" not in src and "float_to_tf32" not in src

@@ -1,14 +1,17 @@
 """The port's route to its hand kernels, and three small faults of
 ``predict``, on the CPU against jaeger_tpu.
 
-* The residual convs' route (``MaskedConv1D.fused``): a conv reaches
-  ``fused_conv_block`` only when ``conv_plan`` takes its shape, and in
-  training only when ``check_wgrad_shape`` takes it too (odd k). Every
-  refused shape (C 40 in either dtype, C 192 in f32, k 7 and C 96 in bf16
-  training, an even k in training) takes cuDNN's conv with the torch
-  epilogue, on every device alike; the forward of a C 40 model and one
-  train step of an even-k C 40 model equal JAX's at f32 with the
-  tolerances of ``tests/test_torch_templates.py``.
+* The residual convs' route (``MaskedConv1D.fused``): ``conv_plan`` takes
+  every shape, so in inference every fusable conv reaches
+  ``fused_conv_block`` (C 40 in either dtype and C 192 in f32 too, which
+  it refused before its plan covered the Pallas kernel's whole domain);
+  in training only where ``check_wgrad_shape`` takes the shape as well
+  (odd k; in bf16 k 3 or 5 and C % 64 == 0). Every shape it refuses (k 7
+  and C 96 in bf16 training, an even k in training, C 40 in training)
+  takes cuDNN's conv with the torch epilogue, on every device alike; the
+  forward of a C 40 model and one train step of an even-k C 40 model
+  equal JAX's at f32 with the tolerances of
+  ``tests/test_torch_templates.py``.
 * ``predict`` logs JAX's WARNING when ``--fsize`` gives fewer codon frames
   than the model's crop (the demo bundle at ``--fsize 400``).
 * ``predict --int8`` without an int8 bundle exits 2 with the message, as
@@ -42,18 +45,18 @@ ROOT = Path(__file__).resolve().parents[1]
 BF16, F32 = torch.bfloat16, torch.float32
 
 #: (C, k, dtype, train): each shape one of the kernels' plans refuses
+#: (check_wgrad_shape: training only)
 REFUSED = [
-    (40, 3, BF16, False),       # conv_plan: C % 16
-    (40, 3, F32, False),
-    (192, 3, F32, False),       # conv_plan: f32 C > 128 and C % 128
     (128, 7, BF16, True),       # check_wgrad_shape: bf16 k in (3, 5)
     (96, 3, BF16, True),        # check_wgrad_shape: bf16 C % 64
     (128, 4, BF16, True),       # check_wgrad_shape: odd k
     (48, 4, F32, True),
 ]
-#: shapes the plans take
+#: shapes the plans take; the last three conv_plan refused before it took
+#: every shape (C % 16 in either dtype; f32 C > 128 with C % 128)
 ACCEPTED = [(128, 5, BF16, False), (128, 5, BF16, True), (96, 3, BF16, False),
-            (48, 3, F32, True), (192, 3, BF16, False), (128, 4, F32, False)]
+            (48, 3, F32, True), (192, 3, BF16, False), (128, 4, F32, False),
+            (40, 3, BF16, False), (40, 3, F32, False), (192, 3, F32, False)]
 
 
 def _block(c, k):
@@ -62,10 +65,9 @@ def _block(c, k):
 
 @pytest.mark.parametrize("c,k,dtype,train", REFUSED)
 def test_route_refuses_what_the_plans_refuse(c, k, dtype, train):
+    conv_plan(c, k, dtype)
     with pytest.raises(ValueError):
-        conv_plan(c, k, dtype)
-        if train:
-            check_wgrad_shape(c, k, dtype)
+        check_wgrad_shape(c, k, dtype)
     conv = _block(c, k).conv1
     assert conv.fusable
     assert not conv.fused(dtype, train)
@@ -80,7 +82,7 @@ def test_route_takes_what_the_plans_take(c, k, dtype, train):
 
 
 @pytest.mark.parametrize("c,k,train,launches", [
-    (40, 3, False, 0), (48, 3, False, 2), (48, 4, True, 0), (48, 3, True, 2)])
+    (40, 3, False, 2), (48, 3, False, 2), (48, 4, True, 0), (48, 3, True, 2)])
 def test_residual_block_calls_the_kernel_only_where_planned(
         monkeypatch, c, k, train, launches):
     """The block's two convs reach ``fused_conv_block`` (the training
@@ -140,7 +142,8 @@ def _residual_config(filters: int, kernel_size: int) -> dict:
 
 @pytest.mark.parametrize("filters,kernel_size", [(40, 3), (40, 4)])
 def test_refused_shape_forward_matches_jax(filters, kernel_size):
-    """C 40 (``conv_plan`` refuses it) in the masked program, at f32."""
+    """C 40 (``conv_plan`` refused it before it took every shape; the
+    fused route's plain version here) in the masked program, at f32."""
     _forward_matches_jax(_residual_config(filters, kernel_size), 51)
 
 
@@ -166,13 +169,16 @@ def test_even_k_train_step_matches_jax(program):
 
 
 def test_refused_shape_loads_into_port_model():
-    """A bf16 model with C 40 builds and runs its residual convs off the
-    kernel (the route answers before any launch)."""
+    """A bf16 model with C 40 builds and runs: its residual convs take the
+    kernel's route in inference (``wgmma_stream`` on the card) and cuDNN's
+    in training, whose backward refuses C % 16 (the route answers before
+    any launch)."""
     cfg = _residual_config(40, 3)
     tm = build_model(copy.deepcopy(cfg), dtype=BF16)
     load_state(tm, params_from_jax(_variables(cfg, 54)))
     block = [m for m in tm.modules() if isinstance(m, TL.ResidualBlock)][0]
-    assert not block.conv1.fused(BF16, False)
+    assert block.conv1.fused(BF16, False)
+    assert not block.conv1.fused(BF16, True)
     bases, lengths = _bases(np.random.default_rng(55), tm.crop_nt, "masked")
     with torch.inference_mode():
         out = tm(torch.from_numpy(bases), torch.from_numpy(lengths))
