@@ -310,8 +310,10 @@ Phases, each of which fails the run:
 16. fused_conv_block on the shapes its resident bf16 layout and its f32
    ring refused before its plan covered the Pallas kernel's whole domain
    (any C, any k): routes wgmma_stream (bf16: C 1, 5, 8, 24, 37, 40, 100,
-   200, 1000, 1024; k 1 to 129, even k; L 1, 127, 129; 16-byte copies and
-   2-byte loads) and f32_ring_pad / f32_ring (C 5, 24, 37, 40, 144, 192,
+   200, 1000, 1024; k 1 to 200, even k; L 1, 127, 129; TMA copies with
+   the weights multicast to a cluster of 2 and 2-byte loads; resident and
+   streamed weights; tile counts of a column block odd and below the
+   cluster's CTAs) and f32_ring_pad / f32_ring (C 5, 24, 37, 40, 144, 192,
    200, 512; C 1990 and 2048, whose weights stream in channel groups), each
    case in the conv1 (DYT + gelu with in_mask), conv2 (+ residual),
    bias-only and model forms against the plain version (2e-4 / 5e-2 of the
@@ -7105,13 +7107,22 @@ def phase_convert(tmp: Path, card: str, bundle: Path) -> dict:
 #: in the three forms of phase 3 (conv1: DYT + gelu with in_mask, conv2:
 #: with the residual, bias-only) and the model form (every extension)
 DOMAIN_CASES = (
-    # bf16 wgmma_stream: 16-byte copies (C % 8 == 0), 2-byte loads (C % 8
-    # != 0), each (cb, kw) pair of its plans, column blocks cut at C, tap
-    # blocks (k > 56, large k * C * cb), even k, the 128-row tile's edges
+    # bf16 wgmma_stream: TMA copies (C % 8 == 0), 2-byte loads (C % 8
+    # != 0), column widths 16 to 256, column blocks cut at C, resident and
+    # streamed weights, tap blocks (k past a TMA box's rows), even k, the
+    # 128-row tile's edges; the cluster's edges (C 200: 2 CTAs a cluster):
+    # tile counts not a multiple of 2 (N 3 x 3 tiles) and fewer tiles than
+    # CTAs (N 1 x 1 tile); C 1024's four column blocks of 1 tile, k 61 on
+    # 3 tiles
     ("C200_k5", 6, 300, 200, 5, "bfloat16"),
     ("C200_L1", 4, 1, 200, 5, "bfloat16"),
     ("C200_L127", 3, 127, 200, 5, "bfloat16"),
     ("C200_L129_N1", 1, 129, 200, 5, "bfloat16"),
+    ("C200_odd_tiles", 3, 300, 200, 5, "bfloat16"),
+    ("C200_one_tile", 1, 100, 200, 5, "bfloat16"),
+    ("C1024_one_tile", 1, 100, 1024, 5, "bfloat16"),
+    ("C128_k61_odd", 1, 300, 128, 61, "bfloat16"),
+    ("C200_k200", 2, 300, 200, 200, "bfloat16"),
     ("C40_k3", 6, 300, 40, 3, "bfloat16"),
     ("C40_k4", 6, 300, 40, 4, "bfloat16"),
     ("C37_k3", 6, 300, 37, 3, "bfloat16"),
@@ -7380,13 +7391,57 @@ def phase_flagship_c200(tmp: Path, card: str) -> dict:
                 launches=bf16["launches"], f32_launches=f32["launches"])
 
 
+def _stream_variants(c: int, k: int) -> list[dict]:
+    """``wgmma_stream`` plans for (C, k) beside ``conv_plan``'s: cluster
+    sizes 1, 2 and 4 (streamed weights copied by TMA), other x / weight
+    ring depths, resident weights against streamed ones, and another
+    column width (C 200 in one block of 256, C 1024 in eight of 128); each
+    valid for the C entry (it recomputes the layout)."""
+    from jaeger_tpu_torch.ops import fused_conv
+
+    base = fused_conv.conv_plan(c, k)
+    steps = k * -(-c // fused_conv.STREAM_KW)
+    out = [base]
+
+    def add(**kw):
+        v = dict(base, **kw)
+        resident = v["wstages"] >= steps
+        if resident or c % 8:
+            v["cluster"] = 1
+        v["smem"] = fused_conv.stream_plan_bytes(v["cb"], v["taps"],
+                                                 v["stages"], v["wstages"])
+        if v["smem"] <= fused_conv.SMEM_LIMIT and v not in out:
+            out.append(v)
+
+    def most_wstages(cb, stages):
+        return max(w for w in range(1, 9) if fused_conv.stream_plan_bytes(
+            cb, base["taps"], stages, w) <= fused_conv.SMEM_LIMIT)
+
+    if base["wstages"] < steps:
+        for cluster in (1, 2, 4):
+            add(cluster=cluster)
+        for stages in (2, 4):
+            add(stages=stages,
+                wstages=min(most_wstages(base["cb"], stages), 8))
+        add(wstages=3)
+    else:
+        for stages in (2, 3):
+            add(stages=stages)
+        for cluster in (1, 2):
+            add(stages=2, wstages=2, cluster=cluster)
+    if c > 128:
+        cb = 256 if c <= 256 else 128
+        add(cb=cb, stages=2, wstages=min(most_wstages(cb, 2), 8))
+    return out
+
+
 def phase_domain_sweep(card: str) -> None:
     """``--domain --sweep``: the new routes under other launch plans, the
     bias-only form at L 500: ``wgmma_stream`` at C 200 k 5 and C 40 k 3 (N
-    12288), C 1024 k 5 and C 128 k 61 (N 1536) with each (cb, kw) pair
-    of its plans, fewer taps a block and the most stages that fit or two;
-    the f32 forward at C 512 k 5 (N 1536) resident at CB 16 and streamed
-    in blocks of 1 to 3 taps."""
+    12288), C 1024 k 5 and C 128 k 61 (N 1536) under
+    :func:`_stream_variants` (each held against the plain version once,
+    5e-2 of the scale); the f32 forward at C 512 k 5 (N 1536) resident at
+    CB 16 and streamed in blocks of 1 to 3 taps."""
     import torch
 
     from jaeger_tpu_torch.ops import fused_conv
@@ -7396,31 +7451,33 @@ def phase_domain_sweep(card: str) -> None:
     tf32_off()
     saved = fused_conv.launches, dict(fused_conv.route_launches)
     length = FLAG_L
-    for n, c, k, taps_set in ((12288, 200, 5, (5, 3, 2, 1)),
-                              (12288, 40, 3, (3, 1)),
-                              (1536, 1024, 5, (5, 3, 2, 1)),
-                              (1536, 128, 61, (5, 4, 3, 2))):
-        x, w, bias, _ = _conv_inputs(gen, n, length, c, k, torch.bfloat16,
-                                     dev)
+    dgen = torch.Generator(device=dev).manual_seed(2021)
+    for n, c, k in ((12288, 200, 5), (12288, 40, 3), (1536, 1024, 5),
+                    (1536, 128, 61)):
+        x = torch.randn(n, length, c, generator=dgen, device=dev).to(
+            torch.bfloat16)
+        w = (torch.randn(k, c, c, generator=dgen, device=dev) * 0.05).to(
+            torch.bfloat16)
+        bias = torch.randn(c, generator=dgen, device=dev)
+        ref = fused_conv.reference_conv_block(x, w, bias)
+        scale = max(ref.float().abs().max().item(), 1.0)
         bound = 2.0 * n * length * c * c * k / PEAK_BF16_FLOPS * 1e3
-        for cb, kw in fused_conv.STREAM_SHAPES:
-            for taps in taps_set:
-                taps = -(-k // -(-k // taps))
-                fits = [s for s in (2, 3, 4) if fused_conv.stream_plan_bytes(
-                    kw, cb, taps, s) <= fused_conv.SMEM_LIMIT]
-                for stages in sorted({fits[0], fits[-1]} if fits else ()):
-                    plan = dict(route="wgmma_stream", cb=cb, kw=kw,
-                                taps=taps, stages=stages,
-                                smem=fused_conv.stream_plan_bytes(
-                                    kw, cb, taps, stages))
-                    ms = cuda_ms(lambda: fused_conv._launch(
-                        x, w, bias, None, "none", None, None, None, plan),
-                        iters=5)
-                    print(f"sweep wgmma_stream N={n} C={c} k={k} cb={cb} "
-                          f"kw={kw} taps={taps} stages={stages} bias_only "
-                          f"on {card}: {ms:.3f} ms ({bound / ms:.1%} of the "
-                          f"bound {bound:.3f} ms)")
-        del x, w
+        for plan in _stream_variants(c, k):
+            got = fused_conv._launch(x, w, bias, None, "none", None, None,
+                                     None, plan)
+            err = (got.float() - ref.float()).abs().max().item()
+            check(math.isfinite(err) and err <= BF16_TOL * scale,
+                  f"sweep wgmma_stream C={c} k={k} {plan}: max_abs_err "
+                  f"{err:.3e}")
+            del got
+            ms = cuda_ms(lambda: fused_conv._launch(
+                x, w, bias, None, "none", None, None, None, plan), iters=5)
+            print(f"sweep wgmma_stream N={n} C={c} k={k} cb={plan['cb']} "
+                  f"taps={plan['taps']} stages={plan['stages']} "
+                  f"wstages={plan['wstages']} cluster={plan['cluster']} "
+                  f"bias_only on {card}: {ms:.3f} ms ({bound / ms:.1%} of "
+                  f"the bound {bound:.3f} ms)", flush=True)
+        del x, w, ref
         torch.cuda.empty_cache()
     n, c, k = 1536, 512, 5
     x, w, bias, _ = _conv_inputs(gen, n, length, c, k, torch.float32, dev)
@@ -7733,6 +7790,8 @@ def main(argv: list[str]) -> int:
             "max_abs_err")}, launches=n, shape=zoo_shape)
 
     zoo_shape = f"N={ZOO_N} L={ZOO_L} C={ZOO_C} k={ZOO_K} bf16"
+    from jaeger_tpu_torch.ops import fused_conv
+
     print(json.dumps({"kernels": [
         # predict's main path; train launches it for the forward, the
         # recomputed DYT input and the data gradient; the templates' path
@@ -7821,7 +7880,9 @@ def main(argv: list[str]) -> int:
               "jaeger_tpu_torch/csrc/fused_conv_block.cu",
               "jaeger_tpu/ops/pallas_conv.py:70", c200["launches"],
               domain["times"]["bf16_C200_k5"]["conv1"],
-              kernel="conv_bf16_stream", form="conv1",
+              kernel="conv_bf16_stream<CB>", form="conv1",
+              instances=[f"conv_bf16_stream<{cb}>"
+                         for cb in fused_conv.STREAM_WIDTHS],
               shape="N=12288 L=500 C=200 k=5 bf16",
               flagship_c200_rates=c200["rates"],
               route_predict_launches=sum(

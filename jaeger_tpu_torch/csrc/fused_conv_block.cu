@@ -73,7 +73,7 @@
 //    conv_plan (ops/fused_conv.py); the entry below recomputes the layout and
 //    refuses a plan that disagrees with it.
 //
-// bf16, every shape the resident layout cannot hold: conv_bf16_stream
+// bf16, every shape the resident layout cannot hold: conv_bf16_stream<CB>
 // (route wgmma_stream). The Pallas kernel takes any C and K; the resident
 // kernel needs C % 16 == 0 (wgmma's K step), K <= 56 (the in_mask bits of a
 // fragment in one word, TMA boxes of at most 256 rows) and the k * C * CB
@@ -82,42 +82,66 @@
 //    ms (operations); C 40 / 37, K 3 at N 12288 0.98 / 0.91 GB of bf16 in
 //    and out, 0.293 / 0.271 ms (bytes); C 1024, K 5 at N 1536 8.143 ms and
 //    C 128, K 61 1.552 ms (operations).
-//  * Schedule: persistent as the resident kernel; CTA b owns column block
-//    b % n_cb (CB = 128, 64 or 32 output channels, the last block cut at
-//    C) and walks tiles of 128 rows (one 64-row wgmma M for each of the two
-//    consumer warpgroups), each tile a sequence of steps: the tap blocks
-//    (at most `taps` taps each, evened out) by the KW-channel chunks
-//    (ceil(C / KW), the last zero past C).
-//  * A step's stage holds the tile's x rows for the block's taps (128 +
-//    taps - 1 rows x KW channels, K-major, swizzled to KW * 2 bytes) and
-//    the block's weights for the chunk (taps x KW rows x CB columns,
-//    MN-major: the output channels contiguous as w stores them, in 64-column
-//    blocks swizzled to 128 bytes, so no transpose): wgmma reads B through a
-//    descriptor with the transpose bit (hopper.cuh smem_desc_mn), A (the x
-//    rows shifted by the tap) from registers by ldmatrix, as the resident
-//    kernel does. The accumulators stay in registers across the steps.
-//  * Producer: all 128 threads of the third warpgroup copy a step: where
-//    C % 8 == 0 (VEC) by 16-byte cp.async with zero fill, each thread's
-//    copies reported to the stage's full barrier by
-//    cp.async.mbarrier.arrive; else (rows not 16-byte aligned) by 2-byte
-//    loads into one 16-byte shared store and a plain arrival. Rows outside
-//    [0, L), rows in_mask masks and channels past C land as zeros; weights
-//    past C as zeros. The consumers hand a stage back once their wgmmas on
-//    it retired (one arrival a warp).
+//  * Column blocks cut to C: CB (the wgmma N, a multiple of 16 up to 256)
+//    is C / ceil(C / 256) rounded up to 16, so C <= 256 runs one column
+//    block (C 200: 208 columns, x read once) and C 1024 four of 256. The
+//    products of a k16 step go as wgmma instructions of 128 and 64 columns
+//    and one of the remaining 48, 32 or 16 (hopper.cuh
+//    wgmma_bf16_rs_mn_n), so 16 instances cover every width.
+//  * Schedule: persistent, one CTA an SM. A cluster of `cluster` CTAs (2
+//    for streamed weights copied by TMA whose rows are not 128-byte
+//    aligned, C % 64 != 0, where multicast measured faster; else 1) owns
+//    column block cluster % n_cb and walks groups of `cluster`
+//    neighbouring 128-row tiles (one 64-row wgmma M for each of the two
+//    consumer warpgroups), rank r the group's tile r; every CTA of a
+//    cluster walks as many groups, a tile past the last being a ghost
+//    (zeros in, nothing out).
+//    A tile is a sequence of weight steps: its tap blocks (all K taps up to
+//    129, the most a 256-row TMA box holds with its 128 rows, else evened
+//    out) by its 64-channel chunks (the last zero past C) by the block's
+//    taps.
+//  * Two rings. An x stage holds a (tap block, chunk): 128 + taps - 1 rows
+//    x 64 channels (128-byte rows, swizzled) and those rows' 256 in_mask
+//    bytes; it serves every tap of the block. A weight stage holds one
+//    step: the chunk's 64 input rows of tap j x the block's columns, in
+//    64-column blocks as w stores them (MN-major, read by wgmma through
+//    smem_desc_mn with the transpose bit: no transpose anywhere). Where
+//    all K * ceil(C / 64) steps of a tile fit the weight ring beside 2-4
+//    x stages (C 40, K 3: 24 KB), they are copied once and stay resident.
+//  * Producer (C % 8 == 0): one elected thread of the third warpgroup
+//    issues TMA copies against mbar_arrive_expect_tx: x through a 3-D map
+//    over (C, L, N), so rows outside [0, L) and channels past C arrive as
+//    zeros, never as the neighbouring sequence's rows (the next warp
+//    copies the rows' in_mask bytes beside them: no tensor map describes
+//    rows of L bytes unless L % 16 == 0); the weights through a 3-D map
+//    over (C_out, C_in, K), each rank of a cluster copying its 64 /
+//    cluster input rows of every column block and multicasting them to
+//    every CTA of the cluster (each weight box read from L2 once a
+//    cluster, not once a tile). A weight stage is refilled once the
+//    consumer warps of every CTA of the cluster have released it (remote
+//    arrivals on the issuing CTA's empty barrier). Rows that no tensor
+//    map describes (C % 8 != 0) are copied by the warpgroup's 128 threads
+//    with 2-byte loads into the same layouts, cluster 1.
+//  * Consumers: A (the x rows shifted by the tap) from registers by
+//    ldmatrix at swizzled addresses, rows that in_mask masks zeroed in the
+//    registers from the stage's mask bytes (any K); B the weight stage's
+//    descriptor. A step's k16 steps (the last chunk's only those it holds:
+//    13 of 16 at C 200) go in one wgmma group, and one group stays in
+//    flight across the steps: a step issues its group, waits for the one
+//    before (wait_group 1) and then hands that group's stages back; the
+//    pipe drains only at a tile's end, before its epilogue. Two A
+//    register sets alternate.
 //  * Epilogue: the resident kernel's (epilogue_regs), the residual pairs
-//    and out_mask bytes loaded at a tile's first step; stored from the
-//    registers (bf16 pairs where C % 8 == 0, else single elements), rows
-//    past L and columns past C not at all.
-//  * L2: every tile re-reads its column block's weights, k * C * CB * 2
-//    bytes (1.3 MB at C 1024, K 5, CB 128) per 128 rows, more than its x
-//    rows. The 128-row tile (both warpgroups share a step's weights) halves
-//    that against one 64-row M per CTA; sharing x across column blocks
-//    would not cut it (the weights' reads per position do not depend on
-//    CB). On the H100 the kernel's time goes with its steps, not its ring
-//    depth: about 1 us a step plus 0.74 us a tap at CB 128, KW 64
-//    (chip_smoke.py --domain --sweep), far from the tensor cores' 0.28 us
-//    a tap; it is the route's open question (ROADMAP queue 2).
-//
+//    and out_mask bytes asked for at a tile's first step (CB <= 128: into
+//    registers; wider: their lines into L2, loaded before the epilogue);
+//    stored from the registers (bf16 pairs where C is even, else single
+//    elements), rows past L and columns past C not at all.
+//  * L2: each weight box is read once a cluster; at C 200 (one column
+//    block) the weights of a call are 5 * 200 * 200 * 2 B a tile over
+//    49,152 tiles, about 20 GB, 10 GB with a cluster of 2. On the H100
+//    the kernel reaches 40 % of its bound at C 200 and 64-71 % at C 1024
+//    (chip_smoke.py --domain); a deeper weight ring still makes it faster
+//    (--sweep), so the weights' delivery sets its pace.
 // f32: conv_f32_ring, a persistent kernel of plain FMAs in full precision
 // (never TF32: the f32 route is the one held against the reference's f32).
 // Taken by predict / train / taxonomy --precision float32 and by the f32
@@ -203,6 +227,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -627,99 +653,126 @@ conv_bf16_wgmma(Params p, Layout lay, const __grid_constant__ CUtensorMap xmap,
 // ---------------------------------------------------------------------------
 
 constexpr int ST_TM = TL * CONSUMERS;  // output rows a tile: both warpgroups'
+constexpr int ST_KW = 64;              // input channels a chunk: 128-byte rows
+constexpr int ST_MAX_TAPS = 256 - ST_TM + 1;  // a TMA box holds <= 256 rows
+constexpr uint32_t ST_BLOCK = ST_KW * 128;  // 64 weight columns of a chunk
+constexpr uint32_t ST_MASK = 256;           // an x stage's in_mask bytes
 
 // Shared-memory layout, byte offsets from a 1024-byte aligned base:
-// [stages x (x rows: ST_TM + taps - 1 rows x KW * 2 bytes, 1 KB aligned;
-//  weights: CB / WN column blocks, each taps * KW rows of WN output channels
-//  x 2 bytes, WN = min(CB, 64))]
-// [bias, alpha, gamma, beta: 4 x CB f32] [full, empty mbarriers: 2 x stages]
+// [x ring: stages x (ST_TM + taps - 1 rows x 128 bytes, swizzled, then those
+//  rows' in_mask bytes), each 1 KB aligned]
+// [weight ring: wstages x ceil(CB / 64) blocks of 64 input rows x 64 output
+//  columns (128 bytes, swizzled: MN-major)]
+// [bias, alpha, gamma, beta: 4 x CB f32]
+// [mbarriers: x full, x empty (stages each), w full, w empty (wstages each)]
 struct StreamLayout {
-  int stages;
-  int nblk;          // tap blocks: block b has taps [b K / nblk, (b + 1) K / nblk)
-  int nkc;           // ceil(C / KW) input-channel chunks
+  int stages, wstages, cluster;
+  int taps;          // the most taps a block: x rows ST_TM + taps - 1
+  int nblk;          // tap blocks: taps [b K / nblk, (b + 1) K / nblk)
+  int nkc;           // ceil(C / ST_KW) input-channel chunks
   int n_cb;          // ceil(C / CB) column blocks
+  int blocks;        // ceil(CB / 64) weight blocks a stage
+  int steps;         // weight steps a tile: K * nkc
+  int resident;      // every step's weights stay in the ring
   int l_tiles;       // ceil(L / ST_TM)
   int m_tiles;       // n_rows * l_tiles
-  uint32_t xbytes;   // a stage's x rows
-  uint32_t wblock;   // a stage's weights of one WN-column block
-  uint32_t stage;    // bytes of one stage
-  uint32_t off_par, off_bar, bytes;
+  uint32_t xrows;    // bytes of an x stage's rows: its mask's offset
+  uint32_t xstage, wstage;
+  uint32_t off_w, off_par, off_bar, bytes;
 };
 
-// false if (cb, kw, taps, stages) cannot hold this shape
+// false if (cb, kw, taps, stages, wstages, cluster) cannot hold this shape
 bool make_stream_layout(int n_rows, int L, int C, int K, int cb, int kw,
-                        int taps, int stages, StreamLayout* lay) {
-  if (kw != 16 && kw != 32 && kw != 64) return false;
-  if (cb != 32 && cb != 64 && cb != 128) return false;
-  if (stages < 2 || stages > 4 || taps < 1 || taps > K) return false;
-  const int wn = cb < 64 ? cb : 64;
+                        int taps, int stages, int wstages, int cluster,
+                        StreamLayout* lay) {
+  if (kw != ST_KW || cb < 16 || cb > 256 || cb % 16) return false;
+  if (stages < 2 || stages > 4 || wstages < 1) return false;
+  if (taps < 1 || taps > K || taps > ST_MAX_TAPS) return false;
+  if (cluster != 1 && cluster != 2 && cluster != 4) return false;
   lay->stages = stages;
+  lay->wstages = wstages;
+  lay->cluster = cluster;
+  lay->taps = taps;
   lay->nblk = (K + taps - 1) / taps;
-  lay->nkc = (C + kw - 1) / kw;
+  lay->nkc = (C + ST_KW - 1) / ST_KW;
   lay->n_cb = (C + cb - 1) / cb;
+  lay->blocks = (cb + 63) / 64;
+  lay->steps = K * lay->nkc;
+  lay->resident = lay->steps <= wstages;
+  // multicast: TMA copies (C % 8 == 0) of streamed weights
+  if (cluster > 1 && (C % 8 || lay->resident)) return false;
   lay->l_tiles = (L + ST_TM - 1) / ST_TM;
   lay->m_tiles = n_rows * lay->l_tiles;
-  lay->xbytes = align1k((uint32_t)(ST_TM + taps - 1) * kw * 2);
-  lay->wblock = (uint32_t)taps * kw * wn * 2;
-  lay->stage = lay->xbytes + (uint32_t)(cb / wn) * lay->wblock;
-  lay->off_par = stages * lay->stage;
+  lay->xrows = (uint32_t)(ST_TM + taps - 1) * 128;
+  lay->xstage = align1k(lay->xrows + ST_MASK);
+  lay->wstage = (uint32_t)lay->blocks * ST_BLOCK;
+  lay->off_w = stages * lay->xstage;
+  lay->off_par = lay->off_w + wstages * lay->wstage;
   lay->off_bar = lay->off_par + 16u * cb;
-  lay->bytes = lay->off_bar + 16u * stages + 1024u;  // + alignment slack
+  lay->bytes = lay->off_bar + 16u * (stages + wstages) + 1024u;  // + slack
   return lay->bytes <= (uint32_t)SMEM_LIMIT;
 }
 
-// 8 bf16 from global to shared memory (dst 16-byte aligned), zeros where
-// `live` is false or past the first `n` elements (src is then not read;
-// `safe` is any mapped address). VEC: src is 16-byte aligned and n >= 8
-// whenever live (C % 8 == 0), one cp.async; else 2-byte loads and one
-// 16-byte store.
-template <bool VEC>
-__device__ __forceinline__ void copy8(unsigned char* sbase, uint32_t base,
-                                      uint32_t dst, const __nv_bfloat16* src,
-                                      const void* safe, bool live, int n) {
-  if constexpr (VEC) {
-    hopper::cp_async16_zfill(dst, live ? (const void*)src : safe, live);
-  } else {
-    const unsigned short* s = reinterpret_cast<const unsigned short*>(src);
-    uint32_t v[4];
+// 8 bf16 from global to a 16-byte shared-memory unit by 2-byte loads, zeros
+// where `live` is false or past the first `n` elements (rows that no tensor
+// map describes: C % 8 != 0)
+__device__ __forceinline__ void copy8_bf16(unsigned char* dst,
+                                           const __nv_bfloat16* src,
+                                           bool live, int n) {
+  const unsigned short* s = reinterpret_cast<const unsigned short*>(src);
+  uint32_t v[4];
 #pragma unroll
-    for (int h = 0; h < 4; ++h) {
-      const uint32_t lo = live && 2 * h < n ? s[2 * h] : 0u;
-      const uint32_t hi = live && 2 * h + 1 < n ? s[2 * h + 1] : 0u;
-      v[h] = lo | (hi << 16);
-    }
-    *reinterpret_cast<uint4*>(sbase + (dst - base)) =
-        make_uint4(v[0], v[1], v[2], v[3]);
+  for (int h = 0; h < 4; ++h) {
+    const uint32_t lo = live && 2 * h < n ? s[2 * h] : 0u;
+    const uint32_t hi = live && 2 * h + 1 < n ? s[2 * h + 1] : 0u;
+    v[h] = lo | (hi << 16);
   }
+  *reinterpret_cast<uint4*>(dst) = make_uint4(v[0], v[1], v[2], v[3]);
 }
 
-template <int CB, int KW, bool VEC>
+// a bf16 pair of (row, col) and (row, col + 1) as one word (col + 1 past C:
+// zero); `pair`: C is even, so the pair is 4-byte aligned
+__device__ __forceinline__ uint32_t load_pair(const __nv_bfloat16* src,
+                                              bool pair, bool second) {
+  if (pair) return *reinterpret_cast<const uint32_t*>(src);
+  const unsigned short* e = reinterpret_cast<const unsigned short*>(src);
+  return (uint32_t)e[0] | (second ? (uint32_t)e[1] << 16 : 0u);
+}
+
+template <int CB>
 __global__ void __launch_bounds__(THREADS, 1)
-conv_bf16_stream(Params p, StreamLayout lay) {
+conv_bf16_stream(Params p, StreamLayout lay, int n_rows,
+                 const __grid_constant__ CUtensorMap xmap,
+                 const __grid_constant__ CUtensorMap wmap) {
   using namespace hopper;
-  constexpr int R = CB / 2;                // accumulator registers per thread
-  constexpr uint32_t RB = KW * 2;          // x row bytes (its swizzle width)
-  constexpr int WN = CB < 64 ? CB : 64;    // output channels a weight block
-  constexpr uint32_t WRB = WN * 2;         // weight row bytes (swizzle width)
-  constexpr int KS = KW / 16;              // k16 steps a tap of a chunk
+  constexpr int R = CB / 2;          // accumulator registers per thread
+  constexpr bool PRE = CB <= 128;    // residual prefetched into registers
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
   unsigned char* sbase = smem_raw + (base - raw);
 
-  const int C = p.C, K = p.K, L = p.L, S = lay.stages;
+  const int C = p.C, K = p.K, L = p.L;
+  const int S = lay.stages, WS = lay.wstages, CS = lay.cluster;
+  const bool tma = C % 8 == 0;
   const int pad_l = (K - 1) / 2;
   const int tid = threadIdx.x;
-  const int col0 = (blockIdx.x % lay.n_cb) * CB;
-  const int m_first = blockIdx.x / lay.n_cb;
-  const int m_step = gridDim.x / lay.n_cb;
-  const int n_local = m_first < lay.m_tiles
-                          ? (lay.m_tiles - m_first + m_step - 1) / m_step
-                          : 0;
-  // the CTA walks (tile, tap block, channel chunk) steps, chunks fastest
-  const int steps = lay.nblk * lay.nkc;
-  const long long total = (long long)n_local * steps;
-  const uint32_t bar_s = base + lay.off_bar;
+  // CTA b is rank b % CS of cluster b / CS; the cluster owns column block
+  // cluster % n_cb and walks groups of CS neighbouring tiles, rank r the
+  // group's tile r. Every CTA of a cluster walks as many groups: a tile past
+  // m_tiles is a ghost (zeros in, nothing out) that keeps them in step.
+  const int rank = CS > 1 ? (int)cluster_ctarank() : 0;
+  const int clu = blockIdx.x / CS;
+  const int col0 = (clu % lay.n_cb) * CB;
+  const int g_first = clu / lay.n_cb;
+  const int g_step = gridDim.x / CS / lay.n_cb;
+  const int groups = (lay.m_tiles + CS - 1) / CS;
+  const int n_iter =
+      g_first < groups ? (groups - g_first + g_step - 1) / g_step : 0;
+  const uint32_t x0 = base, w0 = base + lay.off_w;
+  const uint32_t bar = base + lay.off_bar;
+  const uint32_t xfull = bar, xempty = bar + 8 * S;
+  const uint32_t wfull = bar + 16 * S, wempty = wfull + 8 * WS;
   float* par = reinterpret_cast<float*>(sbase + lay.off_par);
 
   // par: bias (alpha * bias with DYT), alpha, gamma, beta of this column
@@ -736,177 +789,346 @@ conv_bf16_stream(Params p, StreamLayout lay) {
       par[3 * CB + c] = in ? p.dyt[2 * C + col] : 0.f;
     }
   }
+  const bool masked = p.in_mask != nullptr;
   if (tid == 0) {
+    // full: the TMA thread's arrival (its bytes) and, with in_mask, the 32
+    // threads that copy its bytes; or every copying thread
     for (int s = 0; s < S; ++s) {
-      mbar_init(bar_s + 8 * s, 128);                 // full: every producer
-      mbar_init(bar_s + 8 * (S + s), CONSUMERS * 4); // empty: every consumer warp
+      mbar_init(xfull + 8 * s, tma ? 1 + (masked ? 32 : 0) : 128);
+      mbar_init(xempty + 8 * s, CONSUMERS * 4);  // every consumer warp
+    }
+    for (int s = 0; s < WS; ++s) {
+      mbar_init(wfull + 8 * s, tma ? 1 : 128);
+      // every consumer warp of every CTA the stage's copies go to
+      mbar_init(wempty + 8 * s, CONSUMERS * 4 * CS);
     }
     fence_barrier_init();
   }
-  __syncthreads();
+  // every CTA's barriers are set before any multicast or remote arrival
+  if (CS > 1)
+    cluster_sync();
+  else
+    __syncthreads();
+
+  auto tile_of = [&](int i, int& n, int& l0) {
+    const int m = (g_first + i * g_step) * CS + rank;
+    const bool ghost = m >= lay.m_tiles;
+    n = ghost ? n_rows : m / lay.l_tiles;
+    l0 = ghost ? 0 : (m % lay.l_tiles) * ST_TM;
+    return !ghost;
+  };
 
   if (tid >= CONSUMERS * 128) {
-    // ---- producer warpgroup: its 128 threads copy each step's x rows and
-    // weights into the ring ----
-    setmaxnreg_dec<40>();
+    // ---- producer warpgroup: one thread issues each stage's TMA copies
+    // (C % 8 == 0; its warp copies the x stage's in_mask bytes), or all
+    // 128 copy it by 2-byte loads ----
+    setmaxnreg_dec<56>();
     const int pt = tid - CONSUMERS * 128;
-    const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(p.x);
-    const __nv_bfloat16* w = static_cast<const __nv_bfloat16*>(p.w);
-    for (long long q = 0; q < total; ++q) {
-      const int s = (int)(q % S);
-      const int i = (int)(q / steps), st = (int)(q % steps);
-      const int tb = st / lay.nkc, kc = st % lay.nkc;
-      const int m = m_first + i * m_step;
-      const int n = m / lay.l_tiles, l0 = (m % lay.l_tiles) * ST_TM;
-      const int j0 = tb * K / lay.nblk, kb = (tb + 1) * K / lay.nblk - j0;
-      const int c0 = kc * KW;
-      mbar_wait(bar_s + 8 * (S + s), ((int)(q / S) & 1) ^ 1);
-      const uint32_t xs = base + s * lay.stage;
-      const uint32_t ws = xs + lay.xbytes;
-      // x: input row r of the step is position l0 - pad_l + j0 + r; rows
-      // outside [0, L), masked by in_mask or channels past C read as zero
-      for (int u = pt; u < (ST_TM + kb - 1) * (KW / 8); u += 128) {
-        const int r = u / (KW / 8), cu = u % (KW / 8);
-        const int pos = l0 - pad_l + j0 + r;
-        const int c = c0 + 8 * cu;
-        const long long row = (long long)n * L + pos;
-        const bool live = pos >= 0 && pos < L && c < C &&
-                          (!p.in_mask || p.in_mask[row]);
-        copy8<VEC>(sbase, base, xs + swizzle(r * RB + cu * 16, RB),
-                   x + row * C + c, x, live, C - c);
-      }
-      // weights: w[j0 + jj][c0 + r][col0 + 8 v ..] -> column block 8 v /
-      // WN, row jj * KW + r (MN-major: output channels contiguous)
-      for (int u = pt; u < kb * KW * (CB / 8); u += 128) {
-        const int v = u % (CB / 8), jr = u / (CB / 8);
-        const int ci = c0 + jr % KW, co = col0 + 8 * v;
-        const long long src = ((long long)(j0 + jr / KW) * C + ci) * C + co;
-        copy8<VEC>(sbase, base,
-                   ws + (8 * v / WN) * lay.wblock +
-                       swizzle(jr * WRB + (v % (WN / 8)) * 16, WRB),
-                   w + src, w, ci < C && co < C, C - co);
-      }
-      if constexpr (VEC) {
-        cp_async_mbar_arrive(bar_s + 8 * s);
-      } else {
-        fence_proxy_async();  // the generic writes before wgmma reads them
-        mbar_arrive(bar_s + 8 * s);
+    // the threads that walk the steps: all 128 copying, or TMA's one
+    // (thread 0) and, with in_mask, the 32 of the next warp that copy the
+    // mask bytes (they never hold up the weights' copies)
+    const bool issuer = tma && pt == 0;
+    const bool masker = tma && masked && pt >= 32 && pt < 64;
+    if (!tma || issuer || masker) {
+      const int mt = tma ? pt - 32 : pt;  // this thread's first mask row
+      const int copiers = tma ? 32 : 128;
+      const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(p.x);
+      const __nv_bfloat16* w = static_cast<const __nv_bfloat16*>(p.w);
+      const int rows = ST_TM + lay.taps - 1;
+      const uint16_t mc = (uint16_t)((1u << CS) - 1);
+      const int wrows = ST_KW / CS;  // input rows of a block each rank copies
+      int sx = 0, px = 0, sw = 0, pw = 0;
+      for (int i = 0; i < n_iter; ++i) {
+        int n, l0;
+        const bool live_tile = tile_of(i, n, l0);
+        int st = 0;  // the tile's weight step
+        for (int tb = 0; tb < lay.nblk; ++tb) {
+          const int j0 = tb * K / lay.nblk, kb = (tb + 1) * K / lay.nblk - j0;
+          for (int kc = 0; kc < lay.nkc; ++kc) {
+            const int c0 = kc * ST_KW;
+            // x: input row r of the stage is position l0 - pad_l + j0 + r;
+            // rows outside [0, L) and channels past C arrive as zeros
+            mbar_wait(xempty + 8 * sx, px ^ 1);
+            const uint32_t xs = x0 + sx * lay.xstage;
+            unsigned char* xd = sbase + (xs - base);
+            if (issuer) {
+              mbar_arrive_expect_tx(xfull + 8 * sx, lay.xrows);
+              tma_load_3d(xs, &xmap, xfull + 8 * sx, c0, l0 - pad_l + j0, n);
+            }
+            if (!tma) {
+              for (int u = pt; u < rows * 8; u += 128) {
+                const int r = u / 8, cu = u % 8;
+                const int pos = l0 - pad_l + j0 + r, c = c0 + 8 * cu;
+                const long long row = (long long)n * L + pos;
+                copy8_bf16(xd + swizzle(r * 128 + cu * 16, 128),
+                           x + row * C + c,
+                           live_tile && pos >= 0 && pos < L && c < C, C - c);
+              }
+              fence_proxy_async();  // the generic writes before wgmma
+            }
+            if (masked && !issuer) {
+              // the rows' in_mask bytes (read by the consumers' generic
+              // loads: no proxy fence), all loaded before any is stored, so
+              // that their latencies overlap
+              constexpr int MR = (int)ST_MASK / 32;  // rows a thread at most
+              unsigned char v[MR];
+#pragma unroll
+              for (int k = 0; k < MR; ++k) {
+                const int r = mt + k * copiers;
+                const int pos = l0 - pad_l + j0 + r;
+                v[k] = r < rows && live_tile && pos >= 0 && pos < L
+                           ? __ldg(p.in_mask + (long long)n * L + pos)
+                           : 0;
+              }
+#pragma unroll
+              for (int k = 0; k < MR; ++k) {
+                const int r = mt + k * copiers;
+                if (r < rows) xd[lay.xrows + r] = v[k];
+              }
+            }
+            if (!issuer) mbar_arrive(xfull + 8 * sx);
+            if (++sx == S) {
+              sx = 0;
+              px ^= 1;
+            }
+            // the block's taps of this chunk, a weight step each: rows
+            // c0 .. c0 + 63 of w[j0 + j], the column block's CB columns
+            // as they are stored (MN-major), zero past C
+            for (int j = 0; j < kb; ++j, ++st) {
+              // resident: already in the ring; TMA: the issuer's work
+              if ((lay.resident && i > 0) || masker) continue;
+              const int s = lay.resident ? st : sw;
+              if (!lay.resident) mbar_wait(wempty + 8 * sw, pw ^ 1);
+              const uint32_t ws = w0 + s * lay.wstage;
+              if (tma) {
+                mbar_arrive_expect_tx(wfull + 8 * s, lay.wstage);
+                for (int b = 0; b < lay.blocks; ++b) {
+                  if (CS > 1)
+                    tma_load_3d_multicast(
+                        ws + b * ST_BLOCK + rank * wrows * 128, &wmap,
+                        wfull + 8 * s, col0 + 64 * b, c0 + rank * wrows,
+                        j0 + j, mc);
+                  else
+                    tma_load_3d(ws + b * ST_BLOCK, &wmap, wfull + 8 * s,
+                                col0 + 64 * b, c0, j0 + j);
+                }
+              } else {
+                unsigned char* wd = sbase + (ws - base);
+                for (int u = pt; u < lay.blocks * ST_KW * 8; u += 128) {
+                  const int b = u / (ST_KW * 8), ri = (u / 8) % ST_KW;
+                  const int uu = u % 8;
+                  const int ci = c0 + ri, co = col0 + 64 * b + 8 * uu;
+                  copy8_bf16(
+                      wd + b * ST_BLOCK + swizzle(ri * 128 + uu * 16, 128),
+                      w + ((long long)(j0 + j) * C + ci) * C + co,
+                      ci < C && co < C, C - co);
+                }
+                fence_proxy_async();
+                mbar_arrive(wfull + 8 * s);
+              }
+              if (!lay.resident && ++sw == WS) {
+                sw = 0;
+                pw ^= 1;
+              }
+            }
+          }
+        }
       }
     }
-    if constexpr (VEC) cp_async_wait<0>();
   } else {
-    setmaxnreg_inc<232>();
+    setmaxnreg_inc<224>();
     // ---- consumer warpgroups: rows 64 wg .. of every tile ----
     const int wg = tid / 128;
     const int warp = (tid % 128) / 32, lane = tid % 32;
     const int r0 = TL * wg + 16 * warp + lane / 4;  // fragment rows r0, r0 + 8
     const int lrow = TL * wg + 16 * warp + (lane & 15);  // ldmatrix row
-    const int lcol = (lane >> 4) * 8;          // ldmatrix column of this lane
-    const int c_lane = 2 * (lane % 4);         // accumulator column in 8
+    const int lcol = (lane >> 4) * 8;  // ldmatrix column of this lane
+    const int c_lane = 2 * (lane % 4);  // accumulator column in 8
+    const bool pair = C % 2 == 0;
+    const int last_ks = (C - (lay.nkc - 1) * ST_KW + 15) / 16;
     const __nv_bfloat16* res = static_cast<const __nv_bfloat16*>(p.residual);
     __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out);
-    float acc[R] = {};
+    // B of stage s, k16 step t: rows 16 t of its blocks (16 * 128 bytes);
+    // the blocks ST_BLOCK apart
+    const uint64_t wdesc = smem_desc_mn(w0, 128, ST_BLOCK);
+    float acc[R];
     uint32_t rv[CB / 4];
-    bool v0 = false, v1 = false, z0 = false, z1 = false;
-    long long row0 = 0;
-    for (long long q = 0; q < total; ++q) {
-      const int s = (int)(q % S);
-      const int i = (int)(q / steps), st = (int)(q % steps);
-      const int tb = st / lay.nkc;
-      const int kb = (tb + 1) * K / lay.nblk - tb * K / lay.nblk;
-      if (st == 0) {
-        // the tile's epilogue inputs, loaded now so that they arrive
-        // during the products: the residual pairs ([2q]: row r0, [2q + 1]:
-        // row r0 + 8) and the out_mask bytes
-        const int m = m_first + i * m_step;
-        const int n = m / lay.l_tiles, l = (m % lay.l_tiles) * ST_TM + r0;
-        v0 = l < L;
-        v1 = l + 8 < L;
-        row0 = (long long)n * L + l;
-        if (res) {
-#pragma unroll
-          for (int qq = 0; qq < CB / 8; ++qq) {
-            const int col = col0 + 8 * qq + c_lane;
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              const bool live = (h ? v1 : v0) && col < C;
-              const __nv_bfloat16* r = res + (row0 + 8 * h) * C + col;
-              if constexpr (VEC) {
-                rv[2 * qq + h] =
-                    live ? *reinterpret_cast<const uint32_t*>(r) : 0u;
-              } else {
-                const unsigned short* e =
-                    reinterpret_cast<const unsigned short*>(r);
-                rv[2 * qq + h] =
-                    (live ? (uint32_t)e[0] : 0u) |
-                    (live && col + 1 < C ? (uint32_t)e[1] << 16 : 0u);
-              }
-            }
+    int sx = 0, px = 0, sw = 0, pw = 0;
+    // a stage goes back once the group that read it last has retired: its
+    // x stage's empty barrier in this CTA, its weight stage's in every CTA
+    // the stage's copies went to
+    auto release = [&](int s_w, int s_x) {
+      __syncwarp();
+      if (lane == 0) {
+        if (s_x >= 0) mbar_arrive(xempty + 8 * s_x);
+        if (s_w >= 0) {
+          if (CS > 1) {
+            for (int r = 0; r < CS; ++r)
+              mbar_arrive_cluster(cluster_map(wempty + 8 * s_w, r));
+          } else {
+            mbar_arrive(wempty + 8 * s_w);
           }
         }
-        z0 = p.out_mask && v0 && !p.out_mask[row0];
-        z1 = p.out_mask && v1 && !p.out_mask[row0 + 8];
       }
-      mbar_wait(bar_s + 8 * s, (int)(q / S) & 1);
-      fence_proxy_async();  // the landed stage before wgmma reads it
-      const uint32_t xs = base + s * lay.stage;
-      // B of tap jj, k16 step t: rows jj KW + 16 t of the weights
-      const uint64_t wdesc = smem_desc_mn(xs + lay.xbytes, WRB, lay.wblock);
-
-      // One chunk: tap jj over the stage's KW channels, KS k16 steps. A:
-      // the x rows shifted by jj, by ldmatrix at swizzled addresses.
-      auto load_chunk = [&](uint32_t(&a)[KS][4], int jj) {
-        const uint32_t row = lrow + jj;
-        const uint32_t rbase = xs + row * RB;
-        const uint32_t sw = (((row * RB) >> 7) & (RB / 16 - 1)) << 4;
+    };
+    for (int i = 0; i < n_iter; ++i) {
+      int n, l0;
+      const bool live_tile = tile_of(i, n, l0);
+      const int l = l0 + r0;
+      const bool v0 = live_tile && l < L, v1 = live_tile && l + 8 < L;
+      const long long row0 = (long long)n * L + l;
+      // the epilogue's inputs, asked for now so that they arrive during
+      // the products: the residual pairs ([2q]: row r0, [2q + 1]: row
+      // r0 + 8) in registers (CB <= 128), else their lines into L2; the
+      // out_mask bytes
+      if (res) {
+        if constexpr (PRE) {
 #pragma unroll
-        for (int t = 0; t < KS; ++t)
-          ldmatrix_x4(a[t], rbase + (((t * 16 + lcol) * 2) ^ sw));
-      };
-      auto issue_chunk = [&](uint32_t(&a)[KS][4], int jj, bool first) {
+          for (int q = 0; q < CB / 8; ++q) {
+            const int col = col0 + 8 * q + c_lane;
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+              rv[2 * q + h] = (h ? v1 : v0) && col < C
+                                  ? load_pair(res + (row0 + 8 * h) * C + col,
+                                              pair, col + 1 < C)
+                                  : 0u;
+          }
+        } else {
+          const int col = col0 + 64 * (lane % 4);
+          if (col < C && col < col0 + CB) {
+            if (v0) prefetch_l2(res + row0 * C + col);
+            if (v1) prefetch_l2(res + (row0 + 8) * C + col);
+          }
+        }
+      }
+      const bool z0 = p.out_mask && v0 && !p.out_mask[row0];
+      const bool z1 = p.out_mask && v1 && !p.out_mask[row0 + 8];
+
+      // The tile's weight steps, chunks of a tap block outer, its taps
+      // inner. A step: A (the x rows shifted by the tap j, ldmatrix at
+      // swizzled addresses; in_mask rows zeroed in the registers), B the
+      // step's weights; the chunk's k16 steps (the last chunk's only those
+      // it holds) in one wgmma group. One group stays in flight across the
+      // steps: a step waits for the group before it, then hands its
+      // stages back.
+      int tb = 0, kc = 0, j = 0;
+      int j0 = 0, kb = K / lay.nblk;
+      // KS k16 products on the A set a and the weights at descriptor d,
+      // straight-line (a wgmma under a branch of its own makes ptxas add
+      // register fences before every wgmma of the kernel)
+      auto issue = [&](auto ks_c, uint32_t(&a)[4][4], uint64_t d, int st) {
+        fence_regs(acc);
         wgmma_fence();
 #pragma unroll
-        for (int t = 0; t < KS; ++t)
-          wgmma_bf16_rs_mn(acc, a[t],
-                           wdesc + (((uint32_t)(jj * KW + 16 * t) * WRB) >> 4),
-                           !(first && t == 0));
+        for (int t = 0; t < decltype(ks_c)::value; ++t)
+          wgmma_bf16_rs_mn_n<CB>(acc, a[t], d + 128 * t, ST_BLOCK >> 4,
+                                 !(st == 0 && t == 0));
         wgmma_commit();
       };
-      // two register sets: one tap's wgmmas run while the next tap's A
-      // fragments are loaded
-      uint32_t aA[KS][4], aB[KS][4];
-      load_chunk(aA, 0);
-      for (int jj = 0;; jj += 2) {
-        fence_regs(acc);
-        issue_chunk(aA, jj, st == 0 && jj == 0);
-        if (jj + 1 >= kb) break;
-        wgmma_wait<1>();  // tap jj - 1, the last reader of set B, is done
-        load_chunk(aB, jj + 1);
-        issue_chunk(aB, jj + 1, false);
-        if (jj + 2 >= kb) break;
-        wgmma_wait<1>();  // tap jj, the last reader of set A, is done
-        load_chunk(aA, jj + 2);
+      // One weight step: A (the x rows shifted by the tap, ldmatrix at
+      // swizzled addresses, in_mask rows zeroed), its group of products,
+      // then the group before it retires and that group's stages go back.
+      int prev_w = -1, prev_x = -1;
+      auto step = [&](uint32_t(&a)[4][4], int st) {
+        const int ks = kc + 1 < lay.nkc ? 4 : last_ks;
+        if (j == 0) {
+          mbar_wait(xfull + 8 * sx, px);
+          if (!tma) fence_proxy_async();
+        }
+        const int s = lay.resident ? st : sw;
+        mbar_wait(wfull + 8 * s, lay.resident ? 0 : pw);
+        if (!tma) fence_proxy_async();
+        const uint32_t xs = x0 + sx * lay.xstage;
+        const uint32_t row = lrow + j;
+        const uint32_t rbase = xs + row * 128;
+        const uint32_t sw7 = (row & 7) << 4;
+        // all four k16 slices (past C the stage holds zeros)
+#pragma unroll
+        for (int t = 0; t < 4; ++t)
+          ldmatrix_x4(a[t], rbase + (((t * 16 + lcol) * 2) ^ sw7));
+        if (masked) {
+          const unsigned char* mk = sbase + (xs - base) + lay.xrows;
+          const uint32_t k0 = mk[r0 + j] ? ~0u : 0u;
+          const uint32_t k1 = mk[r0 + 8 + j] ? ~0u : 0u;
+#pragma unroll
+          for (int t = 0; t < 4; ++t) {
+            a[t][0] &= k0;
+            a[t][2] &= k0;
+            a[t][1] &= k1;
+            a[t][3] &= k1;
+          }
+        }
+        const uint64_t d = wdesc + ((s * lay.wstage) >> 4);
+        switch (ks) {
+          case 1: issue(std::integral_constant<int, 1>(), a, d, st); break;
+          case 2: issue(std::integral_constant<int, 2>(), a, d, st); break;
+          case 3: issue(std::integral_constant<int, 3>(), a, d, st); break;
+          default: issue(std::integral_constant<int, 4>(), a, d, st); break;
+        }
+        if (st > 0) {
+          wgmma_wait<1>();  // the step before: its stages may go
+          release(prev_w, prev_x);
+        }
+        prev_w = lay.resident ? -1 : sw;
+        prev_x = j + 1 == kb ? sx : -1;
+        if (!lay.resident && ++sw == WS) {
+          sw = 0;
+          pw ^= 1;
+        }
+        if (++j == kb) {
+          j = 0;
+          if (++sx == S) {
+            sx = 0;
+            px ^= 1;
+          }
+          if (++kc == lay.nkc) {
+            kc = 0;
+            ++tb;
+            j0 = tb * K / lay.nblk;
+            kb = (tb + 1) * K / lay.nblk - j0;
+          }
+        }
+      };
+      // two A register sets: a step's fragments load while the step
+      // before runs
+      uint32_t aA[4][4], aB[4][4];
+      for (int st = 0;; st += 2) {
+        step(aA, st);
+        if (st + 1 >= lay.steps) break;
+        step(aB, st + 1);
+        if (st + 2 >= lay.steps) break;
       }
-      wgmma_wait<0>();
+      wgmma_wait<0>();  // the tile's last group
       fence_regs(acc);
-      // every read of the stage is done: hand it back to the producer
-      __syncwarp();
-      if (lane == 0) mbar_arrive(bar_s + 8 * (S + s));
-      if (st != steps - 1) continue;
+      release(prev_w, prev_x);
 
       // ---- the tile's epilogue from the registers, stored from them:
       // columns col0 + 8 q + c_lane (+1) of rows r0 and r0 + 8, those past
       // L or C not at all ----
+      if constexpr (!PRE) {
+        if (res) {
+#pragma unroll
+          for (int q = 0; q < CB / 8; ++q) {
+            const int col = col0 + 8 * q + c_lane;
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+              rv[2 * q + h] = (h ? v1 : v0) && col < C
+                                  ? load_pair(res + (row0 + 8 * h) * C + col,
+                                              pair, col + 1 < C)
+                                  : 0u;
+          }
+        }
+      }
       epilogue_regs<CB>(acc, par, p, z0, z1, res != nullptr, rv, c_lane);
 #pragma unroll
-      for (int qq = 0; qq < CB / 8; ++qq) {
-        const int col = col0 + 8 * qq + c_lane;
+      for (int q = 0; q < CB / 8; ++q) {
+        const int col = col0 + 8 * q + c_lane;
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           if (!(h ? v1 : v0) || col >= C) continue;
           __nv_bfloat16* o = out + (row0 + 8 * h) * C + col;
-          const float a0 = acc[4 * qq + 2 * h], a1 = acc[4 * qq + 2 * h + 1];
-          if constexpr (VEC) {
+          const float a0 = acc[4 * q + 2 * h], a1 = acc[4 * q + 2 * h + 1];
+          if (pair) {
             *reinterpret_cast<__nv_bfloat162*>(o) =
                 __floats2bfloat162_rn(a0, a1);
           } else {
@@ -917,6 +1139,9 @@ conv_bf16_stream(Params p, StreamLayout lay) {
       }
     }
   }
+  // no CTA leaves while another may still copy into it or arrive on its
+  // barriers
+  if (CS > 1) cluster_sync();
 }
 
 // ---------------------------------------------------------------------------
@@ -1516,20 +1741,55 @@ cudaError_t launch_bf16(const Params& p, const Layout& lay, int n_rows,
   return cudaGetLastError();
 }
 
-template <int CB, int KW, bool VEC>
-cudaError_t launch_stream(const Params& p, const StreamLayout& lay, int sms,
-                          cudaStream_t stream) {
+template <int CB>
+cudaError_t launch_stream(const Params& p, const StreamLayout& lay,
+                          int n_rows, int sms, cudaStream_t stream) {
+  // C % 8 == 0: x boxes of a tap block's rows x ST_KW channels, weight
+  // boxes of 64 output columns x the ST_KW / cluster input rows a rank
+  // copies (both swizzled to 128 bytes; rows past L, channels and columns
+  // past C arrive as zeros)
+  CUtensorMap xmap = {}, wmap = {};
+  if (p.C % 8 == 0 &&
+      (!hopper::encode_bf16_3d(&xmap, p.x, (uint64_t)p.C, (uint64_t)p.L,
+                               (uint64_t)n_rows, ST_KW,
+                               (uint32_t)(ST_TM + lay.taps - 1)) ||
+       !hopper::encode_bf16_3d(&wmap, p.w, (uint64_t)p.C, (uint64_t)p.C,
+                               (uint64_t)p.K, 64,
+                               (uint32_t)(ST_KW / lay.cluster))))
+    return cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
-      conv_bf16_stream<CB, KW, VEC>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)lay.bytes);
+      conv_bf16_stream<CB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)lay.bytes);
   if (e != cudaSuccess) return e;
-  // persistent: as many CTAs per column block as fit one per SM (at least
-  // one), no more than there are tiles
-  int per_cb = sms / lay.n_cb;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)lay.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)lay.cluster);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = lay.bytes;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = lay.cluster > 1 ? 1 : 0;
+  // persistent: as many clusters per column block as can be resident at
+  // once (one CTA an SM), no more than it has groups of tiles
+  int clusters = sms;
+  if (lay.cluster > 1) {
+    e = cudaOccupancyMaxActiveClusters(
+        &clusters, (const void*)conv_bf16_stream<CB>, &cfg);
+    if (e != cudaSuccess) return e;
+  }
+  int per_cb = clusters / lay.n_cb;
   if (per_cb < 1) per_cb = 1;
-  if (per_cb > lay.m_tiles) per_cb = lay.m_tiles;
-  conv_bf16_stream<CB, KW, VEC>
-      <<<per_cb * lay.n_cb, THREADS, lay.bytes, stream>>>(p, lay);
+  const int groups = (lay.m_tiles + lay.cluster - 1) / lay.cluster;
+  if (per_cb > groups) per_cb = groups;
+  cfg.gridDim = dim3((unsigned)(per_cb * lay.n_cb * lay.cluster));
+  void* args[] = {(void*)&p, (void*)&lay, (void*)&n_rows, (void*)&xmap,
+                  (void*)&wmap};
+  e = cudaLaunchKernelExC(&cfg, (const void*)conv_bf16_stream<CB>, args);
+  if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
@@ -1551,8 +1811,9 @@ extern "C" int jt_fused_conv_block(int dtype, const void* x, const void* w,
                                    const void* in_mask, const void* out_mask,
                                    const void* residual, void* out, int n_rows,
                                    int L, int C, int K, int act, int cb, int kw,
-                                   int taps, int stages, int smem_bytes,
-                                   int sms, void* stream) {
+                                   int taps, int stages, int wstages,
+                                   int cluster, int smem_bytes, int sms,
+                                   void* stream) {
   if (n_rows <= 0 || L <= 0 || K <= 0 || C <= 0 || sms <= 0)
     return (int)cudaErrorInvalidValue;
   Params p;
@@ -1587,25 +1848,28 @@ extern "C" int jt_fused_conv_block(int dtype, const void* x, const void* w,
   if (dtype != 1) return (int)cudaErrorInvalidValue;
   if (taps > 0) {
     StreamLayout lay;
-    if (!make_stream_layout(n_rows, L, C, K, cb, kw, taps, stages, &lay) ||
+    if (!make_stream_layout(n_rows, L, C, K, cb, kw, taps, stages, wstages,
+                            cluster, &lay) ||
         lay.bytes != (uint32_t)smem_bytes)
       return (int)cudaErrorInvalidValue;
-    // the (cb, kw) pairs of conv_plan's stream_plan (STREAM_SHAPES), each
-    // with 16-byte copies (C % 8 == 0) or 2-byte loads
-    const bool vec = C % 8 == 0;
-    switch (kw * 1000 + cb) {
-      case 64128:
-        return (int)(vec ? launch_stream<128, 64, true>(p, lay, sms, s)
-                         : launch_stream<128, 64, false>(p, lay, sms, s));
-      case 64064:
-        return (int)(vec ? launch_stream<64, 64, true>(p, lay, sms, s)
-                         : launch_stream<64, 64, false>(p, lay, sms, s));
-      case 32032:
-        return (int)(vec ? launch_stream<32, 32, true>(p, lay, sms, s)
-                         : launch_stream<32, 32, false>(p, lay, sms, s));
-      case 16032:
-        return (int)(vec ? launch_stream<32, 16, true>(p, lay, sms, s)
-                         : launch_stream<32, 16, false>(p, lay, sms, s));
+    // the column widths of conv_plan's stream_plan (STREAM_WIDTHS)
+    switch (cb) {
+      case 16: return (int)launch_stream<16>(p, lay, n_rows, sms, s);
+      case 32: return (int)launch_stream<32>(p, lay, n_rows, sms, s);
+      case 48: return (int)launch_stream<48>(p, lay, n_rows, sms, s);
+      case 64: return (int)launch_stream<64>(p, lay, n_rows, sms, s);
+      case 80: return (int)launch_stream<80>(p, lay, n_rows, sms, s);
+      case 96: return (int)launch_stream<96>(p, lay, n_rows, sms, s);
+      case 112: return (int)launch_stream<112>(p, lay, n_rows, sms, s);
+      case 128: return (int)launch_stream<128>(p, lay, n_rows, sms, s);
+      case 144: return (int)launch_stream<144>(p, lay, n_rows, sms, s);
+      case 160: return (int)launch_stream<160>(p, lay, n_rows, sms, s);
+      case 176: return (int)launch_stream<176>(p, lay, n_rows, sms, s);
+      case 192: return (int)launch_stream<192>(p, lay, n_rows, sms, s);
+      case 208: return (int)launch_stream<208>(p, lay, n_rows, sms, s);
+      case 224: return (int)launch_stream<224>(p, lay, n_rows, sms, s);
+      case 240: return (int)launch_stream<240>(p, lay, n_rows, sms, s);
+      case 256: return (int)launch_stream<256>(p, lay, n_rows, sms, s);
       default: return (int)cudaErrorInvalidValue;
     }
   }

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: mbarriers,
-// TMA tensor maps and loads, 1-D bulk copies, wgmma descriptors (K-major and
-// MN-major) and instructions (bf16 and s8, A from registers), ldmatrix,
-// cp.async (with mbarrier completion).
+// thread block clusters (ranks, cluster barriers, remote arrivals), TMA
+// tensor maps and loads (multicast to a cluster too), 1-D bulk copies,
+// wgmma descriptors (K-major and MN-major) and instructions (bf16 and s8, A
+// from registers), ldmatrix, cp.async (with mbarrier completion).
 //
 // Header only; each helper is a thin wrapper around one PTX instruction
 // (or, on the host, one driver call), so a kernel reads as the sequence of
@@ -92,6 +93,45 @@ __device__ __forceinline__ void setmaxnreg_inc() {
 }
 
 // ---------------------------------------------------------------------------
+// thread block clusters
+// ---------------------------------------------------------------------------
+
+// this CTA's rank in its cluster
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// every thread of every CTA of the cluster meets here; shared-memory
+// writes and barrier inits before it are visible to the cluster after it
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release;\n"
+      "barrier.cluster.wait.acquire;\n" ::
+          : "memory");
+}
+
+// the address of this CTA's shared-memory `addr` in the CTA of rank `rank`
+// (a shared::cluster address)
+__device__ __forceinline__ uint32_t cluster_map(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(addr), "r"(rank));
+  return r;
+}
+
+// one arrival on a barrier of any CTA of the cluster (cluster_map's
+// address), with the default release at CTA scope: enough where the caller
+// has only to show that its own reads of its shared memory are done (a
+// release at cluster scope would fence each arrival)
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// ---------------------------------------------------------------------------
 // TMA
 // ---------------------------------------------------------------------------
 
@@ -118,6 +158,23 @@ __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
       "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group "
       "[%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
       "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// the same box written into the shared memory of every CTA of the cluster
+// in `mask` (bit r: rank r), at the same offset, each CTA's barrier at
+// `bar`'s offset told of the bytes it receives
+__device__ __forceinline__ void tma_load_3d_multicast(uint32_t dst,
+                                                      const CUtensorMap* map,
+                                                      uint32_t bar, int c0,
+                                                      int c1, int c2,
+                                                      uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes.multicast::cluster [%0], [%1, {%4, %5, %6}], [%2], %3;\n" ::"r"(
+          dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "h"(mask), "r"(c0),
+      "r"(c1), "r"(c2)
       : "memory");
 }
 
@@ -459,6 +516,21 @@ __device__ __forceinline__ void wgmma_bf16_rs(float (&d)[64],
 // The same products with B MN-major (smem_desc_mn: the transpose bit set):
 // d (64 x N, f32) += a (64 x 16 bf16, registers) * b (16 x N bf16, stored
 // 16 rows of N contiguous elements); scale_d = 0 overwrites d. N = 2 * R.
+__device__ __forceinline__ void wgmma_bf16_rs_mn(float (&d)[8],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %12, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %13, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(scale_d),
+        "l"(desc));
+}
+
 __device__ __forceinline__ void wgmma_bf16_rs_mn(float (&d)[16],
                                                  const uint32_t (&a)[4],
                                                  uint64_t desc, int scale_d) {
@@ -498,6 +570,25 @@ __device__ __forceinline__ void wgmma_bf16_rs_mn(float (&d)[32],
         "l"(desc));
 }
 
+__device__ __forceinline__ void wgmma_bf16_rs_mn(float (&d)[24],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %28, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23}, "
+      "{%24, %25, %26, %27}, %29, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(scale_d),
+        "l"(desc));
+}
+
 __device__ __forceinline__ void wgmma_bf16_rs_mn(float (&d)[64],
                                                  const uint32_t (&a)[4],
                                                  uint64_t desc, int scale_d) {
@@ -527,6 +618,26 @@ __device__ __forceinline__ void wgmma_bf16_rs_mn(float (&d)[64],
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(scale_d),
         "l"(desc));
+}
+
+// d (64 x N, f32) += a * b with B MN-major for any N that is a multiple of
+// 16 up to 256: wgmma instructions of 128 and 64 columns, then one of the
+// remaining 48, 32 or 16, each starting at a 64-column block of the operand
+// (`block16` descriptor units, block bytes >> 4, apart; the last block may
+// be read in part); d holds N / 2 values a thread, the instructions' in
+// order.
+template <int N>
+__device__ __forceinline__ void wgmma_bf16_rs_mn_n(float* d,
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t desc,
+                                                   uint32_t block16,
+                                                   int scale_d) {
+  static_assert(N % 16 == 0 && N >= 16 && N <= 256, "N: 16, 32, .., 256");
+  constexpr int W = N >= 128 ? 128 : N >= 64 ? 64 : N;
+  wgmma_bf16_rs_mn(*reinterpret_cast<float(*)[W / 2]>(d), a, desc, scale_d);
+  if constexpr (N > W)
+    wgmma_bf16_rs_mn_n<N - W>(d + W / 2, a, desc + (W / 64) * block16,
+                              block16, scale_d);
 }
 
 // d (64 x N, s32) (+)= a (64 x 32 s8, registers: the mma.sync m16n8k32 A

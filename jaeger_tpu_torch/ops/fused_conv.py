@@ -37,17 +37,21 @@ from the accumulator registers while a second warpgroup runs the next
 tile's products. :func:`conv_plan` sizes it. Every other bf16 shape (C %
 16 != 0, k > 56, weights too large to stay resident: the Pallas kernel
 takes any C and k) takes route ``wgmma_stream``: a persistent kernel
-whose producer warpgroup copies each 128-row tile's x rows and one (tap
-block, channel chunk) of the weights per step into a ring (16-byte
-``cp.async`` where C % 8 == 0, else 2-byte loads; zero past C, outside
-[0, L) and where in_mask is false), and whose two consumer warpgroups
-keep their 64 x CB accumulators in registers across the steps
-(``wgmma`` with B MN-major), the epilogue stored from the registers with
-every column past C skipped. f32 inputs use plain FMAs,
-never TF32 (1.0e12 FLOPs at the flagship shape: 15.0 ms at the card's
-67 TFLOP/s f32 rate): route ``f32_ring``, a persistent kernel whose CTAs
-keep a column block of the weights resident (or, where its k taps do not
-fit, stream it a tap block at a time) and whose warps each walk 32-row
+over 128-row tiles in one column block of C rounded up to 16 where C <=
+256 (blocks of up to 256 past it), fed by two rings: a tap block's x
+rows of a 64-channel chunk with their in_mask bytes, and one tap's
+weights of that chunk (MN-major, as stored), copied by TMA from one
+thread where C % 8 == 0 (the weights multicast to a cluster of 2 CTAs on
+neighbouring tiles where C % 64 != 0; resident where a tile's steps all
+fit the ring), else by 2-byte loads; its two consumer warpgroups keep
+their 64 x CB accumulators in registers across the steps with one
+``wgmma`` group in flight, zero in_mask rows in the A registers, and
+store the epilogue from the registers with every column past C skipped.
+f32 inputs use plain FMAs, never TF32 (1.0e12 FLOPs at the flagship
+shape: 15.0 ms at the card's 67 TFLOP/s f32 rate): route ``f32_ring``, a
+persistent kernel whose CTAs keep a column block of the weights resident
+(or, where its k taps do not fit, stream it a tap block at a time) and
+whose warps each walk 32-row
 units, tap block by tap block of at most 9 taps, through a ``cp.async``
 ring of their own, with 8-row x CB / 8-column outer products in
 registers and the epilogue from them. :func:`f32_plan` sizes it; C % 16
@@ -186,41 +190,66 @@ def conv_plan(c: int, k: int, dtype=torch.bfloat16) -> dict:
 #: output rows a tile of the streamed bf16 kernel: its two consumer
 #: warpgroups' 64-row wgmma M each
 STREAM_TILE = 2 * _TL
-#: the (cb, kw) pairs :func:`stream_plan` gives: the C entry's instances
-STREAM_SHAPES = ((128, 64), (64, 64), (32, 32), (32, 16))
+#: input channels a chunk of the streamed kernel (128-byte swizzled rows)
+STREAM_KW = 64
+#: the most taps a tap block: a TMA box holds at most 256 rows
+STREAM_MAX_TAPS = 256 - STREAM_TILE + 1
+#: the column widths (wgmma N) of the C entry's ``conv_bf16_stream``
+#: instances
+STREAM_WIDTHS = tuple(range(16, 257, 16))
+#: the most weight stages a streamed plan's ring takes
+STREAM_MAX_WSTAGES = 8
 
 
-def stream_plan_bytes(kw: int, cb: int, taps: int, stages: int) -> int:
-    """Shared memory of the streamed bf16 kernel's layout: ``stages``
-    stages of a tile's x rows (``STREAM_TILE`` + taps - 1 rows x ``kw``
-    channels, 1 KB aligned) and the weights of ``taps`` taps x ``kw``
-    input x ``cb`` output channels, 4 x cb f32 parameters, 2 x stages
-    mbarriers and 1 KB of alignment slack."""
-    stage = _align1k((STREAM_TILE + taps - 1) * kw * 2) + taps * kw * cb * 2
-    return stages * stage + 16 * cb + 16 * stages + 1024
+def stream_plan_bytes(cb: int, taps: int, stages: int, wstages: int) -> int:
+    """Shared memory of the streamed bf16 kernel's layout: ``stages`` x
+    stages of a tap block's rows (``STREAM_TILE`` + taps - 1 rows x
+    ``STREAM_KW`` channels, 128-byte rows, then 256 in_mask bytes; 1 KB
+    aligned), ``wstages`` weight stages (one tap of a chunk: ``STREAM_KW``
+    input rows x ceil(cb / 64) blocks of 64 output columns), 4 x cb f32
+    parameters, 2 x (stages + wstages) mbarriers and 1 KB of alignment
+    slack."""
+    xstage = _align1k((STREAM_TILE + taps - 1) * 128 + 256)
+    wstage = _ceil(cb, 64) * STREAM_KW * 128
+    return (stages * xstage + wstages * wstage + 16 * cb
+            + 16 * (stages + wstages) + 1024)
 
 
 def stream_plan(c: int, k: int) -> dict:
-    """Route ``wgmma_stream``: the bf16 kernel that streams the weights a
-    (tap block, channel chunk) at a time beside the x rows, for every C and
-    k. ``kw`` input channels a chunk (64, 32 or 16; the last chunk zero
-    past C) and ``cb`` output channels a CTA (128, 64 or 32; the last block
-    cut at C), each the width with the least padded work, a step's fixed
-    cost counted as 48 channels of a chunk and 32 columns of a block;
-    ``taps`` a tap block, the most that fit two stages, then evened out
-    over the blocks; ``stages`` (2-4) the most that fit; ``smem``
-    (:func:`stream_plan_bytes`), which the C entry recomputes and must
-    equal."""
-    kw = min((64, 32, 16), key=lambda w: (_ceil(c, w) * (w + 48), -w))
-    cb = min((128, 64, 32), key=lambda b: (_ceil(c, b) * (b + 32), -b))
-    taps = 1
-    while taps < k and stream_plan_bytes(kw, cb, taps + 1, 2) <= SMEM_LIMIT:
-        taps += 1
-    taps = _ceil(k, _ceil(k, taps))
+    """Route ``wgmma_stream``: the bf16 kernel for every C and k the
+    resident route cannot hold. ``cb`` (the wgmma N of a column block):
+    C in ceil(C / 256) column blocks, each C / blocks rounded up to 16
+    (C 200: one block of 208, no second pass over x); ``kw``
+    ``STREAM_KW`` input channels a chunk (the last chunk issues only the
+    k16 steps it holds); ``taps`` a tap block (all k up to
+    ``STREAM_MAX_TAPS``, else evened out); a tile's weight steps (one tap
+    of a chunk each, k * ceil(C / 64)) resident in the ``wstages`` ring
+    where they all fit beside ``stages`` (2-4, the most) x stages, else
+    streamed: the most weight stages up to ``STREAM_MAX_WSTAGES``, then
+    the most x stages, with ``cluster`` 2 CTAs on neighbouring tiles
+    sharing each weight box by multicast where the weight rows are not
+    128-byte aligned (C % 64 != 0, TMA copies: C % 8 == 0), else 1 (the
+    faster on the H100 in ``chip_smoke.py --domain --sweep``, ``PERF.md``
+    §6); ``smem`` (:func:`stream_plan_bytes`), which the C entry
+    recomputes and must equal."""
+    blocks = _ceil(c, 256)
+    cb = _ceil(_ceil(c, blocks), 16) * 16
+    taps = _ceil(k, _ceil(k, STREAM_MAX_TAPS))
+    steps = k * _ceil(c, STREAM_KW)
+
+    def plan(stages, wstages, cluster):
+        return dict(route="wgmma_stream", cb=cb, kw=STREAM_KW, taps=taps,
+                    stages=stages, wstages=wstages, cluster=cluster,
+                    smem=stream_plan_bytes(cb, taps, stages, wstages))
+
+    for stages in (4, 3, 2):
+        if stream_plan_bytes(cb, taps, stages, steps) <= SMEM_LIMIT:
+            return plan(stages, steps, 1)
+    wstages = max(w for w in range(2, STREAM_MAX_WSTAGES + 1)
+                  if stream_plan_bytes(cb, taps, 2, w) <= SMEM_LIMIT)
     stages = max(s for s in (2, 3, 4)
-                 if stream_plan_bytes(kw, cb, taps, s) <= SMEM_LIMIT)
-    return dict(route="wgmma_stream", cb=cb, kw=kw, taps=taps, stages=stages,
-                smem=stream_plan_bytes(kw, cb, taps, stages))
+                 if stream_plan_bytes(cb, taps, s, wstages) <= SMEM_LIMIT)
+    return plan(stages, wstages, 2 if c % 8 == 0 and c % 64 else 1)
 
 
 #: the f32 ring kernel: output rows of a warp's unit, its warps a CTA,
@@ -359,8 +388,8 @@ def plan_bytes(c: int, k: int, cb: int, kw: int, stages: int) -> int:
 
 
 #: the C entry's arguments: dtype, 8 pointers, n_rows, L, C, k, act, cb,
-#: kw, taps, stages, smem bytes, SM count, stream
-ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11
+#: kw, taps, stages, wstages, cluster, smem bytes, SM count, stream
+ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 13
             + [ctypes.c_void_p])
 
 
@@ -441,11 +470,13 @@ def _launch(x, w, bias, dyt, act, in_mask, out_mask, residual, plan):
     fn = _lib()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    # taps 0: the resident bf16 route (its plans have no taps)
+    # taps 0: the resident bf16 route (its plans have no taps); wstages and
+    # cluster: the streamed bf16 route's
     err = fn(1 if x.dtype == torch.bfloat16 else 0, ptr(x), ptr(w),
              ptr(bias), ptr(dyt), ptr(in_mask), ptr(out_mask), ptr(residual),
              ptr(out), n, length, c, w.shape[0], _ACT_IDS[act], plan["cb"],
-             plan["kw"], plan.get("taps", 0), plan["stages"], plan["smem"],
+             plan["kw"], plan.get("taps", 0), plan["stages"],
+             plan.get("wstages", 0), plan.get("cluster", 0), plan["smem"],
              sms, stream)
     if err != 0:
         raise RuntimeError(f"fused_conv_block kernel launch failed: CUDA "

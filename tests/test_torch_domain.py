@@ -104,10 +104,20 @@ def _layout_bytes(c: int, k: int, plan: dict) -> int:
         return fused_conv.plan_bytes(c, k, plan["cb"], plan["kw"],
                                      plan["stages"])
     if route == "wgmma_stream":
-        assert (plan["cb"], plan["kw"]) in fused_conv.STREAM_SHAPES
-        assert 1 <= plan["taps"] <= k
-        return fused_conv.stream_plan_bytes(plan["kw"], plan["cb"],
-                                            plan["taps"], plan["stages"])
+        assert plan["cb"] in fused_conv.STREAM_WIDTHS
+        assert plan["kw"] == fused_conv.STREAM_KW
+        assert 1 <= plan["taps"] <= min(k, fused_conv.STREAM_MAX_TAPS)
+        # one column block up to 256 channels, else blocks of at most 256
+        assert -(-c // plan["cb"]) == -(-c // 256)
+        steps = k * -(-c // fused_conv.STREAM_KW)
+        resident = plan["wstages"] >= steps
+        assert resident or 2 <= plan["wstages"] <= 8
+        # multicast only of streamed weights copied by TMA (C % 8 == 0),
+        # where their rows are not 128-byte aligned (C % 64 != 0)
+        assert plan["cluster"] == (1 if resident or c % 8 or c % 64 == 0
+                                   else 2)
+        return fused_conv.stream_plan_bytes(plan["cb"], plan["taps"],
+                                            plan["stages"], plan["wstages"])
     assert route == ("f32_ring" if c % 16 == 0 and not plan["kw"]
                      else "f32_ring_pad")
     cp = -(-c // 16) * 16
@@ -481,21 +491,102 @@ def test_c40_run_core_tsv_byte_identical_to_jax(tmp_path):
 
 
 def test_stream_kernel_source_declares_its_instances():
-    """The C entry launches ``conv_bf16_stream`` for every (cb, kw) pair
-    of the plans, with 16-byte copies and 2-byte loads; the weights are an
-    MN-major wgmma operand; no pad or copy sits around the launch."""
+    """The C entry launches ``conv_bf16_stream`` at every column width of
+    the plans; x and the weights come by TMA where C % 8 == 0 (two tensor
+    maps; the weights multicast across a cluster), else by 2-byte loads,
+    in_mask's bytes beside each x stage; the weights are an MN-major
+    wgmma operand; one wgmma group stays in flight across the steps
+    (``wgmma_wait<0>`` only once a tile, before its epilogue); no pad or
+    copy sits around the launch."""
     import inspect
+    import re
     from pathlib import Path
 
     src = (Path(fused_conv.__file__).resolve().parent.parent / "csrc"
            / "fused_conv_block.cu").read_text()
-    assert "conv_bf16_stream(Params p, StreamLayout lay)" in src
-    for cb, kw in fused_conv.STREAM_SHAPES:
-        assert f"case {kw * 1000 + cb}:" in src
-        for vec in ("true", "false"):
-            assert f"launch_stream<{cb}, {kw}, {vec}>" in src
-    assert "wgmma_bf16_rs_mn(acc" in src and "cp_async_mbar_arrive" in src
+    assert ("conv_bf16_stream(Params p, StreamLayout lay, int n_rows,"
+            in src)
+    for cb in fused_conv.STREAM_WIDTHS:
+        assert f"case {cb}: return (int)launch_stream<{cb}>(" in src
+    kernel = src[src.index("conv_bf16_stream(Params p"):
+                 src.index("// f32: conv_f32_ring, the persistent FMA")]
+    for call in ("tma_load_3d(xs, &xmap", "tma_load_3d_multicast(",
+                 "xd[lay.xrows + r]", "copy8_bf16(",
+                 "wgmma_bf16_rs_mn_n<CB>(acc", "mbar_arrive_cluster(",
+                 "cluster_sync()"):
+        assert call in kernel, call
+    # the steps drain nothing: wait_group 1 once a step has issued its
+    # group, 0 once a tile, before its epilogue
+    assert kernel.count("wgmma_wait<1>()") == 1
+    assert kernel.count("wgmma_wait<0>()") == 1
+    step = kernel[kernel.index("auto step = [&]"):
+                  kernel.index("uint32_t aA[4][4], aB[4][4];")]
+    assert "wgmma_wait<0>" not in step and "wgmma_wait<1>" in step
+    launch = src[src.index("cudaError_t launch_stream("):]
+    assert "cudaLaunchAttributeClusterDimension" in launch
+    assert len(re.findall(r"encode_bf16_3d\(&[xw]map", launch)) == 2
     assert ("make_stream_layout(n_rows, L, C, K, cb, kw, taps, stages, "
-            "&lay)") in src
-    launch = inspect.getsource(fused_conv._launch)
-    assert "F.pad" not in launch and ".contiguous()" not in launch
+            "wstages,") in src
+    launch_py = inspect.getsource(fused_conv._launch)
+    assert "F.pad" not in launch_py and ".contiguous()" not in launch_py
+
+
+def _padded_share(c: int, k: int) -> float:
+    """The share of the streamed plan's products that fall on padding:
+    each column block's cb columns times the k16 steps its chunks issue
+    (C rounded up to 16), against C x C a tap."""
+    plan = fused_conv.conv_plan(c, k)
+    blocks = -(-c // plan["cb"])
+    done = blocks * plan["cb"] * (-(-c // 16) * 16) * k
+    return 1 - c * c * k / done
+
+
+def test_c200_takes_one_column_block():
+    """C 200 k 5 (the C 200 flagship's residual convs): one column block of
+    208 (no second pass over x), at most 10 % of the products padded (the
+    old plan's two blocks of 128 over four chunks of 64: 39 %), weights
+    streamed by TMA and multicast to a cluster of 2."""
+    plan = fused_conv.conv_plan(200, 5)
+    assert plan == dict(route="wgmma_stream", cb=208, kw=64, taps=5,
+                        stages=3, wstages=5, cluster=2, smem=220544)
+    assert _padded_share(200, 5) <= 0.10
+
+
+@pytest.mark.parametrize("c,k,want", [
+    # C 1024: four column blocks of 256, weights streamed, no multicast
+    (1024, 5, dict(cb=256, taps=5, stages=3, wstages=5, cluster=1,
+                   smem=221312)),
+    # k 61: one block of 128, all 61 taps in one x stage (188 rows)
+    (128, 61, dict(cb=128, taps=61, stages=3, wstages=8, cluster=1,
+                   smem=208048)),
+    # C 40 k 3: the tile's 3 weight steps resident, 4 x stages
+    (40, 3, dict(cb=48, taps=3, stages=4, wstages=3, cluster=1,
+                 smem=96112)),
+    # k 200 past a TMA box's 256 rows: two blocks of 100 taps
+    (200, 200, dict(cb=208, taps=100, stages=2, wstages=5, cluster=2,
+                    smem=227696)),
+])
+def test_stream_layouts(c, k, want):
+    plan = fused_conv.conv_plan(c, k)
+    assert plan == dict(route="wgmma_stream", kw=64, **want)
+    assert plan["smem"] <= fused_conv.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("c,k", [(37, 3), (5, 2), (1, 1), (300, 5),
+                                 (1100, 129), (37, 129)])
+def test_rows_off_16_bytes_keep_the_copying_producer(c, k):
+    """C % 8 != 0: no tensor map describes the rows, so the producer copies
+    by 2-byte loads (no multicast: cluster 1); the plan is the same
+    layout."""
+    plan = fused_conv.conv_plan(c, k)
+    assert c % 8 and plan["route"] == "wgmma_stream"
+    assert plan["cluster"] == 1
+    assert plan["smem"] == _layout_bytes(c, k, plan)
+
+
+def test_no_stream_plan_exceeds_shared_memory():
+    for c in list(range(1, 300)) + [511, 512, 777, 1000, 1024, 1100, 2048]:
+        for k in (1, 3, 5, 57, 128, 129, 130, 300):
+            plan = fused_conv.stream_plan(c, k)
+            assert plan["smem"] <= fused_conv.SMEM_LIMIT, (c, k, plan)
+            assert plan["smem"] == _layout_bytes(c, k, plan), (c, k, plan)

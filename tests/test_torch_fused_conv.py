@@ -215,7 +215,7 @@ def test_kernel_source_declares_its_interface():
     assert 'extern "C" int jt_fused_conv_block(' in src
     sig = src[src.index("jt_fused_conv_block("):]
     sig = sig[: sig.index(")")]
-    assert sig.count(",") + 1 == len(fused_conv.ARGTYPES) == 21
+    assert sig.count(",") + 1 == len(fused_conv.ARGTYPES) == 23
     assert "jaeger_tpu/ops/pallas_conv.py" in src
     assert '#include "hopper.cuh"' in src
     for instr in ("wgmma.mma_async", "cp.async.bulk.tensor", "mbarrier",
