@@ -146,7 +146,8 @@ Phases, each of which fails the run:
    (``--fsize 1505 --batch 2048``, default stages) end to end: wall
    seconds and windows/s (launch counts reset just before, read just
    after), the same with ``--no-termini``, the engine's host ms per batch
-   for pack, upload and plan against the forward's ms, the card's busy
+   for pack, upload and plan (its ``engine/*`` spans, recorded under
+   ``spans.recording()``) against the forward's ms, the card's busy
    share of the inference loop from a ``--profile`` run's trace, and a
    cProfile top 10 of the host in a ``--no-termini`` run;
    then ``--mask-tandem``, ``--prophage`` (its region equal to a CPU
@@ -3078,35 +3079,6 @@ def _windows_per_s(path: Path, workers: int) -> tuple[float, list]:
     return sum(len(b) for b in batches) / dt, batches
 
 
-@contextlib.contextmanager
-def engine_host_timers():
-    """Host seconds and calls of the engine's pack, upload (pinned copy
-    and enqueue) and plan, accumulated while the block runs."""
-    from jaeger_tpu_torch.infer import engine as eng_mod
-
-    acc = {"pack": [0.0, 0], "upload": [0.0, 0], "plan": [0.0, 0]}
-
-    def timed(name, fn):
-        def wrapper(*args, **kwargs):
-            t0 = time.perf_counter()
-            try:
-                return fn(*args, **kwargs)
-            finally:
-                acc[name][0] += time.perf_counter() - t0
-                acc[name][1] += 1
-        return wrapper
-
-    cls = eng_mod.InferenceEngine
-    saved = eng_mod.pack_bases, cls._to_device, cls._plan_batch
-    eng_mod.pack_bases = timed("pack", saved[0])
-    cls._to_device = timed("upload", saved[1])
-    cls._plan_batch = timed("plan", saved[2])
-    try:
-        yield acc
-    finally:
-        eng_mod.pack_bases, cls._to_device, cls._plan_batch = saved
-
-
 def device_busy_share(trace: Path) -> tuple[float, float, int]:
     """From a ``predict --profile`` Chrome trace: the share of the
     ``predict.inference`` range during which a kernel, copy or memset ran
@@ -3280,6 +3252,7 @@ def phase_host_pipeline(tmp: Path, bundle: Path, card: str) -> dict:
     from jaeger_tpu_torch.models.artifacts import load_model
     from jaeger_tpu_torch.ops import fused_conv
     from jaeger_tpu_torch.postprocess.termini import scan_for_terminal_repeats
+    from jaeger_tpu_torch.utils import spans
 
     check(os.environ.get("JAEGER_TPU_TORCH_NATIVE", "1") != "0",
           "JAEGER_TPU_TORCH_NATIVE=0 switches the native pipeline off")
@@ -3348,11 +3321,13 @@ def phase_host_pipeline(tmp: Path, bundle: Path, card: str) -> dict:
     # just after
     args = ["-m", str(bundle), "--fsize", "1505", "--batch", "2048"]
     fused_conv.launches = 0
-    with engine_host_timers() as acc:
+    spans.reset()
+    with spans.recording():
         t0 = time.perf_counter()
         cli.main(["predict", "-i", str(big), "-o", str(tmp / "scale"),
                   *args])
         res["predict_s"] = time.perf_counter() - t0
+    engine = spans.totals()["spans"]
     res["launches"] = fused_conv.launches
     check(res["launches"] > 0 and res["launches"] % 6 == 0,
           f"predict at scale: {res['launches']} fused_conv_block launches")
@@ -3361,12 +3336,13 @@ def phase_host_pipeline(tmp: Path, bundle: Path, card: str) -> dict:
         math.isfinite(float(r["phage_score"])) for r in rows),
         f"predict at scale: {len(rows)} rows")
     res["windows_per_s"] = n_windows / res["predict_s"]
-    n_batches = acc["plan"][1]
+    n_batches = engine["engine/plan"]["count"]
     t0 = time.perf_counter()
     cli.main(["predict", "-i", str(big), "-o", str(tmp / "scale_no_termini"),
               *args, "--no-termini"])
     res["no_termini_s"] = time.perf_counter() - t0
-    host = {k: v[0] * 1e3 / max(n_batches, 1) for k, v in acc.items()}
+    host = {k: engine[f"engine/{k}"]["seconds"] * 1e3 / max(n_batches, 1)
+            for k in ("pack", "upload", "plan")}
     res["host_ms_per_batch"] = host
     print(f"predict at scale: {n_windows} windows of {BIG_CONTIGS} contigs "
           f"in {res['predict_s']:.2f} s = {res['windows_per_s']:.0f} "

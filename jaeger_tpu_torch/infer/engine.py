@@ -40,6 +40,13 @@ so up to ``PIPELINE_DEPTH`` batches are in flight; the host plans and
 packs the next batch while the device runs the earlier ones, and a
 batch's outputs are copied back (which waits for that batch only) once
 the queue is deeper than ``PIPELINE_DEPTH``.
+
+Spans (:mod:`jaeger_tpu_torch.utils.spans`): ``engine/batch`` around each
+batch's host work, with ``engine/plan``, ``engine/pack``,
+``engine/upload``, ``engine/forward`` (the unpack and the model's
+enqueue), ``engine/reduce``, ``engine/drain`` (the waits for an earlier
+batch's outputs) and ``engine/accumulate`` inside it; its self time is the
+padding, segment maps and bucket gathering.
 """
 
 from __future__ import annotations
@@ -60,6 +67,7 @@ from jaeger_tpu_torch.ops.reduce import ContigAccumulator, contig_partials
 from jaeger_tpu_torch.parallel.mesh import pad_to_multiple, use_mesh
 from jaeger_tpu_torch.seqops.windows import WindowBatch
 from jaeger_tpu_torch.utils.devices import resolve_device
+from jaeger_tpu_torch.utils.spans import span
 
 logger = logging.getLogger("jaeger_tpu_torch")
 
@@ -122,45 +130,46 @@ class InferenceEngine:
         program on all rows + masked bucket on the few; ``mask_cut``
         selects the bounded program as the base. (False, None, None) is
         the plain masked program."""
-        crop = getattr(self.model, "crop_nt", None)
-        if crop is None or n_valid == 0:
-            return False, None, None
-        masking = getattr(self.model, "masking_enabled", True)
-        rows = dense_window_rows(bases[:n_valid], lengths[:n_valid],
-                                 crop, masking)
-        if rows.all():
-            return True, None, None
+        with span("engine/plan"):
+            crop = getattr(self.model, "crop_nt", None)
+            if crop is None or n_valid == 0:
+                return False, None, None
+            masking = getattr(self.model, "masking_enabled", True)
+            rows = dense_window_rows(bases[:n_valid], lengths[:n_valid],
+                                     crop, masking)
+            if rows.all():
+                return True, None, None
 
-        bs = self.batch_size
-        mult = self.mesh.size if self.mesh is not None else 1
+            bs = self.batch_size
+            mult = self.mesh.size if self.mesh is not None else 1
 
-        def bucket_for(k: int):
-            for b in (bs // 16, bs // 8):
-                b = -(-max(b, 1) // mult) * mult
-                if b >= bs:
-                    break
-                if k <= b:
-                    return b
-            return None
+            def bucket_for(k: int):
+                for b in (bs // 16, bs // 8):
+                    b = -(-max(b, 1) // mult) * mult
+                    if b >= bs:
+                        break
+                    if k <= b:
+                        return b
+                return None
 
-        if self.split_mixed and rows.any():
-            masked_idx = np.nonzero(~rows)[0]
-            b = bucket_for(masked_idx.size)
-            if b is not None:
-                return False, (masked_idx, b), None
-        plans = self._plans
-        if plans:
-            levels = bounded_mask_levels(
-                bases[:n_valid], lengths[:n_valid], crop, masking, plans)
-            bad_idx = np.nonzero(levels < 0)[0]
-            if bad_idx.size == 0:
-                return False, None, plans[int(levels.max())][0]
-            if self.split_mixed and bad_idx.size < n_valid:
-                b = bucket_for(bad_idx.size)
+            if self.split_mixed and rows.any():
+                masked_idx = np.nonzero(~rows)[0]
+                b = bucket_for(masked_idx.size)
                 if b is not None:
-                    cut = plans[int(levels[levels >= 0].max())][0]
-                    return False, (bad_idx, b), cut
-        return False, None, None  # plain masked program
+                    return False, (masked_idx, b), None
+            plans = self._plans
+            if plans:
+                levels = bounded_mask_levels(
+                    bases[:n_valid], lengths[:n_valid], crop, masking, plans)
+                bad_idx = np.nonzero(levels < 0)[0]
+                if bad_idx.size == 0:
+                    return False, None, plans[int(levels.max())][0]
+                if self.split_mixed and bad_idx.size < n_valid:
+                    b = bucket_for(bad_idx.size)
+                    if b is not None:
+                        cut = plans[int(levels[levels >= 0].max())][0]
+                        return False, (bad_idx, b), cut
+            return False, None, None  # plain masked program
 
     @staticmethod
     def _gather_masked(b: np.ndarray, ln: np.ndarray,
@@ -182,10 +191,11 @@ class InferenceEngine:
 
     def _to_device(self, arr: np.ndarray, device=None) -> torch.Tensor:
         device = self.device if device is None else device
-        t = torch.from_numpy(np.ascontiguousarray(arr))
-        if device.type == "cuda":
-            return t.pin_memory().to(device, non_blocking=True)
-        return t
+        with span("engine/upload"):
+            t = torch.from_numpy(np.ascontiguousarray(arr))
+            if device.type == "cuda":
+                return t.pin_memory().to(device, non_blocking=True)
+            return t
 
     def _forward(self, bases: np.ndarray, lengths: np.ndarray,
                  dense: bool = False, mask_cut=None) -> dict:
@@ -199,7 +209,8 @@ class InferenceEngine:
         if dense and self.int8_model is not None:
             model = self.int8_model
             self.int8_forwards += 1
-        packed = pack_bases(bases)
+        with span("engine/pack"):
+            packed = pack_bases(bases)
         lengths = np.asarray(lengths, np.int32)
         if self.mesh is None:
             return self._run(model, self.device, packed, lengths,
@@ -218,14 +229,16 @@ class InferenceEngine:
 
     def _run(self, model, device, packed, lengths, width: int, dense: bool,
              mask_cut) -> dict:
-        dev_bases = unpack_bases(self._to_device(packed, device), width)
+        dev_packed = self._to_device(packed, device)
         ln = self._to_device(lengths, device)
-        with torch.inference_mode(), use_mesh(self.seq_mesh):
-            out = model(dev_bases, ln, assume_dense=dense,
-                        mask_layers=mask_cut)
-        if self.output_keys is not None:
-            out = {k: v for k, v in out.items() if k in self.output_keys}
-        return {k: v.float() for k, v in out.items()}
+        with span("engine/forward"):
+            dev_bases = unpack_bases(dev_packed, width)
+            with torch.inference_mode(), use_mesh(self.seq_mesh):
+                out = model(dev_bases, ln, assume_dense=dense,
+                            mask_layers=mask_cut)
+            if self.output_keys is not None:
+                out = {k: v for k, v in out.items() if k in self.output_keys}
+            return {k: v.float() for k, v in out.items()}
 
     def predict_windows(
         self, bases: np.ndarray, lengths: np.ndarray
@@ -239,32 +252,34 @@ class InferenceEngine:
 
         def drain_one() -> None:
             out, valid, merge = in_flight.pop(0)
-            host = {k: v.cpu().numpy() for k, v in out.items()}
-            if merge is not None:
-                out_m, midx, m = merge
-                for k, v in host.items():
-                    v[midx] = out_m[k][:m].cpu().numpy()
+            with span("engine/drain"):
+                host = {k: v.cpu().numpy() for k, v in out.items()}
+                if merge is not None:
+                    out_m, midx, m = merge
+                    for k, v in host.items():
+                        v[midx] = out_m[k][:m].cpu().numpy()
             chunks.append({k: v[:valid] for k, v in host.items()})
 
         for i in range(0, n, bs):
-            b = bases[i: i + bs]
-            ln = lengths[i: i + bs]
-            valid = b.shape[0]
-            dense, split, mask_cut = self._plan_batch(b, ln, valid)
-            pad = bs - valid
-            if pad:
-                b = np.pad(b, ((0, pad), (0, 0)), constant_values=4)
-                ln = np.pad(ln, (0, pad), constant_values=0)
-            merge = None
-            if split is not None:
-                midx, bucket = split
-                mb, mln, b, ln = self._gather_masked(b, ln, midx, bucket)
-                merge = (self._forward(mb, mln), midx, midx.size)
-                dense = mask_cut is None
-            out = self._forward(b, ln, dense, mask_cut)
-            in_flight.append((out, valid, merge))
-            if len(in_flight) > PIPELINE_DEPTH:
-                drain_one()
+            with span("engine/batch"):
+                b = bases[i: i + bs]
+                ln = lengths[i: i + bs]
+                valid = b.shape[0]
+                dense, split, mask_cut = self._plan_batch(b, ln, valid)
+                pad = bs - valid
+                if pad:
+                    b = np.pad(b, ((0, pad), (0, 0)), constant_values=4)
+                    ln = np.pad(ln, (0, pad), constant_values=0)
+                merge = None
+                if split is not None:
+                    midx, bucket = split
+                    mb, mln, b, ln = self._gather_masked(b, ln, midx, bucket)
+                    merge = (self._forward(mb, mln), midx, midx.size)
+                    dense = mask_cut is None
+                out = self._forward(b, ln, dense, mask_cut)
+                in_flight.append((out, valid, merge))
+                if len(in_flight) > PIPELINE_DEPTH:
+                    drain_one()
         while in_flight:
             drain_one()
         if not chunks:
@@ -278,11 +293,13 @@ class InferenceEngine:
                          with_reliability: bool, dense: bool = False,
                          mask_cut=None) -> dict:
         out = self._forward(bases, lengths, dense, mask_cut)
-        return contig_partials(
-            out["prediction"], self._to_device(seg_ids),
-            self._to_device(valid), num_segments=bases.shape[0],
-            reliability=(out["reliability"] if with_reliability
-                         and "reliability" in out else None))
+        seg_ids, valid = self._to_device(seg_ids), self._to_device(valid)
+        with span("engine/reduce"):
+            return contig_partials(
+                out["prediction"], seg_ids, valid,
+                num_segments=bases.shape[0],
+                reliability=(out["reliability"] if with_reliability
+                             and "reliability" in out else None))
 
     def predict_batches_reduced(
         self, batches: Iterable[WindowBatch], num_classes: int,
@@ -301,19 +318,23 @@ class InferenceEngine:
         def drain_one():
             partial, seg_to_contig, win_contigs, n_valid, merge = (
                 in_flight.pop(0))
-            p = {k: v.cpu().numpy() for k, v in partial.items()}
-            if merge is None:
-                acc.add_batch(p, seg_to_contig, win_contigs)
-                return
-            # split execution: statistics arrive as two partial batches;
-            # per-window classes are scattered back into stream order
-            partial_m, seg_to_m, midx, m = merge
-            pm = {k: v.cpu().numpy() for k, v in partial_m.items()}
-            cls = p["window_cls"].copy()
-            cls[midx] = pm["window_cls"][:m]
-            acc.add_batch(p, seg_to_contig, win_contigs,
-                          window_cls=cls[:n_valid])
-            acc.add_batch(pm, seg_to_m, None)
+            with span("engine/drain"):
+                p = {k: v.cpu().numpy() for k, v in partial.items()}
+                if merge is not None:
+                    pm = {k: v.cpu().numpy() for k, v in merge[0].items()}
+            with span("engine/accumulate"):
+                if merge is None:
+                    acc.add_batch(p, seg_to_contig, win_contigs)
+                    return
+                # split execution: statistics arrive as two partial
+                # batches; per-window classes are scattered back into
+                # stream order
+                _, seg_to_m, midx, m = merge
+                cls = p["window_cls"].copy()
+                cls[midx] = pm["window_cls"][:m]
+                acc.add_batch(p, seg_to_contig, win_contigs,
+                              window_cls=cls[:n_valid])
+                acc.add_batch(pm, seg_to_m, None)
 
         def seg_maps(contig_ids: np.ndarray, n_seg: int):
             # dense segment ids: global contig indices have gaps
@@ -327,45 +348,46 @@ class InferenceEngine:
                 continue
             kept.append(batch)
             for i in range(0, len(batch), bs):
-                b = batch.bases[i: i + bs]
-                ln = batch.length[i: i + bs]
-                contig = batch.contig[i: i + bs].astype(np.int64)
-                n_valid = b.shape[0]
-                dense, split, mask_cut = self._plan_batch(b, ln, n_valid)
-                pad = bs - n_valid
-                if pad:
-                    b = np.pad(b, ((0, pad), (0, 0)), constant_values=4)
-                    ln = np.pad(ln, (0, pad))
-                    contig = np.pad(contig, (0, pad),
-                                    constant_values=contig[-1])
-                seg_local, seg_to_contig = seg_maps(contig, bs)
-                valid = np.zeros(bs, bool)
-                valid[:n_valid] = True
-                merge = None
-                if split is not None:
-                    midx, bucket = split
-                    m = midx.size
-                    mb, mln, b, ln = self._gather_masked(b, ln, midx,
-                                                         bucket)
-                    seg_m, seg_to_m = seg_maps(contig[midx], bucket)
-                    seg_m = np.pad(seg_m, (0, bucket - m))
-                    valid_m = np.zeros(bucket, bool)
-                    valid_m[:m] = True
-                    partial_m = self._forward_reduced(
-                        mb, mln, seg_m, valid_m, with_reliability)
-                    # the base run covers everything else; its masked
-                    # slots hold placeholders, excluded from the sums
-                    valid[midx] = False
-                    merge = (partial_m, seg_to_m, midx, m)
-                    dense = mask_cut is None
-                partial = self._forward_reduced(
-                    b, ln, seg_local, valid, with_reliability, dense,
-                    mask_cut)
-                in_flight.append(
-                    (partial, seg_to_contig, contig[:n_valid], n_valid,
-                     merge))
-                if len(in_flight) > PIPELINE_DEPTH:
-                    drain_one()
+                with span("engine/batch"):
+                    b = batch.bases[i: i + bs]
+                    ln = batch.length[i: i + bs]
+                    contig = batch.contig[i: i + bs].astype(np.int64)
+                    n_valid = b.shape[0]
+                    dense, split, mask_cut = self._plan_batch(b, ln, n_valid)
+                    pad = bs - n_valid
+                    if pad:
+                        b = np.pad(b, ((0, pad), (0, 0)), constant_values=4)
+                        ln = np.pad(ln, (0, pad))
+                        contig = np.pad(contig, (0, pad),
+                                        constant_values=contig[-1])
+                    seg_local, seg_to_contig = seg_maps(contig, bs)
+                    valid = np.zeros(bs, bool)
+                    valid[:n_valid] = True
+                    merge = None
+                    if split is not None:
+                        midx, bucket = split
+                        m = midx.size
+                        mb, mln, b, ln = self._gather_masked(b, ln, midx,
+                                                             bucket)
+                        seg_m, seg_to_m = seg_maps(contig[midx], bucket)
+                        seg_m = np.pad(seg_m, (0, bucket - m))
+                        valid_m = np.zeros(bucket, bool)
+                        valid_m[:m] = True
+                        partial_m = self._forward_reduced(
+                            mb, mln, seg_m, valid_m, with_reliability)
+                        # the base run covers everything else; its masked
+                        # slots hold placeholders, excluded from the sums
+                        valid[midx] = False
+                        merge = (partial_m, seg_to_m, midx, m)
+                        dense = mask_cut is None
+                    partial = self._forward_reduced(
+                        b, ln, seg_local, valid, with_reliability, dense,
+                        mask_cut)
+                    in_flight.append(
+                        (partial, seg_to_contig, contig[:n_valid], n_valid,
+                         merge))
+                    if len(in_flight) > PIPELINE_DEPTH:
+                        drain_one()
         while in_flight:
             drain_one()
         return acc.finalize(), kept

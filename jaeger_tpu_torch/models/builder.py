@@ -23,6 +23,12 @@ stack and Hyena block of the representation learner in the backward
 ``model.parallel.seq_axis`` builds the Hyena blocks length-sharded over
 the ambient mesh of that axis (:mod:`jaeger_tpu_torch.parallel.hyena_sp`);
 the parameters are the same with or without it.
+
+Spans (:mod:`jaeger_tpu_torch.utils.spans`): ``model/encode`` and
+``model/heads`` in the forward, and one ``model/<kind>`` around each layer
+of a stack (every activation layer ``model/activation``, the pooler
+``model/pooling``), so a profiler's trace names the layer that enqueued
+each kernel.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ from jaeger_tpu_torch.models import layers as L
 from jaeger_tpu_torch.ops import encode
 from jaeger_tpu_torch.seqops import crop as crop_contract
 from jaeger_tpu_torch.seqops import maps
+from jaeger_tpu_torch.utils.spans import span
 
 _CONV_KEYS = (
     "filters", "kernel_size", "strides", "padding", "dilation_rate",
@@ -397,88 +404,91 @@ class LayerStack(nn.Module):
                 # the mask is provably all-true here (engine's run check)
                 mask = None
                 post_cut = True
-            mod = getattr(self, f"{name}_{i}", None)
-            if name in ("masked_conv1d", "conv1d"):
-                x, mask = mod(x, mask, fold_table=fold_table if i == 0
-                              else None)
-            elif name == "multi_scale_conv":
-                x, mask = mod(x, mask)
-            elif name in ("masked_batchnorm", "batchnorm"):
-                bn_mask = mask
-                if (post_cut and mask is None and mod.use_masking
-                        and (train or mod.return_nmd)):
-                    # the masked statistics under an all-true mask, as the
-                    # masked program computes them
-                    bn_mask = torch.ones(x.shape[:-1], dtype=torch.bool,
-                                         device=x.device)
-                out = mod(x, bn_mask, train)
-                x = out[0]
-                if mod.return_nmd and taps:
-                    nmds.append(out[2])
-            elif name in ("masked_dyt", "masked_layernorm", "layernorm"):
-                x, mask = mod(x, mask)
-            elif name == "residual_block":
-                kw = dict(drop_mask_after_first_conv1=(i == inner_at),
-                          train=train, bn_stats_all_true=post_cut)
-                out = (_remat(mod, x, mask, **kw) if remat
-                       else mod(x, mask, **kw))
-                x, mask = out[0], out[1]
-                if mod.return_nmd and taps:
-                    nmds.append(out[2])
-            elif name in _ATTENTION_LAYERS:
-                x, mask = mod(x, mask, train=train, generator=generator)
-            elif name == "masked_bilstm":
-                x, mask = mod(x, mask, train=train)
-            elif name == "hyena_block":
-                kw = dict(train=train, generator=generator)
-                x, mask = (_remat(mod, x, mask, **kw) if remat
+            with span("model/activation" if name in _ACT_LAYERS
+                      else f"model/{name}"):
+                mod = getattr(self, f"{name}_{i}", None)
+                if name in ("masked_conv1d", "conv1d"):
+                    x, mask = mod(x, mask, fold_table=fold_table if i == 0
+                                  else None)
+                elif name == "multi_scale_conv":
+                    x, mask = mod(x, mask)
+                elif name in ("masked_batchnorm", "batchnorm"):
+                    bn_mask = mask
+                    if (post_cut and mask is None and mod.use_masking
+                            and (train or mod.return_nmd)):
+                        # the masked statistics under an all-true mask, as the
+                        # masked program computes them
+                        bn_mask = torch.ones(x.shape[:-1], dtype=torch.bool,
+                                             device=x.device)
+                    out = mod(x, bn_mask, train)
+                    x = out[0]
+                    if mod.return_nmd and taps:
+                        nmds.append(out[2])
+                elif name in ("masked_dyt", "masked_layernorm", "layernorm"):
+                    x, mask = mod(x, mask)
+                elif name == "residual_block":
+                    kw = dict(drop_mask_after_first_conv1=(i == inner_at),
+                              train=train, bn_stats_all_true=post_cut)
+                    out = (_remat(mod, x, mask, **kw) if remat
                            else mod(x, mask, **kw))
-            elif name == "parallel_branches":
-                x = _merge([getattr(self, f"{name}_{i}_branch_{b}")(
-                                x, mask, train=train, generator=generator)[0]
-                            for b in range(len(cfg.get("branches", [])))],
-                           cfg.get("merge", "concat").lower())
-                mask = None
-            elif name == "nmd":
-                if not taps:
-                    continue
-                nmd_mask = mask
-                if post_cut and mask is None:
-                    # post-cut taps keep the masked statistics (their
-                    # eps-carrying denominators) under an all-true mask
-                    nmd_mask = torch.ones(x.shape[:-1], dtype=torch.bool,
-                                          device=x.device)
-                nmds.append(mod(x, nmd_mask, train))
-            elif name == "dense":
-                x = L.get_activation(cfg.get("activation"))(mod(x))
-            elif name in _ACT_LAYERS:
-                act = cfg.get("activation", name if name != "activation"
-                              else None)
-                x = L.get_activation(act)(x)
-            elif name == "crop":
-                (t, b_), (l_, r_) = cfg.get("cropping", ((0, 0), (0, 0)))
-                x = x[:, t: x.shape[1] - b_ or None,
-                      l_: x.shape[2] - r_ or None, :]
-                if mask is not None:
-                    mask = mask[:, t: mask.shape[1] - b_ or None,
-                                l_: mask.shape[2] - r_ or None]
-            elif name == "dropout" and train:
-                x = L.dropout(x, float(cfg.get("rate", 0.5)), generator)
+                    x, mask = out[0], out[1]
+                    if mod.return_nmd and taps:
+                        nmds.append(out[2])
+                elif name in _ATTENTION_LAYERS:
+                    x, mask = mod(x, mask, train=train, generator=generator)
+                elif name == "masked_bilstm":
+                    x, mask = mod(x, mask, train=train)
+                elif name == "hyena_block":
+                    kw = dict(train=train, generator=generator)
+                    x, mask = (_remat(mod, x, mask, **kw) if remat
+                               else mod(x, mask, **kw))
+                elif name == "parallel_branches":
+                    x = _merge([getattr(self, f"{name}_{i}_branch_{b}")(
+                                    x, mask, train=train, generator=generator)[0]
+                                for b in range(len(cfg.get("branches", [])))],
+                               cfg.get("merge", "concat").lower())
+                    mask = None
+                elif name == "nmd":
+                    if not taps:
+                        continue
+                    nmd_mask = mask
+                    if post_cut and mask is None:
+                        # post-cut taps keep the masked statistics (their
+                        # eps-carrying denominators) under an all-true mask
+                        nmd_mask = torch.ones(x.shape[:-1], dtype=torch.bool,
+                                              device=x.device)
+                    nmds.append(mod(x, nmd_mask, train))
+                elif name == "dense":
+                    x = L.get_activation(cfg.get("activation"))(mod(x))
+                elif name in _ACT_LAYERS:
+                    act = cfg.get("activation", name if name != "activation"
+                                  else None)
+                    x = L.get_activation(act)(x)
+                elif name == "crop":
+                    (t, b_), (l_, r_) = cfg.get("cropping", ((0, 0), (0, 0)))
+                    x = x[:, t: x.shape[1] - b_ or None,
+                          l_: x.shape[2] - r_ or None, :]
+                    if mask is not None:
+                        mask = mask[:, t: mask.shape[1] - b_ or None,
+                                    l_: mask.shape[2] - r_ or None]
+                elif name == "dropout" and train:
+                    x = L.dropout(x, float(cfg.get("rate", 0.5)), generator)
 
         merged_nmd = None
         if len(nmds) == 1:
             merged_nmd = nmds[0]
-        elif nmds and self.nmd_merge is not None:
-            merged_nmd = self.nmd_merge(nmds)
         elif nmds:
-            merged_nmd = torch.cat(nmds, dim=-1)
+            with span("model/nmd"):
+                merged_nmd = (self.nmd_merge(nmds) if self.nmd_merge is not None
+                              else torch.cat(nmds, dim=-1))
 
         gate = None
         if self.pooling is not None:
-            if "gated" in self.pooling.lower():
-                x, gate = getattr(self, f"global_{self.pooling}pool")(x, mask)
-            else:
-                x, _ = L.POOLERS[self.pooling.lower()](x, mask)
+            with span("model/pooling"):
+                if "gated" in self.pooling.lower():
+                    x, gate = getattr(self, f"global_{self.pooling}pool")(x, mask)
+                else:
+                    x, _ = L.POOLERS[self.pooling.lower()](x, mask)
             mask = None
         return x, mask, merged_nmd, gate
 
@@ -679,10 +689,11 @@ class JaegerModel(nn.Module):
         the projection head runs only with ``with_projection`` or when
         ``heads`` names it (``:911-922``); ``train`` with ``generator`` for
         dropout."""
-        x, mask, fold_table = self._inputs(bases, lengths, tokens,
-                                           frame_perm, assume_dense)
-        if self.pos_embedding is not None:
-            x = x + self.pos_embedding(x)
+        with span("model/encode"):
+            x, mask, fold_table = self._inputs(bases, lengths, tokens,
+                                               frame_perm, assume_dense)
+            if self.pos_embedding is not None:
+                x = x + self.pos_embedding(x)
         need_rel = self.reliability is not None and (
             heads is None or "reliability" in heads)
         need_pred = (self.classifier is not None
@@ -708,26 +719,27 @@ class JaegerModel(nn.Module):
             outputs["nmd"] = nmd
         if gate is not None:
             outputs["gate"] = gate
-        logits = None
-        if need_pred and self.classifier_branch is not None:
-            logits = _merge([self.classifier_branch(b, **kw)[0]
-                             for b in (rep_branches or [rep])],
-                            self.class_merge)
-        elif need_pred:
-            logits = self.classifier(rep, **kw)[0]
-        if logits is not None:
-            outputs["prediction"] = logits
-        if self.projection is not None and (
-                with_projection or (heads is not None
-                                    and "projection" in heads)):
-            outputs["projection"] = self.projection(rep, **kw)[0]
-        if need_rel:
-            rel_in = nmd
-            if self.rel_mode == "nmd_plus_signals":
-                rel_in = torch.cat([nmd.float(),
-                                    self.ood_signals(logits, nmd)],
-                                   dim=-1).to(self.dtype)
-            outputs["reliability"] = self.reliability(rel_in, **kw)[0]
+        with span("model/heads"):
+            logits = None
+            if need_pred and self.classifier_branch is not None:
+                logits = _merge([self.classifier_branch(b, **kw)[0]
+                                 for b in (rep_branches or [rep])],
+                                self.class_merge)
+            elif need_pred:
+                logits = self.classifier(rep, **kw)[0]
+            if logits is not None:
+                outputs["prediction"] = logits
+            if self.projection is not None and (
+                    with_projection or (heads is not None
+                                        and "projection" in heads)):
+                outputs["projection"] = self.projection(rep, **kw)[0]
+            if need_rel:
+                rel_in = nmd
+                if self.rel_mode == "nmd_plus_signals":
+                    rel_in = torch.cat([nmd.float(),
+                                        self.ood_signals(logits, nmd)],
+                                       dim=-1).to(self.dtype)
+                outputs["reliability"] = self.reliability(rel_in, **kw)[0]
         return outputs
 
     def regularizer_specs(self) -> list[tuple[str, str, float]]:

@@ -132,6 +132,9 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.jt_pipeline_error.restype = ctypes.c_char_p
     lib.jt_pipeline_error.argtypes = [ctypes.c_void_p]
     lib.jt_pipeline_close.argtypes = [ctypes.c_void_p]
+    lib.jt_pipeline_stats.argtypes = [
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_longlong),
+    ]
     lib.jt_smith_waterman.restype = ctypes.c_long
     lib.jt_smith_waterman.argtypes = [
         ctypes.c_char_p, ctypes.c_long, ctypes.c_char_p, ctypes.c_long,
@@ -328,12 +331,22 @@ def window_pipeline_native(path: str, fragsize: int, stride: int | None,
                            workers: int):
     """Stream ``(bases, meta, new_headers)`` batches from the all-native
     window pipeline (reader thread + worker pool + ordered batcher in
-    jaeger_host.cpp). One GIL-released call per batch; ``meta`` is the
-    11-column float64 block of ``window_batches`` with the GLOBAL contig
-    index already in column 1. Byte-identical to the Python pipeline
-    (tests/test_torch_native.py).
+    jaeger_host.cpp). One GIL-released call per batch, the span
+    ``windowing/next``; ``meta`` is the 11-column float64 block of
+    ``window_batches`` with the GLOBAL contig index already in column 1.
+    A batch short of ``batch_capacity`` ends the stream. Byte-identical to
+    the Python pipeline (tests/test_torch_native.py).
+
+    While spans record (:mod:`jaeger_tpu_torch.utils.spans`), each call
+    adds to the counters ``windowing/batches``,
+    ``windowing/consumer_wait_ns`` (the call blocked on the workers),
+    ``windowing/worker_busy_ns`` (the workers on contigs) and
+    ``windowing/worker_capacity_ns`` (workers x wall time) what the
+    pipeline counted since the call before.
     """
     import numpy as np
+
+    from jaeger_tpu_torch.utils import spans
 
     lib = _lib()
     handle = lib.jt_pipeline_open(
@@ -344,13 +357,30 @@ def window_pipeline_native(path: str, fragsize: int, stride: int | None,
     )
     if not handle:
         raise OSError(f"cannot open {path}")
+    stats = (ctypes.c_longlong * 4)()
+    before = None      # the pipeline's stats after the last recorded call
     try:
         while True:
             bases = np.empty((batch_capacity, fragsize), dtype=np.uint8)
             meta = np.empty((batch_capacity, 11), dtype=np.float64)
-            n = lib.jt_pipeline_next(
-                handle, bases.ctypes.data_as(ctypes.c_char_p),
-                meta.ctypes.data_as(ctypes.POINTER(ctypes.c_double)))
+            recorded = spans.active()
+            if recorded and before is None:
+                lib.jt_pipeline_stats(handle, stats)
+                before = tuple(stats)
+            with spans.span("windowing/next"):
+                n = lib.jt_pipeline_next(
+                    handle, bases.ctypes.data_as(ctypes.c_char_p),
+                    meta.ctypes.data_as(ctypes.POINTER(ctypes.c_double)))
+            if recorded:
+                lib.jt_pipeline_stats(handle, stats)
+                spans.count("windowing/batches")
+                spans.count("windowing/consumer_wait_ns", stats[0] - before[0])
+                spans.count("windowing/worker_busy_ns", stats[1] - before[1])
+                spans.count("windowing/worker_capacity_ns",
+                            stats[3] * (stats[2] - before[2]))
+                before = tuple(stats)
+            else:
+                before = None
             if n < 0:
                 err = lib.jt_pipeline_error(handle)
                 raise OSError(err.decode() if err
@@ -371,7 +401,7 @@ def window_pipeline_native(path: str, fragsize: int, stride: int | None,
             if n == 0 and not new_headers:
                 break
             yield bases[:n], meta[:n], new_headers
-            if n == 0:
+            if n < batch_capacity:
                 break
     finally:
         lib.jt_pipeline_close(handle)

@@ -16,6 +16,7 @@
 #include <atomic>
 #include <cerrno>
 #include <cfenv>
+#include <chrono>
 #include <clocale>
 #include <cmath>
 #include <condition_variable>
@@ -550,7 +551,17 @@ struct JtPipeline {
     std::vector<std::string> new_headers;  // since last drain
 
     std::vector<std::thread> threads;
+
+    // where the time goes (jt_pipeline_stats): the consumer blocked on
+    // cv_result, the workers inside jt_worker_process, since open
+    std::atomic<long long> consumer_wait_ns{0}, worker_busy_ns{0};
+    std::chrono::steady_clock::time_point opened;
 };
+
+static long long jt_ns_since(std::chrono::steady_clock::time_point t0) {
+    return std::chrono::duration_cast<std::chrono::nanoseconds>(
+        std::chrono::steady_clock::now() - t0).count();
+}
 
 static void jt_worker_process(JtPipeline* p, JtContigJob& job,
                               JtContigResult& res) {
@@ -606,7 +617,9 @@ static void jt_worker_main(JtPipeline* p) {
             p->jobs.pop_front();
         }
         JtContigResult res;
+        auto t0 = std::chrono::steady_clock::now();
         jt_worker_process(p, job, res);
+        p->worker_busy_ns += jt_ns_since(t0);
         {
             std::lock_guard<std::mutex> lk(p->mu);
             p->done.emplace(job.ord, std::move(res));
@@ -691,6 +704,7 @@ void* jt_pipeline_open(const char* path, long fragsize, long stride,
     p->dust_threshold = dust_threshold;
     p->batch_capacity = batch_capacity;
     p->n_workers = workers < 1 ? 1 : workers;
+    p->opened = std::chrono::steady_clock::now();
     p->threads.emplace_back(jt_reader_main, p);
     for (int i = 0; i < p->n_workers; ++i)
         p->threads.emplace_back(jt_worker_main, p);
@@ -709,12 +723,14 @@ long jt_pipeline_next(void* handle, unsigned char* bases, double* meta) {
     while (row < p->batch_capacity) {
         if (!p->cur_live) {
             std::unique_lock<std::mutex> lk(p->mu);
+            auto t0 = std::chrono::steady_clock::now();
             p->cv_result.wait(lk, [&] {
                 return p->abort || !p->reader_error.empty()
                     || p->done.count(p->next_ord_consume)
                     || (p->reader_done && p->jobs.empty()
                         && p->next_ord_consume >= p->next_ord_submit);
             });
+            p->consumer_wait_ns += jt_ns_since(t0);
             if (!p->reader_error.empty()) return -1;
             if (p->abort) return 0;
             auto it = p->done.find(p->next_ord_consume);
@@ -765,6 +781,17 @@ void jt_pipeline_drain_headers(void* handle, char* buf, long* lens) {
         lens[i++] = (long)h.size();
     }
     p->new_headers.clear();
+}
+
+// out[0..3]: ns the consumer spent blocked in jt_pipeline_next waiting
+// for a worker's contig, ns the workers spent on contigs (summed over
+// workers), ns since jt_pipeline_open, and the number of workers.
+void jt_pipeline_stats(void* handle, long long* out) {
+    auto* p = static_cast<JtPipeline*>(handle);
+    out[0] = p->consumer_wait_ns.load();
+    out[1] = p->worker_busy_ns.load();
+    out[2] = jt_ns_since(p->opened);
+    out[3] = p->n_workers;
 }
 
 // Error message after jt_pipeline_next returned -1 ("" otherwise).

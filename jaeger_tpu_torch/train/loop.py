@@ -18,6 +18,11 @@ gradients with the loss and accuracy in one flat buffer and divides by
 the world size, so every process applies the same update and reports
 the global metrics.
 
+Spans (:mod:`jaeger_tpu_torch.utils.spans`): a step's ``train/forward``
+(the model, the loss and the regularizer), ``train/backward`` (autograd
+and the gradient dict) and ``train/optimizer`` (the update, its in-place
+adds and the gradient norm).
+
 Frozen parameters (``StepConfig.frozen_prefixes``, matched against flax
 paths) get zero gradients as ``_mask_frozen`` gives them; the port does not
 ask autograd for them at all (they are set not to require gradients for
@@ -38,6 +43,7 @@ from jaeger_tpu_torch.ops.encode import bounded_mask_levels, dense_window_batch
 from jaeger_tpu_torch.parallel import multihost as mh
 from jaeger_tpu_torch.train import losses as losses_lib
 from jaeger_tpu_torch.train.optimizers import Optimizer, global_norm
+from jaeger_tpu_torch.utils.spans import span
 
 
 @dataclass
@@ -129,30 +135,32 @@ def make_train_step(model, cfg: StepConfig) -> Callable:
     loss_base, loss_params = _loss_base(cfg)
 
     def train_step(state: TrainState, batch, generator=None):
-        params = state.params
-        frozen = {k for k in params
-                  if any(k.startswith(p) for p in cfg.frozen_prefixes)}
-        for k, p in params.items():
-            p.requires_grad_(k not in frozen)
-        out = model(**model_inputs(batch), train=True, heads=cfg.heads,
-                    assume_dense=cfg.assume_dense,
-                    mask_layers=None if cfg.assume_dense else cfg.mask_layers,
-                    generator=generator)
-        logits = out[cfg.output_key]
-        labels = batch["labels"]
-        loss = loss_base(labels, logits, class_weights=cfg.class_weights,
-                         **loss_params)
-        reg = losses_lib.regularization_loss(params, list(cfg.reg_specs))
-        total = loss + reg
-        live = [k for k in params if k not in frozen]
-        got = torch.autograd.grad(total, [params[k] for k in live],
-                                  allow_unused=True)
-        grads = {k: torch.zeros_like(p) for k, p in params.items()}
-        for k, g in zip(live, got):
-            if g is not None:
-                grads[k] = g.float()
-        for p in params.values():
-            p.requires_grad_(False)
+        with span("train/forward"):
+            params = state.params
+            frozen = {k for k in params
+                      if any(k.startswith(p) for p in cfg.frozen_prefixes)}
+            for k, p in params.items():
+                p.requires_grad_(k not in frozen)
+            out = model(**model_inputs(batch), train=True, heads=cfg.heads,
+                        assume_dense=cfg.assume_dense,
+                        mask_layers=None if cfg.assume_dense else cfg.mask_layers,
+                        generator=generator)
+            logits = out[cfg.output_key]
+            labels = batch["labels"]
+            loss = loss_base(labels, logits, class_weights=cfg.class_weights,
+                             **loss_params)
+            reg = losses_lib.regularization_loss(params, list(cfg.reg_specs))
+            total = loss + reg
+        with span("train/backward"):
+            live = [k for k in params if k not in frozen]
+            got = torch.autograd.grad(total, [params[k] for k in live],
+                                      allow_unused=True)
+            grads = {k: torch.zeros_like(p) for k, p in params.items()}
+            for k, g in zip(live, got):
+                if g is not None:
+                    grads[k] = g.float()
+            for p in params.values():
+                p.requires_grad_(False)
         accuracy = None
         if labels.dim() == 2 and logits.shape == labels.shape:
             accuracy = torch.mean(
@@ -171,17 +179,18 @@ def make_train_step(model, cfg: StepConfig) -> Callable:
             accuracy = reduced.pop(("metric", "accuracy"), None)
             grads = reduced
             total = loss + reg
-        with torch.no_grad():
+        with span("train/optimizer"), torch.no_grad():
             values = {k: p.detach() for k, p in params.items()}
             updates, state.opt_state = state.tx.update(
                 grads, state.opt_state, values)
             for k, p in params.items():
                 p.add_(updates[k])
+            grad_norm = global_norm(grads)
         state.grads = grads
         metrics = {"loss": loss,
                    "reg_loss": torch.as_tensor(reg).detach(),
                    "total_loss": total.detach(),
-                   "grad_norm": global_norm(grads)}
+                   "grad_norm": grad_norm}
         if accuracy is not None:
             metrics["accuracy"] = accuracy
         return state, metrics

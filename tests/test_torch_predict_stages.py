@@ -356,3 +356,16 @@ def test_run_core_profile_writes_trace(tmp_path):
     events = json.loads(trace.read_text())["traceEvents"]
     assert any(e.get("name") == "predict.inference" for e in events)
     assert (tmp_path / "test_contigs_default_jaeger.tsv").exists()
+
+
+def test_run_core_profile_trace_names_the_program_spans(tmp_path):
+    """The ``--profile`` trace holds the program's own ranges: the
+    windowing calls, the engine's phases and the model's layers."""
+    _port_predict(["-i", str(FASTA), "-o", str(tmp_path), "--no-termini",
+                   "--profile"])
+    trace = tmp_path / "profile" / "predict_trace.json"
+    events = json.loads(trace.read_text())["traceEvents"]
+    names = {e["name"] for e in events if e.get("cat") == "user_annotation"}
+    assert {"windowing/next", "engine/batch", "engine/plan",
+            "engine/forward", "engine/drain"} <= names
+    assert {"model/encode", "model/residual_block", "model/heads"} <= names
