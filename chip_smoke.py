@@ -47,12 +47,16 @@ Run from the root of a checkout on a machine with CUDA:
                                       # sources), 16 and 11's route
                                       # cases; with --sweep, the new
                                       # routes under other launch plans
+    python3 chip_smoke.py --adamw     # phases 1, 2 (fused_adamw alone)
+                                      # and 6d only (the fused AdamW
+                                      # update against the per-leaf one)
 
 Phases, each of which fails the run:
 
 1. device: torch version, the card's name and power limit (nvidia-smi);
 2. build: nvcc builds csrc/fused_conv_block.cu, csrc/int8_conv.cu,
-   csrc/fused_conv_wgrad.cu and csrc/conv_epilogue_bwd.cu for sm_90a, one
+   csrc/fused_conv_wgrad.cu, csrc/conv_epilogue_bwd.cu and
+   csrc/fused_adamw.cu for sm_90a, one
    nvcc per source, started together; ptxas' registers, stack and spills
    of each instance of the wgmma kernels, the f32 kernels (conv_f32_ring,
    wgrad_f32_ring, wgrad_f32_taps), int8_ragged and conv_epilogue_bwd;
@@ -136,6 +140,20 @@ Phases, each of which fails the run:
    launches per dense step); each program's steady-state step time and
    device time; then ``predict`` and ``predict --int8`` on the bundle and
    the int8 bundle it wrote;
+6d. the fused AdamW update (``csrc/fused_adamw.cu``, ``Optimizer.apply``)
+   against the per-leaf update (``Optimizer.update``, the adds,
+   ``global_norm``) on the card, on the flagship's 49 leaves (one leaf
+   table) and the axial template's 85 (two tables): 5 steps from the same
+   seeded parameters, the leaves under the first scope frozen (zero
+   gradients, still decayed), a ``set_learning_rate`` after the second
+   step; bitwise equal where no leaf's norm reaches ``clipnorm``, within 4
+   ulps of each leaf's largest magnitude where every large leaf is
+   clipped, the gradient norm within 1e-6 relative, the same bits on a
+   second run; at the flagship's leaves the kernels' device time beside
+   their byte bound, the host microseconds of one fused update and the
+   per-leaf update's wall time, and the stream synchronizations each
+   makes under ``torch.cuda.set_sync_debug_mode("warn")`` (the fused one
+   none);
 7. host pipeline and full predict: the port's native host library must
    be live and its own (``build/jaeger_tpu_torch/libjaeger_host-*.so``);
    on a seeded synthetic assembly (750 contigs of 5-75 kb, 30 Mb, with
@@ -446,7 +464,7 @@ def phase_device() -> str:
 # --- phase 2 ---------------------------------------------------------------
 
 KERNEL_SOURCES = ("fused_conv_block", "int8_conv", "fused_conv_wgrad",
-                  "conv_epilogue_bwd")
+                  "conv_epilogue_bwd", "fused_adamw")
 
 
 def phase_build(sources=KERNEL_SOURCES, later=()):
@@ -487,7 +505,9 @@ def phase_build(sources=KERNEL_SOURCES, later=()):
                              ("fused_conv_wgrad", "wgrad_bf16"),
                              ("fused_conv_wgrad", "wgrad_f32_ring"),
                              ("fused_conv_wgrad", "wgrad_f32_taps"),
-                             ("conv_epilogue_bwd", "conv_epilogue_bwd")):
+                             ("conv_epilogue_bwd", "conv_epilogue_bwd"),
+                             ("fused_adamw", "adamw_sumsq"),
+                             ("fused_adamw", "adamw_update")):
             for line in ptxas_summary(cuda_build.build_logs.get(name, ""),
                                       kernel):
                 print(f"ptxas: {line}")
@@ -2495,6 +2515,7 @@ def phase_train_flagship(tmp: Path, card: str) -> dict:
 
     from jaeger_tpu_torch.commands.train import train_fragment_core
     from jaeger_tpu_torch.models.artifacts import load_model
+    from jaeger_tpu_torch.ops import fused_adamw as fa
     from jaeger_tpu_torch.ops import fused_conv
     from jaeger_tpu_torch.ops import fused_conv_grad as fg
     from jaeger_tpu_torch.utils.config import load_model_config
@@ -2510,11 +2531,13 @@ def phase_train_flagship(tmp: Path, card: str) -> dict:
     fused_conv.launches = 0
     for k in fg.launches:
         fg.launches[k] = 0
+    fa.launches["fused_adamw"] = 0
     t0 = time.perf_counter()
     results = train_fragment_core(str(cfg_path), str(out))
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
-    launches = dict(fg.launches, fused_conv_block=fused_conv.launches)
+    launches = dict(fg.launches, fused_conv_block=fused_conv.launches,
+                    fused_adamw=fa.launches["fused_adamw"])
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     hist = results["history"]
     cls = hist["classifier"]
@@ -2529,6 +2552,9 @@ def phase_train_flagship(tmp: Path, card: str) -> dict:
     check(set(progs) == {"dense", "bounded", "masked"}
           and sum(progs.values()) == 30, f"classifier programs {progs}")
     check(all(v > 0 for v in launches.values()), f"launches {launches}")
+    # every update of the flagship's 49 leaves: one launch pair
+    check(launches["fused_adamw"] % 2 == 0 and launches["fused_adamw"]
+          >= 2 * sum(progs.values()), f"fused AdamW launches {launches}")
     for f in ("params.msgpack", "project.yaml", "classes.yaml",
               "history.csv", "checkpoints/classifier/checkpoints.json",
               "int8/params_int8.msgpack"):
@@ -2677,6 +2703,212 @@ def phase_train_predict(tmp: Path, bundle: Path) -> dict:
           f"{counts['trained'][0]}; --int8: int8_conv launches "
           f"{counts['trained_int8'][1]}")
     return counts
+
+
+# --- phase 6d --------------------------------------------------------------
+
+#: steps of each fused AdamW check; the learning rate is set after the
+#: second
+ADAMW_STEPS = 5
+#: leaf norms of the checks' gradients: below the clip norm (1.0) and
+#: above it
+ADAMW_NORMS = {"unclipped": 0.5, "clipped": 4.0}
+
+
+def _adamw_shapes(name: str) -> dict:
+    """The parameter shapes of the flagship or of a template, by flax path."""
+    from jaeger_tpu_torch.models.builder import build_model
+    from jaeger_tpu_torch.models.flagship import flagship_config
+    from jaeger_tpu_torch.train.loop import flax_params
+    from jaeger_tpu_torch.utils.config import load_model_config
+
+    cfg = (flagship_config() if name == "flagship" else
+           load_model_config(ROOT / "train_config" / ZOO_TEMPLATES[name]))
+    return {k: tuple(p.shape) for k, p in flax_params(build_model(cfg)).items()}
+
+
+def _adamw_grads(gen, shapes: dict, norm: float,
+                 frozen: str | None = None) -> list:
+    """ADAMW_STEPS gradient dicts on the card: each leaf scaled to ``norm``,
+    the leaves under ``frozen`` zero (as the train step gives them)."""
+    import torch
+
+    steps = []
+    for _ in range(ADAMW_STEPS):
+        g = {}
+        for k, s in shapes.items():
+            x = torch.randn(s, generator=gen, device="cuda")
+            g[k] = (torch.zeros_like(x) if frozen and k.startswith(frozen)
+                    else x * (norm / x.norm()))
+        steps.append(g)
+    return steps
+
+
+def _adamw_run(tx, params: dict, grads: list, fused: bool):
+    """ADAMW_STEPS updates of a copy of ``params``: ``apply`` (the fused
+    kernels) or the per-leaf update. Returns (params, state, norms)."""
+    from jaeger_tpu_torch.train import optimizers as topt
+
+    p = {k: v.clone() for k, v in params.items()}
+    state, norms = tx.init(p), []
+    for i, g in enumerate(grads):
+        if fused:
+            state, n = tx.apply(p, g, state)
+        else:
+            updates, state = tx.update(g, state, p)
+            for k in p:
+                p[k].add_(updates[k])
+            n = topt.global_norm(g)
+        norms.append(n)
+        if i == 1:
+            state = topt.set_learning_rate(state, 5e-4)
+    return p, state, norms
+
+
+def _scale_ulps(a, b) -> float:
+    """Largest |a - b| in ulps of b's largest magnitude."""
+    import numpy as np
+
+    scale = float(b.abs().max())
+    diff = float((a - b).abs().max())
+    return diff / float(np.spacing(np.float32(scale))) if scale else diff
+
+
+def _syncs(fn) -> int:
+    """Stream synchronizations ``fn()`` makes (warnings under
+    ``torch.cuda.set_sync_debug_mode("warn")``)."""
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    # (the mode's own first warning, "Synchronization debug mode is a
+    # prototype feature ...", is not a sync)
+    where = collections.Counter(
+        f"{Path(w.filename).name}:{w.lineno}" for w in seen
+        if "called a synchronizing CUDA operation" in str(w.message))
+    if where:
+        print(f"stream syncs by line: {dict(where.most_common(5))}")
+    return sum(where.values())
+
+
+def phase_fused_adamw(card: str) -> dict:
+    """6d: the fused AdamW update against the per-leaf update on the card
+    (see the module docstring)."""
+    import torch
+
+    from jaeger_tpu_torch.ops import fused_adamw as fa
+    from jaeger_tpu_torch.train import optimizers as topt
+
+    tx = topt.make_optimizer("adamw", {"learning_rate": 1e-3,
+                                       "weight_decay": 1e-4, "clipnorm": 1.0})
+    out = {}
+    for name in ("flagship", "axial"):
+        shapes = _adamw_shapes(name)
+        keys = topt.flax_order(shapes)
+        frozen = keys[0].split("/")[0] + "/"
+        gen = torch.Generator(device="cuda").manual_seed(20261019)
+        params = {k: torch.randn(s, generator=gen, device="cuda") * 0.05
+                  for k, s in shapes.items()}
+        check(tx.fuses(params), f"{name}: the fused path is not taken")
+        sizes = [math.prod(shapes[k]) for k in keys]
+        tables = len(fa.leaf_groups(sizes))
+        res = dict(leaves=len(keys), params=sum(sizes), tables=tables,
+                   frozen=frozen)
+        for case, norm in ADAMW_NORMS.items():
+            grads = _adamw_grads(gen, shapes, norm, frozen)
+            before = fa.launches["fused_adamw"]
+            pf, sf, nf = _adamw_run(tx, params, grads, True)
+            torch.cuda.synchronize()
+            check(fa.launches["fused_adamw"] - before
+                  == 2 * tables * ADAMW_STEPS,
+                  f"{name}: {fa.launches['fused_adamw'] - before} launches")
+            pp, sp, n_plain = _adamw_run(tx, params, grads, False)
+            again = _adamw_run(tx, params, grads, True)
+            torch.cuda.synchronize()
+            rel = max(abs(float(a) / float(b) - 1)
+                      for a, b in zip(nf, n_plain))
+            same = all(torch.equal(again[0][k], pf[k])
+                       and torch.equal(again[1]["mu"][k], sf["mu"][k])
+                       and torch.equal(again[1]["nu"][k], sf["nu"][k])
+                       for k in keys) and all(
+                torch.equal(a, b) for a, b in zip(again[2], nf))
+            ulps = {part: max(_scale_ulps(got[k], want[k]) for k in keys)
+                    for part, got, want in (("p", pf, pp),
+                                            ("mu", sf["mu"], sp["mu"]),
+                                            ("nu", sf["nu"], sp["nu"]))}
+            bitwise = all(torch.equal(pf[k], pp[k])
+                          and torch.equal(sf["mu"][k], sp["mu"][k])
+                          and torch.equal(sf["nu"][k], sp["nu"][k])
+                          for k in keys)
+            res[case] = dict(bitwise=bitwise, scale_ulps=ulps,
+                             grad_norm_rel=rel, same_bits_twice=same)
+            print(f"fused AdamW {name} ({len(keys)} leaves, {tables} "
+                  f"table(s), {res['params']} parameters, {case}): bitwise "
+                  f"{bitwise}, ulps of the leaf scale {ulps}, grad_norm "
+                  f"{rel:.2e} relative, same bits twice {same}", flush=True)
+            check(int(sf["count"]) == ADAMW_STEPS
+                  and sf["count"].device.type == "cpu",
+                  f"{name}: count {sf['count']}")
+            check(list(sf["mu"]) == list(shapes) and list(sf["nu"])
+                  == list(shapes), f"{name}: moment keys changed")
+            check(rel <= 1e-6, f"{name} {case}: grad_norm off by {rel:.2e}")
+            check(same, f"{name} {case}: two runs differ")
+            if case == "unclipped":
+                check(bitwise, f"{name} unclipped: not bitwise ({ulps})")
+            else:
+                check(max(ulps.values()) <= 4,
+                      f"{name} clipped: {ulps} ulps of the leaf scale")
+        out[name] = res
+
+    # the flagship's leaves: device time, host time, syncs
+    shapes = _adamw_shapes("flagship")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    params = {k: torch.randn(s, generator=gen, device="cuda") * 0.05
+              for k, s in shapes.items()}
+    grads = _adamw_grads(gen, shapes, ADAMW_NORMS["unclipped"])[0]
+    state = tx.init(params)
+
+    def fused():
+        tx.apply(params, grads, state)
+
+    def plain():
+        updates, _ = tx.update(grads, state, params)
+        for k in params:
+            params[k].add_(updates[k])
+        topt.global_norm(grads)
+
+    n = sum(math.prod(s) for s in shapes.values())
+    bound_ms = 28 * n / HBM_BYTES_PER_S * 1e3
+    reps = 20
+    by_kernel = print_device_profile(
+        lambda: [fused() for _ in range(reps)], "fused AdamW x20", top=4)
+    kernel_ms = sum(v for k, v in by_kernel.items() if "adamw_" in k) / reps
+    fused_host_us = host_us(fused, calls=50)
+    plain_ms = cuda_ms(plain, iters=10)
+    plain_host_us = host_us(plain, calls=10)
+    fused_syncs, plain_syncs = _syncs(fused), _syncs(plain)
+    check(fused_syncs == 0, f"the fused update synchronized {fused_syncs} x")
+    timing = dict(kernel_ms=kernel_ms, bound_ms=bound_ms,
+                  bound_share=bound_ms / kernel_ms if kernel_ms else None,
+                  fused_host_us=fused_host_us, plain_ms=plain_ms,
+                  plain_host_us=plain_host_us, fused_syncs=fused_syncs,
+                  plain_syncs=plain_syncs, params=n)
+    print(f"fused AdamW at the flagship's {len(shapes)} leaves ({n} "
+          f"parameters) on {card}: kernels {kernel_ms * 1e3:.1f} us a step "
+          f"(bound {bound_ms * 1e3:.1f} us, bytes), host {fused_host_us:.0f} "
+          f"us a call; per-leaf update {plain_ms:.2f} ms a step, host "
+          f"{plain_host_us:.0f} us; stream syncs: fused {fused_syncs}, "
+          f"per-leaf {plain_syncs}")
+    out["timing"] = timing
+    return out
 
 
 # --- phase 4 ---------------------------------------------------------------
@@ -7479,7 +7711,7 @@ def phase_domain_sweep(card: str) -> None:
 #: the flags that run one part of the script in place of the full run
 PART_FLAGS = ("--domain", "--f32", "--backward", "--host", "--hyena",
               "--int8-zoo", "--legacy", "--commands", "--ragged", "--multi",
-              "--convert", "--pretrain", "--templates")
+              "--convert", "--pretrain", "--templates", "--adamw")
 #: wall seconds of each phase of the full run, by name
 PHASE_SECONDS: dict[str, float] = {}
 
@@ -7520,12 +7752,19 @@ def main(argv: list[str]) -> int:
         if mode in ("--f32", "--domain"):
             phase_build(("fused_conv_block", "fused_conv_wgrad",
                          "conv_epilogue_bwd"))
+        elif mode == "--adamw":
+            phase_build(("fused_adamw",))
         elif mode:
             phase_build()
         else:
             # the full run: int8_conv, the longest build, goes on while
             # the phases that need none of it run
             join_build = phase_build(later=("int8_conv",))
+        if "--adamw" in argv:
+            adamw = phase_fused_adamw(card)
+            print(json.dumps({"fused_adamw": adamw}, default=str))
+            print(f"adamw run done in {time.perf_counter() - t_start:.0f} s")
+            return 0
         if "--domain" in argv:
             domain = phase_domain(card)
             if "--sweep" in argv:
@@ -7682,6 +7921,7 @@ def main(argv: list[str]) -> int:
                           card)
             timed("train_predict", phase_train_predict, Path(tmp),
                   train["bundle"])
+            adamw = timed("fused_adamw", phase_fused_adamw, card)
             host = timed("host_pipeline", phase_host_pipeline, Path(tmp),
                          bundle, card)
             kern_zoo = timed("templates_kernel", phase_templates_kernel, card)
@@ -7727,6 +7967,7 @@ def main(argv: list[str]) -> int:
                "f32_backward": kern_f32_train,
                "train_flagship": {k: v for k, v in train.items()
                                   if k != "bundle"},
+               "fused_adamw": adamw,
                "conv_epilogue_bwd_conv1_form": {
                    k: kern_train["conv_epilogue_bwd"][k]
                    for k in ("conv1_ms", "conv1_bound_ms")},

@@ -667,11 +667,7 @@ def make_projection_step(model, arcface, tx, reg_specs=()):
             reduced = mh.all_reduce_mean({**grads, ("metric", "loss"): loss})
             loss = reduced.pop(("metric", "loss"))
             grads = reduced
-        with torch.no_grad():
-            values = {k: p.detach() for k, p in params.items()}
-            updates, opt_state = tx.update(grads, opt_state, values)
-            for k, p in params.items():
-                p.add_(updates[k])
+        opt_state, _ = tx.apply(params, grads, opt_state)
         step.grads = grads
         return opt_state, loss
 

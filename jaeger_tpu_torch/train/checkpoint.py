@@ -44,11 +44,14 @@ def _same_structure(a, b) -> bool:
         b, (dict, torch.Tensor))
 
 
-def _to_device(tree, device):
+def _to_devices_of(tree, template):
+    """``tree`` with each tensor on the device of the template's tensor at
+    its place (the optimizer state keeps its count and learning rate on
+    the CPU and its moments beside the parameters)."""
     if isinstance(tree, torch.Tensor):
-        return tree.to(device)
+        return tree.to(template.device)
     if isinstance(tree, dict):
-        return {k: _to_device(v, device) for k, v in tree.items()}
+        return {k: _to_devices_of(v, template[k]) for k, v in tree.items()}
     return tree
 
 
@@ -114,9 +117,10 @@ class CheckpointManager:
                           weights_only=True)
 
     def restore_opt_state(self, entry: dict, template: Any) -> Any:
-        """The optimizer state saved with this entry on the template's
-        device, or the (fresh) template when there is none or it does not
-        match the current optimizer configuration (weights-only resume)."""
+        """The optimizer state saved with this entry, each tensor on the
+        device of its counterpart in the template, or the (fresh) template
+        when there is none or it does not match the current optimizer
+        configuration (weights-only resume)."""
         opt_path = entry.get("opt_path")
         if not opt_path or not Path(opt_path).exists():
             return template
@@ -128,16 +132,7 @@ class CheckpointManager:
                 "optimizer configuration; resuming with fresh optimizer "
                 "state (weights-only resume)", opt_path)
             return template
-        device = next((t.device for t in _leaves(template)), "cpu")
-        return _to_device(state, device)
-
-
-def _leaves(tree):
-    if isinstance(tree, torch.Tensor):
-        yield tree
-    elif isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
+        return _to_devices_of(state, template)
 
 
 class TrainingStatePersistence:

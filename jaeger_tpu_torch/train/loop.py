@@ -4,8 +4,9 @@ Counterpart of `jaeger_tpu/train/loop.py`: the step runs the
 model's training forward (batch statistics, dropout, the fused convs on
 ``FusedConvBlockFn``), the branch loss plus the regularization penalty,
 autograd for the gradients, zeroes the frozen parameters' gradients and
-applies the optimizer in place. The dispatching step picks the dense,
-bounded or masked program per host batch with the port's
+applies the optimizer in place (``Optimizer.apply``: Adam and AdamW on the
+card as one kernel pair over all leaves). The dispatching step picks the
+dense, bounded or masked program per host batch with the port's
 ``dense_window_batch`` and ``bounded_mask_levels``, as the JAX step does:
 the bounded program is bitwise the masked forward on batches that qualify,
 so the same function's gradients.
@@ -20,8 +21,8 @@ the global metrics.
 
 Spans (:mod:`jaeger_tpu_torch.utils.spans`): a step's ``train/forward``
 (the model, the loss and the regularizer), ``train/backward`` (autograd
-and the gradient dict) and ``train/optimizer`` (the update, its in-place
-adds and the gradient norm).
+and the gradient dict) and ``train/optimizer`` (the update in place and
+the gradient norm).
 
 Frozen parameters (``StepConfig.frozen_prefixes``, matched against flax
 paths) get zero gradients as ``_mask_frozen`` gives them; the port does not
@@ -42,7 +43,7 @@ from jaeger_tpu_torch.models.builder import mask_cut_plan
 from jaeger_tpu_torch.ops.encode import bounded_mask_levels, dense_window_batch
 from jaeger_tpu_torch.parallel import multihost as mh
 from jaeger_tpu_torch.train import losses as losses_lib
-from jaeger_tpu_torch.train.optimizers import Optimizer, global_norm
+from jaeger_tpu_torch.train.optimizers import Optimizer
 from jaeger_tpu_torch.utils.spans import span
 
 
@@ -179,13 +180,9 @@ def make_train_step(model, cfg: StepConfig) -> Callable:
             accuracy = reduced.pop(("metric", "accuracy"), None)
             grads = reduced
             total = loss + reg
-        with span("train/optimizer"), torch.no_grad():
-            values = {k: p.detach() for k, p in params.items()}
-            updates, state.opt_state = state.tx.update(
-                grads, state.opt_state, values)
-            for k, p in params.items():
-                p.add_(updates[k])
-            grad_norm = global_norm(grads)
+        with span("train/optimizer"):
+            state.opt_state, grad_norm = state.tx.apply(
+                params, grads, state.opt_state)
         state.grads = grads
         metrics = {"loss": loss,
                    "reg_loss": torch.as_tensor(reg).detach(),

@@ -20,6 +20,13 @@ computed in f32 there, while Adam's betas stay Python floats.
 
 AdamW decays every parameter, frozen ones included, as the JAX chain
 (``optax.add_decayed_weights`` after ``_mask_frozen``) does.
+
+:meth:`Optimizer.apply` takes a step in place. Adam and AdamW without
+accumulation or ``global_clipnorm`` on CUDA f32 parameters run it as one
+kernel pair over all leaves (:mod:`jaeger_tpu_torch.ops.fused_adamw`,
+``mu`` and ``nu`` updated in place); every other optimizer, setting and
+device runs :meth:`Optimizer.update` leaf by leaf, the kernel's plain
+version.
 """
 
 from __future__ import annotations
@@ -28,6 +35,8 @@ import math
 import re
 
 import torch
+
+from jaeger_tpu_torch.utils import spans
 
 F32 = torch.float32
 
@@ -53,6 +62,13 @@ def global_norm(tree: dict[str, torch.Tensor]) -> torch.Tensor:
         s = torch.sum(torch.square(tree[k]))
         total = s if total is None else total + s
     return torch.sqrt(total)
+
+
+def _adam_alpha(count: torch.Tensor, b1: float, b2: float) -> torch.Tensor:
+    """Keras' bias correction ``sqrt(1 - b2^t) / (1 - b1^t)`` at step
+    ``count`` (a CPU tensor), in f32 on the CPU."""
+    t = count.to(F32)
+    return torch.sqrt(1.0 - b2 ** t) / (1.0 - b1 ** t)
 
 
 def make_schedule(params: dict):
@@ -99,7 +115,9 @@ def _newton_schulz5(x, steps: int, a: float, b: float, c: float):
 class Optimizer:
     """``make_optimizer``'s chain: clip per variable, clip globally, the
     named update, then accumulation. ``init(params)`` -> state;
-    ``update(grads, state, params)`` -> (updates to add, new state)."""
+    ``update(grads, state, params)`` -> (updates to add, new state);
+    ``apply(params, grads, state)`` -> (new state, gradient norm), the
+    step taken in place."""
 
     def __init__(self, name: str = "adam", params: dict | None = None,
                  accumulation_steps: int = 1):
@@ -184,8 +202,7 @@ class Optimizer:
             b2 = hp.get("beta_2", 0.999)
             eps = hp.get("epsilon", 1e-7)
             wd = self.weight_decay if self.name == "adamw" else 0.0
-            t = count.to(F32)
-            alpha = torch.sqrt(1.0 - b2 ** t) / (1.0 - b1 ** t)
+            alpha = _adam_alpha(count, b1, b2)
             mu, nu, out = {}, {}, {}
             for k, g in grads.items():
                 mu[k] = b1 * state["mu"][k] + (1.0 - b1) * g
@@ -260,8 +277,7 @@ class Optimizer:
         adam_wd = hp.get("adam_weight_decay", 0.004)
         excl_emb = hp.get("exclude_embeddings", True)
         excl = tuple(hp.get("exclude_layers", ()) or ())
-        t = new["count"].to(F32)
-        alpha = torch.sqrt(1.0 - b2 ** t) / (1.0 - b1 ** t)
+        alpha = _adam_alpha(new["count"], b1, b2)
         mu, nu, out = {}, {}, {}
         for k, g in grads.items():
             m, v, p = state["mu"][k], state["nu"][k], params[k]
@@ -308,6 +324,54 @@ class Optimizer:
         new = dict(inner_new, mini_step=torch.zeros_like(n),
                    acc_grads={k: torch.zeros_like(v) for k, v in acc.items()})
         return out, new
+
+    def fuses(self, params: dict[str, torch.Tensor]) -> bool:
+        """Whether :meth:`apply` takes the fused kernel for ``params``:
+        Adam or AdamW, no accumulation, no ``global_clipnorm``, and every
+        parameter a CUDA f32 tensor. Read from the settings and the
+        tensors alone."""
+        return (self.name in ("adam", "adamw") and self.k <= 1
+                and not self.global_clipnorm and bool(params)
+                and all(p.is_cuda and p.dtype == F32
+                        for p in params.values()))
+
+    def apply(self, params: dict[str, torch.Tensor],
+              grads: dict[str, torch.Tensor], state: dict):
+        """One step **in place**: ``params`` (tensors or parameters by
+        flax path) take the update, and ``(new state, gradient norm)``
+        come back, the norm that of the unclipped ``grads``
+        (:func:`global_norm`). Where :meth:`fuses` holds, one kernel pair
+        updates the parameters and the state's ``mu`` and ``nu`` tensors
+        in place (the dicts keep their keys and tensors) and the step
+        neither copies to the card nor waits for it; otherwise
+        :meth:`update` and ``p.add_`` leaf by leaf. Counts the update
+        under ``optimizer/fused_updates`` or ``optimizer/leaf_updates``."""
+        with torch.no_grad():
+            if self.fuses(params):
+                spans.count("optimizer/fused_updates")
+                return self._apply_fused(params, grads, state)
+            spans.count("optimizer/leaf_updates")
+            values = {k: p.detach() for k, p in params.items()}
+            updates, state = self.update(grads, state, values)
+            for k, p in params.items():
+                p.add_(updates[k])
+            return state, global_norm(grads)
+
+    def _apply_fused(self, params, grads, state):
+        from jaeger_tpu_torch.ops.fused_adamw import fused_adamw_
+
+        hp = self.hp
+        b1 = hp.get("beta_1", 0.9)
+        b2 = hp.get("beta_2", 0.999)
+        count = state["count"] + 1
+        norm = fused_adamw_(
+            flax_order(params), params, grads, state["mu"], state["nu"],
+            lr=float(self._rate(state)),
+            alpha=float(_adam_alpha(count, b1, b2)), b1=b1, b2=b2,
+            eps=hp.get("epsilon", 1e-7),
+            weight_decay=self.weight_decay if self.name == "adamw" else 0.0,
+            clipnorm=float(self.clipnorm) if self.clipnorm else None)
+        return dict(state, count=count), norm
 
 
 def make_optimizer(name: str = "adam", params: dict | None = None,

@@ -44,6 +44,8 @@ NAMES = frozenset({
     "engine/forward", "engine/reduce", "engine/drain", "engine/accumulate",
     # train/loop.py
     "train/forward", "train/backward", "train/optimizer",
+    # train/optimizers.py: updates by path (Optimizer.apply)
+    "optimizer/fused_updates", "optimizer/leaf_updates",
 })
 
 _recording = 0            # open recording() blocks
